@@ -1,0 +1,811 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch / CUDA port on one NVIDIA GPU (written for H100).
+
+    python3 chip_smoke.py            # everything; needs one CUDA device
+
+What it does, in order, failing (non-zero exit) as soon as a phase fails:
+
+  1. prints the device (torch's name, and nvidia-smi's name + power limit);
+  2. builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
+  3. holds each kernel against its plain PyTorch version on the card, at the
+     shapes the serving path gives it and at ragged ones, and checks that
+     the same inputs twice give the same bits;
+  4. serves a request stream through ``repro_torch``'s engine at the full
+     width of granite_3_8b (W4 weights, kv8 pool, bf16), random weights made
+     from ``--seed`` on the card, and counts the kernel launches of that run;
+  5. repeats a prefill + one decode step with the plain versions forced and
+     compares logits; replays the stream that way and prints greedy
+     agreement; compares a tiny f32 model on the card with the CPU;
+  6. times each kernel (CUDA events) beside its bound, its plain version and
+     one library call, and prints the ``kernels`` JSON line;
+  7. prints ``{"ok": true, "device": {...}}`` as the last line.
+
+``--layers N`` cuts the depth (never the width); ``--quick`` stops after
+phase 3 on a reduced shape list (for bringing a kernel up); ``--sweep``
+times the kernels' tuning axes (block rows, K splits, attention splits) at
+the serving shapes and stops; ``--profile`` profiles an engine run (host by
+cProfile, device by torch.profiler) and stops.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.stderr.write("chip_smoke: torch.cuda.is_available() is False; this "
+                     "script needs one CUDA device\n")
+    sys.exit(2)
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+from repro_torch.configs import base as cb                    # noqa: E402
+from repro_torch.core import packing                          # noqa: E402
+from repro_torch.kernels import loader, ops as kops           # noqa: E402
+from repro_torch.kernels import paged_attn as pa              # noqa: E402
+from repro_torch.kernels import qmatmul as qmm                # noqa: E402
+from repro_torch.models import lm, model                      # noqa: E402
+from repro_torch.serve import telemetry as tele_lib           # noqa: E402
+from repro_torch.serve.engine import (Engine, EngineConfig,   # noqa: E402
+                                      Request, SamplingParams)
+
+DEV = torch.device("cuda")
+
+# Published peaks of one H100 SXM (dense): what the bounds are stated against.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+# Tolerances of the kernel-vs-plain comparisons, with their reasons.
+# qmatmul, f32 result: both sides multiply the same level values (f32 for
+#   f32 activations; rounded to bf16 on both sides for bf16 activations,
+#   whose products are then exact in f32) and accumulate in f32; only the
+#   summation order over K differs.  With |a| ~ 1 and |w| ~ 0.02 the result
+#   is O(1) and order effects are O(1e-5).
+TOL_QMM_F32 = 5e-4
+# qmatmul, bf16 result: the f32 sums are rounded to bf16 on both sides, so
+#   a sum that straddles a rounding boundary lands one bf16 ulp apart:
+#   2^-8 relative to the largest result.
+TOL_QMM_BF16_REL = 2.0 ** -7
+# attention, f32 queries: everything is f32 on both sides; the softmax is
+#   accumulated online in another order and expf/tanhf differ from torch's
+#   by ulps.  Outputs are O(1).
+TOL_ATT_F32 = 2e-4
+# attention, bf16 queries: the plain version rounds the dequantized K/V and
+#   the softmax weights to bf16 before its products, the kernel keeps f32,
+#   and both round the result to bf16: a few 2^-8 relative steps on O(1)
+#   values.
+TOL_ATT_BF16 = 4e-2
+# full-width bf16 logits, kernels vs plain versions: 40 layers of bf16
+#   residual updates whose matmul outputs may differ by one bf16 ulp each
+#   and whose decode attention differs as above; stated relative to the
+#   largest logit of the reference.
+TOL_LOGITS_REL = 0.08
+# tiny f32 model, card (kernels) vs CPU (plain): f32 everywhere, different
+#   summation orders and transcendental implementations through 2 layers.
+TOL_SMALL_F32 = 2e-3
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def time_ms(fns, warmup: int = 3, iters: int = 20) -> float:
+    """Mean milliseconds of one call on the card; ``fns`` are equivalent
+    closures over different copies of the inputs, cycled so a call does not
+    find its operands in the L2 cache left by the previous one.
+
+    The launches are queued behind a spinning kernel, so the card runs them
+    back to back and the two events bracket device time only: a wrapper's
+    host cost per launch (tens of microseconds in eager PyTorch) would
+    otherwise be what is measured for a short kernel."""
+    n = len(fns)
+    for i in range(warmup):
+        fns[i % n]()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)          # ~20 ms: the queue fills meanwhile
+    start.record()
+    for i in range(iters):
+        fns[i % n]()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host microseconds to enqueue one call (the card is not waited for
+    inside the loop)."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    sync()
+    return dt / iters * 1e6
+
+
+# --------------------------------------------------------------------------
+# Inputs
+# --------------------------------------------------------------------------
+
+def make_qmm_inputs(gen, M, K, N, bits, a_dtype):
+    a = torch.randn((M, K), generator=gen, device=DEV).to(a_dtype)
+    if bits == 4:
+        codes = torch.randint(0, 16, (K, N), generator=gen, device=DEV)
+        w = packing.pack_int4(codes)
+    else:
+        w = torch.randint(-128, 128, (K, N), generator=gen,
+                          device=DEV).to(torch.int8)
+    mu = torch.randn((1, N), generator=gen, device=DEV) * 0.002
+    sigma = 0.02 * (0.5 + torch.rand((1, N), generator=gen, device=DEV))
+    return a, w.contiguous(), mu.contiguous(), sigma.contiguous()
+
+
+def make_attn_inputs(gen, B, H, KV, D, page, n_pages, kv_bits, q_dtype,
+                     q_pos=None):
+    P = 1 + B * n_pages
+    Dc = D // 2 if kv_bits == 4 else D
+
+    def codes():
+        if kv_bits == 4:
+            c = torch.randint(0, 256, (P, page, KV, Dc), generator=gen,
+                              device=DEV).to(torch.uint8)
+        else:
+            c = torch.randint(-128, 128, (P, page, KV, Dc), generator=gen,
+                              device=DEV).to(torch.int8)
+        c[0] = 0                                  # the sink page
+        return c
+
+    def stats(scale, offset):
+        s = (offset + scale * torch.randn((P, page, KV), generator=gen,
+                                          device=DEV)).to(torch.bfloat16)
+        s[0] = 0
+        return s
+
+    k_codes, v_codes = codes(), codes()
+    k_mu, v_mu = stats(0.1, 0.0), stats(0.1, 0.0)
+    k_sigma = stats(0.1, 1.0).abs()
+    v_sigma = stats(0.1, 0.5).abs()
+    perm = torch.randperm(P - 1, generator=gen, device=DEV) + 1
+    bt = perm.reshape(B, n_pages).to(torch.int32)
+    S = n_pages * page
+    if q_pos is None:
+        qp = torch.randint(0, S, (B,), generator=gen, device=DEV)
+        qp[0] = 0
+        qp[-1] = S - 1
+        if B > 2:
+            bt[1] = 0                             # a row whose pages are sink
+            qp[1] = S // 2
+    else:
+        qp = torch.tensor(q_pos, device=DEV)
+    q = torch.randn((B, 1, H, D), generator=gen, device=DEV).to(q_dtype)
+    return dict(q=q, k_codes=k_codes, k_mu=k_mu, k_sigma=k_sigma,
+                v_codes=v_codes, v_mu=v_mu, v_sigma=v_sigma,
+                block_tables=bt.contiguous(), q_pos=qp.to(torch.int32))
+
+
+def attn_call(fn, t, **kw):
+    return fn(t["q"], t["k_codes"], t["k_mu"], t["k_sigma"], t["v_codes"],
+              t["v_mu"], t["v_sigma"], t["block_tables"], t["q_pos"], **kw)
+
+
+# --------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def check_qmatmul(gen, quick: bool) -> float:
+    worst = 0.0
+    main_kn = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)]
+    shapes = [(M, K, N) for (K, N) in main_kn for M in (8, 16, 32, 256)]
+    shapes += [(5, 200, 130), (33, 520, 96), (70, 77, 258), (1, 64, 2)]
+    if quick:
+        shapes = [(16, 4096, 4096), (256, 4096, 1024), (5, 200, 130),
+                  (33, 520, 96)]
+    for (M, K, N) in shapes:
+        for bits in (4, 8):
+            for a_dtype in (torch.bfloat16, torch.float32):
+                a, w, mu, sigma = make_qmm_inputs(gen, M, K, N, bits, a_dtype)
+                out = qmm.qmatmul(a, w, mu, sigma, bits=bits)
+                again = qmm.qmatmul(a, w, mu, sigma, bits=bits)
+                sync()
+                want = qmm.qmatmul_plain(a, w, mu, sigma, bits=bits)
+                err = (out - want).abs().max().item()
+                worst = max(worst, err)
+                if not torch.isfinite(out).all() or err > TOL_QMM_F32:
+                    raise SystemExit(
+                        f"qmatmul disagrees with its plain version: M={M} "
+                        f"K={K} N={N} bits={bits} a={a_dtype} err={err:.3e} "
+                        f"> {TOL_QMM_F32}")
+                if not torch.equal(out, again):
+                    raise SystemExit(
+                        f"qmatmul is not deterministic: M={M} K={K} N={N} "
+                        f"bits={bits} a={a_dtype}")
+                del a, w, mu, sigma, out, again, want
+        say(f"[kernels] qmatmul M={M} K={K} N={N}: W4/W8 x bf16/f32 ok")
+    # what the model asks for: bf16 in, bf16 out, through the ops wrapper
+    for bits in (4, 8):
+        a, w, mu, sigma = make_qmm_inputs(gen, 16, 4096, 12800, bits,
+                                          torch.bfloat16)
+        out = kops.qmatmul(a.reshape(2, 8, 4096), w, mu, sigma, bits=bits,
+                           out_dtype=torch.bfloat16)
+        want = kops.qmatmul(a.reshape(2, 8, 4096), w, mu, sigma, bits=bits,
+                            out_dtype=torch.bfloat16, use_kernel=False)
+        sync()
+        err = (out.float() - want.float()).abs().max().item()
+        tol = TOL_QMM_BF16_REL * want.float().abs().max().item()
+        if err > tol:
+            raise SystemExit(f"qmatmul bf16 output: err {err:.3e} > {tol:.3e}")
+    # row invariance: a row's bits do not depend on the rows beside it
+    a, w, mu, sigma = make_qmm_inputs(gen, 256, 4096, 4096, 4, torch.bfloat16)
+    full = qmm.qmatmul(a, w, mu, sigma, bits=4)
+    for m in (8, 16, 32):
+        part = qmm.qmatmul(a[:m].contiguous(), w, mu, sigma, bits=4)
+        if not torch.equal(part, full[:m]):
+            raise SystemExit(f"qmatmul rows depend on M (M={m} vs 256)")
+    say("[kernels] qmatmul bf16 output ok; rows are independent of M")
+    return worst
+
+
+def check_attention(gen, quick: bool) -> float:
+    worst = 0.0
+    geoms = [dict(B=16, H=32, KV=8, D=128, page=64, n_pages=32),
+             dict(B=3, H=4, KV=2, D=16, page=8, n_pages=3),
+             dict(B=2, H=16, KV=8, D=256, page=16, n_pages=5),
+             dict(B=2, H=32, KV=4, D=128, page=64, n_pages=9)]
+    if quick:
+        geoms = geoms[:2]
+    for g in geoms:
+        for kv_bits in (8, 4):
+            for q_dtype in (torch.float32, torch.bfloat16):
+                t = make_attn_inputs(gen, kv_bits=kv_bits, q_dtype=q_dtype,
+                                     **g)
+                tol = TOL_ATT_F32 if q_dtype == torch.float32 \
+                    else TOL_ATT_BF16
+                for window, cap in ((None, None), (100, None), (None, 30.0),
+                                    (7, 30.0)):
+                    want = attn_call(pa.paged_quant_attention_plain, t,
+                                     kv_bits=kv_bits, window=window,
+                                     logit_cap=cap)
+                    for splits in (1, 4, None):
+                        out = attn_call(pa.paged_quant_attention, t,
+                                        kv_bits=kv_bits, window=window,
+                                        logit_cap=cap, splits=splits)
+                        again = attn_call(pa.paged_quant_attention, t,
+                                          kv_bits=kv_bits, window=window,
+                                          logit_cap=cap, splits=splits)
+                        sync()
+                        err = (out.float() - want.float()).abs().max().item()
+                        worst = max(worst, err)
+                        if not torch.isfinite(out).all() or err > tol:
+                            raise SystemExit(
+                                f"paged_quant_attention disagrees with its "
+                                f"plain version: {g} kv{kv_bits} {q_dtype} "
+                                f"window={window} cap={cap} splits={splits} "
+                                f"err={err:.3e} > {tol}")
+                        if not torch.equal(out, again):
+                            raise SystemExit(
+                                f"paged_quant_attention is not "
+                                f"deterministic: {g} kv{kv_bits}")
+        say(f"[kernels] paged_quant_attention {g}: kv8/kv4 x f32/bf16 x "
+            f"window x cap x splits ok")
+    # a query with no valid row combines to exact zeros
+    t = make_attn_inputs(gen, B=3, H=4, KV=2, D=16, page=8, n_pages=3,
+                         kv_bits=8, q_dtype=torch.float32,
+                         q_pos=[-1, 5, 23])
+    out = attn_call(pa.paged_quant_attention, t, kv_bits=8, splits=2)
+    sync()
+    if out[0].abs().max().item() != 0.0:
+        raise SystemExit("an all-masked query must give exact zeros")
+    say("[kernels] paged_quant_attention all-masked query gives zeros")
+    return worst
+
+
+# --------------------------------------------------------------------------
+# Phase 4/5: the engine at full width
+# --------------------------------------------------------------------------
+
+def make_stream(cfg, seed: int, new_tokens: int):
+    """Two waves of greedy requests (one sampled) over a shared prefix.
+    Wave 2 repeats wave 1's first prompt twice (prefix-cache hits whose
+    partial tail page must be copied on write) and extends the shared
+    prefix twice more."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab, size=100).astype(np.int32)
+
+    def prompt(n_tail):
+        tail = rng.integers(0, cfg.vocab, size=n_tail).astype(np.int32)
+        return np.concatenate([prefix, tail])
+
+    tails = [100, 28, 412, 164, 300, 64, 230, 350]
+    wave1 = [prompt(n) for n in tails]
+    wave1[5] = rng.integers(0, cfg.vocab, size=64).astype(np.int32)
+    wave2 = [wave1[0].copy(), wave1[0].copy(), prompt(90), prompt(200)]
+
+    def req(uid, p):
+        return Request(uid=uid, prompt=p, sampling=SamplingParams(
+            temperature=0.8 if uid == 3 else 0.0, top_k=50 if uid == 3 else 0,
+            max_new_tokens=new_tokens, seed=1000 + uid))
+
+    return ([req(i, p) for i, p in enumerate(wave1)],
+            [req(len(wave1) + i, p) for i, p in enumerate(wave2)])
+
+
+def run_stream(params, cfg, opts, seed: int, new_tokens: int):
+    ec = EngineConfig(max_slots=16, max_len=2048, prefill_batch=4,
+                      page_size=64, kv_bits=8, prefix_cache=True)
+    eng = Engine(params, cfg, opts, ec, device=DEV)
+    wave1, wave2 = make_stream(cfg, seed, new_tokens)
+    outs = []
+    t0 = time.perf_counter()
+    for r in wave1:
+        eng.submit(r)
+    # wave 2 arrives once wave 1's prompts are registered with the cache
+    while eng.has_work and (eng._prefilling or not eng._slots):
+        outs.extend(eng.step())
+    for r in wave2:
+        eng.submit(r)
+    while eng.has_work:
+        outs.extend(eng.step())
+    sync()
+    wall = time.perf_counter() - t0
+    outs.sort(key=lambda o: o.uid)
+    return eng, outs, wall, len(wave1) + len(wave2)
+
+
+def engine_phase(cfg, seed: int, new_tokens: int):
+    say(f"[engine] granite_3_8b at full width, depth {cfg.n_layers} layers "
+        f"(d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV "
+        f"heads, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}), W4 + kv8, bf16")
+    t0 = time.perf_counter()
+    params = model.init(seed, cfg, device=DEV, w_bits=4,
+                        dense_dtype=torch.bfloat16)
+    sync()
+    say(f"[engine] weights drawn and coded layer by layer on the card in "
+        f"{time.perf_counter() - t0:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    opts = lm.ModelOpts(compute_dtype=torch.bfloat16)
+
+    # warm-up outside the counted run (first launches, allocator)
+    warm = Engine(params, cfg, opts, EngineConfig(
+        max_slots=16, max_len=2048, page_size=64, kv_bits=8,
+        prefix_cache=True), device=DEV)
+    warm.generate([Request(uid=-1, prompt=np.arange(70, dtype=np.int32),
+                           sampling=SamplingParams(max_new_tokens=2))])
+    del warm
+    sync()
+
+    kops.reset_launch_counts()
+    eng, outs, wall, n_req = run_stream(params, cfg, opts, seed, new_tokens)
+    counts = kops.launch_counts()
+
+    if len(outs) != n_req:
+        raise SystemExit(f"lost requests: {n_req} submitted, {len(outs)} "
+                         f"completed")
+    for o in outs:
+        if o.finish_reason != "length" or len(o.token_ids) != new_tokens:
+            raise SystemExit(f"request {o.uid} did not complete: "
+                             f"{o.finish_reason}, {len(o.token_ids)} tokens")
+        if not all(0 <= t < cfg.vocab for t in o.token_ids):
+            raise SystemExit(f"request {o.uid} produced tokens outside the "
+                             f"vocabulary")
+    st = eng.stats()
+    steps, calls = eng.n_decode_steps, eng.n_prefill_calls
+    L = cfg.n_layers
+    want_qmm = 7 * L * (steps + calls)
+    want_att = L * steps
+    say(f"[engine] {n_req} requests completed; {steps} decode steps, "
+        f"{calls} prefill-chunk calls; cache hits {st['cache_hits']}, "
+        f"hit pages {st['cache_hit_pages']}, copy-on-writes "
+        f"{st['cow_copies']}, preemptions {st['preemptions']}")
+    say(f"[engine] kernel launches on this run: qmatmul {counts['qmatmul']} "
+        f"(7 x {L} layers x {steps + calls} calls = {want_qmm}), "
+        f"paged_quant_attention {counts['paged_quant_attention']} "
+        f"({L} layers x {steps} decode steps = {want_att})")
+    if counts["qmatmul"] != want_qmm \
+            or counts["paged_quant_attention"] != want_att \
+            or min(counts.values()) <= 0:
+        raise SystemExit("the main path did not go through the kernels as "
+                         "expected")
+    if st["cache_hits"] < 1 or st["cow_copies"] < 1:
+        raise SystemExit("the stream was built to hit the prefix cache and "
+                         "copy on write, and did not")
+    new = sum(len(o.token_ids) for o in outs)
+    reg = eng.telemetry.registry
+    ttft = tele_lib.percentile_summary(reg["ttft_s"], scale=1e3)
+    itl = tele_lib.percentile_summary(reg["itl_s"], scale=1e3)
+    say(f"[engine] {new} new tokens in {wall:.2f}s -> {new / wall:.1f} "
+        f"tok/s; TTFT p50 {ttft['p50']:.0f} ms p95 {ttft['p95']:.0f} ms; "
+        f"ITL p50 {itl['p50']:.1f} ms p95 {itl['p95']:.1f} ms")
+    return params, opts, outs, counts
+
+
+def plain_phase(params, cfg, opts, outs, seed: int, new_tokens: int):
+    """Prefill + one decode step, kernels vs plain versions forced."""
+    plain = lm.ModelOpts(compute_dtype=opts.compute_dtype,
+                         use_kernels=False)
+    rng = np.random.default_rng(seed + 1)
+    B, S, page = 4, 192, 64
+    toks = torch.tensor(rng.integers(0, cfg.vocab, size=(B, S)), device=DEV)
+    n_pages = S // page + 1
+    tables = torch.arange(1, 1 + B * n_pages, device=DEV,
+                          dtype=torch.int32).reshape(B, n_pages)
+    res = {}
+    for name, o in (("kernels", lm.ModelOpts(compute_dtype=opts.compute_dtype,
+                                             kv_bits=8)),
+                    ("plain", lm.ModelOpts(compute_dtype=opts.compute_dtype,
+                                           kv_bits=8, use_kernels=False))):
+        logits_p, kv = model.prefill(params, cfg, o, {"tokens": toks})
+        cache = model.init_paged_cache(cfg, 1 + B * n_pages, page,
+                                       torch.bfloat16, kv_bits=8, device=DEV)
+        model.cache_insert_paged(cache, kv, tables[:, :S // page])
+        nxt = logits_p.argmax(-1) if name == "kernels" else res["next"]
+        res.setdefault("next", nxt)
+        pos = torch.full((B,), S, device=DEV)
+        logits_d, _ = model.decode(params, cfg, o, cache, nxt[:, None], pos,
+                                   block_tables=tables)
+        sync()
+        res[name] = (logits_p.float(), logits_d.float())
+        del cache, kv
+    for i, what in enumerate(("prefill", "decode")):
+        k, p = res["kernels"][i], res["plain"][i]
+        if k.shape != (B, cfg.vocab) or not torch.isfinite(k).all():
+            raise SystemExit(f"{what} logits: wrong shape or not finite")
+        err = (k - p).abs().max().item()
+        tol = TOL_LOGITS_REL * p.abs().max().item()
+        agree = (k.argmax(-1) == p.argmax(-1)).float().mean().item()
+        say(f"[plain] {what} last-position logits, kernels vs plain "
+            f"versions: max abs err {err:.4f} (tolerance {tol:.4f} = "
+            f"{TOL_LOGITS_REL} x max |logit|), argmax agreement "
+            f"{agree * 100:.0f}%")
+        if err > tol:
+            raise SystemExit(f"{what} logits disagree with the plain "
+                             f"versions")
+    # the same stream with the plain versions forced: greedy agreement
+    before = kops.launch_counts()
+    _, outs_p, wall, _ = run_stream(params, cfg, plain, seed, new_tokens)
+    if kops.launch_counts() != before:
+        raise SystemExit("use_kernels=False launched a kernel")
+    same = tot = first = 0
+    for a, b in zip(outs, outs_p):
+        if a.uid == 3:
+            continue                    # the sampled request
+        first += a.token_ids[0] == b.token_ids[0]
+        same += sum(x == y for x, y in zip(a.token_ids, b.token_ids))
+        tot += len(a.token_ids)
+    say(f"[plain] stream replayed with the plain versions in {wall:.1f}s: "
+        f"greedy tokens agree {same}/{tot} ({100 * same / tot:.1f}%), first "
+        f"tokens {first}/{len(outs) - 1} (random weights: near-ties flip a "
+        f"stream and it then stays apart)")
+
+
+def small_reference_phase(seed: int):
+    """Tiny f32 model: card (kernels) vs CPU (plain versions)."""
+    for arch in ("granite_3_8b", "gemma2_9b"):
+        cfg = cb.get_smoke(arch)
+        p_cpu = model.init(seed, cfg, device="cpu", w_bits=4)
+        p_gpu = lm.quantize_params_for_serving(p_cpu, 4, device=DEV)
+        opts = lm.ModelOpts(compute_dtype=torch.float32, kv_bits=8)
+        toks = torch.tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab, size=(2, 16)))
+        tables = torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32)
+        res = []
+        for params, dev in ((p_cpu, "cpu"), (p_gpu, DEV)):
+            lg, kv = model.prefill(params, cfg, opts,
+                                   {"tokens": toks.to(dev)})
+            cache = model.init_paged_cache(cfg, 7, 8, torch.float32,
+                                           kv_bits=8, device=dev)
+            model.cache_insert_paged(cache, kv, tables[:, :2].to(dev))
+            ld, _ = model.decode(params, cfg, opts, cache,
+                                 toks[:, :1].to(dev),
+                                 torch.tensor([16, 16], device=dev),
+                                 block_tables=tables.to(dev))
+            res.append((lg.cpu(), ld.cpu()))
+        for i, what in enumerate(("prefill", "decode")):
+            err = (res[0][i] - res[1][i]).abs().max().item()
+            say(f"[small] {cfg.name} f32 {what} logits, card vs CPU: max "
+                f"abs err {err:.2e} (tolerance {TOL_SMALL_F32})")
+            if err > TOL_SMALL_F32:
+                raise SystemExit(f"{cfg.name} {what}: card disagrees with "
+                                 f"the CPU reference")
+
+
+# --------------------------------------------------------------------------
+# Phase 6: times
+# --------------------------------------------------------------------------
+
+def qmm_bound(M, K, N, bits, a_dtype, out_dtype):
+    a_b = 2 if a_dtype == torch.bfloat16 else 4
+    o_b = 2 if out_dtype == torch.bfloat16 else 4
+    nbytes = M * K * a_b + K * N * bits // 8 + 2 * N * 4 \
+        + (2 ** bits) * 4 + M * N * o_b
+    flops = 2.0 * M * K * N
+    peak = PEAK_FLOPS["bf16" if a_dtype == torch.bfloat16 else "f32"]
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / peak
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"), \
+        nbytes
+
+
+def time_qmatmul(gen, M, K, N, bits):
+    """Kernel, plain version and cuBLAS on a dequantized bf16 weight, at the
+    model's types (bf16 in, bf16 out), each over weight copies that together
+    exceed the L2 cache."""
+    a_dtype = out_dtype = torch.bfloat16
+    n_copies = max(2, math.ceil(120e6 / (K * N * bits / 8)))
+    sets = [make_qmm_inputs(gen, M, K, N, bits, a_dtype)
+            for _ in range(n_copies)]
+    ms = time_ms([lambda s=s: qmm.qmatmul(*s, bits=bits, out_dtype=out_dtype)
+                  for s in sets])
+    plain_ms = time_ms([lambda s=s: qmm.qmatmul_plain(
+        *s, bits=bits, out_dtype=out_dtype) for s in sets[:2]],
+        warmup=1, iters=4)
+    dense = [lm.materialize({"q_codes": s[1], "q_mu": s[2], "q_sigma": s[3]},
+                            torch.bfloat16) for s in sets[:3]]
+    lib_ms = time_ms([lambda s=s, w=w: torch.matmul(s[0], w)
+                      for s, w in zip(sets, dense)])
+    bound_ms, by, nbytes = qmm_bound(M, K, N, bits, a_dtype, out_dtype)
+    host = host_us(lambda: qmm.qmatmul(*sets[0], bits=bits,
+                                       out_dtype=out_dtype))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=by, bytes=nbytes, host_us=host)
+
+
+def attn_bound(t, H, KV, D, page, kv_bits, window):
+    qp = t["q_pos"].to(torch.int64).cpu().numpy()
+    rows = np.minimum(qp + 1, window if window else 1 << 30).clip(min=0)
+    n_rows = int(rows.sum())
+    Dc = D // 2 if kv_bits == 4 else D
+    B = len(qp)
+    q_b = t["q"].element_size()
+    nbytes = n_rows * KV * 2 * (Dc + 4) + 2 * B * H * D * q_b \
+        + t["block_tables"].numel() * 4 + B * 4 + (2 ** kv_bits) * 4
+    flops = 4.0 * n_rows * H * D
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS["f32"]
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"), \
+        nbytes
+
+
+def time_attention(gen, kv_bits, ctx_rows):
+    g = dict(B=16, H=32, KV=8, D=128, page=64, n_pages=32)
+    S = g["page"] * g["n_pages"]
+    sets = [make_attn_inputs(gen, kv_bits=kv_bits, q_dtype=torch.bfloat16,
+                             q_pos=[min(ctx_rows, S) - 1] * g["B"], **g)
+            for _ in range(3)]
+    t = sets[0]
+    ms = time_ms([lambda t=t: attn_call(pa.paged_quant_attention, t,
+                                        kv_bits=kv_bits) for t in sets])
+    plain_ms = time_ms([lambda: attn_call(pa.paged_quant_attention_plain, t,
+                                          kv_bits=kv_bits)],
+                       warmup=1, iters=4)
+    bound_ms, by, nbytes = attn_bound(t, g["H"], g["KV"], g["D"], g["page"],
+                                      kv_bits, None)
+    host = host_us(lambda: attn_call(pa.paged_quant_attention, t,
+                                     kv_bits=kv_bits))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=by, bytes=nbytes, host_us=host)
+
+
+def timing_phase(gen, counts, errs):
+    rows = {}
+    for bits in (4, 8):
+        for (M, K, N) in ((16, 4096, 12800), (16, 4096, 4096),
+                          (16, 4096, 1024), (16, 12800, 4096),
+                          (8, 4096, 12800), (32, 4096, 12800),
+                          (256, 4096, 12800), (512, 4096, 4096)):
+            if bits == 8 and M != 16:
+                continue
+            r = time_qmatmul(gen, M, K, N, bits)
+            rows[("qmatmul", bits, M, K, N)] = r
+            say(f"[time] qmatmul W{bits} bf16 M={M} K={K} N={N}: kernel "
+                f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), plain "
+                f"{r['plain_ms']:.3f} ms, torch.matmul on dequantized bf16 "
+                f"{r['library_ms']:.4f} ms; host enqueue "
+                f"{r['host_us']:.0f} us per call")
+    for kv_bits in (8, 4):
+        for ctx in (2048, 512):
+            r = time_attention(gen, kv_bits, ctx)
+            rows[("attn", kv_bits, ctx)] = r
+            say(f"[time] paged_quant_attention kv{kv_bits} B=16 H=32 KV=8 "
+                f"D=128 page=64 ctx={ctx}: kernel {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.3f} ms; "
+                f"host enqueue {r['host_us']:.0f} us per call")
+    q = rows[("qmatmul", 4, 16, 4096, 12800)]
+    a = rows[("attn", 8, 2048)]
+
+    def entry(name, source, replaces, r):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": errs[name], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+    return {"kernels": [
+        entry("qmatmul", "src/repro_torch/kernels/csrc/qmatmul.cu",
+              "src/repro/kernels/qmatmul.py:182", q),
+        entry("paged_quant_attention",
+              "src/repro_torch/kernels/csrc/paged_attn.cu",
+              "src/repro/kernels/paged_attn.py:227", a)]}
+
+
+def profile_phase(cfg, seed: int, new_tokens: int):
+    """Where an engine run spends its time: host side by cProfile, device
+    side by torch.profiler (kernel time by name, busy share of the wall)."""
+    import cProfile
+    import io
+    import pstats
+    params = model.init(seed, cfg, device=DEV, w_bits=4,
+                        dense_dtype=torch.bfloat16)
+    opts = lm.ModelOpts(compute_dtype=torch.bfloat16)
+    run_stream(params, cfg, opts, seed, 4)                    # warm-up
+    prof = cProfile.Profile()
+    prof.enable()
+    eng, outs, wall, _ = run_stream(params, cfg, opts, seed, new_tokens)
+    prof.disable()
+    buf = io.StringIO()
+    pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(28)
+    say(f"[profile] host (cProfile), stream wall {wall:.2f}s, "
+        f"{eng.n_decode_steps} decode steps + {eng.n_prefill_calls} chunk "
+        f"calls:")
+    say(buf.getvalue())
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
+        run_stream(params, cfg, opts, seed, 8)
+        sync()
+        wall = time.perf_counter() - t0
+    events = tp.key_averages()
+    # kernel rows only: an operator row repeats the time of its kernels
+    dev_us = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    say(f"[profile] device busy {dev_us / 1e6:.3f}s of {wall:.3f}s wall "
+        f"({100 * dev_us / 1e6 / wall:.1f}%) over a short stream")
+    say(events.table(sort_by="self_device_time_total", row_limit=16,
+                     max_name_column_width=60))
+
+
+def sweep_phase(gen):
+    """Times over the tuning axes, for choosing the defaults."""
+    for (M, K, N) in ((16, 4096, 12800), (16, 4096, 4096), (16, 4096, 1024),
+                      (16, 12800, 4096), (256, 4096, 12800)):
+        n_copies = max(2, math.ceil(120e6 / (K * N / 2)))
+        sets = [make_qmm_inputs(gen, M, K, N, 4, torch.bfloat16)
+                for _ in range(n_copies)]
+        for bm in ((16, 32) if M <= 32 else (32, 64)):
+            for splitk in (1, 2, 4, 8, 16):
+                ms = time_ms([lambda s=s: qmm.qmatmul(
+                    *s, bits=4, out_dtype=torch.bfloat16,
+                    blocks=qmm.BlockConfig(bm=bm), splitk=splitk)
+                    for s in sets])
+                say(f"[sweep] qmatmul W4 bf16 M={M} K={K} N={N} bm={bm} "
+                    f"splitk={splitk}: {ms:.4f} ms (default splitk "
+                    f"{qmm.default_splitk(K, N)})")
+        del sets
+    g = dict(B=16, H=32, KV=8, D=128, page=64, n_pages=32)
+    for B in (8, 16):
+        for ctx in (2048, 512, 128):
+            sets = [make_attn_inputs(gen, kv_bits=8, q_dtype=torch.bfloat16,
+                                     q_pos=[ctx - 1] * B, **dict(g, B=B))
+                    for _ in range(3)]
+            for splits in (1, 2, 4, 8, 16):
+                ms = time_ms([lambda t=t: attn_call(
+                    pa.paged_quant_attention, t, kv_bits=8, splits=splits)
+                    for t in sets])
+                say(f"[sweep] attention kv8 B={B} ctx={ctx} "
+                    f"splits={splits}: {ms:.4f} ms")
+
+
+# --------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=40,
+                    help="depth of the full-width model (default: all 40)")
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--quick", action="store_true",
+                    help="build + a reduced kernel check, then stop")
+    ap.add_argument("--sweep", action="store_true",
+                    help="build, time the tuning axes, then stop")
+    ap.add_argument("--profile", action="store_true",
+                    help="build, profile an engine run (host and device), "
+                         "then stop")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print ptxas' register / shared-memory report")
+    args = ap.parse_args(argv)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    say(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"{kind}; {torch.cuda.device_count()} device(s)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        and smi.stdout.strip() else f"{kind}, power limit unknown"
+
+    nvcc = subprocess.run([loader.find_nvcc(), "--version"],
+                          capture_output=True, text=True, timeout=60)
+    try:
+        from importlib.metadata import version
+        triton_version = version("triton")
+    except Exception:                   # not installed: nothing here needs it
+        triton_version = "not installed"
+    say(f"[device] nvcc: {nvcc.stdout.strip().splitlines()[-2:]}; triton "
+        f"{triton_version} (not used by this package); {card}")
+
+    t0 = time.perf_counter()
+    took = loader.build_all(
+        extra_flags=("-Xptxas", "-v") if args.ptxas else (),
+        verbose=args.ptxas)
+    if args.ptxas:
+        loader.build_all()
+    say(f"[build] nvcc -gencode arch=compute_90a,code=sm_90a into "
+        f"{loader.build_dir()}: " + ", ".join(
+            f"{n} {s:.1f}s" for n, s in took.items())
+        + f"; set-up time {time.perf_counter() - t0:.1f}s")
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(args.seed)
+    if args.sweep:
+        sweep_phase(gen)
+        say(card)
+        say("sweep run: stopped after the tuning sweep")
+        return 0
+    if args.profile:
+        import dataclasses
+        profile_phase(dataclasses.replace(cb.get("granite_3_8b"),
+                                          n_layers=args.layers), args.seed,
+                      args.new_tokens)
+        say(card)
+        say("profile run: stopped after the profile")
+        return 0
+    errs = {"qmatmul": check_qmatmul(gen, args.quick),
+            "paged_quant_attention": check_attention(gen, args.quick)}
+    say(f"[kernels] max abs err vs plain versions: qmatmul "
+        f"{errs['qmatmul']:.3e}, paged_quant_attention "
+        f"{errs['paged_quant_attention']:.3e}")
+    if args.quick:
+        say(card)
+        say("quick run: stopped after the kernel checks")
+        return 0
+
+    cfg = cb.get("granite_3_8b")
+    if args.layers != cfg.n_layers:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    params, opts, outs, counts = engine_phase(cfg, args.seed,
+                                              args.new_tokens)
+    plain_phase(params, cfg, opts, outs, args.seed, args.new_tokens)
+    del params
+    torch.cuda.empty_cache()
+    small_reference_phase(args.seed)
+    line = timing_phase(gen, counts, errs)
+
+    say(card)
+    say(json.dumps(line))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,177 @@
+"""Attention: GQA with sliding window, logit soft-capping, paged KV cache.
+
+  * ``full_attention``   — materialized (B, H, Sq, Sk) scores (prefill).
+  * ``decode_attention`` — one query position against a cache; linear in S.
+  * ``paged_*``          — the same math against the page pool, dense or
+    k-quantile-coded; the coded decode path is the CUDA kernel of
+    ``kernels/paged_attn.py``.
+
+Layout: q (B, Sq, H, D), k/v (B, Sk, KV, D); GQA groups G = H // KV.
+``window``: None for global attention, else causal sliding window width.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels import paged_attn as _pa
+from repro_torch.models import kv_cache as kvq
+from repro_torch.models.layers import softcap as _softcap
+
+NEG_INF = -1e30
+
+
+class AttnParams(NamedTuple):
+    window: Optional[int] = None      # sliding-window width (local attention)
+    logit_cap: Optional[float] = None # gemma-2 soft-capping
+    causal: bool = True
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+          p: AttnParams) -> torch.Tensor:
+    """(..., Sq, Sk) boolean validity mask from position vectors.
+
+    ``q_pos`` may be (Sq,) — shared by every batch row — or (B, Sq)
+    per-sequence positions (coalesced chunked prefill); ``k_pos`` is (Sk,).
+    """
+    qp = q_pos[..., :, None]
+    m = torch.ones(qp.shape[:-1] + (k_pos.shape[-1],), dtype=torch.bool,
+                   device=k_pos.device)
+    if p.causal:
+        m &= qp >= k_pos
+    if p.window is not None:
+        m &= qp - k_pos < p.window
+    return m
+
+
+def _scores(q, k, p: AttnParams) -> torch.Tensor:
+    """q (B, Sq, H, D) x k (B, Sk, KV, D) -> (B, H, Sq, Sk) f32 logits."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                     k.to(torch.float32))
+    s = s * (D ** -0.5)
+    s = _softcap(s, p.logit_cap)
+    return s.reshape(B, H, Sq, k.shape[1])
+
+
+def _attend(q, k, v, mask, p: AttnParams) -> torch.Tensor:
+    """Materialized-scores attention under a validity mask of shape
+    (Sq, Sk) (shared) or (B, Sq, Sk) (per-sequence positions)."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    s = _scores(q, k, p)                                  # (B,H,Sq,Sk) f32
+    if mask.ndim == 2:
+        mask = mask[None]
+    s = torch.where(mask[:, None], s, torch.full_like(s, NEG_INF))
+    a = torch.softmax(s, dim=-1).to(v.dtype)
+    a = a.reshape(B, KV, G, Sq, k.shape[1])
+    out = torch.einsum("bkgqs,bskd->bqkgd", a, v)
+    return out.reshape(B, Sq, H, D)
+
+
+def full_attention(q, k, v, q_pos, k_pos, p: AttnParams) -> torch.Tensor:
+    """Materialized-scores attention.  positions: (Sq,) (or (B, Sq) for
+    per-sequence chunk offsets), (Sk,) int."""
+    return _attend(q, k, v, _mask(q_pos, k_pos, p), p)
+
+
+def decode_attention(q, k_cache, v_cache, q_pos, p: AttnParams):
+    """Single-position decode: q (B, 1, H, D) vs cache (B, S, KV, D).
+
+    q_pos: (B,) current positions.  Keys at positions > q_pos (or outside
+    the sliding window) are masked; the cache may be longer than the valid
+    prefix.
+    """
+    B, _, H, D = q.shape
+    S = k_cache.shape[1]
+    KV = k_cache.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
+                     k_cache.to(torch.float32)) * (D ** -0.5)
+    s = _softcap(s, p.logit_cap)
+    k_pos = torch.arange(S, device=q.device)[None]        # (1, S)
+    valid = k_pos <= q_pos[:, None]
+    if p.window is not None:
+        valid &= (q_pos[:, None] - k_pos) < p.window
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    a = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", a, v_cache)
+    return out.reshape(B, 1, H, D)
+
+
+def _gather(pool, block_tables):
+    """(P, page, ...) pool + (B, n_pages) table -> (B, n_pages*page, ...)."""
+    B, n_pages = block_tables.shape
+    g = pool[block_tables.to(torch.long)]
+    return g.reshape(B, n_pages * pool.shape[1], *pool.shape[2:])
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, q_pos,
+                           p: AttnParams) -> torch.Tensor:
+    """Decode attention against a dense paged KV pool.
+
+    k/v_pages (P, page, KV, D); block_tables (B, n_pages) page ids, entries
+    past the allocated prefix point at the sink page 0 and are masked by
+    position; q_pos (B,).  The gathered view is position-contiguous, so
+    the masked ``decode_attention`` applies unchanged.
+    """
+    k = _gather(k_pages, block_tables)
+    v = _gather(v_pages, block_tables)
+    return decode_attention(q, k, v, q_pos, p)
+
+
+def paged_decode_attention_quant(q, cache, block_tables, q_pos,
+                                 p: AttnParams, *, kv_bits: int,
+                                 use_kernel: bool = True) -> torch.Tensor:
+    """Decode attention against a k-quantile-coded paged KV pool.
+
+    cache: one layer's slice of the pool — {"k_codes","v_codes"}
+    (P, page, KV, D') and {"k_mu","k_sigma","v_mu","v_sigma"} (P, page, KV)
+    bf16.  On CUDA tensors this launches the paged-attention kernel; on CPU
+    tensors its plain version.  ``use_kernel=False`` is the comparison
+    hook: the plain version on whatever device the tensors are on.
+    """
+    fn = _pa.paged_quant_attention if use_kernel \
+        else _pa.paged_quant_attention_plain
+    return fn(q, cache["k_codes"], cache["k_mu"], cache["k_sigma"],
+              cache["v_codes"], cache["v_mu"], cache["v_sigma"],
+              block_tables, q_pos, kv_bits=kv_bits, window=p.window,
+              logit_cap=p.logit_cap)
+
+
+def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_pos,
+                            p: AttnParams) -> torch.Tensor:
+    """Multi-token (chunked) prefill attention against a dense paged pool.
+
+    q (B, C, H, D); the chunk's own rows must already be scattered in
+    (write-before-read); q_pos (C,) or (B, C) absolute positions.
+    """
+    k = _gather(k_pages, block_tables)
+    v = _gather(v_pages, block_tables)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    return full_attention(q, k.to(q.dtype), v.to(q.dtype), q_pos, k_pos, p)
+
+
+def paged_prefill_attention_quant(q, cache, block_tables, q_pos,
+                                  p: AttnParams, *,
+                                  kv_bits: int) -> torch.Tensor:
+    """Chunked-prefill attention against a k-quantile-coded paged pool:
+    gathers + dequantizes the block-table row densely and defers to
+    ``full_attention`` — what whole prefill sees after ``fake_quant_kv``."""
+    def gather_dequant(codes, mu, sigma):
+        return kvq.dequantize_kv(_gather(codes, block_tables),
+                                 _gather(mu, block_tables),
+                                 _gather(sigma, block_tables), kv_bits,
+                                 dtype=q.dtype)
+
+    k = gather_dequant(cache["k_codes"], cache["k_mu"], cache["k_sigma"])
+    v = gather_dequant(cache["v_codes"], cache["v_mu"], cache["v_sigma"])
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    return full_attention(q, k, v, q_pos, k_pos, p)

@@ -1,0 +1,125 @@
+"""Bit-parametric KV-cache codec (kv_bits in {16, 8, 4}).
+
+Each KV row is coded per (page row, head): one (mu, sigma) pair per written
+token per KV head, stored in bf16 beside the codes.  Row granularity is what
+makes preemption/resume bit-exact in the codes domain: a row's codes depend
+only on that row's fresh K/V values.  Codes reuse the weight-path
+conventions (``kernels/ref.py`` Phi/Phi^-1 pair, int4 two-per-byte packing,
+int8 storage offset for k=256), so the paged-attention kernel shares the
+qmatmul dequant formulation.  ``token_kv_bytes``/``page_kv_bytes`` give the
+exact pool bytes per token/page, the scheduler's admission currency.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import torch
+
+from repro_torch.core import packing
+from repro_torch.kernels import ref as kref
+
+KV_BITS_CHOICES = (16, 8, 4)
+
+# Per-row statistics dtype; codes are computed from the *rounded* stats so
+# quantize and dequantize always agree bit-for-bit.
+STATS_DTYPE = torch.bfloat16
+STATS_BYTES = 2
+
+
+def check_kv_bits(kv_bits: int, head_dim: int = 0) -> None:
+    if kv_bits not in KV_BITS_CHOICES:
+        raise ValueError(f"kv_bits must be one of {KV_BITS_CHOICES}, "
+                         f"got {kv_bits}")
+    if kv_bits == 4 and head_dim and head_dim % 2:
+        raise ValueError(f"kv_bits=4 packs two codes/byte along head_dim; "
+                         f"head_dim {head_dim} must be even")
+
+
+def is_quantized_cache(cache) -> bool:
+    """Whether a (paged) cache dict holds k-quantile codes, not dense KV."""
+    return isinstance(cache, dict) and "k_codes" in cache
+
+
+def quantize_kv(x: torch.Tensor, kv_bits: int):
+    """Code a block of KV rows:  x (..., KV, hd) -> (codes, mu, sigma).
+
+    codes : (..., KV, hd) int8 for kv_bits=8, (..., KV, hd//2) uint8 packed
+            for kv_bits=4 (int8 codes carry the k=256 storage offset).
+    mu/sigma : (..., KV) bf16 per-(row, head) statistics (population
+            deviation); codes are computed against the bf16-rounded values.
+    """
+    k = 2 ** kv_bits
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1).to(STATS_DTYPE)
+    sigma = torch.clamp(torch.std(xf, dim=-1, correction=0),
+                        min=1e-8).to(STATS_DTYPE)
+    codes = kref.kquantile_codes_ref(
+        xf, mu.to(torch.float32)[..., None],
+        sigma.to(torch.float32)[..., None], k)
+    stored = packing.pack_int4(codes) if kv_bits == 4 else codes
+    return stored, mu, sigma
+
+
+def dequantize_kv(stored: torch.Tensor, mu: torch.Tensor,
+                  sigma: torch.Tensor, kv_bits: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """codes (+ per-row stats) -> dense KV rows via the analytic levels."""
+    k = 2 ** kv_bits
+    codes = packing.unpack_int4(stored) if kv_bits == 4 else stored
+    return kref.kquantile_dequant_ref(
+        codes, mu.to(torch.float32)[..., None],
+        sigma.to(torch.float32)[..., None], k, dtype=dtype)
+
+
+def fake_quant_kv(x: torch.Tensor, kv_bits: int):
+    """Round-trip a KV block; returns (x_dq, codes, mu, sigma)."""
+    stored, mu, sigma = quantize_kv(x, kv_bits)
+    return dequantize_kv(stored, mu, sigma, kv_bits, x.dtype), stored, mu, \
+        sigma
+
+
+def clone_pages(cache, src, dst):
+    """Copy pool pages ``src`` onto ``dst`` across every cache leaf, in
+    place (the copy-on-write primitive behind prefix sharing).
+
+    ``src``/``dst`` are (N,) page ids into the pool axis (axis 1 of each
+    (L, P, page, ...) leaf); (0, 0) sink self-copies are harmless padding.
+    """
+    for leaf in cache.values():
+        src_t = torch.as_tensor(src, dtype=torch.long, device=leaf.device)
+        dst_t = torch.as_tensor(dst, dtype=torch.long, device=leaf.device)
+        leaf[:, dst_t] = leaf[:, src_t]
+    return cache
+
+
+def page_fingerprint(cache, page: int) -> str:
+    """Host-side content hash of one pool page across all layers/leaves."""
+    h = hashlib.sha256()
+    for name in sorted(cache):
+        h.update(name.encode())
+        leaf = cache[name][:, page].detach().cpu().contiguous()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.view(torch.int16)
+        h.update(np.ascontiguousarray(leaf.numpy()).tobytes())
+    return h.hexdigest()
+
+
+def token_kv_bytes(cfg, kv_bits: int, dense_itemsize: int = 2) -> int:
+    """Exact KV-pool bytes one token occupies across all layers."""
+    check_kv_bits(kv_bits, cfg.head_dim)
+    hd = cfg.head_dim
+    if kv_bits == 16:
+        per_head = dense_itemsize * hd
+    elif kv_bits == 8:
+        per_head = hd + 2 * STATS_BYTES
+    else:
+        per_head = hd // 2 + 2 * STATS_BYTES
+    return 2 * cfg.n_layers * cfg.n_kv_heads * per_head     # K and V
+
+
+def page_kv_bytes(cfg, page_size: int, kv_bits: int,
+                  dense_itemsize: int = 2) -> int:
+    """Pool bytes of one page (the scheduler's allocation unit)."""
+    return page_size * token_kv_bytes(cfg, kv_bits, dense_itemsize)

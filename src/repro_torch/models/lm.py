@@ -1,0 +1,652 @@
+"""Dense decoder-only LM: the serving path (prefill, chunked prefill, decode).
+
+Every per-layer parameter carries a leading (L,) axis and the forward pass
+is a Python loop over ``leaf[l]`` views.  Serving-time weights may be
+k-quantile-coded: a weight leaf replaced by a ``{"q_codes", "q_mu",
+"q_sigma"}`` dict (see ``quantize_params_for_serving``) is multiplied through
+the dequant-fused ``qmatmul`` kernel on the card (its plain version on the
+CPU).  The paged KV pool is updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import packing
+from repro_torch.core.uniq import (default_quant_filter, path_str,
+                                   quantize_tensor)
+from repro_torch.devices import resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.models import attention as attn
+from repro_torch.models import kv_cache as kvq
+from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
+                                       layer_norm, rms_norm, rope_cos_sin,
+                                       softcap)
+
+BIG_WINDOW = 1 << 30
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelOpts:
+    """Runtime (non-architecture) options of the serving path."""
+    compute_dtype: Any = torch.bfloat16
+    a_bits: int = 32                  # activation fake-quant (32 = off)
+    serve_a_bits: int = 32            # serving activation codec (32 = off)
+    kv_bits: int = 16                 # 8/4 => k-quantile-coded KV cache
+    use_kernels: bool = True          # comparison hook: False computes every
+                                      #   kernel's plain PyTorch version on
+                                      #   whatever device the tensors are on
+
+
+# --------------------------------------------------------------------------
+# Quantized-weight matmul dispatch
+# --------------------------------------------------------------------------
+
+def is_qweight(w) -> bool:
+    return isinstance(w, dict) and "q_codes" in w
+
+
+def _bits_of(codes: torch.Tensor) -> int:
+    return 4 if codes.dtype == torch.uint8 else 8
+
+
+def materialize(w, dtype) -> torch.Tensor:
+    """Return a dense (possibly dequantized) weight in ``dtype``."""
+    if not is_qweight(w):
+        return w.to(dtype)
+    if "q_lut" in w:
+        raise NotImplementedError(
+            "codebook (empirical) weights are not ported yet")
+    codes = w["q_codes"]
+    bits = _bits_of(codes)
+    if bits == 4:
+        codes = packing.unpack_int4(codes)
+    return kref.kquantile_dequant_ref(codes, w["q_mu"], w["q_sigma"],
+                                      2 ** bits, dtype=dtype)
+
+
+def mm(x: torch.Tensor, w, use_kernels: bool = True,
+       out_dtype=None) -> torch.Tensor:
+    """x @ w where w is a dense tensor or a quantized-weight dict.
+
+    A Gaussian-coded 2-D weight goes through ``qmatmul`` (the CUDA kernel
+    for CUDA tensors); a dense weight through ``torch.matmul``.
+    """
+    out_dtype = out_dtype or x.dtype
+    if is_qweight(w) and "q_lut" not in w and w["q_codes"].ndim == 2:
+        return kops.qmatmul(x, w["q_codes"], w["q_mu"], w["q_sigma"],
+                            bits=_bits_of(w["q_codes"]), out_dtype=out_dtype,
+                            use_kernel=use_kernels)
+    return torch.matmul(x, materialize(w, x.dtype)).to(out_dtype)
+
+
+def mm_a(x: torch.Tensor, w, opts: ModelOpts) -> torch.Tensor:
+    """``mm`` under the serving activation codec (only 32 = off so far)."""
+    if opts.serve_a_bits < 32 and is_qweight(w):
+        raise NotImplementedError(
+            "serve_a_bits < 32 needs the int8-activation matmul kernel, "
+            "which is not ported yet")
+    return mm(x, w, opts.use_kernels)
+
+
+# --------------------------------------------------------------------------
+# Parameter trees: nested dicts of tensors
+# --------------------------------------------------------------------------
+
+_STACKED_PREFIXES = ("layers", "enc_layers", "dec_layers")
+
+
+def _walk(tree, prefix=()):
+    """Yield (keys, leaf) for every tensor leaf, treating a quantized-weight
+    dict as one leaf."""
+    for key, val in tree.items():
+        if isinstance(val, dict) and not is_qweight(val):
+            yield from _walk(val, prefix + (key,))
+        else:
+            yield prefix + (key,), val
+
+
+def _set(tree, keys, val):
+    for k in keys[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[keys[-1]] = val
+
+
+def _quantize_leaf(leaf: torch.Tensor, bits: int, per_channel: bool,
+                   stacked: bool):
+    """Code one leaf.  A stacked leaf is coded one layer at a time: its
+    statistics are per layer anyway, and the temporaries stay one layer
+    large."""
+    if not stacked:
+        qt = quantize_tensor(leaf, bits, per_channel=per_channel)
+        return {"q_codes": qt.codes, "q_mu": qt.mu, "q_sigma": qt.sigma}
+    parts = [quantize_tensor(leaf[l:l + 1], bits, per_channel=per_channel,
+                             stacked=True) for l in range(leaf.shape[0])]
+    return {"q_codes": torch.cat([p.codes for p in parts]),
+            "q_mu": torch.cat([p.mu for p in parts]),
+            "q_sigma": torch.cat([p.sigma for p in parts])}
+
+
+def _eligible(path: str, leaf, bits: int, quant_filter) -> bool:
+    return quant_filter(path, leaf) and not (bits == 4
+                                             and leaf.shape[-1] % 2)
+
+
+@torch.no_grad()
+def quantize_params_for_serving(params, bits: int, quant_filter=None,
+                                per_channel: bool = True,
+                                dist: str = "gaussian",
+                                stacked_prefixes=_STACKED_PREFIXES,
+                                device="cuda"):
+    """Replace eligible weight leaves by k-quantile code dicts
+    ``{"q_codes", "q_mu", "q_sigma"}`` on ``device``.  Only int4 packing
+    needs an even trailing dim, so the odd-last-dim skip applies at
+    bits == 4 alone."""
+    if dist == "empirical":
+        raise NotImplementedError(
+            "dist='empirical' needs the codebook matmul kernel, which is "
+            "not ported yet")
+    if dist != "gaussian":
+        raise ValueError(f"dist must be gaussian|empirical, got {dist!r}")
+    dev = resolve_device(device)
+    quant_filter = quant_filter or default_quant_filter
+    out: Dict[str, Any] = {}
+    for keys, leaf in _walk(params):
+        p = path_str(keys)
+        if is_qweight(leaf):
+            _set(out, keys, {k: v.to(dev) for k, v in leaf.items()})
+        elif not _eligible(p, leaf, bits, quant_filter):
+            _set(out, keys, leaf.to(dev))
+        else:
+            stacked = any(p.startswith(pre) for pre in stacked_prefixes)
+            _set(out, keys, _quantize_leaf(leaf.to(dev), bits, per_channel,
+                                           stacked))
+    return out
+
+
+def norm_param(cfg: ArchConfig, *shape, device="cpu"):
+    """Norm parameter(s): dict for LayerNorm, bare scale for RMSNorm."""
+    if cfg.norm_kind == "layer":
+        return {"scale": torch.ones(shape, dtype=torch.float32,
+                                    device=device),
+                "bias": torch.zeros(shape, dtype=torch.float32,
+                                    device=device)}
+    return torch.ones(shape, dtype=torch.float32, device=device)
+
+
+@torch.no_grad()
+def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
+                dense_dtype=torch.float32,
+                per_channel: bool = True) -> Dict[str, Any]:
+    """Random dense-decoder parameter tree on ``device``, from ``seed``.
+
+    Matmul weights are drawn one layer at a time.  With ``w_bits`` 4 or 8
+    each eligible layer slice is k-quantile coded as soon as it is drawn,
+    so a full-width model never holds a dense stacked leaf: the result
+    equals ``quantize_params_for_serving(init_params(seed, cfg), w_bits)``.
+    Leaves left dense are stored in ``dense_dtype``.
+    """
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    L, d, f, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    quant = w_bits < 16
+
+    def weight(path, shape, init, stacked):
+        probe = torch.empty((1,) * len(shape)).expand(shape)
+        code = quant and _eligible(path, probe, w_bits, default_quant_filter)
+        if not stacked:
+            w = init(gen, shape, device=dev)
+            return _quantize_leaf(w, w_bits, per_channel, False) if code \
+                else w.to(dense_dtype)
+        parts = []
+        for _ in range(shape[0]):
+            w = init(gen, (1,) + tuple(shape[1:]), device=dev)
+            parts.append(_quantize_leaf(w, w_bits, per_channel, True)
+                         if code else w.to(dense_dtype))
+        if code:
+            return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+        return torch.cat(parts)
+
+    layers: Dict[str, Any] = {
+        "attn_norm": norm_param(cfg, L, d, device=dev),
+        "wq": weight("layers/wq", (L, d, H * hd), dense_init, True),
+        "wk": weight("layers/wk", (L, d, KV * hd), dense_init, True),
+        "wv": weight("layers/wv", (L, d, KV * hd), dense_init, True),
+        "wo": weight("layers/wo", (L, H * hd, d), dense_init, True),
+        "mlp_norm": norm_param(cfg, L, d, device=dev),
+    }
+    if cfg.post_norms:
+        layers["post_attn_norm"] = torch.ones((L, d), device=dev)
+        layers["post_mlp_norm"] = torch.ones((L, d), device=dev)
+    layers["w_gate"] = weight("layers/w_gate", (L, d, f), dense_init, True)
+    layers["w_up"] = weight("layers/w_up", (L, d, f), dense_init, True)
+    layers["w_down"] = weight("layers/w_down", (L, f, d), dense_init, True)
+
+    params: Dict[str, Any] = {
+        "embed": weight("embed", (V, d), embed_init, False),
+        "layers": layers,
+        "final_norm": norm_param(cfg, d, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = weight("lm_head", (d, V), dense_init, False)
+    return params
+
+
+def _layer_view(layers, l: int):
+    """Layer ``l`` of the stacked tree, as views."""
+    return {k: ({kk: vv[l] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[l]) for k, v in layers.items()}
+
+
+def unstack_layers(params, n_layers: int):
+    """Shallow copy of ``params`` whose "layers" is a list of per-layer view
+    dicts (no data is copied).  The forward passes take either form; a
+    long-lived caller such as the engine unstacks once instead of slicing
+    every leaf on every call."""
+    out = dict(params)
+    out["layers"] = [_layer_view(params["layers"], l)
+                     for l in range(n_layers)]
+    return out
+
+
+def _layer(params, l: int):
+    layers = params["layers"]
+    return layers[l] if isinstance(layers, list) \
+        else _layer_view(layers, l)
+
+
+# --------------------------------------------------------------------------
+# Layer body
+# --------------------------------------------------------------------------
+
+def _norm(x, scale_or_dict, cfg: ArchConfig):
+    if cfg.norm_kind == "layer":
+        return layer_norm(x, scale_or_dict["scale"], scale_or_dict["bias"],
+                          cfg.norm_eps)
+    zc = cfg.post_norms  # gemma-2 convention: zero-centered scales
+    return rms_norm(x, scale_or_dict, cfg.norm_eps, zero_centered=zc)
+
+
+def _window_schedule(cfg: ArchConfig) -> List[Optional[int]]:
+    """Per-layer attention window; None = global."""
+    w = np.full((cfg.n_layers,), BIG_WINDOW, np.int64)
+    if cfg.sliding_window and cfg.local_global_alternate:
+        w[0::2] = cfg.sliding_window      # even layers local (gemma-2)
+    elif cfg.sliding_window:
+        w[:] = cfg.sliding_window
+    return [None if x >= BIG_WINDOW else int(x) for x in w]
+
+
+def _qkv(hn, lp, cfg: ArchConfig, opts: ModelOpts, positions, cos_sin):
+    """Projections + RoPE; ``cos_sin`` are the call's rotation tables."""
+    B, S, _ = hn.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = mm_a(hn, lp["wq"], opts).reshape(B, S, H, hd)
+    k = mm_a(hn, lp["wk"], opts).reshape(B, S, KV, hd)
+    v = mm_a(hn, lp["wv"], opts).reshape(B, S, KV, hd)
+    q = apply_rope(q, positions, cfg.rope_theta, cos_sin)
+    k = apply_rope(k, positions, cfg.rope_theta, cos_sin)
+    return q, k, v
+
+
+def _attn_out(o, lp, cfg: ArchConfig, opts: ModelOpts):
+    B, S = o.shape[:2]
+    o = mm_a(o.reshape(B, S, cfg.n_heads * cfg.head_dim), lp["wo"], opts)
+    if cfg.post_norms:
+        o = _norm(o, lp["post_attn_norm"], cfg)
+    return o
+
+
+def _attn_block(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
+                cos_sin, kv_out: bool = False):
+    """Self-attention sub-block on (B, S, d).  Returns (out, kv).
+
+    ``kv`` (when requested) is ``(k, v)`` dense, or the k-quantile code
+    dict when ``opts.kv_bits < 16``: serving prefill then fake-quantizes
+    K/V *before* attending, so the queries see exactly the dequantized
+    rows a later incremental decode reads from the paged pool.
+    """
+    h = _norm(x, lp["attn_norm"], cfg)
+    q, k, v = _qkv(h, lp, cfg, opts, positions, cos_sin)
+    kv = None
+    if kv_out:
+        if opts.kv_bits < 16:
+            # K and V are coded in one pass (rows are coded independently)
+            dq, st, mu, sig = kvq.fake_quant_kv(torch.stack([k, v]),
+                                                opts.kv_bits)
+            k, v = dq[0], dq[1]
+            kv = {"k_codes": st[0], "v_codes": st[1],
+                  "k_mu": mu[0], "k_sigma": sig[0],
+                  "v_mu": mu[1], "v_sigma": sig[1]}
+        else:
+            kv = {"k": k, "v": v}
+    p = attn.AttnParams(window=window, logit_cap=cfg.attn_logit_cap,
+                        causal=True)
+    pos1d = positions[0]
+    o = attn.full_attention(q, k, v, pos1d, pos1d, p)
+    return _attn_out(o, lp, cfg, opts), kv
+
+
+def _ffn_block(x, lp, cfg: ArchConfig, opts: ModelOpts):
+    if cfg.is_moe:
+        raise NotImplementedError("MoE feed-forward is not ported yet")
+    h = _norm(x, lp["mlp_norm"], cfg)
+    g = mm_a(h, lp["w_gate"], opts)
+    u = mm_a(h, lp["w_up"], opts)
+    g = F.silu(g) if cfg.mlp_act == "silu" else F.gelu(g, approximate="tanh")
+    o = mm_a(g * u, lp["w_down"], opts)
+    if cfg.post_norms:
+        o = _norm(o, lp["post_mlp_norm"], cfg)
+    return o
+
+
+def _maybe_quant_act(x, opts: ModelOpts):
+    if opts.a_bits < 32:
+        raise NotImplementedError(
+            "activation fake-quant (a_bits < 32) is not ported yet")
+    return x
+
+
+# --------------------------------------------------------------------------
+# Embedding / head
+# --------------------------------------------------------------------------
+
+def _embed_tokens(params, cfg: ArchConfig, opts: ModelOpts, tokens):
+    emb = params["embed"]
+    tok = tokens.to(torch.long)
+    if is_qweight(emb):
+        # gather the token rows of the codes, dequantize only those: the
+        # same values as dequantizing the whole table and then gathering
+        rows = {"q_codes": emb["q_codes"][tok], "q_mu": emb["q_mu"],
+                "q_sigma": emb["q_sigma"]}
+        x = materialize(rows, opts.compute_dtype)
+    else:
+        x = emb[tok].to(opts.compute_dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _head_weight(params, cfg: ArchConfig):
+    if cfg.tie_embeddings:
+        emb = params["embed"]
+        if is_qweight(emb):
+            # tied quantized embedding: dequantize (through bf16) then
+            # transpose
+            return materialize(emb, torch.bfloat16).T
+        return emb.T
+    return params["lm_head"]
+
+
+def _logits(last, params, cfg: ArchConfig, opts: ModelOpts):
+    """(B, d) final hidden rows -> (B, V) f32 logits."""
+    logits = mm(last, _head_weight(params, cfg), opts.use_kernels,
+                out_dtype=torch.float32)
+    return softcap(logits, cfg.final_logit_cap)
+
+
+def _norm_final(x, params, cfg: ArchConfig):
+    fn = params["final_norm"]
+    if cfg.norm_kind == "layer":
+        return layer_norm(x, fn["scale"], fn["bias"], cfg.norm_eps)
+    return rms_norm(x, fn, cfg.norm_eps, zero_centered=cfg.post_norms)
+
+
+# --------------------------------------------------------------------------
+# Forward passes
+# --------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward_prefill(params, cfg: ArchConfig, opts: ModelOpts, batch,
+                    pad_to: Optional[int] = None,
+                    last_idx: Optional[torch.Tensor] = None):
+    """Prefill: run the prompt, emit last-position logits + per-layer KV.
+
+    Returns (logits (B, V), cache dict of (L, B, S, ...) leaves: dense
+    {"k","v"} or codes + stats at ``opts.kv_bits < 16``).  ``last_idx`` (B,)
+    selects a per-sequence "last" position instead of S-1 (right-padded
+    prompt groups; padding beyond last_idx is inert under the causal mask).
+    """
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, cfg, opts, tokens)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    windows = _window_schedule(cfg)
+    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    kvs = []
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        a, kv = _attn_block(x, lp, cfg, opts, positions, windows[l],
+                            cos_sin, kv_out=True)
+        x = x + a
+        x = x + _ffn_block(x, lp, cfg, opts)
+        x = _maybe_quant_act(x, opts)
+        kvs.append(kv)
+    x = _norm_final(x, params, cfg)
+    if last_idx is None:
+        last = x[:, -1]
+    else:
+        idx = torch.clamp(last_idx.to(torch.long), 0, S - 1)
+        last = x[torch.arange(B, device=x.device), idx]
+    logits = _logits(last, params, cfg, opts)
+    cache = {name: torch.stack([kv[name] for kv in kvs]) for name in kvs[0]}
+    if pad_to and pad_to > S:
+        # every cache leaf is (L, B, S, ...): pad the position axis
+        def pad(leaf):
+            shape = list(leaf.shape)
+            shape[2] = pad_to - S
+            return torch.cat([leaf, leaf.new_zeros(shape)], dim=2)
+        cache = {name: pad(leaf) for name, leaf in cache.items()}
+    return logits, cache
+
+
+@torch.no_grad()
+def init_paged_cache(cfg: ArchConfig, total_pages: int, page_size: int,
+                     dtype=torch.bfloat16, kv_bits: int = 16,
+                     device="cuda"):
+    """Zeroed paged KV pool on ``device``, bit-width-parametric.
+
+    kv_bits=16: dense {"k","v"} (L, total_pages, page_size, KV, hd).
+    kv_bits=8/4: k-quantile codes {"k_codes","v_codes"} (int8, or uint8
+    packed two-per-byte along hd for 4-bit) plus per-(row, head) bf16
+    statistics {"k_mu","k_sigma","v_mu","v_sigma"} of shape
+    (L, total_pages, page_size, KV).
+
+    Page 0 is the reserved *sink*: never allocated to a sequence, it
+    absorbs the writes of inactive decode rows and prefill right-padding
+    (block-table entries default to 0), so scatters never need a mask.
+    """
+    kvq.check_kv_bits(kv_bits, cfg.head_dim)
+    dev = resolve_device(device)
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if kv_bits == 16:
+        shape = (L, total_pages, page_size, KV, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    code_shape = (L, total_pages, page_size, KV,
+                  hd // 2 if kv_bits == 4 else hd)
+    code_dtype = packing.storage_dtype(kv_bits)
+    stat_shape = (L, total_pages, page_size, KV)
+    stats = {name: torch.zeros(stat_shape, dtype=kvq.STATS_DTYPE, device=dev)
+             for name in ("k_mu", "k_sigma", "v_mu", "v_sigma")}
+    return {"k_codes": torch.zeros(code_shape, dtype=code_dtype, device=dev),
+            "v_codes": torch.zeros(code_shape, dtype=code_dtype, device=dev),
+            **stats}
+
+
+@torch.no_grad()
+def cache_insert_paged(cache, prefill_cache, page_tables):
+    """Scatter a prefill KV block into the paged pool, in place.
+
+    cache         : pool from ``init_paged_cache`` (any kv_bits layout).
+    prefill_cache : matching dict of (L, G, S_pad, ...) leaves from a
+                    padded batched prefill of G admitted prompts.
+    page_tables   : (G, n_pages) destination page ids covering
+                    [0, n_pages * page_size); entries past a prompt's
+                    allocated pages (and whole pad rows) are 0 (sink).
+
+    Rows past a prompt's true length hold right-padding garbage but land
+    in the sink page or in the tail of the sequence's last page, where
+    decode's write-before-read keeps them invisible.  Duplicate sink
+    entries overwrite each other in no particular order; the sink is only
+    ever read under the mask.
+    """
+    ref_pool = next(iter(cache.values()))
+    page = ref_pool.shape[2]
+    pt = torch.as_tensor(page_tables, device=ref_pool.device).to(torch.long)
+    n_pages = pt.shape[1]
+    for name, pool in cache.items():
+        kv = prefill_cache[name]
+        L, G, s_pad = kv.shape[:3]
+        pad = n_pages * page - s_pad
+        if pad:
+            shape = list(kv.shape)
+            shape[2] = pad
+            kv = torch.cat([kv, kv.new_zeros(shape)], dim=2)
+        kv = kv.reshape(L, G, n_pages, page, *kv.shape[3:])
+        pool[:, pt] = kv.to(pool.dtype)
+    return cache
+
+
+def _write_rows(kc, layer: int, pages, rows, k, v, kv_bits: int):
+    """Write fresh K/V rows into layer ``layer`` of the pool at
+    (pages, rows), in place; returns that layer's view of the pool."""
+    view = {name: leaf[layer] for name, leaf in kc.items()}
+    if kvq.is_quantized_cache(kc):
+        # K and V are coded in one pass (rows are coded independently)
+        st, mu, sig = kvq.quantize_kv(torch.stack([k, v]), kv_bits)
+        vals = {"k_codes": st[0], "k_mu": mu[0], "k_sigma": sig[0],
+                "v_codes": st[1], "v_mu": mu[1], "v_sigma": sig[1]}
+    else:
+        vals = {"k": k, "v": v}
+    for name, val in vals.items():
+        view[name][pages, rows] = val.to(view[name].dtype)
+    return view
+
+
+@torch.no_grad()
+def prefill_chunk(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
+                  positions, write_pages, write_rows, block_tables,
+                  last_idx):
+    """Chunked prefill: run the next C prompt tokens of B sequences against
+    (and into) the paged pool.
+
+    tokens       : (B, C) token ids (right-padded; pad rows compute garbage
+                   that lands in the sink).
+    positions    : (C,) shared, or (B, C) per-sequence absolute positions.
+    write_pages / write_rows : same shape as ``positions`` — pool
+                   destination of each row's KV; pad rows point at the sink.
+    block_tables : (B, n_pages) each sequence's full block-table row.
+    last_idx     : () or (B,) index of each prompt's last token within the
+                   chunk (meaningful on the final chunk).
+
+    Each layer scatters the chunk's fresh KV into the pool *before*
+    attending, then attends over the gathered block-table row under the
+    causal mask.  Returns (logits (B, V) at ``last_idx``, the pool).
+    """
+    dev = next(iter(cache.values())).device
+    tokens = torch.as_tensor(tokens, device=dev)
+    B, C = tokens.shape
+    x = _embed_tokens(params, cfg, opts, tokens)          # (B, C, d)
+    positions = torch.as_tensor(positions, device=dev).to(torch.long)
+    write_pages = torch.as_tensor(write_pages, device=dev).to(torch.long)
+    write_rows = torch.as_tensor(write_rows, device=dev).to(torch.long)
+    if positions.ndim == 1:                # single-sequence layout
+        positions = positions[None].expand(B, C)
+        write_pages = write_pages[None].expand(B, C)
+        write_rows = write_rows[None].expand(B, C)
+    block_tables = torch.as_tensor(block_tables, device=dev)
+    last_idx = torch.atleast_1d(torch.as_tensor(last_idx, device=dev)) \
+        .to(torch.long)
+    windows = _window_schedule(cfg)
+    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    quant = kvq.is_quantized_cache(cache)
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        hn = _norm(x, lp["attn_norm"], cfg)
+        q, k, v = _qkv(hn, lp, cfg, opts, positions, cos_sin)
+        p = attn.AttnParams(window=windows[l], logit_cap=cfg.attn_logit_cap,
+                            causal=True)
+        kc = _write_rows(cache, l, write_pages, write_rows, k, v,
+                         opts.kv_bits)
+        if quant:
+            o = attn.paged_prefill_attention_quant(q, kc, block_tables,
+                                                   positions, p,
+                                                   kv_bits=opts.kv_bits)
+        else:
+            o = attn.paged_prefill_attention(q, kc["k"], kc["v"],
+                                             block_tables, positions, p)
+        x = x + _attn_out(o, lp, cfg, opts)
+        x = x + _ffn_block(x, lp, cfg, opts)
+        x = _maybe_quant_act(x, opts)
+    x = _norm_final(x, params, cfg)
+    last = x[torch.arange(B, device=dev),
+             torch.clamp(last_idx, 0, C - 1).expand(B)]   # (B, d)
+    return _logits(last, params, cfg, opts), cache
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
+                positions, block_tables=None):
+    """One decode step.  tokens (B, 1); positions (B,) current index.
+
+    cache: paged layout (leaves (L, total_pages, page_size, ...), dense or
+    k-quantile-coded — see ``init_paged_cache``) with ``block_tables``
+    (B, n_pages) page indirection.  The step writes the fresh K/V row
+    (coded per (row, head) at ``opts.kv_bits < 16``) into the pool in place
+    *before* it attends; at kv8/kv4 attention runs off the coded pool
+    through the paged-attention kernel.
+
+    Returns (logits (B, V), the pool).
+    """
+    if block_tables is None:
+        raise NotImplementedError(
+            "the slot cache layout is not ported yet; pass block_tables")
+    dev = next(iter(cache.values())).device
+    tokens = torch.as_tensor(tokens, device=dev)
+    positions = torch.as_tensor(positions, device=dev).to(torch.long)
+    block_tables = torch.as_tensor(block_tables, device=dev)
+    x = _embed_tokens(params, cfg, opts, tokens)          # (B, 1, d)
+    pos2d = positions[:, None]
+    windows = _window_schedule(cfg)
+    quant = kvq.is_quantized_cache(cache)
+    page = next(iter(cache.values())).shape[2]
+    write_page = torch.gather(block_tables.to(torch.long), 1,
+                              (positions // page)[:, None])[:, 0]
+    write_row = positions % page
+    bt32 = block_tables.to(torch.int32).contiguous()
+    pos32 = positions.to(torch.int32)
+    cos_sin = rope_cos_sin(pos2d, cfg.head_dim, cfg.rope_theta)
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        hn = _norm(x, lp["attn_norm"], cfg)
+        q, k, v = _qkv(hn, lp, cfg, opts, pos2d, cos_sin)
+        p = attn.AttnParams(window=windows[l], logit_cap=cfg.attn_logit_cap,
+                            causal=True)
+        kc = _write_rows(cache, l, write_page, write_row, k[:, 0], v[:, 0],
+                         opts.kv_bits)
+        if quant:
+            o = attn.paged_decode_attention_quant(
+                q, kc, bt32, pos32, p, kv_bits=opts.kv_bits,
+                use_kernel=opts.use_kernels)
+        else:
+            o = attn.paged_decode_attention(q, kc["k"], kc["v"],
+                                            block_tables, positions, p)
+        x = x + _attn_out(o, lp, cfg, opts)
+        x = x + _ffn_block(x, lp, cfg, opts)
+        x = _maybe_quant_act(x, opts)
+    x = _norm_final(x, params, cfg)
+    return _logits(x[:, 0], params, cfg, opts), cache

@@ -1,0 +1,84 @@
+"""Unified model API for the dense decoder family.
+
+    init(seed, cfg, device)             -> params
+    prefill(params, cfg, opts, batch)   -> (logits, cache)
+    decode(params, cfg, opts, cache, tokens, positions, block_tables)
+                                        -> (logits, cache)
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm
+from repro_torch.models.lm import ModelOpts
+
+__all__ = ["ModelOpts", "init", "prefill", "decode", "quantize_for_serving",
+           "supports_paged_cache", "init_paged_cache", "cache_insert_paged",
+           "prefill_chunk"]
+
+
+def supports_paged_cache(cfg: ArchConfig) -> bool:
+    """Paged-cache serving covers the plain-KV dense decoder family."""
+    return cfg.family == "dense"
+
+
+def _require_dense(cfg: ArchConfig, what: str) -> None:
+    if not supports_paged_cache(cfg):
+        raise NotImplementedError(
+            f"{what}: family {cfg.family!r} is not ported yet (dense only)")
+
+
+def init(seed: int, cfg: ArchConfig, device="cuda", **kw) -> Any:
+    _require_dense(cfg, "init")
+    return lm.init_params(seed, cfg, device=device, **kw)
+
+
+def prefill(params, cfg: ArchConfig, opts: ModelOpts, batch, last_idx=None):
+    """``last_idx`` (B,) selects per-sequence last positions for padded
+    batched prefill (see lm.forward_prefill)."""
+    _require_dense(cfg, "prefill")
+    return lm.forward_prefill(params, cfg, opts, batch, last_idx=last_idx)
+
+
+def decode(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
+           positions, block_tables=None):
+    """One decode step against the paged pool (see lm.decode_step)."""
+    _require_dense(cfg, "decode")
+    return lm.decode_step(params, cfg, opts, cache, tokens, positions,
+                          block_tables=block_tables)
+
+
+def init_paged_cache(cfg: ArchConfig, total_pages: int, page_size: int,
+                     dtype=torch.bfloat16, kv_bits: int = 16, device="cuda"):
+    """Zeroed paged KV pool (page 0 is the reserved sink; see
+    lm.init_paged_cache and models/kv_cache.py)."""
+    _require_dense(cfg, "paged cache")
+    return lm.init_paged_cache(cfg, total_pages, page_size, dtype,
+                               kv_bits=kv_bits, device=device)
+
+
+def cache_insert_paged(cache, prefill_cache, page_tables):
+    """Scatter a batched-prefill KV block into pool pages, in place."""
+    return lm.cache_insert_paged(cache, prefill_cache, page_tables)
+
+
+def prefill_chunk(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
+                  positions, write_pages, write_rows, block_tables,
+                  last_idx):
+    """Run the next chunk of prompt tokens against (and into) the paged
+    pool (see lm.prefill_chunk)."""
+    _require_dense(cfg, "chunked prefill")
+    return lm.prefill_chunk(params, cfg, opts, cache, tokens, positions,
+                            write_pages, write_rows, block_tables, last_idx)
+
+
+def quantize_for_serving(params, bits: int, per_channel: bool = True,
+                         dist: str = "gaussian", device="cuda"):
+    """k-quantile-code all matmul weights for the serving path (UNIQ)."""
+    return lm.quantize_params_for_serving(params, bits,
+                                          per_channel=per_channel,
+                                          dist=dist, device=device)

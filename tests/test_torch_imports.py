@@ -1,0 +1,101 @@
+"""Import hygiene of the PyTorch port: it imports torch, numpy and the
+standard library — never jax, never the JAX package — and it can be
+imported where there is no CUDA compiler, no triton and no card."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "src", "repro_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, files in os.walk(PKG):
+        out += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imports(tree):
+    """(top-level module name, node, enclosing function or None)."""
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = child if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            if isinstance(child, ast.Import):
+                for a in child.names:
+                    yield a.name.split(".")[0], child, func
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield (child.module or "").split(".")[0], child, func
+            yield from visit(child, inner)
+    yield from visit(tree, None)
+
+
+SOURCES = _sources()
+
+
+def test_the_walk_sees_the_package():
+    names = {os.path.relpath(p, ROOT) for p in SOURCES}
+    assert "chip_smoke.py" in names
+    for mod in ("kernels/qmatmul.py", "kernels/paged_attn.py",
+                "kernels/loader.py", "models/lm.py", "serve/engine.py",
+                "serve/scheduler.py", "launch/serve.py", "convert.py"):
+        assert os.path.join("src", "repro_torch", mod) in names
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[os.path.relpath(p, ROOT) for p in SOURCES])
+def test_no_jax_and_no_reference_package(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for name, node, func in _imports(tree):
+        assert name not in FORBIDDEN, \
+            f"{path}:{node.lineno} imports {name}"
+        if name == "triton":
+            assert func is not None, \
+                f"{path}:{node.lineno}: triton is imported at module level"
+
+
+def test_csrc_has_the_kernel_sources_and_no_library_products():
+    csrc = os.path.join(PKG, "kernels", "csrc")
+    names = sorted(os.listdir(csrc))
+    assert names == ["paged_attn.cu", "qmatmul.cu"]
+    for n in names:
+        with open(os.path.join(csrc, n)) as fh:
+            text = fh.read()
+        for banned in ("cublas", "cutlass", "torch/extension.h", "atomicAdd"):
+            assert banned not in text, f"{n} mentions {banned}"
+        assert 'extern "C"' in text and "cudaGetLastError" in text
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.serve, repro_torch.serve, "
+        "repro_torch.convert, repro_torch.kernels.ops\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'repro', 'triton')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable,
+                          os.path.join(ROOT, "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert res.stdout.strip() == ""             # no result line of any kind

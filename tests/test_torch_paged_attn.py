@@ -1,0 +1,165 @@
+"""PyTorch port vs JAX reference: decode attention off the coded KV pool.
+
+The port's plain version (what its wrapper computes for CPU tensors, and
+what the CUDA kernel is held against on the card) is compared with the
+reference's Pallas kernel in interpret mode and with its jnp reference.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import paged_attn as jpa
+from repro.models import attention as jattn
+from repro.models import kv_cache as jkv
+
+from repro_torch.kernels import paged_attn as tpa
+from repro_torch.models import attention as tattn
+
+
+def _pool(kv_bits, page, n_pages, B=3, KV=2, G=2, hd=16, seed=0):
+    """A pool coded by the reference (so both sides read identical codes
+    and stats), with page 0 the zero sink."""
+    r = np.random.default_rng(seed)
+    S, H = page * n_pages, KV * G
+    k = r.standard_normal((B, S, KV, hd)).astype(np.float32)
+    v = (r.standard_normal((B, S, KV, hd)) * 0.5).astype(np.float32)
+    q = r.standard_normal((B, 1, H, hd)).astype(np.float32)
+    k_st, k_mu, k_sig = jkv.quantize_kv(jnp.asarray(k), kv_bits)
+    v_st, v_mu, v_sig = jkv.quantize_kv(jnp.asarray(v), kv_bits)
+
+    def paged(x):
+        pool = jnp.zeros((B * n_pages + 1, page) + x.shape[2:], x.dtype)
+        return pool.at[1:].set(x.reshape(B * n_pages, page, *x.shape[2:]))
+
+    cache = {"k_codes": paged(k_st), "v_codes": paged(v_st),
+             "k_mu": paged(k_mu), "k_sigma": paged(k_sig),
+             "v_mu": paged(v_mu), "v_sigma": paged(v_sig)}
+    tables = np.arange(1, B * n_pages + 1, dtype=np.int32).reshape(B, n_pages)
+    return q, cache, tables, S
+
+
+def _to_torch(cache):
+    out = {}
+    for name, leaf in cache.items():
+        if leaf.dtype == jnp.bfloat16:
+            out[name] = torch.from_numpy(
+                np.array(leaf.astype(jnp.float32))).to(torch.bfloat16)
+        else:
+            out[name] = torch.from_numpy(np.array(leaf))
+    return out
+
+
+def _call(fn, q, tc, tables, q_pos, **kw):
+    return fn(torch.from_numpy(q), tc["k_codes"], tc["k_mu"], tc["k_sigma"],
+              tc["v_codes"], tc["v_mu"], tc["v_sigma"],
+              torch.from_numpy(tables), torch.from_numpy(q_pos), **kw)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("page,n_pages", [(4, 6), (8, 3)])
+@pytest.mark.parametrize("window", [None, 7])
+@pytest.mark.parametrize("logit_cap", [None, 30.0])
+def test_plain_matches_reference(kv_bits, page, n_pages, window, logit_cap):
+    q, cache, tables, S = _pool(kv_bits, page, n_pages)
+    q_pos = np.array([2, S // 2, S - 1], np.int32)
+    p = jattn.AttnParams(window=window, logit_cap=logit_cap)
+    want = np.asarray(jattn.paged_decode_attention_quant(
+        jnp.asarray(q), cache, jnp.asarray(tables), jnp.asarray(q_pos), p,
+        kv_bits=kv_bits, use_pallas=False))
+    got = _call(tpa.paged_quant_attention, q, _to_torch(cache), tables,
+                q_pos, kv_bits=kv_bits, window=window, logit_cap=logit_cap)
+    assert tuple(got.shape) == q.shape and got.dtype == torch.float32
+    # identical codes and stats; f32 softmax in two implementations
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    # through the model-level entry point as well
+    tp = tattn.AttnParams(window=window, logit_cap=logit_cap)
+    got2 = tattn.paged_decode_attention_quant(
+        torch.from_numpy(q), _to_torch(cache), torch.from_numpy(tables),
+        torch.from_numpy(q_pos), tp, kv_bits=kv_bits)
+    assert torch.equal(got, got2)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_plain_matches_reference_kernel_interpreted(kv_bits, splits):
+    """Every split count of the reference kernel — including counts that
+    do not divide the 5 pages — gives what the port's plain version gives."""
+    q, cache, tables, S = _pool(kv_bits, 4, 5, seed=1)
+    q_pos = np.array([2, S // 2, S - 1], np.int32)
+    tc = _to_torch(cache)
+    for window in (None, 7):
+        out_k = np.asarray(jpa.paged_quant_attention(
+            jnp.asarray(q), cache["k_codes"], cache["k_mu"],
+            cache["k_sigma"], cache["v_codes"], cache["v_mu"],
+            cache["v_sigma"], jnp.asarray(tables), jnp.asarray(q_pos),
+            kv_bits=kv_bits, window=window, logit_cap=30.0, splits=splits,
+            interpret=True))
+        got = _call(tpa.paged_quant_attention, q, tc, tables, q_pos,
+                    kv_bits=kv_bits, window=window, logit_cap=30.0,
+                    splits=splits)
+        # erfinv per element (reference kernel) vs the level table
+        np.testing.assert_allclose(got.numpy(), out_k, atol=1e-5)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+def test_all_masked_row_gives_zeros_like_the_reference_kernel(kv_bits):
+    """A query before every row (q_pos = -1) sees nothing: the reference
+    kernel combines it to exact zeros, and so does the plain version."""
+    q, cache, tables, S = _pool(kv_bits, 4, 3, seed=2)
+    q_pos = np.array([-1, 3, S - 1], np.int32)
+    out_k = np.asarray(jpa.paged_quant_attention(
+        jnp.asarray(q), cache["k_codes"], cache["k_mu"], cache["k_sigma"],
+        cache["v_codes"], cache["v_mu"], cache["v_sigma"],
+        jnp.asarray(tables), jnp.asarray(q_pos), kv_bits=kv_bits, splits=2,
+        interpret=True))
+    got = _call(tpa.paged_quant_attention, q, _to_torch(cache), tables,
+                q_pos, kv_bits=kv_bits).numpy()
+    assert np.all(out_k[0] == 0.0) and np.all(got[0] == 0.0)
+    np.testing.assert_allclose(got, out_k, atol=1e-5)
+
+
+def test_sink_rows_are_never_seen():
+    """Table entries past the valid prefix point at the sink page; filling
+    the sink with garbage changes nothing."""
+    q, cache, tables, S = _pool(8, 4, 4, seed=3)
+    q_pos = np.array([3, 5, 9], np.int32)
+    tables = tables.copy()
+    tables[0, 1:] = 0
+    tables[1, 2:] = 0
+    tables[2, 3:] = 0
+    tc = _to_torch(cache)
+    a = _call(tpa.paged_quant_attention, q, tc, tables, q_pos, kv_bits=8)
+    tc2 = {k: v.clone() for k, v in tc.items()}
+    tc2["k_codes"][0] = 77
+    tc2["v_codes"][0] = -5
+    for n in ("k_mu", "k_sigma", "v_mu", "v_sigma"):
+        tc2[n][0] = 3.0
+    b = _call(tpa.paged_quant_attention, q, tc2, tables, q_pos, kv_bits=8)
+    assert torch.equal(a, b)
+
+
+def test_split_axis_and_window_sentinel():
+    """Splits stay a config axis with the reference's defaults."""
+    for n in (1, 3, 7, 8, 9, 32, 100):
+        assert tpa.default_splits(n) == jpa.default_splits(n)
+    assert tpa.BIG_WINDOW == jpa.BIG_WINDOW
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, cache, tables, S = _pool(8, 4, 3)
+    tc = _to_torch(cache)
+    q_pos = np.array([1, 2, 3], np.int32)
+    with pytest.raises(ValueError):
+        _call(tpa.paged_quant_attention, q, tc, tables, q_pos, kv_bits=16)
+    with pytest.raises(ValueError):
+        _call(tpa.paged_quant_attention, q[:, 0], tc, tables, q_pos,
+              kv_bits=8)
+    with pytest.raises(ValueError):                # kv4 codes are uint8
+        _call(tpa.paged_quant_attention, q, tc, tables, q_pos, kv_bits=4)
+    with pytest.raises(ValueError):
+        _call(tpa.paged_quant_attention, q, tc, tables[:2], q_pos, kv_bits=8)
+    with pytest.raises(ValueError):
+        _call(tpa.paged_quant_attention, q, tc, tables, q_pos, kv_bits=8,
+              window=0)
