@@ -8,19 +8,27 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
   1. prints the device (torch's name, and nvidia-smi's name + power limit);
   2. builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
   3. holds each kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it and at ragged ones, and checks that
-     the same inputs twice give the same bits;
+     shapes the serving and training paths give it and at ragged ones, and
+     checks that the same inputs twice give the same bits;
   4. serves a request stream through ``repro_torch``'s engine at the full
      width of granite_3_8b (W4 weights, kv8 pool, bf16), random weights made
      from ``--seed`` on the card, and counts the kernel launches of that run;
+     checks that the dense bf16 LM head gives f32 logits;
   5. repeats a prefill + one decode step with the plain versions forced and
      compares logits; replays the stream that way and prints greedy
      agreement; compares a tiny f32 model on the card with the CPU;
-  6. times each kernel (CUDA events) beside its bound, its plain version and
+  6. trains granite_3_8b at full width (depth ``--train-layers``, default 8)
+     through the trainer's entry points for ``--train-steps`` steps (UNIQ
+     noise, gradual freezing, AdamW), counting the ``uniq_noise`` launches
+     of each step and checking that FROZEN slices stay put; before it, one
+     step's loss and gradients with the plain versions forced; after it,
+     one all-FROZEN eval step and a profile of one more step; then a tiny
+     f32 train step on the card against the CPU;
+  7. times each kernel (CUDA events) beside its bound, its plain version and
      one library call, and prints the ``kernels`` JSON line;
-  7. prints ``{"ok": true, "device": {...}}`` as the last line.
+  8. prints ``{"ok": true, "device": {...}}`` as the last line.
 
-``--layers N`` cuts the depth (never the width); ``--quick`` stops after
+``--layers N`` cuts the serving depth (never the width); ``--quick`` stops after
 phase 3 on a reduced shape list (for bringing a kernel up); ``--sweep``
 times the kernels' tuning axes (block rows, K splits, attention splits) at
 the serving shapes and stops; ``--profile`` profiles an engine run (host by
@@ -30,6 +38,7 @@ cProfile, device by torch.profiler) and stops.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -48,15 +57,25 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch import convert                               # noqa: E402
+from repro_torch import tree as tree_lib                       # noqa: E402
 from repro_torch.configs import base as cb                    # noqa: E402
 from repro_torch.core import packing                          # noqa: E402
+from repro_torch.core.uniq import (FROZEN, UniqConfig,        # noqa: E402
+                                   leaf_noise)
+from repro_torch.data.synthetic import (LMStreamConfig,       # noqa: E402
+                                        lm_batch)
 from repro_torch.kernels import loader, ops as kops           # noqa: E402
 from repro_torch.kernels import paged_attn as pa              # noqa: E402
 from repro_torch.kernels import qmatmul as qmm                # noqa: E402
+from repro_torch.kernels import uniq_noise as un              # noqa: E402
+from repro_torch.launch import train as train_cli             # noqa: E402
 from repro_torch.models import lm, model                      # noqa: E402
+from repro_torch.optim.optim import OptimConfig               # noqa: E402
 from repro_torch.serve import telemetry as tele_lib           # noqa: E402
 from repro_torch.serve.engine import (Engine, EngineConfig,   # noqa: E402
                                       Request, SamplingParams)
+from repro_torch.train import steps as train_steps            # noqa: E402
 
 DEV = torch.device("cuda")
 
@@ -92,6 +111,39 @@ TOL_LOGITS_REL = 0.08
 # tiny f32 model, card (kernels) vs CPU (plain): f32 everywhere, different
 #   summation orders and transcendental implementations through 2 layers.
 TOL_SMALL_F32 = 2e-3
+# uniq_noise FROZEN: both sides compute z and u with the same correctly
+#   rounded f32 operations in the same order and take the level from one
+#   table, so an output can differ only where CUDA's erff and torch's erf
+#   differ in the last ulp next to a bin edge: a code flips there.  Bound on
+#   the share of FROZEN outputs that may differ.
+TOL_UNIQ_FROZEN_FLIPS = 1e-6
+# uniq_noise NOISE: u and u + e are identical on both sides; Phi^-1 is
+#   erfinvf in the kernel and torch's own erfinv in the plain version.
+#   Stated in units of the group's sigma (bf16: beyond one rounding step).
+TOL_UNIQ_NOISE_SIGMA = 1e-3
+# uniq_noise backward: the same operations on the same (w, w_hat); expf
+#   against torch's exp, a few ulps relative (bf16: beyond one step).
+TOL_UNIQ_BWD_REL = 1e-5
+# LM head, bf16 activations x dense bf16 head with f32 logits: the products
+#   are exact in f32 and both sides sum them in f32 over K = 4096 in their
+#   own order; stated relative to the largest logit.  A bf16 rounding of
+#   the logits would be 2^-9 relative, far above this.
+TOL_HEAD_F32_REL = 1e-5
+# full-width train step, kernels vs plain versions forced: the transform's
+#   kernels agree with their plain versions to the bit (the kernel phase
+#   checks it), and every other operation is the same torch call; what may
+#   remain is the order of reductions that cuBLAS or the embedding backward
+#   choose.  Loss relative; gradients relative to each leaf's largest.
+TOL_TRAIN_PLAIN_LOSS_REL = 1e-6
+TOL_TRAIN_PLAIN_GRAD_REL = 1e-5
+# tiny f32 train step, card vs CPU, one SGD step on the same state, batch
+#   and noise: the loss through 2 layers as TOL_SMALL_F32 says; the update
+#   is lr x gradient, whose NOISE factor pdf(z) / pdf(z_hat) is steep next
+#   to the u clamp, where one ulp of u between CUDA's and the CPU's erf
+#   moves z_hat by up to 1e-2 and the factor by up to ~5%: stated relative
+#   to the leaf's largest update.
+TOL_SMALL_TRAIN_LOSS_REL = 1e-5
+TOL_SMALL_TRAIN_UPDATE_REL = 5e-2
 
 
 def say(msg: str) -> None:
@@ -314,6 +366,132 @@ def check_attention(gen, quick: bool) -> float:
     return worst
 
 
+def make_uniq_inputs(gen, G, R, C, dtype, per_col, modes):
+    """Gaussian weights with per-group offsets and scales, their statistics
+    as ``fit_gaussian`` takes them (per column or per group), U[0,1) noise
+    and a (G,) mode vector."""
+    scale = 0.01 + 0.04 * torch.rand((G, 1, 1), generator=gen, device=DEV)
+    w = (torch.randn((G, R, C), generator=gen, device=DEV) * scale
+         + 0.1 * scale).to(dtype)
+    wf = w.float()
+    dims = (1,) if per_col else (1, 2)
+    mu = wf.mean(dim=dims, keepdim=True)
+    sigma = wf.std(dim=dims, correction=0, keepdim=True).clamp_min(1e-8)
+    del wf
+    e01 = torch.rand((G, R, C), generator=gen, device=DEV)
+    mode = torch.tensor(modes, dtype=torch.int32, device=DEV)
+    return w, mu.contiguous(), sigma.contiguous(), mode, e01
+
+
+def check_uniq(gen, quick: bool, layers: int):
+    """uniq_noise_fwd / _bwd against their plain versions at the training
+    path's leaf shapes (granite_3_8b, ``layers`` stacked) and ragged ones,
+    f32 and bf16, per-group and per-column statistics, every mode mixed
+    across G.  Returns the forward's and the backward's max abs error."""
+    L = 2 if quick else layers
+    shapes = [(L, 4096, 4096), (L, 4096, 1024), (L, 4096, 12800),
+              (L, 12800, 4096), (1, 49155, 4096), (1, 4096, 49155),
+              (3, 37, 131), (2, 5, 7), (1, 1, 3), (5, 129, 1001)]
+    if quick:
+        shapes = [(L, 4096, 12800), (1, 4096, 49155), (3, 37, 131),
+                  (2, 5, 7)]
+    worst_f = worst_b = 0.0
+    flips = n_frozen = 0
+    noise_sigma = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    bwd_rel = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for (G, R, C) in shapes:
+        mode_sets = ([[m] for m in (1, 2, 0)] if G == 1
+                     else [[(g + s) % 3 for g in range(G)] for s in (0, 1)])
+        for dtype in (torch.float32, torch.bfloat16):
+            for per_col in (False, True):
+                for modes in mode_sets:
+                    for k in ((16,) if R * C > 1 << 20 else (4, 16, 256)):
+                        res = _check_uniq_one(gen, G, R, C, dtype, per_col,
+                                              modes, k)
+                        worst_f = max(worst_f, res["fwd_err"])
+                        worst_b = max(worst_b, res["bwd_err"])
+                        flips += res["flips"]
+                        n_frozen += res["n_frozen"]
+                        noise_sigma[dtype] = max(noise_sigma[dtype],
+                                                 res["noise_sigma"])
+                        bwd_rel[dtype] = max(bwd_rel[dtype], res["bwd_rel"])
+        say(f"[kernels] uniq_noise G={G} R={R} C={C}: fwd + bwd x f32/bf16 "
+            f"x per-group/per-column stats x modes {mode_sets} ok")
+    say(f"[kernels] uniq_noise: FROZEN outputs differing from the plain "
+        f"version {flips} of {n_frozen}; NOISE max |diff| / sigma: f32 "
+        f"{noise_sigma[torch.float32]:.3e}, bf16 (beyond one bf16 ulp) "
+        f"{noise_sigma[torch.bfloat16]:.3e}; bwd max rel diff f32 "
+        f"{bwd_rel[torch.float32]:.3e}, bf16 {bwd_rel[torch.bfloat16]:.3e}")
+    if flips > TOL_UNIQ_FROZEN_FLIPS * max(n_frozen, 1):
+        raise SystemExit(f"uniq_noise FROZEN: {flips} of {n_frozen} outputs "
+                         f"differ from the plain version (bound "
+                         f"{TOL_UNIQ_FROZEN_FLIPS} of them)")
+    return worst_f, worst_b
+
+
+def _check_uniq_one(gen, G, R, C, dtype, per_col, modes, k):
+    w, mu, sigma, mode, e01 = make_uniq_inputs(gen, G, R, C, dtype, per_col,
+                                               modes)
+    out = un.uniq_noise_fwd(w, mu, sigma, mode, e01, k=k)
+    again = un.uniq_noise_fwd(w, mu, sigma, mode, e01, k=k)
+    sync()
+    want = un.uniq_noise_fwd_plain(w, mu, sigma, mode, e01, k=k)
+    where = f"G={G} R={R} C={C} {dtype} per_col={per_col} modes={modes} k={k}"
+    if not torch.equal(out, again):
+        raise SystemExit(f"uniq_noise_fwd is not deterministic: {where}")
+    if not torch.isfinite(out).all():
+        raise SystemExit(f"uniq_noise_fwd gives non-finite values: {where}")
+    m = mode.reshape(-1, 1, 1)
+    diff = (out.float() - want.float()).abs()
+    fwd_err = diff.max().item()
+    clean = (m == 0).expand_as(w)
+    if not torch.equal(out[clean], w[clean]):
+        raise SystemExit(f"uniq_noise_fwd CLEAN is not the identity: {where}")
+    frozen = (m == 2).expand_as(w)
+    flips = int((out[frozen] != want[frozen]).sum().item())
+    n_frozen = int(frozen.sum().item())
+    noise_sigma = 0.0
+    noisy = (m == 1).expand_as(w)
+    if noisy.any():
+        rel = diff / sigma
+        if dtype == torch.bfloat16:
+            # one bf16 rounding step of the result is allowed: subtract it
+            ulp = want.float().abs() * 2.0 ** -8
+            rel = (diff - ulp).clamp_min(0.0) / sigma
+        noise_sigma = rel[noisy].max().item()
+        if noise_sigma > TOL_UNIQ_NOISE_SIGMA:
+            raise SystemExit(f"uniq_noise_fwd NOISE disagrees with its plain "
+                             f"version by {noise_sigma:.3e} sigma > "
+                             f"{TOL_UNIQ_NOISE_SIGMA}: {where}")
+    del again, diff, clean
+    # backward, on the kernel's own w_hat so both sides see one input
+    g = torch.randn((G, R, C), generator=gen, device=DEV).to(dtype)
+    dw = un.uniq_noise_bwd(g, w, out, mu, sigma, mode)
+    dw2 = un.uniq_noise_bwd(g, w, out, mu, sigma, mode)
+    sync()
+    dw_want = un.uniq_noise_bwd_plain(g, w, out, mu, sigma, mode)
+    if not torch.equal(dw, dw2):
+        raise SystemExit(f"uniq_noise_bwd is not deterministic: {where}")
+    bdiff = (dw.float() - dw_want.float()).abs()
+    bwd_err = bdiff.max().item()
+    step = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    bwd_rel = ((bdiff - step * dw_want.float().abs()).clamp_min(0.0)
+               / dw_want.float().abs().clamp_min(1e-30)).max().item()
+    if not torch.isfinite(dw).all() or bwd_rel > TOL_UNIQ_BWD_REL:
+        raise SystemExit(f"uniq_noise_bwd disagrees with its plain version: "
+                         f"rel {bwd_rel:.3e} > {TOL_UNIQ_BWD_REL}: {where}")
+    if (dw[frozen] != 0).any():
+        raise SystemExit(f"uniq_noise_bwd FROZEN gradient is not zero: "
+                         f"{where}")
+    res = dict(fwd_err=fwd_err if dtype == torch.float32 else 0.0,
+               bwd_err=bwd_err if dtype == torch.float32 else 0.0,
+               flips=flips, n_frozen=n_frozen, noise_sigma=noise_sigma,
+               bwd_rel=bwd_rel)
+    del w, mu, sigma, mode, e01, out, want, g, dw, dw2, dw_want, bdiff
+    del frozen, noisy
+    return res
+
+
 # --------------------------------------------------------------------------
 # Phase 4/5: the engine at full width
 # --------------------------------------------------------------------------
@@ -418,7 +596,7 @@ def engine_phase(cfg, seed: int, new_tokens: int):
         f"({L} layers x {steps} decode steps = {want_att})")
     if counts["qmatmul"] != want_qmm \
             or counts["paged_quant_attention"] != want_att \
-            or min(counts.values()) <= 0:
+            or min(want_qmm, want_att) <= 0:
         raise SystemExit("the main path did not go through the kernels as "
                          "expected")
     if st["cache_hits"] < 1 or st["cow_copies"] < 1:
@@ -431,6 +609,7 @@ def engine_phase(cfg, seed: int, new_tokens: int):
     say(f"[engine] {new} new tokens in {wall:.2f}s -> {new / wall:.1f} "
         f"tok/s; TTFT p50 {ttft['p50']:.0f} ms p95 {ttft['p95']:.0f} ms; "
         f"ITL p50 {itl['p50']:.1f} ms p95 {itl['p95']:.1f} ms")
+    check_head_logits(params, cfg, opts)
     return params, opts, outs, counts
 
 
@@ -524,6 +703,276 @@ def small_reference_phase(seed: int):
                                  f"the CPU reference")
 
 
+def check_head_logits(params, cfg, opts):
+    """The dense bf16 LM head (49155 columns cannot be int4-packed, so it
+    stays dense) gives f32 logits: bf16 x bf16 products summed in f32, not
+    rounded to bf16 afterwards."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(7)
+    x = torch.randn((16, cfg.d_model), generator=g,
+                    device=DEV).to(torch.bfloat16)
+    logits = lm._logits(x, params, cfg, opts)
+    w = params["lm_head"]
+    if lm.is_qweight(w) or w.dtype != torch.bfloat16:
+        raise SystemExit("the full-width LM head was expected dense bf16")
+    want = x.float() @ w.float()
+    sync()
+    err = (logits - want).abs().max().item()
+    rounding = (want.to(torch.bfloat16).float() - want).abs().max().item()
+    tol = TOL_HEAD_F32_REL * want.abs().max().item()
+    say(f"[engine] LM head logits {tuple(logits.shape)} {logits.dtype}: max "
+        f"abs err vs f32 products {err:.2e} (tolerance {tol:.2e}); a bf16 "
+        f"rounding of them would be {rounding:.2e} off")
+    if logits.dtype != torch.float32 or err > tol:
+        raise SystemExit("the LM head's logits are not the f32 sums")
+
+
+# --------------------------------------------------------------------------
+# The trainer at full width
+# --------------------------------------------------------------------------
+
+# quantized leaves of the dense decoder: the embedding, the 7 stacked
+# matmul leaves (wq, wk, wv, wo, w_gate, w_up, w_down) and the LM head
+TRAIN_LEAVES = 9
+
+
+def train_setup(layers: int, steps: int, seed: int, smoke: bool = False):
+    """The trainer CLI's own configuration (``launch/train.py`` defaults:
+    f32, AdamW lr 1e-3, batch 8 x seq 64, W4, one gradual block per
+    layer), its depth cut to ``layers``."""
+    argv = ["--arch", "granite_3_8b", "--steps", str(steps), "--seed",
+            str(seed)] + (["--smoke"] if smoke else [])
+    args = train_cli.parse_args(argv)
+    cfg, opts, tc = train_cli.setup(args)
+    if not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    data = LMStreamConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                          global_batch=args.batch, seed=seed)
+    return cfg, opts, tc, data
+
+
+def train_plain_check(state, cfg, opts, tc, data, sched, seed, step):
+    """Loss and gradients of one step from ``state``, kernels vs plain
+    versions forced, on the same batch and noise."""
+    modes = sched.modes_at(step)
+    batch = lm_batch(data, step, device=DEV)
+    res = {}
+    for name, use in (("kernels", True), ("plain", False)):
+        before = kops.launch_counts()
+        res[name] = train_steps.loss_and_grads(
+            state["params"], batch, modes, leaf_noise(seed, step), cfg,
+            dataclasses.replace(opts, use_kernels=use), tc)
+        sync()
+        if not use and kops.launch_counts() != before:
+            raise SystemExit("use_kernels=False launched a kernel")
+    (lk, gk), (lp, gp) = res["kernels"], res["plain"]
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    worst = 0.0
+    for (path, a), (_, b) in zip(tree_lib.leaves_with_paths(gk),
+                                 tree_lib.leaves_with_paths(gp)):
+        rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+        if not torch.isfinite(a).all() or rel > TOL_TRAIN_PLAIN_GRAD_REL:
+            raise SystemExit(f"train step gradient of {path}: kernels vs "
+                             f"plain versions {rel:.3e} > "
+                             f"{TOL_TRAIN_PLAIN_GRAD_REL}")
+    say(f"[train] step {step} (modes {modes.tolist()}) loss and gradients, "
+        f"kernels vs plain versions forced: loss {lk.item():.6f} vs "
+        f"{lp.item():.6f} (rel {loss_rel:.1e}, tolerance "
+        f"{TOL_TRAIN_PLAIN_LOSS_REL}); worst gradient leaf max |diff| / max "
+        f"|grad| {worst:.1e} (tolerance {TOL_TRAIN_PLAIN_GRAD_REL})")
+    if loss_rel > TOL_TRAIN_PLAIN_LOSS_REL:
+        raise SystemExit("train step loss: kernels disagree with the plain "
+                         "versions")
+
+
+def _frozen_snapshot(state, modes):
+    """Copies of what one step must leave untouched under ``modes``: the
+    quantized slices of the first FROZEN layer (parameters and the
+    momentum of w_down), and the embedding / head when FROZEN."""
+    params, mu = state["params"], state["opt"]["mu"]
+    snap = {}
+    frozen = [l for l, m in enumerate(modes.tolist()) if m == FROZEN]
+    if frozen:
+        l = frozen[0]
+        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            snap[f"layers/{name}[{l}]"] = (
+                lambda st, n=name: st["params"]["layers"][n][l],
+                params["layers"][name][l].clone())
+        snap[f"opt/mu/layers/w_down/m[{l}]"] = (
+            lambda st: st["opt"]["mu"]["layers"]["w_down"]["m"][l],
+            mu["layers"]["w_down"]["m"][l].clone())
+    if modes[0] == FROZEN:
+        snap["embed"] = (lambda st: st["params"]["embed"],
+                         params["embed"].clone())
+    if modes[-1] == FROZEN:
+        snap["lm_head"] = (lambda st: st["params"]["lm_head"],
+                           params["lm_head"].clone())
+    return snap
+
+
+def train_phase(seed: int, layers: int, steps: int):
+    """The main path of training: ``steps`` steps of the trainer at full
+    width, then one all-FROZEN ``eval_step``.  Returns the launch counts of
+    the steps and the step times."""
+    cfg, opts, tc, data = train_setup(layers, steps, seed)
+    step_fn, sched = train_steps.make_train_step(cfg, opts, tc)
+    say(f"[train] granite_3_8b at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}), depth cut to {cfg.n_layers} of 40 layers (f32 AdamW "
+        f"state for 40 layers, ~8.4 B params x 16 B, exceeds 80 GB); f32, "
+        f"{tc.optim.kind} lr {tc.optim.lr}, batch {data.global_batch} x seq "
+        f"{data.seq_len}, W{tc.uniq.w_bits}, {sched.n_stages} gradual stages "
+        f"of {sched.steps_per_stage} step(s), {steps} steps")
+    t0 = time.perf_counter()
+    state = train_steps.init_state(seed, cfg, tc, device=DEV)
+    sync()
+    n_params = sum(t.numel() for t in tree_lib.leaves(state["params"]))
+    say(f"[train] state drawn on the card in {time.perf_counter() - t0:.1f}s:"
+        f" {n_params / 1e9:.3f} B parameters; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    # all three modes at once: layers < 3 FROZEN, 3 NOISE, > 3 CLEAN
+    train_plain_check(state, cfg, opts, tc, data, sched, seed,
+                      min(3, steps - 1))
+    torch.cuda.reset_peak_memory_stats()
+
+    kops.reset_launch_counts()
+    times = []
+    for step in range(steps):
+        modes = sched.modes_at(step)
+        snap = _frozen_snapshot(state, modes)
+        noisy = [l for l, m in enumerate(modes.tolist()) if m == 1]
+        probe = state["params"]["layers"]["wq"][noisy[0]].clone() \
+            if noisy else None
+        before = kops.launch_counts()
+        t0 = time.perf_counter()
+        batch = lm_batch(data, step, device=DEV)
+        state, m = step_fn(state, batch, seed)
+        loss = float(m["loss"])
+        sync()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        after = kops.launch_counts()
+        nf = after["uniq_noise_fwd"] - before["uniq_noise_fwd"]
+        nb = after["uniq_noise_bwd"] - before["uniq_noise_bwd"]
+        kept = sum(torch.equal(get(state), old)
+                   for get, old in snap.values())
+        say(f"[train] step {step} modes {modes.tolist()}: loss {loss:.4f}, "
+            f"grad norm {float(m['grad_norm']):.4f}, lr "
+            f"{float(m['lr']):.3e}, {dt * 1e3:.0f} ms; uniq_noise launches "
+            f"fwd {nf} bwd {nb}; FROZEN tensors unchanged {kept}/"
+            f"{len(snap)}")
+        if not math.isfinite(loss):
+            raise SystemExit(f"train step {step}: loss is not finite")
+        if nf != TRAIN_LEAVES or nb != TRAIN_LEAVES:
+            raise SystemExit(f"train step {step}: expected {TRAIN_LEAVES} "
+                             f"uniq_noise launches forward and backward")
+        if kept != len(snap):
+            raise SystemExit(f"train step {step}: a FROZEN slice changed")
+        if probe is not None and torch.equal(
+                state["params"]["layers"]["wq"][noisy[0]], probe):
+            raise SystemExit(f"train step {step}: the NOISE layer did not "
+                             f"move")
+        del snap, probe
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(times[1:]))
+    say(f"[train] {steps} steps: median step {med * 1e3:.0f} ms after the "
+        f"first ({times[0] * 1e3:.0f} ms); peak {peak:.1f} GiB allocated; "
+        f"launches uniq_noise_fwd {counts['uniq_noise_fwd']}, "
+        f"uniq_noise_bwd {counts['uniq_noise_bwd']}")
+    before = kops.launch_counts()
+    ev = train_steps.eval_step(cfg, opts)(state["params"],
+                                          lm_batch(data, steps, device=DEV),
+                                          tc.uniq.w_bits)
+    ev = float(ev)
+    n_ev = kops.launch_counts()["uniq_noise_fwd"] - before["uniq_noise_fwd"]
+    say(f"[train] eval_step (every quantized weight FROZEN, W4): loss "
+        f"{ev:.4f}; uniq_noise_fwd launches {n_ev}")
+    if not math.isfinite(ev) or n_ev != TRAIN_LEAVES:
+        raise SystemExit("eval_step failed")
+    train_profile(state, step_fn, data, steps, seed)
+    return counts, times
+
+
+def train_profile(state, step_fn, data, step, seed):
+    """Device time of one more step by kernel (torch.profiler), and the
+    device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    batch = lm_batch(data, step, device=DEV)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
+        step_fn(state, batch, seed)
+        sync()
+        wall = time.perf_counter() - t0
+    events = tp.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    groups = {}
+    for e in kernels:
+        n = e.key.lower()
+        g = ("uniq_noise_fwd" if "uniq_fwd" in n else
+             "uniq_noise_bwd" if "uniq_bwd" in n else
+             "matmul (cuBLAS)" if "gemm" in n or "xmma" in n
+             or "cutlass" in n else
+             "random (noise draw)" if "philox" in n or "random" in n
+             or "uniform" in n else "other (elementwise, reductions)")
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total
+    say(f"[profile] one train step: device busy {dev_us / 1e3:.1f} ms of "
+        f"{wall * 1e3:.1f} ms wall ({100 * dev_us / 1e3 / (wall * 1e3):.1f}"
+        f"%); by kind: " + ", ".join(
+            f"{g} {us / 1e3:.1f} ms" for g, us in
+            sorted(groups.items(), key=lambda kv: -kv[1])))
+    say(events.table(sort_by="self_device_time_total", row_limit=14,
+                     max_name_column_width=60))
+
+
+def small_train_phase(seed: int):
+    """A tiny f32 train step on the card (kernels) against the same step on
+    the CPU (plain versions): one SGD step from one state, on one batch and
+    one noise draw (made on the CPU and copied)."""
+    cfg, opts, tc, data = train_setup(0, 8, seed, smoke=True)
+    tc = dataclasses.replace(tc, optim=dataclasses.replace(tc.optim,
+                                                           kind="sgd"))
+    step_fn, sched = train_steps.make_train_step(cfg, opts, tc)
+    st_cpu = train_steps.init_state(seed, cfg, tc, device="cpu")
+    st_gpu = convert.train_state_from_numpy(
+        convert.train_state_to_numpy(st_cpu), device=DEV)
+    start = {p: t.clone() for p, t in
+             tree_lib.leaves_with_paths(st_cpu["params"])}
+    draw = leaf_noise(seed, 0)
+
+    def noise(path, leaf):
+        return draw(path, torch.empty(leaf.shape)).to(leaf.device)
+
+    batch = lm_batch(data, 0, device="cpu")
+    res = []
+    for st, dev in ((st_cpu, "cpu"), (st_gpu, DEV)):
+        st, m = step_fn(st, {k: v.to(dev) for k, v in batch.items()}, seed,
+                        noise=noise)
+        res.append((float(m["loss"]), {p: t.cpu() for p, t in
+                                       tree_lib.leaves_with_paths(
+                                           st["params"])}))
+    loss_rel = abs(res[0][0] - res[1][0]) / abs(res[0][0])
+    worst = 0.0
+    for p, t0 in start.items():
+        u_cpu, u_gpu = res[0][1][p] - t0, res[1][1][p] - t0
+        scale = u_cpu.abs().max().clamp_min(1e-30)
+        worst = max(worst, ((u_gpu - u_cpu).abs().max() / scale).item())
+    say(f"[small] {cfg.name} f32 SGD train step (modes "
+        f"{sched.modes_at(0).tolist()}), card vs CPU: loss rel diff "
+        f"{loss_rel:.1e} (tolerance {TOL_SMALL_TRAIN_LOSS_REL}); worst leaf "
+        f"update max |diff| / max |update| {worst:.1e} (tolerance "
+        f"{TOL_SMALL_TRAIN_UPDATE_REL})")
+    if loss_rel > TOL_SMALL_TRAIN_LOSS_REL \
+            or worst > TOL_SMALL_TRAIN_UPDATE_REL:
+        raise SystemExit("the tiny train step on the card disagrees with "
+                         "the CPU")
+
+
 # --------------------------------------------------------------------------
 # Phase 6: times
 # --------------------------------------------------------------------------
@@ -599,6 +1048,52 @@ def time_attention(gen, kv_bits, ctx_rows):
                 bound_by=by, bytes=nbytes, host_us=host)
 
 
+# f32 operations per element, CUDA's erff and erfinvf polynomials included
+# (an estimate from their source: the byte bound is several times larger)
+UNIQ_FWD_OPS = 40
+UNIQ_BWD_OPS = 12
+
+
+def uniq_bound(n, nbytes_per_elem, ops_per_elem, n_stats):
+    nbytes = n * nbytes_per_elem + 2 * n_stats * 4
+    t_b = nbytes / PEAK_BYTES_PER_S
+    t_f = n * ops_per_elem / PEAK_FLOPS["f32"]
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"), \
+        nbytes
+
+
+def time_uniq(gen, G, R, C, modes):
+    """Forward and backward kernels and their plain versions at one f32
+    leaf shape of the main path, per-group statistics as the trainer fits
+    them.  One leaf is hundreds of MB, far beyond the L2 cache."""
+    w, mu, sigma, mode, e01 = make_uniq_inputs(gen, G, R, C, torch.float32,
+                                               False, modes)
+    g = torch.randn((G, R, C), generator=gen, device=DEV)
+    w_hat = un.uniq_noise_fwd(w, mu, sigma, mode, e01, k=16)
+    calls = {
+        "fwd": (lambda: un.uniq_noise_fwd(w, mu, sigma, mode, e01, k=16),
+                lambda: un.uniq_noise_fwd_plain(w, mu, sigma, mode, e01,
+                                                k=16)),
+        "bwd": (lambda: un.uniq_noise_bwd(g, w, w_hat, mu, sigma, mode),
+                lambda: un.uniq_noise_bwd_plain(g, w, w_hat, mu, sigma,
+                                                mode))}
+    r = {key: dict(ms=time_ms([kernel]), host_us=host_us(kernel),
+                   plain_ms=time_ms([plain], warmup=1, iters=3))
+         for key, (kernel, plain) in calls.items()}
+    n = G * R * C
+    # what this input needs: e01 is read for NOISE groups only
+    n_noise = R * C * sum(1 for m in modes if m == 1)
+    f_bytes = (n * 8 + n_noise * 4) / n
+    for key, nb, ops in (("fwd", f_bytes, UNIQ_FWD_OPS),
+                         ("bwd", 16, UNIQ_BWD_OPS)):
+        r[key]["bound_ms"], r[key]["bound_by"], r[key]["bytes"] = uniq_bound(
+            n, nb, ops, G)
+        r[key]["library_ms"] = None
+    del w, mu, sigma, mode, e01, w_hat, g, calls
+    torch.cuda.empty_cache()
+    return r
+
+
 def timing_phase(gen, counts, errs):
     rows = {}
     for bits in (4, 8):
@@ -625,8 +1120,22 @@ def timing_phase(gen, counts, errs):
                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
                 f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.3f} ms; "
                 f"host enqueue {r['host_us']:.0f} us per call")
+    L = counts["train_layers"]
+    for (G, R, C) in ((L, 4096, 12800), (L, 12800, 4096), (L, 4096, 4096),
+                      (1, 4096, 49155)):
+        for modes in ([1] * G, [m % 3 for m in range(G)]):
+            r = time_uniq(gen, G, R, C, modes)
+            rows[("uniq", G, R, C, tuple(modes))] = r
+            for key in ("fwd", "bwd"):
+                t = r[key]
+                say(f"[time] uniq_noise_{key} f32 G={G} R={R} C={C} modes "
+                    f"{modes}: kernel {t['ms']:.4f} ms, bound "
+                    f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                    f"{t['bytes'] / 1e6:.1f} MB), plain {t['plain_ms']:.3f} "
+                    f"ms; host enqueue {t['host_us']:.0f} us per call")
     q = rows[("qmatmul", 4, 16, 4096, 12800)]
     a = rows[("attn", 8, 2048)]
+    u = rows[("uniq", L, 4096, 12800, (1,) * L)]
 
     def entry(name, source, replaces, r):
         return {"name": name, "route": "cuda", "source": source,
@@ -640,7 +1149,11 @@ def timing_phase(gen, counts, errs):
               "src/repro/kernels/qmatmul.py:182", q),
         entry("paged_quant_attention",
               "src/repro_torch/kernels/csrc/paged_attn.cu",
-              "src/repro/kernels/paged_attn.py:227", a)]}
+              "src/repro/kernels/paged_attn.py:227", a),
+        entry("uniq_noise_fwd", "src/repro_torch/kernels/csrc/uniq_noise.cu",
+              "src/repro/kernels/uniq_noise.py:123", u["fwd"]),
+        entry("uniq_noise_bwd", "src/repro_torch/kernels/csrc/uniq_noise.cu",
+              "src/repro/kernels/ops.py:72", u["bwd"])]}
 
 
 def profile_phase(cfg, seed: int, new_tokens: int):
@@ -719,6 +1232,10 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=40,
                     help="depth of the full-width model (default: all 40)")
     ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--train-layers", type=int, default=8,
+                    help="depth of the full-width train run (default 8: "
+                         "f32 AdamW state for all 40 exceeds 80 GB)")
+    ap.add_argument("--train-steps", type=int, default=10)
     ap.add_argument("--quick", action="store_true",
                     help="build + a reduced kernel check, then stop")
     ap.add_argument("--sweep", action="store_true",
@@ -770,7 +1287,6 @@ def main(argv=None) -> int:
         say("sweep run: stopped after the tuning sweep")
         return 0
     if args.profile:
-        import dataclasses
         profile_phase(dataclasses.replace(cb.get("granite_3_8b"),
                                           n_layers=args.layers), args.seed,
                       args.new_tokens)
@@ -779,9 +1295,10 @@ def main(argv=None) -> int:
         return 0
     errs = {"qmatmul": check_qmatmul(gen, args.quick),
             "paged_quant_attention": check_attention(gen, args.quick)}
-    say(f"[kernels] max abs err vs plain versions: qmatmul "
-        f"{errs['qmatmul']:.3e}, paged_quant_attention "
-        f"{errs['paged_quant_attention']:.3e}")
+    errs["uniq_noise_fwd"], errs["uniq_noise_bwd"] = check_uniq(
+        gen, args.quick, args.train_layers)
+    say("[kernels] max abs err vs plain versions: " + ", ".join(
+        f"{n} {e:.3e}" for n, e in errs.items()))
     if args.quick:
         say(card)
         say("quick run: stopped after the kernel checks")
@@ -789,7 +1306,6 @@ def main(argv=None) -> int:
 
     cfg = cb.get("granite_3_8b")
     if args.layers != cfg.n_layers:
-        import dataclasses
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     params, opts, outs, counts = engine_phase(cfg, args.seed,
                                               args.new_tokens)
@@ -797,6 +1313,13 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
     small_reference_phase(args.seed)
+    train_counts, _ = train_phase(args.seed, args.train_layers,
+                                  args.train_steps)
+    torch.cuda.empty_cache()
+    small_train_phase(args.seed)
+    counts = dict(counts, uniq_noise_fwd=train_counts["uniq_noise_fwd"],
+                  uniq_noise_bwd=train_counts["uniq_noise_bwd"],
+                  train_layers=args.train_layers)
     line = timing_phase(gen, counts, errs)
 
     say(card)

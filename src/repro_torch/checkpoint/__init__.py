@@ -1,0 +1,1 @@
+"""Atomic checkpoints in the reference's on-disk layout."""

@@ -1,0 +1,355 @@
+// UNIQ noise-injection / freeze transform and its gradient, for sm_90a.
+//
+// Forward, per element of w (G, R, C), with mode m = mode[g] of its group:
+//   z = (w - mu) / sigma,   u = clip(Phi(z), eps, 1 - eps)
+//   NOISE : w_hat = mu + sigma * sqrt2 * erfinv(2 clip(u + (e01 - 1/2)/k) - 1)
+//   FROZEN: w_hat = mu + sigma * table[clip(floor(u k), 0, k - 1)]
+//   CLEAN : w_hat = w
+// Backward, from (g, w, w_hat) alone (the noise is not kept):
+//   dw = g * { NOISE : exp(clip((zh^2 - z^2) / 2, -30, 30)), 0 where
+//                      |zh| >= 4.75 (u + e sat on its clamp);
+//              CLEAN : 1;   FROZEN : 0 }
+// with zh = (w_hat - mu) / sigma and the factor rounded to g's type first.
+//
+// Replaces the TPU kernel `uniq_noise_fwd` of src/repro/kernels/uniq_noise.py
+// (`_kernel_host`, `_body`) and the jnp backward `_uniq_bwd` of
+// src/repro/kernels/ops.py.  Statistics are (G, 1, C) (per column) or
+// (G, 1, 1) (per group); `table` holds the k standardized levels
+// Phi^-1((c + 1/2) / k), built once by the caller, so FROZEN runs no erfinv.
+//
+// What bounds it: bytes.  The forward reads w and e01 and writes w_hat (12 B
+// per f32 element), the backward reads g, w, w_hat and writes dw (16 B); the
+// per-element arithmetic (erff + erfinvf, or expf, and a dozen operations)
+// stays under the memory time.  What the design does about it: one flat
+// grid-stride pass in which a thread takes runs of 4 consecutive elements
+// with 16-byte loads (8-byte for bf16 weights) and a scalar tail; the group
+// and column of a run's first element are computed once and advanced element
+// by element, so any C works -- the LM head's 49155 columns included -- and
+// no padded copy is made.  The mode is read per element from the device
+// array (an L1 hit; no host sync), the statistics by column or by group.
+//
+// Bit-exactness: every step is one correctly rounded f32 operation
+// (__fmul_rn / __fdiv_rn / __fadd_rn / __fsub_rn, which nvcc does not
+// contract into FMAs) in the order of the plain version
+// (ref.uniq_transform_ref / ref.uniq_grad_ref), so FROZEN outputs equal the
+// plain version's wherever erff equals torch's erf, and NOISE differs only by
+// erfinvf against torch's own erfinv.
+//
+// Plain C interface; the caller allocates every buffer and passes the stream.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int CLEAN = 0;
+constexpr int NOISE = 1;
+constexpr float EPS = 1e-6f;
+constexpr float ONE_MINUS_EPS = 0.999999f;
+constexpr float SQRT2 = 1.4142135623730951f;
+constexpr float RSQRT2 = 0.7071067811865476f;
+constexpr float RAIL_Z = 4.75f;
+constexpr int VEC = 4;
+constexpr int THREADS = 256;
+constexpr int MAX_BLOCKS = 4096;
+constexpr int MAX_K = 256;
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float bf16_bits_to_f(uint32_t bits16) {
+  return __uint_as_float(bits16 << 16);
+}
+
+__device__ __forceinline__ uint32_t f_to_bf16_bits(float x) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// value of a T as f32, and f32 rounded to T
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// four consecutive elements, 16-byte (f32) or 8-byte (bf16) aligned
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  o[0] = bf16_bits_to_f(v.x & 0xFFFFu);
+  o[1] = bf16_bits_to_f(v.x >> 16);
+  o[2] = bf16_bits_to_f(v.y & 0xFFFFu);
+  o[3] = bf16_bits_to_f(v.y >> 16);
+}
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  uint2 o;
+  o.x = f_to_bf16_bits(v[0]) | (f_to_bf16_bits(v[1]) << 16);
+  o.y = f_to_bf16_bits(v[2]) | (f_to_bf16_bits(v[3]) << 16);
+  *reinterpret_cast<uint2*>(p) = o;
+}
+
+// Position of a flat element: its group g, its offset in the group, its
+// column; advanced one element at a time.
+struct Pos {
+  int64_t g, rem;
+  int col;
+  __device__ __forceinline__ Pos(int64_t i, int64_t rc, int c) {
+    g = i / rc;
+    rem = i - g * rc;
+    col = (int)(rem % c);
+  }
+  __device__ __forceinline__ void next(int64_t rc, int c) {
+    if (++col == c) col = 0;
+    if (++rem == rc) {
+      rem = 0;
+      ++g;
+    }
+  }
+  __device__ __forceinline__ int64_t stat(int per_col, int c) const {
+    return per_col ? g * c + col : g;
+  }
+};
+
+__device__ __forceinline__ float fwd_elem(float w, float mu, float sigma,
+                                          float e01, int mode, float kf,
+                                          float inv_k, float kmax,
+                                          const float* s_table) {
+  if (mode == CLEAN) return w;
+  const float z = __fdiv_rn(__fsub_rn(w, mu), sigma);
+  const float u = clampf(
+      __fmul_rn(0.5f, __fadd_rn(1.0f, erff(__fmul_rn(z, RSQRT2)))), EPS,
+      ONE_MINUS_EPS);
+  if (mode == NOISE) {
+    const float un = clampf(
+        __fadd_rn(u, __fmul_rn(__fsub_rn(e01, 0.5f), inv_k)), EPS,
+        ONE_MINUS_EPS);
+    const float x = __fsub_rn(__fmul_rn(2.0f, un), 1.0f);
+    return __fadd_rn(mu, __fmul_rn(sigma, __fmul_rn(SQRT2, erfinvf(x))));
+  }
+  const float c = clampf(floorf(__fmul_rn(u, kf)), 0.0f, kmax);
+  return __fadd_rn(mu, __fmul_rn(sigma, s_table[(int)c]));
+}
+
+template <typename T, bool VECTOR>
+__global__ void __launch_bounds__(THREADS)
+uniq_fwd_kernel(const T* __restrict__ w, const float* __restrict__ e01,
+                const float* __restrict__ mu, const float* __restrict__ sigma,
+                const int* __restrict__ mode, const float* __restrict__ table,
+                T* __restrict__ out, int64_t n, int64_t rc, int c,
+                int per_col, int k) {
+  __shared__ float s_table[MAX_K];
+  for (int i = threadIdx.x; i < k; i += blockDim.x) s_table[i] = table[i];
+  __syncthreads();
+  const float kf = (float)k;
+  const float inv_k = 1.0f / kf;  // exact: k is a power of two
+  const float kmax = (float)(k - 1);
+  const int64_t n_runs = (n + VEC - 1) / VEC;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t run = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       run < n_runs; run += stride) {
+    const int64_t i0 = run * VEC;
+    const bool full = VECTOR && i0 + VEC <= n;
+    float wv[VEC], ev[VEC], ov[VEC];
+    if (full) {
+      load4(w + i0, wv);
+      load4(e01 + i0, ev);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const bool in = i0 + j < n;
+        wv[j] = in ? to_f(w[i0 + j]) : 0.0f;
+        ev[j] = in ? e01[i0 + j] : 0.5f;
+      }
+    }
+    Pos pos(i0, rc, c);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      if (i0 + j < n) {
+        const int64_t s = pos.stat(per_col, c);
+        ov[j] = fwd_elem(wv[j], __ldg(mu + s), __ldg(sigma + s), ev[j],
+                         __ldg(mode + pos.g), kf, inv_k, kmax, s_table);
+        pos.next(rc, c);
+      }
+    }
+    if (full) {
+      store4(out + i0, ov);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        if (i0 + j < n) out[i0 + j] = from_f<T>(ov[j]);
+    }
+  }
+}
+
+__device__ __forceinline__ float bwd_factor(float w, float wh, float mu,
+                                            float sigma, int mode) {
+  if (mode != NOISE) return mode == CLEAN ? 1.0f : 0.0f;
+  const float z = __fdiv_rn(__fsub_rn(w, mu), sigma);
+  const float zh = __fdiv_rn(__fsub_rn(wh, mu), sigma);
+  const float d = clampf(
+      __fmul_rn(0.5f, __fsub_rn(__fmul_rn(zh, zh), __fmul_rn(z, z))), -30.0f,
+      30.0f);
+  return fabsf(zh) >= RAIL_Z ? 0.0f : expf(d);
+}
+
+template <typename T, bool VECTOR>
+__global__ void __launch_bounds__(THREADS)
+uniq_bwd_kernel(const T* __restrict__ g, const T* __restrict__ w,
+                const T* __restrict__ w_hat, const float* __restrict__ mu,
+                const float* __restrict__ sigma, const int* __restrict__ mode,
+                T* __restrict__ dw, int64_t n, int64_t rc, int c,
+                int per_col) {
+  const int64_t n_runs = (n + VEC - 1) / VEC;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t run = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       run < n_runs; run += stride) {
+    const int64_t i0 = run * VEC;
+    const bool full = VECTOR && i0 + VEC <= n;
+    float gv[VEC], wv[VEC], hv[VEC], ov[VEC];
+    if (full) {
+      load4(g + i0, gv);
+      load4(w + i0, wv);
+      load4(w_hat + i0, hv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const bool in = i0 + j < n;
+        gv[j] = in ? to_f(g[i0 + j]) : 0.0f;
+        wv[j] = in ? to_f(w[i0 + j]) : 0.0f;
+        hv[j] = in ? to_f(w_hat[i0 + j]) : 0.0f;
+      }
+    }
+    Pos pos(i0, rc, c);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      if (i0 + j < n) {
+        const int64_t s = pos.stat(per_col, c);
+        const float f = bwd_factor(wv[j], hv[j], __ldg(mu + s),
+                                   __ldg(sigma + s), __ldg(mode + pos.g));
+        // the factor is rounded to g's type first, then the product
+        ov[j] = __fmul_rn(gv[j], to_f(from_f<T>(f)));
+        pos.next(rc, c);
+      }
+    }
+    if (full) {
+      store4(dw + i0, ov);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        if (i0 + j < n) dw[i0 + j] = from_f<T>(ov[j]);
+    }
+  }
+}
+
+bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
+}
+
+unsigned grid_for(int64_t n) {
+  const int64_t runs = (n + VEC - 1) / VEC;
+  const int64_t blocks = (runs + THREADS - 1) / THREADS;
+  return (unsigned)(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS);
+}
+
+template <typename T>
+int fwd(const void* w, const float* e01, const float* mu, const float* sigma,
+        int per_col, const int* mode, const float* table, void* out, int k,
+        int64_t n, int64_t rc, int c, cudaStream_t stream) {
+  const T* wp = static_cast<const T*>(w);
+  T* op = static_cast<T*>(out);
+  const bool vec = aligned(w, VEC * sizeof(T)) && aligned(out, VEC * sizeof(T))
+                   && aligned(e01, VEC * sizeof(float));
+  const unsigned blocks = grid_for(n);
+  if (vec)
+    uniq_fwd_kernel<T, true><<<blocks, THREADS, 0, stream>>>(
+        wp, e01, mu, sigma, mode, table, op, n, rc, c, per_col, k);
+  else
+    uniq_fwd_kernel<T, false><<<blocks, THREADS, 0, stream>>>(
+        wp, e01, mu, sigma, mode, table, op, n, rc, c, per_col, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd(const void* g, const void* w, const void* w_hat, const float* mu,
+        const float* sigma, int per_col, const int* mode, void* dw,
+        int64_t n, int64_t rc, int c, cudaStream_t stream) {
+  const int a = VEC * sizeof(T);
+  const bool vec = aligned(g, a) && aligned(w, a) && aligned(w_hat, a) &&
+                   aligned(dw, a);
+  const unsigned blocks = grid_for(n);
+  if (vec)
+    uniq_bwd_kernel<T, true><<<blocks, THREADS, 0, stream>>>(
+        static_cast<const T*>(g), static_cast<const T*>(w),
+        static_cast<const T*>(w_hat), mu, sigma, mode, static_cast<T*>(dw), n,
+        rc, c, per_col);
+  else
+    uniq_bwd_kernel<T, false><<<blocks, THREADS, 0, stream>>>(
+        static_cast<const T*>(g), static_cast<const T*>(w),
+        static_cast<const T*>(w_hat), mu, sigma, mode, static_cast<T*>(dw), n,
+        rc, c, per_col);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int check_shape(long long G, long long R, long long C) {
+  if (G <= 0 || R <= 0 || C <= 0) return -2;
+  if (C > 0x7FFFFFFF) return -3;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" int uniq_noise_fwd_launch(const void* w, int w_bf16,
+                                     const float* e01, const float* mu,
+                                     const float* sigma, int per_col,
+                                     const int* mode, const float* table,
+                                     void* out, int k, long long G,
+                                     long long R, long long C,
+                                     void* stream_ptr) {
+  const int rc_ok = check_shape(G, R, C);
+  if (rc_ok != 0) return rc_ok;
+  if (k < 2 || k > MAX_K || (k & (k - 1))) return -4;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int64_t n = (int64_t)G * R * C;
+  const int64_t rc = (int64_t)R * C;
+  return w_bf16 ? fwd<__nv_bfloat16>(w, e01, mu, sigma, per_col, mode, table,
+                                     out, k, n, rc, (int)C, stream)
+                : fwd<float>(w, e01, mu, sigma, per_col, mode, table, out, k,
+                             n, rc, (int)C, stream);
+}
+
+extern "C" int uniq_noise_bwd_launch(const void* g, const void* w,
+                                     const void* w_hat, int bf16,
+                                     const float* mu, const float* sigma,
+                                     int per_col, const int* mode, void* dw,
+                                     long long G, long long R, long long C,
+                                     void* stream_ptr) {
+  const int rc_ok = check_shape(G, R, C);
+  if (rc_ok != 0) return rc_ok;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int64_t n = (int64_t)G * R * C;
+  const int64_t rc = (int64_t)R * C;
+  return bf16 ? bwd<__nv_bfloat16>(g, w, w_hat, mu, sigma, per_col, mode, dw,
+                                   n, rc, (int)C, stream)
+              : bwd<float>(g, w, w_hat, mu, sigma, per_col, mode, dw, n, rc,
+                           (int)C, stream);
+}

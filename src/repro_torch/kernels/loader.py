@@ -23,7 +23,8 @@ from typing import Dict, Iterable, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"qmatmul": "qmatmul.cu", "paged_attn": "paged_attn.cu"}
+SOURCES = {"qmatmul": "qmatmul.cu", "paged_attn": "paged_attn.cu",
+           "uniq_noise": "uniq_noise.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

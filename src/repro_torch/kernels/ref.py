@@ -2,8 +2,9 @@
 
 k-quantile codes, the k-entry level table and the analytic dequant: what the
 CPU tests hold against the JAX reference, and what the kernels' plain
-versions (each beside its kernel, in ``qmatmul.py`` and ``paged_attn.py``)
-are built from.
+versions (each beside its kernel, in ``qmatmul.py``, ``paged_attn.py`` and
+``uniq_noise.py``) are built from; plus the oracle of the UNIQ training
+transform and its gradient.
 """
 
 from __future__ import annotations
@@ -13,7 +14,17 @@ import functools
 import torch
 
 _SQRT2 = 1.4142135623730951
+# z / sqrt2 is taken as z * (1 / sqrt2) by the UNIQ transform: a product
+# rounds alike on every device and in the CUDA kernel, a division by a
+# Python scalar need not
+_RSQRT2 = 0.7071067811865476
 _EPS = 1e-6
+
+CLEAN, NOISE, FROZEN = 0, 1, 2
+
+# |z_hat| at which u + e sits on the [eps, 1 - eps] clamp (Phi^-1(1e-6) is
+# -4.753): the transform is flat there, so its gradient is zero
+_RAIL_Z = 4.75
 
 
 def phi(z: torch.Tensor) -> torch.Tensor:
@@ -74,3 +85,53 @@ def kquantile_dequant_ref(codes: torch.Tensor, mu: torch.Tensor,
     Applies the int8 storage offset for k == 256 (see code_offset)."""
     idx = codes.to(torch.int64) + code_offset(k)
     return (mu + sigma * level_table(k, codes.device)[idx]).to(dtype)
+
+
+def uniq_transform_ref(w: torch.Tensor, mu: torch.Tensor,
+                       sigma: torch.Tensor, e01: torch.Tensor,
+                       mode: torch.Tensor, k: int) -> torch.Tensor:
+    """Fused UNIQ 3-way transform (oracle of the ``uniq_noise`` kernel).
+
+    w     : (G, R, C) f32 or bf16 weights
+    mu    : (G, 1, C) or (G, 1, 1) f32;  sigma : same shape
+    e01   : (G, R, C) f32 U[0, 1) noise
+    mode  : (G,) int32 in {CLEAN, NOISE, FROZEN}, on w's device
+
+    CLEAN gives ``w``; NOISE ``F^-1(clip(F(w) + (e01 - 1/2) / k))``; FROZEN
+    the bin centre ``mu + sigma * level_table(k)[floor(F(w) k)]``.  Every
+    step is one f32 operation in the order the kernel performs it, so the
+    two agree to the bit wherever ``erf`` does (FROZEN) and differ only by
+    ``erfinv``'s implementation (NOISE).  ``1/k`` is exact: k is a power of
+    two.
+    """
+    z = (w.to(torch.float32) - mu) / sigma
+    u = torch.clamp(0.5 * (1.0 + torch.erf(z * _RSQRT2)), _EPS, 1.0 - _EPS)
+    u_noise = torch.clamp(u + (e01 - 0.5) * (1.0 / k), _EPS, 1.0 - _EPS)
+    codes = torch.clamp(torch.floor(u * k), 0, k - 1).to(torch.int64)
+    frozen = mu + sigma * level_table(k, w.device)[codes]
+    noisy = mu + sigma * (_SQRT2 * torch.erfinv(2.0 * u_noise - 1.0))
+    m = mode.reshape(-1, 1, 1)
+    w_hat = torch.where(m == NOISE, noisy, frozen).to(w.dtype)
+    return torch.where(m == CLEAN, w, w_hat)
+
+
+def uniq_grad_ref(g: torch.Tensor, w: torch.Tensor, w_hat: torch.Tensor,
+                  mu: torch.Tensor, sigma: torch.Tensor,
+                  mode: torch.Tensor) -> torch.Tensor:
+    """Gradient of ``uniq_transform_ref`` with respect to ``w``, from (w,
+    w_hat) alone (the noise is not kept): ``g * dw`` with
+
+        NOISE  : pdf(z) / pdf(z_hat) = exp(clip((z_hat^2 - z^2) / 2, +-30)),
+                 zero where |z_hat| >= 4.75 (u + e sat on its clamp);
+        CLEAN  : 1;
+        FROZEN : 0 (hard-quantized, stop-gradient).
+
+    ``dw`` is rounded to g's dtype before the product, as the reference's
+    custom VJP does."""
+    z = (w.to(torch.float32) - mu) / sigma
+    zh = (w_hat.to(torch.float32) - mu) / sigma
+    ratio = torch.exp(torch.clamp(0.5 * (zh * zh - z * z), -30.0, 30.0))
+    ratio = torch.where(zh.abs() >= _RAIL_Z, 0.0, ratio)
+    m = mode.reshape(-1, 1, 1)
+    dw = torch.where(m == NOISE, ratio, (m == CLEAN).to(torch.float32))
+    return g * dw.to(g.dtype)

@@ -1,0 +1,155 @@
+"""Fused UNIQ noise-injection / freeze transform and its gradient: CUDA
+kernels + plain PyTorch versions.
+
+Replaces the TPU kernel ``uniq_noise_fwd`` of
+``src/repro/kernels/uniq_noise.py`` and the backward ``_uniq_bwd`` of
+``src/repro/kernels/ops.py`` (jnp there; a kernel here, because as a dozen
+eager ops it would pass over every quantized weight element of the model on
+every training step).  The source is ``csrc/uniq_noise.cu`` (see its header
+for what bounds it and what the design does about that).  Both wrappers
+launch their kernel for CUDA tensors and take the plain version only for
+CPU tensors.
+
+Layout, as the reference's: weights ``(G, R, C)`` (G = stacked layers, 1
+for a plain tensor), statistics ``(G, 1, C)`` or ``(G, 1, 1)`` f32, mode
+``(G,)`` int32 on the weights' device, noise ``e01`` ``(G, R, C)`` f32 in
+[0, 1).  Any R and C: there is no divisibility condition.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import loader
+from repro_torch.kernels import ref as kref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def uniq_noise_fwd_plain(w, mu, sigma, mode, e01, *, k: int) -> torch.Tensor:
+    """Plain version of the forward (``ref.uniq_transform_ref``)."""
+    return kref.uniq_transform_ref(w, mu, sigma, e01, mode, k)
+
+
+def uniq_noise_bwd_plain(g, w, w_hat, mu, sigma, mode) -> torch.Tensor:
+    """Plain version of the backward (``ref.uniq_grad_ref``)."""
+    return kref.uniq_grad_ref(g, w, w_hat, mu, sigma, mode)
+
+
+def _check(w, mu, sigma, mode, others):
+    if w.ndim != 3:
+        raise ValueError(f"w must be (G, R, C), got {tuple(w.shape)}")
+    if w.dtype not in _DTYPES:
+        raise TypeError(f"w must be float32 or bfloat16, got {w.dtype}")
+    G, R, C = w.shape
+    for name, s in (("mu", mu), ("sigma", sigma)):
+        if s.dtype != torch.float32 or tuple(s.shape) not in (
+                (G, 1, C), (G, 1, 1)):
+            raise ValueError(f"{name} must be ({G}, 1, {C}) or ({G}, 1, 1) "
+                             f"float32, got {tuple(s.shape)} {s.dtype}")
+    if mu.shape != sigma.shape:
+        raise ValueError("mu and sigma must have one shape")
+    if tuple(mode.shape) != (G,) or mode.dtype != torch.int32:
+        raise ValueError(f"mode must be ({G},) int32, got "
+                         f"{tuple(mode.shape)} {mode.dtype}")
+    for name, t, dtype in others:
+        if tuple(t.shape) != (G, R, C) or t.dtype != dtype:
+            raise ValueError(f"{name} must be ({G}, {R}, {C}) {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for t in (mu, sigma, mode, *(o[1] for o in others)):
+        if t.device != w.device:
+            raise ValueError("all operands must live on one device")
+    if w.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"uniq_noise runs on cuda or cpu tensors, got "
+                           f"{w.device}")
+    return G, R, C
+
+
+def _require_contiguous(**tensors):
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+_FNS = {}
+
+
+def _bind(name: str):
+    """A C entry point of ``csrc/uniq_noise.cu``, built and bound at first
+    use."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(loader.load("uniq_noise"), name)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        if name == "uniq_noise_fwd_launch":
+            fn.argtypes = [p, i, p, p, p, i, p, p, p, i, ll, ll, ll, p]
+        else:
+            fn.argtypes = [p, p, p, i, p, p, i, p, p, ll, ll, ll, p]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return fn
+
+
+def uniq_noise_fwd(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
+                   mode: torch.Tensor, e01: torch.Tensor, *,
+                   k: int) -> torch.Tensor:
+    """w_hat (G, R, C) in w's dtype: CLEAN / NOISE / FROZEN per group.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version.  ``uniq_noise_fwd.launches`` counts kernel launches.
+    """
+    if k < 2 or k > 256 or k & (k - 1):
+        raise ValueError(f"k must be a power of two in [2, 256], got {k}")
+    G, R, C = _check(w, mu, sigma, mode, [("e01", e01, torch.float32)])
+    if w.device.type == "cpu":
+        return uniq_noise_fwd_plain(w, mu, sigma, mode, e01, k=k)
+    _require_contiguous(w=w, mu=mu, sigma=sigma, mode=mode, e01=e01)
+    fn = _bind("uniq_noise_fwd_launch")
+    table = kref.level_table(k, w.device)
+    with loader.on_device(w.device):
+        out = torch.empty_like(w)
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        rc = fn(w.data_ptr(), int(w.dtype == torch.bfloat16), e01.data_ptr(),
+                mu.data_ptr(), sigma.data_ptr(), int(mu.shape[-1] != 1),
+                mode.data_ptr(), table.data_ptr(), out.data_ptr(), k, G, R, C,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"uniq_noise_fwd kernel launch failed with code "
+                           f"{rc} (G={G}, R={R}, C={C}, k={k})")
+    uniq_noise_fwd.launches += 1
+    return out
+
+
+def uniq_noise_bwd(g: torch.Tensor, w: torch.Tensor, w_hat: torch.Tensor,
+                   mu: torch.Tensor, sigma: torch.Tensor,
+                   mode: torch.Tensor) -> torch.Tensor:
+    """dL/dw (G, R, C) from dL/dw_hat ``g``: the NOISE pdf ratio, 1 for
+    CLEAN, 0 for FROZEN (see ``ref.uniq_grad_ref``).  Needs no noise.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version.  ``uniq_noise_bwd.launches`` counts kernel launches.
+    """
+    G, R, C = _check(w, mu, sigma, mode, [("g", g, w.dtype),
+                                          ("w_hat", w_hat, w.dtype)])
+    if w.device.type == "cpu":
+        return uniq_noise_bwd_plain(g, w, w_hat, mu, sigma, mode)
+    _require_contiguous(g=g, w=w, w_hat=w_hat, mu=mu, sigma=sigma, mode=mode)
+    fn = _bind("uniq_noise_bwd_launch")
+    with loader.on_device(w.device):
+        dw = torch.empty_like(w)
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        rc = fn(g.data_ptr(), w.data_ptr(), w_hat.data_ptr(),
+                int(w.dtype == torch.bfloat16), mu.data_ptr(),
+                sigma.data_ptr(), int(mu.shape[-1] != 1), mode.data_ptr(),
+                dw.data_ptr(), G, R, C, stream)
+    if rc != 0:
+        raise RuntimeError(f"uniq_noise_bwd kernel launch failed with code "
+                           f"{rc} (G={G}, R={R}, C={C})")
+    uniq_noise_bwd.launches += 1
+    return dw
+
+
+uniq_noise_fwd.launches = 0
+uniq_noise_bwd.launches = 0

@@ -1,4 +1,5 @@
-"""Dense decoder-only LM: the serving path (prefill, chunked prefill, decode).
+"""Dense decoder-only LM: the training forward (``forward_train`` +
+``chunked_ce_loss``) and the serving path (prefill, chunked prefill, decode).
 
 Every per-layer parameter carries a leading (L,) axis and the forward pass
 is a Python loop over ``leaf[l]`` views.  Serving-time weights may be
@@ -16,6 +17,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import packing
@@ -40,6 +42,11 @@ class ModelOpts:
     a_bits: int = 32                  # activation fake-quant (32 = off)
     serve_a_bits: int = 32            # serving activation codec (32 = off)
     kv_bits: int = 16                 # 8/4 => k-quantile-coded KV cache
+    remat: bool = True                # training: recompute each layer in the
+                                      #   backward (torch.utils.checkpoint)
+    attn_chunked_min_len: int = 8192  # chunked attention from this S on
+                                      #   (not ported: raises)
+    ce_chunk: int = 1024              # cross-entropy chunk along S
     use_kernels: bool = True          # comparison hook: False computes every
                                       #   kernel's plain PyTorch version on
                                       #   whatever device the tensors are on
@@ -72,19 +79,38 @@ def materialize(w, dtype) -> torch.Tensor:
                                       2 ** bits, dtype=dtype)
 
 
+def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N) of one low-precision dtype, accumulated into
+    and returned as f32 (``jnp.dot(..., preferred_element_type=f32)``).
+    The products of two bf16 values are exact in f32, so widening first is
+    the same function; on the card ``aten::mm.dtype`` does it without the
+    widened copies."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.device.type == "cuda":
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = x2.to(torch.float32) @ w.to(torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def mm(x: torch.Tensor, w, use_kernels: bool = True,
        out_dtype=None) -> torch.Tensor:
     """x @ w where w is a dense tensor or a quantized-weight dict.
 
     A Gaussian-coded 2-D weight goes through ``qmatmul`` (the CUDA kernel
-    for CUDA tensors); a dense weight through ``torch.matmul``.
+    for CUDA tensors); a dense weight through ``torch.matmul``, its value
+    rounded to x's dtype first.  A low-precision x with an f32
+    ``out_dtype`` (the LM head) accumulates into f32 logits.
     """
     out_dtype = out_dtype or x.dtype
     if is_qweight(w) and "q_lut" not in w and w["q_codes"].ndim == 2:
         return kops.qmatmul(x, w["q_codes"], w["q_mu"], w["q_sigma"],
                             bits=_bits_of(w["q_codes"]), out_dtype=out_dtype,
                             use_kernel=use_kernels)
-    return torch.matmul(x, materialize(w, x.dtype)).to(out_dtype)
+    w = materialize(w, x.dtype)
+    if out_dtype == torch.float32 and x.dtype != torch.float32:
+        return _dot_f32(x, w)
+    return torch.matmul(x, w).to(out_dtype)
 
 
 def mm_a(x: torch.Tensor, w, opts: ModelOpts) -> torch.Tensor:
@@ -252,12 +278,20 @@ def _layer_view(layers, l: int):
 
 def unstack_layers(params, n_layers: int):
     """Shallow copy of ``params`` whose "layers" is a list of per-layer view
-    dicts (no data is copied).  The forward passes take either form; a
-    long-lived caller such as the engine unstacks once instead of slicing
-    every leaf on every call."""
+    dicts (``unbind``: no data is copied).  The forward passes take either
+    form; a long-lived caller such as the engine unstacks once instead of
+    slicing every leaf on every call.  Under autograd, ``unbind`` has one
+    backward that stacks the L slices' gradients, where indexing each layer
+    would build and sum L zero-padded gradients of the full stacked leaf."""
+    def cut(v):
+        return v.unbind(0)[:n_layers]
+
+    cols = {k: ({kk: cut(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                else cut(v)) for k, v in params["layers"].items()}
     out = dict(params)
-    out["layers"] = [_layer_view(params["layers"], l)
-                     for l in range(n_layers)]
+    out["layers"] = [{k: ({kk: vv[l] for kk, vv in c.items()}
+                          if isinstance(c, dict) else c[l])
+                      for k, c in cols.items()} for l in range(n_layers)]
     return out
 
 
@@ -403,6 +437,83 @@ def _norm_final(x, params, cfg: ArchConfig):
     if cfg.norm_kind == "layer":
         return layer_norm(x, fn["scale"], fn["bias"], cfg.norm_eps)
     return rms_norm(x, fn, cfg.norm_eps, zero_centered=cfg.post_norms)
+
+
+# --------------------------------------------------------------------------
+# Training forward + loss
+# --------------------------------------------------------------------------
+
+def _seq_chunk(S: int, target: int) -> int:
+    """Largest divisor of S that is <= target (>=1)."""
+    c = min(target, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+def chunked_ce_loss(x, head_w, targets, cfg: ArchConfig, opts: ModelOpts):
+    """Cross-entropy without materializing (B, S, V) logits at once.
+
+    x (B, S, d), targets (B, S) int with -1 = ignore.  Loops over sequence
+    chunks of ``_seq_chunk(S, opts.ce_chunk)`` positions; logits are f32.
+    """
+    B, S, d = x.shape
+    chunk = _seq_chunk(S, opts.ce_chunk)
+    total = x.new_zeros((), dtype=torch.float32)
+    count = x.new_zeros((), dtype=torch.float32)
+    for i in range(0, S, chunk):
+        xb, tb = x[:, i:i + chunk], targets[:, i:i + chunk].to(torch.long)
+        logits = mm(xb, head_w, opts.use_kernels, out_dtype=torch.float32)
+        logits = softcap(logits, cfg.final_logit_cap)
+        lse = torch.logsumexp(logits, dim=-1)                    # (B, c)
+        gold = torch.gather(logits, -1, tb.clamp_min(0)[..., None])[..., 0]
+        valid = (tb >= 0).to(torch.float32)
+        total = total + torch.sum((lse - gold) * valid)
+        count = count + torch.sum(valid)
+    return total / torch.clamp(count, min=1.0)
+
+
+def _train_layer(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
+                 cos_sin):
+    a, _ = _attn_block(x, lp, cfg, opts, positions, window, cos_sin)
+    x = x + a
+    x = x + _ffn_block(x, lp, cfg, opts)
+    return _maybe_quant_act(x, opts)
+
+
+def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch,
+                  uniq_scan=None):
+    """Teacher-forced LM loss (a differentiable scalar).  batch: tokens /
+    targets (B, S).  With ``opts.remat`` each layer is recomputed in the
+    backward pass instead of keeping its activations."""
+    if uniq_scan is not None:
+        raise NotImplementedError(
+            "uniq_scan (the UNIQ transform applied per layer inside the "
+            "layer loop) is not ported yet; transform the tree first")
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+    if not isinstance(params["layers"], list):
+        params = unstack_layers(params, cfg.n_layers)
+    tokens = batch["tokens"]
+    x = _embed_tokens(params, cfg, opts, tokens)
+    B, S, _ = x.shape
+    if S >= opts.attn_chunked_min_len:
+        raise NotImplementedError(
+            f"chunked attention (S={S} >= attn_chunked_min_len="
+            f"{opts.attn_chunked_min_len}) is not ported yet")
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    windows = _window_schedule(cfg)
+    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    remat = opts.remat and torch.is_grad_enabled()
+    for l in range(cfg.n_layers):
+        args = (x, _layer(params, l), cfg, opts, positions, windows[l],
+                cos_sin)
+        x = _ckpt.checkpoint(_train_layer, *args, use_reentrant=False) \
+            if remat else _train_layer(*args)
+    x = _norm_final(x, params, cfg)
+    return chunked_ce_loss(x, _head_weight(params, cfg), batch["targets"],
+                           cfg, opts)
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Unified model API for the dense decoder family.
 
     init(seed, cfg, device)             -> params
+    loss_fn(params, cfg, opts, batch)   -> scalar loss          (train)
     prefill(params, cfg, opts, batch)   -> (logits, cache)
     decode(params, cfg, opts, cache, tokens, positions, block_tables)
                                         -> (logits, cache)
@@ -16,9 +17,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
 from repro_torch.models.lm import ModelOpts
 
-__all__ = ["ModelOpts", "init", "prefill", "decode", "quantize_for_serving",
-           "supports_paged_cache", "init_paged_cache", "cache_insert_paged",
-           "prefill_chunk"]
+__all__ = ["ModelOpts", "init", "loss_fn", "prefill", "decode",
+           "quantize_for_serving", "supports_paged_cache", "init_paged_cache",
+           "cache_insert_paged", "prefill_chunk"]
 
 
 def supports_paged_cache(cfg: ArchConfig) -> bool:
@@ -35,6 +36,13 @@ def _require_dense(cfg: ArchConfig, what: str) -> None:
 def init(seed: int, cfg: ArchConfig, device="cuda", **kw) -> Any:
     _require_dense(cfg, "init")
     return lm.init_params(seed, cfg, device=device, **kw)
+
+
+def loss_fn(params, cfg: ArchConfig, opts: ModelOpts, batch,
+            uniq_scan=None) -> torch.Tensor:
+    """Teacher-forced LM loss (see lm.forward_train)."""
+    _require_dense(cfg, "loss_fn")
+    return lm.forward_train(params, cfg, opts, batch, uniq_scan=uniq_scan)
 
 
 def prefill(params, cfg: ArchConfig, opts: ModelOpts, batch, last_idx=None):

@@ -1,0 +1,175 @@
+"""Training step: UNIQ noise-injection QAT wired into the LM forward.
+
+``make_train_step`` closes over static config and returns
+
+    train_step(state, batch, seed, noise=None) -> (state, metrics)
+
+where ``state = {"params", "opt", "step"}``.  The gradual schedule gives
+per-layer modes from the step (a host integer); FROZEN layers are
+hard-quantized with zero gradient in the forward AND masked in the
+optimizer.  Every quantized leaf passes through the ``uniq_noise`` kernels
+(``core/uniq.py:transform_tree``).  The step updates ``state`` in place
+(see ``optim.apply_updates``) and returns it.
+
+Noise: each leaf's U[0, 1) draw comes from a generator keyed by (seed,
+step, md5 of the leaf path) on the parameters' device
+(``core/uniq.py:leaf_noise``), so it never depends on launch order and a
+run resumed from a checkpoint replays the unbroken run bit for bit.
+``noise`` overrides the draw (a test hands in the reference's own).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch import tree as tree_lib
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.uniq import (FROZEN, GradualSchedule, UniqConfig,
+                                   default_quant_filter, leaf_noise,
+                                   lm_mode_fn, transform_tree)
+from repro_torch.devices import resolve_device
+from repro_torch.models import model
+from repro_torch.models.lm import ModelOpts
+from repro_torch.optim import optim as optim_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    uniq: UniqConfig = UniqConfig()
+    optim: optim_lib.OptimConfig = optim_lib.OptimConfig()
+    total_steps: int = 1000
+    n_blocks: int = 0            # 0 -> one block per layer (paper App. B)
+    lr_schedule: str = "stage"   # stage | cosine | constant
+    dp_compress_bits: int = 0    # >0: compressed cross-pod grad sync (not
+                                 #   ported: raises)
+    uniq_in_scan: bool = False   # transform per layer inside the layer loop
+                                 #   (not ported: raises)
+
+    def __post_init__(self):
+        if self.dp_compress_bits > 0:
+            raise NotImplementedError(
+                "dp_compress_bits > 0 (the compressed cross-pod gradient "
+                "sync) is not ported yet")
+        if self.uniq_in_scan:
+            raise NotImplementedError(
+                "uniq_in_scan=True (the UNIQ transform inside the layer "
+                "loop) is not ported yet")
+
+    @property
+    def uniq_active(self) -> bool:
+        return self.uniq.enabled and self.uniq.w_bits < 32
+
+
+def make_schedule(cfg: ArchConfig, tc: TrainConfig) -> GradualSchedule:
+    n_blocks = tc.n_blocks or cfg.n_layers
+    return GradualSchedule(n_layers=cfg.n_layers, n_blocks=n_blocks,
+                           total_steps=tc.total_steps,
+                           iterations=tc.uniq.stage_iterations)
+
+
+def make_lr_fn(tc: TrainConfig, schedule: GradualSchedule):
+    if tc.lr_schedule == "cosine":
+        return optim_lib.cosine_schedule(tc.optim.lr, tc.total_steps,
+                                         warmup=tc.total_steps // 50)
+    if tc.lr_schedule == "stage":
+        return optim_lib.stage_scaled_lr(tc.optim.lr,
+                                         schedule.steps_per_stage,
+                                         decay=0.8)
+    return optim_lib.constant_schedule(tc.optim.lr)
+
+
+def freeze_mask_tree(params: Any, layer_modes: torch.Tensor,
+                     quant_filter=None):
+    """Per-leaf 0/1 trainability mask (f32, on each leaf's device) from
+    per-layer modes.  Quantized + frozen leaves get 0 (per layer for stacked
+    leaves); unquantized leaves (norms, biases) stay trainable throughout,
+    as in the paper's fine-tuning protocol."""
+    quant_filter = quant_filter or default_quant_filter
+    mode_for = lm_mode_fn(layer_modes)
+
+    def one(p, leaf):
+        if not quant_filter(p, leaf):
+            return torch.ones((), dtype=torch.float32, device=leaf.device)
+        m = torch.as_tensor(mode_for(p))
+        return (m != FROZEN).to(device=leaf.device, dtype=torch.float32)
+
+    return tree_lib.map_with_path(one, params)
+
+
+def loss_and_grads(params: Any, batch, modes: torch.Tensor, noise,
+                   cfg: ArchConfig, opts: ModelOpts, tc: TrainConfig,
+                   loss_fn: Optional[Callable] = None):
+    """(loss, grads) of the loss at the UNIQ-transformed parameters, for
+    per-layer ``modes`` (host int32) and the per-leaf ``noise`` source.
+    ``opts.use_kernels=False`` takes the transform's plain versions."""
+    base_loss = loss_fn or (lambda p, b: model.loss_fn(p, cfg, opts, b))
+    flat = list(tree_lib.leaves_with_paths(params))
+    with torch.enable_grad():
+        req = {p: t.detach().requires_grad_(True) for p, t in flat}
+        p_in = tree_lib.map_with_path(lambda p, _t: req[p], params)
+        if tc.uniq_active:
+            dev = flat[0][1].device
+            p_in = transform_tree(p_in, noise, lm_mode_fn(modes.to(dev)),
+                                  tc.uniq, use_kernel=opts.use_kernels)
+        loss = base_loss(p_in, batch)
+        del p_in
+        grads = torch.autograd.grad(loss, [req[p] for p, _ in flat],
+                                    allow_unused=True)
+    by_path = {p: (torch.zeros_like(t) if g is None else g)
+               for (p, t), g in zip(flat, grads)}
+    return loss.detach(), tree_lib.map_with_path(lambda p, _t: by_path[p],
+                                                 params)
+
+
+def make_train_step(cfg: ArchConfig, opts: ModelOpts, tc: TrainConfig,
+                    loss_fn: Optional[Callable] = None):
+    """Returns (train_step, schedule)."""
+    schedule = make_schedule(cfg, tc)
+    lr_fn = make_lr_fn(tc, schedule)
+
+    def train_step(state, batch, seed: int, noise=None):
+        step = int(state["step"])
+        modes = schedule.modes_at(step)
+        noise = noise or leaf_noise(seed, step)
+        loss_val, grads = loss_and_grads(state["params"], batch, modes,
+                                         noise, cfg, opts, tc, loss_fn)
+        mask = (freeze_mask_tree(state["params"], modes)
+                if tc.uniq_active else None)
+        lr = lr_fn(step)
+        _, _, om = optim_lib.apply_updates(state["params"], grads,
+                                           state["opt"], tc.optim, lr,
+                                           freeze_mask=mask)
+        del grads
+        state["step"] = state["step"] + 1
+        return state, {"loss": loss_val, "lr": lr, **om}
+
+    return train_step, schedule
+
+
+def init_state(seed: int, cfg: ArchConfig, tc: TrainConfig, device="cuda",
+               init_fn: Optional[Callable] = None):
+    """Fresh {"params", "opt", "step"} on ``device`` (f32 parameters drawn
+    from ``seed``; ``step`` and the optimizer's ``count`` are host
+    values)."""
+    dev = resolve_device(device)
+    params = (init_fn or (lambda s: model.init(s, cfg, device=dev)))(seed)
+    return {"params": params,
+            "opt": optim_lib.init_state(params, tc.optim),
+            "step": torch.zeros((), dtype=torch.int32)}
+
+
+def eval_step(cfg: ArchConfig, opts: ModelOpts):
+    """Deterministic-quantized eval (the inference-time model): every
+    quantized weight hard-quantized (FROZEN) with the k-quantile quantizer,
+    per the paper."""
+    @torch.no_grad()
+    def step(params, batch, w_bits: int):
+        if w_bits < 32:
+            params = transform_tree(params, leaf_noise(0, 0), FROZEN,
+                                    UniqConfig(w_bits=w_bits),
+                                    use_kernel=opts.use_kernels)
+        return model.loss_fn(params, cfg, opts, batch)
+    return step

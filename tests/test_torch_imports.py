@@ -44,7 +44,11 @@ def test_the_walk_sees_the_package():
     assert "chip_smoke.py" in names
     for mod in ("kernels/qmatmul.py", "kernels/paged_attn.py",
                 "kernels/loader.py", "models/lm.py", "serve/engine.py",
-                "serve/scheduler.py", "launch/serve.py", "convert.py"):
+                "serve/scheduler.py", "launch/serve.py", "convert.py",
+                "kernels/uniq_noise.py", "core/noise.py", "core/uniq.py",
+                "optim/optim.py", "data/synthetic.py",
+                "checkpoint/checkpoint.py", "train/steps.py",
+                "launch/train.py", "tree.py"):
         assert os.path.join("src", "repro_torch", mod) in names
 
 
@@ -64,7 +68,7 @@ def test_no_jax_and_no_reference_package(path):
 def test_csrc_has_the_kernel_sources_and_no_library_products():
     csrc = os.path.join(PKG, "kernels", "csrc")
     names = sorted(os.listdir(csrc))
-    assert names == ["paged_attn.cu", "qmatmul.cu"]
+    assert names == ["paged_attn.cu", "qmatmul.cu", "uniq_noise.cu"]
     for n in names:
         with open(os.path.join(csrc, n)) as fh:
             text = fh.read()
@@ -78,6 +82,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.serve, "
         "repro_torch.convert, repro_torch.kernels.ops\n"
+        "import repro_torch.launch.train, repro_torch.train.steps, "
+        "repro_torch.optim.optim, repro_torch.data.synthetic, "
+        "repro_torch.checkpoint.checkpoint, repro_torch.core.noise, "
+        "repro_torch.kernels.uniq_noise\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'repro', 'triton')]\n"
         "assert not bad, bad\n"

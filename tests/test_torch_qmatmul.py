@@ -159,4 +159,5 @@ def test_launch_counter_counts_only_kernel_launches():
     a, wp, mu, sd = _inputs(4, 16, 8, 4)
     tqmm.qmatmul(*_t(a, wp, mu, sd), bits=4)
     assert tops.launch_counts() == before
-    assert set(before) == {"qmatmul", "paged_quant_attention"}
+    assert set(before) == {"qmatmul", "paged_quant_attention",
+                           "uniq_noise_fwd", "uniq_noise_bwd"}
