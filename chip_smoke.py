@@ -9,14 +9,20 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
   2. builds the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
   3. holds each kernel against its plain PyTorch version on the card, at the
      shapes the serving and training paths give it and at ragged ones, and
-     checks that the same inputs twice give the same bits;
+     checks that the same inputs twice give the same bits (the k-quantile
+     codec kernels must equal their plain versions to the bit);
   4. serves a request stream through ``repro_torch``'s engine at the full
-     width of granite_3_8b (W4 weights, kv8 pool, bf16), random weights made
-     from ``--seed`` on the card, and counts the kernel launches of that run;
+     width of granite_3_8b (bf16, kv8 pool), random weights made from
+     ``--seed`` on the card, in three engines one after another: W4
+     (``qmatmul``), W4A8 (int8 activations, ``qmatmul_a8``) and W4 with
+     empirical codebooks (``--w-dist empirical``, ``qmatmul_lut``); counts
+     the kernel launches of each run (the codec kernels code the KV rows
+     and dequantize the embedding rows and the coded pool in every engine);
      checks that the dense bf16 LM head gives f32 logits;
   5. repeats a prefill + one decode step with the plain versions forced and
-     compares logits; replays the stream that way and prints greedy
-     agreement; compares a tiny f32 model on the card with the CPU;
+     compares logits, for each engine; replays the W4 stream that way and
+     prints greedy agreement; compares a tiny f32 model on the card with the
+     CPU;
   6. trains granite_3_8b at full width (depth ``--train-layers``, default 8)
      through the trainer's entry points for ``--train-steps`` steps (UNIQ
      noise, gradual freezing, AdamW), counting the ``uniq_noise`` launches
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -60,11 +67,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch import convert                               # noqa: E402
 from repro_torch import tree as tree_lib                       # noqa: E402
 from repro_torch.configs import base as cb                    # noqa: E402
+from repro_torch.core import activations as act              # noqa: E402
 from repro_torch.core import packing                          # noqa: E402
 from repro_torch.core.uniq import (FROZEN, UniqConfig,        # noqa: E402
                                    leaf_noise)
 from repro_torch.data.synthetic import (LMStreamConfig,       # noqa: E402
                                         lm_batch)
+from repro_torch.kernels import kquantile as kq               # noqa: E402
 from repro_torch.kernels import loader, ops as kops           # noqa: E402
 from repro_torch.kernels import paged_attn as pa              # noqa: E402
 from repro_torch.kernels import qmatmul as qmm                # noqa: E402
@@ -124,6 +133,17 @@ TOL_UNIQ_NOISE_SIGMA = 1e-3
 # uniq_noise backward: the same operations on the same (w, w_hat); expf
 #   against torch's exp, a few ulps relative (bf16: beyond one step).
 TOL_UNIQ_BWD_REL = 1e-5
+# qmatmul_a8, f32 result: both sides form the same f32 code * scale and
+#   multiply it by the same f32 levels; only the summation order over K
+#   differs (the CUDA cores against cuBLAS in f32).  Results are O(1).
+TOL_QMM_A8 = 5e-4
+# qmatmul_lut: as qmatmul (bf16 activations meet levels rounded to bf16 on
+#   both sides, f32 activations f32 levels), f32 result.
+TOL_QMM_LUT = 5e-4
+# kquantile_quantize / kquantile_dequantize: none.  Both sides run the same
+#   correctly rounded f32 operations in the same order (z / sqrt2 taken as
+#   z * (1 / sqrt2) on both), CUDA's erff serves both, and the levels come
+#   from one table: codes and values must be equal to the bit.
 # LM head, bf16 activations x dense bf16 head with f32 logits: the products
 #   are exact in f32 and both sides sum them in f32 over K = 4096 in their
 #   own order; stated relative to the largest logit.  A bf16 rounding of
@@ -310,6 +330,189 @@ def check_qmatmul(gen, quick: bool) -> float:
             raise SystemExit(f"qmatmul rows depend on M (M={m} vs 256)")
     say("[kernels] qmatmul bf16 output ok; rows are independent of M")
     return worst
+
+
+def make_a8_inputs(gen, M, K):
+    """Per-token int8 codes and (M, 1) scales of N(0, 1) activations, as
+    ``lm.mm_a`` makes them (``core/activations.py``)."""
+    x = torch.randn((M, K), generator=gen, device=DEV)
+    scale = act.act_scale(x, 8, axis=-1)
+    codes, _ = act.quant_act(x, 8, scale)
+    return codes.contiguous(), scale.contiguous()
+
+
+def make_lut(gen, N, bits, per_col):
+    """Sorted levels: a (k,) codebook for every column, or (k, N)."""
+    k = 2 ** bits
+    shape = (k, N) if per_col else (k,)
+    lut = torch.randn(shape, generator=gen, device=DEV) * 0.02
+    return torch.sort(lut, dim=0).values.contiguous()
+
+
+def _matmul_checked(name, out, again, want, tol, where):
+    err = (out.float() - want.float()).abs().max().item()
+    if not torch.isfinite(out).all() or err > tol:
+        raise SystemExit(f"{name} disagrees with its plain version: {where} "
+                         f"err={err:.3e} > {tol}")
+    if not torch.equal(out, again):
+        raise SystemExit(f"{name} is not deterministic: {where}")
+    return err
+
+
+def check_qmatmul_variants(gen, quick: bool):
+    """qmatmul_a8 (per-row and scalar scales) and qmatmul_lut ((k,) and
+    (k, N) codebooks, bf16 and f32 activations) against their plain
+    versions, at the serving shapes and ragged ones.  Returns the worst
+    abs errors."""
+    worst = {"qmatmul_a8": 0.0, "qmatmul_lut": 0.0}
+    main_kn = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)]
+    shapes = [(M, K, N) for (K, N) in main_kn for M in (8, 16, 32, 256)]
+    shapes += [(5, 200, 130), (33, 520, 96), (70, 77, 258), (1, 64, 2)]
+    if quick:
+        shapes = [(16, 4096, 12800), (256, 4096, 1024), (5, 200, 130),
+                  (33, 520, 96)]
+    for (M, K, N) in shapes:
+        for bits in (4, 8):
+            _, w, mu, sigma = make_qmm_inputs(gen, 1, K, N, bits,
+                                              torch.float32)
+            codes, scale = make_a8_inputs(gen, M, K)
+            for sc in (scale, scale[:1, :1].reshape(1)):
+                out = qmm.qmatmul_a8(codes, sc, w, mu, sigma, bits=bits)
+                again = qmm.qmatmul_a8(codes, sc, w, mu, sigma, bits=bits)
+                sync()
+                want = qmm.qmatmul_a8_plain(codes, sc, w, mu, sigma,
+                                            bits=bits)
+                worst["qmatmul_a8"] = max(worst["qmatmul_a8"], _matmul_checked(
+                    "qmatmul_a8", out, again, want, TOL_QMM_A8,
+                    f"M={M} K={K} N={N} W{bits} scale {tuple(sc.shape)}"))
+            for a_dtype in (torch.bfloat16, torch.float32):
+                a = torch.randn((M, K), generator=gen, device=DEV).to(a_dtype)
+                for per_col in ((False, True) if M <= 32 or K * N < 1 << 24
+                                else (False,)):
+                    lut = make_lut(gen, N, bits, per_col)
+                    out = qmm.qmatmul_lut(a, w, lut, bits=bits)
+                    again = qmm.qmatmul_lut(a, w, lut, bits=bits)
+                    sync()
+                    want = qmm.qmatmul_lut_plain(a, w, lut, bits=bits)
+                    worst["qmatmul_lut"] = max(
+                        worst["qmatmul_lut"], _matmul_checked(
+                            "qmatmul_lut", out, again, want, TOL_QMM_LUT,
+                            f"M={M} K={K} N={N} W{bits} {a_dtype} lut "
+                            f"{tuple(lut.shape)}"))
+            del w, mu, sigma, codes, scale
+        say(f"[kernels] qmatmul_a8 + qmatmul_lut M={M} K={K} N={N}: W4/W8, "
+            f"per-row/scalar scales, (k,)/(k, N) codebooks x bf16/f32 ok")
+    # what the engine asks for: bf16 in, bf16 out through the ops wrappers
+    for bits in (4, 8):
+        x = torch.randn((2, 8, 4096), generator=gen,
+                        device=DEV).to(torch.bfloat16)
+        _, w, mu, sigma = make_qmm_inputs(gen, 1, 4096, 12800, bits,
+                                          torch.bfloat16)
+        codes, scale = act.quant_act(x, 8, act.act_scale(x, 8, axis=-1))
+        lut = make_lut(gen, 12800, bits, False)
+        for name, fn in (
+                ("qmatmul_a8", lambda uk: kops.qmatmul_a8(
+                    codes, scale, w, mu, sigma, bits=bits,
+                    out_dtype=torch.bfloat16, use_kernel=uk)),
+                ("qmatmul_lut", lambda uk: kops.qmatmul_lut(
+                    x, w, lut, bits=bits, out_dtype=torch.bfloat16,
+                    use_kernel=uk))):
+            out, want = fn(True), fn(False)
+            sync()
+            err = (out.float() - want.float()).abs().max().item()
+            tol = TOL_QMM_BF16_REL * want.float().abs().max().item()
+            if out.dtype != torch.bfloat16 or err > tol:
+                raise SystemExit(f"{name} bf16 output: err {err:.3e} > "
+                                 f"{tol:.3e}")
+    # row invariance: a row's bits do not depend on the rows beside it
+    _, w, mu, sigma = make_qmm_inputs(gen, 1, 4096, 4096, 4, torch.float32)
+    codes, scale = make_a8_inputs(gen, 256, 4096)
+    full = qmm.qmatmul_a8(codes, scale, w, mu, sigma, bits=4)
+    for m in (8, 16, 32):
+        part = qmm.qmatmul_a8(codes[:m].contiguous(), scale[:m].contiguous(),
+                              w, mu, sigma, bits=4)
+        if not torch.equal(part, full[:m]):
+            raise SystemExit(f"qmatmul_a8 rows depend on M (M={m} vs 256)")
+    say("[kernels] qmatmul_a8 / qmatmul_lut bf16 outputs ok; qmatmul_a8 "
+        "rows are independent of M")
+    return worst
+
+
+def _codec_one(gen, G, R, C, k, per_col, w_dtype):
+    """One quantize + dequantize case: kernel and plain version must agree
+    to the bit, and the same inputs twice give the same bits.  Returns the
+    number of elements checked."""
+    where = f"G={G} R={R} C={C} k={k} per_col={per_col} {w_dtype}"
+    scale = 0.01 + 0.04 * torch.rand((G, 1, 1), generator=gen, device=DEV)
+    w = (torch.randn((G, R, C), generator=gen, device=DEV) * scale
+         + 0.1 * scale).to(w_dtype)
+    dims = (1,) if per_col else (1, 2)
+    wf = w.float()
+    mu = wf.mean(dim=dims, keepdim=True).contiguous()
+    sigma = wf.std(dim=dims, correction=0, keepdim=True).clamp_min(1e-8)
+    if not per_col:
+        # the KV rows' statistics are bf16-rounded before coding
+        mu = mu.to(torch.bfloat16).float()
+        sigma = sigma.to(torch.bfloat16).float()
+    sigma = sigma.contiguous()
+    del wf
+    codes = kq.kquantile_quantize(w, mu, sigma, k=k)
+    again = kq.kquantile_quantize(w, mu, sigma, k=k)
+    sync()
+    want = kq.kquantile_quantize_plain(w, mu, sigma, k=k)
+    if not torch.equal(codes, again):
+        raise SystemExit(f"kquantile_quantize is not deterministic: {where}")
+    if not torch.equal(codes, want):
+        n = int((codes != want).sum().item())
+        raise SystemExit(f"kquantile_quantize differs from its plain version "
+                         f"in {n} of {codes.numel()} codes: {where}")
+    stored = codes
+    if k == 16 and C % 2 == 0:
+        stored = packing.pack_int4(codes)           # the packed W4 / kv4 path
+    for out_dtype in (torch.float32, torch.bfloat16):
+        out = kq.kquantile_dequantize(stored, mu, sigma, k=k,
+                                      out_dtype=out_dtype)
+        again = kq.kquantile_dequantize(stored, mu, sigma, k=k,
+                                        out_dtype=out_dtype)
+        sync()
+        want = kq.kquantile_dequantize_plain(stored, mu, sigma, k=k,
+                                             out_dtype=out_dtype)
+        if not torch.equal(out, again):
+            raise SystemExit(f"kquantile_dequantize is not deterministic: "
+                             f"{where} {out_dtype}")
+        if not torch.equal(out, want):
+            err = (out.float() - want.float()).abs().max().item()
+            raise SystemExit(f"kquantile_dequantize differs from its plain "
+                             f"version (max abs {err:.3e}): {where} "
+                             f"{out_dtype} packed={stored.dtype}")
+    del w, mu, sigma, codes, again, want, stored, out
+    return G * R * C
+
+
+def check_kquantile(gen, quick: bool) -> float:
+    """kquantile_quantize / _dequantize against their plain versions, to
+    the bit, at the KV append (2 x 16 rows x 8 heads, head_dim 128), a
+    prefill chunk's KV, one weight layer and the embedding of granite_3_8b,
+    and ragged shapes; W4 / kv4 (k = 16, packed) and W8 / kv8 (k = 256)."""
+    cases = [((2 * 16 * 8, 1, 128), False), ((2 * 4 * 64 * 8, 1, 128), False),
+             ((1, 4096, 12800), True), ((1, 12800, 4096), True),
+             ((1, 49155, 4096), True), ((3, 37, 131), True),
+             ((3, 37, 131), False), ((2, 5, 7), True), ((1, 1, 3), False),
+             ((5, 129, 1001), True)]
+    if quick:
+        cases = [cases[0], cases[2], cases[5], cases[7]]
+    n = 0
+    for (G, R, C), per_col in cases:
+        for k in (16, 256):
+            for w_dtype in ((torch.float32, torch.bfloat16) if R * C < 1 << 24
+                            else (torch.float32,)):
+                n += _codec_one(gen, G, R, C, k, per_col, w_dtype)
+        say(f"[kernels] kquantile_quantize / _dequantize G={G} R={R} C={C} "
+            f"per-{'column' if per_col else 'group'} stats: k=16 (packed) / "
+            f"256 x f32/bf16 in and out, bit-equal to the plain versions")
+    say(f"[kernels] kquantile: {n} values coded and decoded, every code and "
+        f"every value equal to the plain versions'")
+    return 0.0
 
 
 def check_attention(gen, quick: bool) -> float:
@@ -522,9 +725,11 @@ def make_stream(cfg, seed: int, new_tokens: int):
             [req(len(wave1) + i, p) for i, p in enumerate(wave2)])
 
 
-def run_stream(params, cfg, opts, seed: int, new_tokens: int):
+def run_stream(params, cfg, opts, seed: int, new_tokens: int,
+               a_bits: int = 32):
     ec = EngineConfig(max_slots=16, max_len=2048, prefill_batch=4,
-                      page_size=64, kv_bits=8, prefix_cache=True)
+                      page_size=64, kv_bits=8, prefix_cache=True,
+                      a_bits=a_bits)
     eng = Engine(params, cfg, opts, ec, device=DEV)
     wave1, wave2 = make_stream(cfg, seed, new_tokens)
     outs = []
@@ -544,14 +749,30 @@ def run_stream(params, cfg, opts, seed: int, new_tokens: int):
     return eng, outs, wall, len(wave1) + len(wave2)
 
 
-def engine_phase(cfg, seed: int, new_tokens: int):
-    say(f"[engine] granite_3_8b at full width, depth {cfg.n_layers} layers "
-        f"(d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV "
-        f"heads, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab}), W4 + kv8, bf16")
+# The engine's serving modes, each run at full width in its own engine: the
+# weights' levels, the activation bits, and the matmul kernel that carries
+# every layer projection (7 per layer: wq, wk, wv, wo, w_gate, w_up,
+# w_down).  The LM head (49155 columns cannot be int4-packed) stays dense.
+ENGINE_MODES = (
+    dict(name="W4 + kv8", w_dist="gaussian", a_bits=32, matmul="qmatmul"),
+    dict(name="W4A8 + kv8", w_dist="gaussian", a_bits=8,
+         matmul="qmatmul_a8"),
+    dict(name="W4 empirical + kv8", w_dist="empirical", a_bits=32,
+         matmul="qmatmul_lut"),
+)
+MATMULS = ("qmatmul", "qmatmul_a8", "qmatmul_lut")
+CODECS = ("kquantile_quantize", "kquantile_dequantize")
+
+
+def engine_phase(cfg, seed: int, new_tokens: int, mode: dict):
+    say(f"[engine] {mode['name']}: granite_3_8b at full width, depth "
+        f"{cfg.n_layers} layers (d_model {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv_heads} KV heads, head_dim {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}), w_dist {mode['w_dist']}, a_bits "
+        f"{mode['a_bits']}, bf16")
     t0 = time.perf_counter()
     params = model.init(seed, cfg, device=DEV, w_bits=4,
-                        dense_dtype=torch.bfloat16)
+                        dense_dtype=torch.bfloat16, w_dist=mode["w_dist"])
     sync()
     say(f"[engine] weights drawn and coded layer by layer on the card in "
         f"{time.perf_counter() - t0:.1f}s; "
@@ -561,14 +782,15 @@ def engine_phase(cfg, seed: int, new_tokens: int):
     # warm-up outside the counted run (first launches, allocator)
     warm = Engine(params, cfg, opts, EngineConfig(
         max_slots=16, max_len=2048, page_size=64, kv_bits=8,
-        prefix_cache=True), device=DEV)
+        prefix_cache=True, a_bits=mode["a_bits"]), device=DEV)
     warm.generate([Request(uid=-1, prompt=np.arange(70, dtype=np.int32),
                            sampling=SamplingParams(max_new_tokens=2))])
     del warm
     sync()
 
     kops.reset_launch_counts()
-    eng, outs, wall, n_req = run_stream(params, cfg, opts, seed, new_tokens)
+    eng, outs, wall, n_req = run_stream(params, cfg, opts, seed, new_tokens,
+                                        mode["a_bits"])
     counts = kops.launch_counts()
 
     if len(outs) != n_req:
@@ -584,19 +806,25 @@ def engine_phase(cfg, seed: int, new_tokens: int):
     st = eng.stats()
     steps, calls = eng.n_decode_steps, eng.n_prefill_calls
     L = cfg.n_layers
-    want_qmm = 7 * L * (steps + calls)
+    want_mm = 7 * L * (steps + calls)
     want_att = L * steps
     say(f"[engine] {n_req} requests completed; {steps} decode steps, "
         f"{calls} prefill-chunk calls; cache hits {st['cache_hits']}, "
         f"hit pages {st['cache_hit_pages']}, copy-on-writes "
         f"{st['cow_copies']}, preemptions {st['preemptions']}")
-    say(f"[engine] kernel launches on this run: qmatmul {counts['qmatmul']} "
-        f"(7 x {L} layers x {steps + calls} calls = {want_qmm}), "
-        f"paged_quant_attention {counts['paged_quant_attention']} "
-        f"({L} layers x {steps} decode steps = {want_att})")
-    if counts["qmatmul"] != want_qmm \
+    say(f"[engine] kernel launches on this run: {mode['matmul']} "
+        f"{counts[mode['matmul']]} (7 x {L} layers x {steps + calls} calls = "
+        f"{want_mm}; {want_mm // (steps + calls)} per forward call), "
+        f"paged_quant_attention {counts['paged_quant_attention']} ({L} "
+        f"layers x {steps} decode steps = {want_att}), kquantile_quantize "
+        f"{counts['kquantile_quantize']}, kquantile_dequantize "
+        f"{counts['kquantile_dequantize']}; other matmul kernels " + ", ".join(
+            f"{m} {counts[m]}" for m in MATMULS if m != mode["matmul"]))
+    if counts[mode["matmul"]] != want_mm \
             or counts["paged_quant_attention"] != want_att \
-            or min(want_qmm, want_att) <= 0:
+            or min(want_mm, want_att) <= 0 \
+            or any(counts[m] for m in MATMULS if m != mode["matmul"]) \
+            or min(counts[c] for c in CODECS) <= 0:
         raise SystemExit("the main path did not go through the kernels as "
                          "expected")
     if st["cache_hits"] < 1 or st["cow_copies"] < 1:
@@ -606,15 +834,20 @@ def engine_phase(cfg, seed: int, new_tokens: int):
     reg = eng.telemetry.registry
     ttft = tele_lib.percentile_summary(reg["ttft_s"], scale=1e3)
     itl = tele_lib.percentile_summary(reg["itl_s"], scale=1e3)
-    say(f"[engine] {new} new tokens in {wall:.2f}s -> {new / wall:.1f} "
-        f"tok/s; TTFT p50 {ttft['p50']:.0f} ms p95 {ttft['p95']:.0f} ms; "
-        f"ITL p50 {itl['p50']:.1f} ms p95 {itl['p95']:.1f} ms")
-    check_head_logits(params, cfg, opts)
+    say(f"[engine] {mode['name']}: {new} new tokens in {wall:.2f}s -> "
+        f"{new / wall:.1f} tok/s; TTFT p50 {ttft['p50']:.0f} ms p95 "
+        f"{ttft['p95']:.0f} ms; ITL p50 {itl['p50']:.1f} ms p95 "
+        f"{itl['p95']:.1f} ms")
+    if mode["matmul"] == "qmatmul":
+        check_head_logits(params, cfg, opts)
     return params, opts, outs, counts
 
 
-def plain_phase(params, cfg, opts, outs, seed: int, new_tokens: int):
-    """Prefill + one decode step, kernels vs plain versions forced."""
+def plain_phase(params, cfg, opts, outs, seed: int, new_tokens: int,
+                mode: dict, replay: bool):
+    """Prefill + one decode step, kernels vs plain versions forced; with
+    ``replay``, the whole stream again with the plain versions."""
+    a_bits = mode["a_bits"]
     plain = lm.ModelOpts(compute_dtype=opts.compute_dtype,
                          use_kernels=False)
     rng = np.random.default_rng(seed + 1)
@@ -625,9 +858,11 @@ def plain_phase(params, cfg, opts, outs, seed: int, new_tokens: int):
                           dtype=torch.int32).reshape(B, n_pages)
     res = {}
     for name, o in (("kernels", lm.ModelOpts(compute_dtype=opts.compute_dtype,
-                                             kv_bits=8)),
+                                             kv_bits=8, serve_a_bits=a_bits)),
                     ("plain", lm.ModelOpts(compute_dtype=opts.compute_dtype,
-                                           kv_bits=8, use_kernels=False))):
+                                           kv_bits=8, serve_a_bits=a_bits,
+                                           use_kernels=False))):
+        before = kops.launch_counts()
         logits_p, kv = model.prefill(params, cfg, o, {"tokens": toks})
         cache = model.init_paged_cache(cfg, 1 + B * n_pages, page,
                                        torch.bfloat16, kv_bits=8, device=DEV)
@@ -638,6 +873,8 @@ def plain_phase(params, cfg, opts, outs, seed: int, new_tokens: int):
         logits_d, _ = model.decode(params, cfg, o, cache, nxt[:, None], pos,
                                    block_tables=tables)
         sync()
+        if name == "plain" and kops.launch_counts() != before:
+            raise SystemExit("use_kernels=False launched a kernel")
         res[name] = (logits_p.float(), logits_d.float())
         del cache, kv
     for i, what in enumerate(("prefill", "decode")):
@@ -647,13 +884,15 @@ def plain_phase(params, cfg, opts, outs, seed: int, new_tokens: int):
         err = (k - p).abs().max().item()
         tol = TOL_LOGITS_REL * p.abs().max().item()
         agree = (k.argmax(-1) == p.argmax(-1)).float().mean().item()
-        say(f"[plain] {what} last-position logits, kernels vs plain "
-            f"versions: max abs err {err:.4f} (tolerance {tol:.4f} = "
-            f"{TOL_LOGITS_REL} x max |logit|), argmax agreement "
+        say(f"[plain] {mode['name']} {what} last-position logits, kernels "
+            f"vs plain versions: max abs err {err:.4f} (tolerance {tol:.4f} "
+            f"= {TOL_LOGITS_REL} x max |logit|), argmax agreement "
             f"{agree * 100:.0f}%")
         if err > tol:
             raise SystemExit(f"{what} logits disagree with the plain "
                              f"versions")
+    if not replay:
+        return
     # the same stream with the plain versions forced: greedy agreement
     before = kops.launch_counts()
     _, outs_p, wall, _ = run_stream(params, cfg, plain, seed, new_tokens)
@@ -1013,6 +1252,125 @@ def time_qmatmul(gen, M, K, N, bits):
                 bound_ms=bound_ms, bound_by=by, bytes=nbytes, host_us=host)
 
 
+def time_qmatmul_a8(gen, M, K, N, bits):
+    """The int8-activation kernel at the engine's types (per-token scales,
+    bf16 out), its plain version, and cuBLAS in f32 on the f32 ``code *
+    scale`` activation and the dequantized f32 weight (the reference's own
+    product).  Bound: bytes of codes, scales, packed weight, statistics,
+    table and output; operations 2 M K N at the f32 CUDA-core peak."""
+    n_copies = max(2, math.ceil(120e6 / (K * N * bits / 8)))
+    sets = []
+    for _ in range(n_copies):
+        _, w, mu, sigma = make_qmm_inputs(gen, 1, K, N, bits, torch.float32)
+        codes, scale = make_a8_inputs(gen, M, K)
+        sets.append((codes, scale, w, mu, sigma))
+    out = torch.bfloat16
+    ms = time_ms([lambda s=s: qmm.qmatmul_a8(*s, bits=bits, out_dtype=out)
+                  for s in sets])
+    plain_ms = time_ms([lambda s=s: qmm.qmatmul_a8_plain(
+        *s, bits=bits, out_dtype=out) for s in sets[:2]], warmup=1, iters=4)
+    lib = [((s[0].float() * s[1]), lm.materialize(
+        {"q_codes": s[2], "q_mu": s[3], "q_sigma": s[4]}, torch.float32))
+        for s in sets[:2]]
+    lib_ms = time_ms([lambda a=a, w=w: torch.matmul(a, w) for a, w in lib])
+    nbytes = M * K + M * 4 + K * N * bits // 8 + 2 * N * 4 \
+        + (2 ** bits) * 4 + M * N * 2
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, 2.0 * M * K * N / PEAK_FLOPS["f32"]
+    host = host_us(lambda: qmm.qmatmul_a8(*sets[0], bits=bits,
+                                          out_dtype=out))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=max(t_b, t_f) * 1e3,
+                bound_by="bytes" if t_b >= t_f else "operations",
+                bytes=nbytes, host_us=host)
+
+
+def time_qmatmul_lut(gen, M, K, N, bits):
+    """The codebook kernel at the engine's types (bf16 in and out, one (k,)
+    codebook), its plain version, and cuBLAS on the dequantized bf16
+    weight."""
+    n_copies = max(2, math.ceil(120e6 / (K * N * bits / 8)))
+    sets = []
+    for _ in range(n_copies):
+        a, w, _, _ = make_qmm_inputs(gen, M, K, N, bits, torch.bfloat16)
+        sets.append((a, w, make_lut(gen, N, bits, False)))
+    out = torch.bfloat16
+    ms = time_ms([lambda s=s: qmm.qmatmul_lut(*s, bits=bits, out_dtype=out)
+                  for s in sets])
+    plain_ms = time_ms([lambda s=s: qmm.qmatmul_lut_plain(
+        *s, bits=bits, out_dtype=out) for s in sets[:2]], warmup=1, iters=4)
+    dense = [lm.materialize({"q_codes": s[1], "q_lut": s[2]}, torch.bfloat16)
+             for s in sets[:3]]
+    lib_ms = time_ms([lambda s=s, w=w: torch.matmul(s[0], w)
+                      for s, w in zip(sets, dense)])
+    nbytes = M * K * 2 + K * N * bits // 8 + (2 ** bits) * 4 + M * N * 2
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, 2.0 * M * K * N / PEAK_FLOPS["bf16"]
+    host = host_us(lambda: qmm.qmatmul_lut(*sets[0], bits=bits,
+                                           out_dtype=out))
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=max(t_b, t_f) * 1e3,
+                bound_by="bytes" if t_b >= t_f else "operations",
+                bytes=nbytes, host_us=host)
+
+
+# f32 operations per element of the codec kernels, CUDA's erff polynomial
+# included (an estimate from its source; the byte bound is larger)
+KQ_QUANT_OPS = 30
+KQ_DEQUANT_OPS = 2
+
+
+def time_kquantile(gen, G, R, C, k, per_col, w_dtype=torch.float32,
+                   out_dtype=torch.bfloat16):
+    """Quantize (values -> int8 codes) and dequantize (int8, or packed
+    4-bit, codes -> ``out_dtype``) kernels and their plain versions at one
+    shape, inputs beyond the L2 cache where the shape allows.  No PyTorch
+    call computes the k-quantile codec: no library time."""
+    n = G * R * C
+    n_copies = max(2, math.ceil(120e6 / (n * 5)))
+    sets = []
+    for _ in range(n_copies):
+        w = (torch.randn((G, R, C), generator=gen, device=DEV)
+             * 0.02).to(w_dtype)
+        dims = (1,) if per_col else (1, 2)
+        mu = w.float().mean(dim=dims, keepdim=True).contiguous()
+        sigma = w.float().std(dim=dims, correction=0,
+                              keepdim=True).contiguous()
+        codes = kq.kquantile_quantize(w, mu, sigma, k=k)
+        stored = packing.pack_int4(codes) if k == 16 and C % 2 == 0 \
+            else codes
+        sets.append((w, mu, sigma, stored))
+    n_stats = mu.numel()
+    r = {}
+    q = [lambda s=s: kq.kquantile_quantize(s[0], s[1], s[2], k=k)
+         for s in sets]
+    d = [lambda s=s: kq.kquantile_dequantize(s[3], s[1], s[2], k=k,
+                                             out_dtype=out_dtype)
+         for s in sets]
+    r["quantize"] = dict(
+        ms=time_ms(q), host_us=host_us(q[0]),
+        plain_ms=time_ms([lambda s=s: kq.kquantile_quantize_plain(
+            s[0], s[1], s[2], k=k) for s in sets[:2]], warmup=1, iters=4))
+    r["dequantize"] = dict(
+        ms=time_ms(d), host_us=host_us(d[0]),
+        plain_ms=time_ms([lambda s=s: kq.kquantile_dequantize_plain(
+            s[3], s[1], s[2], k=k, out_dtype=out_dtype) for s in sets[:2]],
+            warmup=1, iters=4))
+    in_b = 4 if w_dtype == torch.float32 else 2
+    out_b = 4 if out_dtype == torch.float32 else 2
+    code_b = sets[0][3].numel() / n
+    for key, nb, ops, extra in (("quantize", in_b + 1, KQ_QUANT_OPS, 0),
+                                ("dequantize", code_b + out_b, KQ_DEQUANT_OPS,
+                                 k * 4)):
+        nbytes = n * nb + 2 * n_stats * 4 + extra
+        t_b = nbytes / PEAK_BYTES_PER_S
+        t_f = n * ops / PEAK_FLOPS["f32"]
+        r[key].update(bound_ms=max(t_b, t_f) * 1e3,
+                      bound_by="bytes" if t_b >= t_f else "operations",
+                      bytes=nbytes, library_ms=None)
+    del sets, q, d
+    torch.cuda.empty_cache()
+    return r
+
+
 def attn_bound(t, H, KV, D, page, kv_bits, window):
     qp = t["q_pos"].to(torch.int64).cpu().numpy()
     rows = np.minimum(qp + 1, window if window else 1 << 30).clip(min=0)
@@ -1133,9 +1491,45 @@ def timing_phase(gen, counts, errs):
                     f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
                     f"{t['bytes'] / 1e6:.1f} MB), plain {t['plain_ms']:.3f} "
                     f"ms; host enqueue {t['host_us']:.0f} us per call")
+    for bits in (4, 8):
+        for (M, K, N) in ((16, 4096, 12800), (16, 4096, 4096),
+                          (16, 12800, 4096), (256, 4096, 12800)):
+            if bits == 8 and M != 16:
+                continue
+            for name, fn in (("qmatmul_a8", time_qmatmul_a8),
+                             ("qmatmul_lut", time_qmatmul_lut)):
+                r = fn(gen, M, K, N, bits)
+                rows[(name, bits, M, K, N)] = r
+                lib = ("torch.matmul f32 on the f32 code x scale and the "
+                       "dequantized f32 weight" if name == "qmatmul_a8" else
+                       "torch.matmul on the dequantized bf16 weight")
+                say(f"[time] {name} W{bits} M={M} K={K} N={N}: kernel "
+                    f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), plain "
+                    f"{r['plain_ms']:.3f} ms, {lib} {r['library_ms']:.4f} "
+                    f"ms; host enqueue {r['host_us']:.0f} us per call")
+    for (G, R, C), k, per_col, what in (
+            ((1, 4096, 12800), 16, True, "W4 weight layer"),
+            ((1, 4096, 12800), 256, True, "W8 weight layer"),
+            ((2 * 16 * 8, 1, 128), 256, False, "kv8 append, 16 rows"),
+            ((2 * 16 * 8, 1, 128), 16, False, "kv4 append, 16 rows"),
+            ((2 * 4 * 64 * 8, 1, 128), 256, False, "kv8 prefill chunk"),
+            ((1, 16, 4096), 16, True, "W4 embedding rows, 16 tokens")):
+        r = time_kquantile(gen, G, R, C, k, per_col)
+        rows[("kquantile", G, R, C, k)] = r
+        for key in ("quantize", "dequantize"):
+            t = r[key]
+            say(f"[time] kquantile_{key} ({G}, {R}, {C}) k={k} ({what}; "
+                f"f32 in, bf16 out): kernel {t['ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                f"{t['bytes'] / 1e6:.2f} MB), plain {t['plain_ms']:.3f} ms; "
+                f"host enqueue {t['host_us']:.0f} us per call")
     q = rows[("qmatmul", 4, 16, 4096, 12800)]
     a = rows[("attn", 8, 2048)]
     u = rows[("uniq", L, 4096, 12800, (1,) * L)]
+    q8 = rows[("qmatmul_a8", 4, 16, 4096, 12800)]
+    ql = rows[("qmatmul_lut", 4, 16, 4096, 12800)]
+    kw = rows[("kquantile", 1, 4096, 12800, 256)]       # int8 codes
 
     def entry(name, source, replaces, r):
         return {"name": name, "route": "cuda", "source": source,
@@ -1153,7 +1547,16 @@ def timing_phase(gen, counts, errs):
         entry("uniq_noise_fwd", "src/repro_torch/kernels/csrc/uniq_noise.cu",
               "src/repro/kernels/uniq_noise.py:123", u["fwd"]),
         entry("uniq_noise_bwd", "src/repro_torch/kernels/csrc/uniq_noise.cu",
-              "src/repro/kernels/ops.py:72", u["bwd"])]}
+              "src/repro/kernels/ops.py:72", u["bwd"]),
+        entry("qmatmul_a8", "src/repro_torch/kernels/csrc/qmatmul.cu",
+              "src/repro/kernels/qmatmul.py:316", q8),
+        entry("qmatmul_lut", "src/repro_torch/kernels/csrc/qmatmul.cu",
+              "src/repro/kernels/qmatmul.py:263", ql),
+        entry("kquantile_quantize", "src/repro_torch/kernels/csrc/kquantile.cu",
+              "src/repro/kernels/kquantile.py:86", kw["quantize"]),
+        entry("kquantile_dequantize",
+              "src/repro_torch/kernels/csrc/kquantile.cu",
+              "src/repro/kernels/kquantile.py:97", kw["dequantize"])]}
 
 
 def profile_phase(cfg, seed: int, new_tokens: int):
@@ -1297,6 +1700,9 @@ def main(argv=None) -> int:
             "paged_quant_attention": check_attention(gen, args.quick)}
     errs["uniq_noise_fwd"], errs["uniq_noise_bwd"] = check_uniq(
         gen, args.quick, args.train_layers)
+    errs.update(check_qmatmul_variants(gen, args.quick))
+    errs["kquantile_quantize"] = errs["kquantile_dequantize"] = \
+        check_kquantile(gen, args.quick)
     say("[kernels] max abs err vs plain versions: " + ", ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
     if args.quick:
@@ -1307,11 +1713,25 @@ def main(argv=None) -> int:
     cfg = cb.get("granite_3_8b")
     if args.layers != cfg.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    params, opts, outs, counts = engine_phase(cfg, args.seed,
-                                              args.new_tokens)
-    plain_phase(params, cfg, opts, outs, args.seed, args.new_tokens)
-    del params
-    torch.cuda.empty_cache()
+    # three engines one after another, each freed before the next; every
+    # count is read from its own run (reset just before it): a matmul
+    # kernel's from the engine that serves through it, the attention's from
+    # the W4 engine, the codecs' summed over the three runs
+    counts = {c: 0 for c in CODECS}
+    for i, mode in enumerate(ENGINE_MODES):
+        params, opts, outs, run_counts = engine_phase(
+            cfg, args.seed, args.new_tokens, mode)
+        plain_phase(params, cfg, opts, outs, args.seed, args.new_tokens,
+                    mode, replay=i == 0)
+        counts[mode["matmul"]] = run_counts[mode["matmul"]]
+        for c in CODECS:
+            counts[c] += run_counts[c]
+        if i == 0:
+            counts["paged_quant_attention"] = \
+                run_counts["paged_quant_attention"]
+        del params, opts, outs
+        gc.collect()            # an engine holds reference cycles: free its
+        torch.cuda.empty_cache()  # pool before the next one is made
     small_reference_phase(args.seed)
     train_counts, _ = train_phase(args.seed, args.train_layers,
                                   args.train_steps)

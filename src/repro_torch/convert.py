@@ -2,8 +2,8 @@
 numpy arrays.
 
 ``params_from_numpy`` turns the JAX reference's parameter tree, handed over
-as numpy arrays (dense f32 leaves and ``{"q_codes","q_mu","q_sigma"}``
-dicts), into the port's tree; with the codes carried across both engines
+as numpy arrays (dense f32 leaves, ``{"q_codes","q_mu","q_sigma"}`` and
+``{"q_codes","q_lut"}`` dicts), into the port's tree; with the codes carried across both engines
 compute from identical weights.  ``train_state_from_numpy`` /
 ``train_state_to_numpy`` do the same for a training state ``{"params",
 "opt", "step"}``, so both frameworks can start a step from one state.
@@ -22,6 +22,8 @@ from repro_torch.devices import resolve_device
 
 # leaves of a training state that the port keeps as host values (CPU)
 _HOST_KEYS = ("step", "count")
+# leaves of a coded weight that stay f32 whatever dtype the rest is cast to
+_F32_KEYS = ("q_mu", "q_sigma", "q_lut")
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
@@ -48,14 +50,15 @@ def params_from_numpy(tree, device="cuda", dtype=None) -> Dict[str, Any]:
 
     Integer leaves (codes) keep their dtype (uint8 = 4-bit packed, int8 =
     8-bit); floating leaves are cast to ``dtype`` when given, except the
-    ``q_mu`` / ``q_sigma`` statistics, which stay float32.
+    ``q_mu`` / ``q_sigma`` statistics and the ``q_lut`` codebooks, which
+    stay float32.
     """
     dev = resolve_device(device)
 
     def leaf(key, arr):
         t = tensor_from_numpy(arr).to(dev)
         if dtype is not None and t.is_floating_point() \
-                and key not in ("q_mu", "q_sigma"):
+                and key not in _F32_KEYS:
             t = t.to(dtype)
         return t
 

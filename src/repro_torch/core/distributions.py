@@ -1,4 +1,9 @@
-"""Distribution model of the uniformization trick (Gaussian, paper Sec. 3.1).
+"""Distribution models of the uniformization trick (paper Sec. 3.1).
+
+  * ``GaussianModel``  — closed-form CDF ``Phi`` / quantile ``Phi^{-1}`` with
+    per-tensor or per-channel (mu, sigma): the paper's choice.
+  * ``EmpiricalModel`` — sorted-sample empirical CDF / quantile (beyond the
+    paper; exact for any distribution, O(log n) per lookup).
 
 ``cdf`` uniformizes (U = F(W)) and ``quantile`` deuniformizes (W = F^{-1}(U)).
 """
@@ -58,3 +63,67 @@ class GaussianModel:
         base = torch.special.ndtri(centers)
         nd = len(torch.broadcast_shapes(self.mu.shape, self.sigma.shape))
         return self.mu + self.sigma * base.reshape((k,) + (1,) * nd)
+
+
+@dataclasses.dataclass(frozen=True)
+class EmpiricalModel:
+    """Empirical CDF / quantile from a sorted reference sample.
+
+    ``sorted_ref`` is a 1-D ascending f32 sample of the weight population.
+    ``cdf`` is the mid-rank empirical CDF, ``quantile`` its inverse by
+    linear interpolation between order statistics.
+    """
+
+    sorted_ref: torch.Tensor  # (n,) sorted ascending
+
+    @staticmethod
+    def fit(w: torch.Tensor, max_samples: int = 65536) -> "EmpiricalModel":
+        """Sort ``w`` (flattened) or, above ``max_samples`` elements, the
+        deterministic strided subsample ``flat[:stride * max_samples:
+        stride]`` with ``stride = n // max_samples`` (quantiles stay
+        stable)."""
+        flat = w.reshape(-1)
+        n = flat.shape[0]
+        if n > max_samples:
+            stride = n // max_samples
+            flat = flat[: stride * max_samples: stride]
+        ref = torch.sort(flat.detach().to(torch.float32)).values
+        return EmpiricalModel(sorted_ref=ref)
+
+    def cdf(self, w: torch.Tensor) -> torch.Tensor:
+        """u = (#{ref <= w} - 1/2) / n, clipped to [eps, 1 - eps].  The
+        division is by a tensor on the sample's device: PyTorch's CUDA
+        kernel multiplies by the reciprocal of a host scalar, which rounds
+        otherwise than the division the CPU (and the reference) takes."""
+        ref = self.sorted_ref
+        n = torch.tensor(float(ref.shape[0]), device=ref.device)
+        idx = torch.searchsorted(ref, w.to(torch.float32).contiguous(),
+                                 right=True)
+        u = (idx.to(torch.float32) - 0.5) / n
+        return torch.clamp(u, _EPS, 1.0 - _EPS)
+
+    def quantile(self, u: torch.Tensor) -> torch.Tensor:
+        ref = self.sorted_ref
+        n = ref.shape[0]
+        u = torch.clamp(u, _EPS, 1.0 - _EPS)
+        pos = u * n - 0.5
+        lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, n - 1)
+        hi = torch.clamp(lo + 1, 0, n - 1)
+        frac = torch.clamp(pos - lo.to(torch.float32), 0.0, 1.0)
+        return (1.0 - frac) * ref[lo] + frac * ref[hi]
+
+    def level_values(self, k: int) -> torch.Tensor:
+        """The k levels F^{-1}((i + 1/2) / k), shape (k,)."""
+        centers = (torch.arange(k, dtype=torch.float32,
+                                device=self.sorted_ref.device) + 0.5) / k
+        return self.quantile(centers)
+
+
+def fit_model(w: torch.Tensor, kind: str = "gaussian",
+              channel_axis: Optional[int] = None):
+    """Factory: ``kind`` in {"gaussian", "empirical"}."""
+    if kind == "gaussian":
+        return GaussianModel.fit(w, channel_axis=channel_axis)
+    if kind == "empirical":
+        return EmpiricalModel.fit(w)
+    raise ValueError(f"unknown distribution model: {kind!r}")

@@ -39,8 +39,8 @@ def _fit(w: torch.Tensor, dist: str, channel_axis: Optional[int]):
         return GaussianModel.fit(w, channel_axis=channel_axis)
     if dist == "empirical":
         raise NotImplementedError(
-            "dist='empirical' (the sorted-sample EmpiricalModel) is not "
-            "ported yet")
+            "dist='empirical' in training (noise injection through the "
+            "EmpiricalModel) is not ported yet")
     raise ValueError(f"unknown distribution model: {dist!r}")
 
 

@@ -28,7 +28,6 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.core import packing
-from repro_torch.core import quantizers as Q
 from repro_torch.core.distributions import GaussianModel
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import CLEAN, FROZEN, NOISE
@@ -46,7 +45,7 @@ class UniqConfig:
     w_bits: int = 4                 # weight bits  -> k = 2**w_bits levels
     a_bits: int = 8                 # activation bits (32 = off)
     method: str = "kquantile"       # kquantile (uniform | kmeans: not ported)
-    dist: str = "gaussian"          # gaussian (empirical: not ported)
+    dist: str = "gaussian"          # gaussian (empirical: serving only)
     per_channel: bool = False       # beyond-paper: per-out-channel (mu, sigma)
     quantize_embed: bool = True     # paper quantizes first & last layers
     n_stages: int = 0               # 0 => one stage per block group
@@ -93,8 +92,8 @@ def _fit_dist(w: torch.Tensor, cfg: UniqConfig, stacked: bool):
     axes = _stats_axes(w, cfg.per_channel, stacked)
     if cfg.dist == "empirical" and axes is None:
         raise NotImplementedError(
-            "dist='empirical' (the sorted-sample EmpiricalModel) is not "
-            "ported yet")
+            "dist='empirical' in training (the UNIQ transform through the "
+            "EmpiricalModel) is not ported yet")
     if cfg.dist not in ("gaussian", "empirical"):
         raise ValueError(f"unknown distribution model: {cfg.dist!r}")
     return fit_gaussian(w, axes)
@@ -323,15 +322,17 @@ class QuantizedTensor:
 
 def quantize_tensor(w: torch.Tensor, bits: int, per_channel: bool = True,
                     stacked: bool = False) -> QuantizedTensor:
-    """Offline k-quantile quantization of a weight tensor for serving."""
-    model = fit_gaussian(w, _stats_axes(w, per_channel, stacked))
-    codes = Q.kquantile_quantize(w, model, 2 ** bits, code_dtype=torch.int32)
-    if bits == 4:
-        stored = packing.pack_int4(codes)
-    elif bits == 8:
-        stored = (codes - 128).to(torch.int8)  # storage offset for k=256
-    else:
+    """Offline k-quantile quantization of a weight tensor for serving.
+
+    Codes go through ``kernels/ops.py:quantize_weights`` (the
+    ``kquantile_quantize`` kernel on CUDA tensors), whose CDF is the
+    kernel's ``erf`` formulation: a code may differ from the reference's
+    ``ndtr`` one where ``F(w) k`` sits within rounding of an integer
+    (ROADMAP Queue 3)."""
+    if bits not in (4, 8):
         raise ValueError(f"serving bits must be 4 or 8, got {bits}")
+    model = fit_gaussian(w, _stats_axes(w, per_channel, stacked))
+    stored = kops.quantize_weights(w, model.mu, model.sigma, bits=bits)
     return QuantizedTensor(stored, model.mu.to(torch.float32),
                            model.sigma.to(torch.float32), bits,
                            tuple(w.shape))

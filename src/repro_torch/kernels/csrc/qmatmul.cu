@@ -1,13 +1,28 @@
-// Dequant-fused matmul over k-quantile-coded weights, for sm_90a.
+// Dequant-fused matmuls over k-quantile-coded weights, for sm_90a.
 //
 //   out (M, N) = a (M, K) @ dequant(w) (K, N)
-//   dequant(w)[k, n] = mu[n] + sigma[n] * table[code[k, n]]
+//   qmatmul     : dequant(w)[k, n] = mu[n] + sigma[n] * table[code[k, n]]
+//   qmatmul_lut : dequant(w)[k, n] = lut[code[k, n], n]  (or lut[code] for
+//                 one codebook shared by every column)
+//   qmatmul_a8  : a[m, k] = a_codes[m, k] * scale[m]  (int8 activation
+//                 codes, a scale per row or one for all), Gaussian levels
 //
-// Replaces the TPU kernel `qmatmul` of src/repro/kernels/qmatmul.py (body
-// `_kernel`, `_unpack_dequant`).  `w` is row-major (K, N/2) uint8 at 4 bits
-// (low nibble = even column, high nibble = odd column) or (K, N) int8 at 8
-// bits (stored code - 128).  `table` holds the 2^bits standardized levels
-// and is built once by the caller, so no erfinv runs here.
+// Replaces the TPU kernels `qmatmul`, `qmatmul_lut` and `qmatmul_a8` of
+// src/repro/kernels/qmatmul.py (bodies `_kernel`, `_kernel_lut`,
+// `_kernel_a8`, `_unpack_dequant`).  `w` is row-major (K, N/2) uint8 at 4
+// bits (low nibble = even column, high nibble = odd column) or (K, N) int8
+// at 8 bits (stored code - 128).  `table` holds the 2^bits standardized
+// levels and is built once by the caller, so no erfinv runs here.
+//
+// The level of a code (`WM`, a template argument): the Gaussian formula from
+// a shared-memory table and per-column statistics; a shared codebook of k
+// levels copied to shared memory (the engine's per-tensor `q_lut`); or a
+// (k, N) per-column codebook read through the read-only cache (a 128-column
+// tile of it is 128 KB at k = 256, more than a block's static shared
+// memory, and the TPU kernel's k select passes are a TPU workaround for slow
+// gathers).  The activations (`AM`): f32 or bf16 values, or int8 codes
+// times a scale, formed in f32 as `(float)code * scale[m]` -- the
+// reference engine's own product (`lm.mm_a`) -- as the tile is staged.
 //
 // What bounds it: at decode shapes (M <= 32) the coded weight bytes; at
 // prefill shapes the multiply-adds.  What the design does about it: weights
@@ -21,8 +36,13 @@
 //     the tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, fragments
 //     fetched with ldmatrix (transposed for the weights, whose stored
 //     direction N is not the direction a fragment packs);
-//   * f32 activations: f32 levels, f32 FMAs on the CUDA cores.
-// wgmma, TMA and a multi-stage pipeline are left to a later change.
+//   * f32 activations, and int8 activation codes (the reference's engine
+//     multiplies f32 `code * scale` by f32 levels; the TPU kernel's bf16
+//     rounding of both is not followed): f32 levels, f32 FMAs on the CUDA
+//     cores.
+// wgmma, TMA and a multi-stage pipeline are left to a later change; so is
+// a tensor-core A8 body (the codes are exact in bf16, the f32 levels are
+// not: it would need a split-bf16 weight).
 //
 // Determinism: a split writes its partial sums to a scratch buffer and a
 // second kernel adds the splits in a fixed order (no atomics).  Every output
@@ -42,6 +62,37 @@ constexpr int BK = 32;   // K rows per stage of the CUDA-core body
 constexpr int MBK = 64;  // K rows per stage of the tensor-core body
 constexpr int BN = 128;  // output columns per block
 
+// how a code becomes a level
+constexpr int W_GAUSS = 0;       // mu[n] + sigma[n] * table[code]
+constexpr int W_LUT_SHARED = 1;  // lut[code], one codebook for all columns
+constexpr int W_LUT_COL = 2;     // lut[code * N + n]
+// what the activations are
+constexpr int A_FLOAT = 0;       // f32 (CUDA-core body) or bf16 (tensor cores)
+constexpr int A_I8 = 1;          // int8 codes times scale[m] (CUDA cores)
+
+struct Args {
+  const void* a;
+  const float* a_scale;          // A_I8: (M,) per row, or one value
+  int scale_per_row;
+  const uint8_t* w;
+  const float* mu;               // W_GAUSS: (N,) statistics, (k,) levels
+  const float* sigma;
+  const float* table;
+  const float* lut;              // W_LUT_*: (k,) or (k, N) levels
+  float* part;                   // (splitk, M, N) partial sums
+  int M, K, N, kchunk;
+};
+
+template <int WM>
+__device__ __forceinline__ float level(int code, float mu, float sigma,
+                                       const float* s_table,
+                                       const float* lut, int n, int N) {
+  if (WM == W_GAUSS)  // separate multiply and add: the plain version's rounding
+    return __fadd_rn(mu, __fmul_rn(sigma, s_table[code]));
+  if (WM == W_LUT_SHARED) return s_table[code];
+  return n < N ? __ldg(lut + (size_t)code * N + n) : 0.0f;
+}
+
 // ---------------------------------------------------------------------------
 // f32 activations: CUDA-core body
 // ---------------------------------------------------------------------------
@@ -49,12 +100,8 @@ constexpr int BN = 128;  // output columns per block
 // TX threads along N each own TN columns as TN/4 float4 chunks (chunk c of
 // thread tx starts at column c*TX*4 + tx*4, so a warp's float4 reads are
 // contiguous); TY threads along M each own TM rows.  TX * TN == BN.
-template <int BITS, int TX, int TY, int TM, int TN>
-__global__ void __launch_bounds__(TX * TY)
-qmatmul_kernel(const float* __restrict__ a, const uint8_t* __restrict__ w,
-               const float* __restrict__ mu, const float* __restrict__ sigma,
-               const float* __restrict__ table, float* __restrict__ part,
-               int M, int K, int N, int kchunk) {
+template <int BITS, int TX, int TY, int TM, int TN, int AM, int WM>
+__global__ void __launch_bounds__(TX * TY) qmatmul_kernel(const Args p) {
   static_assert(TX * TN == BN, "tile width");
   static_assert(MBK % BK == 0, "kchunk is a multiple of both stages");
   static_assert(TN % 4 == 0, "float4 chunks");
@@ -68,11 +115,13 @@ qmatmul_kernel(const float* __restrict__ a, const uint8_t* __restrict__ w,
   constexpr int NC = TN / 4;
 
   __shared__ float s_table[NLEV];
-  __shared__ float s_mu[BN];
-  __shared__ float s_sigma[BN];
+  __shared__ float s_mu[WM == W_GAUSS ? BN : 1];
+  __shared__ float s_sigma[WM == W_GAUSS ? BN : 1];
   __shared__ float s_a[BM * AS];
   __shared__ __align__(16) float s_w[BK * BN];
 
+  const int M = p.M, K = p.K, N = p.N, kchunk = p.kchunk;
+  const uint8_t* __restrict__ w = p.w;
   const int tid = threadIdx.x;
   const int tx = tid % TX;
   const int ty = tid / TX;
@@ -86,11 +135,16 @@ qmatmul_kernel(const float* __restrict__ a, const uint8_t* __restrict__ w,
   const bool vec_ok = (ldw % 4 == 0) &&
                       ((reinterpret_cast<uintptr_t>(w) & 3) == 0);
 
-  for (int i = tid; i < NLEV; i += NT) s_table[i] = table[i];
-  for (int i = tid; i < BN; i += NT) {
-    const int n = n0 + i;
-    s_mu[i] = n < N ? mu[n] : 0.0f;
-    s_sigma[i] = n < N ? sigma[n] : 0.0f;
+  if (WM != W_LUT_COL) {
+    const float* src = WM == W_GAUSS ? p.table : p.lut;
+    for (int i = tid; i < NLEV; i += NT) s_table[i] = src[i];
+  }
+  if (WM == W_GAUSS) {
+    for (int i = tid; i < BN; i += NT) {
+      const int n = n0 + i;
+      s_mu[i] = n < N ? p.mu[n] : 0.0f;
+      s_sigma[i] = n < N ? p.sigma[n] : 0.0f;
+    }
   }
   __syncthreads();
 
@@ -108,7 +162,15 @@ qmatmul_kernel(const float* __restrict__ a, const uint8_t* __restrict__ w,
       const int m = m0 + r;
       const int k = k0 + kk;
       float v = 0.0f;
-      if (m < M && k < k_end) v = a[(size_t)m * K + k];
+      if (m < M && k < k_end) {
+        if (AM == A_I8) {
+          const float sc = p.a_scale[p.scale_per_row ? m : 0];
+          v = __fmul_rn(
+              (float)static_cast<const int8_t*>(p.a)[(size_t)m * K + k], sc);
+        } else {
+          v = static_cast<const float*>(p.a)[(size_t)m * K + k];
+        }
+      }
       s_a[r * AS + kk] = v;
     }
     // weights: packed bytes -> codes -> levels, (BK, BN) f32 in shared
@@ -120,13 +182,13 @@ qmatmul_kernel(const float* __restrict__ a, const uint8_t* __restrict__ w,
       uint32_t bits = 0;
       const bool in_k = k < k_end;
       if (in_k) {
-        const uint8_t* p = w + (size_t)k * ldw + bcol;
+        const uint8_t* wp = w + (size_t)k * ldw + bcol;
         if (vec_ok && bcol + 4 <= ldw) {
-          bits = *reinterpret_cast<const uint32_t*>(p);
+          bits = *reinterpret_cast<const uint32_t*>(wp);
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (bcol + j < ldw) bits |= (uint32_t)p[j] << (8 * j);
+            if (bcol + j < ldw) bits |= (uint32_t)wp[j] << (8 * j);
         }
       }
       float vals[CPG];
@@ -139,9 +201,10 @@ qmatmul_kernel(const float* __restrict__ a, const uint8_t* __restrict__ w,
           code = ((bits >> (8 * j)) & 0xFF) ^ 0x80;  // stored code + 128
         }
         const int col = gb * CPG + j;
-        // separate multiply and add: the same rounding as the plain version
-        const float lv =
-            __fadd_rn(s_mu[col], __fmul_rn(s_sigma[col], s_table[code]));
+        const float lv = level<WM>(
+            code, WM == W_GAUSS ? s_mu[col] : 0.0f,
+            WM == W_GAUSS ? s_sigma[col] : 0.0f, s_table, p.lut, n0 + col,
+            N);
         vals[j] = in_k ? lv : 0.0f;
       }
       float4* dst = reinterpret_cast<float4*>(&s_w[kk * BN + gb * CPG]);
@@ -173,7 +236,7 @@ qmatmul_kernel(const float* __restrict__ a, const uint8_t* __restrict__ w,
     __syncthreads();
   }
 
-  float* dst = part + (size_t)split * M * N;
+  float* dst = p.part + (size_t)split * M * N;
   const bool vec_out = (N % 4 == 0);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -241,14 +304,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // iteration ahead of its use (packed weight bytes and activation chunks), so
 // the loads of stage i+1 are in flight while stage i is dequantized into
 // shared memory and multiplied.
-template <int BITS, int MT>
-__global__ void __launch_bounds__(MMA_NT)
-qmatmul_mma_kernel(const __nv_bfloat16* __restrict__ a,
-                   const uint8_t* __restrict__ w,
-                   const float* __restrict__ mu,
-                   const float* __restrict__ sigma,
-                   const float* __restrict__ table, float* __restrict__ part,
-                   int M, int K, int N, int kchunk) {
+template <int BITS, int MT, int WM>
+__global__ void __launch_bounds__(MMA_NT) qmatmul_mma_kernel(const Args p) {
   constexpr int BM = MT * 16;
   constexpr int NLEV = 1 << BITS;
   constexpr int CPB = (BITS == 4) ? 2 : 1;  // codes per byte
@@ -263,6 +320,10 @@ qmatmul_mma_kernel(const __nv_bfloat16* __restrict__ a,
   __shared__ __align__(16) __nv_bfloat16 s_a[BM * A_LD];
   __shared__ __align__(16) __nv_bfloat16 s_w[MBK * W_LD];
 
+  const int M = p.M, K = p.K, N = p.N, kchunk = p.kchunk;
+  const __nv_bfloat16* __restrict__ a =
+      static_cast<const __nv_bfloat16*>(p.a);
+  const uint8_t* __restrict__ w = p.w;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -277,7 +338,10 @@ qmatmul_mma_kernel(const __nv_bfloat16* __restrict__ a,
   const bool vec_a = (K % 8 == 0) &&
                      ((reinterpret_cast<uintptr_t>(a) & 15) == 0);
 
-  for (int i = tid; i < NLEV; i += MMA_NT) s_table[i] = table[i];
+  if (WM != W_LUT_COL) {
+    const float* src = WM == W_GAUSS ? p.table : p.lut;
+    for (int i = tid; i < NLEV; i += MMA_NT) s_table[i] = src[i];
+  }
 
   // this thread always dequantizes the same CPG columns: keep their
   // statistics in registers
@@ -288,8 +352,8 @@ qmatmul_mma_kernel(const __nv_bfloat16* __restrict__ a,
 #pragma unroll
   for (int j = 0; j < CPG; ++j) {
     const int n = n0 + gb * CPG + j;
-    r_mu[j] = n < N ? mu[n] : 0.0f;
-    r_sigma[j] = n < N ? sigma[n] : 0.0f;
+    r_mu[j] = (WM == W_GAUSS && n < N) ? p.mu[n] : 0.0f;
+    r_sigma[j] = (WM == W_GAUSS && n < N) ? p.sigma[n] : 0.0f;
   }
   __syncthreads();
 
@@ -309,13 +373,13 @@ qmatmul_mma_kernel(const __nv_bfloat16* __restrict__ a,
       const int k = k0 + kk0 + pass * ROWS_PER_PASS;
       uint32_t bits = 0;
       if (k < k_end) {
-        const uint8_t* p = w + (size_t)k * ldw + bcol;
+        const uint8_t* wp = w + (size_t)k * ldw + bcol;
         if (vec_w && bcol + 4 <= ldw) {
-          bits = *reinterpret_cast<const uint32_t*>(p);
+          bits = *reinterpret_cast<const uint32_t*>(wp);
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (bcol + j < ldw) bits |= (uint32_t)p[j] << (8 * j);
+            if (bcol + j < ldw) bits |= (uint32_t)wp[j] << (8 * j);
         }
       }
       wb[pass] = bits;
@@ -363,11 +427,12 @@ qmatmul_mma_kernel(const __nv_bfloat16* __restrict__ a,
           c0 = ((bits >> (8 * j)) & 0xFF) ^ 0x80;   // stored code + 128
           c1 = ((bits >> (8 * j + 8)) & 0xFF) ^ 0x80;
         }
-        // f32 level with separate multiply and add (the plain version's
-        // rounding), then rounded to bf16 like the plain version's weight
-        float l0 = __fadd_rn(r_mu[j], __fmul_rn(r_sigma[j], s_table[c0]));
-        float l1 = __fadd_rn(r_mu[j + 1],
-                             __fmul_rn(r_sigma[j + 1], s_table[c1]));
+        // f32 level (the plain version's rounding), then rounded to bf16
+        // like the plain version's weight
+        const int n = n0 + gb * CPG + j;
+        float l0 = level<WM>(c0, r_mu[j], r_sigma[j], s_table, p.lut, n, N);
+        float l1 = level<WM>(c1, r_mu[j + 1], r_sigma[j + 1], s_table, p.lut,
+                             n + 1, N);
         if (!in_k) l0 = l1 = 0.0f;
         packed[j / 2] = pack_bf16(l0, l1);
       }
@@ -430,7 +495,7 @@ qmatmul_mma_kernel(const __nv_bfloat16* __restrict__ a,
 
   // accumulator layout: c0,c1 -> row lane/4, columns 2*(lane%4) + {0,1};
   // c2,c3 -> row lane/4 + 8
-  float* dst = part + (size_t)split * M * N;
+  float* dst = p.part + (size_t)split * M * N;
   const bool vec_out = (N % 2 == 0);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -454,33 +519,24 @@ qmatmul_mma_kernel(const __nv_bfloat16* __restrict__ a,
   }
 }
 
-template <int BITS, int MT>
-void launch_mma(const void* a, const void* w, const float* mu,
-                const float* sigma, const float* table, float* part, int M,
-                int K, int N, int kchunk, int splitk, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + MT * 16 - 1) / (MT * 16), splitk);
-  qmatmul_mma_kernel<BITS, MT><<<grid, MMA_NT, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const uint8_t*>(w),
-      mu, sigma, table, part, M, K, N, kchunk);
+template <int BITS, int MT, int WM>
+void launch_mma(const Args& p, int splitk, cudaStream_t stream) {
+  dim3 grid((p.N + BN - 1) / BN, (p.M + MT * 16 - 1) / (MT * 16), splitk);
+  qmatmul_mma_kernel<BITS, MT, WM><<<grid, MMA_NT, 0, stream>>>(p);
 }
 
-template <int BITS>
-int launch_mma_bm(int bm, const void* a, const void* w, const float* mu,
-                  const float* sigma, const float* table, float* part, int M,
-                  int K, int N, int kchunk, int splitk, cudaStream_t stream) {
+template <int BITS, int WM>
+int launch_mma_bm(int bm, const Args& p, int splitk, cudaStream_t stream) {
   switch (bm) {
     case 8:     // the narrowest tensor-core tile is 16 rows
     case 16:
-      launch_mma<BITS, 1>(a, w, mu, sigma, table, part, M, K, N, kchunk,
-                          splitk, stream);
+      launch_mma<BITS, 1, WM>(p, splitk, stream);
       return 0;
     case 32:
-      launch_mma<BITS, 2>(a, w, mu, sigma, table, part, M, K, N, kchunk,
-                          splitk, stream);
+      launch_mma<BITS, 2, WM>(p, splitk, stream);
       return 0;
     case 64:
-      launch_mma<BITS, 4>(a, w, mu, sigma, table, part, M, K, N, kchunk,
-                          splitk, stream);
+      launch_mma<BITS, 4, WM>(p, splitk, stream);
       return 0;
     default:
       return -1;
@@ -502,77 +558,146 @@ __global__ void qmatmul_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-template <int BITS, int TX, int TY, int TM, int TN>
-void launch_tile(const void* a, const void* w, const float* mu,
-                 const float* sigma, const float* table, float* part, int M,
-                 int K, int N, int kchunk, int splitk, cudaStream_t stream) {
+template <int BITS, int TX, int TY, int TM, int TN, int AM, int WM>
+void launch_tile(const Args& p, int splitk, cudaStream_t stream) {
   constexpr int BM = TY * TM;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splitk);
-  qmatmul_kernel<BITS, TX, TY, TM, TN><<<grid, TX * TY, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const uint8_t*>(w), mu, sigma,
-      table, part, M, K, N, kchunk);
+  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splitk);
+  qmatmul_kernel<BITS, TX, TY, TM, TN, AM, WM><<<grid, TX * TY, 0, stream>>>(
+      p);
 }
 
-template <int BITS>
-int launch_bm(int bm, const void* a, const void* w, const float* mu,
-              const float* sigma, const float* table, float* part, int M,
-              int K, int N, int kchunk, int splitk, cudaStream_t stream) {
+template <int BITS, int AM, int WM>
+int launch_bm(int bm, const Args& p, int splitk, cudaStream_t stream) {
   switch (bm) {
     case 8:
-      launch_tile<BITS, 32, 8, 1, 4>(a, w, mu, sigma, table, part, M, K,
-                                         N, kchunk, splitk, stream);
+      launch_tile<BITS, 32, 8, 1, 4, AM, WM>(p, splitk, stream);
       return 0;
     case 16:
-      launch_tile<BITS, 32, 8, 2, 4>(a, w, mu, sigma, table, part, M, K,
-                                         N, kchunk, splitk, stream);
+      launch_tile<BITS, 32, 8, 2, 4, AM, WM>(p, splitk, stream);
       return 0;
     case 32:
-      launch_tile<BITS, 32, 8, 4, 4>(a, w, mu, sigma, table, part, M, K,
-                                         N, kchunk, splitk, stream);
+      launch_tile<BITS, 32, 8, 4, 4, AM, WM>(p, splitk, stream);
       return 0;
     case 64:
-      launch_tile<BITS, 16, 16, 4, 8>(a, w, mu, sigma, table, part, M, K,
-                                          N, kchunk, splitk, stream);
+      launch_tile<BITS, 16, 16, 4, 8, AM, WM>(p, splitk, stream);
       return 0;
     default:
       return -1;
   }
 }
 
+// The tensor-core body for bf16 activations, the CUDA-core body otherwise.
+template <int AM, int WM>
+int launch_body(int tensor_cores, int bits, int bm, const Args& p, int splitk,
+                cudaStream_t stream) {
+  if (tensor_cores) {
+    if (AM != A_FLOAT) return -6;
+    return bits == 4 ? launch_mma_bm<4, WM>(bm, p, splitk, stream)
+                     : launch_mma_bm<8, WM>(bm, p, splitk, stream);
+  }
+  return bits == 4 ? launch_bm<4, AM, WM>(bm, p, splitk, stream)
+                   : launch_bm<8, AM, WM>(bm, p, splitk, stream);
+}
+
+int check_shape(int bits, int M, int K, int N, int splitk) {
+  if (M <= 0 || K <= 0 || N <= 0 || splitk <= 0) return -2;
+  if (bits != 4 && bits != 8) return -3;
+  if (bits == 4 && (N % 2)) return -4;
+  return 0;
+}
+
+Args make_args(int M, int K, int N, int splitk, float* part) {
+  Args p = {};
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  int kchunk = (K + splitk - 1) / splitk;
+  p.kchunk = ((kchunk + MBK - 1) / MBK) * MBK;   // a multiple of both stages
+  p.part = part;
+  return p;
+}
+
+// Checks the body's launch, then adds the splits into `out`.
+int reduce(int rc, const Args& p, void* out, int out_bf16, int splitk,
+           cudaStream_t stream) {
+  if (rc != 0) return rc;
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t mn = (size_t)p.M * p.N;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((mn + threads - 1) / threads);
+  qmatmul_reduce_kernel<<<blocks, threads, 0, stream>>>(p.part, out, out_bf16,
+                                                        splitk, mn);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Returns 0 on success, a cudaError_t value if a launch was refused, or a
-// negative value for an argument the kernel does not take.
+// Each entry point returns 0 on success, a cudaError_t value if a launch was
+// refused, or a negative value for an argument the kernel does not take.
+
+// a: (M, K) f32 (a_bf16 = 0) or bf16; Gaussian levels.
 extern "C" int qmatmul_launch(const void* a, int a_bf16, const void* w,
                               int bits, const float* mu, const float* sigma,
                               const float* table, float* part, void* out,
                               int out_bf16, int M, int K, int N, int bm,
                               int splitk, void* stream_ptr) {
-  if (M <= 0 || K <= 0 || N <= 0 || splitk <= 0) return -2;
-  if (bits != 4 && bits != 8) return -3;
-  if (bits == 4 && (N % 2)) return -4;
+  const int bad = check_shape(bits, M, K, N, splitk);
+  if (bad) return bad;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  int kchunk = (K + splitk - 1) / splitk;
-  kchunk = ((kchunk + MBK - 1) / MBK) * MBK;   // a multiple of both stages
-  int rc;
-  if (a_bf16) {
-    rc = (bits == 4) ? launch_mma_bm<4>(bm, a, w, mu, sigma, table, part, M, K,
-                                        N, kchunk, splitk, stream)
-                     : launch_mma_bm<8>(bm, a, w, mu, sigma, table, part, M, K,
-                                        N, kchunk, splitk, stream);
-  } else {
-    rc = (bits == 4) ? launch_bm<4>(bm, a, w, mu, sigma, table, part,
-                                           M, K, N, kchunk, splitk, stream)
-                     : launch_bm<8>(bm, a, w, mu, sigma, table, part,
-                                           M, K, N, kchunk, splitk, stream);
-  }
-  if (rc != 0) return rc;
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t mn = (size_t)M * N;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((mn + threads - 1) / threads);
-  qmatmul_reduce_kernel<<<blocks, threads, 0, stream>>>(part, out, out_bf16,
-                                                        splitk, mn);
-  return static_cast<int>(cudaGetLastError());
+  Args p = make_args(M, K, N, splitk, part);
+  p.a = a;
+  p.w = static_cast<const uint8_t*>(w);
+  p.mu = mu;
+  p.sigma = sigma;
+  p.table = table;
+  const int rc = launch_body<A_FLOAT, W_GAUSS>(a_bf16, bits, bm, p, splitk,
+                                               stream);
+  return reduce(rc, p, out, out_bf16, splitk, stream);
+}
+
+// a: (M, K) f32 or bf16; lut: (k,) shared by every column (lut_per_col = 0)
+// or (k, N).
+extern "C" int qmatmul_lut_launch(const void* a, int a_bf16, const void* w,
+                                  int bits, const float* lut, int lut_per_col,
+                                  float* part, void* out, int out_bf16, int M,
+                                  int K, int N, int bm, int splitk,
+                                  void* stream_ptr) {
+  const int bad = check_shape(bits, M, K, N, splitk);
+  if (bad) return bad;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Args p = make_args(M, K, N, splitk, part);
+  p.a = a;
+  p.w = static_cast<const uint8_t*>(w);
+  p.lut = lut;
+  const int rc =
+      lut_per_col
+          ? launch_body<A_FLOAT, W_LUT_COL>(a_bf16, bits, bm, p, splitk,
+                                            stream)
+          : launch_body<A_FLOAT, W_LUT_SHARED>(a_bf16, bits, bm, p, splitk,
+                                               stream);
+  return reduce(rc, p, out, out_bf16, splitk, stream);
+}
+
+// a_codes: (M, K) int8; scale: (M,) (scale_per_row = 1) or one f32 value;
+// Gaussian levels; f32 products on the CUDA cores.
+extern "C" int qmatmul_a8_launch(const void* a_codes, const float* scale,
+                                 int scale_per_row, const void* w, int bits,
+                                 const float* mu, const float* sigma,
+                                 const float* table, float* part, void* out,
+                                 int out_bf16, int M, int K, int N, int bm,
+                                 int splitk, void* stream_ptr) {
+  const int bad = check_shape(bits, M, K, N, splitk);
+  if (bad) return bad;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Args p = make_args(M, K, N, splitk, part);
+  p.a = a_codes;
+  p.a_scale = scale;
+  p.scale_per_row = scale_per_row;
+  p.w = static_cast<const uint8_t*>(w);
+  p.mu = mu;
+  p.sigma = sigma;
+  p.table = table;
+  const int rc = launch_body<A_I8, W_GAUSS>(0, bits, bm, p, splitk, stream);
+  return reduce(rc, p, out, out_bf16, splitk, stream);
 }

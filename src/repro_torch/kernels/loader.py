@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"qmatmul": "qmatmul.cu", "paged_attn": "paged_attn.cu",
-           "uniq_noise": "uniq_noise.cu"}
+           "uniq_noise": "uniq_noise.cu", "kquantile": "kquantile.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,19 +1,26 @@
-"""Public entry points of the kernels: shape handling around ``qmatmul``
-and ``uniq_noise``, the UNIQ transform's autograd function, and the launch
-counters (the build of the CUDA sources is ``loader.py``).
+"""Public entry points of the kernels: shape handling around the matmuls,
+the k-quantile codec and ``uniq_noise``, the UNIQ transform's autograd
+function, and the launch counters (the build of the CUDA sources is
+``loader.py``).
 
-``qmatmul`` here takes activations of any leading shape and per-tensor or
-per-channel statistics and hands the kernel wrapper what it takes: a 2-D
-contiguous ``a`` and (1, N) statistics.  ``uniq_transform`` differentiates
-through the ``uniq_noise`` forward kernel with the backward kernel.
+``qmatmul`` / ``qmatmul_lut`` / ``qmatmul_a8`` here take activations of any
+leading shape and per-tensor or per-channel statistics and hand the kernel
+wrappers what they take: a 2-D contiguous ``a`` and (1, N) statistics.
+``quantize_weights`` / ``dequantize_weights`` take values of any shape with
+statistics that broadcast against them and hand the codec kernels the
+(G, R, C) layout.  ``uniq_transform`` differentiates through the
+``uniq_noise`` forward kernel with the backward kernel.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
 
+from repro_torch.core import packing
+from repro_torch.kernels import kquantile as _kq
 from repro_torch.kernels import paged_attn as _pa
 from repro_torch.kernels import qmatmul as _qmm
 from repro_torch.kernels import uniq_noise as _un
@@ -21,7 +28,11 @@ from repro_torch.kernels import uniq_noise as _un
 _COUNTED = {"qmatmul": _qmm.qmatmul,
             "paged_quant_attention": _pa.paged_quant_attention,
             "uniq_noise_fwd": _un.uniq_noise_fwd,
-            "uniq_noise_bwd": _un.uniq_noise_bwd}
+            "uniq_noise_bwd": _un.uniq_noise_bwd,
+            "qmatmul_a8": _qmm.qmatmul_a8,
+            "qmatmul_lut": _qmm.qmatmul_lut,
+            "kquantile_quantize": _kq.kquantile_quantize,
+            "kquantile_dequantize": _kq.kquantile_dequantize}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -66,6 +77,142 @@ def qmatmul(a: torch.Tensor, w_packed: torch.Tensor, mu: torch.Tensor,
         out = _qmm.qmatmul_plain(a2, w_packed, mu, sigma, bits=bits,
                                  out_dtype=out_dtype)
     return out.reshape(*a.shape[:-1], N)
+
+
+def qmatmul_lut(a: torch.Tensor, w_packed: torch.Tensor, lut: torch.Tensor,
+                *, bits: int, out_dtype=torch.float32,
+                use_kernel: bool = True, **tuning) -> torch.Tensor:
+    """a (..., K) @ lut-dequant(w) (K, N) -> (..., N).
+
+    ``lut`` is (k, N) per-column or (k,) one codebook for every column (the
+    engine's per-tensor ``q_lut``), f32.  ``use_kernel=False`` is the
+    comparison hook: it computes the plain PyTorch version on whatever
+    device the tensors are on.
+    """
+    K = a.shape[-1]
+    N = w_packed.shape[1] * 2 if bits == 4 else w_packed.shape[1]
+    a2 = a.reshape(-1, K)
+    if use_kernel:
+        out = _qmm.qmatmul_lut(a2.contiguous(), w_packed, lut.contiguous(),
+                               bits=bits, out_dtype=out_dtype, **tuning)
+    else:
+        out = _qmm.qmatmul_lut_plain(a2, w_packed, lut, bits=bits,
+                                     out_dtype=out_dtype)
+    return out.reshape(*a.shape[:-1], N)
+
+
+def qmatmul_a8(a_codes: torch.Tensor, a_scale: torch.Tensor,
+               w_packed: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
+               *, bits: int, out_dtype=torch.float32,
+               use_kernel: bool = True, **tuning) -> torch.Tensor:
+    """(a_codes * a_scale) (..., K) @ dequant(w) (K, N) -> (..., N).
+
+    ``a_codes`` int8; ``a_scale`` one f32 value or (..., 1) per row (the
+    per-token scales of ``core.activations.act_scale(x, bits, axis=-1)``).
+    ``use_kernel=False`` is the comparison hook (see ``qmatmul``).
+    """
+    K = a_codes.shape[-1]
+    N = w_packed.shape[1] * 2 if bits == 4 else w_packed.shape[1]
+    c2 = a_codes.reshape(-1, K)
+    scale = a_scale.to(torch.float32)
+    scale = scale.reshape(1) if scale.numel() == 1 \
+        else scale.reshape(c2.shape[0], 1)
+    mu, sigma = _stats(mu, N), _stats(sigma, N)
+    if use_kernel:
+        out = _qmm.qmatmul_a8(c2.contiguous(), scale.contiguous(), w_packed,
+                              mu, sigma, bits=bits, out_dtype=out_dtype,
+                              **tuning)
+    else:
+        out = _qmm.qmatmul_a8_plain(c2, scale, w_packed, mu, sigma,
+                                    bits=bits, out_dtype=out_dtype)
+    return out.reshape(*a_codes.shape[:-1], N)
+
+
+# --------------------------------------------------------------------------
+# The deterministic k-quantile codec (serving: weights at load, KV rows)
+# --------------------------------------------------------------------------
+
+def codec_layout(shape, C: int, mu: torch.Tensor, sigma: torch.Tensor):
+    """The (G, R, C) kernel layout of values of ``shape`` (trailing axis of
+    C elements) under statistics that broadcast against them, and those
+    statistics as contiguous (G, 1, C) / (G, 1, 1) f32.
+
+    G runs over the leading axes along which the statistics vary, R over
+    the axes between them and the last one, along which they are constant:
+    per-channel (1, N) statistics of a (K, N) weight give (1, K, N),
+    per-layer (L, 1, N) of a stacked (L, K, N) weight (L, K, N), per-row
+    (..., KV, 1) of KV rows (..., KV, hd) (rows * KV, 1, hd).
+    """
+    nd = len(shape)
+    lead = tuple(shape[:-1])
+    s_shape = tuple(mu.shape)
+    if len(s_shape) > nd or tuple(sigma.shape) != s_shape:
+        raise ValueError(f"statistics {tuple(mu.shape)} / "
+                         f"{tuple(sigma.shape)} do not broadcast against "
+                         f"{tuple(shape)}")
+    s_shape = (1,) * (nd - len(s_shape)) + s_shape
+    if s_shape[-1] not in (1, C):
+        raise ValueError(f"statistics {tuple(mu.shape)} do not broadcast "
+                         f"against {C} columns")
+    p = nd - 1
+    while p > 0 and s_shape[p - 1] == 1:
+        p -= 1
+    G = math.prod(lead[:p])
+    R = math.prod(lead[p:])
+
+    def prep(t):
+        t = t.to(torch.float32).reshape(s_shape)
+        t = t.expand(*lead[:p], *s_shape[p:])
+        return t.reshape(G, 1, s_shape[-1]).contiguous()
+
+    return G, R, prep(mu), prep(sigma)
+
+
+def quantize_weights(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
+                     *, bits: int, use_kernel: bool = True) -> torch.Tensor:
+    """Values -> stored codes of w's shape: (..., C // 2) uint8 packed two
+    per byte at 4 bits, (..., C) int8 (k = 256 offset) at 8.
+
+    Statistics broadcast against ``w`` (see ``codec_layout``).
+    ``use_kernel=False`` is the comparison hook: the plain version on
+    whatever device the tensors are on.
+    """
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    k = 2 ** bits
+    C = w.shape[-1]
+    G, R, mu3, sigma3 = codec_layout(tuple(w.shape), C, mu, sigma)
+    w3 = w.reshape(G, R, C)
+    if use_kernel:
+        codes = _kq.kquantile_quantize(w3.contiguous(), mu3, sigma3, k=k)
+    else:
+        codes = _kq.kquantile_quantize_plain(w3, mu3, sigma3, k=k)
+    codes = codes.reshape(w.shape)
+    return packing.pack_int4(codes) if bits == 4 else codes
+
+
+def dequantize_weights(codes: torch.Tensor, mu: torch.Tensor,
+                       sigma: torch.Tensor, *, bits: int,
+                       out_dtype=torch.bfloat16,
+                       use_kernel: bool = True) -> torch.Tensor:
+    """Stored codes (as ``quantize_weights`` gives them) -> values
+    ``mu + sigma * level_table(k)[c]`` of the unpacked shape; packed 4-bit
+    codes are unpacked inside the kernel.  ``use_kernel=False`` is the
+    comparison hook."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    k = 2 ** bits
+    C = codes.shape[-1] * (2 if bits == 4 else 1)
+    shape = (*codes.shape[:-1], C)
+    G, R, mu3, sigma3 = codec_layout(shape, C, mu, sigma)
+    c3 = codes.reshape(G, R, codes.shape[-1])
+    if use_kernel:
+        out = _kq.kquantile_dequantize(c3.contiguous(), mu3, sigma3, k=k,
+                                       out_dtype=out_dtype)
+    else:
+        out = _kq.kquantile_dequantize_plain(c3, mu3, sigma3, k=k,
+                                             out_dtype=out_dtype)
+    return out.reshape(shape)
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,12 @@
-"""Dequant-fused matmul over k-quantile-coded weights: CUDA kernel + plain
-PyTorch version.
+"""Dequant-fused matmuls over k-quantile-coded weights: CUDA kernels + plain
+PyTorch versions.
 
-Replaces the TPU kernel ``qmatmul`` of ``src/repro/kernels/qmatmul.py``.
-The kernel source is ``csrc/qmatmul.cu`` (see its header for what bounds it
-on Hopper and what the design does about that).  ``qmatmul`` launches the
-kernel for CUDA tensors and takes the plain version only for CPU tensors.
+Replaces the TPU kernels ``qmatmul``, ``qmatmul_lut`` (codebook levels, the
+serving path of ``dist="empirical"`` checkpoints) and ``qmatmul_a8`` (int8
+activation codes) of ``src/repro/kernels/qmatmul.py``.  The kernel source
+is ``csrc/qmatmul.cu`` (see its header for what bounds it on Hopper and what
+the design does about that).  Each wrapper launches its kernel for CUDA
+tensors and takes the plain version only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -79,49 +81,124 @@ def qmatmul_plain(a: torch.Tensor, w_packed: torch.Tensor, mu: torch.Tensor,
     return (a.to(torch.float32) @ w.to(torch.float32)).to(out_dtype)
 
 
-def _check(a, w_packed, mu, sigma, bits, out_dtype):
+def qmatmul_lut_plain(a: torch.Tensor, w_packed: torch.Tensor,
+                      lut: torch.Tensor, *, bits: int,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the codebook matmul: unpack, ``lut[code, col]`` (or
+    ``lut[code]`` for a (k,) codebook), the levels rounded to ``a``'s dtype
+    (as ``qmatmul_plain`` rounds Gaussian levels and the reference's
+    ``materialize(w, x.dtype)`` does), then ``a.float() @ w``."""
+    k = 2 ** bits
+    codes = packing.unpack_int4(w_packed) if bits == 4 else w_packed
+    c = codes.to(torch.int64) + kref.code_offset(k)
+    w = lut[c] if lut.ndim == 1 else torch.gather(lut, 0, c)
+    return (a.to(torch.float32) @ w.to(a.dtype).to(torch.float32)) \
+        .to(out_dtype)
+
+
+def qmatmul_a8_plain(a_codes: torch.Tensor, a_scale: torch.Tensor,
+                     w_packed: torch.Tensor, mu: torch.Tensor,
+                     sigma: torch.Tensor, *, bits: int,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the int8-activation matmul: ``ref.qmatmul_a8_ref``
+    (f32 ``code * scale`` against f32 levels, as the reference's engine
+    computes ``lm.mm_a``)."""
+    return kref.qmatmul_a8_ref(a_codes, a_scale, w_packed, mu, sigma, bits,
+                               out_dtype)
+
+
+def _check_w(w_packed, bits, K):
+    """Checks the coded weight against K; returns N."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
-    if a.ndim != 2 or w_packed.ndim != 2:
-        raise ValueError(f"a and w must be 2-D, got {tuple(a.shape)} and "
-                         f"{tuple(w_packed.shape)}")
+    if w_packed.ndim != 2:
+        raise ValueError(f"w must be 2-D, got {tuple(w_packed.shape)}")
     want = packing.storage_dtype(bits)
     if w_packed.dtype != want:
         raise TypeError(f"w must be {want} at bits={bits}, got "
                         f"{w_packed.dtype}")
-    M, K = a.shape
-    N = w_packed.shape[1] * 2 if bits == 4 else w_packed.shape[1]
     if w_packed.shape[0] != K:
-        raise ValueError(f"K mismatch: a {tuple(a.shape)} vs w "
+        raise ValueError(f"K mismatch: a has K={K}, w is "
                          f"{tuple(w_packed.shape)}")
+    return w_packed.shape[1] * 2 if bits == 4 else w_packed.shape[1]
+
+
+def _check_stats(mu, sigma, N):
     for name, s in (("mu", mu), ("sigma", sigma)):
         if tuple(s.shape) != (1, N) or s.dtype != torch.float32:
             raise ValueError(f"{name} must be (1, {N}) float32, got "
                              f"{tuple(s.shape)} {s.dtype}")
+
+
+def _check_float_a(a):
+    """Checks a float activation; returns (M, K)."""
+    if a.ndim != 2:
+        raise ValueError(f"a must be 2-D, got {tuple(a.shape)}")
     if a.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"a must be bfloat16 or float32, got {a.dtype}")
+    return a.shape
+
+
+def _check_out_and_devices(out_dtype, a, *others):
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype must be bfloat16 or float32, got "
                         f"{out_dtype}")
-    for t in (w_packed, mu, sigma):
+    for t in others:
         if t.device != a.device:
             raise ValueError("all operands must live on one device")
-    return M, K, N
+    if a.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"qmatmul runs on cuda or cpu tensors, got "
+                           f"{a.device}")
 
 
-_FN = None
+_ARGTYPES = {
+    # the operands before the shared tail (part, out, out_bf16, M, K, N, bm,
+    # splitk, stream) of each C entry point: p = pointer, i = int
+    "qmatmul_launch": "pipippp",
+    "qmatmul_lut_launch": "pipipi",
+    "qmatmul_a8_launch": "ppipippp",
+}
+_FNS = {}
 
 
-def _bind():
-    """The kernel's C entry point, built and bound at first use."""
-    global _FN
-    if _FN is None:
-        fn = loader.load("qmatmul").qmatmul_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, p, p, p, p, p, i, i, i, i, i, i, p]
+def _bind(name: str):
+    """A C entry point of ``csrc/qmatmul.cu``, built and bound at first
+    use."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = getattr(loader.load("qmatmul"), name)
+        c = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+        fn.argtypes = [c[t] for t in _ARGTYPES[name] + "ppiiiiiip"]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return fn
+
+
+def _launch(name, operands, tensors, M, K, N, out_dtype, blocks, splitk,
+            what):
+    """Checks that ``tensors`` (name -> tensor) are contiguous, allocates the
+    split-K scratch and the output on their device and runs entry point
+    ``name`` with ``operands`` followed by the shared tail."""
+    for tname, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{tname} must be contiguous")
+    cfg = blocks if blocks is not None else default_blocks(M)
+    if cfg.bm not in (8, 16, 32, 64):
+        raise ValueError(f"no kernel instantiation for {cfg}")
+    nsplit = splitk if splitk is not None else default_splitk(K, N)
+    fn = _bind(name)
+    dev = next(iter(tensors.values())).device
+    with loader.on_device(dev):
+        part = torch.empty((nsplit, M, N), dtype=torch.float32, device=dev)
+        out = torch.empty((M, N), dtype=out_dtype, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*operands, part.data_ptr(), out.data_ptr(),
+                int(out_dtype == torch.bfloat16), M, K, N, cfg.bm, nsplit,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed with code {rc} (M={M}, K={K}, "
+                           f"N={N}, {what}, {cfg}, splitk={nsplit})")
+    return out
 
 
 def qmatmul(a: torch.Tensor, w_packed: torch.Tensor, mu: torch.Tensor,
@@ -137,40 +214,112 @@ def qmatmul(a: torch.Tensor, w_packed: torch.Tensor, mu: torch.Tensor,
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version.  ``qmatmul.launches`` counts kernel launches.
     """
-    M, K, N = _check(a, w_packed, mu, sigma, bits, out_dtype)
+    M, K = _check_float_a(a)
+    N = _check_w(w_packed, bits, K)
+    _check_stats(mu, sigma, N)
+    _check_out_and_devices(out_dtype, a, w_packed, mu, sigma)
     if a.device.type == "cpu":
         return qmatmul_plain(a, w_packed, mu, sigma, bits=bits,
                              out_dtype=out_dtype)
-    if a.device.type != "cuda":
-        raise RuntimeError(f"qmatmul runs on cuda or cpu tensors, got "
-                           f"{a.device}")
     if M == 0:
         return torch.empty((0, N), dtype=out_dtype, device=a.device)
-    for name, t in (("a", a), ("w", w_packed), ("mu", mu), ("sigma", sigma)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    cfg = blocks if blocks is not None else default_blocks(M)
-    if cfg.bm not in (8, 16, 32, 64):
-        raise ValueError(f"no kernel instantiation for {cfg}")
-    nsplit = splitk if splitk is not None else default_splitk(K, N)
-    fn = _bind()
     table = kref.level_table(2 ** bits, a.device)
-    with loader.on_device(a.device):
-        part = torch.empty((nsplit, M, N), dtype=torch.float32,
-                           device=a.device)
-        out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), int(a.dtype == torch.bfloat16),
-                w_packed.data_ptr(), bits, mu.data_ptr(), sigma.data_ptr(),
-                table.data_ptr(), part.data_ptr(), out.data_ptr(),
-                int(out_dtype == torch.bfloat16), M, K, N, cfg.bm, nsplit,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"qmatmul kernel launch failed with code {rc} "
-                           f"(M={M}, K={K}, N={N}, bits={bits}, {cfg}, "
-                           f"splitk={nsplit})")
+    out = _launch("qmatmul_launch",
+                  (a.data_ptr(), int(a.dtype == torch.bfloat16),
+                   w_packed.data_ptr(), bits, mu.data_ptr(), sigma.data_ptr(),
+                   table.data_ptr()),
+                  {"a": a, "w": w_packed, "mu": mu, "sigma": sigma},
+                  M, K, N, out_dtype, blocks, splitk, f"bits={bits}")
     qmatmul.launches += 1
     return out
 
 
+def qmatmul_lut(a: torch.Tensor, w_packed: torch.Tensor, lut: torch.Tensor,
+                *, bits: int, out_dtype=torch.float32,
+                blocks: Optional[BlockConfig] = None,
+                splitk: Optional[int] = None) -> torch.Tensor:
+    """a (M, K) @ lut-dequant(w_packed) (K, N) -> (M, N) ``out_dtype``.
+
+    w_packed : (K, N//2) uint8 if bits==4 else (K, N) int8 (k=256 offset).
+    lut      : (k, N) f32 per-column levels, or (k,) f32 one codebook for
+               every column (the engine's per-tensor ``q_lut``; taken with
+               a column stride of 0, never expanded).
+    bf16 activations meet levels rounded to bf16 on the tensor cores; f32
+    activations f32 levels on the CUDA cores.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version.  ``qmatmul_lut.launches`` counts kernel launches.
+    """
+    M, K = _check_float_a(a)
+    N = _check_w(w_packed, bits, K)
+    k = 2 ** bits
+    if lut.dtype != torch.float32 or tuple(lut.shape) not in ((k,), (k, N)):
+        raise ValueError(f"lut must be ({k},) or ({k}, {N}) float32, got "
+                         f"{tuple(lut.shape)} {lut.dtype}")
+    _check_out_and_devices(out_dtype, a, w_packed, lut)
+    if a.device.type == "cpu":
+        return qmatmul_lut_plain(a, w_packed, lut, bits=bits,
+                                 out_dtype=out_dtype)
+    if M == 0:
+        return torch.empty((0, N), dtype=out_dtype, device=a.device)
+    out = _launch("qmatmul_lut_launch",
+                  (a.data_ptr(), int(a.dtype == torch.bfloat16),
+                   w_packed.data_ptr(), bits, lut.data_ptr(),
+                   int(lut.ndim == 2)),
+                  {"a": a, "w": w_packed, "lut": lut},
+                  M, K, N, out_dtype, blocks, splitk,
+                  f"bits={bits}, lut {tuple(lut.shape)}")
+    qmatmul_lut.launches += 1
+    return out
+
+
+def qmatmul_a8(a_codes: torch.Tensor, a_scale: torch.Tensor,
+               w_packed: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
+               *, bits: int, out_dtype=torch.float32,
+               blocks: Optional[BlockConfig] = None,
+               splitk: Optional[int] = None) -> torch.Tensor:
+    """(a_codes * a_scale) (M, K) @ dequant(w_packed) (K, N) -> (M, N).
+
+    a_codes : (M, K) int8 activation codes.
+    a_scale : f32, one value (the reference's kernel) or (M, 1) per row
+              (the reference's engine: per-token absmax scales).
+    w_packed, mu, sigma : as ``qmatmul``.
+    The product is f32 ``code * scale`` against f32 levels, accumulated in
+    f32 on the CUDA cores (the reference engine's numerics; its TPU kernel
+    rounds both operands to bf16 instead).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version.  ``qmatmul_a8.launches`` counts kernel launches.
+    """
+    if a_codes.ndim != 2 or a_codes.dtype != torch.int8:
+        raise ValueError(f"a_codes must be (M, K) int8, got "
+                         f"{tuple(a_codes.shape)} {a_codes.dtype}")
+    M, K = a_codes.shape
+    N = _check_w(w_packed, bits, K)
+    if a_scale.dtype != torch.float32 or (
+            a_scale.numel() != 1 and tuple(a_scale.shape) != (M, 1)):
+        raise ValueError(f"a_scale must be one float32 value or ({M}, 1) "
+                         f"float32, got {tuple(a_scale.shape)} "
+                         f"{a_scale.dtype}")
+    _check_stats(mu, sigma, N)
+    _check_out_and_devices(out_dtype, a_codes, a_scale, w_packed, mu, sigma)
+    if a_codes.device.type == "cpu":
+        return qmatmul_a8_plain(a_codes, a_scale, w_packed, mu, sigma,
+                                bits=bits, out_dtype=out_dtype)
+    if M == 0:
+        return torch.empty((0, N), dtype=out_dtype, device=a_codes.device)
+    table = kref.level_table(2 ** bits, a_codes.device)
+    out = _launch("qmatmul_a8_launch",
+                  (a_codes.data_ptr(), a_scale.data_ptr(),
+                   int(a_scale.numel() != 1), w_packed.data_ptr(), bits,
+                   mu.data_ptr(), sigma.data_ptr(), table.data_ptr()),
+                  {"a_codes": a_codes, "a_scale": a_scale, "w": w_packed,
+                   "mu": mu, "sigma": sigma},
+                  M, K, N, out_dtype, blocks, splitk, f"bits={bits}")
+    qmatmul_a8.launches += 1
+    return out
+
+
 qmatmul.launches = 0
+qmatmul_lut.launches = 0
+qmatmul_a8.launches = 0

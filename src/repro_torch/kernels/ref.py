@@ -2,8 +2,9 @@
 
 k-quantile codes, the k-entry level table and the analytic dequant: what the
 CPU tests hold against the JAX reference, and what the kernels' plain
-versions (each beside its kernel, in ``qmatmul.py``, ``paged_attn.py`` and
-``uniq_noise.py``) are built from; plus the oracle of the UNIQ training
+versions (each beside its kernel, in ``qmatmul.py``, ``paged_attn.py``,
+``kquantile.py`` and ``uniq_noise.py``) are built from; the oracles of the
+codebook and int8-activation matmuls; plus the oracle of the UNIQ training
 transform and its gradient.
 """
 
@@ -13,10 +14,13 @@ import functools
 
 import torch
 
+from repro_torch.core import packing
+
 _SQRT2 = 1.4142135623730951
-# z / sqrt2 is taken as z * (1 / sqrt2) by the UNIQ transform: a product
-# rounds alike on every device and in the CUDA kernel, a division by a
-# Python scalar need not
+# z / sqrt2 is taken as z * (1 / sqrt2) by Phi and the UNIQ transform: a
+# product rounds alike on every device and in the CUDA kernels, a division
+# by a Python scalar need not (PyTorch's CUDA kernel may multiply by the
+# reciprocal)
 _RSQRT2 = 0.7071067811865476
 _EPS = 1e-6
 
@@ -29,7 +33,7 @@ _RAIL_Z = 4.75
 
 def phi(z: torch.Tensor) -> torch.Tensor:
     """Standard normal CDF via erf (the KV-row / kernel formulation)."""
-    return 0.5 * (1.0 + torch.erf(z / _SQRT2))
+    return 0.5 * (1.0 + torch.erf(z * _RSQRT2))
 
 
 def phi_inv(u: torch.Tensor) -> torch.Tensor:
@@ -85,6 +89,40 @@ def kquantile_dequant_ref(codes: torch.Tensor, mu: torch.Tensor,
     Applies the int8 storage offset for k == 256 (see code_offset)."""
     idx = codes.to(torch.int64) + code_offset(k)
     return (mu + sigma * level_table(k, codes.device)[idx]).to(dtype)
+
+
+def qmatmul_lut_ref(a: torch.Tensor, w_packed: torch.Tensor,
+                    lut: torch.Tensor, bits: int,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """Oracle of the codebook-LUT dequant matmul: ``w[r, c] = lut[code[r,
+    c], c]`` (int8 codes carry the k = 256 storage offset), then an f32
+    product.
+
+    a        : (M, K) activations
+    w_packed : (K, N//2) uint8 (bits=4) or (K, N) int8 (bits=8)
+    lut      : (k, N) f32 per-column levels, or (k,) one codebook for every
+               column (the reference broadcasts it to (k, N) first)
+    """
+    k = 2 ** bits
+    codes = packing.unpack_int4(w_packed) if bits == 4 else w_packed
+    c = codes.to(torch.int64) + code_offset(k)
+    lut = lut.to(torch.float32)
+    w = lut[c] if lut.ndim == 1 else torch.gather(lut, 0, c)
+    return (a.to(torch.float32) @ w).to(out_dtype)
+
+
+def qmatmul_a8_ref(a_codes: torch.Tensor, a_scale: torch.Tensor,
+                   w_packed: torch.Tensor, mu: torch.Tensor,
+                   sigma: torch.Tensor, bits: int,
+                   out_dtype=torch.float32) -> torch.Tensor:
+    """Oracle of the W4/W8 x A8 matmul: ``(a_codes * a_scale) @ dequant(w)``
+    in f32.  ``a_scale`` is a scalar (the reference's kernel) or (M, 1) per
+    row (the reference's engine, ``lm.mm_a``)."""
+    k = 2 ** bits
+    a = a_codes.to(torch.float32) * a_scale
+    codes = packing.unpack_int4(w_packed) if bits == 4 else w_packed
+    w = kquantile_dequant_ref(codes, mu, sigma, k, dtype=torch.float32)
+    return (a @ w).to(out_dtype)
 
 
 def uniq_transform_ref(w: torch.Tensor, mu: torch.Tensor,

@@ -28,7 +28,10 @@ prompt tokens, lengths, arrivals AND per-request sampling seeds — derives
 from the single --seed, so a run is replayable end to end.
 
 Weights are random, made from --seed on the device, and k-quantile-coded
-to --w-bits one layer at a time.
+to --w-bits one layer at a time: analytic Gaussian levels, or with
+--w-dist empirical per-tensor empirical quantiles and their codebook
+(served through the qmatmul_lut kernel).  --a-bits 8 serves every
+quantized matmul on per-token int8 activation codes (qmatmul_a8).
 """
 
 from __future__ import annotations
@@ -254,7 +257,10 @@ def main(argv=None):
                         "empirical per-tensor codebook (LUT) — match the "
                         "checkpoint's training cfg.dist")
     p.add_argument("--a-bits", type=int, default=32,
-                   help="activation bit-width (only 32 = off is ported)")
+                   help="activation bit-width: --engine mode serves a real "
+                        "per-token int8 codec (2..8) on every quantized "
+                        "matmul (prefill + decode, the qmatmul_a8 kernel) "
+                        "and reports it in the metrics meta; 32 = off")
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--new-tokens", type=int, default=32)
@@ -345,14 +351,11 @@ def main(argv=None):
     # at a_bits=32 so activation quantization is never applied twice
     sc = serve_lib.ServeConfig(w_bits=args.w_bits, a_bits=32,
                                w_dist=args.w_dist)
-    if sc.w_dist != "gaussian":
-        raise NotImplementedError(
-            "--w-dist empirical needs the codebook matmul kernel, which is "
-            "not ported yet")
-    # weights are drawn and coded one layer at a time on the device: a
-    # full-width model never holds a dense stacked leaf
+    # weights are drawn and coded (Gaussian levels or an empirical
+    # codebook) one layer at a time on the device: a full-width model never
+    # holds a dense stacked leaf
     params = model.init(args.seed, cfg, device=device, w_bits=sc.w_bits,
-                        dense_dtype=compute_dtype)
+                        dense_dtype=compute_dtype, w_dist=sc.w_dist)
     opts = serve_lib.make_serve_opts(opts, sc)
     return run_engine_stream(params, cfg, opts, args, device=device)
 

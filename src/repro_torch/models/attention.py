@@ -160,16 +160,18 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_pos,
 
 
 def paged_prefill_attention_quant(q, cache, block_tables, q_pos,
-                                  p: AttnParams, *,
-                                  kv_bits: int) -> torch.Tensor:
+                                  p: AttnParams, *, kv_bits: int,
+                                  use_kernel: bool = True) -> torch.Tensor:
     """Chunked-prefill attention against a k-quantile-coded paged pool:
-    gathers + dequantizes the block-table row densely and defers to
-    ``full_attention`` — what whole prefill sees after ``fake_quant_kv``."""
+    gathers + dequantizes the block-table row densely (the
+    ``kquantile_dequantize`` kernel on CUDA tensors) and defers to
+    ``full_attention`` — what whole prefill sees after ``fake_quant_kv``.
+    ``use_kernel=False`` is the comparison hook."""
     def gather_dequant(codes, mu, sigma):
         return kvq.dequantize_kv(_gather(codes, block_tables),
                                  _gather(mu, block_tables),
                                  _gather(sigma, block_tables), kv_bits,
-                                 dtype=q.dtype)
+                                 dtype=q.dtype, use_kernel=use_kernel)
 
     k = gather_dequant(cache["k_codes"], cache["k_mu"], cache["k_sigma"])
     v = gather_dequant(cache["v_codes"], cache["v_mu"], cache["v_sigma"])

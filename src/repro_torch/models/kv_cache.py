@@ -6,7 +6,10 @@ makes preemption/resume bit-exact in the codes domain: a row's codes depend
 only on that row's fresh K/V values.  Codes reuse the weight-path
 conventions (``kernels/ref.py`` Phi/Phi^-1 pair, int4 two-per-byte packing,
 int8 storage offset for k=256), so the paged-attention kernel shares the
-qmatmul dequant formulation.  ``token_kv_bytes``/``page_kv_bytes`` give the
+qmatmul dequant formulation.  Coding and dense dequantization go through
+the k-quantile codec kernels (``kernels/ops.py:quantize_weights`` /
+``dequantize_weights``); the mean and deviation stay plain torch, as in the
+reference, where they are inputs of the kernel.  ``token_kv_bytes``/``page_kv_bytes`` give the
 exact pool bytes per token/page, the scheduler's admission currency.
 """
 
@@ -17,8 +20,7 @@ import hashlib
 import numpy as np
 import torch
 
-from repro_torch.core import packing
-from repro_torch.kernels import ref as kref
+from repro_torch.kernels import ops as kops
 
 KV_BITS_CHOICES = (16, 8, 4)
 
@@ -42,42 +44,42 @@ def is_quantized_cache(cache) -> bool:
     return isinstance(cache, dict) and "k_codes" in cache
 
 
-def quantize_kv(x: torch.Tensor, kv_bits: int):
+def quantize_kv(x: torch.Tensor, kv_bits: int, use_kernel: bool = True):
     """Code a block of KV rows:  x (..., KV, hd) -> (codes, mu, sigma).
 
     codes : (..., KV, hd) int8 for kv_bits=8, (..., KV, hd//2) uint8 packed
             for kv_bits=4 (int8 codes carry the k=256 storage offset).
     mu/sigma : (..., KV) bf16 per-(row, head) statistics (population
             deviation); codes are computed against the bf16-rounded values.
+    ``use_kernel=False`` is the comparison hook: the codec's plain version
+    on whatever device the tensors are on.
     """
-    k = 2 ** kv_bits
     xf = x.to(torch.float32)
     mu = torch.mean(xf, dim=-1).to(STATS_DTYPE)
     sigma = torch.clamp(torch.std(xf, dim=-1, correction=0),
                         min=1e-8).to(STATS_DTYPE)
-    codes = kref.kquantile_codes_ref(
+    stored = kops.quantize_weights(
         xf, mu.to(torch.float32)[..., None],
-        sigma.to(torch.float32)[..., None], k)
-    stored = packing.pack_int4(codes) if kv_bits == 4 else codes
+        sigma.to(torch.float32)[..., None], bits=kv_bits,
+        use_kernel=use_kernel)
     return stored, mu, sigma
 
 
 def dequantize_kv(stored: torch.Tensor, mu: torch.Tensor,
                   sigma: torch.Tensor, kv_bits: int,
-                  dtype=torch.float32) -> torch.Tensor:
+                  dtype=torch.float32, use_kernel: bool = True) -> torch.Tensor:
     """codes (+ per-row stats) -> dense KV rows via the analytic levels."""
-    k = 2 ** kv_bits
-    codes = packing.unpack_int4(stored) if kv_bits == 4 else stored
-    return kref.kquantile_dequant_ref(
-        codes, mu.to(torch.float32)[..., None],
-        sigma.to(torch.float32)[..., None], k, dtype=dtype)
+    return kops.dequantize_weights(
+        stored, mu.to(torch.float32)[..., None],
+        sigma.to(torch.float32)[..., None], bits=kv_bits, out_dtype=dtype,
+        use_kernel=use_kernel)
 
 
-def fake_quant_kv(x: torch.Tensor, kv_bits: int):
+def fake_quant_kv(x: torch.Tensor, kv_bits: int, use_kernel: bool = True):
     """Round-trip a KV block; returns (x_dq, codes, mu, sigma)."""
-    stored, mu, sigma = quantize_kv(x, kv_bits)
-    return dequantize_kv(stored, mu, sigma, kv_bits, x.dtype), stored, mu, \
-        sigma
+    stored, mu, sigma = quantize_kv(x, kv_bits, use_kernel)
+    return dequantize_kv(stored, mu, sigma, kv_bits, x.dtype,
+                         use_kernel), stored, mu, sigma
 
 
 def clone_pages(cache, src, dst):

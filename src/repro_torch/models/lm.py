@@ -4,9 +4,11 @@
 Every per-layer parameter carries a leading (L,) axis and the forward pass
 is a Python loop over ``leaf[l]`` views.  Serving-time weights may be
 k-quantile-coded: a weight leaf replaced by a ``{"q_codes", "q_mu",
-"q_sigma"}`` dict (see ``quantize_params_for_serving``) is multiplied through
-the dequant-fused ``qmatmul`` kernel on the card (its plain version on the
-CPU).  The paged KV pool is updated in place.
+"q_sigma"}`` dict (Gaussian levels) or a ``{"q_codes", "q_lut"}`` dict (an
+empirical codebook; see ``quantize_params_for_serving``) is multiplied
+through the dequant-fused ``qmatmul`` / ``qmatmul_lut`` kernel on the card
+(its plain version on the CPU), and with ``serve_a_bits < 32`` through the
+int8-activation ``qmatmul_a8``.  The paged KV pool is updated in place.
 """
 
 from __future__ import annotations
@@ -20,12 +22,14 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import activations as act
 from repro_torch.core import packing
+from repro_torch.core import quantizers as Q
+from repro_torch.core.distributions import EmpiricalModel
 from repro_torch.core.uniq import (default_quant_filter, path_str,
                                    quantize_tensor)
 from repro_torch.devices import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels import ref as kref
 from repro_torch.models import attention as attn
 from repro_torch.models import kv_cache as kvq
 from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
@@ -40,7 +44,11 @@ class ModelOpts:
     """Runtime (non-architecture) options of the serving path."""
     compute_dtype: Any = torch.bfloat16
     a_bits: int = 32                  # activation fake-quant (32 = off)
-    serve_a_bits: int = 32            # serving activation codec (32 = off)
+    serve_a_bits: int = 32            # serving activation codec on quantized
+                                      #   matmuls: 2..8 => per-token int8
+                                      #   codes + absmax scale before the dot
+                                      #   (the qmatmul_a8 kernel; threaded
+                                      #   from EngineConfig.a_bits); 32 = off
     kv_bits: int = 16                 # 8/4 => k-quantile-coded KV cache
     remat: bool = True                # training: recompute each layer in the
                                       #   backward (torch.utils.checkpoint)
@@ -64,19 +72,39 @@ def _bits_of(codes: torch.Tensor) -> int:
     return 4 if codes.dtype == torch.uint8 else 8
 
 
-def materialize(w, dtype) -> torch.Tensor:
-    """Return a dense (possibly dequantized) weight in ``dtype``."""
-    if not is_qweight(w):
-        return w.to(dtype)
-    if "q_lut" in w:
-        raise NotImplementedError(
-            "codebook (empirical) weights are not ported yet")
-    codes = w["q_codes"]
-    bits = _bits_of(codes)
+def _lut_levels(codes: torch.Tensor, lut: torch.Tensor,
+                bits: int) -> torch.Tensor:
+    """Codebook dequant (``dist="empirical"``): a per-code gather from a
+    per-tensor (k,) codebook, or from stacked per-layer (L, k) codebooks
+    against codes (L, ...), as the reference's ``materialize`` does."""
     if bits == 4:
         codes = packing.unpack_int4(codes)
-    return kref.kquantile_dequant_ref(codes, w["q_mu"], w["q_sigma"],
-                                      2 ** bits, dtype=dtype)
+    idx = codes.to(torch.int64)
+    if bits == 8:
+        idx = idx + 128                     # undo the int8 storage offset
+    if lut.ndim == 1:
+        return lut[idx]
+    flat = torch.gather(lut, 1, idx.reshape(idx.shape[0], -1))
+    return flat.reshape(idx.shape)
+
+
+def materialize(w, dtype, use_kernels: bool = True) -> torch.Tensor:
+    """Return a dense (possibly dequantized) weight in ``dtype``.
+
+    Gaussian codes go through ``kquantile_dequantize`` (the kernel for CUDA
+    tensors; ``use_kernels=False`` is the comparison hook), codebook codes
+    through a gather."""
+    if not is_qweight(w):
+        return w.to(dtype)
+    codes = w["q_codes"]
+    bits = _bits_of(codes)
+    if "q_lut" in w:
+        return _lut_levels(codes, w["q_lut"], bits).to(dtype)
+    out = dtype if dtype in (torch.float32, torch.bfloat16) \
+        else torch.float32
+    return kops.dequantize_weights(codes, w["q_mu"], w["q_sigma"],
+                                   bits=bits, out_dtype=out,
+                                   use_kernel=use_kernels).to(dtype)
 
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -97,29 +125,55 @@ def mm(x: torch.Tensor, w, use_kernels: bool = True,
        out_dtype=None) -> torch.Tensor:
     """x @ w where w is a dense tensor or a quantized-weight dict.
 
-    A Gaussian-coded 2-D weight goes through ``qmatmul`` (the CUDA kernel
-    for CUDA tensors); a dense weight through ``torch.matmul``, its value
-    rounded to x's dtype first.  A low-precision x with an f32
-    ``out_dtype`` (the LM head) accumulates into f32 logits.
+    A Gaussian-coded 2-D weight goes through ``qmatmul``, a codebook-coded
+    one through ``qmatmul_lut`` (the CUDA kernels for CUDA tensors); a
+    dense weight through ``torch.matmul``, its value rounded to x's dtype
+    first.  A low-precision x with an f32 ``out_dtype`` (the LM head)
+    accumulates into f32 logits.
     """
     out_dtype = out_dtype or x.dtype
-    if is_qweight(w) and "q_lut" not in w and w["q_codes"].ndim == 2:
+    if is_qweight(w) and w["q_codes"].ndim == 2:
+        bits = _bits_of(w["q_codes"])
+        if "q_lut" in w:
+            return kops.qmatmul_lut(x, w["q_codes"], w["q_lut"], bits=bits,
+                                    out_dtype=out_dtype,
+                                    use_kernel=use_kernels)
         return kops.qmatmul(x, w["q_codes"], w["q_mu"], w["q_sigma"],
-                            bits=_bits_of(w["q_codes"]), out_dtype=out_dtype,
+                            bits=bits, out_dtype=out_dtype,
                             use_kernel=use_kernels)
-    w = materialize(w, x.dtype)
+    w = materialize(w, x.dtype, use_kernels)
     if out_dtype == torch.float32 and x.dtype != torch.float32:
         return _dot_f32(x, w)
     return torch.matmul(x, w).to(out_dtype)
 
 
 def mm_a(x: torch.Tensor, w, opts: ModelOpts) -> torch.Tensor:
-    """``mm`` under the serving activation codec (only 32 = off so far)."""
-    if opts.serve_a_bits < 32 and is_qweight(w):
-        raise NotImplementedError(
-            "serve_a_bits < 32 needs the int8-activation matmul kernel, "
-            "which is not ported yet")
-    return mm(x, w, opts.use_kernels)
+    """``mm`` with the serving activation codec (the A8 path).
+
+    With ``opts.serve_a_bits < 32`` and a quantized weight, the activation
+    is coded per token (absmax scale over the feature axis,
+    ``core/activations.py``) and the f32 ``code * scale`` is multiplied by
+    f32 levels, the result cast to x's dtype: the reference's ``mm_a``.
+    Gaussian weights go through ``qmatmul_a8``, codebook weights through
+    ``qmatmul_lut`` on the f32 activation.  Dense weights and
+    ``serve_a_bits >= 32`` fall through to ``mm``.
+    """
+    bits = opts.serve_a_bits
+    if bits >= 32 or not is_qweight(w):
+        return mm(x, w, opts.use_kernels)
+    codes, scale = act.quant_act(x, bits, act.act_scale(x, bits, axis=-1))
+    wbits = _bits_of(w["q_codes"])
+    if w["q_codes"].ndim == 2 and "q_lut" not in w:
+        return kops.qmatmul_a8(codes, scale, w["q_codes"], w["q_mu"],
+                               w["q_sigma"], bits=wbits, out_dtype=x.dtype,
+                               use_kernel=opts.use_kernels)
+    a = codes.to(torch.float32) * scale
+    if w["q_codes"].ndim == 2:
+        return kops.qmatmul_lut(a, w["q_codes"], w["q_lut"], bits=wbits,
+                                out_dtype=x.dtype,
+                                use_kernel=opts.use_kernels)
+    return torch.matmul(a, materialize(w, torch.float32,
+                                       opts.use_kernels)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -145,11 +199,38 @@ def _set(tree, keys, val):
     tree[keys[-1]] = val
 
 
+def _quantize_leaf_empirical(leaf: torch.Tensor, bits: int, stacked: bool):
+    """Code one leaf against its per-tensor empirical quantiles, with the
+    k-level codebook beside the codes (``{"q_codes", "q_lut"}``, the
+    paper's "look-up table availability" case).  A stacked leaf gets one
+    codebook per layer, (L, k); the layer loop slices it to (k,) with the
+    codes.  Codes keep the weight path's storage conventions (int4
+    packing, int8 k = 256 offset), so ``qmatmul_lut`` takes them as they
+    are."""
+    k = 2 ** bits
+
+    def one(w):
+        m = EmpiricalModel.fit(w)
+        codes = Q.kquantile_quantize(w, m, k)
+        stored = packing.pack_int4(codes) if bits == 4 \
+            else (codes - 128).to(torch.int8)
+        return stored, m.level_values(k).to(torch.float32)
+
+    if not stacked:
+        stored, lut = one(leaf)
+        return {"q_codes": stored, "q_lut": lut}
+    parts = [one(leaf[l]) for l in range(leaf.shape[0])]
+    return {"q_codes": torch.stack([p[0] for p in parts]),
+            "q_lut": torch.stack([p[1] for p in parts])}
+
+
 def _quantize_leaf(leaf: torch.Tensor, bits: int, per_channel: bool,
-                   stacked: bool):
+                   stacked: bool, dist: str = "gaussian"):
     """Code one leaf.  A stacked leaf is coded one layer at a time: its
     statistics are per layer anyway, and the temporaries stay one layer
     large."""
+    if dist == "empirical":
+        return _quantize_leaf_empirical(leaf, bits, stacked)
     if not stacked:
         qt = quantize_tensor(leaf, bits, per_channel=per_channel)
         return {"q_codes": qt.codes, "q_mu": qt.mu, "q_sigma": qt.sigma}
@@ -171,15 +252,13 @@ def quantize_params_for_serving(params, bits: int, quant_filter=None,
                                 dist: str = "gaussian",
                                 stacked_prefixes=_STACKED_PREFIXES,
                                 device="cuda"):
-    """Replace eligible weight leaves by k-quantile code dicts
-    ``{"q_codes", "q_mu", "q_sigma"}`` on ``device``.  Only int4 packing
+    """Replace eligible weight leaves by k-quantile code dicts on
+    ``device``: ``{"q_codes", "q_mu", "q_sigma"}`` (dist="gaussian",
+    analytic levels) or ``{"q_codes", "q_lut"}`` (dist="empirical",
+    per-tensor empirical quantiles and their codebook).  Only int4 packing
     needs an even trailing dim, so the odd-last-dim skip applies at
     bits == 4 alone."""
-    if dist == "empirical":
-        raise NotImplementedError(
-            "dist='empirical' needs the codebook matmul kernel, which is "
-            "not ported yet")
-    if dist != "gaussian":
+    if dist not in ("gaussian", "empirical"):
         raise ValueError(f"dist must be gaussian|empirical, got {dist!r}")
     dev = resolve_device(device)
     quant_filter = quant_filter or default_quant_filter
@@ -193,7 +272,7 @@ def quantize_params_for_serving(params, bits: int, quant_filter=None,
         else:
             stacked = any(p.startswith(pre) for pre in stacked_prefixes)
             _set(out, keys, _quantize_leaf(leaf.to(dev), bits, per_channel,
-                                           stacked))
+                                           stacked, dist))
     return out
 
 
@@ -209,16 +288,20 @@ def norm_param(cfg: ArchConfig, *shape, device="cpu"):
 
 @torch.no_grad()
 def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
-                dense_dtype=torch.float32,
-                per_channel: bool = True) -> Dict[str, Any]:
+                dense_dtype=torch.float32, per_channel: bool = True,
+                w_dist: str = "gaussian") -> Dict[str, Any]:
     """Random dense-decoder parameter tree on ``device``, from ``seed``.
 
     Matmul weights are drawn one layer at a time.  With ``w_bits`` 4 or 8
-    each eligible layer slice is k-quantile coded as soon as it is drawn,
-    so a full-width model never holds a dense stacked leaf: the result
-    equals ``quantize_params_for_serving(init_params(seed, cfg), w_bits)``.
-    Leaves left dense are stored in ``dense_dtype``.
+    each eligible layer slice is k-quantile coded (``w_dist`` "gaussian" or
+    "empirical") as soon as it is drawn, so a full-width model never holds
+    a dense stacked leaf: the result equals
+    ``quantize_params_for_serving(init_params(seed, cfg), w_bits,
+    dist=w_dist)``.  Leaves left dense are stored in ``dense_dtype``.
     """
+    if w_dist not in ("gaussian", "empirical"):
+        raise ValueError(f"w_dist must be gaussian|empirical, got "
+                         f"{w_dist!r}")
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (dense only)")
@@ -234,12 +317,12 @@ def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
         code = quant and _eligible(path, probe, w_bits, default_quant_filter)
         if not stacked:
             w = init(gen, shape, device=dev)
-            return _quantize_leaf(w, w_bits, per_channel, False) if code \
-                else w.to(dense_dtype)
+            return _quantize_leaf(w, w_bits, per_channel, False, w_dist) \
+                if code else w.to(dense_dtype)
         parts = []
         for _ in range(shape[0]):
             w = init(gen, (1,) + tuple(shape[1:]), device=dev)
-            parts.append(_quantize_leaf(w, w_bits, per_channel, True)
+            parts.append(_quantize_leaf(w, w_bits, per_channel, True, w_dist)
                          if code else w.to(dense_dtype))
         if code:
             return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
@@ -359,7 +442,8 @@ def _attn_block(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
         if opts.kv_bits < 16:
             # K and V are coded in one pass (rows are coded independently)
             dq, st, mu, sig = kvq.fake_quant_kv(torch.stack([k, v]),
-                                                opts.kv_bits)
+                                                opts.kv_bits,
+                                                opts.use_kernels)
             k, v = dq[0], dq[1]
             kv = {"k_codes": st[0], "v_codes": st[1],
                   "k_mu": mu[0], "k_sigma": sig[0],
@@ -403,9 +487,8 @@ def _embed_tokens(params, cfg: ArchConfig, opts: ModelOpts, tokens):
     if is_qweight(emb):
         # gather the token rows of the codes, dequantize only those: the
         # same values as dequantizing the whole table and then gathering
-        rows = {"q_codes": emb["q_codes"][tok], "q_mu": emb["q_mu"],
-                "q_sigma": emb["q_sigma"]}
-        x = materialize(rows, opts.compute_dtype)
+        rows = dict(emb, q_codes=emb["q_codes"][tok])
+        x = materialize(rows, opts.compute_dtype, opts.use_kernels)
     else:
         x = emb[tok].to(opts.compute_dtype)
     if cfg.embed_scale:
@@ -414,21 +497,21 @@ def _embed_tokens(params, cfg: ArchConfig, opts: ModelOpts, tokens):
     return x
 
 
-def _head_weight(params, cfg: ArchConfig):
+def _head_weight(params, cfg: ArchConfig, use_kernels: bool = True):
     if cfg.tie_embeddings:
         emb = params["embed"]
         if is_qweight(emb):
             # tied quantized embedding: dequantize (through bf16) then
             # transpose
-            return materialize(emb, torch.bfloat16).T
+            return materialize(emb, torch.bfloat16, use_kernels).T
         return emb.T
     return params["lm_head"]
 
 
 def _logits(last, params, cfg: ArchConfig, opts: ModelOpts):
     """(B, d) final hidden rows -> (B, V) f32 logits."""
-    logits = mm(last, _head_weight(params, cfg), opts.use_kernels,
-                out_dtype=torch.float32)
+    logits = mm(last, _head_weight(params, cfg, opts.use_kernels),
+                opts.use_kernels, out_dtype=torch.float32)
     return softcap(logits, cfg.final_logit_cap)
 
 
@@ -512,8 +595,8 @@ def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch,
         x = _ckpt.checkpoint(_train_layer, *args, use_reentrant=False) \
             if remat else _train_layer(*args)
     x = _norm_final(x, params, cfg)
-    return chunked_ce_loss(x, _head_weight(params, cfg), batch["targets"],
-                           cfg, opts)
+    return chunked_ce_loss(x, _head_weight(params, cfg, opts.use_kernels),
+                           batch["targets"], cfg, opts)
 
 
 # --------------------------------------------------------------------------
@@ -632,13 +715,15 @@ def cache_insert_paged(cache, prefill_cache, page_tables):
     return cache
 
 
-def _write_rows(kc, layer: int, pages, rows, k, v, kv_bits: int):
+def _write_rows(kc, layer: int, pages, rows, k, v, kv_bits: int,
+                use_kernels: bool = True):
     """Write fresh K/V rows into layer ``layer`` of the pool at
     (pages, rows), in place; returns that layer's view of the pool."""
     view = {name: leaf[layer] for name, leaf in kc.items()}
     if kvq.is_quantized_cache(kc):
         # K and V are coded in one pass (rows are coded independently)
-        st, mu, sig = kvq.quantize_kv(torch.stack([k, v]), kv_bits)
+        st, mu, sig = kvq.quantize_kv(torch.stack([k, v]), kv_bits,
+                                      use_kernels)
         vals = {"k_codes": st[0], "k_mu": mu[0], "k_sigma": sig[0],
                 "v_codes": st[1], "v_mu": mu[1], "v_sigma": sig[1]}
     else:
@@ -692,11 +777,11 @@ def prefill_chunk(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
         p = attn.AttnParams(window=windows[l], logit_cap=cfg.attn_logit_cap,
                             causal=True)
         kc = _write_rows(cache, l, write_pages, write_rows, k, v,
-                         opts.kv_bits)
+                         opts.kv_bits, opts.use_kernels)
         if quant:
-            o = attn.paged_prefill_attention_quant(q, kc, block_tables,
-                                                   positions, p,
-                                                   kv_bits=opts.kv_bits)
+            o = attn.paged_prefill_attention_quant(
+                q, kc, block_tables, positions, p, kv_bits=opts.kv_bits,
+                use_kernel=opts.use_kernels)
         else:
             o = attn.paged_prefill_attention(q, kc["k"], kc["v"],
                                              block_tables, positions, p)
@@ -748,7 +833,7 @@ def decode_step(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
         p = attn.AttnParams(window=windows[l], logit_cap=cfg.attn_logit_cap,
                             causal=True)
         kc = _write_rows(cache, l, write_page, write_row, k[:, 0], v[:, 0],
-                         opts.kv_bits)
+                         opts.kv_bits, opts.use_kernels)
         if quant:
             o = attn.paged_decode_attention_quant(
                 q, kc, bt32, pos32, p, kv_bits=opts.kv_bits,

@@ -34,6 +34,9 @@ def _require_dense(cfg: ArchConfig, what: str) -> None:
 
 
 def init(seed: int, cfg: ArchConfig, device="cuda", **kw) -> Any:
+    """Random parameters from ``seed`` (see lm.init_params: ``w_bits`` /
+    ``w_dist`` code them layer by layer, ``dense_dtype``,
+    ``per_channel``)."""
     _require_dense(cfg, "init")
     return lm.init_params(seed, cfg, device=device, **kw)
 
@@ -86,7 +89,9 @@ def prefill_chunk(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
 
 def quantize_for_serving(params, bits: int, per_channel: bool = True,
                          dist: str = "gaussian", device="cuda"):
-    """k-quantile-code all matmul weights for the serving path (UNIQ)."""
+    """k-quantile-code all matmul weights for the serving path (UNIQ):
+    Gaussian levels, or with dist="empirical" per-tensor empirical
+    codebooks."""
     return lm.quantize_params_for_serving(params, bits,
                                           per_channel=per_channel,
                                           dist=dist, device=device)

@@ -78,10 +78,13 @@ class EngineConfig:
     # that preemption only triggers when the pool is deliberately shrunk.
     kv_bits: int = 16           # 8/4 => k-quantile-coded KV pages (paged
                                 #   mode only; models/kv_cache.py)
-    a_bits: int = 32            # 32 = full-precision activations; the
-                                #   per-token int8 codec (2..8) is not
-                                #   ported yet.  Surfaces in the
-                                #   metrics-snapshot meta.
+    a_bits: int = 32            # 2..8 => serve activations through the
+                                #   real per-token int8 codec on quantized
+                                #   matmuls (lm.mm_a: the qmatmul_a8
+                                #   kernel, or qmatmul_lut on codebook
+                                #   weights) in BOTH prefill and decode;
+                                #   32 = full-precision activations.
+                                #   Surfaces in the metrics-snapshot meta.
     pool_bytes: Optional[int] = None
     # byte budget for the page pool (alternative to total_pages): the pool
     # holds pool_bytes // page_kv_bytes(cfg, page_size, kv_bits) pages —
@@ -210,10 +213,6 @@ class Engine:
         if ec.checkify or ec.profile_annotations:
             raise NotImplementedError(
                 "checkify / profile_annotations are not ported yet")
-        if ec.a_bits != 32 and 2 <= ec.a_bits <= 8:
-            raise NotImplementedError(
-                "a_bits < 32 needs the int8-activation matmul kernel, "
-                "which is not ported yet")
         kv_cache.check_kv_bits(ec.kv_bits, cfg.head_dim)
         if ec.kv_bits < 16 and ec.cache_mode != "paged":
             raise ValueError("kv_bits < 16 requires the paged cache (the "

@@ -1,8 +1,9 @@
 """Serving configuration: how trained weights are prepared for the engine.
 
 Weights live as packed int4/int8 k-quantile codes (+ per-channel Gaussian
-stats) and are dequantized on the fly inside the matmul — a quarter of the
-weight bytes at W4, the dominant memory term of batched decode.
+stats, or a per-tensor empirical codebook) and are dequantized on the fly
+inside the matmul — a quarter of the weight bytes at W4, the dominant
+memory term of batched decode.
 """
 
 from __future__ import annotations
@@ -19,8 +20,7 @@ class ServeConfig:
     a_bits: int = 32
     max_len: int = 2048
     temperature: float = 0.0       # 0 = greedy
-    w_dist: str = "gaussian"       # analytic levels ("empirical" codebooks
-                                   #   are not ported yet)
+    w_dist: str = "gaussian"       # analytic levels | "empirical" codebook
 
 
 def prepare_params(params, sc: ServeConfig, device="cuda"):

@@ -256,10 +256,13 @@ def test_engine_rejects_what_is_not_ported_and_bad_configs():
         return teng.Engine(pt, cfg, TOPTS, teng.EngineConfig(**kw),
                            device="cpu")
 
-    for kw in (dict(cache_mode="slot"), dict(a_bits=8), dict(checkify=True),
+    for kw in (dict(cache_mode="slot"), dict(checkify=True),
                dict(profile_annotations=True)):
         with pytest.raises(NotImplementedError):
             make(**kw)
+    # the int8 activation codec is ported: a_bits reaches the model options
+    for bits in (8, 4, 2):
+        assert make(a_bits=bits).opts.serve_a_bits == bits
     for kw in (dict(cache_mode="ring"), dict(kv_bits=5), dict(a_bits=1),
                dict(prefill_chunk=0)):
         with pytest.raises(ValueError):

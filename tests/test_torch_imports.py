@@ -48,7 +48,8 @@ def test_the_walk_sees_the_package():
                 "kernels/uniq_noise.py", "core/noise.py", "core/uniq.py",
                 "optim/optim.py", "data/synthetic.py",
                 "checkpoint/checkpoint.py", "train/steps.py",
-                "launch/train.py", "tree.py"):
+                "launch/train.py", "tree.py", "kernels/kquantile.py",
+                "core/activations.py"):
         assert os.path.join("src", "repro_torch", mod) in names
 
 
@@ -68,7 +69,8 @@ def test_no_jax_and_no_reference_package(path):
 def test_csrc_has_the_kernel_sources_and_no_library_products():
     csrc = os.path.join(PKG, "kernels", "csrc")
     names = sorted(os.listdir(csrc))
-    assert names == ["paged_attn.cu", "qmatmul.cu", "uniq_noise.cu"]
+    assert names == ["kquantile.cu", "paged_attn.cu", "qmatmul.cu",
+                     "uniq_noise.cu"]
     for n in names:
         with open(os.path.join(csrc, n)) as fh:
             text = fh.read()
@@ -85,7 +87,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import repro_torch.launch.train, repro_torch.train.steps, "
         "repro_torch.optim.optim, repro_torch.data.synthetic, "
         "repro_torch.checkpoint.checkpoint, repro_torch.core.noise, "
-        "repro_torch.kernels.uniq_noise\n"
+        "repro_torch.kernels.uniq_noise, repro_torch.kernels.kquantile, "
+        "repro_torch.core.activations\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'repro', 'triton')]\n"
         "assert not bad, bad\n"

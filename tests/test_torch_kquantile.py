@@ -1,0 +1,381 @@
+"""PyTorch port vs JAX reference: the k-quantile codec kernels'
+(``kquantile_quantize`` / ``kquantile_dequantize``) plain versions, the
+codec entry points of ``kernels/ops.py``, the empirical distribution model
+and codebook coding, and the activation codec.
+
+The same numpy inputs (from a seed) go through the reference's Pallas
+kernels in interpret mode (or its jnp oracles) and through the port's
+wrappers, which compute their plain versions for CPU tensors.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import activations as jact
+from repro.core import distributions as jdist
+from repro.core import packing as jpack
+from repro.core import quantizers as jquant
+from repro.kernels import kquantile as jkq
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import lm as jlm
+
+from repro_torch.core import activations as tact
+from repro_torch.core import distributions as tdist
+from repro_torch.core import packing as tpack
+from repro_torch.core import quantizers as tquant
+from repro_torch.kernels import kquantile as tkq
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import lm as tlm
+
+# Codes flip where the two frameworks' Phi(z) k differ across an integer:
+# the reference's kernel takes XLA's erf(z / sqrt2), the port's
+# erf(z * (1 / sqrt2)) (the form that rounds alike on the card).  Measured
+# on these inputs: at most 3e-5 of codes (W4 / W8 weights, kv8 / kv4 rows),
+# never by more than one code.
+CODE_FLIPS = 2e-4
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _grouped_inputs(G, R, C, per_col, seed, scale=0.05):
+    """(G, R, C) values with per-group offsets, and their statistics in the
+    kernels' (G, 1, C) / (G, 1, 1) layout (population deviation)."""
+    r = _rng(seed)
+    w = (r.standard_normal((G, R, C)) * scale
+         + r.standard_normal((G, 1, 1)) * scale * 0.3).astype(np.float32)
+    axes = (1,) if per_col else (1, 2)
+    mu = w.mean(axis=axes, keepdims=True).astype(np.float32)
+    sd = w.std(axis=axes, keepdims=True).astype(np.float32)
+    return w, mu, sd
+
+
+def _t(*arrs):
+    return [torch.from_numpy(np.array(x)) for x in arrs]
+
+
+def _unpacked(stored, bits):
+    return np.asarray(jpack.unpack_int4(jnp.asarray(stored))) if bits == 4 \
+        else np.asarray(stored)
+
+
+def _codes_close(cj, ct, bound=CODE_FLIPS):
+    d = np.abs(cj.astype(np.int64) - ct.astype(np.int64))
+    assert d.max() <= 1, "a code is off by more than one bin"
+    assert (d > 0).mean() <= bound, f"flip share {(d > 0).mean():.2e}"
+    return d > 0
+
+
+# ragged R and C; int4 packing needs an even C, so the odd C is W8 only
+SHAPES = [(1, 64, 48), (3, 37, 130), (2, 5, 8), (4, 1, 16), (1, 130, 258)]
+CASES = [(b, s) for b in (4, 8) for s in SHAPES] + [(8, (2, 9, 131))]
+
+
+# -- the codec kernels' plain versions against the reference's kernels -----
+
+@pytest.mark.parametrize("per_col", [True, False])
+@pytest.mark.parametrize("bits,shape", CASES)
+def test_quantize_and_dequantize_match_reference_kernels(bits, shape,
+                                                         per_col):
+    G, R, C = shape
+    w, mu, sd = _grouped_inputs(G, R, C, per_col, seed=G * R + C)
+    jw, jmu, jsd = jnp.asarray(w), jnp.asarray(mu), jnp.asarray(sd)
+    k = 2 ** bits
+    stored_j = np.asarray(jops.quantize_weights(jw, jmu, jsd, bits=bits,
+                                                use_pallas=True,
+                                                interpret=True))
+    tw, tmu, tsd = _t(w, mu, sd)
+    stored_t = tops.quantize_weights(tw, tmu, tsd, bits=bits)
+    assert stored_t.dtype == tpack.storage_dtype(bits)
+    assert tuple(stored_t.shape) == stored_j.shape
+    flips = _codes_close(_unpacked(stored_j, bits), _unpacked(
+        stored_t.numpy(), bits))
+    if bits == 4:
+        # packed bytes: equal wherever neither nibble flipped
+        pair = flips.reshape(G, R, C // 2, 2).any(-1)
+        np.testing.assert_array_equal(stored_t.numpy()[~pair],
+                                      stored_j[~pair])
+    # the wrapper's CPU path is its plain version, bit for bit
+    codes3 = tkq.kquantile_quantize(tw, tmu, tsd, k=k)
+    assert torch.equal(codes3, tkq.kquantile_quantize_plain(tw, tmu, tsd,
+                                                            k=k))
+
+    # dequantize the reference's codes in both: the port's level table
+    # against the reference kernel's per-element erf_inv (both f32)
+    for out_dtype, jdt in ((torch.float32, jnp.float32),
+                           (torch.bfloat16, jnp.bfloat16)):
+        dj = np.asarray(jops.dequantize_weights(
+            jnp.asarray(stored_j), jmu, jsd, bits=bits, out_dtype=jdt,
+            use_pallas=True, interpret=True).astype(jnp.float32))
+        dt = tops.dequantize_weights(torch.from_numpy(stored_j), tmu, tsd,
+                                     bits=bits, out_dtype=out_dtype)
+        assert dt.dtype == out_dtype and tuple(dt.shape) == (G, R, C)
+        # f32: the levels differ by <= 5e-7 (test_torch_codec.test_level_
+        # table) and XLA may fuse the multiply-add: 1e-6 sigma + 1 ulp.
+        # bf16: one rounding step of the result on top.
+        tol = np.abs(sd).max() * 1e-6 + np.abs(dj).max() * (
+            2.0 ** -23 if out_dtype == torch.float32 else 2.0 ** -8)
+        np.testing.assert_allclose(dt.float().numpy(), dj, atol=tol, rtol=0)
+    # equal codes give bit-equal values: the port's dequant is the
+    # reference's formula mu + sigma * table[c] in f32 (one multiply, one
+    # add, each rounded), evaluated here in numpy on the port's table.  The
+    # two frameworks' tables themselves differ in the last ulps (erf_inv vs
+    # erfinv), which the tolerance above covers.
+    dt = tops.dequantize_weights(torch.from_numpy(stored_j), tmu, tsd,
+                                 bits=bits, out_dtype=torch.float32).numpy()
+    idx = _unpacked(stored_j, bits).astype(np.int64) + tref.code_offset(k)
+    table = tref.level_table(k).numpy()
+    want = (mu + (sd * table[idx]).astype(np.float32)).astype(np.float32)
+    np.testing.assert_array_equal(dt, want)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_kv_row_layout_matches_reference_kernel(kv_bits):
+    """The KV append's layout: rows (N, KV, hd) coded per (row, head) with
+    bf16-rounded statistics, as (N * KV, 1, hd) groups with (G, 1, 1)
+    statistics in the reference's kernel."""
+    n_rows, KV, hd = 40, 2, 16
+    x = _rng(3).standard_normal((n_rows, KV, hd)).astype(np.float32)
+    mu = torch.from_numpy(x.mean(-1)).to(torch.bfloat16).float().numpy()
+    sd = torch.from_numpy(x.std(-1)).to(torch.bfloat16).float().numpy()
+    G = n_rows * KV
+    stored_j = np.asarray(jops.quantize_weights(
+        jnp.asarray(x.reshape(G, 1, hd)), jnp.asarray(mu.reshape(G, 1, 1)),
+        jnp.asarray(sd.reshape(G, 1, 1)), bits=kv_bits, use_pallas=True,
+        interpret=True)).reshape(n_rows, KV, -1)
+    tx, tmu, tsd = _t(x, mu[..., None], sd[..., None])
+    stored_t = tops.quantize_weights(tx, tmu, tsd, bits=kv_bits)
+    assert tuple(stored_t.shape) == stored_j.shape
+    _codes_close(_unpacked(stored_j, kv_bits),
+                 _unpacked(stored_t.numpy(), kv_bits))
+    # the port's KV codec is this call: its codes are these codes
+    st, mu_t, sd_t = tkv_quantize(x, kv_bits)
+    assert torch.equal(st, tops.quantize_weights(
+        tx, mu_t.float()[..., None], sd_t.float()[..., None], bits=kv_bits))
+
+
+def tkv_quantize(x, kv_bits):
+    from repro_torch.models import kv_cache as tkv
+    return tkv.quantize_kv(torch.from_numpy(x), kv_bits)
+
+
+def test_codec_layout_of_the_callers():
+    """(G, R) of the layouts the serving path hands the codec."""
+    def lay(shape, s_shape, C=None):
+        C = C or shape[-1]
+        G, R, mu3, _ = tops.codec_layout(shape, C, torch.zeros(s_shape),
+                                         torch.ones(s_shape))
+        return G, R, tuple(mu3.shape)
+    assert lay((64, 48), (1, 48)) == (1, 64, (1, 1, 48))        # per-channel
+    assert lay((64, 48), (1, 1)) == (1, 64, (1, 1, 1))          # per-tensor
+    assert lay((3, 64, 48), (3, 1, 48)) == (3, 64, (3, 1, 48))  # stacked
+    assert lay((3, 64, 48), (3, 1, 1)) == (3, 64, (3, 1, 1))
+    assert lay((2, 4, 5, 2, 16), (2, 4, 5, 2, 1)) == (80, 1, (80, 1, 1))
+    assert lay((2, 4, 5, 1, 16), (2, 4, 5, 1, 1)) == (40, 1, (40, 1, 1))
+    assert lay((2, 7, 48), (48,)) == (1, 14, (1, 1, 48))        # embed rows
+    with pytest.raises(ValueError):
+        lay((4, 8), (1, 3))
+    with pytest.raises(RuntimeError):
+        lay((4, 8), (3, 1))                       # does not broadcast
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_stacked_codes_equal_per_layer_codes(bits):
+    """A stacked (L, K, N) tensor with per-layer statistics codes as its
+    layers one by one: the groups are independent."""
+    w, mu, sd = _grouped_inputs(3, 24, 32, True, seed=9)
+    tw, tmu, tsd = _t(w, mu, sd)
+    whole = tops.quantize_weights(tw, tmu, tsd, bits=bits)
+    for l in range(3):
+        assert torch.equal(whole[l], tops.quantize_weights(
+            tw[l], tmu[l], tsd[l], bits=bits))
+    dq = tops.dequantize_weights(whole, tmu, tsd, bits=bits,
+                                 out_dtype=torch.float32)
+    assert torch.equal(dq[1], tops.dequantize_weights(
+        whole[1], tmu[1], tsd[1], bits=bits, out_dtype=torch.float32))
+    # use_kernel=False (the comparison hook) is the same plain version here
+    assert torch.equal(whole, tops.quantize_weights(tw, tmu, tsd, bits=bits,
+                                                    use_kernel=False))
+
+
+def test_roundtrip_recodes_to_the_same_codes():
+    """Requantizing dequantized f32 levels against the same statistics
+    gives the same codes: every level lies strictly inside its bin."""
+    w, mu, sd = _grouped_inputs(2, 50, 64, True, seed=11)
+    tw, tmu, tsd = _t(w, mu, sd)
+    for bits in (4, 8):
+        st = tops.quantize_weights(tw, tmu, tsd, bits=bits)
+        dq = tops.dequantize_weights(st, tmu, tsd, bits=bits,
+                                     out_dtype=torch.float32)
+        assert torch.equal(tops.quantize_weights(dq, tmu, tsd, bits=bits), st)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    w, mu, sd = _t(*_grouped_inputs(2, 4, 6, True, seed=12))
+    with pytest.raises(ValueError):
+        tkq.kquantile_quantize(w, mu, sd, k=12)                   # not 2^n
+    with pytest.raises(ValueError):
+        tkq.kquantile_quantize(w[0], mu[0], sd[0], k=16)          # not 3-D
+    with pytest.raises(ValueError):
+        tkq.kquantile_quantize(w, mu[:, :, :3], sd[:, :, :3], k=16)
+    with pytest.raises(TypeError):
+        tkq.kquantile_quantize(w.double(), mu, sd, k=16)
+    codes = tkq.kquantile_quantize(w, mu, sd, k=16)
+    with pytest.raises(TypeError):
+        tkq.kquantile_dequantize(codes.to(torch.int32), mu, sd, k=16)
+    with pytest.raises(ValueError):
+        tkq.kquantile_dequantize(tpack.pack_int4(codes), mu, sd, k=256)
+    with pytest.raises(TypeError):
+        tkq.kquantile_dequantize(codes, mu, sd, k=16,
+                                 out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        tops.quantize_weights(w, mu, sd, bits=3)
+
+
+def test_launch_counters_count_only_kernel_launches():
+    before = tops.launch_counts()
+    w, mu, sd = _t(*_grouped_inputs(1, 8, 16, True, seed=13))
+    c = tkq.kquantile_quantize(w, mu, sd, k=16)
+    tkq.kquantile_dequantize(c, mu, sd, k=16)
+    assert tops.launch_counts() == before
+    assert {"kquantile_quantize", "kquantile_dequantize"} <= set(before)
+
+
+# -- the empirical model and codebook coding ---------------------------------
+
+@pytest.mark.parametrize("n", [5000, 140000])
+def test_empirical_model_matches_reference(n):
+    """Sort and searchsorted are exact, so the mid-rank CDF (and with it the
+    codes) is bit-equal; quantiles interpolate between the same order
+    statistics, within the ulps of (1 - f) a + f b in two frameworks."""
+    r = _rng(20)
+    w = (r.standard_t(4, size=n) * 0.02).astype(np.float32)   # heavy tails
+    mj = jdist.EmpiricalModel.fit(jnp.asarray(w))
+    mt = tdist.EmpiricalModel.fit(torch.from_numpy(w))
+    # the strided subsample above 65536 elements, then the same sort
+    np.testing.assert_array_equal(mt.sorted_ref.numpy(),
+                                  np.asarray(mj.sorted_ref))
+    assert mt.sorted_ref.shape[0] == min(n, 65536)
+    x = (r.standard_t(4, size=(64, 33)) * 0.02).astype(np.float32)
+    np.testing.assert_array_equal(mt.cdf(torch.from_numpy(x)).numpy(),
+                                  np.asarray(mj.cdf(jnp.asarray(x))))
+    u = r.uniform(0.0, 1.0, size=4096).astype(np.float32)
+    qj = np.asarray(mj.quantile(jnp.asarray(u)))
+    qt = mt.quantile(torch.from_numpy(u)).numpy()
+    np.testing.assert_allclose(qt, qj, rtol=0,
+                               atol=4 * np.spacing(np.abs(qj).max()))
+    for k in (16, 256):
+        lj = np.asarray(mj.level_values(k))
+        lt = mt.level_values(k).numpy()
+        assert lt.shape == (k,)
+        np.testing.assert_allclose(lt, lj, rtol=0,
+                                   atol=4 * np.spacing(np.abs(lj).max()))
+        cj = np.asarray(jquant.kquantile_quantize(jnp.asarray(x), mj, k))
+        ct = tquant.kquantile_quantize(torch.from_numpy(x), mt, k)
+        np.testing.assert_array_equal(ct.numpy(), cj)             # bit-equal
+    assert isinstance(tdist.fit_model(torch.from_numpy(w), "empirical"),
+                      tdist.EmpiricalModel)
+    assert isinstance(tdist.fit_model(torch.from_numpy(w)),
+                      tdist.GaussianModel)
+    with pytest.raises(ValueError):
+        tdist.fit_model(torch.from_numpy(w), "cauchy")
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_quantize_leaf_empirical_matches_reference(bits, stacked):
+    shape = (3, 40, 24) if stacked else (40, 24)
+    w = (_rng(21 + bits).standard_normal(shape) * 0.05).astype(np.float32)
+    qj = jlm._quantize_leaf_empirical(jnp.asarray(w), bits, stacked)
+    qt = tlm._quantize_leaf_empirical(torch.from_numpy(w), bits, stacked)
+    assert set(qt) == {"q_codes", "q_lut"}
+    assert qt["q_codes"].dtype == tpack.storage_dtype(bits)
+    assert qt["q_lut"].dtype == torch.float32
+    np.testing.assert_array_equal(qt["q_codes"].numpy(),
+                                  np.asarray(qj["q_codes"]))      # bit-equal
+    lj = np.asarray(qj["q_lut"])
+    assert tuple(qt["q_lut"].shape) == lj.shape
+    np.testing.assert_allclose(qt["q_lut"].numpy(), lj, rtol=0,
+                               atol=4 * np.spacing(np.abs(lj).max()))
+    # the codebook dequant of both equal within the same ulps
+    dj = np.asarray(jlm.materialize(qj, jnp.float32))
+    dt = tlm.materialize(qt, torch.float32).numpy()
+    np.testing.assert_allclose(dt, dj, rtol=0,
+                               atol=4 * np.spacing(np.abs(lj).max()))
+
+
+# -- the activation codec ----------------------------------------------------
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_activation_codec_matches_reference(bits):
+    r = _rng(30)
+    x = (r.standard_normal((3, 5, 64)) * 2.0).astype(np.float32)
+    x[0, 0, :] = 0.0                                  # an all-zero row
+    sj = np.asarray(jact.act_scale(jnp.asarray(x), bits, axis=-1))
+    st = tact.act_scale(torch.from_numpy(x), bits, axis=-1)
+    assert tuple(st.shape) == sj.shape == (3, 5, 1)
+    np.testing.assert_array_equal(st.numpy(), sj)    # max and one division
+    cj, _ = jact.quant_act(jnp.asarray(x), bits, jnp.asarray(sj))
+    ct, _ = tact.quant_act(torch.from_numpy(x), bits, st)
+    assert ct.dtype == torch.int8
+    # round half to even on both sides; x / scale rounds alike (one
+    # correctly rounded division)
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    np.testing.assert_array_equal(
+        tact.dequant_act(ct, st, torch.float32).numpy(),
+        np.asarray(jact.dequant_act(cj, jnp.asarray(sj), jnp.float32)))
+    np.testing.assert_array_equal(
+        tact.act_scale(torch.from_numpy(x), bits).numpy(),
+        np.asarray(jact.act_scale(jnp.asarray(x), bits)))
+    fj = np.asarray(jact.fake_quant_act(jnp.asarray(x), bits))
+    ft = tact.fake_quant_act(torch.from_numpy(x), bits).numpy()
+    np.testing.assert_allclose(ft, fj, rtol=0, atol=1e-6)
+    assert tact.fake_quant_act(torch.from_numpy(x), 32) is not None
+    with pytest.raises(ValueError):
+        tact.quant_act(torch.from_numpy(x), 16)
+
+
+# Weight codes of ``quantize_tensor``: the port codes through the codec
+# kernel's erf(z * (1 / sqrt2)), the reference's serving path through
+# ndtr.  Measured on these inputs, per case of 524 k codes: W4 0 or 1,
+# W8 0 to 4, each by one code; one case (W4, (512, 1024), per channel) read
+# 20 and 22 in two of six runs (4.2e-5) and 0 in the others.
+WEIGHT_FLIPS_AT_SCALE = 1e-4
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape,per_channel", [((512, 1024), True),
+                                               ((512, 1024), False),
+                                               ((4, 256, 512), True),
+                                               ((4, 256, 512), False)])
+def test_weight_code_flips_against_reference_at_scale(bits, shape,
+                                                      per_channel):
+    from repro.core import uniq as juniq
+    from repro_torch.core import uniq as tuniq
+    stacked = len(shape) == 3
+    w = (_rng(5 + len(shape)).standard_normal(shape) * 0.05).astype(
+        np.float32)
+    qj = juniq.quantize_tensor(jnp.asarray(w), bits, per_channel=per_channel,
+                               stacked=stacked)
+    qt = tuniq.quantize_tensor(torch.from_numpy(w), bits,
+                               per_channel=per_channel, stacked=stacked)
+    _codes_close(_unpacked(np.asarray(qj.codes), bits),
+                 _unpacked(qt.codes.numpy(), bits), WEIGHT_FLIPS_AT_SCALE)
+
+
+def test_reference_kernel_refuses_what_the_port_takes():
+    """The TPU kernel's blocks refuse a ragged R beyond one block; the
+    port's codec takes any shape."""
+    w, mu, sd = _grouped_inputs(1, 300, 8, False, seed=31)
+    with pytest.raises(ValueError):
+        jkq.kquantile_quantize(jnp.asarray(w), jnp.asarray(mu),
+                               jnp.asarray(sd), k=16, interpret=True)
+    got = tkq.kquantile_quantize(*_t(w, mu, sd), k=16)
+    want = jref.kquantile_codes_ref(jnp.asarray(w), jnp.asarray(mu),
+                                    jnp.asarray(sd), 16)
+    _codes_close(np.asarray(want), got.numpy())

@@ -160,4 +160,6 @@ def test_launch_counter_counts_only_kernel_launches():
     tqmm.qmatmul(*_t(a, wp, mu, sd), bits=4)
     assert tops.launch_counts() == before
     assert set(before) == {"qmatmul", "paged_quant_attention",
-                           "uniq_noise_fwd", "uniq_noise_bwd"}
+                           "uniq_noise_fwd", "uniq_noise_bwd", "qmatmul_a8",
+                           "qmatmul_lut", "kquantile_quantize",
+                           "kquantile_dequantize"}

@@ -1,0 +1,266 @@
+"""PyTorch port vs JAX reference: the codebook (``qmatmul_lut``) and
+int8-activation (``qmatmul_a8``) matmuls.
+
+The port's plain versions (what its wrappers compute for CPU tensors, and
+what the CUDA kernels are held against on the card) are compared with the
+reference's oracles (``repro.kernels.ref``), its Pallas kernels in
+interpret mode, and the serving matmuls of its model (``lm.mm`` /
+``lm.mm_a``), on the same numpy inputs.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import qmatmul as jqmm
+from repro.kernels import ref as jref
+from repro.models import lm as jlm
+from repro.models.lm import ModelOpts as JOpts
+
+from repro_torch.core import activations as tact
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import qmatmul as tqmm
+from repro_torch.kernels import ref as tref
+from repro_torch.models import lm as tlm
+
+MKN = [(8, 64, 32), (48, 384, 192), (33, 520, 96), (5, 200, 130), (1, 16, 2)]
+
+
+def _codes(K, N, bits, seed):
+    """Random stored codes of a (K, N) weight (packed at 4 bits)."""
+    r = np.random.default_rng(seed)
+    if bits == 4:
+        c = r.integers(0, 16, size=(K, N))
+        return ((c[:, 0::2] & 0xF) | ((c[:, 1::2] & 0xF) << 4)) \
+            .astype(np.uint8)
+    return r.integers(-128, 128, size=(K, N)).astype(np.int8)
+
+
+def _gaussian(K, N, bits, seed):
+    r = np.random.default_rng(seed)
+    w = (r.standard_normal((K, N)) * 0.03).astype(np.float32)
+    mu = w.mean(axis=0, keepdims=True)
+    sd = w.std(axis=0, keepdims=True)
+    wp = np.asarray(jops.quantize_weights(
+        jnp.asarray(w)[None], jnp.asarray(mu)[None], jnp.asarray(sd)[None],
+        bits=bits, use_pallas=False)[0])
+    return wp, mu, sd
+
+
+def _lut(N, bits, per_col, seed):
+    """Sorted (k, N) per-column or (k,) per-tensor levels."""
+    r = np.random.default_rng(seed)
+    k = 2 ** bits
+    shape = (k, N) if per_col else (k,)
+    return np.sort(r.standard_normal(shape) * 0.03, axis=0).astype(np.float32)
+
+
+def _t(*arrs):
+    return [torch.from_numpy(np.array(x)) for x in arrs]
+
+
+# -- qmatmul_lut --------------------------------------------------------------
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("per_col", [True, False])
+@pytest.mark.parametrize("mkn", MKN)
+def test_lut_plain_matches_reference_oracle(bits, per_col, mkn):
+    M, K, N = mkn
+    r = np.random.default_rng(M + K)
+    a = (r.standard_normal((M, K)) * 0.1).astype(np.float32)
+    wp, lut = _codes(K, N, bits, seed=K), _lut(N, bits, per_col, seed=N)
+    lut_kn = lut if per_col else np.broadcast_to(lut[:, None],
+                                                 (2 ** bits, N))
+    want = np.asarray(jref.qmatmul_lut_ref(jnp.asarray(a), jnp.asarray(wp),
+                                           jnp.asarray(lut_kn), bits))
+    ta, twp, tlut = _t(a, wp, lut)
+    got = tqmm.qmatmul_lut(ta, twp, tlut, bits=bits)          # CPU -> plain
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, N)
+    # identical levels (the codebook is an input); f32 sums in another order
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-5)
+    assert torch.equal(got, tqmm.qmatmul_lut_plain(ta, twp, tlut, bits=bits))
+    # the port's own oracle takes the per-tensor codebook unexpanded
+    np.testing.assert_allclose(
+        tref.qmatmul_lut_ref(ta, twp, tlut, bits).numpy(), got.numpy(),
+        atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("mkn,blocks", [
+    ((48, 384, 192), (32, 512, 512)),
+    ((33, 520, 96), (16, 64, 32)),         # ragged final tile on every axis
+    ((16, 256, 128), (None, None, None)),
+])
+def test_lut_plain_matches_reference_kernel_interpreted(bits, mkn, blocks):
+    M, K, N = mkn
+    bm, bk, bn = blocks
+    r = np.random.default_rng(7)
+    a = (r.standard_normal((M, K)) * 0.1).astype(np.float32)
+    wp, lut = _codes(K, N, bits, seed=8), _lut(N, bits, True, seed=9)
+    out_k = np.asarray(jqmm.qmatmul_lut(jnp.asarray(a), jnp.asarray(wp),
+                                        jnp.asarray(lut), bits=bits, bm=bm,
+                                        bk=bk, bn=bn, interpret=True))
+    got = tqmm.qmatmul_lut(*_t(a, wp, lut), bits=bits).numpy()
+    # the same f32 levels and products; tile-wise vs whole f32 sums
+    np.testing.assert_allclose(got, out_k, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_lut_bf16_matches_reference_serving_matmul(bits):
+    """bf16 activations: the levels are rounded to bf16 first, as the
+    reference's ``lm.mm`` does through ``materialize(w, x.dtype)``."""
+    M, K, N = 16, 128, 64
+    r = np.random.default_rng(10)
+    a = (r.standard_normal((M, K)) * 0.5).astype(np.float32)
+    wp, lut = _codes(K, N, bits, seed=11), _lut(N, bits, False, seed=12)
+    want = np.asarray(jlm.mm(jnp.asarray(a).astype(jnp.bfloat16),
+                             {"q_codes": jnp.asarray(wp),
+                              "q_lut": jnp.asarray(lut)})
+                      .astype(jnp.float32))
+    ta, twp, tlut = _t(a, wp, lut)
+    got = tlm.mm(ta.to(torch.bfloat16), {"q_codes": twp, "q_lut": tlut})
+    assert got.dtype == torch.bfloat16
+    # f32 sums of the same bf16 products, each rounded to bf16: one ulp
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2 ** -8,
+                               rtol=2 ** -7)
+    plain = tops.qmatmul_lut(ta.to(torch.bfloat16), twp, tlut, bits=bits,
+                             out_dtype=torch.bfloat16, use_kernel=False)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_lut_ops_wrapper_leading_shape(bits):
+    B, S, K, N = 2, 3, 64, 32
+    r = np.random.default_rng(13)
+    a = (r.standard_normal((B, S, K)) * 0.1).astype(np.float32)
+    wp, lut = _codes(K, N, bits, seed=14), _lut(N, bits, False, seed=15)
+    ta, twp, tlut = _t(a, wp, lut)
+    got = tops.qmatmul_lut(ta, twp, tlut, bits=bits)
+    assert tuple(got.shape) == (B, S, N)
+    want = tqmm.qmatmul_lut(ta.reshape(B * S, K), twp, tlut, bits=bits)
+    assert torch.equal(got.reshape(B * S, N), want)
+
+
+# -- qmatmul_a8 ---------------------------------------------------------------
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("mkn", MKN)
+def test_a8_plain_matches_reference_oracle_scalar_scale(bits, mkn):
+    M, K, N = mkn
+    r = np.random.default_rng(M * 3 + K)
+    x = (r.standard_normal((M, K)) * 2.0).astype(np.float32)
+    scale = np.float32(np.abs(x).max() / 127.0)
+    codes = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+    wp, mu, sd = _gaussian(K, N, bits, seed=K + N)
+    want = np.asarray(jref.qmatmul_a8_ref(
+        jnp.asarray(codes), jnp.asarray(scale), jnp.asarray(wp),
+        jnp.asarray(mu), jnp.asarray(sd), bits))
+    tc, twp, tmu, tsd = _t(codes, wp, mu, sd)
+    tscale = torch.tensor(scale)
+    got = tqmm.qmatmul_a8(tc, tscale, twp, tmu, tsd, bits=bits)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (M, N)
+    # identical codes and scale; level tables within 5e-7; f32 sums in
+    # another order
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=1e-5)
+    assert torch.equal(got, tqmm.qmatmul_a8_plain(tc, tscale, twp, tmu, tsd,
+                                                  bits=bits))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_a8_matches_reference_kernel_interpreted(bits):
+    """The TPU kernel rounds the activation and the weight tile to bf16
+    before its product; the port follows the reference's oracle and engine
+    and keeps both in f32: the two differ by bf16 rounding, ~2^-8
+    relative."""
+    M, K, N = 16, 256, 128
+    r = np.random.default_rng(20)
+    x = (r.standard_normal((M, K))).astype(np.float32)
+    scale = np.float32(np.abs(x).max() / 127.0)
+    codes = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+    wp, mu, sd = _gaussian(K, N, bits, seed=21)
+    out_k = np.asarray(jqmm.qmatmul_a8(jnp.asarray(codes), jnp.asarray(scale),
+                                       jnp.asarray(wp), jnp.asarray(mu),
+                                       jnp.asarray(sd), bits=bits,
+                                       interpret=True))
+    got = tqmm.qmatmul_a8(*_t(codes), torch.tensor(scale), *_t(wp, mu, sd),
+                          bits=bits).numpy()
+    np.testing.assert_allclose(got, out_k, rtol=0,
+                               atol=2.0 ** -7 * np.abs(out_k).max())
+    want = np.asarray(jref.qmatmul_a8_ref(
+        jnp.asarray(codes), jnp.asarray(scale), jnp.asarray(wp),
+        jnp.asarray(mu), jnp.asarray(sd), bits))
+    # and against the f32 oracle the port follows: summation order only
+    np.testing.assert_allclose(got, want, atol=5e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("a_bits", [8, 4])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_a8_per_token_matches_reference_mm_a(bits, a_bits, x_dtype):
+    """The engine's A8 matmul: per-token absmax codes (core/activations.py)
+    then ``qmatmul_a8`` with the (M, 1) scales, against the reference's
+    ``lm.mm_a``."""
+    B, S, K, N = 2, 5, 96, 48
+    r = np.random.default_rng(30 + bits + a_bits)
+    x = (r.standard_normal((B, S, K)) * 1.5).astype(np.float32)
+    wp, mu, sd = _gaussian(K, N, bits, seed=31)
+    jdt, tdt = getattr(jnp, x_dtype), getattr(torch, x_dtype)
+    jo = JOpts(compute_dtype=jdt, serve_a_bits=a_bits)
+    want = np.asarray(jlm.mm_a(jnp.asarray(x).astype(jdt),
+                               {"q_codes": jnp.asarray(wp),
+                                "q_mu": jnp.asarray(mu),
+                                "q_sigma": jnp.asarray(sd)}, jo)
+                      .astype(jnp.float32))
+    tx, twp, tmu, tsd = _t(x, wp, mu, sd)
+    to = tlm.ModelOpts(compute_dtype=tdt, serve_a_bits=a_bits)
+    got = tlm.mm_a(tx.to(tdt), {"q_codes": twp, "q_mu": tmu, "q_sigma": tsd},
+                   to)
+    assert got.dtype == tdt and tuple(got.shape) == (B, S, N)
+    # same codes and scales (test_torch_kquantile pins the codec bit for
+    # bit); f32 sums in another order, then the cast to x's dtype
+    ulp = 2.0 ** -8 if x_dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=ulp,
+                               atol=ulp * np.abs(want).max())
+    # the ops route, spelled out
+    codes, scale = tact.quant_act(tx.to(tdt), a_bits,
+                                  tact.act_scale(tx.to(tdt), a_bits, axis=-1))
+    direct = tops.qmatmul_a8(codes, scale, twp, tmu, tsd, bits=bits,
+                             out_dtype=tdt)
+    assert torch.equal(got, direct)
+    # a dense weight falls through to the plain matmul, as in the reference
+    dense = torch.from_numpy(
+        (r.standard_normal((K, N)) * 0.03).astype(np.float32))
+    assert torch.equal(tlm.mm_a(tx, dense, to), tlm.mm(tx, dense))
+
+
+def test_a8_rejects_what_the_kernel_does_not_take():
+    wp, mu, sd = _gaussian(16, 8, 4, seed=40)
+    twp, tmu, tsd = _t(wp, mu, sd)
+    codes = torch.zeros((4, 16), dtype=torch.int8)
+    with pytest.raises(ValueError):                      # codes not int8
+        tqmm.qmatmul_a8(codes.float(), torch.ones(1), twp, tmu, tsd, bits=4)
+    with pytest.raises(ValueError):                      # scale shape
+        tqmm.qmatmul_a8(codes, torch.ones(3, 1), twp, tmu, tsd, bits=4)
+    with pytest.raises(ValueError):                      # K mismatch
+        tqmm.qmatmul_a8(codes[:, :8], torch.ones(1), twp, tmu, tsd, bits=4)
+    with pytest.raises(ValueError):                      # lut shape
+        tqmm.qmatmul_lut(torch.zeros(4, 16), twp, torch.zeros(8), bits=4)
+    with pytest.raises(TypeError):
+        tqmm.qmatmul_lut(torch.zeros(4, 16, dtype=torch.float64), twp,
+                         torch.zeros(16), bits=4)
+    with pytest.raises(TypeError):
+        tqmm.qmatmul_lut(torch.zeros(4, 16), twp, torch.zeros(16), bits=4,
+                         out_dtype=torch.float16)
+
+
+def test_launch_counters_count_only_kernel_launches():
+    before = tops.launch_counts()
+    wp, mu, sd = _gaussian(16, 8, 4, seed=41)
+    twp, tmu, tsd = _t(wp, mu, sd)
+    tqmm.qmatmul_a8(torch.ones((2, 16), dtype=torch.int8), torch.ones(1),
+                    twp, tmu, tsd, bits=4)
+    tqmm.qmatmul_lut(torch.ones(2, 16), twp, torch.zeros(16), bits=4)
+    assert tops.launch_counts() == before
+    assert {"qmatmul_a8", "qmatmul_lut"} <= set(before)
