@@ -10,7 +10,9 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
   3. holds each kernel against its plain PyTorch version on the card, at the
      shapes the serving and training paths give it and at ragged ones, and
      checks that the same inputs twice give the same bits (the k-quantile
-     codec kernels must equal their plain versions to the bit);
+     codec kernels must equal their plain versions to the bit, and so must
+     the on-chip draw of ``uniq_noise_fwd_onchip``, read back through its
+     debug entry point, against the plain Philox);
   4. serves a request stream through ``repro_torch``'s engine at the full
      width of granite_3_8b (bf16, kv8 pool), random weights made from
      ``--seed`` on the card, in three engines one after another: W4
@@ -29,7 +31,16 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      of each step and checking that FROZEN slices stay put; before it, one
      step's loss and gradients with the plain versions forced; after it,
      one all-FROZEN eval step and a profile of one more step; then a tiny
-     f32 train step on the card against the CPU;
+     f32 train step on the card against the CPU; then the paper's CNN
+     trainer (``repro_torch.cnn.train``): ResNet-18 at its published widths
+     (21 quantized leaves, 11,164,352 weights), batch 128, W4 A8, AdamW,
+     ``CNN_STEPS`` QAT steps (42, one per gradual stage), counting
+     21 ``uniq_noise_fwd_onchip`` + 21 ``uniq_noise_bwd`` launches and no
+     host-noise forward per step, FROZEN leaves bit-unchanged; before it one
+     step with the plain versions forced (same key, same noise); after it
+     the all-FROZEN eval with its accuracy, a profile of one more step, and
+     MobileNet (width 16) for a few steps; then a tiny f32 ResNet-18 step on
+     the card against the CPU (same params, batch and key);
   7. times each kernel (CUDA events) beside its bound, its plain version and
      one library call, and prints the ``kernels`` JSON line;
   8. prints ``{"ok": true, "device": {...}}`` as the last line.
@@ -66,17 +77,20 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch import convert                               # noqa: E402
 from repro_torch import tree as tree_lib                       # noqa: E402
+from repro_torch.cnn import cnn as cnn_lib                    # noqa: E402
+from repro_torch.cnn.train import CNNTrainer                  # noqa: E402
 from repro_torch.configs import base as cb                    # noqa: E402
 from repro_torch.core import activations as act              # noqa: E402
 from repro_torch.core import packing                          # noqa: E402
 from repro_torch.core.uniq import (FROZEN, UniqConfig,        # noqa: E402
-                                   leaf_noise)
+                                   leaf_noise, onchip_noise)
 from repro_torch.data.synthetic import (LMStreamConfig,       # noqa: E402
-                                        lm_batch)
+                                        image_batch, lm_batch)
 from repro_torch.kernels import kquantile as kq               # noqa: E402
 from repro_torch.kernels import loader, ops as kops           # noqa: E402
 from repro_torch.kernels import paged_attn as pa              # noqa: E402
 from repro_torch.kernels import qmatmul as qmm                # noqa: E402
+from repro_torch.kernels import ref as kref                   # noqa: E402
 from repro_torch.kernels import uniq_noise as un              # noqa: E402
 from repro_torch.launch import train as train_cli             # noqa: E402
 from repro_torch.models import lm, model                      # noqa: E402
@@ -133,6 +147,13 @@ TOL_UNIQ_NOISE_SIGMA = 1e-3
 # uniq_noise backward: the same operations on the same (w, w_hat); expf
 #   against torch's exp, a few ulps relative (bf16: beyond one step).
 TOL_UNIQ_BWD_REL = 1e-5
+# uniq_noise_fwd_onchip: its draw must equal the plain Philox to the bit (no
+#   tolerance), and given it the forward runs the body of uniq_noise_fwd, so
+#   FROZEN and NOISE are held to TOL_UNIQ_FROZEN_FLIPS / TOL_UNIQ_NOISE_SIGMA
+#   and to uniq_noise_fwd on the same bits to the bit.  A NOISE output lies
+#   within half a bin (1 / 2k) of its weight in u; Phi of the output
+#   recomputes u + e to a few f32 ulps of u (the erf / erfinv round trip).
+TOL_ONCHIP_BIN_U = 1e-5
 # qmatmul_a8, f32 result: both sides form the same f32 code * scale and
 #   multiply it by the same f32 levels; only the summation order over K
 #   differs (the CUDA cores against cuBLAS in f32).  Results are O(1).
@@ -695,6 +716,160 @@ def _check_uniq_one(gen, G, R, C, dtype, per_col, modes, k):
     return res
 
 
+# the CNN trainer's leaves in the kernel layout (kops._grouped): the largest
+# ResNet-18 conv (3, 3, 512, 512), a MobileNet depthwise (3, 3, 1, 128) and
+# the fc (512, 10)
+CNN_LEAF_SHAPES = ((3, 3 * 512, 512), (3, 3, 128), (1, 512, 10))
+
+
+def _moments_ok(e01) -> str:
+    """Mean and variance of a U[0, 1) draw against 1/2 and 1/12, within six
+    standard errors of each; '' when they hold, else what failed."""
+    n = e01.numel()
+    e = e01.double()
+    mean, var = e.mean().item(), e.var(correction=0).item()
+    tol_m = 6.0 * math.sqrt(1.0 / 12.0 / n)
+    tol_v = 6.0 * math.sqrt(1.0 / 80.0 - 1.0 / 144.0) / math.sqrt(n) + tol_m
+    if abs(mean - 0.5) > tol_m or abs(var - 1.0 / 12.0) > tol_v:
+        return (f"mean {mean:.6f} (|d| > {tol_m:.2e}) or var {var:.6f} "
+                f"(|d| > {tol_v:.2e})")
+    return ""
+
+
+def check_uniq_onchip(gen, quick: bool, layers: int):
+    """uniq_noise_fwd_onchip against its plain version at the granite leaf
+    shapes of check_uniq, the CNN trainer's leaf shapes and ragged ones.
+    Returns the forward's max abs error (f32)."""
+    L = 2 if quick else layers
+    shapes = [(L, 4096, 4096), (L, 4096, 1024), (L, 4096, 12800),
+              (L, 12800, 4096), (1, 49155, 4096), (1, 4096, 49155),
+              *CNN_LEAF_SHAPES, (3, 37, 131), (2, 5, 7), (1, 1, 3),
+              (5, 129, 1001)]
+    if quick:
+        shapes = [(L, 4096, 12800), *CNN_LEAF_SHAPES, (3, 37, 131),
+                  (2, 5, 7), (1, 1, 3)]
+    # small: the CPU's plain draw too, so the bits are shown independent of
+    # the device
+    cpu_n = 1 << 16
+    worst = 0.0
+    flips = n_frozen = n_bits = 0
+    noise_sigma = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for si, (G, R, C) in enumerate(shapes):
+        n = G * R * C
+        key = (0x9E3779B97F4A7C15 * (si + 1)) & ((1 << 63) - 1)
+        # the raw draw, read back by the debug entry point: bit for bit
+        got = un.onchip_e01(key, n, DEV)
+        again = un.onchip_e01(key, n, DEV)
+        sync()
+        want = kref.onchip_e01(key, n, DEV)
+        where = f"G={G} R={R} C={C} key={key:#x}"
+        if not torch.equal(got, again):
+            raise SystemExit(f"onchip e01 is not deterministic: {where}")
+        if not torch.equal(got, want):
+            bad = int((got != want).sum().item())
+            raise SystemExit(f"onchip e01 differs from its plain version in "
+                             f"{bad} of {n} draws: {where}")
+        if n <= cpu_n and not torch.equal(
+                got.cpu(), kref.onchip_e01(key, n, "cpu")):
+            raise SystemExit(f"onchip e01 differs from the CPU's plain "
+                             f"draw: {where}")
+        if n >= 4:
+            other = un.onchip_e01(key ^ 1, n, DEV)
+            same = (other == got).double().mean().item()
+            if same > 0.01:
+                raise SystemExit(f"onchip e01 under another key shares "
+                                 f"{same:.3f} of its draws: {where}")
+            del other
+        if n >= 1 << 14:
+            bad = _moments_ok(got)
+            if bad:
+                raise SystemExit(f"onchip e01 moments: {bad}: {where}")
+        n_bits += n
+        del again, want
+        mode_sets = ([[m] for m in (1, 2, 0)] if G == 1
+                     else [[(g + s) % 3 for g in range(G)] for s in (0, 1)])
+        for dtype in (torch.float32, torch.bfloat16):
+            for modes in mode_sets:
+                for k in ((16,) if n > 1 << 20 else (4, 16, 256)):
+                    res = _check_onchip_one(gen, G, R, C, dtype, modes, k,
+                                            key, got)
+                    if dtype == torch.float32:
+                        worst = max(worst, res["fwd_err"])
+                    flips += res["flips"]
+                    n_frozen += res["n_frozen"]
+                    noise_sigma[dtype] = max(noise_sigma[dtype],
+                                             res["noise_sigma"])
+        del got
+        torch.cuda.empty_cache()
+        say(f"[kernels] uniq_noise_fwd_onchip G={G} R={R} C={C}: raw draw "
+            f"bit-equal to the plain Philox, repeatable, key-dependent; fwd "
+            f"x f32/bf16 x modes {mode_sets} ok")
+    say(f"[kernels] uniq_noise_fwd_onchip: {n_bits} draws equal to the plain "
+        f"version's; FROZEN outputs differing {flips} of {n_frozen}; NOISE "
+        f"max |diff| / sigma: f32 {noise_sigma[torch.float32]:.3e}, bf16 "
+        f"(beyond one bf16 ulp) {noise_sigma[torch.bfloat16]:.3e}")
+    if flips > TOL_UNIQ_FROZEN_FLIPS * max(n_frozen, 1):
+        raise SystemExit(f"uniq_noise_fwd_onchip FROZEN: {flips} of "
+                         f"{n_frozen} outputs differ from the plain version "
+                         f"(bound {TOL_UNIQ_FROZEN_FLIPS} of them)")
+    return worst
+
+
+def _check_onchip_one(gen, G, R, C, dtype, modes, k, key, e01_flat):
+    w, mu, sigma, mode, _ = make_uniq_inputs(gen, G, R, C, dtype, False,
+                                             modes)
+    where = f"G={G} R={R} C={C} {dtype} modes={modes} k={k}"
+    out = un.uniq_noise_fwd_onchip(w, mu, sigma, mode, key, k=k)
+    again = un.uniq_noise_fwd_onchip(w, mu, sigma, mode, key, k=k)
+    # the host-noise kernel on the same bits: one body, so to the bit
+    host = un.uniq_noise_fwd(w, mu, sigma, mode, e01_flat.view(G, R, C), k=k)
+    sync()
+    want = un.uniq_noise_fwd_onchip_plain(w, mu, sigma, mode, key, k=k)
+    if not torch.equal(out, again):
+        raise SystemExit(f"uniq_noise_fwd_onchip is not deterministic: "
+                         f"{where}")
+    if not torch.equal(out, host):
+        raise SystemExit(f"uniq_noise_fwd_onchip differs from uniq_noise_fwd "
+                         f"on the same draw: {where}")
+    if not torch.isfinite(out).all():
+        raise SystemExit(f"uniq_noise_fwd_onchip gives non-finite values: "
+                         f"{where}")
+    m = mode.reshape(-1, 1, 1)
+    diff = (out.float() - want.float()).abs()
+    clean = (m == 0).expand_as(w)
+    if not torch.equal(out[clean], w[clean]):
+        raise SystemExit(f"uniq_noise_fwd_onchip CLEAN is not the identity: "
+                         f"{where}")
+    frozen = (m == 2).expand_as(w)
+    flips = int((out[frozen] != want[frozen]).sum().item())
+    noisy = (m == 1).expand_as(w)
+    noise_sigma = 0.0
+    if noisy.any():
+        rel = diff / sigma
+        if dtype == torch.bfloat16:
+            ulp = want.float().abs() * 2.0 ** -8
+            rel = (diff - ulp).clamp_min(0.0) / sigma
+        noise_sigma = rel[noisy].max().item()
+        if noise_sigma > TOL_UNIQ_NOISE_SIGMA:
+            raise SystemExit(f"uniq_noise_fwd_onchip NOISE disagrees with its "
+                             f"plain version by {noise_sigma:.3e} sigma > "
+                             f"{TOL_UNIQ_NOISE_SIGMA}: {where}")
+        if dtype == torch.float32:
+            # every NOISE output lies within half a bin of its weight in u
+            u_w = kref.phi((w.float() - mu) / sigma)
+            u_o = kref.phi((out.float() - mu) / sigma)
+            du = (u_o - u_w).abs()[noisy].max().item()
+            if du > 0.5 / k + TOL_ONCHIP_BIN_U:
+                raise SystemExit(f"uniq_noise_fwd_onchip NOISE moved a weight "
+                                 f"{du:.3e} in u, beyond half a bin "
+                                 f"{0.5 / k}: {where}")
+            del u_w, u_o, du
+    res = dict(fwd_err=diff.max().item(), flips=flips,
+               n_frozen=int(frozen.sum().item()), noise_sigma=noise_sigma)
+    del w, mu, sigma, mode, out, again, host, want, diff, clean, frozen, noisy
+    return res
+
+
 # --------------------------------------------------------------------------
 # Phase 4/5: the engine at full width
 # --------------------------------------------------------------------------
@@ -1213,6 +1388,279 @@ def small_train_phase(seed: int):
 
 
 # --------------------------------------------------------------------------
+# The paper's CNN trainer (ResNet-18 / MobileNet under UNIQ)
+# --------------------------------------------------------------------------
+
+# quantized leaves of ResNet-18: conv1, the 16 convs of the 8 BasicBlocks,
+# the 3 strided 1x1 downsamples and the fc
+CNN_LEAVES = 21
+# MobileNet: conv1, 7 depthwise + 7 pointwise, the fc
+MOBILENET_LEAVES = 16
+# ResNet-18 QAT steps: one per gradual stage, 21 layers x 2 iterations
+CNN_STEPS = 2 * CNN_LEAVES
+# ResNet-18 QAT step, kernels vs plain versions forced on the card, same
+# key: the transform's kernels equal their plain versions to the bit (phase
+# 3), the forward is the same cuDNN calls on the same weights; what may
+# remain is the order of cuDNN's backward reductions.  Loss relative;
+# gradients relative to each leaf's largest.
+TOL_CNN_PLAIN_LOSS_REL = 1e-6
+TOL_CNN_PLAIN_GRAD_REL = 1e-5
+# tiny f32 ResNet-18 QAT step (width 8, batch 8, logits not fake-quantized,
+# so no int8 code of a logit can flip between the devices), card vs CPU on
+# the same params, batch and key, so the same Philox bits on both: ~20 f32
+# conv + GroupNorm layers summed in another order (loss relative);
+# gradients relative to each leaf's largest, read at 1.9e-6 on the H100.
+TOL_CNN_SMALL_LOSS_REL = 1e-4
+TOL_CNN_SMALL_GRAD_REL = 1e-4
+
+
+def _cnn_experiment(**kw):
+    from repro_torch.configs import resnet18_cifar
+    return resnet18_cifar.experiment(**kw)
+
+
+def _cnn_grads_compare(a, b, tol, what):
+    """Worst max |diff| / max |grad| over the leaves of two grad trees."""
+    worst = 0.0
+    for (path, x), (_, y) in zip(tree_lib.leaves_with_paths(a),
+                                 tree_lib.leaves_with_paths(b)):
+        x, y = x.float().cpu(), y.float().cpu()
+        rel = ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, rel)
+        if not torch.isfinite(x).all() or rel > tol:
+            raise SystemExit(f"{what}: gradient of {path} {rel:.3e} > {tol}")
+    return worst
+
+
+def cnn_plain_check(trainer, step: int):
+    """One QAT step's loss and gradients, kernels vs plain versions forced,
+    on one batch and one key (so one noise draw)."""
+    modes = trainer.schedule.modes_at(step)
+    images, labels = image_batch(trainer.dcfg, step, device=DEV)
+    noise = onchip_noise(trainer.exp.seed, step)
+    res = {}
+    for name, use in (("kernels", True), ("plain", False)):
+        before = kops.launch_counts()
+        res[name] = trainer.loss_and_grads(images, labels, modes, noise,
+                                           use_kernel=use)
+        sync()
+        if not use and kops.launch_counts() != before:
+            raise SystemExit("use_kernel=False launched a kernel")
+    (lk, gk), (lp, gp) = res["kernels"], res["plain"]
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    worst = _cnn_grads_compare(gk, gp, TOL_CNN_PLAIN_GRAD_REL,
+                               "CNN QAT step, kernels vs plain versions")
+    say(f"[cnn] step {step} (modes {modes.tolist()}) loss and gradients, "
+        f"kernels vs plain versions forced (same key): loss {lk.item():.6f} "
+        f"vs {lp.item():.6f} (rel {loss_rel:.1e}, tolerance "
+        f"{TOL_CNN_PLAIN_LOSS_REL}); worst leaf max |diff| / max |grad| "
+        f"{worst:.1e} (tolerance {TOL_CNN_PLAIN_GRAD_REL})")
+    if loss_rel > TOL_CNN_PLAIN_LOSS_REL:
+        raise SystemExit("CNN QAT loss: kernels disagree with the plain "
+                         "versions")
+
+
+def _cnn_frozen_snapshot(trainer, modes):
+    """Copies of the quantized leaves of FROZEN layers and their AdamW
+    moments: one step must leave them bit-unchanged."""
+    snap = {}
+    for name, m in zip(trainer.layer_order, modes.tolist()):
+        if m == FROZEN:
+            snap[name] = (trainer.params[name].clone(),
+                          trainer.opt_state["mu"][name]["m"].clone())
+    return snap
+
+
+def cnn_phase(seed: int, steps: int):
+    """The CNN trainer's main path: ResNet-18 at its published widths under
+    UNIQ (W4, A8 logits, AdamW, one gradual block per layer, two
+    iterations), then the all-FROZEN eval, a profile of one more step, and
+    MobileNet (depthwise convs) for a few steps.  Returns the launch counts
+    of the ResNet-18 QAT steps."""
+    exp = _cnn_experiment(width=64, batch=128, w_bits=4, a_bits=8,
+                          steps=steps, iterations=2, seed=seed, device="cuda")
+    t0 = time.perf_counter()
+    trainer = CNNTrainer(exp)
+    sync()
+    sched = trainer.schedule
+    n_w = cnn_lib.n_quantized(trainer.params)
+    n_all = sum(t.numel() for t in tree_lib.leaves(trainer.params))
+    say(f"[cnn] ResNet-18 at its published widths (width 64, stages "
+        f"64/128/256/512), 32x32x3 images, batch {exp.batch}: "
+        f"{len(trainer.layer_order)} quantized leaves, {n_w} weights "
+        f"({n_all} parameters); W{exp.w_bits}, A{exp.a_bits} logits, AdamW "
+        f"lr {exp.lr}, {sched.n_stages} gradual stages of "
+        f"{sched.steps_per_stage} step(s); f32, TF32 off; set up in "
+        f"{time.perf_counter() - t0:.1f}s")
+    if len(trainer.layer_order) != CNN_LEAVES or n_w != 11_164_352:
+        raise SystemExit("ResNet-18 at width 64 does not have 21 quantized "
+                         "leaves of 11,164,352 weights")
+    # layers < 10 FROZEN, 10 NOISE, > 10 CLEAN: all three modes at once
+    cnn_plain_check(trainer, 10)
+    kops.reset_launch_counts()
+    times, losses = [], []
+    for i in range(steps):
+        modes = sched.modes_at(i)
+        snap = _cnn_frozen_snapshot(trainer, modes)
+        noisy = [n for n, m in zip(trainer.layer_order, modes.tolist())
+                 if m == 1]
+        probe = {n: trainer.params[n].clone() for n in noisy}
+        before = kops.launch_counts()
+        t0 = time.perf_counter()
+        loss = float(trainer.step(i))
+        sync()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        after = kops.launch_counts()
+        d = {k: after[k] - before[k] for k in
+             ("uniq_noise_fwd_onchip", "uniq_noise_bwd", "uniq_noise_fwd")}
+        kept = sum(torch.equal(trainer.params[n], p) and torch.equal(
+            trainer.opt_state["mu"][n]["m"], m) for n, (p, m) in snap.items())
+        moved = sum(not torch.equal(trainer.params[n], p)
+                    for n, p in probe.items())
+        if i % 7 == 0 or i == steps - 1:
+            say(f"[cnn] step {i} (NOISE {noisy}, {len(snap)} FROZEN): loss "
+                f"{loss:.4f}, {times[-1] * 1e3:.1f} ms; launches "
+                f"uniq_noise_fwd_onchip {d['uniq_noise_fwd_onchip']}, "
+                f"uniq_noise_bwd {d['uniq_noise_bwd']}, uniq_noise_fwd "
+                f"{d['uniq_noise_fwd']}; FROZEN leaves unchanged "
+                f"{kept}/{len(snap)}")
+        if not math.isfinite(loss):
+            raise SystemExit(f"CNN step {i}: loss is not finite")
+        if d != {"uniq_noise_fwd_onchip": CNN_LEAVES,
+                 "uniq_noise_bwd": CNN_LEAVES, "uniq_noise_fwd": 0}:
+            raise SystemExit(f"CNN step {i}: launches {d}, expected "
+                             f"{CNN_LEAVES} on-chip forward, {CNN_LEAVES} "
+                             f"backward and no host-noise forward")
+        if kept != len(snap):
+            raise SystemExit(f"CNN step {i}: a FROZEN leaf changed")
+        if moved != len(probe):
+            raise SystemExit(f"CNN step {i}: the NOISE leaf did not move")
+        del snap, probe
+    counts = kops.launch_counts()
+    med = float(np.median(times[1:]))
+    say(f"[cnn] {steps} QAT steps: median {med * 1e3:.1f} ms after the first "
+        f"({times[0] * 1e3:.1f} ms): {exp.batch / med:.0f} images/s; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+        f"uniq_noise_fwd_onchip {counts['uniq_noise_fwd_onchip']}, "
+        f"uniq_noise_bwd {counts['uniq_noise_bwd']}, uniq_noise_fwd "
+        f"{counts['uniq_noise_fwd']}")
+    before = kops.launch_counts()
+    params_q = trainer.quantized_params()
+    acc = trainer.accuracy(params_q)
+    n_ev = kops.launch_counts()["uniq_noise_fwd_onchip"] \
+        - before["uniq_noise_fwd_onchip"]
+    say(f"[cnn] all-FROZEN eval (W4 k-quantile weights): accuracy {acc:.4f} "
+        f"on 8 x {exp.batch} held-out images (10 classes: chance 0.1); "
+        f"uniq_noise_fwd_onchip launches {n_ev}")
+    if n_ev != CNN_LEAVES or not 0.0 <= acc <= 1.0:
+        raise SystemExit("CNN all-FROZEN eval failed")
+    del params_q
+    cnn_profile(trainer, steps)
+    del trainer
+    torch.cuda.empty_cache()
+    mobilenet_phase(seed)
+    return counts, med
+
+
+def cnn_profile(trainer, step: int):
+    """Device time of one more QAT step by kernel (torch.profiler), and the
+    device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        t0 = time.perf_counter()
+        trainer.step(step)
+        sync()
+        wall = time.perf_counter() - t0
+    events = tp.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    groups = {}
+    for e in kernels:
+        n = e.key.lower()
+        g = ("uniq_noise_fwd_onchip" if "uniq_fwd" in n else
+             "uniq_noise_bwd" if "uniq_bwd" in n else
+             "convolution (cuDNN)" if "conv" in n or "cudnn" in n
+             or "implicit" in n or "gemm" in n or "xmma" in n
+             or "winograd" in n or "fft" in n or "sm90" in n else
+             "group norm" if "group_norm" in n or "groupnorm" in n else
+             "other (elementwise, reductions, AdamW)")
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total
+    say(f"[profile] one CNN QAT step: device busy {dev_us / 1e3:.2f} ms of "
+        f"{wall * 1e3:.2f} ms wall ({100 * dev_us / 1e3 / (wall * 1e3):.1f}"
+        f"%); by kind: " + ", ".join(
+            f"{g} {us / 1e3:.2f} ms" for g, us in
+            sorted(groups.items(), key=lambda kv: -kv[1])))
+    say(events.table(sort_by="self_device_time_total", row_limit=14,
+                     max_name_column_width=60))
+
+
+def mobilenet_phase(seed: int, steps: int = 4):
+    """MobileNet at its config's width (16) for a few QAT steps: the
+    depthwise (3, 3, 1, cin) leaves through the on-chip kernel."""
+    from repro_torch.configs import mobilenet_cifar
+    exp = mobilenet_cifar.experiment(w_bits=4, a_bits=8, seed=seed,
+                                     steps=2 * MOBILENET_LEAVES,
+                                     device="cuda")
+    trainer = CNNTrainer(exp)
+    before = kops.launch_counts()
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.step(i)))
+        sync()
+        times.append(time.perf_counter() - t0)
+    after = kops.launch_counts()
+    n_f = after["uniq_noise_fwd_onchip"] - before["uniq_noise_fwd_onchip"]
+    n_b = after["uniq_noise_bwd"] - before["uniq_noise_bwd"]
+    say(f"[cnn] MobileNet width {exp.width}, batch {exp.batch}, "
+        f"{len(trainer.layer_order)} quantized leaves: {steps} QAT steps, "
+        f"median {np.median(times[1:]) * 1e3:.1f} ms after the first "
+        f"({times[0] * 1e3:.1f} ms), losses {[round(x, 4) for x in losses]}; "
+        f"launches "
+        f"uniq_noise_fwd_onchip {n_f}, uniq_noise_bwd {n_b}")
+    if not all(math.isfinite(x) for x in losses) or \
+            n_f != steps * MOBILENET_LEAVES or n_b != steps * MOBILENET_LEAVES:
+        raise SystemExit("MobileNet QAT steps failed")
+
+
+def small_cnn_phase(seed: int):
+    """A tiny f32 ResNet-18 QAT step on the card (kernels) against the
+    same step on the CPU (plain versions): one state, one batch, one key,
+    so one noise draw on both."""
+    kw = dict(width=8, batch=8, w_bits=4, a_bits=32, steps=42, seed=seed)
+    res = []
+    state = None
+    for dev in ("cpu", DEV):
+        trainer = CNNTrainer(_cnn_experiment(device=str(dev), **kw))
+        if state is None:
+            state = convert.train_state_to_numpy(
+                {"params": trainer.params, "opt": trainer.opt_state})
+        moved = convert.train_state_from_numpy(state, device=dev)
+        trainer.params, trainer.opt_state = moved["params"], moved["opt"]
+        step = 10
+        images, labels = image_batch(trainer.dcfg, step, device=dev)
+        loss, grads = trainer.loss_and_grads(
+            images, labels, trainer.schedule.modes_at(step),
+            onchip_noise(seed, step))
+        res.append((float(loss), grads))
+    loss_rel = abs(res[0][0] - res[1][0]) / abs(res[0][0])
+    worst = _cnn_grads_compare(res[1][1], res[0][1], TOL_CNN_SMALL_GRAD_REL,
+                               "tiny CNN step, card vs CPU")
+    say(f"[small] ResNet-18 width 8 f32 QAT step (same params, batch, key), "
+        f"card vs CPU: loss {res[1][0]:.6f} vs {res[0][0]:.6f} (rel "
+        f"{loss_rel:.1e}, tolerance {TOL_CNN_SMALL_LOSS_REL}); worst leaf "
+        f"max |diff| / max |grad| {worst:.1e} (tolerance "
+        f"{TOL_CNN_SMALL_GRAD_REL})")
+    if loss_rel > TOL_CNN_SMALL_LOSS_REL:
+        raise SystemExit("the tiny CNN step on the card disagrees with the "
+                         "CPU")
+
+
+# --------------------------------------------------------------------------
 # Phase 6: times
 # --------------------------------------------------------------------------
 
@@ -1452,6 +1900,41 @@ def time_uniq(gen, G, R, C, modes):
     return r
 
 
+# Philox4x32-10's integer operations per element (ten rounds of two
+# multiplies, two xors and the key bumps for a run of four, plus the
+# conversion), counted at the f32 rate beside the body's UNIQ_FWD_OPS
+PHILOX_OPS = 15
+
+
+def time_uniq_onchip(gen, G, R, C, modes, copies: int = 1):
+    """The on-chip forward, its plain version (plain Philox + the reference
+    transform) and the host-noise forward on the same shape, f32, per-group
+    statistics.  ``copies`` sets of inputs are cycled so a leaf smaller
+    than the L2 cache is read from device memory, as the trainer finds it."""
+    sets = [make_uniq_inputs(gen, G, R, C, torch.float32, False, modes)
+            for _ in range(copies)]
+    key = 0x5DEECE66D
+    r = dict(
+        ms=time_ms([lambda s=s: un.uniq_noise_fwd_onchip(
+            s[0], s[1], s[2], s[3], key, k=16) for s in sets]),
+        host_fwd_ms=time_ms([lambda s=s: un.uniq_noise_fwd(
+            s[0], s[1], s[2], s[3], s[4], k=16) for s in sets]),
+        plain_ms=time_ms([lambda s=sets[0]: un.uniq_noise_fwd_onchip_plain(
+            s[0], s[1], s[2], s[3], key, k=16)], warmup=1, iters=3),
+        host_us=host_us(lambda s=sets[0]: un.uniq_noise_fwd_onchip(
+            s[0], s[1], s[2], s[3], key, k=16)),
+        # the draw alone (the debug entry point: Philox and a 4-byte write)
+        e01_ms=time_ms([lambda: un.onchip_e01(key, G * R * C, DEV)]),
+        library_ms=None)
+    n = G * R * C
+    r["e01_bound_ms"] = n * 4 / PEAK_BYTES_PER_S * 1e3
+    r["bound_ms"], r["bound_by"], r["bytes"] = uniq_bound(
+        n, 8, UNIQ_FWD_OPS + PHILOX_OPS, G)
+    del sets
+    torch.cuda.empty_cache()
+    return r
+
+
 def timing_phase(gen, counts, errs):
     rows = {}
     for bits in (4, 8):
@@ -1491,6 +1974,20 @@ def timing_phase(gen, counts, errs):
                     f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
                     f"{t['bytes'] / 1e6:.1f} MB), plain {t['plain_ms']:.3f} "
                     f"ms; host enqueue {t['host_us']:.0f} us per call")
+    for (G, R, C), what, copies in (
+            ((L, 4096, 12800), "granite w_up stack, row 7's shape", 1),
+            ((3, 3 * 512, 512), "largest ResNet-18 conv, (3, 3, 512, 512)",
+             4)):
+        r = time_uniq_onchip(gen, G, R, C, [1] * G, copies)
+        rows[("uniq_onchip", G, R, C)] = r
+        say(f"[time] uniq_noise_fwd_onchip f32 G={G} R={R} C={C} ({what}), "
+            f"every group NOISE: kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.3f} ms; "
+            f"uniq_noise_fwd (noise read as an operand) on the same shape "
+            f"{r['host_fwd_ms']:.4f} ms; the draw alone (Philox, f32 written) "
+            f"{r['e01_ms']:.4f} ms against its {r['e01_bound_ms']:.4f} ms "
+            f"write bound; host enqueue {r['host_us']:.0f} us per call")
     for bits in (4, 8):
         for (M, K, N) in ((16, 4096, 12800), (16, 4096, 4096),
                           (16, 12800, 4096), (256, 4096, 12800)):
@@ -1530,6 +2027,7 @@ def timing_phase(gen, counts, errs):
     q8 = rows[("qmatmul_a8", 4, 16, 4096, 12800)]
     ql = rows[("qmatmul_lut", 4, 16, 4096, 12800)]
     kw = rows[("kquantile", 1, 4096, 12800, 256)]       # int8 codes
+    uo = rows[("uniq_onchip", L, 4096, 12800)]
 
     def entry(name, source, replaces, r):
         return {"name": name, "route": "cuda", "source": source,
@@ -1556,7 +2054,10 @@ def timing_phase(gen, counts, errs):
               "src/repro/kernels/kquantile.py:86", kw["quantize"]),
         entry("kquantile_dequantize",
               "src/repro_torch/kernels/csrc/kquantile.cu",
-              "src/repro/kernels/kquantile.py:97", kw["dequantize"])]}
+              "src/repro/kernels/kquantile.py:97", kw["dequantize"]),
+        entry("uniq_noise_fwd_onchip",
+              "src/repro_torch/kernels/csrc/uniq_noise.cu",
+              "src/repro/kernels/uniq_noise.py:153", uo)]}
 
 
 def profile_phase(cfg, seed: int, new_tokens: int):
@@ -1651,6 +2152,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     say(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}; "
         f"{kind}; {torch.cuda.device_count()} device(s)")
@@ -1700,6 +2202,8 @@ def main(argv=None) -> int:
             "paged_quant_attention": check_attention(gen, args.quick)}
     errs["uniq_noise_fwd"], errs["uniq_noise_bwd"] = check_uniq(
         gen, args.quick, args.train_layers)
+    errs["uniq_noise_fwd_onchip"] = check_uniq_onchip(gen, args.quick,
+                                                      args.train_layers)
     errs.update(check_qmatmul_variants(gen, args.quick))
     errs["kquantile_quantize"] = errs["kquantile_dequantize"] = \
         check_kquantile(gen, args.quick)
@@ -1737,8 +2241,11 @@ def main(argv=None) -> int:
                                   args.train_steps)
     torch.cuda.empty_cache()
     small_train_phase(args.seed)
+    cnn_counts, _ = cnn_phase(args.seed, CNN_STEPS)
+    small_cnn_phase(args.seed)
     counts = dict(counts, uniq_noise_fwd=train_counts["uniq_noise_fwd"],
                   uniq_noise_bwd=train_counts["uniq_noise_bwd"],
+                  uniq_noise_fwd_onchip=cnn_counts["uniq_noise_fwd_onchip"],
                   train_layers=args.train_layers)
     line = timing_phase(gen, counts, errs)
 

@@ -6,9 +6,10 @@ as numpy arrays (dense f32 leaves, ``{"q_codes","q_mu","q_sigma"}`` and
 ``{"q_codes","q_lut"}`` dicts), into the port's tree; with the codes carried across both engines
 compute from identical weights.  ``train_state_from_numpy`` /
 ``train_state_to_numpy`` do the same for a training state ``{"params",
-"opt", "step"}``, so both frameworks can start a step from one state.
-``cache_to_numpy`` turns a pool into numpy for comparison, bf16 leaves as
-float32 values.
+"opt", "step"}``, so both frameworks can start a step from one state; the
+CNN trainer's ``{"params", "opt"}`` goes the same way, in the trees' own
+key order (``cnn.layer_names`` reads it).  ``cache_to_numpy`` turns a pool
+into numpy for comparison, bf16 leaves as float32 values.
 """
 
 from __future__ import annotations

@@ -10,30 +10,45 @@ Three per-parameter modes (paper Sec. 3.3):
   FROZEN (2) — hard k-quantile quantization, zero gradient, optimizer-masked
                (blocks already processed).
 
-A Gaussian k-quantile leaf goes through ``kernels/ops.py:uniq_transform``:
-the ``uniq_noise`` CUDA kernels for CUDA tensors, their plain versions for
-CPU tensors.  The noise is an input of the transform: ``leaf_noise`` draws
-it per leaf from a generator keyed by (seed, step, md5 of the leaf path),
-so a step's noise does not depend on launch order and a resumed run
-replays it.
+A Gaussian k-quantile leaf goes through ``kernels/ops.py:uniq_transform``
+(or ``uniq_transform_onchip``): the ``uniq_noise`` CUDA kernels for CUDA
+tensors, their plain versions for CPU tensors.  Each leaf's noise is keyed
+by (seed, step, md5 of the leaf path) (``leaf_key``), so a step's noise
+does not depend on launch order and a resumed run replays it.  Two noise
+sources give a leaf its noise:
+
+  * ``leaf_noise(seed, step)``, a ``NoiseFn``: a (leaf-shaped) U[0, 1)
+    tensor drawn by a ``torch.Generator`` seeded with the key, read by the
+    kernel as an operand (the LM trainer; a test hands in the reference's
+    own draw through a ``NoiseFn``);
+  * ``onchip_noise(seed, step)``, a ``NoiseFn`` too: the leaf's int key
+    itself, from which the forward kernel draws inside (Philox4x32-10; the
+    CNN trainer).  Its plain version draws the same bits, so the card and
+    the CPU see the same noise.
+
+The uniform / k-means ablation quantizers (paper Table 3) are plain torch
+ops (``core/noise.py``), as they are jnp in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Union
 
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.core import noise as noise_lib
 from repro_torch.core import packing
+from repro_torch.core import quantizers as Q
 from repro_torch.core.distributions import GaussianModel
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import CLEAN, FROZEN, NOISE
 
 __all__ = ["CLEAN", "NOISE", "FROZEN", "UniqConfig", "transform_param",
-           "transform_tree", "lm_mode_fn", "leaf_noise", "GradualSchedule",
+           "transform_tree", "lm_mode_fn", "leaf_noise", "onchip_noise",
+           "leaf_key", "GradualSchedule",
            "fit_gaussian", "default_quant_filter", "path_str",
            "QuantizedTensor", "quantize_tensor"]
 
@@ -44,7 +59,7 @@ class UniqConfig:
 
     w_bits: int = 4                 # weight bits  -> k = 2**w_bits levels
     a_bits: int = 8                 # activation bits (32 = off)
-    method: str = "kquantile"       # kquantile (uniform | kmeans: not ported)
+    method: str = "kquantile"       # kquantile | uniform | kmeans
     dist: str = "gaussian"          # gaussian (empirical: serving only)
     per_channel: bool = False       # beyond-paper: per-out-channel (mu, sigma)
     quantize_embed: bool = True     # paper quantizes first & last layers
@@ -106,30 +121,51 @@ def _broadcast_mode(mode, w: torch.Tensor, stacked: bool) -> torch.Tensor:
     return mode
 
 
-def transform_param(w: torch.Tensor, e01: torch.Tensor, mode,
+def _ablation(w: torch.Tensor, e01: torch.Tensor, mode, cfg: UniqConfig,
+              stacked: bool) -> torch.Tensor:
+    """The uniform / k-means branch (the reference's ``uniq.py:110-116``):
+    per-bin noise for NOISE, the deterministic quantizer (no gradient) for
+    FROZEN, ``w`` for CLEAN; per-tensor statistics."""
+    noisy = noise_lib.ABLATION_INJECT[cfg.method](w, e01, cfg.k)
+    frozen = Q.fakequant(w.detach(), cfg.k, method=cfg.method)
+    m = _broadcast_mode(mode, w, stacked).to(w.device)
+    return torch.where(m == CLEAN, w, torch.where(m == NOISE, noisy, frozen))
+
+
+def transform_param(w: torch.Tensor, noise: Union[torch.Tensor, int], mode,
                     cfg: UniqConfig, stacked: bool = False,
                     use_kernel: bool = True) -> torch.Tensor:
     """Apply the 3-way UNIQ transform to one parameter.
 
     ``mode`` is one value for a plain parameter, or (L,) per layer for a
-    stacked one; ``e01`` is w's shape of f32 U[0, 1) noise (read only by
-    NOISE groups).  Differentiable in ``w`` through the fused kernel's
-    backward.  ``use_kernel=False`` forces the plain versions (the
-    comparison hook).
+    stacked one.  ``noise`` is either w's shape of f32 U[0, 1) noise (read
+    only by NOISE groups), or the leaf's int key, from which the k-quantile
+    forward kernel draws on chip (``kernels/ops.py:uniq_transform_onchip``)
+    and the ablation quantizers draw through ``keyed_uniform``.
+    Differentiable in ``w``: through the fused kernel's backward
+    (k-quantile), through torch autograd (ablation).  ``use_kernel=False``
+    forces the kernels' plain versions (the comparison hook).
     """
     if not cfg.enabled or cfg.w_bits >= 32:
         return w
+    onchip = isinstance(noise, int)
     if cfg.method != "kquantile":
-        raise NotImplementedError(
-            f"method={cfg.method!r} (the paper's uniform / k-means ablation "
-            f"quantizers) is not ported yet; use method='kquantile'")
+        if cfg.method not in noise_lib.ABLATION_INJECT:
+            raise ValueError(f"unknown quantizer: {cfg.method!r}")
+        e01 = keyed_uniform(noise, w) if onchip else noise
+        return _ablation(w, e01, mode, cfg, stacked)
     model = _fit_dist(w, cfg, stacked)
     wg, ungroup = kops._grouped(w)
-    eg, _ = kops._grouped(e01)
     mode_g = _broadcast_mode(mode, w, stacked).reshape(-1)
-    out = kops.uniq_transform(wg, kops.grouped_stats(model.mu, w),
-                              kops.grouped_stats(model.sigma, w), mode_g, eg,
-                              k=cfg.k, use_kernel=use_kernel)
+    mu = kops.grouped_stats(model.mu, w)
+    sigma = kops.grouped_stats(model.sigma, w)
+    if onchip:
+        out = kops.uniq_transform_onchip(wg, mu, sigma, mode_g, noise,
+                                         k=cfg.k, use_kernel=use_kernel)
+    else:
+        out = kops.uniq_transform(wg, mu, sigma, mode_g,
+                                  kops._grouped(noise)[0], k=cfg.k,
+                                  use_kernel=use_kernel)
     return ungroup(out)
 
 
@@ -169,22 +205,40 @@ def _fold_path(key: int, path: str) -> int:
     return fold_in(key, h)
 
 
-NoiseFn = Callable[[str, torch.Tensor], torch.Tensor]
+# (path, leaf) -> the leaf's U[0, 1) draw, or its int key for the on-chip draw
+NoiseFn = Callable[[str, torch.Tensor], Union[torch.Tensor, int]]
+
+
+def leaf_key(seed: int, step: int, path: str) -> int:
+    """The 63-bit key of one leaf's noise at one step."""
+    return _fold_path(fold_in(seed, step), path)
+
+
+def keyed_uniform(key: int, leaf: torch.Tensor) -> torch.Tensor:
+    """leaf's shape of f32 U[0, 1) on leaf's device, from a
+    ``torch.Generator`` seeded with ``key``."""
+    gen = torch.Generator(device=leaf.device)
+    gen.manual_seed(int(key))
+    return torch.rand(leaf.shape, generator=gen, device=leaf.device,
+                      dtype=torch.float32)
 
 
 def leaf_noise(seed: int, step: int) -> NoiseFn:
-    """The training step's noise source: ``draw(path, leaf)`` is leaf's
-    shape of f32 U[0, 1) on leaf's device, from a generator keyed by
-    (seed, step, md5 of path).  The same key gives the same bits, whatever
-    order the leaves are drawn in."""
-    key = fold_in(seed, step)
-
+    """The host-draw noise source: ``draw(path, leaf)`` is
+    ``keyed_uniform(leaf_key(seed, step, path), leaf)``.  The same key
+    gives the same bits, whatever order the leaves are drawn in."""
     def draw(path: str, leaf: torch.Tensor) -> torch.Tensor:
-        gen = torch.Generator(device=leaf.device)
-        gen.manual_seed(_fold_path(key, path))
-        return torch.rand(leaf.shape, generator=gen, device=leaf.device,
-                          dtype=torch.float32)
+        return keyed_uniform(leaf_key(seed, step, path), leaf)
     return draw
+
+
+def onchip_noise(seed: int, step: int) -> NoiseFn:
+    """The on-chip noise source: ``key(path, leaf)`` is
+    ``leaf_key(seed, step, path)``, from which the transform draws inside
+    the kernel."""
+    def key(path: str, _leaf: torch.Tensor) -> int:
+        return leaf_key(seed, step, path)
+    return key
 
 
 def lm_mode_fn(layer_modes: torch.Tensor):
@@ -201,16 +255,16 @@ def lm_mode_fn(layer_modes: torch.Tensor):
     return mode_for
 
 
-def transform_tree(params: Any, noise: NoiseFn, modes: Any,
-                   cfg: UniqConfig,
+def transform_tree(params: Any, noise: NoiseFn, modes: Any, cfg: UniqConfig,
                    quant_filter: Optional[Callable] = None,
                    stacked_prefixes: tuple = ("layers",),
                    use_kernel: bool = True) -> Any:
     """Apply UNIQ to a parameter tree (nested dicts of tensors).
 
     ``noise(path, leaf)`` gives each transformed leaf its U[0, 1) draw
-    (``leaf_noise`` by default in the train step; a test may hand in the
-    reference's own).  ``modes``: one mode for every quantized leaf, or a
+    (``leaf_noise`` in the LM train step; a test may hand in the
+    reference's own) or its int key for the on-chip draw
+    (``onchip_noise``).  ``modes``: one mode for every quantized leaf, or a
     callable ``path -> mode`` (see ``lm_mode_fn``).  Leaves whose path
     starts with one of ``stacked_prefixes`` carry a leading layer axis and
     may receive an (L,) per-layer mode vector.

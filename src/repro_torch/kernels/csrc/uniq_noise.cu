@@ -11,16 +11,31 @@
 //              CLEAN : 1;   FROZEN : 0 }
 // with zh = (w_hat - mu) / sigma and the factor rounded to g's type first.
 //
-// Replaces the TPU kernel `uniq_noise_fwd` of src/repro/kernels/uniq_noise.py
-// (`_kernel_host`, `_body`) and the jnp backward `_uniq_bwd` of
-// src/repro/kernels/ops.py.  Statistics are (G, 1, C) (per column) or
+// Replaces the TPU kernels `uniq_noise_fwd` and `uniq_noise_fwd_onchip` of
+// src/repro/kernels/uniq_noise.py (`_kernel_host`, `_kernel_onchip`, `_body`)
+// and the jnp backward `_uniq_bwd` of src/repro/kernels/ops.py.
+//
+// Noise: the forward takes e01 either as an operand (G, R, C) f32, or draws
+// it inside the kernel (`uniq_noise_fwd_onchip_launch`) from a counter-based
+// Philox4x32-10 keyed by the leaf's 64-bit key (two u32 words): element i of
+// the leaf (flat index in storage order) is output lane i % 4 of counter
+// (i / 4, 0) -- the 64-bit run index in the low two words, zero in the
+// other two -- and e01 = (x >> 8) * 2^-24.  The bits depend on (key, i)
+// only: not on the grid, the block size, the (G, R, C) grouping or the
+// device, so the plain version (ref.philox4x32_10 / ref.onchip_e01)
+// reproduces them.  The TPU kernel seeds its hardware PRNG per grid tile, so
+// its bits depend on the tiling; that is not carried over.
+//
+// Statistics are (G, 1, C) (per column) or
 // (G, 1, 1) (per group); `table` holds the k standardized levels
 // Phi^-1((c + 1/2) / k), built once by the caller, so FROZEN runs no erfinv.
 //
 // What bounds it: bytes.  The forward reads w and e01 and writes w_hat (12 B
-// per f32 element), the backward reads g, w, w_hat and writes dw (16 B); the
-// per-element arithmetic (erff + erfinvf, or expf, and a dozen operations)
-// stays under the memory time.  What the design does about it: one flat
+// per f32 element; 8 B with the draw on chip), the backward reads g, w, w_hat
+// and writes dw (16 B); the per-element arithmetic (erff + erfinvf, or expf,
+// and a dozen operations; Philox adds ten rounds of two 32-bit multiplies
+// per run of 4, about 15 integer operations an element) stays under the
+// memory time.  What the design does about it: one flat
 // grid-stride pass in which a thread takes runs of 4 consecutive elements
 // with 16-byte loads (8-byte for bf16 weights) and a scalar tail; the group
 // and column of a run's first element are computed once and advanced element
@@ -108,6 +123,67 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint2*>(p) = o;
 }
 
+// Philox4x32-10 (Salmon et al., SC'11), written out: ten rounds of two
+// 32 x 32 -> 64-bit multiplies, the key bumped by the Weyl constants between
+// rounds.  Random123's known-answer vectors are pinned by the CPU tests
+// against ref.philox4x32_10, which does the same arithmetic in int64.
+constexpr uint32_t PHILOX_M0 = 0xD2511F53u;
+constexpr uint32_t PHILOX_M1 = 0xCD9E8D57u;
+constexpr uint32_t PHILOX_W0 = 0x9E3779B9u;
+constexpr uint32_t PHILOX_W1 = 0xBB67AE85u;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += PHILOX_W0;
+      k1 += PHILOX_W1;
+    }
+    const uint32_t hi0 = __umulhi(PHILOX_M0, c.x);
+    const uint32_t lo0 = PHILOX_M0 * c.x;
+    const uint32_t hi1 = __umulhi(PHILOX_M1, c.z);
+    const uint32_t lo1 = PHILOX_M1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// the top 24 bits as a float in [0, 1): exact (x >> 8 < 2^24)
+__device__ __forceinline__ float bits_to_e01(uint32_t x) {
+  return (float)(x >> 8) * 5.9604644775390625e-8f;  // 2^-24
+}
+
+// The forward's two noise sources.  run(r, ...) gives e01 of run r, elements
+// 4r .. 4r + 3; lanes at or past n are never used.
+struct NoiseOperand {  // e01 read from device memory
+  const float* e01;
+  __device__ __forceinline__ void run(int64_t r, int64_t n, bool full,
+                                      float* ev) const {
+    const int64_t i0 = r * VEC;
+    if (full) {
+      load4(e01 + i0, ev);
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) ev[j] = i0 + j < n ? e01[i0 + j] : 0.5f;
+  }
+};
+
+struct NoisePhilox {  // e01 drawn in the kernel, keyed by the leaf key
+  uint32_t k0, k1;
+  __device__ __forceinline__ void run(int64_t r, int64_t, bool,
+                                      float* ev) const {
+    const uint4 b = philox4x32_10(
+        make_uint4((uint32_t)r, (uint32_t)((uint64_t)r >> 32), 0u, 0u), k0,
+        k1);
+    ev[0] = bits_to_e01(b.x);
+    ev[1] = bits_to_e01(b.y);
+    ev[2] = bits_to_e01(b.z);
+    ev[3] = bits_to_e01(b.w);
+  }
+};
+
 // Position of a flat element: its group g, its offset in the group, its
 // column; advanced one element at a time.
 struct Pos {
@@ -150,9 +226,11 @@ __device__ __forceinline__ float fwd_elem(float w, float mu, float sigma,
   return __fadd_rn(mu, __fmul_rn(sigma, s_table[(int)c]));
 }
 
-template <typename T, bool VECTOR>
+// One body for both noise sources, so CLEAN and FROZEN run the same
+// instructions whichever source the caller picks.
+template <typename T, bool VECTOR, typename Noise>
 __global__ void __launch_bounds__(THREADS)
-uniq_fwd_kernel(const T* __restrict__ w, const float* __restrict__ e01,
+uniq_fwd_kernel(const T* __restrict__ w, const Noise noise,
                 const float* __restrict__ mu, const float* __restrict__ sigma,
                 const int* __restrict__ mode, const float* __restrict__ table,
                 T* __restrict__ out, int64_t n, int64_t rc, int c,
@@ -172,15 +250,12 @@ uniq_fwd_kernel(const T* __restrict__ w, const float* __restrict__ e01,
     float wv[VEC], ev[VEC], ov[VEC];
     if (full) {
       load4(w + i0, wv);
-      load4(e01 + i0, ev);
     } else {
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        const bool in = i0 + j < n;
-        wv[j] = in ? to_f(w[i0 + j]) : 0.0f;
-        ev[j] = in ? e01[i0 + j] : 0.5f;
-      }
+      for (int j = 0; j < VEC; ++j)
+        wv[j] = i0 + j < n ? to_f(w[i0 + j]) : 0.0f;
     }
+    noise.run(run, n, full, ev);
     Pos pos(i0, rc, c);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
@@ -261,6 +336,12 @@ uniq_bwd_kernel(const T* __restrict__ g, const T* __restrict__ w,
   }
 }
 
+int check_shape(long long G, long long R, long long C) {
+  if (G <= 0 || R <= 0 || C <= 0) return -2;
+  if (C > 0x7FFFFFFF) return -3;
+  return 0;
+}
+
 bool aligned(const void* p, int bytes) {
   return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
 }
@@ -271,22 +352,60 @@ unsigned grid_for(int64_t n) {
   return (unsigned)(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS);
 }
 
-template <typename T>
-int fwd(const void* w, const float* e01, const float* mu, const float* sigma,
+bool noise_aligned(const NoiseOperand& s) {
+  return aligned(s.e01, VEC * sizeof(float));
+}
+bool noise_aligned(const NoisePhilox&) { return true; }
+
+template <typename T, typename Noise>
+int fwd(const void* w, Noise noise, const float* mu, const float* sigma,
         int per_col, const int* mode, const float* table, void* out, int k,
         int64_t n, int64_t rc, int c, cudaStream_t stream) {
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
   const bool vec = aligned(w, VEC * sizeof(T)) && aligned(out, VEC * sizeof(T))
-                   && aligned(e01, VEC * sizeof(float));
+                   && noise_aligned(noise);
   const unsigned blocks = grid_for(n);
   if (vec)
-    uniq_fwd_kernel<T, true><<<blocks, THREADS, 0, stream>>>(
-        wp, e01, mu, sigma, mode, table, op, n, rc, c, per_col, k);
+    uniq_fwd_kernel<T, true, Noise><<<blocks, THREADS, 0, stream>>>(
+        wp, noise, mu, sigma, mode, table, op, n, rc, c, per_col, k);
   else
-    uniq_fwd_kernel<T, false><<<blocks, THREADS, 0, stream>>>(
-        wp, e01, mu, sigma, mode, table, op, n, rc, c, per_col, k);
+    uniq_fwd_kernel<T, false, Noise><<<blocks, THREADS, 0, stream>>>(
+        wp, noise, mu, sigma, mode, table, op, n, rc, c, per_col, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Noise>
+int fwd_any(const void* w, int w_bf16, Noise noise, const float* mu,
+            const float* sigma, int per_col, const int* mode,
+            const float* table, void* out, int k, long long G, long long R,
+            long long C, void* stream_ptr) {
+  const int rc_ok = check_shape(G, R, C);
+  if (rc_ok != 0) return rc_ok;
+  if (k < 2 || k > MAX_K || (k & (k - 1))) return -4;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int64_t n = (int64_t)G * R * C;
+  const int64_t rc = (int64_t)R * C;
+  return w_bf16 ? fwd<__nv_bfloat16>(w, noise, mu, sigma, per_col, mode,
+                                     table, out, k, n, rc, (int)C, stream)
+                : fwd<float>(w, noise, mu, sigma, per_col, mode, table, out,
+                             k, n, rc, (int)C, stream);
+}
+
+// e01 of a key alone: the on-chip draw read back, for its bit-for-bit check
+__global__ void __launch_bounds__(THREADS)
+onchip_e01_kernel(const NoisePhilox noise, float* __restrict__ out,
+                  int64_t n) {
+  const int64_t n_runs = (n + VEC - 1) / VEC;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t run = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       run < n_runs; run += stride) {
+    float ev[VEC];
+    noise.run(run, n, true, ev);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      if (run * VEC + j < n) out[run * VEC + j] = ev[j];
+  }
 }
 
 template <typename T>
@@ -310,12 +429,6 @@ int bwd(const void* g, const void* w, const void* w_hat, const float* mu,
   return static_cast<int>(cudaGetLastError());
 }
 
-int check_shape(long long G, long long R, long long C) {
-  if (G <= 0 || R <= 0 || C <= 0) return -2;
-  if (C > 0x7FFFFFFF) return -3;
-  return 0;
-}
-
 }  // namespace
 
 extern "C" int uniq_noise_fwd_launch(const void* w, int w_bf16,
@@ -325,16 +438,27 @@ extern "C" int uniq_noise_fwd_launch(const void* w, int w_bf16,
                                      void* out, int k, long long G,
                                      long long R, long long C,
                                      void* stream_ptr) {
-  const int rc_ok = check_shape(G, R, C);
-  if (rc_ok != 0) return rc_ok;
-  if (k < 2 || k > MAX_K || (k & (k - 1))) return -4;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int64_t n = (int64_t)G * R * C;
-  const int64_t rc = (int64_t)R * C;
-  return w_bf16 ? fwd<__nv_bfloat16>(w, e01, mu, sigma, per_col, mode, table,
-                                     out, k, n, rc, (int)C, stream)
-                : fwd<float>(w, e01, mu, sigma, per_col, mode, table, out, k,
-                             n, rc, (int)C, stream);
+  return fwd_any(w, w_bf16, NoiseOperand{e01}, mu, sigma, per_col, mode,
+                 table, out, k, G, R, C, stream_ptr);
+}
+
+extern "C" int uniq_noise_fwd_onchip_launch(
+    const void* w, int w_bf16, unsigned key_lo, unsigned key_hi,
+    const float* mu, const float* sigma, int per_col, const int* mode,
+    const float* table, void* out, int k, long long G, long long R,
+    long long C, void* stream_ptr) {
+  return fwd_any(w, w_bf16, NoisePhilox{key_lo, key_hi}, mu, sigma, per_col,
+                 mode, table, out, k, G, R, C, stream_ptr);
+}
+
+extern "C" int uniq_noise_onchip_e01_launch(float* out, long long n,
+                                            unsigned key_lo, unsigned key_hi,
+                                            void* stream_ptr) {
+  if (n <= 0) return -2;
+  onchip_e01_kernel<<<grid_for(n), THREADS, 0,
+                      static_cast<cudaStream_t>(stream_ptr)>>>(
+      NoisePhilox{key_lo, key_hi}, out, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int uniq_noise_bwd_launch(const void* g, const void* w,

@@ -9,7 +9,9 @@ wrappers what they take: a 2-D contiguous ``a`` and (1, N) statistics.
 ``quantize_weights`` / ``dequantize_weights`` take values of any shape with
 statistics that broadcast against them and hand the codec kernels the
 (G, R, C) layout.  ``uniq_transform`` differentiates through the
-``uniq_noise`` forward kernel with the backward kernel.
+``uniq_noise`` forward kernel with the backward kernel;
+``uniq_transform_onchip`` does the same with the forward that draws its
+noise inside the kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from repro_torch.kernels import uniq_noise as _un
 _COUNTED = {"qmatmul": _qmm.qmatmul,
             "paged_quant_attention": _pa.paged_quant_attention,
             "uniq_noise_fwd": _un.uniq_noise_fwd,
+            "uniq_noise_fwd_onchip": _un.uniq_noise_fwd_onchip,
             "uniq_noise_bwd": _un.uniq_noise_bwd,
             "qmatmul_a8": _qmm.qmatmul_a8,
             "qmatmul_lut": _qmm.qmatmul_lut,
@@ -243,14 +246,15 @@ def grouped_stats(s: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class _UniqTransform(torch.autograd.Function):
-    """w -> w_hat through ``uniq_noise_fwd``; the gradient through
-    ``uniq_noise_bwd``.  Only ``w`` receives a gradient: the statistics are
-    constants of the step (detached, as in ``fit_gaussian``)."""
+    """w -> w_hat through a ``uniq_noise`` forward ``fwd`` (noise as an
+    operand ``e01``, or drawn on chip under an int ``key``); the gradient
+    through ``uniq_noise_bwd``, which needs no noise.  Only ``w`` receives a
+    gradient: the statistics are constants of the step (detached, as in
+    ``fit_gaussian``)."""
 
     @staticmethod
-    def forward(ctx, w, mu, sigma, mode, e01, k, use_kernel):
-        fwd = _un.uniq_noise_fwd if use_kernel else _un.uniq_noise_fwd_plain
-        w_hat = fwd(w, mu, sigma, mode, e01, k=k)
+    def forward(ctx, w, mu, sigma, mode, noise, k, fwd, use_kernel):
+        w_hat = fwd(w, mu, sigma, mode, noise, k=k)
         ctx.save_for_backward(w, w_hat, mu, sigma, mode)
         ctx.use_kernel = use_kernel
         return w_hat
@@ -261,7 +265,15 @@ class _UniqTransform(torch.autograd.Function):
         bwd = _un.uniq_noise_bwd if ctx.use_kernel \
             else _un.uniq_noise_bwd_plain
         dw = bwd(g.contiguous(), w, w_hat, mu, sigma, mode)
-        return dw, None, None, None, None, None, None
+        return dw, None, None, None, None, None, None, None
+
+
+def _group_modes(mode, w: torch.Tensor) -> torch.Tensor:
+    mode = torch.as_tensor(mode).to(device=w.device,
+                                    dtype=torch.int32).reshape(-1)
+    if mode.numel() == 1 and w.shape[0] != 1:
+        mode = mode.expand(w.shape[0])
+    return mode.contiguous()
 
 
 def uniq_transform(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
@@ -276,9 +288,22 @@ def uniq_transform(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     is the comparison hook: it computes the plain versions on whatever
     device the tensors are on.
     """
-    mode = torch.as_tensor(mode).to(device=w.device,
-                                    dtype=torch.int32).reshape(-1)
-    if mode.numel() == 1 and w.shape[0] != 1:
-        mode = mode.expand(w.shape[0])
+    fwd = _un.uniq_noise_fwd if use_kernel else _un.uniq_noise_fwd_plain
     return _UniqTransform.apply(w, mu.detach(), sigma.detach(),
-                                mode.contiguous(), e01, k, use_kernel)
+                                _group_modes(mode, w), e01, k, fwd,
+                                use_kernel)
+
+
+def uniq_transform_onchip(w: torch.Tensor, mu: torch.Tensor,
+                          sigma: torch.Tensor, mode, key: int, *, k: int,
+                          use_kernel: bool = True) -> torch.Tensor:
+    """``uniq_transform`` with the noise drawn inside the forward kernel
+    (``uniq_noise_fwd_onchip``) from Philox4x32-10 under the leaf's 64-bit
+    ``key``: no (G, R, C) noise tensor is made or read.  The plain versions
+    (``use_kernel=False``, or CPU tensors) draw the same bits with
+    ``ref.onchip_e01``, so the card and the CPU see the same noise."""
+    fwd = _un.uniq_noise_fwd_onchip if use_kernel \
+        else _un.uniq_noise_fwd_onchip_plain
+    return _UniqTransform.apply(w, mu.detach(), sigma.detach(),
+                                _group_modes(mode, w), int(key), k, fwd,
+                                use_kernel)

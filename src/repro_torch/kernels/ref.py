@@ -173,3 +173,59 @@ def uniq_grad_ref(g: torch.Tensor, w: torch.Tensor, w_hat: torch.Tensor,
     m = mode.reshape(-1, 1, 1)
     dw = torch.where(m == NOISE, ratio, (m == CLEAN).to(torch.float32))
     return g * dw.to(g.dtype)
+
+
+# --------------------------------------------------------------------------
+# The on-chip draw: Philox4x32-10, as the uniq_noise kernel computes it
+# --------------------------------------------------------------------------
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(hi, lo) 32-bit words of the 64-bit product of u32 values ``a``
+    (held in int64) and the constant ``m``.  The product itself can reach
+    2^64, past int64, so ``m`` is split into 16-bit halves: each partial
+    product stays below 2^48 and no operation overflows."""
+    p_lo = a * (m & 0xFFFF)
+    p_hi = a * (m >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _U32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 (Salmon et al., SC'11): ``counter`` four u32 words
+    (int64 tensors of one shape, or ints), ``key`` two u32 words (ints).
+    Returns the four output words as int64 tensors in [0, 2^32).  The
+    arithmetic of ``csrc/uniq_noise.cu:philox4x32_10`` in int64 torch ops,
+    so it runs on any device and gives the kernel's bits."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = int(key[0]) & _U32, int(key[1]) & _U32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def key_words(key: int):
+    """A 64-bit leaf key as its (low, high) u32 words."""
+    key = int(key)
+    return key & _U32, (key >> 32) & _U32
+
+
+def onchip_e01(key: int, n: int, device=None) -> torch.Tensor:
+    """The kernel's on-chip draw for a leaf of ``n`` elements, (n,) f32 in
+    [0, 1): element i is lane i % 4 of Philox4x32-10 at counter
+    (i / 4 as two u32 words, 0, 0) under ``key``, mapped by
+    ``(x >> 8) * 2^-24`` (the reference's mapping); exact in f32."""
+    runs = (n + 3) // 4
+    r = torch.arange(runs, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(r)
+    words = philox4x32_10((r & _U32, r >> 32, zero, zero), key_words(key))
+    bits = torch.stack(words, dim=1).reshape(-1)[:n]
+    return (bits >> 8).to(torch.float32) * 2.0 ** -24

@@ -1,14 +1,19 @@
 """Fused UNIQ noise-injection / freeze transform and its gradient: CUDA
 kernels + plain PyTorch versions.
 
-Replaces the TPU kernel ``uniq_noise_fwd`` of
-``src/repro/kernels/uniq_noise.py`` and the backward ``_uniq_bwd`` of
+Replaces the TPU kernels ``uniq_noise_fwd`` and ``uniq_noise_fwd_onchip``
+of ``src/repro/kernels/uniq_noise.py`` and the backward ``_uniq_bwd`` of
 ``src/repro/kernels/ops.py`` (jnp there; a kernel here, because as a dozen
 eager ops it would pass over every quantized weight element of the model on
 every training step).  The source is ``csrc/uniq_noise.cu`` (see its header
-for what bounds it and what the design does about that).  Both wrappers
-launch their kernel for CUDA tensors and take the plain version only for
+for what bounds it and what the design does about that).  Every wrapper
+launches its kernel for CUDA tensors and takes the plain version only for
 CPU tensors.
+
+``uniq_noise_fwd`` reads its noise ``e01`` as an operand;
+``uniq_noise_fwd_onchip`` draws it inside the kernel from Philox4x32-10
+keyed by the leaf's 64-bit key (``ref.onchip_e01`` gives the same bits as
+torch integer ops, on any device).
 
 Layout, as the reference's: weights ``(G, R, C)`` (G = stacked layers, 1
 for a plain tensor), statistics ``(G, 1, C)`` or ``(G, 1, 1)`` f32, mode
@@ -30,6 +35,14 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def uniq_noise_fwd_plain(w, mu, sigma, mode, e01, *, k: int) -> torch.Tensor:
     """Plain version of the forward (``ref.uniq_transform_ref``)."""
+    return kref.uniq_transform_ref(w, mu, sigma, e01, mode, k)
+
+
+def uniq_noise_fwd_onchip_plain(w, mu, sigma, mode, key: int, *,
+                                k: int) -> torch.Tensor:
+    """Plain version of the on-chip forward: the reference transform on
+    the kernel's own draw, ``ref.onchip_e01(key, w.numel())``."""
+    e01 = kref.onchip_e01(key, w.numel(), w.device).view(w.shape)
     return kref.uniq_transform_ref(w, mu, sigma, e01, mode, k)
 
 
@@ -73,6 +86,11 @@ def _require_contiguous(**tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_k(k: int):
+    if k < 2 or k > 256 or k & (k - 1):
+        raise ValueError(f"k must be a power of two in [2, 256], got {k}")
+
+
 _FNS = {}
 
 
@@ -83,10 +101,15 @@ def _bind(name: str):
     if fn is None:
         fn = getattr(loader.load("uniq_noise"), name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "uniq_noise_fwd_launch":
-            fn.argtypes = [p, i, p, p, p, i, p, p, p, i, ll, ll, ll, p]
-        else:
-            fn.argtypes = [p, p, p, i, p, p, i, p, p, ll, ll, ll, p]
+        u = ctypes.c_uint
+        fn.argtypes = {
+            "uniq_noise_fwd_launch":
+                [p, i, p, p, p, i, p, p, p, i, ll, ll, ll, p],
+            "uniq_noise_fwd_onchip_launch":
+                [p, i, u, u, p, p, i, p, p, p, i, ll, ll, ll, p],
+            "uniq_noise_onchip_e01_launch": [p, ll, u, u, p],
+            "uniq_noise_bwd_launch":
+                [p, p, p, i, p, p, i, p, p, ll, ll, ll, p]}[name]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
@@ -100,8 +123,7 @@ def uniq_noise_fwd(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version.  ``uniq_noise_fwd.launches`` counts kernel launches.
     """
-    if k < 2 or k > 256 or k & (k - 1):
-        raise ValueError(f"k must be a power of two in [2, 256], got {k}")
+    _check_k(k)
     G, R, C = _check(w, mu, sigma, mode, [("e01", e01, torch.float32)])
     if w.device.type == "cpu":
         return uniq_noise_fwd_plain(w, mu, sigma, mode, e01, k=k)
@@ -119,6 +141,63 @@ def uniq_noise_fwd(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
         raise RuntimeError(f"uniq_noise_fwd kernel launch failed with code "
                            f"{rc} (G={G}, R={R}, C={C}, k={k})")
     uniq_noise_fwd.launches += 1
+    return out
+
+
+def uniq_noise_fwd_onchip(w: torch.Tensor, mu: torch.Tensor,
+                          sigma: torch.Tensor, mode: torch.Tensor, key: int,
+                          *, k: int) -> torch.Tensor:
+    """w_hat (G, R, C) in w's dtype, as ``uniq_noise_fwd`` with ``e01``
+    drawn inside the kernel from Philox4x32-10 under the 64-bit ``key``
+    (element i of w in storage order takes lane i % 4 of counter i / 4).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version.  ``uniq_noise_fwd_onchip.launches`` counts kernel launches.
+    """
+    _check_k(k)
+    key = int(key)
+    if not 0 <= key < 1 << 64:
+        raise ValueError(f"key must be a 64-bit unsigned value, got {key}")
+    G, R, C = _check(w, mu, sigma, mode, [])
+    if w.device.type == "cpu":
+        return uniq_noise_fwd_onchip_plain(w, mu, sigma, mode, key, k=k)
+    _require_contiguous(w=w, mu=mu, sigma=sigma, mode=mode)
+    fn = _bind("uniq_noise_fwd_onchip_launch")
+    table = kref.level_table(k, w.device)
+    lo, hi = kref.key_words(key)
+    with loader.on_device(w.device):
+        out = torch.empty_like(w)
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        rc = fn(w.data_ptr(), int(w.dtype == torch.bfloat16), lo, hi,
+                mu.data_ptr(), sigma.data_ptr(), int(mu.shape[-1] != 1),
+                mode.data_ptr(), table.data_ptr(), out.data_ptr(), k, G, R, C,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"uniq_noise_fwd_onchip kernel launch failed with "
+                           f"code {rc} (G={G}, R={R}, C={C}, k={k})")
+    uniq_noise_fwd_onchip.launches += 1
+    return out
+
+
+def onchip_e01(key: int, n: int, device) -> torch.Tensor:
+    """The on-chip draw itself, (n,) f32, written by the kernel's own
+    generator on a CUDA device (a debug entry point: it is what the
+    forward draws, read back for a bit-for-bit check) or by the plain
+    version on the CPU.  Not counted: the main path never calls it."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return kref.onchip_e01(key, n, dev)
+    if dev.type != "cuda":
+        raise RuntimeError(f"onchip_e01 runs on cuda or cpu, got {dev}")
+    fn = _bind("uniq_noise_onchip_e01_launch")
+    lo, hi = kref.key_words(key)
+    with loader.on_device(dev):
+        out = torch.empty((n,), dtype=torch.float32, device=dev)
+        rc = fn(out.data_ptr(), n, lo, hi,
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"onchip_e01 kernel launch failed with code {rc} "
+                           f"(n={n})")
     return out
 
 
@@ -152,4 +231,5 @@ def uniq_noise_bwd(g: torch.Tensor, w: torch.Tensor, w_hat: torch.Tensor,
 
 
 uniq_noise_fwd.launches = 0
+uniq_noise_fwd_onchip.launches = 0
 uniq_noise_bwd.launches = 0

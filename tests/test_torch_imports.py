@@ -49,7 +49,9 @@ def test_the_walk_sees_the_package():
                 "optim/optim.py", "data/synthetic.py",
                 "checkpoint/checkpoint.py", "train/steps.py",
                 "launch/train.py", "tree.py", "kernels/kquantile.py",
-                "core/activations.py"):
+                "core/activations.py", "core/bops.py", "core/quantizers.py",
+                "cnn/__init__.py", "cnn/cnn.py", "cnn/train.py",
+                "configs/resnet18_cifar.py", "configs/mobilenet_cifar.py"):
         assert os.path.join("src", "repro_torch", mod) in names
 
 
@@ -74,7 +76,8 @@ def test_csrc_has_the_kernel_sources_and_no_library_products():
     for n in names:
         with open(os.path.join(csrc, n)) as fh:
             text = fh.read()
-        for banned in ("cublas", "cutlass", "torch/extension.h", "atomicAdd"):
+        for banned in ("cublas", "cutlass", "curand", "torch/extension.h",
+                       "atomicAdd"):
             assert banned not in text, f"{n} mentions {banned}"
         assert 'extern "C"' in text and "cudaGetLastError" in text
 
@@ -89,6 +92,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "repro_torch.checkpoint.checkpoint, repro_torch.core.noise, "
         "repro_torch.kernels.uniq_noise, repro_torch.kernels.kquantile, "
         "repro_torch.core.activations\n"
+        "import repro_torch.cnn.train, repro_torch.cnn.cnn, "
+        "repro_torch.core.bops, repro_torch.core.quantizers, "
+        "repro_torch.configs.resnet18_cifar, "
+        "repro_torch.configs.mobilenet_cifar\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'repro', 'triton')]\n"
         "assert not bad, bad\n"

@@ -417,14 +417,19 @@ def test_inject_kquantile_matches_reference_formula():
 
 
 def test_not_yet_ported_quantizers_raise_plainly():
+    """The training half of dist='empirical' still raises plainly; the
+    uniform / k-means ablation quantizers now run (their parity with the
+    reference is test_torch_quantizers')."""
     w = torch.randn(8, 8, generator=torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(0)
     for method in ("uniform", "kmeans"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tnoise.inject(w, gen, 16, method=method)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tuniq.transform_param(w, torch.rand(8, 8), NOISE,
-                                  tuniq.UniqConfig(method=method))
+        out = tnoise.inject(w, gen, 16, method=method)
+        assert out.shape == w.shape and torch.isfinite(out).all()
+        for mode in (CLEAN, NOISE, FROZEN):
+            out = tuniq.transform_param(w, torch.rand(8, 8), mode,
+                                        tuniq.UniqConfig(method=method))
+            assert out.shape == w.shape and torch.isfinite(out).all()
+            assert torch.equal(out, w) == (mode == CLEAN)
     with pytest.raises(NotImplementedError, match="not ported"):
         tuniq.transform_param(w, torch.rand(8, 8), NOISE,
                               tuniq.UniqConfig(dist="empirical"))
