@@ -22,9 +22,11 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      and dequantize the embedding rows and the coded pool in every engine);
      checks that the dense bf16 LM head gives f32 logits;
   5. repeats a prefill + one decode step with the plain versions forced and
-     compares logits, for each engine; replays the W4 stream that way and
-     prints greedy agreement; compares a tiny f32 model on the card with the
-     CPU;
+     compares logits, for each engine; replays each engine's stream with
+     the kernels and with the plain versions and prints greedy agreement;
+     every argmax that differs must be a near-tie (the plain logits' top-2
+     margin at most the measured kernel-vs-plain logit error); compares a
+     tiny f32 model on the card with the CPU;
   6. trains granite_3_8b at full width (depth ``--train-layers``, default 8)
      through the trainer's entry points for ``--train-steps`` steps (UNIQ
      noise, gradual freezing, AdamW), counting the ``uniq_noise`` launches
@@ -48,13 +50,15 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
 ``--layers N`` cuts the serving depth (never the width); ``--quick`` stops after
 phase 3 on a reduced shape list (for bringing a kernel up); ``--sweep``
 times the kernels' tuning axes (block rows, K splits, attention splits) at
-the serving shapes and stops; ``--profile`` profiles an engine run (host by
+the serving shapes, holds ``qmatmul_a8`` and its plain version against the
+exact sum, and stops; ``--profile`` profiles an engine run (host by
 cProfile, device by torch.profiler) and stops.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -95,6 +99,7 @@ from repro_torch.kernels import uniq_noise as un              # noqa: E402
 from repro_torch.launch import train as train_cli             # noqa: E402
 from repro_torch.models import lm, model                      # noqa: E402
 from repro_torch.optim.optim import OptimConfig               # noqa: E402
+from repro_torch.serve import engine as engine_lib           # noqa: E402
 from repro_torch.serve import telemetry as tele_lib           # noqa: E402
 from repro_torch.serve.engine import (Engine, EngineConfig,   # noqa: E402
                                       Request, SamplingParams)
@@ -154,9 +159,11 @@ TOL_UNIQ_BWD_REL = 1e-5
 #   within half a bin (1 / 2k) of its weight in u; Phi of the output
 #   recomputes u + e to a few f32 ulps of u (the erf / erfinv round trip).
 TOL_ONCHIP_BIN_U = 1e-5
-# qmatmul_a8, f32 result: both sides form the same f32 code * scale and
-#   multiply it by the same f32 levels; only the summation order over K
-#   differs (the CUDA cores against cuBLAS in f32).  Results are O(1).
+# qmatmul_a8, f32 result: the plain version sums f32 code * scale times
+#   f32 levels (cuBLAS in f32); the kernel sums exact products of the codes
+#   and three bf16 parts of each level on the tensor cores and applies
+#   scale, mu and sigma after the sum.  Only the order of the sum and where
+#   those three are applied differ.  Results are O(1-10).
 TOL_QMM_A8 = 5e-4
 # qmatmul_lut: as qmatmul (bf16 activations meet levels rounded to bf16 on
 #   both sides, f32 activations f32 levels), f32 result.
@@ -1019,9 +1026,10 @@ def engine_phase(cfg, seed: int, new_tokens: int, mode: dict):
 
 
 def plain_phase(params, cfg, opts, outs, seed: int, new_tokens: int,
-                mode: dict, replay: bool):
-    """Prefill + one decode step, kernels vs plain versions forced; with
-    ``replay``, the whole stream again with the plain versions."""
+                mode: dict):
+    """Prefill + one decode step, kernels vs plain versions forced; then the
+    whole stream again with the kernels and with the plain versions.  Every
+    argmax that differs must be a near-tie (``check_near_tie``)."""
     a_bits = mode["a_bits"]
     plain = lm.ModelOpts(compute_dtype=opts.compute_dtype,
                          use_kernels=False)
@@ -1066,24 +1074,96 @@ def plain_phase(params, cfg, opts, outs, seed: int, new_tokens: int,
         if err > tol:
             raise SystemExit(f"{what} logits disagree with the plain "
                              f"versions")
-    if not replay:
-        return
-    # the same stream with the plain versions forced: greedy agreement
+        for r in (k.argmax(-1) != p.argmax(-1)).nonzero().flatten().tolist():
+            check_near_tie(f"{mode['name']} {what} row {r}", k[r], p[r], err)
+    # the same stream with the kernels again and with the plain versions
+    # forced, each greedy request's logits recorded: greedy agreement, and
+    # every request's first differing token a near-tie
+    rows_k, rows_p = {}, {}
+    with recording_logits(rows_k):
+        _, outs_k, _, _ = run_stream(params, cfg, opts, seed, new_tokens,
+                                     a_bits)
+    if [o.token_ids for o in outs_k] != [o.token_ids for o in outs]:
+        raise SystemExit("the same stream through the kernels twice gave "
+                         "different tokens")
     before = kops.launch_counts()
-    _, outs_p, wall, _ = run_stream(params, cfg, plain, seed, new_tokens)
+    with recording_logits(rows_p):
+        _, outs_p, wall, _ = run_stream(params, cfg, plain, seed, new_tokens,
+                                        a_bits)
     if kops.launch_counts() != before:
         raise SystemExit("use_kernels=False launched a kernel")
     same = tot = first = 0
-    for a, b in zip(outs, outs_p):
+    flips, err, big = [], 0.0, 0.0
+    for a, b in zip(outs_k, outs_p):
         if a.uid == 3:
             continue                    # the sampled request
         first += a.token_ids[0] == b.token_ids[0]
         same += sum(x == y for x, y in zip(a.token_ids, b.token_ids))
         tot += len(a.token_ids)
+        # rows with the same history on both sides: up to the first
+        # differing token; a token j is chosen at position len(prompt)-1+j
+        diff = [j for j, (x, y) in enumerate(zip(a.token_ids, b.token_ids))
+                if x != y]
+        last = diff[0] if diff else len(a.token_ids) - 1
+        for j in range(last + 1):
+            key = (1000 + a.uid, len(a.prompt) - 1 + j)
+            if key not in rows_k or key not in rows_p:
+                raise SystemExit(f"no logits recorded for request {a.uid} "
+                                 f"token {j}")
+            err = max(err, (rows_k[key] - rows_p[key]).abs().max().item())
+            big = max(big, rows_p[key].abs().max().item())
+        if diff:
+            flips.append((a.uid, diff[0], key))
     say(f"[plain] stream replayed with the plain versions in {wall:.1f}s: "
         f"greedy tokens agree {same}/{tot} ({100 * same / tot:.1f}%), first "
         f"tokens {first}/{len(outs) - 1} (random weights: near-ties flip a "
-        f"stream and it then stays apart)")
+        f"stream and it then stays apart); max abs logit err kernels vs "
+        f"plain up to each request's first differing token {err:.4f} "
+        f"(tolerance {TOL_LOGITS_REL * big:.4f} = {TOL_LOGITS_REL} x max "
+        f"|logit|)")
+    # the near-tie limit below is this error: hold it to the tolerance first
+    if err > TOL_LOGITS_REL * big:
+        raise SystemExit("replayed stream's logits disagree with the plain "
+                         "versions")
+    for uid, j, key in flips:
+        check_near_tie(f"{mode['name']} stream request {uid} token {j}",
+                       rows_k[key], rows_p[key], err)
+
+
+@contextlib.contextmanager
+def recording_logits(store):
+    """Records the logits row of every greedy request at every sampling
+    (prefill, chunk and decode steps) into ``store`` by (request seed,
+    position), by wrapping the engine's sampler."""
+    orig = engine_lib._sample_batch
+
+    def sample(logits, temps, top_ks, seeds, positions):
+        for i, (sd, pos) in enumerate(zip(seeds, positions)):
+            if sd >= 1000 and temps[i] == 0.0:
+                store[(int(sd), int(pos))] = logits[i].float().clone()
+        return orig(logits, temps, top_ks, seeds, positions)
+
+    engine_lib._sample_batch = sample
+    try:
+        yield
+    finally:
+        engine_lib._sample_batch = orig
+
+
+def check_near_tie(where, k_row, p_row, err):
+    """A greedy flip between kernels and plain versions must be a near-tie:
+    the plain logits' top-2 margin at most the phase's measured max abs
+    kernel-vs-plain logit error (a flip needs margin <= 2 x that row's
+    error, so a margin above it would mean more than rounding)."""
+    top = p_row.topk(2).values
+    margin = (top[0] - top[1]).item()
+    say(f"[plain] argmax flip at {where}: kernels {k_row.argmax().item()}, "
+        f"plain {p_row.argmax().item()}; plain top-2 margin {margin:.4f}, "
+        f"this row's max abs err {(k_row - p_row).abs().max().item():.4f}, "
+        f"the phase's {err:.4f}")
+    if margin > err:
+        raise SystemExit(f"argmax flip at {where} is not a near-tie: margin "
+                         f"{margin:.4f} > max abs logit err {err:.4f}")
 
 
 def small_reference_phase(seed: int):
@@ -1704,8 +1784,16 @@ def time_qmatmul_a8(gen, M, K, N, bits):
     """The int8-activation kernel at the engine's types (per-token scales,
     bf16 out), its plain version, and cuBLAS in f32 on the f32 ``code *
     scale`` activation and the dequantized f32 weight (the reference's own
-    product).  Bound: bytes of codes, scales, packed weight, statistics,
-    table and output; operations 2 M K N at the f32 CUDA-core peak."""
+    product).
+
+    Bound: the least time the card could take for this exact product,
+    max(bytes / 3.35 TB/s, 3 * 2 M K N / 989 TFLOP/s).  Bytes: codes,
+    scales, packed weight, statistics, table and output, each once.
+    Operations: an f32-exact product of int8 codes and f32 levels takes
+    three bf16 tensor-core products (the level split into three bf16
+    parts, each product exact in f32), so 3 * 2 M K N at the bf16 peak.
+    At M=16, K=4096, N=12800 the bytes set it (26.8 MB, 0.0080 ms); at
+    M=256 the operations (0.081 ms)."""
     n_copies = max(2, math.ceil(120e6 / (K * N * bits / 8)))
     sets = []
     for _ in range(n_copies):
@@ -1723,7 +1811,8 @@ def time_qmatmul_a8(gen, M, K, N, bits):
     lib_ms = time_ms([lambda a=a, w=w: torch.matmul(a, w) for a, w in lib])
     nbytes = M * K + M * 4 + K * N * bits // 8 + 2 * N * 4 \
         + (2 ** bits) * 4 + M * N * 2
-    t_b, t_f = nbytes / PEAK_BYTES_PER_S, 2.0 * M * K * N / PEAK_FLOPS["f32"]
+    t_b = nbytes / PEAK_BYTES_PER_S
+    t_f = 3 * 2.0 * M * K * N / PEAK_FLOPS["bf16"]
     host = host_us(lambda: qmm.qmatmul_a8(*sets[0], bits=bits,
                                           out_dtype=out))
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -2097,6 +2186,32 @@ def profile_phase(cfg, seed: int, new_tokens: int):
                      max_name_column_width=60))
 
 
+def a8_against_exact(gen):
+    """``qmatmul_a8`` (h alone, d + l in a second accumulator) and its plain
+    version held against the exact sum (f64, the factored form of the same
+    f32 inputs), and against each other."""
+    for (M, K, N, bits) in ((16, 4096, 12800, 4), (256, 4096, 12800, 4),
+                            (16, 4096, 12800, 8), (16, 12800, 4096, 4)):
+        _, w, mu, sigma = make_qmm_inputs(gen, 1, K, N, bits, torch.float32)
+        codes, scale = make_a8_inputs(gen, M, K)
+        k = 2 ** bits
+        wc = packing.unpack_int4(w) if bits == 4 else w
+        t = kref.level_table(k, DEV).double()[wc.long() + kref.code_offset(k)]
+        c = codes.double()
+        exact = scale.double() * (mu.double() * c.sum(1, keepdim=True)
+                                  + sigma.double() * (c @ t))
+        plain = qmm.qmatmul_a8_plain(codes, scale, w, mu, sigma, bits=bits)
+        two = qmm.qmatmul_a8(codes, scale, w, mu, sigma, bits=bits)
+        sync()
+        res = {name: ((o.double() - exact).abs().max().item(),
+                      (o.double() - plain.double()).abs().max().item())
+               for name, o in (("kernel", two), ("plain", plain))}
+        say(f"[sweep] qmatmul_a8 W{bits} M={M} K={K} N={N} max abs err vs "
+            f"the exact sum / vs the plain version: " + "; ".join(
+                f"{n} {e:.3e} / {q:.3e}" for n, (e, q) in res.items())
+            + f" (max |out| {exact.abs().max().item():.3f})")
+
+
 def sweep_phase(gen):
     """Times over the tuning axes, for choosing the defaults."""
     for (M, K, N) in ((16, 4096, 12800), (16, 4096, 4096), (16, 4096, 1024),
@@ -2114,6 +2229,25 @@ def sweep_phase(gen):
                     f"splitk={splitk}: {ms:.4f} ms (default splitk "
                     f"{qmm.default_splitk(K, N)})")
         del sets
+    K, N = 4096, 12800
+    for M in (16, 256):
+        n_copies = max(2, math.ceil(120e6 / (K * N / 2)))
+        sets = []
+        for _ in range(n_copies):
+            _, w, mu, sigma = make_qmm_inputs(gen, 1, K, N, 4, torch.float32)
+            sets.append((*make_a8_inputs(gen, M, K), w, mu, sigma))
+        for bm in ((16, 32) if M <= 32 else (16, 32, 64)):
+            for splitk in (1, 2, 4, 8, 16):
+                ms = time_ms([lambda s=s: qmm.qmatmul_a8(
+                    *s, bits=4, out_dtype=torch.bfloat16,
+                    blocks=qmm.BlockConfig(bm=bm), splitk=splitk)
+                    for s in sets])
+                say(f"[sweep] qmatmul_a8 W4 M={M} K={K} N={N} bm={bm} "
+                    f"splitk={splitk}: {ms:.4f} ms (default bm "
+                    f"{qmm.default_blocks(M).bm}, splitk "
+                    f"{qmm.default_splitk(K, N)})")
+        del sets
+    a8_against_exact(gen)
     g = dict(B=16, H=32, KV=8, D=128, page=64, n_pages=32)
     for B in (8, 16):
         for ctx in (2048, 512, 128):
@@ -2226,7 +2360,7 @@ def main(argv=None) -> int:
         params, opts, outs, run_counts = engine_phase(
             cfg, args.seed, args.new_tokens, mode)
         plain_phase(params, cfg, opts, outs, args.seed, args.new_tokens,
-                    mode, replay=i == 0)
+                    mode)
         counts[mode["matmul"]] = run_counts[mode["matmul"]]
         for c in CODECS:
             counts[c] += run_counts[c]

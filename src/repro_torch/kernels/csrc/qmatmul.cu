@@ -14,35 +14,59 @@
 // at 8 bits (stored code - 128).  `table` holds the 2^bits standardized
 // levels and is built once by the caller, so no erfinv runs here.
 //
-// The level of a code (`WM`, a template argument): the Gaussian formula from
-// a shared-memory table and per-column statistics; a shared codebook of k
-// levels copied to shared memory (the engine's per-tensor `q_lut`); or a
-// (k, N) per-column codebook read through the read-only cache (a 128-column
-// tile of it is 128 KB at k = 256, more than a block's static shared
-// memory, and the TPU kernel's k select passes are a TPU workaround for slow
-// gathers).  The activations (`AM`): f32 or bf16 values, or int8 codes
-// times a scale, formed in f32 as `(float)code * scale[m]` -- the
-// reference engine's own product (`lm.mm_a`) -- as the tile is staged.
+// What bounds them: at decode shapes (M <= 32) the coded weight bytes; at
+// prefill shapes the multiply-adds.  A block owns a (BM, 128) output tile
+// and loops over its K range; K is split across blocks so that narrow
+// outputs still fill the card.  Weights are read once per M tile as packed
+// bytes.
 //
-// What bounds it: at decode shapes (M <= 32) the coded weight bytes; at
-// prefill shapes the multiply-adds.  What the design does about it: weights
-// are read once per M tile as packed bytes (4 bytes per thread along N, the
-// stored direction) and dequantized through a shared-memory level table into
-// a shared tile; a block owns a (BM, 128) output tile and loops over its K
-// range; K is split across blocks so that narrow outputs still fill the
-// card.  Two bodies share that frame:
-//   * bf16 activations: the tile is rounded to bf16 (as the TPU kernel
-//     rounds its scratch tile to the activations' dtype) and multiplied on
-//     the tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, fragments
-//     fetched with ldmatrix (transposed for the weights, whose stored
-//     direction N is not the direction a fragment packs);
-//   * f32 activations, and int8 activation codes (the reference's engine
-//     multiplies f32 `code * scale` by f32 levels; the TPU kernel's bf16
-//     rounding of both is not followed): f32 levels, f32 FMAs on the CUDA
-//     cores.
-// wgmma, TMA and a multi-stage pipeline are left to a later change; so is
-// a tensor-core A8 body (the codes are exact in bf16, the f32 levels are
-// not: it would need a split-bf16 weight).
+// qmatmul and qmatmul_lut.  The level of a code (`WM`, a template
+// argument): the Gaussian formula from a shared-memory table and
+// per-column statistics; a shared codebook of k levels copied to shared
+// memory (the engine's per-tensor `q_lut`); or a (k, N) per-column codebook
+// read through the read-only cache (a 128-column tile of it is 128 KB at
+// k = 256, more than a block's static shared memory, and the TPU kernel's k
+// select passes are a TPU workaround for slow gathers).  Two bodies:
+//   * bf16 activations: the weight tile is dequantized into shared memory,
+//     rounded to bf16 (as the TPU kernel rounds its scratch tile to the
+//     activations' dtype) and multiplied on the tensor cores, mma.sync
+//     m16n8k16 bf16 x bf16 -> f32, fragments fetched with ldmatrix
+//     (transposed for the weights, whose stored direction N is not the
+//     direction a fragment packs); a stage is prefetched into registers one
+//     iteration ahead;
+//   * f32 activations: f32 levels, f32 FMAs on the CUDA cores.
+//
+// qmatmul_a8 (the reference engine's numerics, f32 `code * scale` against
+// f32 levels; the TPU kernel's bf16 rounding of both is not followed) runs
+// on the tensor cores and is exact there.  Per-column statistics and
+// per-row scales factor out of the sum:
+//   out[m, n] = s_m * (mu_n * R_m + sigma_n * D_mn),
+//   R_m = sum_k c_mk (int32, exact),  D_mn = sum_k c_mk * T[q_kn],
+//   T[q] = h[q] + d[q] + l[q]  (three bf16 parts, `ref.level_split`; their
+//   sum is T exactly).
+// A code c in [-128, 127] is exact in bf16 and each product c * h, c * d,
+// c * l is exact in f32 (8 x 8 significant bits), so three mma.sync
+// products with f32 accumulation give the f32 sum; they differ from the
+// plain version only in the order of the sum and in where mu, sigma and s
+// are applied.  h is accumulated on its own and d, l into a second
+// accumulator added last, so the small parts are never added into the
+// large sum (measured on the card against the exact f64 sum at W4 / W8,
+// M = 16 and 256: ~1e-6 for the split accumulators, ~1e-5 for all three
+// parts in one accumulator, ~5e-6 for the plain version).
+// What bounds it on this card: at decode shapes the weight bytes, at
+// prefill the three tensor-core products (3 * 2 M K N at the bf16 rate);
+// in between, the shared-memory traffic of building fragments.  What the
+// design does about that:
+//   * packed weight bytes and int8 activation codes go through a ring of
+//     NS stages in shared memory by cp.async.cg 16-byte copies (4 stages
+//     at W4, 3 at W8), so later stages are in flight while one is used;
+//   * the codes of a stage are converted to bf16 once per block (with
+//     their row sums, by dp4a) and fetched as A fragments by ldmatrix;
+//   * each thread builds its B fragments in registers straight from the
+//     staged bytes: one 8-byte (W4) or 16-byte (W8) load per staged row
+//     covers the warp's 16 columns, and a code's three parts come from one
+//     8-byte table entry ({h | d << 16, l}), replicated so the lanes of a
+//     half-warp never meet in a bank at W4; no FMA or convert per weight.
 //
 // Determinism: a split writes its partial sums to a scratch buffer and a
 // second kernel adds the splits in a fixed order (no atomics).  Every output
@@ -66,18 +90,16 @@ constexpr int BN = 128;  // output columns per block
 constexpr int W_GAUSS = 0;       // mu[n] + sigma[n] * table[code]
 constexpr int W_LUT_SHARED = 1;  // lut[code], one codebook for all columns
 constexpr int W_LUT_COL = 2;     // lut[code * N + n]
-// what the activations are
-constexpr int A_FLOAT = 0;       // f32 (CUDA-core body) or bf16 (tensor cores)
-constexpr int A_I8 = 1;          // int8 codes times scale[m] (CUDA cores)
 
 struct Args {
   const void* a;
-  const float* a_scale;          // A_I8: (M,) per row, or one value
+  const float* a_scale;          // qmatmul_a8: (M,) per row, or one value
   int scale_per_row;
   const uint8_t* w;
   const float* mu;               // W_GAUSS: (N,) statistics, (k,) levels
   const float* sigma;
   const float* table;
+  const uint16_t* split;         // qmatmul_a8: (3, k) bf16 parts of table
   const float* lut;              // W_LUT_*: (k,) or (k, N) levels
   float* part;                   // (splitk, M, N) partial sums
   int M, K, N, kchunk;
@@ -94,13 +116,13 @@ __device__ __forceinline__ float level(int code, float mu, float sigma,
 }
 
 // ---------------------------------------------------------------------------
-// f32 activations: CUDA-core body
+// f32 activations: CUDA-core body (qmatmul, qmatmul_lut)
 // ---------------------------------------------------------------------------
 
 // TX threads along N each own TN columns as TN/4 float4 chunks (chunk c of
 // thread tx starts at column c*TX*4 + tx*4, so a warp's float4 reads are
 // contiguous); TY threads along M each own TM rows.  TX * TN == BN.
-template <int BITS, int TX, int TY, int TM, int TN, int AM, int WM>
+template <int BITS, int TX, int TY, int TM, int TN, int WM>
 __global__ void __launch_bounds__(TX * TY) qmatmul_kernel(const Args p) {
   static_assert(TX * TN == BN, "tile width");
   static_assert(MBK % BK == 0, "kchunk is a multiple of both stages");
@@ -162,15 +184,8 @@ __global__ void __launch_bounds__(TX * TY) qmatmul_kernel(const Args p) {
       const int m = m0 + r;
       const int k = k0 + kk;
       float v = 0.0f;
-      if (m < M && k < k_end) {
-        if (AM == A_I8) {
-          const float sc = p.a_scale[p.scale_per_row ? m : 0];
-          v = __fmul_rn(
-              (float)static_cast<const int8_t*>(p.a)[(size_t)m * K + k], sc);
-        } else {
-          v = static_cast<const float*>(p.a)[(size_t)m * K + k];
-        }
-      }
+      if (m < M && k < k_end)
+        v = static_cast<const float*>(p.a)[(size_t)m * K + k];
       s_a[r * AS + kk] = v;
     }
     // weights: packed bytes -> codes -> levels, (BK, BN) f32 in shared
@@ -260,7 +275,7 @@ __global__ void __launch_bounds__(TX * TY) qmatmul_kernel(const Args p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 activations: tensor-core body
+// bf16 activations: tensor-core body (qmatmul, qmatmul_lut)
 // ---------------------------------------------------------------------------
 
 constexpr int MMA_NT = 256;         // 8 warps; warp w owns columns [16w, 16w+16)
@@ -543,6 +558,318 @@ int launch_mma_bm(int bm, const Args& p, int splitk, cudaStream_t stream) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// int8 activation codes: exact tensor-core body (qmatmul_a8)
+// ---------------------------------------------------------------------------
+
+constexpr int A8_PAD = 16;   // bytes added to each staged row: the rows a
+                             // warp reads together fall in distinct banks
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING));
+}
+
+// 16 bytes global -> shared, the first `nbytes` from `src` and zeros after
+// them: by cp.async where both sides are 16-byte aligned (`vec`), else by
+// plain byte copies (visible after the next __syncthreads, like the rest).
+__device__ __forceinline__ void copy16(void* dst, const uint8_t* src,
+                                       int nbytes, bool vec,
+                                       const uint8_t* base) {
+  if (vec) {
+    cp_async16(smem_u32(dst), nbytes > 0 ? src : base, nbytes);
+  } else {
+    uint8_t* d = static_cast<uint8_t*>(dst);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) d[j] = j < nbytes ? src[j] : 0;
+  }
+}
+
+// Shared memory of the A8 body (dynamic: a W8 block at 64 rows exceeds
+// the 48 KB of static shared memory), in bytes.
+template <int BITS, int MT>
+struct A8Smem {
+  static constexpr int BM = MT * 16;
+  static constexpr int NS = BITS == 4 ? 4 : 3;       // ring stages
+  static constexpr int WROW = BN * BITS / 8;         // packed bytes per row
+  static constexpr int WS = WROW + A8_PAD;           // staged row stride
+  static constexpr int NLEV = 1 << BITS;
+  // copies of the level table: lane j reads copy j % COPIES, so the 16
+  // lanes of a half-warp's 8-byte loads meet no bank twice at W4
+  static constexpr int COPIES = BITS == 4 ? 16 : 8;
+  static constexpr int W = 0;                                  // weight ring
+  static constexpr int A8 = W + NS * MBK * WS;                 // code ring
+  static constexpr int AB = A8 + NS * BM * MBK;                // bf16 codes
+  static constexpr int LUT = AB + BM * A_LD * 2;               // level parts
+  static constexpr int R = LUT + NLEV * COPIES * 8;            // row sums
+  static constexpr int BYTES = R + BM * 4;
+};
+
+// MT = BM / 16 row tiles per block; warp w owns columns [16w, 16w+16) as
+// two 8-column mma tiles.
+// Blocks per SM the registers must admit: the 16-row tile of decode shapes
+// hides the latency of its stages with more blocks; wider tiles need the
+// registers for their accumulators.
+template <int BITS, int MT>
+__global__ void __launch_bounds__(MMA_NT, MT == 1 ? 4 : 2)
+    qmatmul_a8_mma_kernel(const Args p) {
+  using L = A8Smem<BITS, MT>;
+  constexpr int BM = L::BM, NS = L::NS, WROW = L::WROW, WS = L::WS;
+  constexpr int COPIES = L::COPIES;
+  constexpr int W_CHUNKS = MBK * WROW / 16;  // 16-byte chunks of a stage
+  constexpr int WPT = W_CHUNKS / MMA_NT;
+  constexpr int A_CHUNKS = BM * MBK / 16;    // <= MMA_NT: one per thread
+  static_assert(W_CHUNKS % MMA_NT == 0, "weight chunks per thread");
+  static_assert(A_CHUNKS <= MMA_NT && A_CHUNKS % 32 == 0, "code chunks");
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* s_w = smem + L::W;                  // [NS][MBK][WS] packed bytes
+  int8_t* s_a8 = reinterpret_cast<int8_t*>(smem + L::A8);  // [NS][BM][MBK]
+  __nv_bfloat16* s_ab =                        // [BM][A_LD] the codes, bf16
+      reinterpret_cast<__nv_bfloat16*>(smem + L::AB);
+  // [code][copy]: {h | d << 16, l}, the bf16 parts of the code's level
+  uint2* s_lut = reinterpret_cast<uint2*>(smem + L::LUT);
+  int* s_r = reinterpret_cast<int*>(smem + L::R);          // [BM] R_m
+
+  const int M = p.M, K = p.K, N = p.N;
+  const uint8_t* __restrict__ a = static_cast<const uint8_t*>(p.a);
+  const uint8_t* __restrict__ w = p.w;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;     // fragment column (B) / row (C)
+  const int tig = lane & 3;      // fragment k pair (B) / column pair (C)
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const int split = blockIdx.z;
+  const int k_begin = split * p.kchunk;
+  const int k_end = min(K, k_begin + p.kchunk);
+  const int ldw = N * BITS / 8;              // bytes per weight row
+  const int wbyte0 = n0 * BITS / 8;
+  const bool vec_w = (ldw % 16 == 0) &&
+                     ((reinterpret_cast<uintptr_t>(w) & 15) == 0);
+  const bool vec_a = (K % 16 == 0) &&
+                     ((reinterpret_cast<uintptr_t>(a) & 15) == 0);
+
+  // one stage: (MBK, 128) packed weight bytes and (BM, MBK) codes, zero
+  // outside M, N and the split's K range
+  auto load_stage = [&](int k0, int buf) {
+#pragma unroll
+    for (int t = 0; t < WPT; ++t) {
+      const int c = tid + t * MMA_NT;
+      const int r = c / (WROW / 16);
+      const int col = (c % (WROW / 16)) * 16;
+      const int k = k0 + r;
+      const int gcol = wbyte0 + col;
+      const int nbytes = k < k_end ? max(0, min(16, ldw - gcol)) : 0;
+      copy16(&s_w[(buf * MBK + r) * WS + col], w + (size_t)k * ldw + gcol,
+             nbytes, vec_w, w);
+    }
+    if (tid < A_CHUNKS) {
+      const int r = tid / (MBK / 16);
+      const int kk = (tid % (MBK / 16)) * 16;
+      const int m = m0 + r;
+      const int k = k0 + kk;
+      const int nbytes = m < M ? max(0, min(16, k_end - k)) : 0;
+      copy16(&s_a8[(buf * BM + r) * MBK + kk], a + (size_t)m * K + k, nbytes,
+             vec_a, a);
+    }
+  };
+
+  const int nk = (k_end - k_begin + MBK - 1) / MBK;   // <= 0: empty split
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) {
+    if (st < nk) load_stage(k_begin + st * MBK, st);
+    cp_async_commit();
+  }
+  // the level table, while the first stages are in flight
+  for (int i = tid; i < L::NLEV * COPIES; i += MMA_NT) {
+    const int c = i / COPIES;
+    s_lut[i] = make_uint2(
+        (uint32_t)p.split[c] | ((uint32_t)p.split[L::NLEV + c] << 16),
+        (uint32_t)p.split[2 * L::NLEV + c]);
+  }
+
+  float acc_h[MT][2][4], acc_dl[MT][2][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc_h[mt][nt][j] = acc_dl[mt][nt][j] = 0.0f;
+  int rpart = 0;                 // this thread's 16 codes of each stage
+  const uint2* lut = s_lut + (lane % COPIES);
+  const int frag_row = lane & 15;      // ldmatrix lane addressing, as in
+  const int frag_col = (lane >> 4) * 8;  // the bf16 body
+
+  for (int it = 0; it < nk; ++it) {
+    cp_async_wait<NS - 2>();   // this thread's copies of stage `it` landed
+    __syncthreads();           // everyone's; and stage it-1 is consumed
+    if (it + NS - 1 < nk)
+      load_stage(k_begin + (it + NS - 1) * MBK, (it + NS - 1) % NS);
+    cp_async_commit();
+    const int buf = it % NS;
+
+    // the stage's codes to bf16 (exact), once per block; their row sums
+    if (tid < A_CHUNKS) {
+      const int r = tid / (MBK / 16);
+      const int kk = (tid % (MBK / 16)) * 16;
+      const uint4 v =
+          *reinterpret_cast<const uint4*>(&s_a8[(buf * BM + r) * MBK + kk]);
+      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+      uint32_t packed[8];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        rpart = __dp4a((int)words[q], 0x01010101, rpart);
+        const int c0 = (int)(int8_t)(words[q] & 0xFF);
+        const int c1 = (int)(int8_t)((words[q] >> 8) & 0xFF);
+        const int c2 = (int)(int8_t)((words[q] >> 16) & 0xFF);
+        const int c3 = (int)(int8_t)(words[q] >> 24);
+        packed[2 * q] = pack_bf16((float)c0, (float)c1);
+        packed[2 * q + 1] = pack_bf16((float)c2, (float)c3);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(&s_ab[r * A_LD + kk]);
+      dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+    }
+    __syncthreads();
+    const uint8_t* sw = s_w + buf * MBK * WS;
+
+#pragma unroll
+    for (int ks = 0; ks < MBK / 16; ++ks) {
+      // B fragments of the warp's two column tiles: b0 holds rows k, k+1
+      // (k = 2 tig), b1 rows k+8, k+9, of column gid.  Each staged row's
+      // bytes of the warp's 16 columns are loaded once (8 at W4, 16 at W8)
+      uint32_t bh[2][2], bd[2][2], bl[2][2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k = ks * 16 + tig * 2 + half * 8;
+        int c[2][2];                         // [nt][row k, k+1]
+#pragma unroll
+        for (int dr = 0; dr < 2; ++dr) {
+          const uint8_t* row = sw + (k + dr) * WS;
+          if (BITS == 4) {
+            const uint2 q = *reinterpret_cast<const uint2*>(row + warp * 8);
+            c[0][dr] = (q.x >> (4 * gid)) & 15;
+            c[1][dr] = (q.y >> (4 * gid)) & 15;
+          } else {
+            const uint4 q = *reinterpret_cast<const uint4*>(row + warp * 16);
+            const int sh = 8 * (gid & 3);
+            c[0][dr] = (((gid >> 2) ? q.y : q.x) >> sh & 0xFF) ^ 0x80;
+            c[1][dr] = (((gid >> 2) ? q.w : q.z) >> sh & 0xFF) ^ 0x80;
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint2 e0 = lut[c[nt][0] * COPIES];
+          const uint2 e1 = lut[c[nt][1] * COPIES];
+          bh[nt][half] = __byte_perm(e0.x, e1.x, 0x5410);
+          bd[nt][half] = __byte_perm(e0.x, e1.x, 0x7632);
+          bl[nt][half] = __byte_perm(e0.y, e1.y, 0x5410);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t af[4];
+        ldmatrix_x4(af, smem_u32(&s_ab[(mt * 16 + frag_row) * A_LD +
+                                       ks * 16 + frag_col]));
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          mma_bf16(acc_dl[mt][nt], af, bl[nt][0], bl[nt][1]);
+          mma_bf16(acc_dl[mt][nt], af, bd[nt][0], bd[nt][1]);
+          mma_bf16(acc_h[mt][nt], af, bh[nt][0], bh[nt][1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // R: the four threads of a row (consecutive lanes) hold its four chunks
+  if (tid < A_CHUNKS) {
+    rpart += __shfl_xor_sync(0xffffffffu, rpart, 1);
+    rpart += __shfl_xor_sync(0xffffffffu, rpart, 2);
+    if ((tid & 3) == 0) s_r[tid >> 2] = rpart;
+  }
+  __syncthreads();
+
+  // accumulator layout: c0,c1 -> row gid, columns 2 tig + {0,1}; c2,c3 ->
+  // row gid + 8.  part = s_m (mu_n R_m + sigma_n D_mn)
+  float* dst = p.part + (size_t)split * M * N;
+  const bool vec_out = (N % 2 == 0);
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int n = n0 + warp * 16 + nt * 8 + tig * 2;
+    if (n >= N) continue;
+    const bool two = n + 1 < N;
+    const float mu0 = p.mu[n], sg0 = p.sigma[n];
+    const float mu1 = two ? p.mu[n + 1] : 0.0f;
+    const float sg1 = two ? p.sigma[n + 1] : 0.0f;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = mt * 16 + gid + h * 8;
+        const int m = m0 + r;
+        if (m >= M) continue;
+        const float sc = p.a_scale[p.scale_per_row ? m : 0];
+        const float rs = (float)s_r[r];
+        const float d0 = acc_h[mt][nt][2 * h] + acc_dl[mt][nt][2 * h];
+        const float d1 = acc_h[mt][nt][2 * h + 1] + acc_dl[mt][nt][2 * h + 1];
+        const float v0 = sc * (mu0 * rs + sg0 * d0);
+        const float v1 = sc * (mu1 * rs + sg1 * d1);
+        float* o = dst + (size_t)m * N + n;
+        if (vec_out && two) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          o[0] = v0;
+          if (two) o[1] = v1;
+        }
+      }
+    }
+  }
+}
+
+template <int BITS, int MT>
+int launch_a8(const Args& p, int splitk, cudaStream_t stream) {
+  constexpr int bytes = A8Smem<BITS, MT>::BYTES;
+  static bool ready = false;     // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmatmul_a8_mma_kernel<BITS, MT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  dim3 grid((p.N + BN - 1) / BN, (p.M + MT * 16 - 1) / (MT * 16), splitk);
+  qmatmul_a8_mma_kernel<BITS, MT><<<grid, MMA_NT, bytes, stream>>>(p);
+  return 0;
+}
+
+template <int BITS>
+int launch_a8_bm(int bm, const Args& p, int splitk, cudaStream_t stream) {
+  switch (bm) {
+    case 8:     // the narrowest tensor-core tile is 16 rows
+    case 16:
+      return launch_a8<BITS, 1>(p, splitk, stream);
+    case 32:
+      return launch_a8<BITS, 2>(p, splitk, stream);
+    case 64:
+      return launch_a8<BITS, 4>(p, splitk, stream);
+    default:
+      return -1;
+  }
+}
+
 // Second pass: add the splits in ascending order and cast to the output type.
 __global__ void qmatmul_reduce_kernel(const float* __restrict__ part,
                                       void* __restrict__ out, int out_bf16,
@@ -558,45 +885,42 @@ __global__ void qmatmul_reduce_kernel(const float* __restrict__ part,
   }
 }
 
-template <int BITS, int TX, int TY, int TM, int TN, int AM, int WM>
+template <int BITS, int TX, int TY, int TM, int TN, int WM>
 void launch_tile(const Args& p, int splitk, cudaStream_t stream) {
   constexpr int BM = TY * TM;
   dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splitk);
-  qmatmul_kernel<BITS, TX, TY, TM, TN, AM, WM><<<grid, TX * TY, 0, stream>>>(
-      p);
+  qmatmul_kernel<BITS, TX, TY, TM, TN, WM><<<grid, TX * TY, 0, stream>>>(p);
 }
 
-template <int BITS, int AM, int WM>
+template <int BITS, int WM>
 int launch_bm(int bm, const Args& p, int splitk, cudaStream_t stream) {
   switch (bm) {
     case 8:
-      launch_tile<BITS, 32, 8, 1, 4, AM, WM>(p, splitk, stream);
+      launch_tile<BITS, 32, 8, 1, 4, WM>(p, splitk, stream);
       return 0;
     case 16:
-      launch_tile<BITS, 32, 8, 2, 4, AM, WM>(p, splitk, stream);
+      launch_tile<BITS, 32, 8, 2, 4, WM>(p, splitk, stream);
       return 0;
     case 32:
-      launch_tile<BITS, 32, 8, 4, 4, AM, WM>(p, splitk, stream);
+      launch_tile<BITS, 32, 8, 4, 4, WM>(p, splitk, stream);
       return 0;
     case 64:
-      launch_tile<BITS, 16, 16, 4, 8, AM, WM>(p, splitk, stream);
+      launch_tile<BITS, 16, 16, 4, 8, WM>(p, splitk, stream);
       return 0;
     default:
       return -1;
   }
 }
 
-// The tensor-core body for bf16 activations, the CUDA-core body otherwise.
-template <int AM, int WM>
+// The tensor-core body for bf16 activations, the CUDA-core body for f32.
+template <int WM>
 int launch_body(int tensor_cores, int bits, int bm, const Args& p, int splitk,
                 cudaStream_t stream) {
-  if (tensor_cores) {
-    if (AM != A_FLOAT) return -6;
+  if (tensor_cores)
     return bits == 4 ? launch_mma_bm<4, WM>(bm, p, splitk, stream)
                      : launch_mma_bm<8, WM>(bm, p, splitk, stream);
-  }
-  return bits == 4 ? launch_bm<4, AM, WM>(bm, p, splitk, stream)
-                   : launch_bm<8, AM, WM>(bm, p, splitk, stream);
+  return bits == 4 ? launch_bm<4, WM>(bm, p, splitk, stream)
+                   : launch_bm<8, WM>(bm, p, splitk, stream);
 }
 
 int check_shape(int bits, int M, int K, int N, int splitk) {
@@ -651,8 +975,7 @@ extern "C" int qmatmul_launch(const void* a, int a_bf16, const void* w,
   p.mu = mu;
   p.sigma = sigma;
   p.table = table;
-  const int rc = launch_body<A_FLOAT, W_GAUSS>(a_bf16, bits, bm, p, splitk,
-                                               stream);
+  const int rc = launch_body<W_GAUSS>(a_bf16, bits, bm, p, splitk, stream);
   return reduce(rc, p, out, out_bf16, splitk, stream);
 }
 
@@ -672,19 +995,18 @@ extern "C" int qmatmul_lut_launch(const void* a, int a_bf16, const void* w,
   p.lut = lut;
   const int rc =
       lut_per_col
-          ? launch_body<A_FLOAT, W_LUT_COL>(a_bf16, bits, bm, p, splitk,
-                                            stream)
-          : launch_body<A_FLOAT, W_LUT_SHARED>(a_bf16, bits, bm, p, splitk,
-                                               stream);
+          ? launch_body<W_LUT_COL>(a_bf16, bits, bm, p, splitk, stream)
+          : launch_body<W_LUT_SHARED>(a_bf16, bits, bm, p, splitk, stream);
   return reduce(rc, p, out, out_bf16, splitk, stream);
 }
 
 // a_codes: (M, K) int8; scale: (M,) (scale_per_row = 1) or one f32 value;
-// Gaussian levels; f32 products on the CUDA cores.
+// Gaussian levels; split: (3, 2^bits) bf16, the parts h, d, l of the level
+// table (`ref.level_split`); exact products on the tensor cores.
 extern "C" int qmatmul_a8_launch(const void* a_codes, const float* scale,
                                  int scale_per_row, const void* w, int bits,
                                  const float* mu, const float* sigma,
-                                 const float* table, float* part, void* out,
+                                 const void* split, float* part, void* out,
                                  int out_bf16, int M, int K, int N, int bm,
                                  int splitk, void* stream_ptr) {
   const int bad = check_shape(bits, M, K, N, splitk);
@@ -697,7 +1019,8 @@ extern "C" int qmatmul_a8_launch(const void* a_codes, const float* scale,
   p.w = static_cast<const uint8_t*>(w);
   p.mu = mu;
   p.sigma = sigma;
-  p.table = table;
-  const int rc = launch_body<A_I8, W_GAUSS>(0, bits, bm, p, splitk, stream);
+  p.split = static_cast<const uint16_t*>(split);
+  const int rc = bits == 4 ? launch_a8_bm<4>(bm, p, splitk, stream)
+                           : launch_a8_bm<8>(bm, p, splitk, stream);
   return reduce(rc, p, out, out_bf16, splitk, stream);
 }

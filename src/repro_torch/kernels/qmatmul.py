@@ -284,9 +284,11 @@ def qmatmul_a8(a_codes: torch.Tensor, a_scale: torch.Tensor,
     a_scale : f32, one value (the reference's kernel) or (M, 1) per row
               (the reference's engine: per-token absmax scales).
     w_packed, mu, sigma : as ``qmatmul``.
-    The product is f32 ``code * scale`` against f32 levels, accumulated in
-    f32 on the CUDA cores (the reference engine's numerics; its TPU kernel
-    rounds both operands to bf16 instead).
+    The product is f32 ``code * scale`` against f32 levels (the reference
+    engine's numerics; its TPU kernel rounds both operands to bf16
+    instead), computed exactly on the tensor cores: ``s * (mu * sum(code)
+    + sigma * sum(code * T))`` with T split into three bf16 parts
+    (``ref.level_split``).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version.  ``qmatmul_a8.launches`` counts kernel launches.
@@ -308,11 +310,11 @@ def qmatmul_a8(a_codes: torch.Tensor, a_scale: torch.Tensor,
                                 bits=bits, out_dtype=out_dtype)
     if M == 0:
         return torch.empty((0, N), dtype=out_dtype, device=a_codes.device)
-    table = kref.level_table(2 ** bits, a_codes.device)
+    split = kref.level_split(2 ** bits, a_codes.device)
     out = _launch("qmatmul_a8_launch",
                   (a_codes.data_ptr(), a_scale.data_ptr(),
                    int(a_scale.numel() != 1), w_packed.data_ptr(), bits,
-                   mu.data_ptr(), sigma.data_ptr(), table.data_ptr()),
+                   mu.data_ptr(), sigma.data_ptr(), split.data_ptr()),
                   {"a_codes": a_codes, "a_scale": a_scale, "w": w_packed,
                    "mu": mu, "sigma": sigma},
                   M, K, N, out_dtype, blocks, splitk, f"bits={bits}")

@@ -81,6 +81,32 @@ def level_table(k: int, device=None) -> torch.Tensor:
     return t
 
 
+_SPLITS = {}
+
+
+def level_split(k: int, device=None) -> torch.Tensor:
+    """The level table as three bf16 parts, (3, k): ``h = bf16(T)``,
+    ``d = bf16(T - h)``, ``l = bf16(T - h - d)``, so that ``h + d + l`` is
+    ``T`` (each difference is exact in f32, and three 8-bit significands
+    cover T's 24).  A bf16 part times an int8 code is exact in f32: the
+    tensor-core ``qmatmul_a8`` multiplies the codes by each part.  Built on
+    the CPU from ``level_table`` and cached per (k, device); read-only."""
+    key = (k, device)
+    t = _SPLITS.get(key)
+    if t is None:
+        rest = level_table(k)
+        parts = []
+        for _ in range(3):
+            part = rest.to(torch.bfloat16)
+            parts.append(part)
+            rest = rest - part.to(torch.float32)
+        t = torch.stack(parts)
+        if device is not None and torch.device(device).type != "cpu":
+            t = t.to(device)
+        _SPLITS[key] = t
+    return t
+
+
 def kquantile_dequant_ref(codes: torch.Tensor, mu: torch.Tensor,
                           sigma: torch.Tensor, k: int,
                           dtype=torch.bfloat16) -> torch.Tensor:

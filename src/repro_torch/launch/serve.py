@@ -344,7 +344,10 @@ def main(argv=None):
         "bfloat16" if device.type == "cuda" else "float32")
     compute_dtype = getattr(torch, dtype_name)
     cfg = cb.get_smoke(args.arch) if args.smoke else cb.get(args.arch)
-    opts = ModelOpts(compute_dtype=compute_dtype)
+    # the reference CLI never switches to chunked attention: a long prompt
+    # is served with full attention
+    opts = ModelOpts(compute_dtype=compute_dtype,
+                     attn_chunked_min_len=1 << 30)
     if not args.engine:
         run_closed_batch(None, cfg, opts, args)
     # engine mode routes --a-bits through EngineConfig; ServeConfig stays

@@ -434,7 +434,16 @@ def _attn_block(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
     dict when ``opts.kv_bits < 16``: serving prefill then fake-quantizes
     K/V *before* attending, so the queries see exactly the dequantized
     rows a later incremental decode reads from the paged pool.
+
+    From S = ``opts.attn_chunked_min_len`` on, the reference attends in KV
+    chunks (``chunked_attention``), which is not ported: raises there, for
+    every caller (training and prefill).
     """
+    S = x.shape[1]
+    if S >= opts.attn_chunked_min_len:
+        raise NotImplementedError(
+            f"chunked attention (S={S} >= attn_chunked_min_len="
+            f"{opts.attn_chunked_min_len}) is not ported yet")
     h = _norm(x, lp["attn_norm"], cfg)
     q, k, v = _qkv(h, lp, cfg, opts, positions, cos_sin)
     kv = None
@@ -581,10 +590,6 @@ def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch,
     tokens = batch["tokens"]
     x = _embed_tokens(params, cfg, opts, tokens)
     B, S, _ = x.shape
-    if S >= opts.attn_chunked_min_len:
-        raise NotImplementedError(
-            f"chunked attention (S={S} >= attn_chunked_min_len="
-            f"{opts.attn_chunked_min_len}) is not ported yet")
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     windows = _window_schedule(cfg)
     cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)

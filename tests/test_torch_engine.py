@@ -296,3 +296,18 @@ def test_cli_engine_stream_on_cpu(capsys):
     assert "[engine]" in capsys.readouterr().out
     with pytest.raises(NotImplementedError):
         tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu"])
+
+
+def test_cli_serves_prompts_past_attn_chunked_min_len(monkeypatch):
+    """The CLI never switches to chunked attention, as the reference CLI
+    (attn_chunked_min_len=1 << 30): with the option's default cut to 8 for
+    the test, a 12-token prompt is still served."""
+    from repro_torch.launch import serve as tserve
+    monkeypatch.setattr(tserve, "ModelOpts", lambda **kw: tlm.ModelOpts(
+        **{"attn_chunked_min_len": 8, **kw}))
+    stats = tserve.main([
+        "--arch", ARCH, "--smoke", "--device", "cpu", "--engine",
+        "--w-bits", "4", "--kv-bits", "8", "--requests", "2", "--rate",
+        "200", "--max-slots", "2", "--new-tokens", "2", "--prompt-len",
+        "12", "--max-len", "64", "--page-size", "8"])
+    assert stats["requests"] == 2 and stats["new_tokens"] == 4

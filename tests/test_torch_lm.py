@@ -347,3 +347,22 @@ def test_default_device_is_the_card():
         tlm.quantize_params_for_serving({"w": torch.zeros(4, 4)}, 4)
     with pytest.raises(RuntimeError, match="cuda"):
         convert.params_from_numpy({"w": np.zeros((2, 2), np.float32)})
+
+
+def test_forward_prefill_raises_where_the_reference_would_chunk():
+    """The reference's ``_attn_block`` switches to ``chunked_attention`` at
+    S >= ``attn_chunked_min_len`` for every caller; the port has no chunked
+    attention, so its prefill raises there instead of building the full
+    score tensor, and runs unchanged below it."""
+    import dataclasses
+    cfg = tcb.get_smoke("granite_3_8b")
+    _, pt = _params("granite_3_8b", 4)
+    _, to = _opts(8)
+    small = dataclasses.replace(to, attn_chunked_min_len=8)
+    with pytest.raises(NotImplementedError, match="chunked attention"):
+        tlm.forward_prefill(pt, cfg, small, {"tokens": torch.from_numpy(
+            _tokens(cfg, shape=(B, 8)))})
+    toks = {"tokens": torch.from_numpy(_tokens(cfg, shape=(B, 7)))}
+    got, _ = tlm.forward_prefill(pt, cfg, small, toks)
+    want, _ = tlm.forward_prefill(pt, cfg, to, toks)
+    assert torch.equal(got, want)

@@ -20,6 +20,7 @@ from repro.models import lm as jlm
 from repro.models.lm import ModelOpts as JOpts
 
 from repro_torch.core import activations as tact
+from repro_torch.core import packing as tpack
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import qmatmul as tqmm
 from repro_torch.kernels import ref as tref
@@ -233,6 +234,68 @@ def test_a8_per_token_matches_reference_mm_a(bits, a_bits, x_dtype):
     dense = torch.from_numpy(
         (r.standard_normal((K, N)) * 0.03).astype(np.float32))
     assert torch.equal(tlm.mm_a(tx, dense, to), tlm.mm(tx, dense))
+
+
+@pytest.mark.parametrize("k", [16, 256])
+def test_level_split_sums_to_the_level_table(k):
+    """The tensor-core ``qmatmul_a8`` multiplies int8 codes by three bf16
+    parts of each level: h + d + l reproduces the f32 table exactly (each
+    remainder is exact in f32 and three 8-bit significands cover 24), so
+    no residual is left for the kernel to drop."""
+    parts = tref.level_split(k)
+    assert parts.dtype == torch.bfloat16 and tuple(parts.shape) == (3, k)
+    table = tref.level_table(k)
+    p64 = parts.to(torch.float64)
+    assert torch.equal(p64.sum(0), table.to(torch.float64))
+    # and the f32 sum in the kernel's order, small parts first
+    assert torch.equal(parts[2].float() + parts[1].float() + parts[0].float(),
+                       table)
+    # each part is the bf16 rounding of what the earlier ones leave
+    assert torch.equal(parts[0], table.to(torch.bfloat16))
+    assert torch.equal(parts[1], (table - parts[0].float()).to(torch.bfloat16))
+    # an int8 code times a part is exact in f32
+    c = torch.arange(-128, 128, dtype=torch.float64)[:, None]
+    assert torch.equal((c * p64[0]).to(torch.float32).to(torch.float64),
+                       c * p64[0])
+
+
+# Largest |factored - plain| read over the cases below (outputs up to 8.5):
+# 3.8e-6.  The plain version rounds code * scale and each level to f32
+# before an f32 sum; the factored form applies scale, mu and sigma after
+# exact partial products.
+TOL_A8_FACTORED = 5e-4
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("M", [1, 16, 256])
+@pytest.mark.parametrize("per_row", [True, False])
+def test_a8_factored_three_part_sum_matches_plain(bits, M, per_row):
+    """The kernel's arithmetic, emulated on the CPU in f32:
+    ``s * (mu * R + sigma * (c @ h[q] + (c @ l[q] + c @ d[q])))`` with
+    R = sum(c), the level parts from ``ref.level_split``.  It agrees with
+    ``qmatmul_a8_plain`` (f32 ``code * scale`` against f32 levels) within
+    the card check's ``TOL_QMM_A8``; codes include -128 and 127."""
+    K, N = 4096, 512
+    k = 2 ** bits
+    r = np.random.default_rng(100 * bits + M)
+    x = torch.from_numpy(r.standard_normal((M, K)).astype(np.float32))
+    scale = tact.act_scale(x, 8, axis=-1) if per_row else \
+        tact.act_scale(x, 8).reshape(1)
+    codes, _ = tact.quant_act(x, 8, scale)
+    codes[0, :4] = torch.tensor([-128, 127, -128, 127], dtype=torch.int8)
+    wp, mu, sd = _gaussian(K, N, bits, seed=7 * M + bits)
+    tc, twp, tmu, tsd = _t(codes.numpy(), wp, mu, sd)
+    q = (tpack.unpack_int4(twp) if bits == 4 else twp).long() \
+        + tref.code_offset(k)
+    h, d, l = (part.float()[q] for part in tref.level_split(k))
+    c = tc.float()
+    acc_dl = c @ l + c @ d
+    acc_h = c @ h
+    R = c.sum(1, keepdim=True)
+    got = scale * (tmu * R + tsd * (acc_h + acc_dl))
+    want = tqmm.qmatmul_a8_plain(tc, scale, twp, tmu, tsd, bits=bits)
+    err = (got - want).abs().max().item()
+    assert err <= TOL_A8_FACTORED, err
 
 
 def test_a8_rejects_what_the_kernel_does_not_take():
