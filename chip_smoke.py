@@ -312,9 +312,12 @@ def check_qmatmul(gen, quick: bool) -> float:
     main_kn = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)]
     shapes = [(M, K, N) for (K, N) in main_kn for M in (8, 16, 32, 256)]
     shapes += [(5, 200, 130), (33, 520, 96), (70, 77, 258), (1, 64, 2)]
+    # more rows than the tallest tile (128) and the 256 above, and an N
+    # that is no multiple of the wgmma's 64-column warpgroup tile
+    shapes += [(300, 4096, 4096), (300, 1000, 200)]
     if quick:
         shapes = [(16, 4096, 4096), (256, 4096, 1024), (5, 200, 130),
-                  (33, 520, 96)]
+                  (33, 520, 96), (300, 1000, 200)]
     for (M, K, N) in shapes:
         for bits in (4, 8):
             for a_dtype in (torch.bfloat16, torch.float32):
@@ -350,14 +353,31 @@ def check_qmatmul(gen, quick: bool) -> float:
         if err > tol:
             raise SystemExit(f"qmatmul bf16 output: err {err:.3e} > {tol:.3e}")
     # row invariance: a row's bits do not depend on the rows beside it
-    a, w, mu, sigma = make_qmm_inputs(gen, 256, 4096, 4096, 4, torch.bfloat16)
-    full = qmm.qmatmul(a, w, mu, sigma, bits=4)
-    for m in (8, 16, 32):
-        part = qmm.qmatmul(a[:m].contiguous(), w, mu, sigma, bits=4)
-        if not torch.equal(part, full[:m]):
-            raise SystemExit(f"qmatmul rows depend on M (M={m} vs 256)")
+    for bits in (4, 8):
+        a, w, mu, sigma = make_qmm_inputs(gen, 300, 4096, 4096, bits,
+                                          torch.bfloat16)
+        rows_independent(f"qmatmul W{bits}", lambda x: qmm.qmatmul(
+            x, w, mu, sigma, bits=bits), a)
     say("[kernels] qmatmul bf16 output ok; rows are independent of M")
     return worst
+
+
+# Row counts whose results are held against the first rows of a 300-row
+# call: every tile height (8 takes the 16-row tile; from 64 rows on a block
+# sums the splits itself), and the 256 of the earlier check.
+ROW_INVARIANCE_M = (8, 16, 32, 64, 128, 256)
+
+
+def rows_independent(name, call, a):
+    """``call`` on the first m rows of ``a`` gives the first m rows of
+    ``call(a)`` to the bit, for each m of ``ROW_INVARIANCE_M``: each picks
+    another tile height, and preempt / resume re-prefills decoded tokens."""
+    full = call(a)
+    for m in ROW_INVARIANCE_M:
+        part = call(a[:m].contiguous())
+        if not torch.equal(part, full[:m]):
+            raise SystemExit(f"{name} rows depend on M (M={m} vs "
+                             f"{a.shape[0]})")
 
 
 def make_a8_inputs(gen, M, K):
@@ -396,9 +416,10 @@ def check_qmatmul_variants(gen, quick: bool):
     main_kn = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)]
     shapes = [(M, K, N) for (K, N) in main_kn for M in (8, 16, 32, 256)]
     shapes += [(5, 200, 130), (33, 520, 96), (70, 77, 258), (1, 64, 2)]
+    shapes += [(300, 4096, 4096), (300, 1000, 200)]
     if quick:
         shapes = [(16, 4096, 12800), (256, 4096, 1024), (5, 200, 130),
-                  (33, 520, 96)]
+                  (33, 520, 96), (300, 1000, 200)]
     for (M, K, N) in shapes:
         for bits in (4, 8):
             _, w, mu, sigma = make_qmm_inputs(gen, 1, K, N, bits,
@@ -461,8 +482,17 @@ def check_qmatmul_variants(gen, quick: bool):
                               w, mu, sigma, bits=4)
         if not torch.equal(part, full[:m]):
             raise SystemExit(f"qmatmul_a8 rows depend on M (M={m} vs 256)")
+    for bits in (4, 8):
+        _, w, _, _ = make_qmm_inputs(gen, 1, 4096, 4096, bits, torch.float32)
+        a = torch.randn((300, 4096), generator=gen,
+                        device=DEV).to(torch.bfloat16)
+        for per_col in (False, True):
+            lut = make_lut(gen, 4096, bits, per_col)
+            rows_independent(
+                f"qmatmul_lut W{bits} lut {tuple(lut.shape)}",
+                lambda x: qmm.qmatmul_lut(x, w, lut, bits=bits), a)
     say("[kernels] qmatmul_a8 / qmatmul_lut bf16 outputs ok; qmatmul_a8 "
-        "rows are independent of M")
+        "and qmatmul_lut rows are independent of M")
     return worst
 
 
@@ -2118,16 +2148,21 @@ def timing_phase(gen, counts, errs):
     kw = rows[("kquantile", 1, 4096, 12800, 256)]       # int8 codes
     uo = rows[("uniq_onchip", L, 4096, 12800)]
 
-    def entry(name, source, replaces, r):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": counts[name],
-                "max_abs_err": errs[name], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+    def entry(name, source, replaces, r, prefill=None):
+        e = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": counts[name],
+             "max_abs_err": errs[name], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if prefill is not None:     # the same kernel at M=256
+            e["prefill_m256"] = {k: prefill[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        return e
 
     return {"kernels": [
         entry("qmatmul", "src/repro_torch/kernels/csrc/qmatmul.cu",
-              "src/repro/kernels/qmatmul.py:182", q),
+              "src/repro/kernels/qmatmul.py:182", q,
+              rows[("qmatmul", 4, 256, 4096, 12800)]),
         entry("paged_quant_attention",
               "src/repro_torch/kernels/csrc/paged_attn.cu",
               "src/repro/kernels/paged_attn.py:227", a),
@@ -2138,7 +2173,8 @@ def timing_phase(gen, counts, errs):
         entry("qmatmul_a8", "src/repro_torch/kernels/csrc/qmatmul.cu",
               "src/repro/kernels/qmatmul.py:316", q8),
         entry("qmatmul_lut", "src/repro_torch/kernels/csrc/qmatmul.cu",
-              "src/repro/kernels/qmatmul.py:263", ql),
+              "src/repro/kernels/qmatmul.py:263", ql,
+              rows[("qmatmul_lut", 4, 256, 4096, 12800)]),
         entry("kquantile_quantize", "src/repro_torch/kernels/csrc/kquantile.cu",
               "src/repro/kernels/kquantile.py:86", kw["quantize"]),
         entry("kquantile_dequantize",
@@ -2215,19 +2251,29 @@ def a8_against_exact(gen):
 def sweep_phase(gen):
     """Times over the tuning axes, for choosing the defaults."""
     for (M, K, N) in ((16, 4096, 12800), (16, 4096, 4096), (16, 4096, 1024),
-                      (16, 12800, 4096), (256, 4096, 12800)):
+                      (16, 12800, 4096), (64, 4096, 12800),
+                      (128, 4096, 12800), (256, 4096, 12800),
+                      (512, 4096, 4096)):
         n_copies = max(2, math.ceil(120e6 / (K * N / 2)))
-        sets = [make_qmm_inputs(gen, M, K, N, 4, torch.bfloat16)
-                for _ in range(n_copies)]
-        for bm in ((16, 32) if M <= 32 else (32, 64)):
-            for splitk in (1, 2, 4, 8, 16):
-                ms = time_ms([lambda s=s: qmm.qmatmul(
-                    *s, bits=4, out_dtype=torch.bfloat16,
-                    blocks=qmm.BlockConfig(bm=bm), splitk=splitk)
-                    for s in sets])
-                say(f"[sweep] qmatmul W4 bf16 M={M} K={K} N={N} bm={bm} "
-                    f"splitk={splitk}: {ms:.4f} ms (default splitk "
-                    f"{qmm.default_splitk(K, N)})")
+        sets = []
+        for _ in range(n_copies):
+            a, w, mu, sigma = make_qmm_inputs(gen, M, K, N, 4, torch.bfloat16)
+            sets.append((a, w, mu, sigma, make_lut(gen, N, 4, False)))
+        entries = [("qmatmul", lambda s, **kw: qmm.qmatmul(*s[:4], **kw))]
+        if (M, K, N) in ((16, 4096, 12800), (256, 4096, 12800)):
+            entries.append(("qmatmul_lut", lambda s, **kw: qmm.qmatmul_lut(
+                s[0], s[1], s[4], **kw)))
+        for name, fn in entries:
+            for bm in ((16, 32) if M <= 32 else (32, 64, 128)):
+                for splitk in (1, 2, 4, 8, 16):
+                    ms = time_ms([lambda s=s: fn(
+                        s, bits=4, out_dtype=torch.bfloat16,
+                        blocks=qmm.BlockConfig(bm=bm), splitk=splitk)
+                        for s in sets])
+                    say(f"[sweep] {name} W4 bf16 M={M} K={K} N={N} bm={bm} "
+                        f"splitk={splitk}: {ms:.4f} ms (default bm "
+                        f"{qmm.default_blocks(M).bm}, splitk "
+                        f"{qmm.default_splitk(K, N)})")
         del sets
     K, N = 4096, 12800
     for M in (16, 256):
@@ -2244,7 +2290,7 @@ def sweep_phase(gen):
                     for s in sets])
                 say(f"[sweep] qmatmul_a8 W4 M={M} K={K} N={N} bm={bm} "
                     f"splitk={splitk}: {ms:.4f} ms (default bm "
-                    f"{qmm.default_blocks(M).bm}, splitk "
+                    f"{qmm.default_blocks(M, a8=True).bm}, splitk "
                     f"{qmm.default_splitk(K, N)})")
         del sets
     a8_against_exact(gen)

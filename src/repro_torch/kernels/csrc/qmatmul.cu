@@ -21,19 +21,43 @@
 // bytes.
 //
 // qmatmul and qmatmul_lut.  The level of a code (`WM`, a template
-// argument): the Gaussian formula from a shared-memory table and
-// per-column statistics; a shared codebook of k levels copied to shared
-// memory (the engine's per-tensor `q_lut`); or a (k, N) per-column codebook
-// read through the read-only cache (a 128-column tile of it is 128 KB at
-// k = 256, more than a block's static shared memory, and the TPU kernel's k
-// select passes are a TPU workaround for slow gathers).  Two bodies:
-//   * bf16 activations: the weight tile is dequantized into shared memory,
-//     rounded to bf16 (as the TPU kernel rounds its scratch tile to the
-//     activations' dtype) and multiplied on the tensor cores, mma.sync
-//     m16n8k16 bf16 x bf16 -> f32, fragments fetched with ldmatrix
-//     (transposed for the weights, whose stored direction N is not the
-//     direction a fragment packs); a stage is prefetched into registers one
-//     iteration ahead;
+// argument): the Gaussian formula mu[n] + sigma[n] * table[code]; a shared
+// codebook of k levels (the engine's per-tensor `q_lut`); or a (k, N)
+// per-column codebook.  Two bodies:
+//   * bf16 activations (the engine's): the transposed product
+//     out^T = W^T . a^T on the warpgroup tensor cores (wgmma m64nBMk16,
+//     bf16 x bf16 -> f32).  Each of the block's two warpgroups owns 64
+//     weight columns, the instruction's M; the instruction's N is the
+//     block's BM tokens (16 at decode, up to 128 at prefill), so a weight
+//     stage is decoded once per block however many tokens it serves.  What
+//     the design does about the bounds:
+//       - packed weight bytes and the bf16 activation tile stream through a
+//         ring of NS stages in dynamic shared memory by cp.async.cg 16-byte
+//         copies (5 stages up to 32 rows, 4 beyond), so later stages are in
+//         flight while one is multiplied; mbarriers hand the stages over
+//         (`full` when a stage's copies landed, `empty` when every warp's
+//         wgmma on it is done), so the two warpgroups need not meet at a
+//         block barrier every stage;
+//       - the weight is the A operand, built in registers straight from the
+//         staged bytes by table lookup (no weight tile in shared memory, no
+//         ldmatrix, no arithmetic per weight element at W4).  The table
+//         holds each level exactly as the plain version rounds it, bf16 of
+//         the f32 mu + sigma * T (a separate multiply and add) or of the
+//         codebook entry, so kernel and plain version multiply the same bf16
+//         weight and differ only in the order of the f32 sum.  At W4 each
+//         thread keeps its own 16 words {level in column gid, in column
+//         gid + 8} in shared memory, one bank per lane, built while the
+//         first stages load: a lookup never meets another lane's bank.  At
+//         W8 (off the engine path; 256 levels would not fit per lane) the
+//         level is computed per element from a shared f32 table;
+//       - the activations are the B operand, read by the tensor cores from
+//         the staged tile in the 128-byte swizzle (K-major: a token's 64
+//         values of a stage are one 128-byte row);
+//       - a prefill tile (64 rows or more) walks all of K in one block and
+//         adds the splits' sums in the reduce kernel's order, so it writes
+//         the result with no split-K scratch (at M = 256, N = 12800 and 8
+//         splits that scratch is 105 MB written and read again) and no
+//         second pass, and its bits are those of the split-K result.
 //   * f32 activations: f32 levels, f32 FMAs on the CUDA cores.
 //
 // qmatmul_a8 (the reference engine's numerics, f32 `code * scale` against
@@ -102,6 +126,8 @@ struct Args {
   const uint16_t* split;         // qmatmul_a8: (3, k) bf16 parts of table
   const float* lut;              // W_LUT_*: (k,) or (k, N) levels
   float* part;                   // (splitk, M, N) partial sums
+  void* out;                     // (M, N) f32 or bf16 (`out_bf16`): the
+  int out_bf16;                  // result, where a block sums every split
   int M, K, N, kchunk;
 };
 
@@ -275,12 +301,15 @@ __global__ void __launch_bounds__(TX * TY) qmatmul_kernel(const Args p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 activations: tensor-core body (qmatmul, qmatmul_lut)
+// Tensor-core helpers shared by the two tensor-core bodies
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_NT = 256;         // 8 warps; warp w owns columns [16w, 16w+16)
-constexpr int A_LD = MBK + 8;       // padded row strides (bf16 elements):
-constexpr int W_LD = BN + 8;        //   rows stay 16-byte aligned for ldmatrix
+constexpr int MMA_NT = 256;   // 8 warps; warp w owns columns [16w, 16w+16)
+constexpr int A_LD = MBK + 8; // padded row stride (bf16) of qmatmul_a8's code
+                              // tile: rows stay 16-byte aligned for ldmatrix
+constexpr int A8_PAD = 16;    // bytes added to each staged weight row: the
+                              // rows a warp reads together fall in distinct
+                              // banks
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -289,14 +318,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
@@ -310,260 +331,11 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// two floats -> bf16x2, each rounded to nearest even; `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-
-// MT = BM / 16 row tiles per block.  A stage is fetched into registers one
-// iteration ahead of its use (packed weight bytes and activation chunks), so
-// the loads of stage i+1 are in flight while stage i is dequantized into
-// shared memory and multiplied.
-template <int BITS, int MT, int WM>
-__global__ void __launch_bounds__(MMA_NT) qmatmul_mma_kernel(const Args p) {
-  constexpr int BM = MT * 16;
-  constexpr int NLEV = 1 << BITS;
-  constexpr int CPB = (BITS == 4) ? 2 : 1;  // codes per byte
-  constexpr int CPG = 4 * CPB;              // codes per 4-byte group
-  constexpr int G4 = BN / CPG;              // 4-byte groups per tile row
-  constexpr int ROWS_PER_PASS = MMA_NT / G4;
-  constexpr int PASSES = MBK / ROWS_PER_PASS;
-  constexpr int A_CHUNKS = BM * (MBK / 8);  // 16-byte chunks of the A tile
-  constexpr int APT = (A_CHUNKS + MMA_NT - 1) / MMA_NT;
-
-  __shared__ float s_table[NLEV];
-  __shared__ __align__(16) __nv_bfloat16 s_a[BM * A_LD];
-  __shared__ __align__(16) __nv_bfloat16 s_w[MBK * W_LD];
-
-  const int M = p.M, K = p.K, N = p.N, kchunk = p.kchunk;
-  const __nv_bfloat16* __restrict__ a =
-      static_cast<const __nv_bfloat16*>(p.a);
-  const uint8_t* __restrict__ w = p.w;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int split = blockIdx.z;
-  const int k_begin = split * kchunk;
-  const int k_end = min(K, k_begin + kchunk);
-  const int ldw = N / CPB;                  // bytes per weight row
-  const bool vec_w = (ldw % 4 == 0) &&
-                     ((reinterpret_cast<uintptr_t>(w) & 3) == 0);
-  const bool vec_a = (K % 8 == 0) &&
-                     ((reinterpret_cast<uintptr_t>(a) & 15) == 0);
-
-  if (WM != W_LUT_COL) {
-    const float* src = WM == W_GAUSS ? p.table : p.lut;
-    for (int i = tid; i < NLEV; i += MMA_NT) s_table[i] = src[i];
-  }
-
-  // this thread always dequantizes the same CPG columns: keep their
-  // statistics in registers
-  const int gb = tid % G4;
-  const int kk0 = tid / G4;
-  const int bcol = n0 / CPB + gb * 4;
-  float r_mu[CPG], r_sigma[CPG];
-#pragma unroll
-  for (int j = 0; j < CPG; ++j) {
-    const int n = n0 + gb * CPG + j;
-    r_mu[j] = (WM == W_GAUSS && n < N) ? p.mu[n] : 0.0f;
-    r_sigma[j] = (WM == W_GAUSS && n < N) ? p.sigma[n] : 0.0f;
-  }
-  __syncthreads();
-
-  float acc[MT][2][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.0f;
-
-  // global -> registers: one stage's packed weight bytes and A chunks,
-  // zero outside M, N and the split's K range
-  auto fetch = [&](int k0, uint32_t (&wb)[PASSES], uint4 (&av)[APT]) {
-#pragma unroll
-    for (int pass = 0; pass < PASSES; ++pass) {
-      const int k = k0 + kk0 + pass * ROWS_PER_PASS;
-      uint32_t bits = 0;
-      if (k < k_end) {
-        const uint8_t* wp = w + (size_t)k * ldw + bcol;
-        if (vec_w && bcol + 4 <= ldw) {
-          bits = *reinterpret_cast<const uint32_t*>(wp);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (bcol + j < ldw) bits |= (uint32_t)wp[j] << (8 * j);
-        }
-      }
-      wb[pass] = bits;
-    }
-#pragma unroll
-    for (int t = 0; t < APT; ++t) {
-      const int c = tid + t * MMA_NT;
-      const int r = c / (MBK / 8);
-      const int k = k0 + (c % (MBK / 8)) * 8;
-      const int m = m0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (c < A_CHUNKS && m < M && k < k_end) {
-        const __nv_bfloat16* src = a + (size_t)m * K + k;
-        if (vec_a && k + 8 <= k_end) {
-          v = *reinterpret_cast<const uint4*>(src);
-        } else {
-          __align__(16) __nv_bfloat16 tmp[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            tmp[j] = (k + j < k_end) ? src[j] : __float2bfloat16(0.0f);
-          v = *reinterpret_cast<const uint4*>(tmp);
-        }
-      }
-      av[t] = v;
-    }
-  };
-
-  // registers -> shared: codes -> f32 levels -> bf16 (MBK, BN) tile, and
-  // the (BM, MBK) activation tile
-  auto stage = [&](int k0, const uint32_t (&wb)[PASSES],
-                   const uint4 (&av)[APT]) {
-#pragma unroll
-    for (int pass = 0; pass < PASSES; ++pass) {
-      const int kk = kk0 + pass * ROWS_PER_PASS;
-      const bool in_k = k0 + kk < k_end;
-      const uint32_t bits = wb[pass];
-      uint32_t packed[CPG / 2];
-#pragma unroll
-      for (int j = 0; j < CPG; j += 2) {
-        int c0, c1;
-        if (BITS == 4) {
-          c0 = (bits >> (4 * j)) & 0xF;
-          c1 = (bits >> (4 * j + 4)) & 0xF;
-        } else {
-          c0 = ((bits >> (8 * j)) & 0xFF) ^ 0x80;   // stored code + 128
-          c1 = ((bits >> (8 * j + 8)) & 0xFF) ^ 0x80;
-        }
-        // f32 level (the plain version's rounding), then rounded to bf16
-        // like the plain version's weight
-        const int n = n0 + gb * CPG + j;
-        float l0 = level<WM>(c0, r_mu[j], r_sigma[j], s_table, p.lut, n, N);
-        float l1 = level<WM>(c1, r_mu[j + 1], r_sigma[j + 1], s_table, p.lut,
-                             n + 1, N);
-        if (!in_k) l0 = l1 = 0.0f;
-        packed[j / 2] = pack_bf16(l0, l1);
-      }
-      __nv_bfloat16* dst = &s_w[kk * W_LD + gb * CPG];
-      if (BITS == 4) {
-        *reinterpret_cast<uint4*>(dst) =
-            make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      } else {
-        *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < APT; ++t) {
-      const int c = tid + t * MMA_NT;
-      if (c < A_CHUNKS)
-        *reinterpret_cast<uint4*>(
-            &s_a[(c / (MBK / 8)) * A_LD + (c % (MBK / 8)) * 8]) = av[t];
-    }
-  };
-
-  // ldmatrix lane addressing, the same for A (rows = m) and W (rows = k):
-  // lanes 0-15 name rows 0-15 at column 0, lanes 16-31 the same rows at
-  // column 8
-  const int frag_row = lane & 15;
-  const int frag_col = (lane >> 4) * 8;
-
-  uint32_t wb_cur[PASSES], wb_next[PASSES];
-  uint4 av_cur[APT], av_next[APT];
-  if (k_begin < k_end) fetch(k_begin, wb_cur, av_cur);
-
-  for (int k0 = k_begin; k0 < k_end; k0 += MBK) {
-    const bool more = k0 + MBK < k_end;
-    if (more) fetch(k0 + MBK, wb_next, av_next);
-    stage(k0, wb_cur, av_cur);
-    __syncthreads();
-
-#pragma unroll
-    for (int ks = 0; ks < MBK / 16; ++ks) {
-      uint32_t bfrag[4];   // {b0, b1} of column tile 0, {b0, b1} of tile 1
-      ldmatrix_x4_trans(bfrag, smem_u32(&s_w[(ks * 16 + frag_row) * W_LD +
-                                             warp * 16 + frag_col]));
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t afrag[4];
-        ldmatrix_x4(afrag, smem_u32(&s_a[(mt * 16 + frag_row) * A_LD +
-                                         ks * 16 + frag_col]));
-        mma_bf16(acc[mt][0], afrag, bfrag[0], bfrag[1]);
-        mma_bf16(acc[mt][1], afrag, bfrag[2], bfrag[3]);
-      }
-    }
-    __syncthreads();
-
-    if (more) {
-#pragma unroll
-      for (int i = 0; i < PASSES; ++i) wb_cur[i] = wb_next[i];
-#pragma unroll
-      for (int i = 0; i < APT; ++i) av_cur[i] = av_next[i];
-    }
-  }
-
-  // accumulator layout: c0,c1 -> row lane/4, columns 2*(lane%4) + {0,1};
-  // c2,c3 -> row lane/4 + 8
-  float* dst = p.part + (size_t)split * M * N;
-  const bool vec_out = (N % 2 == 0);
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int n = n0 + warp * 16 + nt * 8 + (lane & 3) * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + mt * 16 + (lane >> 2) + h * 8;
-        if (m >= M || n >= N) continue;
-        float* o = dst + (size_t)m * N + n;
-        const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-        if (vec_out && n + 1 < N) {
-          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-        } else {
-          o[0] = v0;
-          if (n + 1 < N) o[1] = v1;
-        }
-      }
-    }
-  }
-}
-
-template <int BITS, int MT, int WM>
-void launch_mma(const Args& p, int splitk, cudaStream_t stream) {
-  dim3 grid((p.N + BN - 1) / BN, (p.M + MT * 16 - 1) / (MT * 16), splitk);
-  qmatmul_mma_kernel<BITS, MT, WM><<<grid, MMA_NT, 0, stream>>>(p);
-}
-
-template <int BITS, int WM>
-int launch_mma_bm(int bm, const Args& p, int splitk, cudaStream_t stream) {
-  switch (bm) {
-    case 8:     // the narrowest tensor-core tile is 16 rows
-    case 16:
-      launch_mma<BITS, 1, WM>(p, splitk, stream);
-      return 0;
-    case 32:
-      launch_mma<BITS, 2, WM>(p, splitk, stream);
-      return 0;
-    case 64:
-      launch_mma<BITS, 4, WM>(p, splitk, stream);
-      return 0;
-    default:
-      return -1;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// int8 activation codes: exact tensor-core body (qmatmul_a8)
-// ---------------------------------------------------------------------------
-
-constexpr int A8_PAD = 16;   // bytes added to each staged row: the rows a
-                             // warp reads together fall in distinct banks
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
@@ -582,7 +354,8 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // 16 bytes global -> shared, the first `nbytes` from `src` and zeros after
 // them: by cp.async where both sides are 16-byte aligned (`vec`), else by
-// plain byte copies (visible after the next __syncthreads, like the rest).
+// plain byte copies (which the caller's barrier or mbarrier arrival
+// publishes with the copies).
 __device__ __forceinline__ void copy16(void* dst, const uint8_t* src,
                                        int nbytes, bool vec,
                                        const uint8_t* base) {
@@ -594,6 +367,481 @@ __device__ __forceinline__ void copy16(void* dst, const uint8_t* src,
     for (int j = 0; j < 16; ++j) d[j] = j < nbytes ? src[j] : 0;
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 activations: warpgroup tensor-core body (qmatmul, qmatmul_lut)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// shared-memory writes of this thread (cp.async and plain stores) made
+// visible to the tensor cores' operand reads, which go through the async
+// proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accumulator reads across the wgmma wait
+template <int NR>
+__device__ __forceinline__ void fence_regs(float (&d)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Descriptor of a K-major bf16 operand in the 128-byte swizzle: rows of 64
+// values (128 bytes), 8-row atoms of 1024 bytes one after another, the 16-
+// byte chunk j of row r stored at chunk j ^ (r % 8).  A k16 step further
+// along the row starts 32 bytes later.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4)
+         | ((uint64_t)1 << 16)              // leading offset (unused here)
+         | ((uint64_t)(1024 >> 4) << 32)    // stride: the next 8-row atom
+         | ((uint64_t)1 << 62);             // 128-byte swizzle
+}
+
+// D (64, N) += A (64, 16) . B (16, N): f32 += bf16 x bf16, A from registers
+// (the m16n8k16 A layout per warp, warp w of the group holding rows
+// [16w, 16w+16)), B K-major from shared memory through `desc`.  D per
+// thread: d[4j + {0,1}] at row gid, columns 8j + 2 tig + {0,1}; d[4j +
+// {2,3}] at row gid + 8.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Tiles of at least this many rows sum every split of K inside the block
+// and write the result; narrower ones split K across blocks for the reduce
+// kernel to add.
+constexpr int WG_IN_BLOCK_BM = 64;
+
+// Shared memory of the warpgroup body (dynamic), in bytes.
+template <int BITS, int BM>
+struct WgSmem {
+  static constexpr int NS = BM <= 32 ? 5 : 4;        // ring stages
+  static constexpr int WROW = BN * BITS / 8;         // packed bytes per row
+  static constexpr int WS = WROW + A8_PAD;           // staged row stride
+  static constexpr int AST = BM * MBK * 2;           // bf16 activation stage
+  static constexpr int A = 0;                        // activation ring
+  static constexpr int W = A + NS * AST;             // weight ring
+  // level table, 2 KB aligned: W4, per thread, 16 words {level of column
+  // gid, of column gid + 8}; W8, the 256 f32 levels or codebook entries
+  static constexpr int TAB = (W + NS * MBK * WS + 2047) / 2048 * 2048;
+  static constexpr int TAB_BYTES = BITS == 4 ? MMA_NT * 16 * 4 : 256 * 4;
+  static constexpr int BAR = TAB + TAB_BYTES;        // 2 NS mbarriers
+  // a tile that sums the splits itself keeps their running sum here, a
+  // word per thread and accumulator: [BM / 2][MMA_NT] f32
+  static constexpr int TOT = BAR + 16 * NS;
+  static constexpr int TOT_BYTES =
+      BM >= WG_IN_BLOCK_BM ? BM / 2 * MMA_NT * 4 : 0;
+  static constexpr int BYTES = TOT + TOT_BYTES + 2048;  // + room to align
+                                                        // to 2 KB
+  static_assert(AST % 1024 == 0, "activation stages hold whole atoms");
+};
+
+// The weight level of code c in column n, in f32: the plain version's
+// rounding (a separate multiply and add for Gaussian levels).
+template <int WM>
+__device__ __forceinline__ float wlevel(const Args& p, int c, int n, float mu,
+                                        float sigma, float t) {
+  if (WM == W_GAUSS) return __fadd_rn(mu, __fmul_rn(sigma, t));
+  if (WM == W_LUT_SHARED) return t;
+  return n < p.N ? __ldg(p.lut + (size_t)c * p.N + n) : 0.0f;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t addr, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(addr), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t addr) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(addr) : "memory");
+}
+
+// the phase cannot complete before this thread's cp.async copies landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t addr) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n"
+               :: "r"(addr) : "memory");
+}
+
+// waits for the phase of parity `parity` to complete; traps (a launch
+// error, not a hang) if it has not after ~2^24 polls
+__device__ __forceinline__ void mbar_wait(uint32_t addr, int parity) {
+  for (int n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (n > (1 << 24)) __trap();
+  }
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// The transposed product out^T (N, M) = W^T (N, K) . a^T (K, M) on the
+// warpgroup tensor cores.  Warpgroup g owns the block's columns [64g,
+// 64g+64), the rows of its wgmma; the instruction's N is the block's BM
+// tokens.  A (the weight) is built in registers from the staged bytes by
+// table lookup; B (the activations) is read by the tensor cores from the
+// staged (BM, 64) tile.  Every thread copies a share of each stage and
+// arrives on the stage's `full` mbarrier; each warp arrives on its `empty`
+// mbarrier once its wgmma on the stage is done, and the stage two behind is
+// refilled when all have: the two warpgroups run up to a stage apart
+// instead of meeting at a block barrier every stage.  A tile of
+// WG_IN_BLOCK_BM rows or more walks all of K and adds the splits' sums in
+// the reduce kernel's order (each split summed from zero, then left to
+// right), so its bits equal the split-across-blocks result.
+template <int BITS, int BM, int WM>
+__global__ void __launch_bounds__(MMA_NT, BM <= 16 ? 4 : BM <= 32 ? 3
+                                  : BM <= 64 ? 2 : 1)
+    qmatmul_wg_kernel(const Args p) {
+  constexpr bool IN_BLOCK = BM >= WG_IN_BLOCK_BM;
+  using L = WgSmem<BITS, BM>;
+  constexpr int NS = L::NS, WROW = L::WROW, WS = L::WS, AST = L::AST;
+  constexpr int W_CHUNKS = MBK * WROW / 16;  // 16-byte chunks of a stage
+  constexpr int WPT = W_CHUNKS / MMA_NT;
+  constexpr int A_CHUNKS = BM * MBK / 8;
+  constexpr int APT = (A_CHUNKS + MMA_NT - 1) / MMA_NT;
+  static_assert(W_CHUNKS % MMA_NT == 0, "weight chunks per thread");
+  static_assert(BM % 16 == 0 && BM <= 128, "wgmma N");
+
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* smem = wg_smem + ((2048 - (smem_u32(wg_smem) & 2047)) & 2047);
+  uint8_t* s_a = smem + L::A;                  // [NS][BM][64] bf16, swizzled
+  uint8_t* s_w = smem + L::W;                  // [NS][MBK][WS] packed bytes
+  const uint32_t s_a_addr = smem_u32(s_a);
+  const uint32_t full0 = smem_u32(smem + L::BAR);   // full[b], empty[b]:
+  const uint32_t empty0 = full0 + 8 * NS;           // 8 bytes each
+
+  const int M = p.M, K = p.K, N = p.N;
+  const __nv_bfloat16* __restrict__ a =
+      static_cast<const __nv_bfloat16*>(p.a);
+  const uint8_t* __restrict__ w = p.w;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;     // A row (weight column) / D row
+  const int tig = lane & 3;      // A k pair / D column (token) pair
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const int split = blockIdx.z;
+  const int k_begin = IN_BLOCK ? 0 : split * p.kchunk;
+  const int k_end = IN_BLOCK ? K : min(K, k_begin + p.kchunk);
+  const int ldw = N * BITS / 8;              // bytes per weight row
+  const int wbyte0 = n0 * BITS / 8;
+  const bool vec_w = (ldw % 16 == 0) &&
+                     ((reinterpret_cast<uintptr_t>(w) & 15) == 0);
+  const bool vec_a = (K % 8 == 0) &&
+                     ((reinterpret_cast<uintptr_t>(a) & 15) == 0);
+  const uint8_t* a_bytes = reinterpret_cast<const uint8_t*>(a);
+  const int col0 = n0 + warp * 16 + gid;     // this thread's two weight
+  const int col1 = col0 + 8;                 // columns (A rows gid, gid+8)
+
+  // one stage: (MBK, 128) packed weight bytes and the (BM, MBK) activation
+  // tile, zero outside M, N and the split's K range; then this thread's
+  // arrival on the stage's `full` barrier
+  auto load_stage = [&](int k0, int buf) {
+#pragma unroll
+    for (int t = 0; t < WPT; ++t) {
+      const int c = tid + t * MMA_NT;
+      const int r = c / (WROW / 16);
+      const int col = (c % (WROW / 16)) * 16;
+      const int k = k0 + r;
+      const int gcol = wbyte0 + col;
+      const int nbytes = k < k_end ? max(0, min(16, ldw - gcol)) : 0;
+      copy16(&s_w[(buf * MBK + r) * WS + col], w + (size_t)k * ldw + gcol,
+             nbytes, vec_w, w);
+    }
+#pragma unroll
+    for (int t = 0; t < APT; ++t) {
+      const int c = tid + t * MMA_NT;
+      if (A_CHUNKS % MMA_NT == 0 || c < A_CHUNKS) {
+        const int r = c >> 3;
+        const int j = c & 7;
+        const int m = m0 + r;
+        const int k = k0 + 8 * j;
+        const int nbytes = m < M ? 2 * max(0, min(8, k_end - k)) : 0;
+        copy16(s_a + buf * AST + r * 128 + ((j ^ (r & 7)) << 4),
+               a_bytes + ((size_t)m * K + k) * 2, nbytes, vec_a, a_bytes);
+      }
+    }
+    mbar_arrive_cp_async(full0 + 8 * buf);   // and the plain stores, by
+    mbar_arrive(full0 + 8 * buf);            // the release of the arrival
+  };
+
+  const int nk = (k_end - k_begin + MBK - 1) / MBK;   // <= 0: empty split
+  if (tid == 0) {
+    for (int b = 0; b < NS; ++b) {
+      mbar_init(full0 + 8 * b, MMA_NT);
+      mbar_init(empty0 + 8 * b, MMA_NT / 32);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int st = 0; st < NS - 2; ++st)
+    if (st < nk) load_stage(k_begin + st * MBK, st);
+
+  // the level table, while the first stages are in flight.  W4: each
+  // thread writes, and later reads, only its own 16 words, one bank per
+  // lane: word c = {bf16 level of code c in col0, in col1}.  W8: 256 f32
+  // values shared by the block, the statistics in registers.
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + L::TAB) +
+                  warp * 16 * 32 + lane;
+  float* s_t = reinterpret_cast<float*>(smem + L::TAB);
+  float mu0 = 0.0f, sg0 = 0.0f, mu1 = 0.0f, sg1 = 0.0f;
+  if (WM == W_GAUSS) {
+    if (col0 < N) mu0 = p.mu[col0], sg0 = p.sigma[col0];
+    if (col1 < N) mu1 = p.mu[col1], sg1 = p.sigma[col1];
+  }
+  if (BITS == 4) {
+#pragma unroll 4
+    for (int c = 0; c < 16; ++c) {
+      const float t = WM == W_GAUSS ? __ldg(p.table + c)
+                      : WM == W_LUT_SHARED ? __ldg(p.lut + c) : 0.0f;
+      tab[c * 32] = pack_bf16(wlevel<WM>(p, c, col0, mu0, sg0, t),
+                              wlevel<WM>(p, c, col1, mu1, sg1, t));
+    }
+  } else if (WM != W_LUT_COL) {
+    s_t[tid] = WM == W_GAUSS ? p.table[tid] : p.lut[tid];
+  }
+  __syncthreads();
+  // W4: the word of code c sits at tab_addr + 128 c, and tab_addr has bits
+  // 7-10 clear, so one rotate and one and-or form the address
+  const uint32_t tab_addr = smem_u32(tab);
+  const int rot = (4 * gid - 7) & 31;        // nibble gid -> bits 7-10
+
+  // the A fragments of one k16 step: a[0] = col0 at k 2 tig, +1; a[1] =
+  // col1 at the same k; a[2], a[3] the same at k + 8.  A staged row's bytes
+  // of the warp's 16 columns are loaded once (8 at W4, 16 at W8).
+  auto build = [&](const uint8_t* sw, int ks, uint32_t (&af)[4]) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint8_t* row = sw + (ks * 16 + tig * 2 + half * 8) * WS;
+      if (BITS == 4) {
+        const uint2 q0 = *reinterpret_cast<const uint2*>(row + warp * 8);
+        const uint2 q1 = *reinterpret_cast<const uint2*>(row + WS + warp * 8);
+        auto look = [&](uint32_t q) {
+          return lds32((__funnelshift_r(q, q, rot) & 0x780u) | tab_addr);
+        };
+        // col0: the low halves of rows k, k+1; col1: the high halves
+        af[2 * half] = __byte_perm(look(q0.x), look(q1.x), 0x5410);
+        af[2 * half + 1] = __byte_perm(look(q0.y), look(q1.y), 0x7632);
+      } else {
+        const uint4 q0 = *reinterpret_cast<const uint4*>(row + warp * 16);
+        const uint4 q1 = *reinterpret_cast<const uint4*>(row + WS + warp * 16);
+        const int sh = 8 * (gid & 3);
+        const bool hi = gid >> 2;
+        const int c00 = (((hi ? q0.y : q0.x) >> sh) & 0xFF) ^ 0x80;
+        const int c01 = (((hi ? q1.y : q1.x) >> sh) & 0xFF) ^ 0x80;
+        const int c10 = (((hi ? q0.w : q0.z) >> sh) & 0xFF) ^ 0x80;
+        const int c11 = (((hi ? q1.w : q1.z) >> sh) & 0xFF) ^ 0x80;
+        const bool tab_ok = WM != W_LUT_COL;
+        af[2 * half] = pack_bf16(
+            wlevel<WM>(p, c00, col0, mu0, sg0, tab_ok ? s_t[c00] : 0.0f),
+            wlevel<WM>(p, c01, col0, mu0, sg0, tab_ok ? s_t[c01] : 0.0f));
+        af[2 * half + 1] = pack_bf16(
+            wlevel<WM>(p, c10, col1, mu1, sg1, tab_ok ? s_t[c10] : 0.0f),
+            wlevel<WM>(p, c11, col1, mu1, sg1, tab_ok ? s_t[c11] : 0.0f));
+      }
+    }
+  };
+
+  float acc[BM / 2];
+#pragma unroll
+  for (int i = 0; i < BM / 2; ++i) acc[i] = 0.0f;
+  // the splits summed so far (IN_BLOCK): this thread's words, conflict-free
+  float* total = reinterpret_cast<float*>(smem + L::TOT) + tid;
+  bool first = true;                         // no split summed yet
+  const int split_stages = p.kchunk / MBK;
+
+  for (int it = 0; it < nk; ++it) {
+    const int st = it + NS - 2;    // into the buffer of stage it - 2
+    if (st < nk) {
+      if (st >= NS) mbar_wait(empty0 + 8 * (st % NS), (st / NS - 1) & 1);
+      load_stage(k_begin + st * MBK, st % NS);
+    }
+    if constexpr (IN_BLOCK) {
+      if (it > 0 && it % split_stages == 0) {   // a split ends
+#pragma unroll
+        for (int i = 0; i < BM / 2; ++i) {
+          total[i * MMA_NT] = first ? acc[i] : total[i * MMA_NT] + acc[i];
+          acc[i] = 0.0f;
+        }
+        first = false;
+      }
+    }
+    const int buf = it % NS;
+    mbar_wait(full0 + 8 * buf, (it / NS) & 1);
+    fence_proxy_async();
+    const uint8_t* sw = s_w + buf * MBK * WS;
+    uint32_t af[MBK / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < MBK / 16; ++ks) build(sw, ks, af[ks]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < MBK / 16; ++ks)
+      wgmma_rs(acc, af[ks], wg_desc(s_a_addr + buf * AST + ks * 32));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * buf);
+  }
+
+  // acc[4j + h] is (col0, token 8j + 2 tig + h), acc[4j + 2 + h] (col1, the
+  // same token)
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + 8 * j + 2 * tig + h;
+      if (m >= M) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int n = c ? col1 : col0;
+        const int i = 4 * j + 2 * c + h;
+        if (n >= N) continue;
+        const size_t o = (size_t)m * N + n;
+        if constexpr (!IN_BLOCK) {
+          p.part[(size_t)split * M * N + o] = acc[i];
+        } else {
+          const float v = first ? acc[i] : total[i * MMA_NT] + acc[i];
+          if (p.out_bf16)
+            static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16(v);
+          else
+            static_cast<float*>(p.out)[o] = v;
+        }
+      }
+    }
+  }
+}
+
+template <int BITS, int BM, int WM>
+int launch_wg(const Args& p, int splitk, cudaStream_t stream) {
+  constexpr int bytes = WgSmem<BITS, BM>::BYTES;
+  static bool ready = false;     // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmatmul_wg_kernel<BITS, BM, WM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM,
+            BM >= WG_IN_BLOCK_BM ? 1 : splitk);
+  qmatmul_wg_kernel<BITS, BM, WM><<<grid, MMA_NT, bytes, stream>>>(p);
+  return 0;
+}
+
+template <int BITS, int WM>
+int launch_wg_bm(int bm, const Args& p, int splitk, cudaStream_t stream) {
+  switch (bm) {
+    case 8:     // the narrowest tile is 16 rows
+    case 16:
+      return launch_wg<BITS, 16, WM>(p, splitk, stream);
+    case 32:
+      return launch_wg<BITS, 32, WM>(p, splitk, stream);
+    case 64:
+      return launch_wg<BITS, 64, WM>(p, splitk, stream);
+    case 128:
+      return launch_wg<BITS, 128, WM>(p, splitk, stream);
+    default:
+      return -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// int8 activation codes: exact tensor-core body (qmatmul_a8)
+// ---------------------------------------------------------------------------
 
 // Shared memory of the A8 body (dynamic: a W8 block at 64 rows exceeds
 // the 48 KB of static shared memory), in bytes.
@@ -709,8 +957,10 @@ __global__ void __launch_bounds__(MMA_NT, MT == 1 ? 4 : 2)
       for (int j = 0; j < 4; ++j) acc_h[mt][nt][j] = acc_dl[mt][nt][j] = 0.0f;
   int rpart = 0;                 // this thread's 16 codes of each stage
   const uint2* lut = s_lut + (lane % COPIES);
-  const int frag_row = lane & 15;      // ldmatrix lane addressing, as in
-  const int frag_col = (lane >> 4) * 8;  // the bf16 body
+  // ldmatrix lane addressing: lanes 0-15 name rows 0-15 at column 0,
+  // lanes 16-31 the same rows at column 8
+  const int frag_row = lane & 15;
+  const int frag_col = (lane >> 4) * 8;
 
   for (int it = 0; it < nk; ++it) {
     cp_async_wait<NS - 2>();   // this thread's copies of stage `it` landed
@@ -905,6 +1155,7 @@ int launch_bm(int bm, const Args& p, int splitk, cudaStream_t stream) {
       launch_tile<BITS, 32, 8, 4, 4, WM>(p, splitk, stream);
       return 0;
     case 64:
+    case 128:   // the widest CUDA-core tile is 64 rows
       launch_tile<BITS, 16, 16, 4, 8, WM>(p, splitk, stream);
       return 0;
     default:
@@ -912,13 +1163,13 @@ int launch_bm(int bm, const Args& p, int splitk, cudaStream_t stream) {
   }
 }
 
-// The tensor-core body for bf16 activations, the CUDA-core body for f32.
+// The warpgroup body for bf16 activations, the CUDA-core body for f32.
 template <int WM>
 int launch_body(int tensor_cores, int bits, int bm, const Args& p, int splitk,
                 cudaStream_t stream) {
   if (tensor_cores)
-    return bits == 4 ? launch_mma_bm<4, WM>(bm, p, splitk, stream)
-                     : launch_mma_bm<8, WM>(bm, p, splitk, stream);
+    return bits == 4 ? launch_wg_bm<4, WM>(bm, p, splitk, stream)
+                     : launch_wg_bm<8, WM>(bm, p, splitk, stream);
   return bits == 4 ? launch_bm<4, WM>(bm, p, splitk, stream)
                    : launch_bm<8, WM>(bm, p, splitk, stream);
 }
@@ -930,7 +1181,8 @@ int check_shape(int bits, int M, int K, int N, int splitk) {
   return 0;
 }
 
-Args make_args(int M, int K, int N, int splitk, float* part) {
+Args make_args(int M, int K, int N, int splitk, float* part, void* out,
+               int out_bf16) {
   Args p = {};
   p.M = M;
   p.K = K;
@@ -938,20 +1190,23 @@ Args make_args(int M, int K, int N, int splitk, float* part) {
   int kchunk = (K + splitk - 1) / splitk;
   p.kchunk = ((kchunk + MBK - 1) / MBK) * MBK;   // a multiple of both stages
   p.part = part;
+  p.out = out;
+  p.out_bf16 = out_bf16;
   return p;
 }
 
-// Checks the body's launch, then adds the splits into `out`.
-int reduce(int rc, const Args& p, void* out, int out_bf16, int splitk,
+// Checks the body's launch, then adds the splits into `out` unless the
+// body wrote it (`written`).
+int reduce(int rc, const Args& p, int splitk, bool written,
            cudaStream_t stream) {
   if (rc != 0) return rc;
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || written) return static_cast<int>(err);
   const size_t mn = (size_t)p.M * p.N;
   const int threads = 256;
   const unsigned blocks = (unsigned)((mn + threads - 1) / threads);
-  qmatmul_reduce_kernel<<<blocks, threads, 0, stream>>>(p.part, out, out_bf16,
-                                                        splitk, mn);
+  qmatmul_reduce_kernel<<<blocks, threads, 0, stream>>>(
+      p.part, p.out, p.out_bf16, splitk, mn);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -969,14 +1224,14 @@ extern "C" int qmatmul_launch(const void* a, int a_bf16, const void* w,
   const int bad = check_shape(bits, M, K, N, splitk);
   if (bad) return bad;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Args p = make_args(M, K, N, splitk, part);
+  Args p = make_args(M, K, N, splitk, part, out, out_bf16);
   p.a = a;
   p.w = static_cast<const uint8_t*>(w);
   p.mu = mu;
   p.sigma = sigma;
   p.table = table;
   const int rc = launch_body<W_GAUSS>(a_bf16, bits, bm, p, splitk, stream);
-  return reduce(rc, p, out, out_bf16, splitk, stream);
+  return reduce(rc, p, splitk, a_bf16 && bm >= WG_IN_BLOCK_BM, stream);
 }
 
 // a: (M, K) f32 or bf16; lut: (k,) shared by every column (lut_per_col = 0)
@@ -989,7 +1244,7 @@ extern "C" int qmatmul_lut_launch(const void* a, int a_bf16, const void* w,
   const int bad = check_shape(bits, M, K, N, splitk);
   if (bad) return bad;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Args p = make_args(M, K, N, splitk, part);
+  Args p = make_args(M, K, N, splitk, part, out, out_bf16);
   p.a = a;
   p.w = static_cast<const uint8_t*>(w);
   p.lut = lut;
@@ -997,7 +1252,7 @@ extern "C" int qmatmul_lut_launch(const void* a, int a_bf16, const void* w,
       lut_per_col
           ? launch_body<W_LUT_COL>(a_bf16, bits, bm, p, splitk, stream)
           : launch_body<W_LUT_SHARED>(a_bf16, bits, bm, p, splitk, stream);
-  return reduce(rc, p, out, out_bf16, splitk, stream);
+  return reduce(rc, p, splitk, a_bf16 && bm >= WG_IN_BLOCK_BM, stream);
 }
 
 // a_codes: (M, K) int8; scale: (M,) (scale_per_row = 1) or one f32 value;
@@ -1012,7 +1267,7 @@ extern "C" int qmatmul_a8_launch(const void* a_codes, const float* scale,
   const int bad = check_shape(bits, M, K, N, splitk);
   if (bad) return bad;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  Args p = make_args(M, K, N, splitk, part);
+  Args p = make_args(M, K, N, splitk, part, out, out_bf16);
   p.a = a_codes;
   p.a_scale = scale;
   p.scale_per_row = scale_per_row;
@@ -1022,5 +1277,5 @@ extern "C" int qmatmul_a8_launch(const void* a_codes, const float* scale,
   p.split = static_cast<const uint16_t*>(split);
   const int rc = bits == 4 ? launch_a8_bm<4>(bm, p, splitk, stream)
                            : launch_a8_bm<8>(bm, p, splitk, stream);
-  return reduce(rc, p, out, out_bf16, splitk, stream);
+  return reduce(rc, p, splitk, false, stream);
 }

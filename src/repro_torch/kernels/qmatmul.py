@@ -25,10 +25,13 @@ from repro_torch.kernels import ref as kref
 @dataclasses.dataclass(frozen=True)
 class BlockConfig:
     """One point on the block-shape tuning axis: ``bm`` rows per block
-    select the kernel instantiation (8, 16, 32 or 64; the tensor-core body's
-    narrowest tile is 16 rows and serves 8 too).  A block's tile is always
-    128 columns wide; a stage is 64 rows of K on the tensor cores and 32 on
-    the CUDA cores."""
+    select the kernel instantiation.  bf16 activations (the warpgroup body
+    of ``qmatmul`` / ``qmatmul_lut``): 16, 32, 64 or 128 rows, the wgmma's
+    N, with 8 taking the 16-row tile; from 64 rows on a block sums every
+    split of K itself.  f32 activations (the CUDA-core body): 8, 16, 32 or
+    64, which also serves 128.  ``qmatmul_a8``: 16, 32 or 64, with 8 taking
+    16.  A block's tile is always 128 columns wide; a stage is 64 rows of K
+    on the tensor cores and 32 on the CUDA cores."""
     bm: int
 
 
@@ -36,8 +39,15 @@ TUNED_BLOCKS = {
     "decode8": BlockConfig(bm=8),
     "decode16": BlockConfig(bm=16),
     "decode": BlockConfig(bm=32),
-    "prefill": BlockConfig(bm=64),
+    "prefill64": BlockConfig(bm=64),      # and every qmatmul_a8 prefill
+    "prefill": BlockConfig(bm=128),
 }
+_TILES = {"qmatmul_launch": (8, 16, 32, 64, 128),
+          "qmatmul_lut_launch": (8, 16, 32, 64, 128),
+          "qmatmul_a8_launch": (8, 16, 32, 64)}
+_IN_BLOCK_BM = 64             # csrc/qmatmul.cu WG_IN_BLOCK_BM: bf16 tiles this
+                              # tall sum every split in the block and write
+                              # the output, with no split-K scratch
 
 _DECODE_M_MAX = 32
 _MAX_SPLITK = 16
@@ -46,14 +56,17 @@ _TARGET_BLOCKS = 1056         # eight blocks per SM of a 132-SM card: a block
                               # number of resident blocks that hides latency
 
 
-def default_blocks(M: int) -> BlockConfig:
-    """Pick the block config for a call of M rows."""
+def default_blocks(M: int, a8: bool = False) -> BlockConfig:
+    """Pick the block config for a call of M rows (``a8``: for
+    ``qmatmul_a8``, whose widest tile is 64 rows)."""
     if M <= 8:
         return TUNED_BLOCKS["decode8"]
     if M <= 16:
         return TUNED_BLOCKS["decode16"]
     if M <= _DECODE_M_MAX:
         return TUNED_BLOCKS["decode"]
+    if a8 or M <= 64:
+        return TUNED_BLOCKS["prefill64"]
     return TUNED_BLOCKS["prefill"]
 
 
@@ -182,14 +195,18 @@ def _launch(name, operands, tensors, M, K, N, out_dtype, blocks, splitk,
     for tname, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{tname} must be contiguous")
-    cfg = blocks if blocks is not None else default_blocks(M)
-    if cfg.bm not in (8, 16, 32, 64):
-        raise ValueError(f"no kernel instantiation for {cfg}")
+    cfg = blocks if blocks is not None else default_blocks(
+        M, a8=name == "qmatmul_a8_launch")
+    if cfg.bm not in _TILES[name]:
+        raise ValueError(f"no kernel instantiation for {cfg} in {name}")
     nsplit = splitk if splitk is not None else default_splitk(K, N)
+    in_block = (name != "qmatmul_a8_launch" and cfg.bm >= _IN_BLOCK_BM
+                and tensors["a"].dtype == torch.bfloat16)
     fn = _bind(name)
     dev = next(iter(tensors.values())).device
     with loader.on_device(dev):
-        part = torch.empty((nsplit, M, N), dtype=torch.float32, device=dev)
+        part = torch.empty((0 if in_block else nsplit, M, N),
+                           dtype=torch.float32, device=dev)
         out = torch.empty((M, N), dtype=out_dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*operands, part.data_ptr(), out.data_ptr(),
@@ -244,8 +261,8 @@ def qmatmul_lut(a: torch.Tensor, w_packed: torch.Tensor, lut: torch.Tensor,
     lut      : (k, N) f32 per-column levels, or (k,) f32 one codebook for
                every column (the engine's per-tensor ``q_lut``; taken with
                a column stride of 0, never expanded).
-    bf16 activations meet levels rounded to bf16 on the tensor cores; f32
-    activations f32 levels on the CUDA cores.
+    bf16 activations meet levels rounded to bf16 on the tensor cores (the
+    body ``qmatmul`` runs); f32 activations f32 levels on the CUDA cores.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version.  ``qmatmul_lut.launches`` counts kernel launches.

@@ -14,8 +14,10 @@ from repro.kernels import ops as jops
 from repro.kernels import qmatmul as jqmm
 from repro.kernels import ref as jref
 
+from repro_torch.core import packing as tpack
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import qmatmul as tqmm
+from repro_torch.kernels import ref as tref
 
 
 def _inputs(M, K, N, bits, seed=0):
@@ -137,12 +139,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_block_config_axis():
     """Block shapes stay a config axis; the split count over K depends on
-    (K, N) only, so a row's bits cannot depend on M."""
+    (K, N) only, so a row's bits cannot depend on M.  Prefill takes a tall
+    tile of the warpgroup body (a weight stage is decoded once per block);
+    ``qmatmul_a8``'s widest tile stays 64 rows."""
     assert tqmm.default_blocks(1).bm == 8
     assert tqmm.default_blocks(16).bm == 16
     assert tqmm.default_blocks(32) == tqmm.TUNED_BLOCKS["decode"]
-    assert tqmm.default_blocks(33) == tqmm.TUNED_BLOCKS["prefill"]
-    assert tqmm.default_blocks(4096).bm == 64
+    assert tqmm.default_blocks(33) == tqmm.TUNED_BLOCKS["prefill64"]
+    assert tqmm.default_blocks(65) == tqmm.TUNED_BLOCKS["prefill"]
+    assert tqmm.default_blocks(4096).bm == 128
+    assert tqmm.default_blocks(32, a8=True) == tqmm.TUNED_BLOCKS["decode"]
+    assert tqmm.default_blocks(4096, a8=True).bm == 64
+    for M in (1, 16, 32, 33, 256, 4096):
+        assert tqmm.default_blocks(M).bm in tqmm._TILES["qmatmul_launch"]
+        assert tqmm.default_blocks(M, a8=True).bm in \
+            tqmm._TILES["qmatmul_a8_launch"]
     for K, N in [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096),
                  (64, 32), (200, 130)]:
         s = tqmm.default_splitk(K, N)
@@ -163,3 +174,120 @@ def test_launch_counter_counts_only_kernel_launches():
                            "uniq_noise_fwd", "uniq_noise_bwd", "qmatmul_a8",
                            "qmatmul_lut", "kquantile_quantize",
                            "kquantile_dequantize", "uniq_noise_fwd_onchip"}
+
+
+# -- the warpgroup body's arithmetic, emulated on the CPU ---------------------
+#
+# For bf16 activations the CUDA kernel multiplies by a per-block table of
+# bf16 levels, bf16(mu + sigma * T[c]) with a separate f32 multiply and add,
+# and sums over K in 16-row steps inside each split, then over the splits
+# left to right (csrc/qmatmul.cu, qmatmul_wg_kernel).  The tests below hold
+# that emulation to the plain version and to the reference.
+
+# chip_smoke.py's TOL_QMM_F32: the card check holds the kernel to the plain
+# version within this; the emulation is held to the same bound here.
+TOL_QMM_F32 = 5e-4
+
+
+def _gauss_table(bits, mu, sd):
+    """The kernel's table for every code x column: f32 multiply, then f32
+    add, then round to nearest even bf16 (numpy's float32 ops round each
+    result once, like __fmul_rn / __fadd_rn)."""
+    k = 2 ** bits
+    t = tref.level_table(k).numpy()[:, None]
+    lv = np.float32(mu) + np.float32(sd) * t                  # (k, N) f32
+    return torch.from_numpy(lv.astype(np.float32)).to(torch.bfloat16)
+
+
+def _all_codes(bits, N):
+    """A (k, N) weight whose row c holds code c in every column, stored as
+    the kernel reads it (packed at W4, offset by -128 at W8)."""
+    k = 2 ** bits
+    c = torch.arange(k)[:, None].expand(k, N)
+    return tpack.pack_int4(c) if bits == 4 else (c - 128).to(torch.int8)
+
+
+def _stats_for(kind, N, seed):
+    r = np.random.default_rng(seed)
+    mu = (r.standard_normal((1, N)) * 0.01).astype(np.float32)
+    sd = (0.02 * (0.5 + r.random((1, N)))).astype(np.float32)
+    if kind == "per_tensor":
+        # one value each, broadcast to (1, N) the way ops._stats does
+        return (tops._stats(torch.from_numpy(mu[:, :1]), N).numpy(),
+                tops._stats(torch.from_numpy(sd[:, :1]), N).numpy())
+    return mu, sd
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("kind", ["per_channel", "per_tensor"])
+def test_kernel_level_table_is_the_plain_bf16_weight(bits, kind):
+    """Every code x column of the kernel's table equals, bit for bit, the
+    weight the plain version multiplies for bf16 activations."""
+    k, N = 2 ** bits, 130
+    mu, sd = _stats_for(kind, N, seed=50 + bits)
+    table = _gauss_table(bits, mu, sd)
+    wp = _all_codes(bits, N)
+    # the plain version's weight, read through the plain product with an
+    # identity: row c of eye(k) @ W is W's row c, exactly
+    eye = torch.eye(k, dtype=torch.bfloat16)
+    got = tqmm.qmatmul_plain(eye, wp, torch.from_numpy(mu),
+                             torch.from_numpy(sd), bits=bits)
+    assert torch.equal(got.to(torch.bfloat16).view(torch.int16),
+                       table.view(torch.int16))
+    # and the plain version's own dequantization, to the bit
+    codes = tpack.unpack_int4(wp) if bits == 4 else wp
+    w = tref.kquantile_dequant_ref(codes, torch.from_numpy(mu),
+                                   torch.from_numpy(sd), k,
+                                   dtype=torch.bfloat16)
+    assert torch.equal(w.view(torch.int16), table.view(torch.int16))
+
+
+def _kernel_sum(a, w, splitk):
+    """The kernel's order of the f32 sum: within each split of K (its
+    length rounded up to 64 rows, as the C entry point does) 16-row steps
+    from zero, then the splits added left to right."""
+    M, K = a.shape
+    kchunk = -(-K // splitk)
+    kchunk = -(-kchunk // 64) * 64
+    a, w = a.to(torch.float32), w.to(torch.float32)
+    out = None
+    for s in range(splitk):
+        acc = torch.zeros((M, w.shape[1]), dtype=torch.float32)
+        for k0 in range(s * kchunk, min(K, (s + 1) * kchunk), 16):
+            acc = acc + a[:, k0:k0 + 16] @ w[k0:k0 + 16]
+        out = acc if out is None else out + acc
+    return out
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("kind", ["per_channel", "per_tensor"])
+@pytest.mark.parametrize("M", [16, 40])
+def test_kernel_sum_order_matches_plain_and_reference(bits, kind, M):
+    """The transposed product from the kernel's table, summed in the
+    kernel's order, agrees with ``qmatmul_plain`` within the card check's
+    ``TOL_QMM_F32`` and, rounded to bf16, with the reference's bf16 serving
+    matmul within one bf16 step."""
+    K, N = 512, 192
+    r = np.random.default_rng(60 + M + bits)
+    a = (r.standard_normal((M, K))).astype(np.float32)
+    codes = r.integers(0, 2 ** bits, size=(K, N))
+    mu, sd = _stats_for(kind, N, seed=61 + bits)
+    wp = tpack.pack_int4(torch.from_numpy(codes)) if bits == 4 else \
+        torch.from_numpy(codes - 128).to(torch.int8)
+    a16 = torch.from_numpy(a).to(torch.bfloat16)
+    table = _gauss_table(bits, mu, sd)
+    w = table[torch.from_numpy(codes), torch.arange(N)]       # (K, N) bf16
+    splitk = tqmm.default_splitk(K, N)
+    assert splitk > 1                      # the fold over splits is exercised
+    got = _kernel_sum(a16, w, splitk)
+    tmu, tsd = torch.from_numpy(mu), torch.from_numpy(sd)
+    plain = tqmm.qmatmul_plain(a16, wp, tmu, tsd, bits=bits)
+    assert (got - plain).abs().max().item() <= TOL_QMM_F32
+    from repro.models.lm import mm as jmm
+    want = np.asarray(jmm(jnp.asarray(a).astype(jnp.bfloat16),
+                          {"q_codes": jnp.asarray(wp.numpy()),
+                           "q_mu": jnp.asarray(mu),
+                           "q_sigma": jnp.asarray(sd)}).astype(jnp.float32))
+    # both round f32 sums of the same bf16 products to bf16: one step apart
+    np.testing.assert_allclose(got.to(torch.bfloat16).float().numpy(), want,
+                               atol=2 ** -8, rtol=2 ** -7)

@@ -327,3 +327,78 @@ def test_launch_counters_count_only_kernel_launches():
     tqmm.qmatmul_lut(torch.ones(2, 16), twp, torch.zeros(16), bits=4)
     assert tops.launch_counts() == before
     assert {"qmatmul_a8", "qmatmul_lut"} <= set(before)
+
+
+# -- qmatmul_lut's warpgroup body, emulated on the CPU ------------------------
+#
+# For bf16 activations the kernel multiplies by a per-block table holding
+# bf16(lut[c]) (one codebook) or bf16(lut[c, n]) (per column) and sums in the
+# order of csrc/qmatmul.cu's qmatmul_wg_kernel: 16-row steps from zero inside
+# each split of K, then the splits left to right.
+
+# chip_smoke.py's TOL_QMM_LUT, the bound the card check holds the kernel to
+TOL_QMM_LUT = 5e-4
+
+
+def _lut_table(lut, N):
+    """The kernel's (k, N) table: each entry rounded to nearest even bf16."""
+    t = torch.from_numpy(lut)
+    if t.ndim == 1:
+        t = t[:, None].expand(t.shape[0], N)
+    return t.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("per_col", [True, False])
+def test_lut_kernel_table_is_the_plain_bf16_weight(bits, per_col):
+    """Every code x column of the kernel's table equals, bit for bit, the
+    weight the plain version multiplies for bf16 activations."""
+    k, N = 2 ** bits, 130
+    lut = _lut(N, bits, per_col, seed=70 + bits)
+    c = torch.arange(k)[:, None].expand(k, N)
+    wp = tpack.pack_int4(c) if bits == 4 else (c - 128).to(torch.int8)
+    # row c of eye(k) @ W is W's row c: the plain version's weight, exactly
+    got = tqmm.qmatmul_lut_plain(torch.eye(k, dtype=torch.bfloat16), wp,
+                                 torch.from_numpy(lut), bits=bits)
+    assert torch.equal(got.to(torch.bfloat16).view(torch.int16),
+                       _lut_table(lut, N).view(torch.int16))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("per_col", [True, False])
+def test_lut_kernel_sum_order_matches_plain_and_reference(bits, per_col):
+    """The transposed product from the kernel's table, summed in the
+    kernel's order, agrees with ``qmatmul_lut_plain`` within the card
+    check's ``TOL_QMM_LUT`` and, for the engine's (k,) codebook, with the
+    reference's bf16 serving matmul within one bf16 step."""
+    M, K, N = 24, 512, 192
+    r = np.random.default_rng(80 + bits + per_col)
+    a = (r.standard_normal((M, K)) * 0.5).astype(np.float32)
+    wp, lut = _codes(K, N, bits, seed=81), _lut(N, bits, per_col, seed=82)
+    twp = torch.from_numpy(wp)
+    codes = (tpack.unpack_int4(twp) if bits == 4 else twp).long() \
+        + tref.code_offset(2 ** bits)
+    w = _lut_table(lut, N)[codes, torch.arange(N)]            # (K, N) bf16
+    splitk = tqmm.default_splitk(K, N)
+    kchunk = -(-K // splitk)
+    kchunk = -(-kchunk // 64) * 64          # as the C entry point rounds it
+    a16 = torch.from_numpy(a).to(torch.bfloat16)
+    af, wf = a16.float(), w.float()
+    got = None
+    for s in range(splitk):                 # the kernel's order of the sum
+        acc = torch.zeros((M, N))
+        for k0 in range(s * kchunk, min(K, (s + 1) * kchunk), 16):
+            acc = acc + af[:, k0:k0 + 16] @ wf[k0:k0 + 16]
+        got = acc if got is None else got + acc
+    plain = tqmm.qmatmul_lut_plain(a16, twp, torch.from_numpy(lut),
+                                   bits=bits)
+    assert (got - plain).abs().max().item() <= TOL_QMM_LUT
+    if not per_col:
+        # the reference's bf16 serving matmul (materialize(w, x.dtype)):
+        # the same bf16 products, f32 sums rounded to bf16, one step apart
+        want = np.asarray(jlm.mm(jnp.asarray(a).astype(jnp.bfloat16),
+                                 {"q_codes": jnp.asarray(wp),
+                                  "q_lut": jnp.asarray(lut)})
+                          .astype(jnp.float32))
+        np.testing.assert_allclose(got.to(torch.bfloat16).float().numpy(),
+                                   want, atol=2 ** -8, rtol=2 ** -7)
