@@ -49,10 +49,12 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
 
 ``--layers N`` cuts the serving depth (never the width); ``--quick`` stops after
 phase 3 on a reduced shape list (for bringing a kernel up); ``--sweep``
-times the kernels' tuning axes (block rows, K splits, attention splits) at
-the serving shapes, holds ``qmatmul_a8`` and its plain version against the
-exact sum, and stops; ``--profile`` profiles an engine run (host by
-cProfile, device by torch.profiler) and stops.
+times the kernels' tuning axes (block rows, K splits; the attention
+body's splits, beside the CUDA-core body) at the
+serving shapes, holds ``qmatmul_a8`` and its plain version against the
+exact sum, and stops (``--sweep attention``: the attention part alone);
+``--profile`` profiles an engine run (host by cProfile, device by
+torch.profiler) and stops.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -126,11 +129,23 @@ TOL_QMM_BF16_REL = 2.0 ** -7
 #   accumulated online in another order and expf/tanhf differ from torch's
 #   by ulps.  Outputs are O(1).
 TOL_ATT_F32 = 2e-4
-# attention, bf16 queries: the plain version rounds the dequantized K/V and
-#   the softmax weights to bf16 before its products, the kernel keeps f32,
-#   and both round the result to bf16: a few 2^-8 relative steps on O(1)
-#   values.
+# attention, bf16 queries, absolute: the plain version rounds the
+#   dequantized K/V and the softmax weights to bf16 before its products;
+#   the CUDA-core body keeps all three in f32, the tensor-core body takes
+#   the plain version's own bf16 K/V and rounds P relative to the running
+#   max; both round the result to bf16.  A few 2^-8 relative steps on
+#   values below 2.
 TOL_ATT_BF16 = 4e-2
+# attention, bf16 queries, relative: max |out - plain| over a sequence's
+#   heads and dims, over max |plain| of that sequence.  A long context's
+#   outputs are small (V averages out: ~0.08 at most over 2048 rows), so
+#   the absolute limit above cannot see a lost chunk of rows.  Both bodies
+#   read up to about 2^-7 (one bf16 step of the result near its largest
+#   value); a chunk of 16 rows dropped reads 0.09 and more (``PERF.md``
+#   §6).  This limit sits between them, and phase 3 requires the
+#   dropped-chunk control of its first geometry above it.  The f32 K/V
+#   control reads like the sound bodies and is printed only.
+TOL_ATT_BF16_REL = 2.0 ** -5
 # full-width bf16 logits, kernels vs plain versions: 40 layers of bf16
 #   residual updates whose matmul outputs may differ by one bf16 ulp each
 #   and whose decode attention differs as above; stated relative to the
@@ -256,7 +271,10 @@ def make_qmm_inputs(gen, M, K, N, bits, a_dtype):
 
 
 def make_attn_inputs(gen, B, H, KV, D, page, n_pages, kv_bits, q_dtype,
-                     q_pos=None):
+                     q_pos=None, sink_tail=False):
+    """Random coded pool, tables and queries.  ``sink_tail``: ragged
+    ``q_pos`` with every table entry past a sequence's last page pointing
+    at the sink page, as the engine's tables do."""
     P = 1 + B * n_pages
     Dc = D // 2 if kv_bits == 4 else D
 
@@ -292,6 +310,9 @@ def make_attn_inputs(gen, B, H, KV, D, page, n_pages, kv_bits, q_dtype,
             qp[1] = S // 2
     else:
         qp = torch.tensor(q_pos, device=DEV)
+    if sink_tail:
+        used = (qp.clamp(min=0) // page + 1)[:, None]
+        bt[torch.arange(n_pages, device=DEV)[None] >= used] = 0
     q = torch.randn((B, 1, H, D), generator=gen, device=DEV).to(q_dtype)
     return dict(q=q, k_codes=k_codes, k_mu=k_mu, k_sigma=k_sigma,
                 v_codes=v_codes, v_mu=v_mu, v_sigma=v_sigma,
@@ -573,26 +594,96 @@ def check_kquantile(gen, quick: bool) -> float:
     return 0.0
 
 
+# (geometry, extra inputs, in the --quick list): the four earlier shapes,
+# then the tensor-core body's edges (G = 8 and 1, D = 64 and 256, pages of
+# 16 in a 40-page table, one sequence over 2048 rows, the most splits;
+# ragged q_pos over sink-padded tables) and bf16 shapes that attn_route
+# gives the CUDA-core body (D not a multiple of 16, a page of 4)
+ATTN_GEOMS = (
+    (dict(B=16, H=32, KV=8, D=128, page=64, n_pages=32), {}, True),
+    (dict(B=3, H=4, KV=2, D=16, page=8, n_pages=3), {}, True),
+    (dict(B=2, H=16, KV=8, D=256, page=16, n_pages=5), {}, False),
+    (dict(B=2, H=32, KV=4, D=128, page=64, n_pages=9), {}, False),
+    (dict(B=4, H=64, KV=8, D=128, page=64, n_pages=8), {}, True),
+    (dict(B=4, H=8, KV=8, D=128, page=64, n_pages=8), {}, False),
+    (dict(B=4, H=32, KV=8, D=64, page=64, n_pages=8), {}, False),
+    (dict(B=2, H=32, KV=8, D=256, page=64, n_pages=8), {}, False),
+    (dict(B=4, H=32, KV=8, D=128, page=16, n_pages=40), {}, True),
+    (dict(B=1, H=32, KV=8, D=128, page=64, n_pages=32),
+     dict(q_pos=[2047]), False),
+    (dict(B=8, H=32, KV=8, D=128, page=64, n_pages=16),
+     dict(sink_tail=True), True),
+    (dict(B=2, H=4, KV=2, D=24, page=8, n_pages=3), {}, False),
+    (dict(B=2, H=4, KV=2, D=32, page=4, n_pages=6), {}, False),
+)
+
+
+def attn_rel_err(out, want) -> float:
+    """Max over sequences of max |out - want| / max |want| within the
+    sequence (0 where both are exact zeros)."""
+    B = want.shape[0]
+    d = (out.float() - want.float()).abs().reshape(B, -1).amax(dim=1)
+    m = want.float().abs().reshape(B, -1).amax(dim=1)
+    return torch.where(d == 0, torch.zeros_like(d),
+                       d / m.clamp_min(1e-30)).max().item()
+
+
+def attn_controls(t, kv_bits, want) -> dict:
+    """Faulty versions of a bf16-query output, read by ``attn_rel_err``
+    against the sound plain version ``want`` (no window, no cap):
+    ``dropped chunk`` loses the first 16 rows (one chunk of the tensor-core
+    body) of every sequence whose context is the table's full width, by a
+    window of S - 16; ``f32 K/V`` leaves K, V and P unrounded (the plain
+    version on f32 queries), which is what the CUDA-core body computes."""
+    S = t["block_tables"].shape[1] * t["k_mu"].shape[1]
+    drop = attn_call(pa.paged_quant_attention_plain, t, kv_bits=kv_bits,
+                     window=S - 16)
+    f32 = attn_call(pa.paged_quant_attention_plain, dict(t, q=t["q"].float()),
+                    kv_bits=kv_bits).to(torch.bfloat16)
+    return {"dropped chunk": attn_rel_err(drop, want),
+            "f32 K/V": attn_rel_err(f32, want)}
+
+
 def check_attention(gen, quick: bool) -> float:
+    """Both bodies against the plain version: every geometry, kv8 / kv4,
+    f32 queries (the CUDA-core body) and bf16 ones (the body
+    ``attn_route`` names), window x cap x splits; bf16 outputs also within
+    ``TOL_ATT_BF16_REL`` of each sequence's largest output, a limit the
+    dropped-chunk control of the first geometry must exceed;
+    deterministic; an all-masked query gives exact zeros on either body."""
     worst = 0.0
-    geoms = [dict(B=16, H=32, KV=8, D=128, page=64, n_pages=32),
-             dict(B=3, H=4, KV=2, D=16, page=8, n_pages=3),
-             dict(B=2, H=16, KV=8, D=256, page=16, n_pages=5),
-             dict(B=2, H=32, KV=4, D=128, page=64, n_pages=9)]
-    if quick:
-        geoms = geoms[:2]
-    for g in geoms:
+    worst_rel = {}
+    for g, extra, in_quick in ATTN_GEOMS:
+        if quick and not in_quick:
+            continue
+        routes = []
         for kv_bits in (8, 4):
             for q_dtype in (torch.float32, torch.bfloat16):
                 t = make_attn_inputs(gen, kv_bits=kv_bits, q_dtype=q_dtype,
-                                     **g)
-                tol = TOL_ATT_F32 if q_dtype == torch.float32 \
-                    else TOL_ATT_BF16
+                                     **g, **extra)
+                route = pa.attn_route(q_dtype, g["D"], g["KV"], g["page"],
+                                      kv_bits)
+                routes.append(f"kv{kv_bits} {str(q_dtype)[6:]} -> {route}")
+                bf16 = q_dtype == torch.bfloat16
+                tol = TOL_ATT_BF16 if bf16 else TOL_ATT_F32
                 for window, cap in ((None, None), (100, None), (None, 30.0),
                                     (7, 30.0)):
                     want = attn_call(pa.paged_quant_attention_plain, t,
                                      kv_bits=kv_bits, window=window,
                                      logit_cap=cap)
+                    if bf16 and g is ATTN_GEOMS[0][0] and window is None \
+                            and cap is None:
+                        ctl = attn_controls(t, kv_bits, want)
+                        say(f"[kernels] paged_quant_attention controls, "
+                            f"kv{kv_bits} {g}: relative error of a dropped "
+                            f"chunk {ctl['dropped chunk']:.3e}, of f32 K/V "
+                            f"{ctl['f32 K/V']:.3e} (limit "
+                            f"{TOL_ATT_BF16_REL:.3e})")
+                        if ctl["dropped chunk"] <= TOL_ATT_BF16_REL:
+                            raise SystemExit(
+                                f"TOL_ATT_BF16_REL {TOL_ATT_BF16_REL} cannot "
+                                f"see a dropped chunk (relative error "
+                                f"{ctl['dropped chunk']:.3e})")
                     for splits in (1, 4, None):
                         out = attn_call(pa.paged_quant_attention, t,
                                         kv_bits=kv_bits, window=window,
@@ -603,27 +694,45 @@ def check_attention(gen, quick: bool) -> float:
                         sync()
                         err = (out.float() - want.float()).abs().max().item()
                         worst = max(worst, err)
-                        if not torch.isfinite(out).all() or err > tol:
+                        rel = attn_rel_err(out, want) if bf16 else 0.0
+                        if bf16:
+                            worst_rel[route] = max(worst_rel.get(route, 0.0),
+                                                   rel)
+                        if not torch.isfinite(out).all() or err > tol \
+                                or rel > TOL_ATT_BF16_REL:
                             raise SystemExit(
-                                f"paged_quant_attention disagrees with its "
-                                f"plain version: {g} kv{kv_bits} {q_dtype} "
-                                f"window={window} cap={cap} splits={splits} "
-                                f"err={err:.3e} > {tol}")
+                                f"paged_quant_attention ({route}) disagrees "
+                                f"with its plain version: {g} {extra} "
+                                f"kv{kv_bits} {q_dtype} window={window} "
+                                f"cap={cap} splits={splits} "
+                                f"err={err:.3e} (limit {tol}), relative "
+                                f"{rel:.3e} (limit {TOL_ATT_BF16_REL})")
                         if not torch.equal(out, again):
                             raise SystemExit(
-                                f"paged_quant_attention is not "
+                                f"paged_quant_attention ({route}) is not "
                                 f"deterministic: {g} kv{kv_bits}")
-        say(f"[kernels] paged_quant_attention {g}: kv8/kv4 x f32/bf16 x "
-            f"window x cap x splits ok")
-    # a query with no valid row combines to exact zeros
-    t = make_attn_inputs(gen, B=3, H=4, KV=2, D=16, page=8, n_pages=3,
-                         kv_bits=8, q_dtype=torch.float32,
-                         q_pos=[-1, 5, 23])
-    out = attn_call(pa.paged_quant_attention, t, kv_bits=8, splits=2)
-    sync()
-    if out[0].abs().max().item() != 0.0:
-        raise SystemExit("an all-masked query must give exact zeros")
-    say("[kernels] paged_quant_attention all-masked query gives zeros")
+        say(f"[kernels] paged_quant_attention {g} {extra}: window x cap x "
+            f"splits ok; " + ", ".join(routes))
+    say("[kernels] paged_quant_attention bf16 queries, largest relative "
+        "error per sequence: " + ", ".join(
+            f"{r} body {v:.3e}" for r, v in sorted(worst_rel.items()))
+        + f" (limit {TOL_ATT_BF16_REL:.3e})")
+    # a query with no valid row combines to exact zeros, on both bodies
+    for g, q_pos in ((dict(B=3, H=4, KV=2, D=16, page=8, n_pages=3),
+                      [-1, 5, 23]),
+                     (dict(B=4, H=32, KV=8, D=128, page=64, n_pages=8),
+                      [-1, 100, 511, 300])):
+        for q_dtype in (torch.float32, torch.bfloat16):
+            t = make_attn_inputs(gen, kv_bits=8, q_dtype=q_dtype,
+                                 q_pos=q_pos, **g)
+            out = attn_call(pa.paged_quant_attention, t, kv_bits=8, splits=2)
+            sync()
+            route = pa.attn_route(q_dtype, g["D"], g["KV"], g["page"], 8)
+            if out[0].abs().max().item() != 0.0:
+                raise SystemExit(f"an all-masked query must give exact "
+                                 f"zeros ({route} body, {g})")
+            say(f"[kernels] paged_quant_attention all-masked query gives "
+                f"zeros ({route} body, D={g['D']})")
     return worst
 
 
@@ -1953,6 +2062,25 @@ def attn_bound(t, H, KV, D, page, kv_bits, window):
         nbytes
 
 
+def gathered_kv(t, kv_bits, ctx_rows):
+    """The first ``ctx_rows`` rows of every sequence, gathered by block
+    table and dequantized to bf16 exactly as the plain version does, as
+    (B, KV, ctx, D) K and V: the library yardstick's operands."""
+    B = t["q"].shape[0]
+    bt = t["block_tables"].long()
+
+    def one(codes, mu, sigma):
+        KV = mu.shape[2]
+        c = codes[bt].reshape(B, -1, KV, codes.shape[-1])[:, :ctx_rows]
+        m = mu[bt].reshape(B, -1, KV)[:, :ctx_rows]
+        s = sigma[bt].reshape(B, -1, KV)[:, :ctx_rows]
+        x = pa._dequant(c, m, s, kv_bits, torch.bfloat16)
+        return x.transpose(1, 2).contiguous()
+
+    return (one(t["k_codes"], t["k_mu"], t["k_sigma"]),
+            one(t["v_codes"], t["v_mu"], t["v_sigma"]))
+
+
 def time_attention(gen, kv_bits, ctx_rows):
     g = dict(B=16, H=32, KV=8, D=128, page=64, n_pages=32)
     S = g["page"] * g["n_pages"]
@@ -1965,12 +2093,24 @@ def time_attention(gen, kv_bits, ctx_rows):
     plain_ms = time_ms([lambda: attn_call(pa.paged_quant_attention_plain, t,
                                           kv_bits=kv_bits)],
                        warmup=1, iters=4)
+    # the library yardstick: SDPA on the already gathered and dequantized
+    # bf16 K / V (it reads 2x the coded bytes; gather and dequant untimed)
+    lib = []
+    for u in sets:
+        k, v = gathered_kv(u, kv_bits, min(ctx_rows, S))
+        lib.append((u["q"].transpose(1, 2), k, v))
+    library_ms = time_ms([
+        lambda x=x: torch.nn.functional.scaled_dot_product_attention(
+            *x, enable_gqa=True) for x in lib])
+    del lib
     bound_ms, by, nbytes = attn_bound(t, g["H"], g["KV"], g["D"], g["page"],
                                       kv_bits, None)
     host = host_us(lambda: attn_call(pa.paged_quant_attention, t,
                                      kv_bits=kv_bits))
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=by, bytes=nbytes, host_us=host)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=by, bytes=nbytes, host_us=host,
+                route=pa.attn_route(torch.bfloat16, g["D"], g["KV"],
+                                    g["page"], kv_bits))
 
 
 # f32 operations per element, CUDA's erff and erfinvf polynomials included
@@ -2076,10 +2216,13 @@ def timing_phase(gen, counts, errs):
             r = time_attention(gen, kv_bits, ctx)
             rows[("attn", kv_bits, ctx)] = r
             say(f"[time] paged_quant_attention kv{kv_bits} B=16 H=32 KV=8 "
-                f"D=128 page=64 ctx={ctx}: kernel {r['ms']:.4f} ms, bound "
-                f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
-                f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.3f} ms; "
-                f"host enqueue {r['host_us']:.0f} us per call")
+                f"D=128 page=64 ctx={ctx} ({r['route']} body): kernel "
+                f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), plain "
+                f"{r['plain_ms']:.3f} ms, SDPA on the gathered bf16 K/V "
+                f"(reads 2x the coded bytes; gather and dequant not timed) "
+                f"{r['library_ms']:.4f} ms; host enqueue {r['host_us']:.0f} "
+                f"us per call")
     L = counts["train_layers"]
     for (G, R, C) in ((L, 4096, 12800), (L, 12800, 4096), (L, 4096, 4096),
                       (1, 4096, 49155)):
@@ -2148,24 +2291,26 @@ def timing_phase(gen, counts, errs):
     kw = rows[("kquantile", 1, 4096, 12800, 256)]       # int8 codes
     uo = rows[("uniq_onchip", L, 4096, 12800)]
 
-    def entry(name, source, replaces, r, prefill=None):
+    def entry(name, source, replaces, r, **more):
         e = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": counts[name],
              "max_abs_err": errs[name], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        if prefill is not None:     # the same kernel at M=256
-            e["prefill_m256"] = {k: prefill[k] for k in (
+        for key, o in more.items():  # the same kernel at another shape
+            e[key] = {k: o[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         return e
 
     return {"kernels": [
         entry("qmatmul", "src/repro_torch/kernels/csrc/qmatmul.cu",
               "src/repro/kernels/qmatmul.py:182", q,
-              rows[("qmatmul", 4, 256, 4096, 12800)]),
+              prefill_m256=rows[("qmatmul", 4, 256, 4096, 12800)]),
         entry("paged_quant_attention",
               "src/repro_torch/kernels/csrc/paged_attn.cu",
-              "src/repro/kernels/paged_attn.py:227", a),
+              "src/repro/kernels/paged_attn.py:227", a,
+              ctx512=rows[("attn", 8, 512)],
+              kv4_ctx2048=rows[("attn", 4, 2048)]),
         entry("uniq_noise_fwd", "src/repro_torch/kernels/csrc/uniq_noise.cu",
               "src/repro/kernels/uniq_noise.py:123", u["fwd"]),
         entry("uniq_noise_bwd", "src/repro_torch/kernels/csrc/uniq_noise.cu",
@@ -2174,7 +2319,7 @@ def timing_phase(gen, counts, errs):
               "src/repro/kernels/qmatmul.py:316", q8),
         entry("qmatmul_lut", "src/repro_torch/kernels/csrc/qmatmul.cu",
               "src/repro/kernels/qmatmul.py:263", ql,
-              rows[("qmatmul_lut", 4, 256, 4096, 12800)]),
+              prefill_m256=rows[("qmatmul_lut", 4, 256, 4096, 12800)]),
         entry("kquantile_quantize", "src/repro_torch/kernels/csrc/kquantile.cu",
               "src/repro/kernels/kquantile.py:86", kw["quantize"]),
         entry("kquantile_dequantize",
@@ -2294,18 +2439,41 @@ def sweep_phase(gen):
                     f"{qmm.default_splitk(K, N)})")
         del sets
     a8_against_exact(gen)
+    attention_sweep(gen)
+
+
+def attention_sweep(gen):
+    """The tensor-core attention body over its split count, beside the
+    CUDA-core body, at the engine's heads and page (kv8, bf16 queries); the
+    default split count is ``tc_splits``."""
     g = dict(B=16, H=32, KV=8, D=128, page=64, n_pages=32)
     for B in (8, 16):
         for ctx in (2048, 512, 128):
             sets = [make_attn_inputs(gen, kv_bits=8, q_dtype=torch.bfloat16,
                                      q_pos=[ctx - 1] * B, **dict(g, B=B))
                     for _ in range(3)]
-            for splits in (1, 2, 4, 8, 16):
-                ms = time_ms([lambda t=t: attn_call(
-                    pa.paged_quant_attention, t, kv_bits=8, splits=splits)
-                    for t in sets])
-                say(f"[sweep] attention kv8 B={B} ctx={ctx} "
-                    f"splits={splits}: {ms:.4f} ms")
+            default = pa.tc_splits(B, g["n_pages"], g["page"],
+                                   pa._sm_count(DEV))
+            t = sets[0]
+            want = attn_call(pa.paged_quant_attention_plain, t, kv_bits=8)
+            for route in (pa.CUDA_CORE, pa.TENSOR_CORE):
+                body = functools.partial(pa._launch, route, kv_bits=8,
+                                         window=pa.BIG_WINDOW,
+                                         logit_cap=None, splits=None)
+                err = (attn_call(body, t).float() - want.float()).abs() \
+                    .max().item()
+                ms = time_ms([lambda t=t: attn_call(body, t) for t in sets])
+                say(f"[sweep] attention kv8 bf16 B={B} ctx={ctx} {route} "
+                    f"body, default splits: {ms:.4f} ms, max abs err vs "
+                    f"plain {err:.3e}")
+            for splits in sorted({4, 8, 16, default, 2 * default}):
+                body = functools.partial(pa._launch, pa.TENSOR_CORE,
+                                         kv_bits=8, window=pa.BIG_WINDOW,
+                                         logit_cap=None, splits=splits)
+                ms = time_ms([lambda t=t: attn_call(body, t) for t in sets])
+                say(f"[sweep] attention kv8 B={B} ctx={ctx} tensor_core "
+                    f"splits={splits}: {ms:.4f} ms (default {default})")
+            del sets
 
 
 # --------------------------------------------------------------------------
@@ -2322,8 +2490,10 @@ def main(argv=None) -> int:
     ap.add_argument("--train-steps", type=int, default=10)
     ap.add_argument("--quick", action="store_true",
                     help="build + a reduced kernel check, then stop")
-    ap.add_argument("--sweep", action="store_true",
-                    help="build, time the tuning axes, then stop")
+    ap.add_argument("--sweep", nargs="?", const="all",
+                    choices=("all", "attention"),
+                    help="build, time the tuning axes (all kernels, or the "
+                         "attention body alone), then stop")
     ap.add_argument("--profile", action="store_true",
                     help="build, profile an engine run (host and device), "
                          "then stop")
@@ -2367,7 +2537,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(args.seed)
     if args.sweep:
-        sweep_phase(gen)
+        if args.sweep == "attention":
+            attention_sweep(gen)
+        else:
+            sweep_phase(gen)
         say(card)
         say("sweep run: stopped after the tuning sweep")
         return 0

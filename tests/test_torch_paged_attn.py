@@ -9,12 +9,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels import paged_attn as jpa
 from repro.models import attention as jattn
 from repro.models import kv_cache as jkv
 
 from repro_torch.kernels import paged_attn as tpa
+from repro_torch.kernels import ref as tkref
 from repro_torch.models import attention as tattn
 
 
@@ -163,3 +165,127 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         _call(tpa.paged_quant_attention, q, tc, tables, q_pos, kv_bits=8,
               window=0)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA bodies' host-side rules (the kernels themselves run on the card:
+# chip_smoke.py phase 3 holds both against the plain version)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("H,KV,D,page,kv_bits", [
+    (32, 8, 128, 64, 8), (32, 8, 128, 64, 4),     # granite_3_8b's pool
+    (64, 8, 128, 64, 8), (8, 8, 128, 64, 4),      # G = 8 and G = 1
+    (32, 8, 64, 64, 8), (16, 8, 256, 16, 4),      # D = 64 and 256
+    (4, 2, 16, 8, 4), (32, 4, 128, 8, 8)])
+def test_attn_route_sends_bf16_to_the_tensor_cores(H, KV, D, page, kv_bits):
+    assert tpa.attn_route(torch.bfloat16, D, KV, page, kv_bits) \
+        == tpa.TENSOR_CORE
+    assert tpa.attn_route(torch.float32, D, KV, page, kv_bits) \
+        == tpa.CUDA_CORE
+
+
+@pytest.mark.parametrize("KV,D,page,kv_bits,why", [
+    (2, 24, 8, 8, "D not a multiple of 16"),
+    (8, 128, 4, 8, "page not a multiple of 8"),
+    (8, 128, 12, 4, "page not a multiple of 8"),
+    (1, 16, 8, 4, "kv4, KV odd, D not a multiple of 32"),
+    (3, 48, 8, 4, "kv4, KV odd, D not a multiple of 32")])
+def test_attn_route_names_each_bf16_exception(KV, D, page, kv_bits, why):
+    assert tpa.attn_route(torch.bfloat16, D, KV, page, kv_bits) \
+        == tpa.CUDA_CORE, why
+
+
+def test_tc_heads_divides_kv_and_the_block_warps():
+    for KV in range(1, 33):
+        h = tpa.tc_heads(KV)
+        assert KV % h == 0 and 8 % h == 0
+        assert h == max(d for d in (1, 2, 4, 8) if KV % d == 0)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 16, 64, 132, 200])
+@pytest.mark.parametrize("n_pages,page", [(1, 8), (3, 16), (32, 64),
+                                          (40, 16), (8, 24)])
+@pytest.mark.parametrize("sms", [tpa.H100_SMS, 114])
+def test_tc_splits_fills_one_wave_from_host_shapes(B, n_pages, page, sms):
+    import inspect
+    # host-side shapes and the card's SM count, never q_pos
+    assert list(inspect.signature(tpa.tc_splits).parameters) == \
+        ["B", "n_pages", "page", "sms"]
+    chunks = n_pages * -(-page // tpa.TC_ROWS)
+    s = tpa.tc_splits(B, n_pages, page, sms)
+    assert 1 <= s <= chunks
+    # one wave and no partial second one: B * s <= sms < B * (s + 1),
+    # unless the table or a batch wider than the card bounds it
+    if B <= sms:
+        assert B * s <= sms
+        assert s == chunks or B * (s + 1) > sms
+    else:
+        assert s == 1
+    assert tpa.tc_splits(B, n_pages, page, sms) == s
+    assert tpa.tc_splits(B, n_pages, page) == \
+        tpa.tc_splits(B, n_pages, page, tpa.H100_SMS)
+
+
+@settings(max_examples=300, deadline=None)
+@given(q_pos=st.integers(-3, 700), window=st.integers(1, 800),
+       page=st.sampled_from([8, 16, 24, 40, 64]),
+       n_pages=st.integers(1, 12), splits=st.integers(1, 40))
+def test_split_row_ranges_cover_each_valid_row_once(q_pos, window, page,
+                                                    n_pages, splits):
+    chunk = tpa.TC_ROWS
+    parts = tpa.split_row_ranges(q_pos, window, page, n_pages, splits)
+    assert len(parts) == splits
+    hi = min(q_pos, n_pages * page - 1)
+    lo = max(0, q_pos - window + 1)
+    seen = {}
+    for s, chunks in enumerate(parts):
+        for a, b in chunks:
+            assert a < b <= n_pages * page
+            assert a // page == (b - 1) // page         # within one page
+            assert b - a <= chunk and (a % page) % chunk == 0
+            # a chunk is visited only if it holds a valid row
+            assert any(lo <= r <= hi for r in range(a, b))
+            for r in range(a, b):
+                assert r not in seen, (r, s, seen.get(r))
+                seen[r] = s
+    assert all(r in seen for r in range(lo, hi + 1))
+    # the splits walk consecutive, page-ordered chunks, busy ones first
+    order = [c for chunks in parts for c in chunks]
+    assert order == sorted(order)
+    busy = [bool(chunks) for chunks in parts]
+    assert busy == sorted(busy, reverse=True)
+
+
+def _bf16_bits_rne(x):
+    """float32 -> bf16 bit patterns, round to nearest even, in numpy."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+@pytest.mark.parametrize("kv_bits", [4, 8])
+def test_plain_dequant_is_the_kernels_formula(kv_bits):
+    """The plain version's bf16 K / V element is bf16(f32(mu) + f32(sigma)
+    * f32(t[c])), one rounding after the multiply and one after the add:
+    the tensor-core body builds its fragments by the same formula
+    (``__fadd_rn(mu, __fmul_rn(sigma, t[c]))``) and is exact against it."""
+    r = np.random.default_rng(7)
+    n, d = 64, 32
+    k = 2 ** kv_bits
+    codes = r.integers(0, k, (n, d))
+    stored = codes - (128 if kv_bits == 8 else 0)
+    if kv_bits == 4:
+        packed = (codes[:, 0::2] | (codes[:, 1::2] << 4)).astype(np.uint8)
+        c_t = torch.from_numpy(packed)
+    else:
+        c_t = torch.from_numpy(stored.astype(np.int8))
+    mu = torch.from_numpy(r.standard_normal(n).astype(np.float32) * 0.1) \
+        .to(torch.bfloat16)
+    sigma = torch.from_numpy(np.abs(r.standard_normal(n)).astype(np.float32)
+                             + 0.5).to(torch.bfloat16)
+    got = tpa._dequant(c_t, mu, sigma, kv_bits, torch.bfloat16)
+    t = tkref.level_table(k).numpy()
+    mu32 = mu.float().numpy()[:, None]
+    sg32 = sigma.float().numpy()[:, None]
+    want = _bf16_bits_rne(mu32 + (sg32 * t[codes]).astype(np.float32))
+    assert np.array_equal(got.view(torch.int16).numpy().view(np.uint16),
+                          want)
