@@ -12,14 +12,20 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      checks that the same inputs twice give the same bits (the k-quantile
      codec kernels must equal their plain versions to the bit, and so must
      the on-chip draw of ``uniq_noise_fwd_onchip``, read back through its
-     debug entry point, against the plain Philox);
+     debug entry point, against the plain Philox; both bodies of the
+     ``uniq_noise`` forwards, and a mode given by value, to the bit; the
+     fused KV append's statistics at most one bf16 ulp from the plain
+     version's, its codes bit-equal where they agree, every other pool
+     byte untouched);
   4. serves a request stream through ``repro_torch``'s engine at the full
      width of granite_3_8b (bf16, kv8 pool), random weights made from
      ``--seed`` on the card, in three engines one after another: W4
      (``qmatmul``), W4A8 (int8 activations, ``qmatmul_a8``) and W4 with
      empirical codebooks (``--w-dist empirical``, ``qmatmul_lut``); counts
-     the kernel launches of each run (the codec kernels code the KV rows
-     and dequantize the embedding rows and the coded pool in every engine);
+     the kernel launches of each run (``kv_append`` codes and writes the KV
+     rows, one launch per layer and call; ``kquantile_dequantize`` decodes
+     the embedding rows and the coded pool; ``kquantile_quantize`` codes
+     the weights at load and runs no more in the stream);
      checks that the dense bf16 LM head gives f32 logits;
   5. repeats a prefill + one decode step with the plain versions forced and
      compares logits, for each engine; replays each engine's stream with
@@ -54,7 +60,8 @@ body's splits, beside the CUDA-core body) at the
 serving shapes, holds ``qmatmul_a8`` and its plain version against the
 exact sum, and stops (``--sweep attention``: the attention part alone);
 ``--profile`` profiles an engine run (host by cProfile, device by
-torch.profiler) and stops.
+torch.profiler), counts the device operations of one decode step with the
+fused KV append and with the eager append it replaced, and stops.
 """
 
 from __future__ import annotations
@@ -100,6 +107,7 @@ from repro_torch.kernels import qmatmul as qmm                # noqa: E402
 from repro_torch.kernels import ref as kref                   # noqa: E402
 from repro_torch.kernels import uniq_noise as un              # noqa: E402
 from repro_torch.launch import train as train_cli             # noqa: E402
+from repro_torch.models import kv_cache as kvc               # noqa: E402
 from repro_torch.models import lm, model                      # noqa: E402
 from repro_torch.optim.optim import OptimConfig               # noqa: E402
 from repro_torch.serve import engine as engine_lib           # noqa: E402
@@ -187,6 +195,16 @@ TOL_QMM_LUT = 5e-4
 #   correctly rounded f32 operations in the same order (z / sqrt2 taken as
 #   z * (1 / sqrt2) on both), CUDA's erff serves both, and the levels come
 #   from one table: codes and values must be equal to the bit.
+# kv_append (the fused KV append): the mean and deviation of a (row, head)
+#   are reduced in another order than torch.mean / torch.std, so a bf16
+#   statistic may land one ulp from the plain version's when the f32 value
+#   sits next to a rounding boundary.  Held: never more than one ulp apart;
+#   codes bit-equal wherever both statistics are, and everywhere equal to
+#   the plain codes of the kernel's own statistics; at most this share of
+#   (row, head, K or V) statistics pairs one ulp apart.  Read on the H100:
+#   0 of 113,240 pairs (all cases of KV_APPEND_CASES); the limit allows
+#   about 11 of them.
+TOL_KV_STATS_ULP = 1e-4
 # LM head, bf16 activations x dense bf16 head with f32 logits: the products
 #   are exact in f32 and both sides sum them in f32 over K = 4096 in their
 #   own order; stated relative to the largest logit.  A bf16 rounding of
@@ -594,6 +612,182 @@ def check_kquantile(gen, quick: bool) -> float:
     return 0.0
 
 
+def make_kv_pool(gen, P, page, KV, hd, kv_bits):
+    """One layer of a coded pool (``kq.KV_LEAVES``) filled with random
+    bytes, so that a byte the append must not touch is recognisable."""
+    hdc = hd // 2 if kv_bits == 4 else hd
+    pool = {}
+    for name in kq.KV_LEAVES:
+        if name.endswith("codes"):
+            c = torch.randint(0, 256, (P, page, KV, hdc), generator=gen,
+                              device=DEV)
+            pool[name] = c.to(torch.uint8) if kv_bits == 4 \
+                else (c - 128).to(torch.int8)
+        else:
+            pool[name] = (torch.rand((P, page, KV), generator=gen,
+                                     device=DEV) + 0.1).to(torch.bfloat16)
+    return pool
+
+
+def make_kv_rows(gen, N, KV, hd, page, dtype):
+    """K and V rows (N, KV, hd) with per-row offsets and scales, and their
+    destinations in a pool of ``1 + ceil(N / page) + 1`` pages: real rows
+    on distinct slots of pages >= 1 (the pool's very last row among them),
+    every fifth row a pad row on the sink page 0, rows 0 and 1 repeated (as
+    the engine's padding does)."""
+    def rows():
+        scale = 0.5 + torch.rand((N, KV, 1), generator=gen, device=DEV)
+        off = 0.2 * torch.randn((N, KV, 1), generator=gen, device=DEV)
+        return (torch.randn((N, KV, hd), generator=gen, device=DEV) * scale
+                + off).to(dtype)
+    P = 2 + -(-N // page)
+    n_slots = (P - 1) * page
+    slots = torch.randperm(n_slots, generator=gen, device=DEV)[:N] + page
+    last = P * page - 1
+    j = (slots == last).nonzero().flatten()
+    if len(j):
+        slots[j] = slots[0].clone()
+    slots[0] = last
+    pages, rws = slots // page, slots % page
+    pad = torch.arange(N, device=DEV)
+    pad = pad[(pad % 5 == 4)]
+    pages[pad] = 0
+    rws[pad] = pad % 2
+    return rows(), rows(), pages.contiguous(), rws.contiguous(), P
+
+
+def eager_append(pool, pages, rows, k, v, kv_bits):
+    """The KV append as the engine ran it before the fused kernel:
+    ``quantize_kv`` (eager statistics around the flat ``kquantile_quantize``
+    kernel, and int4 packing) and one index write per leaf."""
+    st, mu, sig = kvc.quantize_kv(torch.stack([k, v]), kv_bits)
+    vals = {"k_codes": st[0], "k_mu": mu[0], "k_sigma": sig[0],
+            "v_codes": st[1], "v_mu": mu[1], "v_sigma": sig[1]}
+    for name, val in vals.items():
+        pool[name][pages, rows] = val.to(pool[name].dtype)
+
+
+def eager_write_rows(kc, layer, pages, rows, k, v, kv_bits, use_kernels=True):
+    """``lm._write_rows`` as it was before the fused append (coded pools):
+    the comparison of the profile phase."""
+    view = {name: leaf[layer] for name, leaf in kc.items()}
+    KV, hd = k.shape[-2:]
+    eager_append(view, pages.reshape(-1), rows.reshape(-1),
+                 k.reshape(-1, KV, hd), v.reshape(-1, KV, hd), kv_bits)
+    return view
+
+
+def _ordered_bf16(t):
+    """bf16 values as integers whose differences count ulps (-0 and +0
+    are one value)."""
+    b = t.view(torch.int16).int()
+    return torch.where(b < 0, -(b & 0x7FFF), b)
+
+
+def _kv_append_one(gen, N, KV, hd, kv_bits, dtype, page=64):
+    """One fused append against its plain version on one pool layer.
+    Returns the max abs error of the dequantized rows, and the (row, head,
+    K or V) statistics pairs one bf16 ulp apart and checked."""
+    where = f"N={N} KV={KV} hd={hd} kv{kv_bits} {dtype}"
+    k, v, pages, rows, P = make_kv_rows(gen, N, KV, hd, page, dtype)
+    pool0 = make_kv_pool(gen, P, page, KV, hd, kv_bits)
+    got = {n: t.clone() for n, t in pool0.items()}
+    again = {n: t.clone() for n, t in pool0.items()}
+    want = {n: t.clone() for n, t in pool0.items()}
+    kq.kv_append(got, pages, rows, k, v, kv_bits=kv_bits)
+    kq.kv_append(again, pages, rows, k, v, kv_bits=kv_bits)
+    sync()
+    kq.kv_append_plain(want, pages, rows, k, v, kv_bits=kv_bits)
+    target = torch.zeros((P, page), dtype=torch.bool, device=DEV)
+    target[pages, rows] = True
+    for name in kq.KV_LEAVES:
+        # the sink page's repeated rows land in no set order: pages >= 1
+        if not torch.equal(got[name][1:], again[name][1:]):
+            raise SystemExit(f"kv_append is not deterministic ({name}): "
+                             f"{where}")
+        if not torch.equal(got[name][~target], pool0[name][~target]):
+            raise SystemExit(f"kv_append changed pool bytes outside its "
+                             f"destinations ({name}): {where}")
+    real = pages != 0
+    pr, rr = pages[real], rows[real]
+    x = torch.stack([k[real], v[real]]).float()         # (2, n, KV, hd)
+    n_pairs = n_ulp = 0
+    err = 0.0
+    for i, side in enumerate(("k", "v")):
+        g = {f: got[f"{side}_{f}"][pr, rr] for f in ("codes", "mu", "sigma")}
+        w = {f: want[f"{side}_{f}"][pr, rr] for f in ("codes", "mu", "sigma")}
+        same = (g["mu"] == w["mu"]) & (g["sigma"] == w["sigma"])
+        for f in ("mu", "sigma"):
+            gap = (_ordered_bf16(g[f]) - _ordered_bf16(w[f])).abs()
+            if int(gap.max()) > 1:
+                raise SystemExit(f"kv_append {side}_{f} more than one bf16 "
+                                 f"ulp from the plain version: {where}")
+        if not torch.equal(g["codes"][same], w["codes"][same]):
+            raise SystemExit(f"kv_append {side} codes differ from the plain "
+                             f"version's where the statistics agree: "
+                             f"{where}")
+        own = kref.kquantile_codes_ref(x[i], g["mu"].float()[..., None],
+                                       g["sigma"].float()[..., None],
+                                       2 ** kv_bits)
+        if kv_bits == 4:
+            own = packing.pack_int4(own)
+        if not torch.equal(g["codes"], own.to(g["codes"].dtype)):
+            raise SystemExit(f"kv_append {side} codes are not the plain codes "
+                             f"of its own statistics: {where}")
+        n_pairs += same.numel()
+        n_ulp += int((~same).sum())
+
+        def dq(t):
+            c = packing.unpack_int4(t["codes"]) if kv_bits == 4 \
+                else t["codes"]
+            return kref.kquantile_dequant_ref(
+                c, t["mu"].float()[..., None], t["sigma"].float()[..., None],
+                2 ** kv_bits, dtype=torch.float32)
+        err = max(err, (dq(g) - dq(w)).abs().max().item())
+    del got, again, want, pool0, target
+    return err, n_ulp, n_pairs
+
+
+# (N, KV, hd, dtype): decode and one prefill chunk of granite_3_8b's
+# engine, a long prefill for the statistics' share, gemma2's head_dim 256,
+# the tiny f32 models (head_dim 16) and ragged counts
+KV_APPEND_CASES = (
+    (16, 8, 128, torch.bfloat16), (256, 8, 128, torch.bfloat16),
+    (4096, 8, 128, torch.bfloat16), (16, 8, 256, torch.bfloat16),
+    (2, 2, 16, torch.float32), (5, 2, 16, torch.float32),
+    (3, 4, 32, torch.float32), (7, 1, 64, torch.bfloat16),
+    (33, 8, 128, torch.float32))
+
+
+def check_kv_append(gen, quick: bool) -> float:
+    """The fused KV append (``kv_append``) against ``kv_append_plain`` at
+    the engine's decode and prefill shapes and small ones, kv8 and kv4:
+    statistics at most one bf16 ulp apart (and that in at most
+    ``TOL_KV_STATS_ULP`` of the pairs), codes bit-equal where they agree,
+    every other pool byte untouched.  Returns the max abs error of the
+    dequantized rows."""
+    cases = KV_APPEND_CASES[:2] + KV_APPEND_CASES[4:6] if quick \
+        else KV_APPEND_CASES
+    worst = 0.0
+    n_ulp = n_pairs = 0
+    for (N, KV, hd, dtype) in cases:
+        for kv_bits in (8, 4):
+            err, u, n = _kv_append_one(gen, N, KV, hd, kv_bits, dtype)
+            worst = max(worst, err)
+            n_ulp += u
+            n_pairs += n
+        say(f"[kernels] kv_append N={N} KV={KV} hd={hd} {dtype}: kv8 + kv4 "
+            f"against the plain version, untouched bytes unchanged")
+    frac = n_ulp / n_pairs
+    say(f"[kernels] kv_append: {n_ulp} of {n_pairs} (row, head, K or V) "
+        f"statistics pairs one bf16 ulp from the plain version ({frac:.3e}; "
+        f"limit {TOL_KV_STATS_ULP}); codes bit-equal wherever the statistics "
+        f"agree; max abs err of the dequantized rows {worst:.3e}")
+    if frac > TOL_KV_STATS_ULP:
+        raise SystemExit("kv_append: too many statistics one ulp apart")
+    return worst
+
+
 # (geometry, extra inputs, in the --quick list): the four earlier shapes,
 # then the tensor-core body's edges (G = 8 and 1, D = 64 and 256, pages of
 # 16 in a 40-page table, one sequence over 2048 rows, the most splits;
@@ -811,6 +1005,8 @@ def _check_uniq_one(gen, G, R, C, dtype, per_col, modes, k):
         raise SystemExit(f"uniq_noise_fwd is not deterministic: {where}")
     if not torch.isfinite(out).all():
         raise SystemExit(f"uniq_noise_fwd gives non-finite values: {where}")
+    _same_bodies("uniq_noise_fwd", out, w, mu, sigma, mode, modes, k,
+                 where, e01=e01)
     m = mode.reshape(-1, 1, 1)
     diff = (out.float() - want.float()).abs()
     fwd_err = diff.max().item()
@@ -842,6 +1038,10 @@ def _check_uniq_one(gen, G, R, C, dtype, per_col, modes, k):
     dw_want = un.uniq_noise_bwd_plain(g, w, out, mu, sigma, mode)
     if not torch.equal(dw, dw2):
         raise SystemExit(f"uniq_noise_bwd is not deterministic: {where}")
+    if len(set(modes)) == 1 and not torch.equal(
+            dw, un.uniq_noise_bwd(g, w, out, mu, sigma, modes[0])):
+        raise SystemExit(f"uniq_noise_bwd with its mode by value differs: "
+                         f"{where}")
     bdiff = (dw.float() - dw_want.float()).abs()
     bwd_err = bdiff.max().item()
     step = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
@@ -934,6 +1134,9 @@ def check_uniq_onchip(gen, quick: bool, layers: int):
         del again, want
         mode_sets = ([[m] for m in (1, 2, 0)] if G == 1
                      else [[(g + s) % 3 for g in range(G)] for s in (0, 1)])
+        if G > 1 and n <= 1 << 24:
+            # one mode for every group, as the CNN trainer's leaves have
+            mode_sets += [[m] * G for m in (1, 2, 0)]
         for dtype in (torch.float32, torch.bfloat16):
             for modes in mode_sets:
                 for k in ((16,) if n > 1 << 20 else (4, 16, 256)):
@@ -947,9 +1150,11 @@ def check_uniq_onchip(gen, quick: bool, layers: int):
                                              res["noise_sigma"])
         del got
         torch.cuda.empty_cache()
-        say(f"[kernels] uniq_noise_fwd_onchip G={G} R={R} C={C}: raw draw "
-            f"bit-equal to the plain Philox, repeatable, key-dependent; fwd "
-            f"x f32/bf16 x modes {mode_sets} ok")
+        say(f"[kernels] uniq_noise_fwd_onchip G={G} R={R} C={C} "
+            f"({un.onchip_route(G, R, C, False)} body): raw draw bit-equal "
+            f"to the plain Philox, repeatable, key-dependent; fwd x f32/bf16 "
+            f"x modes {mode_sets} ok (the flat body where both bodies take "
+            f"the shape, and modes by value, to the bit)")
     say(f"[kernels] uniq_noise_fwd_onchip: {n_bits} draws equal to the plain "
         f"version's; FROZEN outputs differing {flips} of {n_frozen}; NOISE "
         f"max |diff| / sigma: f32 {noise_sigma[torch.float32]:.3e}, bf16 "
@@ -959,6 +1164,27 @@ def check_uniq_onchip(gen, quick: bool, layers: int):
                          f"{n_frozen} outputs differ from the plain version "
                          f"(bound {TOL_UNIQ_FROZEN_FLIPS} of them)")
     return worst
+
+
+def _same_bodies(name, out, w, mu, sigma, mode, modes, k, where, **noise):
+    """The forward's output ``out`` (from the body ``onchip_route`` picks)
+    against the other body where both take the shape, and against the
+    mode given by value where every group has one: to the bit (the same
+    operations in the same order, the same draw)."""
+    G, R, C = w.shape
+    if un.onchip_route(G, R, C, mu.shape[-1] != 1) == un.GROUP:
+        flat = un._launch_fwd(un.FLAT, w, mu, sigma, mode, k=k, **noise)
+        if not torch.equal(out, flat):
+            raise SystemExit(f"{name}: the per-group body differs from the "
+                             f"flat body: {where}")
+        del flat
+    if len(set(modes)) == 1:
+        fn = un.uniq_noise_fwd if "e01" in noise else un.uniq_noise_fwd_onchip
+        by_value = fn(w, mu, sigma, modes[0], *noise.values(), k=k)
+        if not torch.equal(out, by_value):
+            raise SystemExit(f"{name} with its mode by value differs: "
+                             f"{where}")
+        del by_value
 
 
 def _check_onchip_one(gen, G, R, C, dtype, modes, k, key, e01_flat):
@@ -977,6 +1203,8 @@ def _check_onchip_one(gen, G, R, C, dtype, modes, k, key, e01_flat):
     if not torch.equal(out, host):
         raise SystemExit(f"uniq_noise_fwd_onchip differs from uniq_noise_fwd "
                          f"on the same draw: {where}")
+    _same_bodies("uniq_noise_fwd_onchip", out, w, mu, sigma, mode, modes, k,
+                 where, key=key)
     if not torch.isfinite(out).all():
         raise SystemExit(f"uniq_noise_fwd_onchip gives non-finite values: "
                          f"{where}")
@@ -1082,7 +1310,7 @@ ENGINE_MODES = (
          matmul="qmatmul_lut"),
 )
 MATMULS = ("qmatmul", "qmatmul_a8", "qmatmul_lut")
-CODECS = ("kquantile_quantize", "kquantile_dequantize")
+CODECS = ("kquantile_quantize", "kquantile_dequantize", "kv_append")
 
 
 def engine_phase(cfg, seed: int, new_tokens: int, mode: dict):
@@ -1092,11 +1320,14 @@ def engine_phase(cfg, seed: int, new_tokens: int, mode: dict):
         f"{cfg.d_ff}, vocab {cfg.vocab}), w_dist {mode['w_dist']}, a_bits "
         f"{mode['a_bits']}, bf16")
     t0 = time.perf_counter()
+    kops.reset_launch_counts()
     params = model.init(seed, cfg, device=DEV, w_bits=4,
                         dense_dtype=torch.bfloat16, w_dist=mode["w_dist"])
     sync()
+    load = kops.launch_counts()
     say(f"[engine] weights drawn and coded layer by layer on the card in "
-        f"{time.perf_counter() - t0:.1f}s; "
+        f"{time.perf_counter() - t0:.1f}s "
+        f"({load['kquantile_quantize']} kquantile_quantize launches); "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     opts = lm.ModelOpts(compute_dtype=torch.bfloat16)
 
@@ -1129,6 +1360,7 @@ def engine_phase(cfg, seed: int, new_tokens: int, mode: dict):
     L = cfg.n_layers
     want_mm = 7 * L * (steps + calls)
     want_att = L * steps
+    want_app = L * (steps + calls)
     say(f"[engine] {n_req} requests completed; {steps} decode steps, "
         f"{calls} prefill-chunk calls; cache hits {st['cache_hits']}, "
         f"hit pages {st['cache_hit_pages']}, copy-on-writes "
@@ -1137,17 +1369,27 @@ def engine_phase(cfg, seed: int, new_tokens: int, mode: dict):
         f"{counts[mode['matmul']]} (7 x {L} layers x {steps + calls} calls = "
         f"{want_mm}; {want_mm // (steps + calls)} per forward call), "
         f"paged_quant_attention {counts['paged_quant_attention']} ({L} "
-        f"layers x {steps} decode steps = {want_att}), kquantile_quantize "
-        f"{counts['kquantile_quantize']}, kquantile_dequantize "
-        f"{counts['kquantile_dequantize']}; other matmul kernels " + ", ".join(
+        f"layers x {steps} decode steps = {want_att}), kv_append "
+        f"{counts['kv_append']} ({L} layers x {steps + calls} calls = "
+        f"{want_app}), kquantile_quantize {counts['kquantile_quantize']}, "
+        f"kquantile_dequantize {counts['kquantile_dequantize']}; other "
+        f"matmul kernels " + ", ".join(
             f"{m} {counts[m]}" for m in MATMULS if m != mode["matmul"]))
     if counts[mode["matmul"]] != want_mm \
             or counts["paged_quant_attention"] != want_att \
+            or counts["kv_append"] != want_app \
             or min(want_mm, want_att) <= 0 \
             or any(counts[m] for m in MATMULS if m != mode["matmul"]) \
-            or min(counts[c] for c in CODECS) <= 0:
+            or counts["kquantile_quantize"] \
+            or counts["kquantile_dequantize"] <= 0:
         raise SystemExit("the main path did not go through the kernels as "
                          "expected")
+    # the weights' coding at load is the quantize kernel's part of the path
+    # (the empirical engine codes its codebooks without it)
+    if mode["w_dist"] == "gaussian" and load["kquantile_quantize"] <= 0:
+        raise SystemExit("coding the weights at load launched no "
+                         "kquantile_quantize")
+    counts["kquantile_quantize"] = load["kquantile_quantize"]
     if st["cache_hits"] < 1 or st["cow_copies"] < 1:
         raise SystemExit("the stream was built to hit the prefix cache and "
                          "copy on write, and did not")
@@ -2145,6 +2387,10 @@ def time_uniq(gen, G, R, C, modes):
     r = {key: dict(ms=time_ms([kernel]), host_us=host_us(kernel),
                    plain_ms=time_ms([plain], warmup=1, iters=3))
          for key, (kernel, plain) in calls.items()}
+    # the first body (flat) on the same inputs, in the same call
+    r["fwd"]["flat_ms"] = time_ms([lambda: un._launch_fwd(
+        un.FLAT, w, mu, sigma, mode, k=16, e01=e01)])
+    r["fwd"]["route"] = un.onchip_route(G, R, C, False)
     n = G * R * C
     # what this input needs: e01 is read for NOISE groups only
     n_noise = R * C * sum(1 for m in modes if m == 1)
@@ -2165,17 +2411,25 @@ def time_uniq(gen, G, R, C, modes):
 PHILOX_OPS = 15
 
 
-def time_uniq_onchip(gen, G, R, C, modes, copies: int = 1):
+def time_uniq_onchip(gen, G, R, C, modes, copies: int = 1,
+                     by_value: bool = False):
     """The on-chip forward, its plain version (plain Philox + the reference
     transform) and the host-noise forward on the same shape, f32, per-group
-    statistics.  ``copies`` sets of inputs are cycled so a leaf smaller
-    than the L2 cache is read from device memory, as the trainer finds it."""
+    statistics; beside them the first (flat) body on the same inputs.
+    ``copies`` sets of inputs are cycled so a leaf smaller than the L2 cache
+    is read from device memory, as the trainer finds it.  ``by_value``: the
+    one mode of every group passed by value, as the CNN trainer does."""
     sets = [make_uniq_inputs(gen, G, R, C, torch.float32, False, modes)
             for _ in range(copies)]
+    if by_value:
+        sets = [(*s[:3], modes[0], *s[4:]) for s in sets]
     key = 0x5DEECE66D
     r = dict(
         ms=time_ms([lambda s=s: un.uniq_noise_fwd_onchip(
             s[0], s[1], s[2], s[3], key, k=16) for s in sets]),
+        flat_ms=time_ms([lambda s=s: un._launch_fwd(
+            un.FLAT, s[0], s[1], s[2], s[3], k=16, key=key) for s in sets]),
+        route=un.onchip_route(G, R, C, False),
         host_fwd_ms=time_ms([lambda s=s: un.uniq_noise_fwd(
             s[0], s[1], s[2], s[3], s[4], k=16) for s in sets]),
         plain_ms=time_ms([lambda s=sets[0]: un.uniq_noise_fwd_onchip_plain(
@@ -2187,10 +2441,46 @@ def time_uniq_onchip(gen, G, R, C, modes, copies: int = 1):
         library_ms=None)
     n = G * R * C
     r["e01_bound_ms"] = n * 4 / PEAK_BYTES_PER_S * 1e3
-    r["bound_ms"], r["bound_by"], r["bytes"] = uniq_bound(
-        n, 8, UNIQ_FWD_OPS + PHILOX_OPS, G)
+    # what these inputs need: CLEAN groups copy, only NOISE groups draw
+    n_noise = R * C * sum(1 for m in modes if m == 1)
+    n_clean = R * C * sum(1 for m in modes if m == 0)
+    ops = (n - n_clean) * UNIQ_FWD_OPS + n_noise * PHILOX_OPS
+    r["bound_ms"], r["bound_by"], r["bytes"] = uniq_bound(n, 8, ops / n, G)
     del sets
     torch.cuda.empty_cache()
+    return r
+
+
+def time_kv_append(gen, N, KV, hd, kv_bits):
+    """The fused append against the eager append it replaced (the flat
+    quantize kernel between eager ops, then six index writes) and its
+    plain version, on one bf16 layer: device ms (launches queued behind a
+    spin) and host us per call.  K/V rows come straight from a projection
+    in the engine, so they sit in the L2 cache as here.  No PyTorch call
+    computes the coded append: no library time."""
+    page = 64
+    sets = []
+    for _ in range(3):
+        k, v, pages, rows, P = make_kv_rows(gen, N, KV, hd, page,
+                                            torch.bfloat16)
+        sets.append((make_kv_pool(gen, P, page, KV, hd, kv_bits), pages,
+                     rows, k, v))
+    calls = {"ms": lambda s: kq.kv_append(*s, kv_bits=kv_bits),
+             "eager_ms": lambda s: eager_append(*s, kv_bits),
+             "plain_ms": lambda s: kq.kv_append_plain(*s, kv_bits=kv_bits)}
+    r = {}
+    for key, fn in calls.items():
+        r[key] = time_ms([lambda s=s: fn(s) for s in sets])
+        r[key.replace("ms", "host_us")] = host_us(lambda: fn(sets[0]))
+    hdc = hd // 2 if kv_bits == 4 else hd
+    n = 2 * N * KV * hd
+    nbytes = n * 2 + 2 * N * 8 + 2 * N * KV * (hdc + 4)
+    t_b = nbytes / PEAK_BYTES_PER_S
+    t_f = n * (KQ_QUANT_OPS + 4) / PEAK_FLOPS["f32"]
+    r.update(bound_ms=max(t_b, t_f) * 1e3,
+             bound_by="bytes" if t_b >= t_f else "operations", bytes=nbytes,
+             library_ms=None)
+    del sets
     return r
 
 
@@ -2231,25 +2521,44 @@ def timing_phase(gen, counts, errs):
             rows[("uniq", G, R, C, tuple(modes))] = r
             for key in ("fwd", "bwd"):
                 t = r[key]
+                body = (f" ({t['route']} body; the flat body "
+                        f"{t['flat_ms']:.4f} ms)" if key == "fwd" else "")
                 say(f"[time] uniq_noise_{key} f32 G={G} R={R} C={C} modes "
-                    f"{modes}: kernel {t['ms']:.4f} ms, bound "
+                    f"{modes}{body}: kernel {t['ms']:.4f} ms, bound "
                     f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
                     f"{t['bytes'] / 1e6:.1f} MB), plain {t['plain_ms']:.3f} "
                     f"ms; host enqueue {t['host_us']:.0f} us per call")
-    for (G, R, C), what, copies in (
-            ((L, 4096, 12800), "granite w_up stack, row 7's shape", 1),
+    for (G, R, C), what, copies, by_value in (
+            ((L, 4096, 12800), "granite w_up stack, row 7's shape", 1,
+             False),
             ((3, 3 * 512, 512), "largest ResNet-18 conv, (3, 3, 512, 512)",
-             4)):
-        r = time_uniq_onchip(gen, G, R, C, [1] * G, copies)
-        rows[("uniq_onchip", G, R, C)] = r
-        say(f"[time] uniq_noise_fwd_onchip f32 G={G} R={R} C={C} ({what}), "
-            f"every group NOISE: kernel {r['ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
-            f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.3f} ms; "
-            f"uniq_noise_fwd (noise read as an operand) on the same shape "
-            f"{r['host_fwd_ms']:.4f} ms; the draw alone (Philox, f32 written) "
-            f"{r['e01_ms']:.4f} ms against its {r['e01_bound_ms']:.4f} ms "
-            f"write bound; host enqueue {r['host_us']:.0f} us per call")
+             4, True)):
+        for m, label in ((1, "NOISE"), (2, "FROZEN"), (0, "CLEAN")):
+            r = time_uniq_onchip(gen, G, R, C, [m] * G, copies, by_value)
+            rows[("uniq_onchip", G, R, C, m)] = r
+            say(f"[time] uniq_noise_fwd_onchip f32 G={G} R={R} C={C} "
+                f"({what}), every group {label}, mode "
+                f"{'by value' if by_value else 'as a (G,) tensor'} "
+                f"({r['route']} body): kernel {r['ms']:.4f} ms, the flat "
+                f"body {r['flat_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), plain "
+                f"{r['plain_ms']:.3f} ms; uniq_noise_fwd (noise read as an "
+                f"operand) on the same shape {r['host_fwd_ms']:.4f} ms; the "
+                f"draw alone (Philox, f32 written) {r['e01_ms']:.4f} ms "
+                f"against its {r['e01_bound_ms']:.4f} ms write bound; host "
+                f"enqueue {r['host_us']:.0f} us per call")
+    for (N, what) in ((16, "decode, 16 rows"), (256, "a prefill chunk")):
+        for kv_bits in (8, 4):
+            r = time_kv_append(gen, N, 8, 128, kv_bits)
+            rows[("kv_append", N, kv_bits)] = r
+            say(f"[time] kv_append kv{kv_bits} N={N} KV=8 hd=128 bf16 "
+                f"({what}): fused kernel {r['ms']:.4f} ms device, "
+                f"{r['host_us']:.1f} us host; the eager append it replaced "
+                f"{r['eager_ms']:.4f} ms device, {r['eager_host_us']:.1f} us "
+                f"host; plain version {r['plain_ms']:.4f} ms device, "
+                f"{r['plain_host_us']:.1f} us host; bound "
+                f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}, "
+                f"{r['bytes']} B)")
     for bits in (4, 8):
         for (M, K, N) in ((16, 4096, 12800), (16, 4096, 4096),
                           (16, 12800, 4096), (256, 4096, 12800)):
@@ -2289,7 +2598,8 @@ def timing_phase(gen, counts, errs):
     q8 = rows[("qmatmul_a8", 4, 16, 4096, 12800)]
     ql = rows[("qmatmul_lut", 4, 16, 4096, 12800)]
     kw = rows[("kquantile", 1, 4096, 12800, 256)]       # int8 codes
-    uo = rows[("uniq_onchip", L, 4096, 12800)]
+    uo = rows[("uniq_onchip", L, 4096, 12800, 1)]
+    ka = rows[("kv_append", 16, 8)]
 
     def entry(name, source, replaces, r, **more):
         e = {"name": name, "route": "cuda", "source": source,
@@ -2327,7 +2637,12 @@ def timing_phase(gen, counts, errs):
               "src/repro/kernels/kquantile.py:97", kw["dequantize"]),
         entry("uniq_noise_fwd_onchip",
               "src/repro_torch/kernels/csrc/uniq_noise.cu",
-              "src/repro/kernels/uniq_noise.py:153", uo)]}
+              "src/repro/kernels/uniq_noise.py:153", uo,
+              cnn_leaf=rows[("uniq_onchip", 3, 3 * 512, 512, 1)]),
+        entry("kv_append", "src/repro_torch/kernels/csrc/kquantile.cu",
+              "src/repro/kernels/kquantile.py:67", ka,
+              kv4_decode=rows[("kv_append", 16, 4)],
+              prefill_n256=rows[("kv_append", 256, 8)])]}
 
 
 def profile_phase(cfg, seed: int, new_tokens: int):
@@ -2365,6 +2680,49 @@ def profile_phase(cfg, seed: int, new_tokens: int):
         f"({100 * dev_us / 1e6 / wall:.1f}%) over a short stream")
     say(events.table(sort_by="self_device_time_total", row_limit=16,
                      max_name_column_width=60))
+    decode_launches(params, cfg, opts)
+
+
+def decode_launches(params, cfg, opts, B: int = 16, ctx: int = 100):
+    """Device operations (kernels, and copies / fills) of one decode step
+    of B sequences on a kv8 pool, counted by torch.profiler, with the fused
+    KV append and with the eager append it replaced (``eager_write_rows``
+    in place of ``lm._write_rows``), in turns: fused, eager, eager, fused."""
+    from torch.profiler import ProfilerActivity, profile
+    opts = dataclasses.replace(opts, kv_bits=8)
+    page = 64
+    n_pages = ctx // page + 1
+    cache = model.init_paged_cache(cfg, 1 + B * n_pages, page,
+                                   torch.bfloat16, kv_bits=8, device=DEV)
+    tables = torch.arange(1, 1 + B * n_pages, device=DEV,
+                          dtype=torch.int32).reshape(B, n_pages)
+    toks = torch.arange(B, device=DEV)[:, None]
+    pos = torch.full((B,), ctx, device=DEV)
+    fused = lm._write_rows
+    seen = {}
+    try:
+        for name in ("fused", "eager", "eager", "fused"):
+            lm._write_rows = fused if name == "fused" else eager_write_rows
+            model.decode(params, cfg, opts, cache, toks, pos,
+                         block_tables=tables)                 # warm-up
+            sync()
+            with profile(activities=[ProfilerActivity.CUDA]) as tp:
+                model.decode(params, cfg, opts, cache, toks, pos,
+                             block_tables=tables)
+                sync()
+            ev = [e for e in tp.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            mem = sum(e.count for e in ev if e.key.startswith("Mem"))
+            seen.setdefault(name, []).append(
+                (sum(e.count for e in ev) - mem, mem))
+    finally:
+        lm._write_rows = fused
+    for name, what in (("fused", "the fused kv_append"),
+                       ("eager", "the eager append it replaced")):
+        say(f"[profile] one decode step, B={B}, {cfg.n_layers} layers, kv8, "
+            f"with {what}: (kernels, memory copies / fills) per step "
+            f"{seen[name]}")
+    del cache
 
 
 def a8_against_exact(gen):
@@ -2560,6 +2918,7 @@ def main(argv=None) -> int:
     errs.update(check_qmatmul_variants(gen, args.quick))
     errs["kquantile_quantize"] = errs["kquantile_dequantize"] = \
         check_kquantile(gen, args.quick)
+    errs["kv_append"] = check_kv_append(gen, args.quick)
     say("[kernels] max abs err vs plain versions: " + ", ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
     if args.quick:
@@ -2573,7 +2932,8 @@ def main(argv=None) -> int:
     # three engines one after another, each freed before the next; every
     # count is read from its own run (reset just before it): a matmul
     # kernel's from the engine that serves through it, the attention's from
-    # the W4 engine, the codecs' summed over the three runs
+    # the W4 engine, the codecs' summed over the three runs (the quantize
+    # kernel's over their loads: the stream appends KV rows by kv_append)
     counts = {c: 0 for c in CODECS}
     for i, mode in enumerate(ENGINE_MODES):
         params, opts, outs, run_counts = engine_phase(

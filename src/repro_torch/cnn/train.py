@@ -160,8 +160,7 @@ class CNNTrainer:
             p_in = tree_lib.map_with_path(lambda p, _t: req[p], self.params)
             a_bits = 32
             if modes is not None:
-                mode_for = _mode_fn(self.layer_order,
-                                    modes.to(self.device))
+                mode_for = _mode_fn(self.layer_order, modes)
                 p_in = transform_tree(p_in, noise, mode_for, self.ucfg,
                                       quant_filter=cnn.cnn_quant_filter,
                                       stacked_prefixes=(),

@@ -34,6 +34,32 @@
 // erff equals torch's erf on the card (it is the same CUDA function), and
 // dequantized values equal it always.
 //
+// The fused KV append (`kv_append_launch`) codes the fresh K and V rows of
+// one layer and writes codes and statistics into the paged pool in one
+// launch.  The reference codes these rows with jnp inside its jitted step
+// (src/repro/models/lm.py: `kvq.quantize_kv`, then `.at[pages, rows].set`
+// into six pool leaves), which XLA fuses; as eager ops around the flat
+// quantize kernel above it was a chain of ~16 launches per layer and call
+// (stack, casts, mean, deviation, clamp, the kernel, int4 packing, six
+// index writes).  Per (row, head, K or V), with x the hd values in f32:
+//   mu = bf16(mean(x)),  sigma = bf16(max(sqrt(mean((x - mean)^2)), 1e-8))
+//   code = quant_elem(x, mu, sigma)  -> int8 (kv8) or nibbles (kv4)
+// What bounds it: nothing of the card at the engine's shapes -- 100 KB
+// moved at decode (16 rows, 8 heads, hd 128, bf16), 0.03 us of bytes; one
+// launch is ~3 us -- but the host.  What the design does about it: one
+// launch, no allocation, no host sync.  A group of hd / VPL lanes (VPL = 4
+// values, 8 at hd = 256) holds one (row, head, K or V) with one wide load
+// per lane, reduces the mean and the deviation in f32 by shuffles inside
+// the group, rounds both to bf16 and codes against the rounded values (so
+// codes and stored statistics agree, as in quantize_kv), packs its lane's
+// codes (kv4: low nibble first, as core/packing.py) and stores them with
+// one coalesced row store; the group's first lane stores the two
+// statistics.  The statistics are reduced in another order than torch.mean
+// / torch.std, so a bf16 statistic can land one ulp from the plain
+// version's in rare rows; the codes of a row whose statistics agree are
+// those of the plain version (quant_elem above).  A destination outside the
+// pool traps (a launch error at the next sync), as an index write would.
+//
 // Plain C interface; the caller allocates every buffer and passes the stream.
 
 #include <cuda_bf16.h>
@@ -283,6 +309,182 @@ int dequant(const uint8_t* codes, const float* mu, const float* sigma,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the fused KV append ------------------------------------------------
+
+constexpr int APPEND_THREADS = 256;
+
+// VPL consecutive values of one lane: one or two 16-byte loads (f32), one
+// 8- or 16-byte load (bf16)
+template <int VPL>
+__device__ __forceinline__ void load_lane(const float* p, float* o) {
+  static_assert(VPL == 4 || VPL == 8, "VPL is 4 or 8");
+#pragma unroll
+  for (int j = 0; j < VPL; j += 4) load4(p + j, o + j);
+}
+template <int VPL>
+__device__ __forceinline__ void load_lane(const __nv_bfloat16* p, float* o) {
+  static_assert(VPL == 4 || VPL == 8, "VPL is 4 or 8");
+  if constexpr (VPL == 8) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      o[2 * j] = bf16_bits_to_f(w[j] & 0xFFFFu);
+      o[2 * j + 1] = bf16_bits_to_f(w[j] >> 16);
+    }
+  } else {
+    load4(p, o);
+  }
+}
+
+// sum over the LANES lanes of an aligned group of a warp; `mask` names
+// exactly the group's lanes (a warp's other groups may have exited)
+template <int LANES>
+__device__ __forceinline__ float group_sum(float x, unsigned mask) {
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1)
+    x = __fadd_rn(x, __shfl_xor_sync(mask, x, off));
+  return x;
+}
+
+// One group of LANES lanes per (row, head, K or V); a warp holds 32 / LANES
+// of them.  hd = LANES * VPL.  Codes: KV4 two per byte, else int8 with the
+// k = 256 offset.  Statistics are stored as bf16 bits.
+template <typename T, int VPL, int LANES, bool KV4>
+__global__ void __launch_bounds__(APPEND_THREADS)
+kv_append_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                 const int64_t* __restrict__ pages,
+                 const int64_t* __restrict__ rows,
+                 uint8_t* __restrict__ k_codes,
+                 uint8_t* __restrict__ v_codes, uint16_t* __restrict__ k_mu,
+                 uint16_t* __restrict__ k_sigma, uint16_t* __restrict__ v_mu,
+                 uint16_t* __restrict__ v_sigma, int n_groups, int kv_heads,
+                 long long n_pages, int page_size) {
+  constexpr int HD = LANES * VPL;
+  constexpr int CODE_BYTES = KV4 ? VPL / 2 : VPL;  // per lane
+  const int t = blockIdx.x * APPEND_THREADS + threadIdx.x;
+  const int group = t / LANES;
+  const int lane = t % LANES;
+  // a group never straddles a warp, and its lanes exit or stay together
+  if (group >= n_groups) return;
+  unsigned mask = 0xFFFFFFFFu;
+  if constexpr (LANES < 32)
+    mask = ((1u << LANES) - 1u) << ((threadIdx.x & 31) & ~(LANES - 1));
+  const int which = group & 1;  // 0: K, 1: V
+  const int rh = group >> 1;    // row * kv_heads + head
+  const int n = rh / kv_heads;
+  const int h = rh - n * kv_heads;
+  float x[VPL];
+  load_lane<VPL>((which ? v : k) + (int64_t)rh * HD + lane * VPL, x);
+
+  float s = x[0];
+#pragma unroll
+  for (int j = 1; j < VPL; ++j) s = __fadd_rn(s, x[j]);
+  const float mean = __fdiv_rn(group_sum<LANES>(s, mask), (float)HD);
+  float q = 0.0f;
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const float d = __fsub_rn(x[j], mean);
+    q = __fadd_rn(q, __fmul_rn(d, d));
+  }
+  float sd = __fsqrt_rn(__fdiv_rn(group_sum<LANES>(q, mask), (float)HD));
+  sd = sd < 1e-8f ? 1e-8f : sd;  // torch.clamp(min=): NaN stays NaN
+  const uint32_t mu_b = f_to_bf16_bits(mean);
+  const uint32_t sd_b = f_to_bf16_bits(sd);
+  const float mu_r = bf16_bits_to_f(mu_b);
+  const float sd_r = bf16_bits_to_f(sd_b);
+
+  const long long page = pages[n];
+  const long long row = rows[n];
+  if (page < 0 || page >= n_pages || row < 0 || row >= page_size) __trap();
+  const int64_t slot = ((int64_t)page * page_size + row) * kv_heads + h;
+
+  constexpr int K = KV4 ? 16 : 256;
+  uint32_t packed[2] = {0u, 0u};  // CODE_BYTES <= 8
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) {
+    const int c = quant_elem(x[j], mu_r, sd_r, (float)K, (float)(K - 1),
+                             KV4 ? 0 : 128);
+    if (KV4) {
+      const int bit = 4 * j;  // element j: nibble j of the lane's bytes
+      packed[bit / 32] |= (uint32_t)(c & 0xF) << (bit % 32);
+    } else {
+      const int bit = 8 * j;
+      packed[bit / 32] |= (uint32_t)(uint8_t)c << (bit % 32);
+    }
+  }
+  uint8_t* dst = (which ? v_codes : k_codes) + slot * (KV4 ? HD / 2 : HD) +
+                 lane * CODE_BYTES;
+  if constexpr (CODE_BYTES == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
+  } else if constexpr (CODE_BYTES == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = packed[0];
+  } else {
+    static_assert(CODE_BYTES == 2, "2, 4 or 8 code bytes a lane");
+    *reinterpret_cast<uint16_t*>(dst) = (uint16_t)packed[0];
+  }
+  if (lane == 0) {
+    (which ? v_mu : k_mu)[slot] = (uint16_t)mu_b;
+    (which ? v_sigma : k_sigma)[slot] = (uint16_t)sd_b;
+  }
+}
+
+template <typename T, int VPL, int LANES>
+int append(const void* k, const void* v, const int64_t* pages,
+           const int64_t* rows, void* const* leaves, int kv4, int n_rows,
+           int kv_heads, long long n_pages, int page_size,
+           cudaStream_t stream) {
+  const int n_groups = 2 * n_rows * kv_heads;
+  const long long threads = (long long)n_groups * LANES;
+  const unsigned blocks =
+      (unsigned)((threads + APPEND_THREADS - 1) / APPEND_THREADS);
+  auto* kc = static_cast<uint8_t*>(leaves[0]);
+  auto* km = static_cast<uint16_t*>(leaves[1]);
+  auto* ks = static_cast<uint16_t*>(leaves[2]);
+  auto* vc = static_cast<uint8_t*>(leaves[3]);
+  auto* vm = static_cast<uint16_t*>(leaves[4]);
+  auto* vs = static_cast<uint16_t*>(leaves[5]);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  if (kv4)
+    kv_append_kernel<T, VPL, LANES, true><<<blocks, APPEND_THREADS, 0,
+                                           stream>>>(
+        kp, vp, pages, rows, kc, vc, km, ks, vm, vs, n_groups, kv_heads,
+        n_pages, page_size);
+  else
+    kv_append_kernel<T, VPL, LANES, false><<<blocks, APPEND_THREADS, 0,
+                                            stream>>>(
+        kp, vp, pages, rows, kc, vc, km, ks, vm, vs, n_groups, kv_heads,
+        n_pages, page_size);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int append_hd(int hd, const void* k, const void* v, const int64_t* pages,
+              const int64_t* rows, void* const* leaves, int kv4, int n_rows,
+              int kv_heads, long long n_pages, int page_size,
+              cudaStream_t stream) {
+  switch (hd) {
+    case 16:
+      return append<T, 4, 4>(k, v, pages, rows, leaves, kv4, n_rows,
+                             kv_heads, n_pages, page_size, stream);
+    case 32:
+      return append<T, 4, 8>(k, v, pages, rows, leaves, kv4, n_rows,
+                             kv_heads, n_pages, page_size, stream);
+    case 64:
+      return append<T, 4, 16>(k, v, pages, rows, leaves, kv4, n_rows,
+                              kv_heads, n_pages, page_size, stream);
+    case 128:
+      return append<T, 4, 32>(k, v, pages, rows, leaves, kv4, n_rows,
+                              kv_heads, n_pages, page_size, stream);
+    case 256:
+      return append<T, 8, 32>(k, v, pages, rows, leaves, kv4, n_rows,
+                              kv_heads, n_pages, page_size, stream);
+    default:
+      return -6;
+  }
+}
+
 int check_args(long long G, long long R, long long C, int k) {
   if (G <= 0 || R <= 0 || C <= 0) return -2;
   if (C > 0x7FFFFFFF) return -3;
@@ -338,4 +540,33 @@ extern "C" int kquantile_dequantize_launch(const void* codes, int packed,
                                                   (int)C, stream)
                   : dequant<float, false>(cp, mu, sigma, per_col, table, out,
                                           k, n, rc, (int)C, stream);
+}
+
+// The fused KV append.  k, v: (n_rows, kv_heads, hd) contiguous, f32 or
+// bf16 (`kv_bf16`); pages, rows: (n_rows,) int64 destinations; leaves: the
+// six contiguous pool leaves of one layer in the order k_codes, k_mu,
+// k_sigma, v_codes, v_mu, v_sigma -- codes (n_pages, page_size, kv_heads,
+// hd) int8 (kv8) or (.., hd / 2) uint8 (kv4), statistics (n_pages,
+// page_size, kv_heads) bf16.  hd is 16, 32, 64, 128 or 256.
+extern "C" int kv_append_launch(const void* k, const void* v, int kv_bf16,
+                                const void* pages, const void* rows,
+                                void* k_codes, void* k_mu, void* k_sigma,
+                                void* v_codes, void* v_mu, void* v_sigma,
+                                int kv_bits, int n_rows, int kv_heads, int hd,
+                                long long n_pages, int page_size,
+                                void* stream_ptr) {
+  if (n_rows <= 0 || kv_heads <= 0 || n_pages <= 0 || page_size <= 0)
+    return -2;
+  if (kv_bits != 4 && kv_bits != 8) return -4;
+  if ((long long)n_rows * kv_heads * 2 * 32 > 0x7FFFFFFFLL) return -3;
+  void* leaves[6] = {k_codes, k_mu, k_sigma, v_codes, v_mu, v_sigma};
+  const int64_t* pp = static_cast<const int64_t*>(pages);
+  const int64_t* rp = static_cast<const int64_t*>(rows);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int kv4 = kv_bits == 4;
+  return kv_bf16 ? append_hd<__nv_bfloat16>(hd, k, v, pp, rp, leaves, kv4,
+                                            n_rows, kv_heads, n_pages,
+                                            page_size, stream)
+                 : append_hd<float>(hd, k, v, pp, rp, leaves, kv4, n_rows,
+                                    kv_heads, n_pages, page_size, stream);
 }

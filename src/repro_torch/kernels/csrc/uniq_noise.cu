@@ -35,13 +35,31 @@
 // and writes dw (16 B); the per-element arithmetic (erff + erfinvf, or expf,
 // and a dozen operations; Philox adds ten rounds of two 32-bit multiplies
 // per run of 4, about 15 integer operations an element) stays under the
-// memory time.  What the design does about it: one flat
-// grid-stride pass in which a thread takes runs of 4 consecutive elements
+// memory time, if few instructions are spent around it.  What the flat body
+// does about it: one grid-stride pass in which a thread takes runs of 4
+// consecutive elements
 // with 16-byte loads (8-byte for bf16 weights) and a scalar tail; the group
 // and column of a run's first element are computed once and advanced element
 // by element, so any C works -- the LM head's 49155 columns included -- and
 // no padded copy is made.  The mode is read per element from the device
 // array (an L1 hit; no host sync), the statistics by column or by group.
+//
+// Two bodies for the forward, picked by the caller's fixed rule on the shape
+// (kernels/uniq_noise.py:onchip_route), never on a failure:
+// - `uniq_fwd_group_kernel`, for per-group statistics with R C a multiple
+//   of 4 below 2^31 (how both trainers call it): blockIdx.y is the group,
+//   whose mode, mu and sigma are loaded once into registers; offsets inside
+//   the group are 32-bit; the mode's branch is uniform across the block, so
+//   CLEAN is a 16-byte copy, FROZEN the table path with no draw, and only
+//   NOISE runs Philox.  The counter is still the global run index, so the
+//   draw is the same bits as the flat body's and the plain version's.  The
+//   flat body, issue-bound on its 64-bit walk (two 64-bit divisions a run,
+//   64-bit steps and three statistics loads an element) and on Philox for
+//   CLEAN and FROZEN runs too, takes 1.6x this body's time at (8, 4096,
+//   12800) all NOISE on the H100 (PERF.md section 6).
+// - `uniq_fwd_kernel`, the flat body below, for every other shape.
+// A mode may also be given by value (`mode_value` >= 0, one mode for every
+// group): nothing is read from, or copied to, the device for it.
 //
 // Bit-exactness: every step is one correctly rounded f32 operation
 // (__fmul_rn / __fdiv_rn / __fadd_rn / __fsub_rn, which nvcc does not
@@ -206,24 +224,43 @@ struct Pos {
   }
 };
 
+// u = clip(Phi((w - mu) / sigma), eps, 1 - eps)
+__device__ __forceinline__ float u_of(float w, float mu, float sigma) {
+  const float z = __fdiv_rn(__fsub_rn(w, mu), sigma);
+  return clampf(__fmul_rn(0.5f, __fadd_rn(1.0f, erff(__fmul_rn(z, RSQRT2)))),
+                EPS, ONE_MINUS_EPS);
+}
+
+__device__ __forceinline__ float noise_elem(float u, float mu, float sigma,
+                                            float e01, float inv_k) {
+  const float un = clampf(
+      __fadd_rn(u, __fmul_rn(__fsub_rn(e01, 0.5f), inv_k)), EPS,
+      ONE_MINUS_EPS);
+  const float x = __fsub_rn(__fmul_rn(2.0f, un), 1.0f);
+  return __fadd_rn(mu, __fmul_rn(sigma, __fmul_rn(SQRT2, erfinvf(x))));
+}
+
+__device__ __forceinline__ float frozen_elem(float u, float mu, float sigma,
+                                             float kf, float kmax,
+                                             const float* s_table) {
+  const float c = clampf(floorf(__fmul_rn(u, kf)), 0.0f, kmax);
+  return __fadd_rn(mu, __fmul_rn(sigma, s_table[(int)c]));
+}
+
 __device__ __forceinline__ float fwd_elem(float w, float mu, float sigma,
                                           float e01, int mode, float kf,
                                           float inv_k, float kmax,
                                           const float* s_table) {
   if (mode == CLEAN) return w;
-  const float z = __fdiv_rn(__fsub_rn(w, mu), sigma);
-  const float u = clampf(
-      __fmul_rn(0.5f, __fadd_rn(1.0f, erff(__fmul_rn(z, RSQRT2)))), EPS,
-      ONE_MINUS_EPS);
-  if (mode == NOISE) {
-    const float un = clampf(
-        __fadd_rn(u, __fmul_rn(__fsub_rn(e01, 0.5f), inv_k)), EPS,
-        ONE_MINUS_EPS);
-    const float x = __fsub_rn(__fmul_rn(2.0f, un), 1.0f);
-    return __fadd_rn(mu, __fmul_rn(sigma, __fmul_rn(SQRT2, erfinvf(x))));
-  }
-  const float c = clampf(floorf(__fmul_rn(u, kf)), 0.0f, kmax);
-  return __fadd_rn(mu, __fmul_rn(sigma, s_table[(int)c]));
+  const float u = u_of(w, mu, sigma);
+  if (mode == NOISE) return noise_elem(u, mu, sigma, e01, inv_k);
+  return frozen_elem(u, mu, sigma, kf, kmax, s_table);
+}
+
+// the mode of group g: by value when given one, else from the device array
+__device__ __forceinline__ int mode_of(const int* mode, int mode_value,
+                                       int64_t g) {
+  return mode_value >= 0 ? mode_value : __ldg(mode + g);
 }
 
 // One body for both noise sources, so CLEAN and FROZEN run the same
@@ -232,9 +269,9 @@ template <typename T, bool VECTOR, typename Noise>
 __global__ void __launch_bounds__(THREADS)
 uniq_fwd_kernel(const T* __restrict__ w, const Noise noise,
                 const float* __restrict__ mu, const float* __restrict__ sigma,
-                const int* __restrict__ mode, const float* __restrict__ table,
-                T* __restrict__ out, int64_t n, int64_t rc, int c,
-                int per_col, int k) {
+                const int* __restrict__ mode, int mode_value,
+                const float* __restrict__ table, T* __restrict__ out,
+                int64_t n, int64_t rc, int c, int per_col, int k) {
   __shared__ float s_table[MAX_K];
   for (int i = threadIdx.x; i < k; i += blockDim.x) s_table[i] = table[i];
   __syncthreads();
@@ -262,7 +299,8 @@ uniq_fwd_kernel(const T* __restrict__ w, const Noise noise,
       if (i0 + j < n) {
         const int64_t s = pos.stat(per_col, c);
         ov[j] = fwd_elem(wv[j], __ldg(mu + s), __ldg(sigma + s), ev[j],
-                         __ldg(mode + pos.g), kf, inv_k, kmax, s_table);
+                         mode_of(mode, mode_value, pos.g), kf, inv_k, kmax,
+                         s_table);
         pos.next(rc, c);
       }
     }
@@ -272,6 +310,99 @@ uniq_fwd_kernel(const T* __restrict__ w, const Noise noise,
 #pragma unroll
       for (int j = 0; j < VEC; ++j)
         if (i0 + j < n) out[i0 + j] = from_f<T>(ov[j]);
+    }
+  }
+}
+
+// four raw elements (a CLEAN copy keeps every bit, NaN payloads included)
+__device__ __forceinline__ void copy4(const float* src, float* dst) {
+  *reinterpret_cast<uint4*>(dst) = __ldg(reinterpret_cast<const uint4*>(src));
+}
+__device__ __forceinline__ void copy4(const __nv_bfloat16* src,
+                                      __nv_bfloat16* dst) {
+  *reinterpret_cast<uint2*>(dst) = __ldg(reinterpret_cast<const uint2*>(src));
+}
+
+// Per-group statistics, R C a multiple of 4 below 2^31: group blockIdx.y,
+// runs of 4 within it by a 32-bit grid-stride loop over blockIdx.x.  The
+// mode is uniform across the block, so are its branches (and the FROZEN
+// branch's barrier).  VECTOR: w, out (and an e01 operand) 16-byte aligned
+// (8-byte for bf16 w); else element loads and stores.
+template <typename T, bool VECTOR, typename Noise>
+__global__ void __launch_bounds__(THREADS)
+uniq_fwd_group_kernel(const T* __restrict__ w, const Noise noise,
+                      const float* __restrict__ mu,
+                      const float* __restrict__ sigma,
+                      const int* __restrict__ mode, int mode_value,
+                      const float* __restrict__ table, T* __restrict__ out,
+                      int64_t n, int rc, int k) {
+  const int g = blockIdx.y;
+  const int m = mode_of(mode, mode_value, g);
+  const int64_t base = (int64_t)g * rc;
+  const T* wg = w + base;
+  T* og = out + base;
+  const int64_t run0 = base / VEC;  // the group's first global run
+  const int runs = rc / VEC;
+  const int stride = gridDim.x * THREADS;
+  const int first = blockIdx.x * THREADS + threadIdx.x;
+  if (m == CLEAN) {
+    for (int r = first; r < runs; r += stride) {
+      if (VECTOR) {
+        copy4(wg + r * VEC, og + r * VEC);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) og[r * VEC + j] = wg[r * VEC + j];
+      }
+    }
+    return;
+  }
+  const float mu_g = __ldg(mu + g);
+  const float sd_g = __ldg(sigma + g);
+  const float kf = (float)k;
+  const float inv_k = 1.0f / kf;  // exact: k is a power of two
+  const float kmax = (float)(k - 1);
+  float wv[VEC], ov[VEC];
+  if (m == NOISE) {
+    for (int r = first; r < runs; r += stride) {
+      float ev[VEC];
+      if (VECTOR) {
+        load4(wg + r * VEC, wv);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) wv[j] = to_f(wg[r * VEC + j]);
+      }
+      noise.run(run0 + r, n, VECTOR, ev);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        ov[j] = noise_elem(u_of(wv[j], mu_g, sd_g), mu_g, sd_g, ev[j], inv_k);
+      if (VECTOR) {
+        store4(og + r * VEC, ov);
+      } else {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) og[r * VEC + j] = from_f<T>(ov[j]);
+      }
+    }
+    return;
+  }
+  __shared__ float s_table[MAX_K];  // FROZEN
+  for (int i = threadIdx.x; i < k; i += THREADS) s_table[i] = table[i];
+  __syncthreads();
+  for (int r = first; r < runs; r += stride) {
+    if (VECTOR) {
+      load4(wg + r * VEC, wv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) wv[j] = to_f(wg[r * VEC + j]);
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      ov[j] = frozen_elem(u_of(wv[j], mu_g, sd_g), mu_g, sd_g, kf, kmax,
+                          s_table);
+    if (VECTOR) {
+      store4(og + r * VEC, ov);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) og[r * VEC + j] = from_f<T>(ov[j]);
     }
   }
 }
@@ -292,8 +423,8 @@ __global__ void __launch_bounds__(THREADS)
 uniq_bwd_kernel(const T* __restrict__ g, const T* __restrict__ w,
                 const T* __restrict__ w_hat, const float* __restrict__ mu,
                 const float* __restrict__ sigma, const int* __restrict__ mode,
-                T* __restrict__ dw, int64_t n, int64_t rc, int c,
-                int per_col) {
+                int mode_value, T* __restrict__ dw, int64_t n, int64_t rc,
+                int c, int per_col) {
   const int64_t n_runs = (n + VEC - 1) / VEC;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t run = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -320,7 +451,8 @@ uniq_bwd_kernel(const T* __restrict__ g, const T* __restrict__ w,
       if (i0 + j < n) {
         const int64_t s = pos.stat(per_col, c);
         const float f = bwd_factor(wv[j], hv[j], __ldg(mu + s),
-                                   __ldg(sigma + s), __ldg(mode + pos.g));
+                                   __ldg(sigma + s),
+                                   mode_of(mode, mode_value, pos.g));
         // the factor is rounded to g's type first, then the product
         ov[j] = __fmul_rn(gv[j], to_f(from_f<T>(f)));
         pos.next(rc, c);
@@ -357,39 +489,70 @@ bool noise_aligned(const NoiseOperand& s) {
 }
 bool noise_aligned(const NoisePhilox&) { return true; }
 
+// What a forward launch takes beside its operands: the body (`group`: the
+// per-group body, else the flat one) and a mode by value (or -1).
+struct FwdArgs {
+  const float* mu;
+  const float* sigma;
+  int per_col;
+  const int* mode;
+  int mode_value;
+  const float* table;
+  int k;
+  int group;
+};
+
 template <typename T, typename Noise>
-int fwd(const void* w, Noise noise, const float* mu, const float* sigma,
-        int per_col, const int* mode, const float* table, void* out, int k,
+int fwd(const void* w, Noise noise, const FwdArgs& a, void* out, int64_t G,
         int64_t n, int64_t rc, int c, cudaStream_t stream) {
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
   const bool vec = aligned(w, VEC * sizeof(T)) && aligned(out, VEC * sizeof(T))
                    && noise_aligned(noise);
+  if (a.group) {
+    // the rule of onchip_route, checked again: per-group statistics, R C a
+    // multiple of 4 below 2^31, G within the grid's y limit
+    if (a.per_col || rc % VEC || rc > 0x7FFFFFFF || G > 65535) return -5;
+    const int64_t per_group = (rc / VEC + THREADS - 1) / THREADS;
+    const int64_t cap = MAX_BLOCKS / G > 0 ? MAX_BLOCKS / G : 1;
+    const dim3 grid((unsigned)(per_group < cap ? per_group : cap),
+                    (unsigned)G);
+    if (vec)
+      uniq_fwd_group_kernel<T, true, Noise><<<grid, THREADS, 0, stream>>>(
+          wp, noise, a.mu, a.sigma, a.mode, a.mode_value, a.table, op, n,
+          (int)rc, a.k);
+    else
+      uniq_fwd_group_kernel<T, false, Noise><<<grid, THREADS, 0, stream>>>(
+          wp, noise, a.mu, a.sigma, a.mode, a.mode_value, a.table, op, n,
+          (int)rc, a.k);
+    return static_cast<int>(cudaGetLastError());
+  }
   const unsigned blocks = grid_for(n);
   if (vec)
     uniq_fwd_kernel<T, true, Noise><<<blocks, THREADS, 0, stream>>>(
-        wp, noise, mu, sigma, mode, table, op, n, rc, c, per_col, k);
+        wp, noise, a.mu, a.sigma, a.mode, a.mode_value, a.table, op, n, rc,
+        c, a.per_col, a.k);
   else
     uniq_fwd_kernel<T, false, Noise><<<blocks, THREADS, 0, stream>>>(
-        wp, noise, mu, sigma, mode, table, op, n, rc, c, per_col, k);
+        wp, noise, a.mu, a.sigma, a.mode, a.mode_value, a.table, op, n, rc,
+        c, a.per_col, a.k);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Noise>
-int fwd_any(const void* w, int w_bf16, Noise noise, const float* mu,
-            const float* sigma, int per_col, const int* mode,
-            const float* table, void* out, int k, long long G, long long R,
-            long long C, void* stream_ptr) {
+int fwd_any(const void* w, int w_bf16, Noise noise, const FwdArgs& a,
+            void* out, long long G, long long R, long long C,
+            void* stream_ptr) {
   const int rc_ok = check_shape(G, R, C);
   if (rc_ok != 0) return rc_ok;
-  if (k < 2 || k > MAX_K || (k & (k - 1))) return -4;
+  if (a.k < 2 || a.k > MAX_K || (a.k & (a.k - 1))) return -4;
+  if (a.mode_value > 2 || (a.mode_value < 0 && a.mode == nullptr)) return -6;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int64_t n = (int64_t)G * R * C;
   const int64_t rc = (int64_t)R * C;
-  return w_bf16 ? fwd<__nv_bfloat16>(w, noise, mu, sigma, per_col, mode,
-                                     table, out, k, n, rc, (int)C, stream)
-                : fwd<float>(w, noise, mu, sigma, per_col, mode, table, out,
-                             k, n, rc, (int)C, stream);
+  return w_bf16 ? fwd<__nv_bfloat16>(w, noise, a, out, G, n, rc, (int)C,
+                                     stream)
+                : fwd<float>(w, noise, a, out, G, n, rc, (int)C, stream);
 }
 
 // e01 of a key alone: the on-chip draw read back, for its bit-for-bit check
@@ -410,8 +573,8 @@ onchip_e01_kernel(const NoisePhilox noise, float* __restrict__ out,
 
 template <typename T>
 int bwd(const void* g, const void* w, const void* w_hat, const float* mu,
-        const float* sigma, int per_col, const int* mode, void* dw,
-        int64_t n, int64_t rc, int c, cudaStream_t stream) {
+        const float* sigma, int per_col, const int* mode, int mode_value,
+        void* dw, int64_t n, int64_t rc, int c, cudaStream_t stream) {
   const int a = VEC * sizeof(T);
   const bool vec = aligned(g, a) && aligned(w, a) && aligned(w_hat, a) &&
                    aligned(dw, a);
@@ -419,36 +582,39 @@ int bwd(const void* g, const void* w, const void* w_hat, const float* mu,
   if (vec)
     uniq_bwd_kernel<T, true><<<blocks, THREADS, 0, stream>>>(
         static_cast<const T*>(g), static_cast<const T*>(w),
-        static_cast<const T*>(w_hat), mu, sigma, mode, static_cast<T*>(dw), n,
-        rc, c, per_col);
+        static_cast<const T*>(w_hat), mu, sigma, mode, mode_value,
+        static_cast<T*>(dw), n, rc, c, per_col);
   else
     uniq_bwd_kernel<T, false><<<blocks, THREADS, 0, stream>>>(
         static_cast<const T*>(g), static_cast<const T*>(w),
-        static_cast<const T*>(w_hat), mu, sigma, mode, static_cast<T*>(dw), n,
-        rc, c, per_col);
+        static_cast<const T*>(w_hat), mu, sigma, mode, mode_value,
+        static_cast<T*>(dw), n, rc, c, per_col);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// `group`: the per-group body (the caller's onchip_route); `mode_value`: one
+// mode for every group by value, or -1 to read `mode` (G,) int32.
 extern "C" int uniq_noise_fwd_launch(const void* w, int w_bf16,
                                      const float* e01, const float* mu,
                                      const float* sigma, int per_col,
-                                     const int* mode, const float* table,
-                                     void* out, int k, long long G,
-                                     long long R, long long C,
-                                     void* stream_ptr) {
-  return fwd_any(w, w_bf16, NoiseOperand{e01}, mu, sigma, per_col, mode,
-                 table, out, k, G, R, C, stream_ptr);
+                                     const int* mode, int mode_value,
+                                     const float* table, void* out, int k,
+                                     int group, long long G, long long R,
+                                     long long C, void* stream_ptr) {
+  const FwdArgs a{mu, sigma, per_col, mode, mode_value, table, k, group};
+  return fwd_any(w, w_bf16, NoiseOperand{e01}, a, out, G, R, C, stream_ptr);
 }
 
 extern "C" int uniq_noise_fwd_onchip_launch(
     const void* w, int w_bf16, unsigned key_lo, unsigned key_hi,
     const float* mu, const float* sigma, int per_col, const int* mode,
-    const float* table, void* out, int k, long long G, long long R,
-    long long C, void* stream_ptr) {
-  return fwd_any(w, w_bf16, NoisePhilox{key_lo, key_hi}, mu, sigma, per_col,
-                 mode, table, out, k, G, R, C, stream_ptr);
+    int mode_value, const float* table, void* out, int k, int group,
+    long long G, long long R, long long C, void* stream_ptr) {
+  const FwdArgs a{mu, sigma, per_col, mode, mode_value, table, k, group};
+  return fwd_any(w, w_bf16, NoisePhilox{key_lo, key_hi}, a, out, G, R, C,
+                 stream_ptr);
 }
 
 extern "C" int uniq_noise_onchip_e01_launch(float* out, long long n,
@@ -464,16 +630,18 @@ extern "C" int uniq_noise_onchip_e01_launch(float* out, long long n,
 extern "C" int uniq_noise_bwd_launch(const void* g, const void* w,
                                      const void* w_hat, int bf16,
                                      const float* mu, const float* sigma,
-                                     int per_col, const int* mode, void* dw,
-                                     long long G, long long R, long long C,
+                                     int per_col, const int* mode,
+                                     int mode_value, void* dw, long long G,
+                                     long long R, long long C,
                                      void* stream_ptr) {
   const int rc_ok = check_shape(G, R, C);
   if (rc_ok != 0) return rc_ok;
+  if (mode_value > 2 || (mode_value < 0 && mode == nullptr)) return -6;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int64_t n = (int64_t)G * R * C;
   const int64_t rc = (int64_t)R * C;
-  return bf16 ? bwd<__nv_bfloat16>(g, w, w_hat, mu, sigma, per_col, mode, dw,
-                                   n, rc, (int)C, stream)
-              : bwd<float>(g, w, w_hat, mu, sigma, per_col, mode, dw, n, rc,
-                           (int)C, stream);
+  return bf16 ? bwd<__nv_bfloat16>(g, w, w_hat, mu, sigma, per_col, mode,
+                                   mode_value, dw, n, rc, (int)C, stream)
+              : bwd<float>(g, w, w_hat, mu, sigma, per_col, mode, mode_value,
+                           dw, n, rc, (int)C, stream);
 }

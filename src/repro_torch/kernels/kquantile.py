@@ -13,6 +13,14 @@ k = 256 storage offset of ``ref.code_offset``); ``kquantile_dequantize``
 also takes 4-bit codes packed two per byte, ``(G, R, C // 2)`` uint8, and
 unpacks them inside the kernel.  Any R and C: there is no divisibility
 condition.
+
+``kv_append`` is the serving engine's KV append fused into one kernel
+(``kv_append_kernel``): fresh K and V rows ``(N, KV, hd)`` are coded per
+(row, head) against their bf16-rounded mean and population deviation and
+written, with those statistics, into one layer of the paged pool at
+``(pages, rows)``.  Its plain version ``kv_append_plain`` is ``kv_codes``
+(also ``models/kv_cache.py:quantize_kv``'s plain version) followed by the
+six index writes.
 """
 
 from __future__ import annotations
@@ -40,6 +48,103 @@ def kquantile_dequantize_plain(codes, mu, sigma, *, k: int,
     if codes.dtype == torch.uint8:
         codes = packing.unpack_int4(codes)
     return kref.kquantile_dequant_ref(codes, mu, sigma, k, dtype=out_dtype)
+
+
+# the pool leaves of one layer that a coded KV append writes, in the
+# kernel's argument order
+KV_LEAVES = ("k_codes", "k_mu", "k_sigma", "v_codes", "v_mu", "v_sigma")
+# head dims the fused append takes (hd / 4 lanes of 4 values, or 32 lanes of
+# 8 at 256): the engine's configs have 128 and 256, the small ones 16
+KV_APPEND_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+
+def kv_row_stats(x: torch.Tensor):
+    """Per-row statistics of KV rows (..., hd) f32, as the pool stores them:
+    the mean and the population deviation (clamped at 1e-8), rounded to
+    bf16.  Rows are coded against these rounded values."""
+    mu = torch.mean(x, dim=-1).to(torch.bfloat16)
+    sigma = torch.clamp(torch.std(x, dim=-1, correction=0),
+                        min=1e-8).to(torch.bfloat16)
+    return mu, sigma
+
+
+def kv_codes(x: torch.Tensor, kv_bits: int):
+    """The plain k-quantile coding of KV rows x (..., hd): (codes, mu,
+    sigma), codes against the ``kv_row_stats`` statistics as rounded, int8
+    with the k = 256 offset at kv8, packed two per byte (uint8) at kv4."""
+    if kv_bits not in (4, 8):
+        raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
+    xf = x.to(torch.float32)
+    mu, sigma = kv_row_stats(xf)
+    codes = kref.kquantile_codes_ref(
+        xf, mu.to(torch.float32)[..., None],
+        sigma.to(torch.float32)[..., None], 2 ** kv_bits)
+    if kv_bits == 4:
+        codes = packing.pack_int4(codes)
+    return codes, mu, sigma
+
+
+def kv_append_plain(pool, pages, rows, k, v, *, kv_bits: int) -> None:
+    """Plain version of the fused KV append: ``kv_codes`` of the stacked K
+    and V rows, then one index write per leaf.  Duplicate destinations
+    overwrite each other in no set order.  A destination outside [0, P) x
+    [0, page) is an error, as the kernel traps on one: a negative index is
+    refused before any write (RuntimeError on the CPU, a device-side
+    assertion on the card, with no host synchronisation) rather than
+    wrapped to the pool's end; one past the end raises IndexError."""
+    torch._assert_async(((pages >= 0) & (rows >= 0)).all(),
+                        "kv_append: negative page or row destination")
+    codes, mu, sigma = kv_codes(torch.stack([k, v]), kv_bits)
+    vals = {"k_codes": codes[0], "k_mu": mu[0], "k_sigma": sigma[0],
+            "v_codes": codes[1], "v_mu": mu[1], "v_sigma": sigma[1]}
+    for name, val in vals.items():
+        pool[name][pages, rows] = val.to(pool[name].dtype)
+
+
+def _check_append(pool, pages, rows, k, v, kv_bits):
+    """Raise on what ``kv_append`` does not take.  On the engine's hot path
+    (once per layer and call), so each operand is looked at once."""
+    if kv_bits not in (4, 8):
+        raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
+    if k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"k and v must be one (N, KV, hd) shape, got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if k.dtype not in _DTYPES or v.dtype != k.dtype:
+        raise TypeError(f"k and v must be float32 or bfloat16 alike, got "
+                        f"{k.dtype} / {v.dtype}")
+    N, KV, hd = k.shape
+    if kv_bits == 4 and hd % 2:
+        raise ValueError(f"kv4 packs two codes a byte along head_dim; "
+                         f"head_dim {hd} must be even")
+    if len(pool) != len(KV_LEAVES) or any(n not in pool for n in KV_LEAVES):
+        raise ValueError(f"the pool layer must hold exactly {KV_LEAVES}, "
+                         f"got {sorted(pool)}")
+    P, page = pool["k_codes"].shape[:2]
+    code = (torch.uint8 if kv_bits == 4 else torch.int8,
+            (P, page, KV, hd // 2 if kv_bits == 4 else hd))
+    stat = (torch.bfloat16, (P, page, KV))
+    dev = k.device
+    for name, t, (dtype, shape) in (
+            ("pages", pages, (torch.int64, (N,))),
+            ("rows", rows, (torch.int64, (N,))),
+            ("k_codes", pool["k_codes"], code), ("k_mu", pool["k_mu"], stat),
+            ("k_sigma", pool["k_sigma"], stat),
+            ("v_codes", pool["v_codes"], code), ("v_mu", pool["v_mu"], stat),
+            ("v_sigma", pool["v_sigma"], stat)):
+        if t.dtype != dtype or t.shape != shape:
+            raise ValueError(f"{name} must be {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != dev:
+            raise ValueError("all operands must live on one device")
+    if not (k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("k and v must be contiguous")
+    if v.device != dev:
+        raise ValueError("all operands must live on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"kv_append runs on cuda or cpu tensors, got "
+                           f"{dev}")
 
 
 def _check_k(k: int) -> None:
@@ -81,10 +186,12 @@ def _bind(name: str):
     if fn is None:
         fn = getattr(loader.load("kquantile"), name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "kquantile_quantize_launch":
-            fn.argtypes = [p, i, p, p, i, p, i, ll, ll, ll, p]
-        else:
-            fn.argtypes = [p, i, p, p, i, p, p, i, i, ll, ll, ll, p]
+        fn.argtypes = {
+            "kquantile_quantize_launch": [p, i, p, p, i, p, i, ll, ll, ll, p],
+            "kquantile_dequantize_launch":
+                [p, i, p, p, i, p, p, i, i, ll, ll, ll, p],
+            "kv_append_launch":
+                [p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, ll, i, p]}[name]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
@@ -166,5 +273,50 @@ def kquantile_dequantize(codes: torch.Tensor, mu: torch.Tensor,
     return out
 
 
+def kv_append(pool, pages: torch.Tensor, rows: torch.Tensor,
+              k: torch.Tensor, v: torch.Tensor, *, kv_bits: int) -> None:
+    """Code K and V rows (N, KV, hd) and write them, with their bf16
+    statistics, into one layer of the coded paged pool at (pages[i],
+    rows[i]), in place.
+
+    ``pool`` maps ``KV_LEAVES`` to that layer's contiguous leaves: codes
+    (P, page, KV, hd) int8 (kv8) or (P, page, KV, hd // 2) uint8 (kv4),
+    statistics (P, page, KV) bf16.  ``pages`` / ``rows`` are (N,) int64
+    in [0, P) and [0, page): the plain version refuses any other
+    destination (see ``kv_append_plain``) and the kernel traps on it (which
+    ends the CUDA context).
+    CUDA tensors launch ``kv_append_kernel`` once (or raise); CPU tensors
+    take the plain version.  ``kv_append.launches`` counts kernel launches.
+    """
+    _check_append(pool, pages, rows, k, v, kv_bits)
+    if k.device.type == "cpu":
+        kv_append_plain(pool, pages, rows, k, v, kv_bits=kv_bits)
+        return
+    N, KV, hd = k.shape
+    if hd not in KV_APPEND_HEAD_DIMS:
+        raise ValueError(f"the fused KV append takes head_dim in "
+                         f"{KV_APPEND_HEAD_DIMS}, got {hd}")
+    if N == 0:
+        return
+    for name, t, a in (("k", k, 16), ("v", v, 16),
+                       ("k_codes", pool["k_codes"], 8),
+                       ("v_codes", pool["v_codes"], 8)):
+        if t.data_ptr() % a:
+            raise ValueError(f"{name} must start on a {a}-byte boundary")
+    fn = _bind("kv_append_launch")
+    P, page = pool["k_codes"].shape[:2]
+    with loader.on_device(k.device):
+        stream = torch.cuda.current_stream(k.device).cuda_stream
+        rc = fn(k.data_ptr(), v.data_ptr(), int(k.dtype == torch.bfloat16),
+                pages.data_ptr(), rows.data_ptr(),
+                *(pool[n].data_ptr() for n in KV_LEAVES), kv_bits, N, KV, hd,
+                P, page, stream)
+    if rc != 0:
+        raise RuntimeError(f"kv_append kernel launch failed with code {rc} "
+                           f"(N={N}, KV={KV}, hd={hd}, kv_bits={kv_bits})")
+    kv_append.launches += 1
+
+
 kquantile_quantize.launches = 0
 kquantile_dequantize.launches = 0
+kv_append.launches = 0

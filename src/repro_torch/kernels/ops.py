@@ -35,7 +35,8 @@ _COUNTED = {"qmatmul": _qmm.qmatmul,
             "qmatmul_a8": _qmm.qmatmul_a8,
             "qmatmul_lut": _qmm.qmatmul_lut,
             "kquantile_quantize": _kq.kquantile_quantize,
-            "kquantile_dequantize": _kq.kquantile_dequantize}
+            "kquantile_dequantize": _kq.kquantile_dequantize,
+            "kv_append": _kq.kv_append}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -255,22 +256,34 @@ class _UniqTransform(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, mu, sigma, mode, noise, k, fwd, use_kernel):
         w_hat = fwd(w, mu, sigma, mode, noise, k=k)
-        ctx.save_for_backward(w, w_hat, mu, sigma, mode)
+        if isinstance(mode, torch.Tensor):
+            ctx.save_for_backward(w, w_hat, mu, sigma, mode)
+            ctx.mode = None
+        else:                              # one mode, by value
+            ctx.save_for_backward(w, w_hat, mu, sigma)
+            ctx.mode = mode
         ctx.use_kernel = use_kernel
         return w_hat
 
     @staticmethod
     def backward(ctx, g):
-        w, w_hat, mu, sigma, mode = ctx.saved_tensors
+        w, w_hat, mu, sigma, *mode = ctx.saved_tensors
         bwd = _un.uniq_noise_bwd if ctx.use_kernel \
             else _un.uniq_noise_bwd_plain
-        dw = bwd(g.contiguous(), w, w_hat, mu, sigma, mode)
+        dw = bwd(g.contiguous(), w, w_hat, mu, sigma,
+                 mode[0] if mode else ctx.mode)
         return dw, None, None, None, None, None, None, None
 
 
-def _group_modes(mode, w: torch.Tensor) -> torch.Tensor:
-    mode = torch.as_tensor(mode).to(device=w.device,
-                                    dtype=torch.int32).reshape(-1)
+def _group_modes(mode, w: torch.Tensor):
+    """The kernels' mode argument: one Python int where every group has one
+    mode known on the host (a Python or numpy int, or a one-element CPU
+    tensor), handed to the kernels by value with nothing copied to the
+    device; else a (G,) int32 tensor on w's device."""
+    mode = torch.as_tensor(mode)
+    if mode.device.type == "cpu" and mode.numel() == 1:
+        return int(mode)
+    mode = mode.to(device=w.device, dtype=torch.int32).reshape(-1)
     if mode.numel() == 1 and w.shape[0] != 1:
         mode = mode.expand(w.shape[0])
     return mode.contiguous()
@@ -283,8 +296,9 @@ def uniq_transform(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     ``uniq_noise.py``), differentiable in ``w``.
 
     ``mode`` is (G,) or one value for every group, on any device (copied to
-    w's).  ``e01`` is the (G, R, C) f32 U[0, 1) draw: the caller makes it,
-    so a test can hand both frameworks the same noise.  ``use_kernel=False``
+    w's, except one value held on the host, which goes by value).  ``e01``
+    is the (G, R, C) f32 U[0, 1) draw: the caller makes it, so a test can
+    hand both frameworks the same noise.  ``use_kernel=False``
     is the comparison hook: it computes the plain versions on whatever
     device the tensors are on.
     """

@@ -9,8 +9,11 @@ int8 storage offset for k=256), so the paged-attention kernel shares the
 qmatmul dequant formulation.  Coding and dense dequantization go through
 the k-quantile codec kernels (``kernels/ops.py:quantize_weights`` /
 ``dequantize_weights``); the mean and deviation stay plain torch, as in the
-reference, where they are inputs of the kernel.  ``token_kv_bytes``/``page_kv_bytes`` give the
-exact pool bytes per token/page, the scheduler's admission currency.
+reference, where they are inputs of the kernel.  The serving path's append
+(``append_kv``) codes and writes a layer's fresh rows in one fused kernel
+(``kernels/kquantile.py:kv_append``).  ``token_kv_bytes``/``page_kv_bytes``
+give the exact pool bytes per token/page, the scheduler's admission
+currency.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch.kernels import kquantile as kq
 from repro_torch.kernels import ops as kops
 
 KV_BITS_CHOICES = (16, 8, 4)
@@ -51,17 +55,16 @@ def quantize_kv(x: torch.Tensor, kv_bits: int, use_kernel: bool = True):
             for kv_bits=4 (int8 codes carry the k=256 storage offset).
     mu/sigma : (..., KV) bf16 per-(row, head) statistics (population
             deviation); codes are computed against the bf16-rounded values.
-    ``use_kernel=False`` is the comparison hook: the codec's plain version
-    on whatever device the tensors are on.
+    ``use_kernel=False`` is the comparison hook: the plain version
+    (``kquantile.kv_codes``) on whatever device the tensors are on.
     """
+    if not use_kernel:
+        return kq.kv_codes(x, kv_bits)
     xf = x.to(torch.float32)
-    mu = torch.mean(xf, dim=-1).to(STATS_DTYPE)
-    sigma = torch.clamp(torch.std(xf, dim=-1, correction=0),
-                        min=1e-8).to(STATS_DTYPE)
+    mu, sigma = kq.kv_row_stats(xf)
     stored = kops.quantize_weights(
         xf, mu.to(torch.float32)[..., None],
-        sigma.to(torch.float32)[..., None], bits=kv_bits,
-        use_kernel=use_kernel)
+        sigma.to(torch.float32)[..., None], bits=kv_bits)
     return stored, mu, sigma
 
 
@@ -80,6 +83,26 @@ def fake_quant_kv(x: torch.Tensor, kv_bits: int, use_kernel: bool = True):
     stored, mu, sigma = quantize_kv(x, kv_bits, use_kernel)
     return dequantize_kv(stored, mu, sigma, kv_bits, x.dtype,
                          use_kernel), stored, mu, sigma
+
+
+def append_kv(pool_layer_view, pages, rows, k: torch.Tensor, v: torch.Tensor,
+              kv_bits: int, use_kernel: bool = True) -> None:
+    """Code fresh K/V rows (..., KV, hd) and write codes and statistics into
+    one layer of a coded pool at (pages, rows) (each of k's leading shape),
+    in place: ``quantize_kv`` of the rows, then the six index writes.
+
+    ``pool_layer_view`` maps the six leaf names of ``init_paged_cache`` to
+    that layer's (P, page, ...) views.  On the card one ``kv_append`` kernel
+    launch does all of it; ``use_kernel=False`` is the comparison hook (the
+    plain version on whatever device the tensors are on).
+    """
+    KV, hd = k.shape[-2:]
+    args = (pool_layer_view, pages.reshape(-1), rows.reshape(-1),
+            k.reshape(-1, KV, hd), v.reshape(-1, KV, hd))
+    if use_kernel:
+        kq.kv_append(*args, kv_bits=kv_bits)
+    else:
+        kq.kv_append_plain(*args, kv_bits=kv_bits)
 
 
 def clone_pages(cache, src, dst):

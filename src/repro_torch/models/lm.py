@@ -726,14 +726,10 @@ def _write_rows(kc, layer: int, pages, rows, k, v, kv_bits: int,
     (pages, rows), in place; returns that layer's view of the pool."""
     view = {name: leaf[layer] for name, leaf in kc.items()}
     if kvq.is_quantized_cache(kc):
-        # K and V are coded in one pass (rows are coded independently)
-        st, mu, sig = kvq.quantize_kv(torch.stack([k, v]), kv_bits,
-                                      use_kernels)
-        vals = {"k_codes": st[0], "k_mu": mu[0], "k_sigma": sig[0],
-                "v_codes": st[1], "v_mu": mu[1], "v_sigma": sig[1]}
-    else:
-        vals = {"k": k, "v": v}
-    for name, val in vals.items():
+        # one fused kernel codes K and V and writes all six leaves
+        kvq.append_kv(view, pages, rows, k, v, kv_bits, use_kernels)
+        return view
+    for name, val in (("k", k), ("v", v)):
         view[name][pages, rows] = val.to(view[name].dtype)
     return view
 

@@ -282,3 +282,119 @@ def test_onchip_noise_source_keys_each_leaf_like_leaf_noise():
     assert torch.equal(out["w"], tuniq.transform_param(
         params["w"], src("w", leaf), NOISE, cfg))
     assert not torch.equal(out["w"], params["w"])
+
+
+# -- the forward's two CUDA bodies, and one mode by value ---------------------
+
+def _trainer_leaf_shapes():
+    """(G, R, C) kernel layouts of the leaves the trainers transform:
+    ResNet-18 at its published width and MobileNet (the CNN trainer), and
+    granite_3_8b's stacked layer leaves, embedding and head (the LM
+    trainer, 8 layers as its full-width run)."""
+    from repro_torch.cnn import cnn as tcnn
+    from repro_torch.configs import base as tcb
+    shapes = []
+    for p in (tcnn.init_resnet18(0, width=64, device="cpu"),
+              tcnn.init_mobilenet(0, width=16, device="cpu")):
+        shapes += [tuple(tops._grouped(p[name])[0].shape)
+                   for name in tcnn.layer_names(p)
+                   if tcnn.cnn_quant_filter(name, p[name])]
+    c = tcb.get("granite_3_8b")
+    L, d, q, kv = 8, c.d_model, c.n_heads * c.head_dim, \
+        c.n_kv_heads * c.head_dim
+    shapes += [(L, d, q), (L, d, kv), (L, q, d), (L, d, c.d_ff),
+               (L, c.d_ff, d), (1, c.vocab, d), (1, d, c.vocab)]
+    return shapes
+
+
+def test_onchip_route_takes_every_trainer_leaf_to_the_group_body():
+    """Per-group statistics (how both trainers fit them) and R * C a
+    multiple of 4 below 2^31: every leaf of ResNet-18, MobileNet and
+    granite_3_8b goes to the per-group body."""
+    shapes = _trainer_leaf_shapes()
+    assert len(shapes) == 21 + 16 + 7
+    assert (3, 3 * 512, 512) in shapes and (3, 3, 128) in shapes
+    for (G, R, C) in shapes:
+        assert tun.onchip_route(G, R, C, False) == tun.GROUP, (G, R, C)
+
+
+@pytest.mark.parametrize("shape,per_col,route", [
+    ((3, 37, 131), False, "flat"),          # R * C not a multiple of 4
+    ((2, 5, 7), False, "flat"),
+    ((1, 1, 3), False, "flat"),
+    ((3, 3, 128), True, "flat"),            # per-column statistics
+    ((8, 4096, 12800), True, "flat"),
+    ((1, 1 << 16, 1 << 15), False, "flat"),  # R * C = 2^31
+    ((70000, 1, 4), False, "flat"),         # G beyond the grid's y limit
+    ((65535, 1, 4), False, "group"),
+    ((1, (1 << 29) - 1, 4), False, "group"),
+    ((2, 1, 4), False, "group")])
+def test_onchip_route_on_ragged_and_per_column_shapes(shape, per_col, route):
+    assert tun.onchip_route(*shape, per_col) == route
+
+
+def test_noise_draw_does_not_depend_on_the_other_groups_modes():
+    """A NOISE group's output is its own weights and its own stretch of the
+    leaf's draw (counters from its flat offset): the other groups' modes,
+    CLEAN, FROZEN or NOISE, change nothing in it, in the on-chip and the
+    host-noise forwards."""
+    w, mu, sd = (torch.from_numpy(x) for x in _inputs((3, 6, 20), seed=21))
+    key = 0xABCDEF0123
+    e01 = tref.onchip_e01(key, w.numel()).view(w.shape)
+    outs = []
+    for others in ((CLEAN, CLEAN), (FROZEN, NOISE), (NOISE, FROZEN),
+                   (NOISE, NOISE)):
+        mode = torch.tensor([others[0], NOISE, others[1]], dtype=torch.int32)
+        on = tun.uniq_noise_fwd_onchip(w, mu, sd, mode, key, k=16)
+        host = tun.uniq_noise_fwd(w, mu, sd, mode, e01, k=16)
+        assert torch.equal(on, host)
+        outs.append(on[1])
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    # and it is the flat leaf's draw at that group's offsets
+    alone = tref.uniq_transform_ref(w[1:2], mu[1:2], sd[1:2], e01[1:2],
+                                    torch.tensor([NOISE], dtype=torch.int32),
+                                    16)
+    assert torch.equal(outs[0], alone[0])
+
+
+@pytest.mark.parametrize("m", [CLEAN, NOISE, FROZEN])
+def test_one_mode_by_value_equals_the_mode_tensor(m):
+    """One mode for every group given as an int (passed to the kernels by
+    value) is the same computation as the (G,) tensor of it: both forwards,
+    the backward, and ``uniq_transform_onchip`` with its gradient; a host
+    scalar tensor goes by value too, a (G,) tensor stays a tensor."""
+    w, mu, sd = (torch.from_numpy(x) for x in _inputs((3, 8, 12), seed=30))
+    G = w.shape[0]
+    mode_t = torch.full((G,), m, dtype=torch.int32)
+    key = 0x5EED
+    e01 = tref.onchip_e01(key, w.numel()).view(w.shape)
+    a = tun.uniq_noise_fwd_onchip(w, mu, sd, m, key, k=16)
+    assert torch.equal(a, tun.uniq_noise_fwd_onchip(w, mu, sd, mode_t, key,
+                                                    k=16))
+    assert torch.equal(tun.uniq_noise_fwd(w, mu, sd, m, e01, k=16),
+                       tun.uniq_noise_fwd(w, mu, sd, mode_t, e01, k=16))
+    g = torch.from_numpy(_rng_normal(w.shape, seed=31))
+    assert torch.equal(tun.uniq_noise_bwd(g, w, a, mu, sd, m),
+                       tun.uniq_noise_bwd(g, w, a, mu, sd, mode_t))
+    assert tops._group_modes(m, w) == m
+    assert tops._group_modes(torch.tensor(m), w) == m
+    assert tops._group_modes(np.int32(m), w) == m
+    assert torch.equal(tops._group_modes(mode_t, w), mode_t)
+    res = []
+    for mode in (m, mode_t):
+        wt = w.clone().requires_grad_(True)
+        out = tops.uniq_transform_onchip(wt, mu, sd, mode, key, k=16)
+        (out * g).sum().backward()
+        res.append((out.detach(), wt.grad))
+    assert torch.equal(res[0][0], res[1][0])
+    assert torch.equal(res[0][1], res[1][1])
+    with pytest.raises(ValueError):
+        tun.uniq_noise_fwd_onchip(w, mu, sd, 3, key, k=16)
+    with pytest.raises(ValueError):
+        tun.uniq_noise_bwd(g, w, a, mu, sd, -1)
+
+
+def _rng_normal(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape) \
+        .astype(np.float32)
