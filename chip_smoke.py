@@ -10,7 +10,9 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
   3. holds each kernel against its plain PyTorch version on the card, at the
      shapes the serving and training paths give it and at ragged ones, and
      checks that the same inputs twice give the same bits (the k-quantile
-     codec kernels must equal their plain versions to the bit, and so must
+     codec kernels (both routes of ``codec_route``, views off a 16-byte
+     boundary, more than 2^31 elements, the paged pool read) must equal
+     their plain versions to the bit, and so must
      the on-chip draw of ``uniq_noise_fwd_onchip``, read back through its
      debug entry point, against the plain Philox; both bodies of the
      ``uniq_noise`` forwards, and a mode given by value, to the bit; the
@@ -23,8 +25,10 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      (``qmatmul``), W4A8 (int8 activations, ``qmatmul_a8``) and W4 with
      empirical codebooks (``--w-dist empirical``, ``qmatmul_lut``); counts
      the kernel launches of each run (``kv_append`` codes and writes the KV
-     rows, one launch per layer and call; ``kquantile_dequantize`` decodes
-     the embedding rows and the coded pool; ``kquantile_quantize`` codes
+     rows, one launch per layer and call; ``kquantile_dequantize_paged``
+     gathers and decodes the coded pool for each prefill chunk, one launch
+     for K and one for V per layer; ``kquantile_dequantize`` decodes the
+     embedding rows of the Gaussian engines; ``kquantile_quantize`` codes
      the weights at load and runs no more in the stream);
      checks that the dense bf16 LM head gives f32 logits;
   5. repeats a prefill + one decode step with the plain versions forced and
@@ -58,10 +62,13 @@ phase 3 on a reduced shape list (for bringing a kernel up); ``--sweep``
 times the kernels' tuning axes (block rows, K splits; the attention
 body's splits, beside the CUDA-core body) at the
 serving shapes, holds ``qmatmul_a8`` and its plain version against the
-exact sum, and stops (``--sweep attention``: the attention part alone);
+exact sum, and stops (``--sweep attention``: the attention part alone;
+``--sweep codec``: phase 7's codec rows alone);
 ``--profile`` profiles an engine run (host by cProfile, device by
 torch.profiler), counts the device operations of one decode step with the
-fused KV append and with the eager append it replaced, and stops.
+fused KV append and with the eager append it replaced, of one prefill-chunk
+call and of one layer's pool read with the paged read and with the eager
+read it replaced, and stops.
 """
 
 from __future__ import annotations
@@ -107,6 +114,7 @@ from repro_torch.kernels import qmatmul as qmm                # noqa: E402
 from repro_torch.kernels import ref as kref                   # noqa: E402
 from repro_torch.kernels import uniq_noise as un              # noqa: E402
 from repro_torch.launch import train as train_cli             # noqa: E402
+from repro_torch.models import attention as attn_lib         # noqa: E402
 from repro_torch.models import kv_cache as kvc               # noqa: E402
 from repro_torch.models import lm, model                      # noqa: E402
 from repro_torch.optim.optim import OptimConfig               # noqa: E402
@@ -117,6 +125,8 @@ from repro_torch.serve.engine import (Engine, EngineConfig,   # noqa: E402
 from repro_torch.train import steps as train_steps            # noqa: E402
 
 DEV = torch.device("cuda")
+# the card's name and power limit (nvidia-smi), printed beside the times
+CARD = ""
 
 # Published peaks of one H100 SXM (dense): what the bounds are stated against.
 PEAK_BYTES_PER_S = 3.35e12
@@ -191,10 +201,11 @@ TOL_QMM_A8 = 5e-4
 # qmatmul_lut: as qmatmul (bf16 activations meet levels rounded to bf16 on
 #   both sides, f32 activations f32 levels), f32 result.
 TOL_QMM_LUT = 5e-4
-# kquantile_quantize / kquantile_dequantize: none.  Both sides run the same
-#   correctly rounded f32 operations in the same order (z / sqrt2 taken as
-#   z * (1 / sqrt2) on both), CUDA's erff serves both, and the levels come
-#   from one table: codes and values must be equal to the bit.
+# kquantile_quantize / kquantile_dequantize / kquantile_dequantize_paged:
+#   none.  Both sides run the same correctly rounded f32 operations in the
+#   same order (z / sqrt2 taken as z * (1 / sqrt2) on both), CUDA's erff
+#   serves both, and the levels come from one table: codes and values must
+#   be equal to the bit.
 # kv_append (the fused KV append): the mean and deviation of a (row, head)
 #   are reduced in another order than torch.mean / torch.std, so a bf16
 #   statistic may land one ulp from the plain version's when the f32 value
@@ -535,38 +546,70 @@ def check_qmatmul_variants(gen, quick: bool):
     return worst
 
 
-def _codec_one(gen, G, R, C, k, per_col, w_dtype):
-    """One quantize + dequantize case: kernel and plain version must agree
-    to the bit, and the same inputs twice give the same bits.  Returns the
-    number of elements checked."""
-    where = f"G={G} R={R} C={C} k={k} per_col={per_col} {w_dtype}"
-    scale = 0.01 + 0.04 * torch.rand((G, 1, 1), generator=gen, device=DEV)
-    w = (torch.randn((G, R, C), generator=gen, device=DEV) * scale
-         + 0.1 * scale).to(w_dtype)
+def _codec_stats(w, per_col):
+    """Per-column or per-group statistics of (G, R, C) values, as the
+    callers make them (the KV rows' per-group statistics bf16-rounded)."""
     dims = (1,) if per_col else (1, 2)
     wf = w.float()
     mu = wf.mean(dim=dims, keepdim=True).contiguous()
     sigma = wf.std(dim=dims, correction=0, keepdim=True).clamp_min(1e-8)
     if not per_col:
-        # the KV rows' statistics are bf16-rounded before coding
         mu = mu.to(torch.bfloat16).float()
         sigma = sigma.to(torch.bfloat16).float()
-    sigma = sigma.contiguous()
-    del wf
-    codes = kq.kquantile_quantize(w, mu, sigma, k=k)
-    again = kq.kquantile_quantize(w, mu, sigma, k=k)
-    sync()
-    want = kq.kquantile_quantize_plain(w, mu, sigma, k=k)
-    if not torch.equal(codes, again):
-        raise SystemExit(f"kquantile_quantize is not deterministic: {where}")
-    if not torch.equal(codes, want):
-        n = int((codes != want).sum().item())
-        raise SystemExit(f"kquantile_quantize differs from its plain version "
-                         f"in {n} of {codes.numel()} codes: {where}")
-    stored = codes
-    if k == 16 and C % 2 == 0:
-        stored = packing.pack_int4(codes)           # the packed W4 / kv4 path
+    return mu, sigma.contiguous()
+
+
+def _offset_view(t, shift_bytes):
+    """A contiguous copy of ``t`` whose data pointer sits ``shift_bytes``
+    past a 16-byte boundary (a view into a larger buffer)."""
+    n = t.numel()
+    pad = shift_bytes // t.element_size()
+    buf = torch.empty(n + pad, dtype=t.dtype, device=t.device)
+    v = buf[pad:].view(t.shape)
+    v.copy_(t)
+    assert v.data_ptr() % 16 == shift_bytes and v.is_contiguous()
+    return v
+
+
+def _same(name, got, again, want, where):
+    if not torch.equal(got, again):
+        raise SystemExit(f"{name} is not deterministic: {where}")
+    if not torch.equal(got, want):
+        n = int((got != want).sum().item())
+        err = (got.float() - want.float()).abs().max().item()
+        raise SystemExit(f"{name} differs from its plain version in {n} of "
+                         f"{got.numel()} values (max abs {err:.3e}): {where}")
+
+
+def _codec_one(gen, G, R, C, k, per_col, w_dtype, shift=0):
+    """One quantize + dequantize case: kernel and plain version must agree
+    to the bit, and the same inputs twice give the same bits; at k = 16
+    with an even C the packed output too.  ``shift``: the values and codes
+    are views that many bytes off a 16-byte boundary.  Returns the number
+    of elements checked and the routes taken."""
+    scale = 0.01 + 0.04 * torch.rand((G, 1, 1), generator=gen, device=DEV)
+    w = (torch.randn((G, R, C), generator=gen, device=DEV) * scale
+         + 0.1 * scale).to(w_dtype)
+    mu, sigma = _codec_stats(w, per_col)
+    if shift:
+        w = _offset_view(w, shift)
+    routes = set()
+    packs = (False, True) if k == 16 and C % 2 == 0 else (False,)
+    for packed in packs:
+        where = (f"G={G} R={R} C={C} k={k} per_col={per_col} {w_dtype} "
+                 f"packed={packed} shift={shift}")
+        routes.add(kq.codec_route(kq.QUANTIZE, (G, R, C), per_col, w_dtype,
+                                  packed, (w.data_ptr(), 0)))
+        codes = kq.kquantile_quantize(w, mu, sigma, k=k, packed=packed)
+        again = kq.kquantile_quantize(w, mu, sigma, k=k, packed=packed)
+        sync()
+        want = kq.kquantile_quantize_plain(w, mu, sigma, k=k, packed=packed)
+        _same("kquantile_quantize", codes, again, want, where)
+    stored = codes if not shift else _offset_view(codes, shift)
     for out_dtype in (torch.float32, torch.bfloat16):
+        routes.add(kq.codec_route(kq.DEQUANTIZE, (G, R, C), per_col,
+                                  out_dtype, stored.dtype == torch.uint8,
+                                  (0, stored.data_ptr())))
         out = kq.kquantile_dequantize(stored, mu, sigma, k=k,
                                       out_dtype=out_dtype)
         again = kq.kquantile_dequantize(stored, mu, sigma, k=k,
@@ -574,41 +617,191 @@ def _codec_one(gen, G, R, C, k, per_col, w_dtype):
         sync()
         want = kq.kquantile_dequantize_plain(stored, mu, sigma, k=k,
                                              out_dtype=out_dtype)
-        if not torch.equal(out, again):
-            raise SystemExit(f"kquantile_dequantize is not deterministic: "
-                             f"{where} {out_dtype}")
-        if not torch.equal(out, want):
-            err = (out.float() - want.float()).abs().max().item()
-            raise SystemExit(f"kquantile_dequantize differs from its plain "
-                             f"version (max abs {err:.3e}): {where} "
-                             f"{out_dtype} packed={stored.dtype}")
+        _same("kquantile_dequantize", out, again, want,
+              f"G={G} R={R} C={C} k={k} per_col={per_col} {out_dtype} "
+              f"packed={stored.dtype == torch.uint8} shift={shift}")
     del w, mu, sigma, codes, again, want, stored, out
-    return G * R * C
+    return G * R * C, routes
+
+
+# (G, R, C), per-column statistics, in the --quick list: the KV rows of an
+# append and a prefill chunk, every distinct weight shape of granite_3_8b
+# and its embedding, then ragged ones: C not a multiple of 4 or 16, C < 4,
+# odd C, R = 1 with many groups
+CODEC_CASES = (
+    ((2 * 16 * 8, 1, 128), False, True), ((2 * 4 * 64 * 8, 1, 128), False,
+                                          False),
+    ((1, 4096, 12800), True, True), ((1, 12800, 4096), True, False),
+    ((1, 4096, 4096), True, False), ((1, 4096, 1024), True, False),
+    ((1, 49155, 4096), True, False), ((1, 256, 4096), True, False),
+    ((3, 37, 131), True, True), ((3, 37, 131), False, False),
+    ((2, 5, 7), True, True), ((1, 1, 3), False, False),
+    ((5, 129, 1001), True, False), ((2, 9, 6), True, True),
+    ((2, 9, 6), False, False), ((3, 17, 20), True, False),
+    ((4, 3, 2), True, False), ((1, 3, 2), False, False),
+    ((4096, 1, 128), False, False), ((777, 1, 36), False, True),
+    ((300, 1, 64), True, False), ((1000, 1, 10), False, False))
+# (G, R, C, per_col, dtype, shift): data pointers 4 (and 8) bytes off a
+# 16-byte boundary
+CODEC_SHIFTED = ((1, 64, 128, True, torch.float32, 4),
+                 (3, 16, 96, False, torch.bfloat16, 8),
+                 (2, 33, 64, True, torch.bfloat16, 4))
+# the same kernels over more than 2^31 elements (G * R * C), groups below
+BIG_CODEC = (3, 32768, 24576)
+
+
+def _codec_big(gen):
+    """Dequantize (int8 -> bf16) and quantize (bf16 -> int8) at
+    ``BIG_CODEC``, G * R * C > 2^31, per-column statistics; compared with
+    the plain versions slice by slice (4096 rows of one group at a
+    time)."""
+    G, R, C = BIG_CODEC
+    codes = torch.randint(-128, 128, (G, R, C), generator=gen, device=DEV,
+                          dtype=torch.int8)
+    mu = (0.01 * torch.randn((G, 1, C), generator=gen, device=DEV))
+    sigma = 0.02 + 0.01 * torch.rand((G, 1, C), generator=gen, device=DEV)
+    out = kq.kquantile_dequantize(codes, mu, sigma, k=256)
+    sync()
+    step = 4096
+    for g in range(G):
+        for r in range(0, R, step):
+            sl = (slice(g, g + 1), slice(r, r + step))
+            want = kq.kquantile_dequantize_plain(
+                codes[sl], mu[g:g + 1], sigma[g:g + 1], k=256)
+            _same("kquantile_dequantize", out[sl], out[sl], want,
+                  f"{BIG_CODEC} int8 -> bf16, group {g} rows {r}+")
+    del want
+    again = kq.kquantile_quantize(out, mu, sigma, k=256)
+    sync()
+    for g in range(G):
+        for r in range(0, R, step):
+            sl = (slice(g, g + 1), slice(r, r + step))
+            want = kq.kquantile_quantize_plain(out[sl], mu[g:g + 1],
+                                               sigma[g:g + 1], k=256)
+            _same("kquantile_quantize", again[sl], again[sl], want,
+                  f"{BIG_CODEC} bf16 -> int8, group {g} rows {r}+")
+    del codes, out, again, want, mu, sigma
+    torch.cuda.empty_cache()
+    return 2 * G * R * C
 
 
 def check_kquantile(gen, quick: bool) -> float:
     """kquantile_quantize / _dequantize against their plain versions, to
-    the bit, at the KV append (2 x 16 rows x 8 heads, head_dim 128), a
-    prefill chunk's KV, one weight layer and the embedding of granite_3_8b,
-    and ragged shapes; W4 / kv4 (k = 16, packed) and W8 / kv8 (k = 256)."""
-    cases = [((2 * 16 * 8, 1, 128), False), ((2 * 4 * 64 * 8, 1, 128), False),
-             ((1, 4096, 12800), True), ((1, 12800, 4096), True),
-             ((1, 49155, 4096), True), ((3, 37, 131), True),
-             ((3, 37, 131), False), ((2, 5, 7), True), ((1, 1, 3), False),
-             ((5, 129, 1001), True)]
-    if quick:
-        cases = [cases[0], cases[2], cases[5], cases[7]]
+    the bit, over ``CODEC_CASES`` (both routes of ``codec_route``), views
+    off a 16-byte boundary and one case over 2^31 elements; W4 / kv4
+    (k = 16, packed output and input) and W8 / kv8 (k = 256)."""
+    cases = [c for c in CODEC_CASES if c[2]] if quick else CODEC_CASES
     n = 0
-    for (G, R, C), per_col in cases:
+    routes = set()
+    for (G, R, C), per_col, _ in cases:
         for k in (16, 256):
             for w_dtype in ((torch.float32, torch.bfloat16) if R * C < 1 << 24
                             else (torch.float32,)):
-                n += _codec_one(gen, G, R, C, k, per_col, w_dtype)
+                m, r = _codec_one(gen, G, R, C, k, per_col, w_dtype)
+                n += m
+                routes |= r
         say(f"[kernels] kquantile_quantize / _dequantize G={G} R={R} C={C} "
-            f"per-{'column' if per_col else 'group'} stats: k=16 (packed) / "
-            f"256 x f32/bf16 in and out, bit-equal to the plain versions")
-    say(f"[kernels] kquantile: {n} values coded and decoded, every code and "
-        f"every value equal to the plain versions'")
+            f"per-{'column' if per_col else 'group'} stats: k=16 (int8"
+            f"{', packed' if C % 2 == 0 else ''}) / 256 x f32/bf16 in and "
+            f"out, bit-equal to the plain versions")
+    for G, R, C, per_col, dtype, shift in CODEC_SHIFTED[:1 if quick else 3]:
+        for k in (16, 256):
+            m, r = _codec_one(gen, G, R, C, k, per_col, dtype, shift)
+            n += m
+            routes |= r
+        say(f"[kernels] kquantile G={G} R={R} C={C} {dtype}, values and codes "
+            f"{shift} bytes off a 16-byte boundary: bit-equal")
+    if routes != {kq.VECTOR, kq.SCALAR}:
+        raise SystemExit(f"the codec checks took only {routes}")
+    if not quick:
+        n += _codec_big(gen)
+        say(f"[kernels] kquantile {BIG_CODEC} ({math.prod(BIG_CODEC)} "
+            f"elements > 2^31): int8 -> bf16 and back, bit-equal slice by "
+            f"slice")
+    say(f"[kernels] kquantile: {n} values coded and decoded through both "
+        f"routes, every code and every value equal to the plain versions'")
+    return 0.0
+
+
+def make_paged_pool(gen, B, n_pages, page, KV, hd, kv_bits, shift=0):
+    """One layer of a coded pool (codes, mu, sigma) of 1 + B * n_pages
+    pages of random bytes and statistics, and a (B, n_pages) int32 table:
+    sequence b holds a random number of real pages (at least one), the
+    rest of its row repeats the sink page 0; sequence 1 shares sequence
+    0's first pages (a prefix hit).  ``shift``: the codes are a view that
+    many bytes off a 16-byte boundary."""
+    P = 1 + B * n_pages
+    hdc = hd // 2 if kv_bits == 4 else hd
+    c = torch.randint(0, 256, (P, page, KV, hdc), generator=gen, device=DEV)
+    codes = c.to(torch.uint8) if kv_bits == 4 else (c - 128).to(torch.int8)
+    if shift:
+        codes = _offset_view(codes, shift)
+    mu = (0.2 * torch.randn((P, page, KV), generator=gen, device=DEV)
+          ).to(torch.bfloat16)
+    sigma = (0.5 + torch.rand((P, page, KV), generator=gen, device=DEV)
+             ).to(torch.bfloat16)
+    ids = (1 + torch.randperm(P - 1, generator=gen, device=DEV)).to(
+        torch.int32)
+    tables = ids[:B * n_pages].reshape(B, n_pages).clone()
+    used = torch.randint(1, n_pages + 1, (B,), generator=gen, device=DEV)
+    used[0] = n_pages if B > 1 else max(1, n_pages - 3)
+    cols = torch.arange(n_pages, device=DEV)[None]
+    tables = torch.where(cols < used[:, None], tables, 0).to(torch.int32)
+    if B > 1:
+        shared = min(2, int(used[1]))
+        tables[1, :shared] = tables[0, :shared]
+    return codes, mu, sigma, tables.contiguous()
+
+
+# (B, n_pages, page, KV, hd, shift, in the --quick list): the engine's
+# prefill pool read (32 pages of 64, 8 heads of 128) at B = 1 and 8, then
+# the small models' head_dim 16, a head_dim that is not whole chunks
+# (the scalar route), and codes off a 16-byte boundary
+PAGED_CASES = ((1, 32, 64, 8, 128, 0, True), (8, 32, 64, 8, 128, 0, False),
+               (3, 5, 4, 2, 16, 0, True), (2, 3, 8, 2, 24, 0, False),
+               (2, 4, 8, 3, 32, 8, False))
+
+
+def check_paged_dequant(gen, quick: bool) -> float:
+    """``kquantile_dequantize_paged`` against its plain version (the
+    gathers, casts and dequantize it replaced), to the bit, kv8 and kv4,
+    bf16 and f32 out, int32 and int64 tables with sink-page repeats; the
+    same inputs twice give the same bits."""
+    n = 0
+    routes = set()
+    for B, n_pages, page, KV, hd, shift, in_quick in PAGED_CASES:
+        if quick and not in_quick:
+            continue
+        for kv_bits in (8, 4):
+            codes, mu, sigma, tables = make_paged_pool(
+                gen, B, n_pages, page, KV, hd, kv_bits, shift)
+            for bt in (tables, tables.to(torch.int64)):
+                for out_dtype in (torch.bfloat16, torch.float32):
+                    where = (f"B={B} n_pages={n_pages} page={page} KV={KV} "
+                             f"hd={hd} kv{kv_bits} {bt.dtype} {out_dtype} "
+                             f"shift={shift}")
+                    args = (codes, mu, sigma, bt)
+                    kw = dict(kv_bits=kv_bits, out_dtype=out_dtype)
+                    got = kq.kquantile_dequantize_paged(*args, **kw)
+                    again = kq.kquantile_dequantize_paged(*args, **kw)
+                    sync()
+                    want = kq.kquantile_dequantize_paged_plain(*args, **kw)
+                    _same("kquantile_dequantize_paged", got, again, want,
+                          where)
+                    routes.add(kq.codec_route(
+                        kq.DEQUANTIZE, (got.numel() // hd, 1, hd), False,
+                        out_dtype, kv_bits == 4,
+                        (got.data_ptr(), codes.data_ptr())))
+                    n += got.numel()
+            del codes, mu, sigma, tables, got, again, want
+        say(f"[kernels] kquantile_dequantize_paged B={B} n_pages={n_pages} "
+            f"page={page} KV={KV} hd={hd} shift={shift}: kv8 + kv4, bf16 + "
+            f"f32 out, int32 + int64 tables with sink repeats, bit-equal to "
+            f"the plain version")
+    if not quick and routes != {kq.VECTOR, kq.SCALAR}:
+        raise SystemExit(f"the paged checks took only {routes}")
+    say(f"[kernels] kquantile_dequantize_paged: {n} values read through "
+        f"{sorted(routes)}, every one equal to the plain version's")
     return 0.0
 
 
@@ -1310,7 +1503,8 @@ ENGINE_MODES = (
          matmul="qmatmul_lut"),
 )
 MATMULS = ("qmatmul", "qmatmul_a8", "qmatmul_lut")
-CODECS = ("kquantile_quantize", "kquantile_dequantize", "kv_append")
+CODECS = ("kquantile_quantize", "kquantile_dequantize",
+          "kquantile_dequantize_paged", "kv_append")
 
 
 def engine_phase(cfg, seed: int, new_tokens: int, mode: dict):
@@ -1361,6 +1555,7 @@ def engine_phase(cfg, seed: int, new_tokens: int, mode: dict):
     want_mm = 7 * L * (steps + calls)
     want_att = L * steps
     want_app = L * (steps + calls)
+    want_read = 2 * L * calls
     say(f"[engine] {n_req} requests completed; {steps} decode steps, "
         f"{calls} prefill-chunk calls; cache hits {st['cache_hits']}, "
         f"hit pages {st['cache_hit_pages']}, copy-on-writes "
@@ -1371,22 +1566,29 @@ def engine_phase(cfg, seed: int, new_tokens: int, mode: dict):
         f"paged_quant_attention {counts['paged_quant_attention']} ({L} "
         f"layers x {steps} decode steps = {want_att}), kv_append "
         f"{counts['kv_append']} ({L} layers x {steps + calls} calls = "
-        f"{want_app}), kquantile_quantize {counts['kquantile_quantize']}, "
-        f"kquantile_dequantize {counts['kquantile_dequantize']}; other "
+        f"{want_app}), kquantile_dequantize_paged "
+        f"{counts['kquantile_dequantize_paged']} (K and V x {L} layers x "
+        f"{calls} chunk calls = {want_read}), kquantile_quantize "
+        f"{counts['kquantile_quantize']}, kquantile_dequantize "
+        f"{counts['kquantile_dequantize']} (the embedding rows); other "
         f"matmul kernels " + ", ".join(
             f"{m} {counts[m]}" for m in MATMULS if m != mode["matmul"]))
+    # the Gaussian engines decode their embedding rows through the dense
+    # dequantize kernel; the empirical engine's codebook rows are a gather
+    gaussian = mode["w_dist"] == "gaussian"
     if counts[mode["matmul"]] != want_mm \
             or counts["paged_quant_attention"] != want_att \
             or counts["kv_append"] != want_app \
-            or min(want_mm, want_att) <= 0 \
+            or counts["kquantile_dequantize_paged"] != want_read \
+            or min(want_mm, want_att, want_read) <= 0 \
             or any(counts[m] for m in MATMULS if m != mode["matmul"]) \
             or counts["kquantile_quantize"] \
-            or counts["kquantile_dequantize"] <= 0:
+            or (counts["kquantile_dequantize"] > 0) != gaussian:
         raise SystemExit("the main path did not go through the kernels as "
                          "expected")
     # the weights' coding at load is the quantize kernel's part of the path
     # (the empirical engine codes its codebooks without it)
-    if mode["w_dist"] == "gaussian" and load["kquantile_quantize"] <= 0:
+    if gaussian and load["kquantile_quantize"] <= 0:
         raise SystemExit("coding the weights at load launched no "
                          "kquantile_quantize")
     counts["kquantile_quantize"] = load["kquantile_quantize"]
@@ -2236,55 +2438,118 @@ KQ_QUANT_OPS = 30
 KQ_DEQUANT_OPS = 2
 
 
+def _bound(nbytes, ops):
+    t_b = nbytes / PEAK_BYTES_PER_S
+    t_f = ops / PEAK_FLOPS["f32"]
+    return dict(bound_ms=max(t_b, t_f) * 1e3,
+                bound_by="bytes" if t_b >= t_f else "operations",
+                bytes=nbytes, library_ms=None)
+
+
 def time_kquantile(gen, G, R, C, k, per_col, w_dtype=torch.float32,
                    out_dtype=torch.bfloat16):
-    """Quantize (values -> int8 codes) and dequantize (int8, or packed
-    4-bit, codes -> ``out_dtype``) kernels and their plain versions at one
-    shape, inputs beyond the L2 cache where the shape allows.  No PyTorch
-    call computes the k-quantile codec: no library time."""
+    """Quantize (values -> codes, packed two a byte at k = 16 with an even
+    C, as the W4 path stores them) and dequantize (those codes ->
+    ``out_dtype``) kernels and their plain versions at one shape, inputs
+    beyond the L2 cache where the shape allows; beside each, a same-bytes
+    copy as a bandwidth yardstick (``w.to(torch.int8)``;
+    ``codes.to(torch.bfloat16)`` of int8 codes of the same shape): it
+    moves the bytes of the int8 codec (more than the packed one) and is
+    not the same function.  No PyTorch call computes the k-quantile codec:
+    no library time."""
     n = G * R * C
+    packed = k == 16 and C % 2 == 0
     n_copies = max(2, math.ceil(120e6 / (n * 5)))
     sets = []
     for _ in range(n_copies):
         w = (torch.randn((G, R, C), generator=gen, device=DEV)
              * 0.02).to(w_dtype)
-        dims = (1,) if per_col else (1, 2)
-        mu = w.float().mean(dim=dims, keepdim=True).contiguous()
-        sigma = w.float().std(dim=dims, correction=0,
-                              keepdim=True).contiguous()
-        codes = kq.kquantile_quantize(w, mu, sigma, k=k)
-        stored = packing.pack_int4(codes) if k == 16 and C % 2 == 0 \
-            else codes
-        sets.append((w, mu, sigma, stored))
+        mu, sigma = _codec_stats(w, per_col)
+        stored = kq.kquantile_quantize(w, mu, sigma, k=k, packed=packed)
+        c8 = stored if not packed else torch.randint(
+            -128, 128, (G, R, C), generator=gen, device=DEV,
+            dtype=torch.int8)
+        sets.append((w, mu, sigma, stored, c8))
     n_stats = mu.numel()
     r = {}
-    q = [lambda s=s: kq.kquantile_quantize(s[0], s[1], s[2], k=k)
-         for s in sets]
-    d = [lambda s=s: kq.kquantile_dequantize(s[3], s[1], s[2], k=k,
-                                             out_dtype=out_dtype)
-         for s in sets]
-    r["quantize"] = dict(
-        ms=time_ms(q), host_us=host_us(q[0]),
-        plain_ms=time_ms([lambda s=s: kq.kquantile_quantize_plain(
-            s[0], s[1], s[2], k=k) for s in sets[:2]], warmup=1, iters=4))
-    r["dequantize"] = dict(
-        ms=time_ms(d), host_us=host_us(d[0]),
-        plain_ms=time_ms([lambda s=s: kq.kquantile_dequantize_plain(
-            s[3], s[1], s[2], k=k, out_dtype=out_dtype) for s in sets[:2]],
-            warmup=1, iters=4))
+    for key, kern, plain, copy in (
+            ("quantize",
+             lambda s: kq.kquantile_quantize(s[0], s[1], s[2], k=k,
+                                             packed=packed),
+             lambda s: kq.kquantile_quantize_plain(s[0], s[1], s[2], k=k,
+                                                   packed=packed),
+             lambda s: s[0].to(torch.int8)),
+            ("dequantize",
+             lambda s: kq.kquantile_dequantize(s[3], s[1], s[2], k=k,
+                                               out_dtype=out_dtype),
+             lambda s: kq.kquantile_dequantize_plain(s[3], s[1], s[2], k=k,
+                                                     out_dtype=out_dtype),
+             lambda s: s[4].to(torch.bfloat16))):
+        r[key] = dict(
+            ms=time_ms([lambda s=s: kern(s) for s in sets]),
+            host_us=host_us(lambda: kern(sets[0])),
+            plain_ms=time_ms([lambda s=s: plain(s) for s in sets[:2]],
+                             warmup=1, iters=4),
+            copy_ms=time_ms([lambda s=s: copy(s) for s in sets]))
     in_b = 4 if w_dtype == torch.float32 else 2
     out_b = 4 if out_dtype == torch.float32 else 2
-    code_b = sets[0][3].numel() / n
-    for key, nb, ops, extra in (("quantize", in_b + 1, KQ_QUANT_OPS, 0),
-                                ("dequantize", code_b + out_b, KQ_DEQUANT_OPS,
-                                 k * 4)):
-        nbytes = n * nb + 2 * n_stats * 4 + extra
-        t_b = nbytes / PEAK_BYTES_PER_S
-        t_f = n * ops / PEAK_FLOPS["f32"]
-        r[key].update(bound_ms=max(t_b, t_f) * 1e3,
-                      bound_by="bytes" if t_b >= t_f else "operations",
-                      bytes=nbytes, library_ms=None)
-    del sets, q, d
+    code_b = 0.5 if packed else 1
+    r["quantize"].update(_bound(n * (in_b + code_b) + 2 * n_stats * 4,
+                                n * KQ_QUANT_OPS))
+    r["dequantize"].update(_bound(n * (code_b + out_b) + 2 * n_stats * 4
+                                  + k * 4, n * KQ_DEQUANT_OPS))
+    r["quantize"]["copy_bytes"] = n * (in_b + 1)
+    r["dequantize"]["copy_bytes"] = n * 3
+    r["packed"] = packed
+    del sets
+    torch.cuda.empty_cache()
+    return r
+
+
+def eager_pool_read(codes, mu, sigma, block_tables, kv_bits,
+                    dtype=torch.bfloat16):
+    """The prefill pool read as the engine ran it before the paged entry:
+    three gathers, then ``dequantize_kv`` (statistics cast to f32 and laid
+    out by ``codec_layout``, then the dense dequantize kernel)."""
+    g = functools.partial(kq.gather_pages, block_tables=block_tables)
+    return kvc.dequantize_kv(g(codes), g(mu), g(sigma), kv_bits, dtype=dtype)
+
+
+def time_paged(gen, B, kv_bits, n_pages=32, page=64, KV=8, hd=128):
+    """One layer's prefill pool read of K (or V), 32 pages of 64 rows a
+    sequence, bf16 out: the paged kernel, the eager chain it replaced
+    (``eager_pool_read``, with this tree's dense kernel), the plain version,
+    and a same-bytes copy (``codes.to(torch.bfloat16)`` of int8 codes of the
+    output's shape: the kv8 read's bytes, twice the kv4 codes).  Bytes of
+    the bound: each distinct page the tables name, read once, the output
+    written once."""
+    rows = B * n_pages * page
+    per_set = rows * KV * hd * 3
+    sets = []
+    for _ in range(max(3, math.ceil(150e6 / per_set))):
+        codes, mu, sigma, tables = make_paged_pool(gen, B, n_pages, page, KV,
+                                                   hd, kv_bits)
+        c8 = torch.randint(-128, 128, (rows, KV, hd), generator=gen,
+                           device=DEV, dtype=torch.int8)
+        sets.append((codes, mu, sigma, tables, c8))
+    calls = {
+        "ms": lambda s: kq.kquantile_dequantize_paged(*s[:4],
+                                                      kv_bits=kv_bits),
+        "eager_ms": lambda s: eager_pool_read(*s[:4], kv_bits),
+        "plain_ms": lambda s: kq.kquantile_dequantize_paged_plain(
+            *s[:4], kv_bits=kv_bits),
+        "copy_ms": lambda s: s[4].to(torch.bfloat16)}
+    r = {}
+    for key, fn in calls.items():
+        r[key] = time_ms([lambda s=s: fn(s) for s in sets])
+        r[key.replace("ms", "host_us")] = host_us(lambda: fn(sets[0]))
+    hdc = hd // 2 if kv_bits == 4 else hd
+    distinct = int(torch.unique(sets[0][3]).numel())
+    nbytes = distinct * page * KV * (hdc + 4) + rows * KV * hd * 2 \
+        + B * n_pages * 4 + (2 ** kv_bits) * 4
+    r.update(_bound(nbytes, rows * KV * hd * KQ_DEQUANT_OPS))
+    r["copy_bytes"] = rows * KV * hd * 3
+    del sets
     torch.cuda.empty_cache()
     return r
 
@@ -2484,6 +2749,52 @@ def time_kv_append(gen, N, KV, hd, kv_bits):
     return r
 
 
+def time_codec(gen, rows):
+    """The codec kernels at the shapes their launches run, into ``rows``:
+    every distinct weight shape of granite_3_8b coded at load (W4 packed
+    and W8), the embedding rows (decode: 16 tokens; a prefill chunk: 256),
+    the prefill pool read (B sequences x 2048 rows)."""
+    for (R, C), what in (((4096, 4096), "wq / wo"), ((4096, 1024), "wk / wv"),
+                         ((4096, 12800), "w_gate / w_up"),
+                         ((12800, 4096), "w_down"), ((49155, 4096), "embed")):
+        for k in (16, 256):
+            r = time_kquantile(gen, 1, R, C, k, True)
+            rows[("kquantile", 1, R, C, k)] = r
+            for key in ("quantize", "dequantize"):
+                t = r[key]
+                form = "packed" if r["packed"] else "int8"
+                say(f"[time] kquantile_{key} (1, {R}, {C}) k={k} {form} "
+                    f"({what}; f32 in, bf16 out): kernel {t['ms']:.4f} ms, "
+                    f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                    f"{t['bytes'] / 1e6:.2f} MB), same-bytes copy (a "
+                    f"bandwidth yardstick, not the same function; "
+                    f"{t['copy_bytes'] / 1e6:.2f} MB) {t['copy_ms']:.4f} ms, "
+                    f"plain {t['plain_ms']:.3f} ms; host enqueue "
+                    f"{t['host_us']:.0f} us per call; {CARD}")
+    for T in (16, 256):
+        r = time_kquantile(gen, 1, T, 4096, 16, True)
+        rows[("kquantile", 1, T, 4096, 16)] = r
+        t = r["dequantize"]
+        say(f"[time] kquantile_dequantize (1, {T}, 4096) k=16 packed (W4 "
+            f"embedding rows, {T} tokens; bf16 out): kernel {t['ms']:.4f} "
+            f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
+            f"{t['bytes'] / 1e6:.3f} MB), same-bytes copy (yardstick) "
+            f"{t['copy_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms; host "
+            f"enqueue {t['host_us']:.0f} us per call; {CARD}")
+    for kv_bits, B in ((8, 1), (8, 4), (8, 8), (4, 1), (4, 8)):
+        r = time_paged(gen, B, kv_bits)
+        rows[("paged", kv_bits, B)] = r
+        say(f"[time] kquantile_dequantize_paged kv{kv_bits} B={B} x 2048 "
+            f"rows, KV=8, hd=128, bf16 out (one layer's K or V at a prefill "
+            f"chunk): kernel {r['ms']:.4f} ms, {r['host_us']:.1f} us host; "
+            f"the eager chain it replaced (3 gathers, casts, the dense "
+            f"kernel) {r['eager_ms']:.4f} ms, {r['eager_host_us']:.1f} us "
+            f"host; plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}, {r['bytes'] / 1e6:.2f} MB); same-bytes "
+            f"copy (yardstick, {r['copy_bytes'] / 1e6:.2f} MB) "
+            f"{r['copy_ms']:.4f} ms; {CARD}")
+
+
 def timing_phase(gen, counts, errs):
     rows = {}
     for bits in (4, 8):
@@ -2576,28 +2887,15 @@ def timing_phase(gen, counts, errs):
                     f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), plain "
                     f"{r['plain_ms']:.3f} ms, {lib} {r['library_ms']:.4f} "
                     f"ms; host enqueue {r['host_us']:.0f} us per call")
-    for (G, R, C), k, per_col, what in (
-            ((1, 4096, 12800), 16, True, "W4 weight layer"),
-            ((1, 4096, 12800), 256, True, "W8 weight layer"),
-            ((2 * 16 * 8, 1, 128), 256, False, "kv8 append, 16 rows"),
-            ((2 * 16 * 8, 1, 128), 16, False, "kv4 append, 16 rows"),
-            ((2 * 4 * 64 * 8, 1, 128), 256, False, "kv8 prefill chunk"),
-            ((1, 16, 4096), 16, True, "W4 embedding rows, 16 tokens")):
-        r = time_kquantile(gen, G, R, C, k, per_col)
-        rows[("kquantile", G, R, C, k)] = r
-        for key in ("quantize", "dequantize"):
-            t = r[key]
-            say(f"[time] kquantile_{key} ({G}, {R}, {C}) k={k} ({what}; "
-                f"f32 in, bf16 out): kernel {t['ms']:.4f} ms, bound "
-                f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
-                f"{t['bytes'] / 1e6:.2f} MB), plain {t['plain_ms']:.3f} ms; "
-                f"host enqueue {t['host_us']:.0f} us per call")
+    time_codec(gen, rows)
     q = rows[("qmatmul", 4, 16, 4096, 12800)]
     a = rows[("attn", 8, 2048)]
     u = rows[("uniq", L, 4096, 12800, (1,) * L)]
     q8 = rows[("qmatmul_a8", 4, 16, 4096, 12800)]
     ql = rows[("qmatmul_lut", 4, 16, 4096, 12800)]
-    kw = rows[("kquantile", 1, 4096, 12800, 256)]       # int8 codes
+    kw = rows[("kquantile", 1, 4096, 12800, 16)]        # W4: packed
+    k8 = rows[("kquantile", 1, 4096, 12800, 256)]       # W8: int8
+    ke = rows[("kquantile", 1, 16, 4096, 16)]           # embedding rows
     uo = rows[("uniq_onchip", L, 4096, 12800, 1)]
     ka = rows[("kv_append", 16, 8)]
 
@@ -2631,10 +2929,20 @@ def timing_phase(gen, counts, errs):
               "src/repro/kernels/qmatmul.py:263", ql,
               prefill_m256=rows[("qmatmul_lut", 4, 256, 4096, 12800)]),
         entry("kquantile_quantize", "src/repro_torch/kernels/csrc/kquantile.cu",
-              "src/repro/kernels/kquantile.py:86", kw["quantize"]),
+              "src/repro/kernels/kquantile.py:86", kw["quantize"],
+              w8_int8=k8["quantize"],
+              embed_49155x4096=rows[("kquantile", 1, 49155, 4096, 16)][
+                  "quantize"]),
         entry("kquantile_dequantize",
               "src/repro_torch/kernels/csrc/kquantile.cu",
-              "src/repro/kernels/kquantile.py:97", kw["dequantize"]),
+              "src/repro/kernels/kquantile.py:97", ke["dequantize"],
+              rows256=rows[("kquantile", 1, 256, 4096, 16)]["dequantize"],
+              w8_4096x12800=k8["dequantize"]),
+        entry("kquantile_dequantize_paged",
+              "src/repro_torch/kernels/csrc/kquantile.cu",
+              "src/repro/kernels/kquantile.py:67", rows[("paged", 8, 4)],
+              b1=rows[("paged", 8, 1)], b8=rows[("paged", 8, 8)],
+              kv4_b8=rows[("paged", 4, 8)]),
         entry("uniq_noise_fwd_onchip",
               "src/repro_torch/kernels/csrc/uniq_noise.cu",
               "src/repro/kernels/uniq_noise.py:153", uo,
@@ -2681,6 +2989,118 @@ def profile_phase(cfg, seed: int, new_tokens: int):
     say(events.table(sort_by="self_device_time_total", row_limit=16,
                      max_name_column_width=60))
     decode_launches(params, cfg, opts)
+    prefill_launches(params, cfg, opts)
+    pool_read_launches()
+
+
+MEASURED = "measured call"
+
+
+def _device_ops(fn):
+    """Device operations of one call of ``fn`` on the card, counted by
+    torch.profiler after a warm-up call: ((kernels, memory copies /
+    fills), {kernel name: launches})."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as tp:
+        with record_function(MEASURED):
+            fn()
+            sync()
+    ev = [e for e in tp.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.key != MEASURED]
+    mem = sum(e.count for e in ev if e.key.startswith("Mem"))
+    names = {e.key: e.count for e in ev if not e.key.startswith("Mem")}
+    return (sum(names.values()), mem), names
+
+
+def eager_prefill_attention_quant(q, cache, block_tables, q_pos, p, *,
+                                  kv_bits, use_kernel=True):
+    """``attention.paged_prefill_attention_quant`` as it was before the
+    paged entry (``eager_pool_read`` for K and V): the comparison of the
+    profile phase."""
+    read = functools.partial(eager_pool_read, block_tables=block_tables,
+                             kv_bits=kv_bits, dtype=q.dtype)
+    k = read(cache["k_codes"], cache["k_mu"], cache["k_sigma"])
+    v = read(cache["v_codes"], cache["v_mu"], cache["v_sigma"])
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    return attn_lib.full_attention(q, k, v, q_pos, k_pos, p)
+
+
+def prefill_launches(params, cfg, opts, B: int = 4, n_pages: int = 32):
+    """Device operations of one prefill-chunk call (B sequences, their
+    second page of 64 rows, tables of ``n_pages`` pages, kv8) with the
+    paged pool read and with the eager read it replaced, in turns: paged,
+    eager, eager, paged."""
+    opts = dataclasses.replace(opts, kv_bits=8)
+    page = 64
+    cache = model.init_paged_cache(cfg, 1 + B * n_pages, page,
+                                   torch.bfloat16, kv_bits=8, device=DEV)
+    tables = torch.arange(1, 1 + B * n_pages, device=DEV,
+                          dtype=torch.int32).reshape(B, n_pages)
+    pos = (page + torch.arange(page, device=DEV))[None].expand(B, page)
+    toks = torch.randint(0, cfg.vocab, (B, page), device=DEV)
+    write_pages = tables[:, 1:2].to(torch.long).expand(B, page)
+    write_rows = torch.arange(page, device=DEV)[None].expand(B, page)
+    last = torch.full((B,), page - 1, device=DEV)
+    paged = attn_lib.paged_prefill_attention_quant
+    seen = {}
+    try:
+        for name in ("paged", "eager", "eager", "paged"):
+            lm.attn.paged_prefill_attention_quant = paged \
+                if name == "paged" else eager_prefill_attention_quant
+            ops, names = _device_ops(lambda: model.prefill_chunk(
+                params, cfg, opts, cache, toks, pos, write_pages, write_rows,
+                tables, last))
+            paged_seen = sum(n for k, n in names.items()
+                             if "dequant_paged" in k)
+            seen.setdefault(name, []).append((*ops, paged_seen))
+    finally:
+        lm.attn.paged_prefill_attention_quant = paged
+    for name, what in (("paged", "the paged pool read"),
+                       ("eager", "the eager read it replaced")):
+        say(f"[profile] one prefill-chunk call, B={B} x {page} rows against "
+            f"{n_pages} pages of {page}, {cfg.n_layers} layers, kv8, with "
+            f"{what}: (kernels, memory copies / fills, of the kernels the "
+            f"paged read's) per call {seen[name]}")
+    del cache
+
+
+def pool_read_launches(B: int = 4, n_pages: int = 32):
+    """Device operations of one layer's prefill pool read (K and V) at the
+    engine's pool geometry, with the paged entry and with the eager chain
+    it replaced: the paged read must be its two kernels and nothing
+    else."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    pools = [make_paged_pool(gen, B, n_pages, 64, 8, 128, 8)
+             for _ in range(2)]
+    tables = pools[0][3]
+    reads = {"paged": lambda c, m, s: kq.kquantile_dequantize_paged(
+                 c, m, s, tables, kv_bits=8),
+             "eager": lambda c, m, s: eager_pool_read(c, m, s, tables, 8)}
+    seen = {}
+    for name, read in reads.items():
+        before = kops.launch_counts()
+        ops, names = _device_ops(lambda: [read(*p[:3]) for p in pools])
+        counted = {k: n - before[k] for k, n in kops.launch_counts().items()
+                   if n != before[k]}
+        seen[name] = (ops, names, counted)
+        say(f"[profile] one layer's prefill pool read (K and V), B={B} x "
+            f"{n_pages} pages of 64, KV 8, hd 128, kv8, {name}: (kernels, "
+            f"memory copies / fills) {ops}; kernels by name {names}; "
+            f"wrapper launches over the warm-up and the profiled call "
+            f"{counted}")
+    # the profiled call launches the paged kernel twice and nothing else:
+    # no gather, cast or copy around it
+    ops, names, counted = seen["paged"]
+    if ops[1] or any("dequant_paged" not in k for k in names) \
+            or sum(names.values()) not in (0, 2) \
+            or counted != {"kquantile_dequantize_paged": 4}:
+        raise SystemExit("the paged pool read launched more than its two "
+                         "kernels")
 
 
 def decode_launches(params, cfg, opts, B: int = 16, ctx: int = 100):
@@ -2849,9 +3269,10 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build + a reduced kernel check, then stop")
     ap.add_argument("--sweep", nargs="?", const="all",
-                    choices=("all", "attention"),
-                    help="build, time the tuning axes (all kernels, or the "
-                         "attention body alone), then stop")
+                    choices=("all", "attention", "codec"),
+                    help="build, time the tuning axes (all kernels, the "
+                         "attention body alone, or the codec kernels at "
+                         "their shapes), then stop")
     ap.add_argument("--profile", action="store_true",
                     help="build, profile an engine run (host and device), "
                          "then stop")
@@ -2870,6 +3291,8 @@ def main(argv=None) -> int:
         timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         and smi.stdout.strip() else f"{kind}, power limit unknown"
+    global CARD
+    CARD = card
 
     nvcc = subprocess.run([loader.find_nvcc(), "--version"],
                           capture_output=True, text=True, timeout=60)
@@ -2897,6 +3320,8 @@ def main(argv=None) -> int:
     if args.sweep:
         if args.sweep == "attention":
             attention_sweep(gen)
+        elif args.sweep == "codec":
+            time_codec(gen, {})
         else:
             sweep_phase(gen)
         say(card)
@@ -2918,6 +3343,7 @@ def main(argv=None) -> int:
     errs.update(check_qmatmul_variants(gen, args.quick))
     errs["kquantile_quantize"] = errs["kquantile_dequantize"] = \
         check_kquantile(gen, args.quick)
+    errs["kquantile_dequantize_paged"] = check_paged_dequant(gen, args.quick)
     errs["kv_append"] = check_kv_append(gen, args.quick)
     say("[kernels] max abs err vs plain versions: " + ", ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))

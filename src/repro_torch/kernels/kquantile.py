@@ -12,7 +12,19 @@ Layout, as the reference's: values ``(G, R, C)``, statistics ``(G, 1, C)``
 k = 256 storage offset of ``ref.code_offset``); ``kquantile_dequantize``
 also takes 4-bit codes packed two per byte, ``(G, R, C // 2)`` uint8, and
 unpacks them inside the kernel.  Any R and C: there is no divisibility
-condition.
+condition; a group (R * C) of 2^31 elements or more is refused on the card.
+
+Each call takes one of two bodies of the same kernel, by ``codec_route``: a
+fixed rule on the shape, the dtypes and the pointers' alignment (16-byte
+chunks where rows or groups are whole chunks and the pointers allow it, a
+scalar chunk otherwise).  ``kquantile_quantize(..., packed=True)`` writes
+4-bit codes two per byte (``core/packing.py``'s layout) from the kernel.
+
+``kquantile_dequantize_paged`` is the prefill pool read in one launch:
+the block-table gather of one layer's coded pool (codes and bf16
+statistics) and the dequantize, as ``models/attention.py`` did it with
+three gathers, two casts and the dense dequantize.  Its plain version
+``kquantile_dequantize_paged_plain`` is that chain.
 
 ``kv_append`` is the serving engine's KV append fused into one kernel
 (``kv_append_kernel``): fresh K and V rows ``(N, KV, hd)`` are coded per
@@ -36,9 +48,56 @@ from repro_torch.kernels import ref as kref
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def kquantile_quantize_plain(w, mu, sigma, *, k: int) -> torch.Tensor:
-    """Plain version of the quantize kernel (``ref.kquantile_codes_ref``)."""
-    return kref.kquantile_codes_ref(w, mu, sigma, k)
+VECTOR, SCALAR = "vector", "scalar"
+QUANTIZE, DEQUANTIZE = "quantize", "dequantize"
+# a group of this many elements or more is refused: the bodies' offsets
+# inside a group are 32-bit
+MAX_GROUP = 1 << 31
+
+
+def codec_route(op: str, shape, per_col: bool, dtype: torch.dtype,
+                packed: bool, ptrs=(0, 0)) -> str:
+    """Which body of ``csrc/kquantile.cu`` takes a call: ``VECTOR`` (16-byte
+    chunks) or ``SCALAR`` (one element a chunk, two when packed).  A fixed
+    rule on the shape, the dtypes and the pointers, never on whether a
+    launch succeeded.
+
+    ``op`` is ``QUANTIZE`` or ``DEQUANTIZE``; ``shape`` the (G, R, C) of the
+    values; ``dtype`` theirs (the quantize input, the dequantize output);
+    ``packed`` whether the codes are two a byte; ``ptrs`` the data pointers
+    of (values, codes) and, optionally, of the statistics (mu, sigma).  A
+    chunk is 16 / itemsize values to quantize and 16 codes to dequantize.
+    ``VECTOR`` needs every row (per-column statistics) or every group
+    (per-group statistics) to be whole chunks, the values and the
+    statistics on a 16-byte boundary and the codes on a chunk's bytes.
+    Raises ValueError for a group of ``MAX_GROUP`` elements or more.
+    """
+    G, R, C = shape
+    if R * C >= MAX_GROUP:
+        raise ValueError(f"a group of R * C = {R * C} elements: the codec "
+                         f"kernels take groups below 2^31")
+    vals_ptr, codes_ptr, *stats_ptrs = ptrs
+    if op == QUANTIZE:
+        vec = 16 // dtype.itemsize
+    elif op == DEQUANTIZE:
+        vec = 16
+    else:
+        raise ValueError(f"op must be {QUANTIZE!r} or {DEQUANTIZE!r}, got "
+                         f"{op!r}")
+    code_bytes = vec // 2 if packed else vec
+    run = C if per_col else R * C
+    if run % vec or vals_ptr % 16 or codes_ptr % code_bytes \
+            or any(p % 16 for p in stats_ptrs):
+        return SCALAR
+    return VECTOR
+
+
+def kquantile_quantize_plain(w, mu, sigma, *, k: int,
+                             packed: bool = False) -> torch.Tensor:
+    """Plain version of the quantize kernel (``ref.kquantile_codes_ref``,
+    then ``pack_int4`` when ``packed``)."""
+    codes = kref.kquantile_codes_ref(w, mu, sigma, k)
+    return packing.pack_int4(codes) if packed else codes
 
 
 def kquantile_dequantize_plain(codes, mu, sigma, *, k: int,
@@ -48,6 +107,32 @@ def kquantile_dequantize_plain(codes, mu, sigma, *, k: int,
     if codes.dtype == torch.uint8:
         codes = packing.unpack_int4(codes)
     return kref.kquantile_dequant_ref(codes, mu, sigma, k, dtype=out_dtype)
+
+
+def gather_pages(pool, block_tables):
+    """(P, page, ...) pool + (B, n_pages) table -> (B, n_pages*page, ...):
+    each sequence's block-table row of pages, gathered in order."""
+    B, n_pages = block_tables.shape
+    g = pool[block_tables.to(torch.long)]
+    return g.reshape(B, n_pages * pool.shape[1], *pool.shape[2:])
+
+
+def kquantile_dequantize_paged_plain(codes, mu, sigma, block_tables, *,
+                                     kv_bits: int,
+                                     out_dtype=torch.bfloat16):
+    """Plain version of the paged dequantize: the block-table gather of
+    codes and statistics, the statistics cast to f32 (exact), then
+    ``ref.kquantile_dequant_ref`` (after unpacking kv4 nibbles).  A page id
+    outside [0, P) raises IndexError (negative ones are refused too, as the
+    kernel traps on them, rather than wrapped to the pool's end)."""
+    torch._assert_async((block_tables >= 0).all(),
+                        "kquantile_dequantize_paged: negative page id")
+    c = gather_pages(codes, block_tables)
+    if kv_bits == 4:
+        c = packing.unpack_int4(c)
+    m = gather_pages(mu, block_tables).to(torch.float32)[..., None]
+    s = gather_pages(sigma, block_tables).to(torch.float32)[..., None]
+    return kref.kquantile_dequant_ref(c, m, s, 2 ** kv_bits, dtype=out_dtype)
 
 
 # the pool leaves of one layer that a coded KV append writes, in the
@@ -187,9 +272,12 @@ def _bind(name: str):
         fn = getattr(loader.load("kquantile"), name)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = {
-            "kquantile_quantize_launch": [p, i, p, p, i, p, i, ll, ll, ll, p],
+            "kquantile_quantize_launch":
+                [p, i, p, p, i, p, i, i, i, ll, ll, ll, p],
             "kquantile_dequantize_launch":
-                [p, i, p, p, i, p, p, i, i, ll, ll, ll, p],
+                [p, i, p, p, i, p, p, i, i, i, ll, ll, ll, p],
+            "kquantile_dequantize_paged_launch":
+                [p, i, p, p, p, i, p, p, i, i, ll, i, i, i, i, i, p],
             "kv_append_launch":
                 [p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, ll, i, p]}[name]
         fn.restype = ctypes.c_int
@@ -198,8 +286,10 @@ def _bind(name: str):
 
 
 def kquantile_quantize(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
-                       *, k: int) -> torch.Tensor:
-    """(G, R, C) f32 / bf16 values -> (G, R, C) int8 codes.
+                       *, k: int, packed: bool = False) -> torch.Tensor:
+    """(G, R, C) f32 / bf16 values -> (G, R, C) int8 codes, or with
+    ``packed`` (k <= 16, C even) (G, R, C // 2) uint8, two codes a byte,
+    low nibble first.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version.  ``kquantile_quantize.launches`` counts kernel launches.
@@ -208,22 +298,32 @@ def kquantile_quantize(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     if w.dtype not in _DTYPES:
         raise TypeError(f"w must be float32 or bfloat16, got {w.dtype}")
     _check_stats(w, mu, sigma, w.shape[-1] if w.ndim == 3 else 0)
-    if w.device.type == "cpu":
-        return kquantile_quantize_plain(w, mu, sigma, k=k)
-    _require_contiguous(w=w, mu=mu, sigma=sigma)
     G, R, C = w.shape
+    if packed and (k > 16 or C % 2):
+        raise ValueError(f"packed codes hold k <= 16 levels two a byte along "
+                         f"an even C, got k={k}, C={C}")
+    if w.device.type == "cpu":
+        return kquantile_quantize_plain(w, mu, sigma, k=k, packed=packed)
+    _require_contiguous(w=w, mu=mu, sigma=sigma)
+    shape = (G, R, C // 2) if packed else (G, R, C)
+    dtype = torch.uint8 if packed else torch.int8
     if w.numel() == 0:
-        return torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        return torch.empty(shape, dtype=dtype, device=w.device)
+    per_col = mu.shape[-1] != 1
     fn = _bind("kquantile_quantize_launch")
     with loader.on_device(w.device):
-        out = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        out = torch.empty(shape, dtype=dtype, device=w.device)
+        route = codec_route(QUANTIZE, (G, R, C), per_col, w.dtype, packed,
+                            (w.data_ptr(), out.data_ptr(), mu.data_ptr(),
+                             sigma.data_ptr()))
         stream = torch.cuda.current_stream(w.device).cuda_stream
         rc = fn(w.data_ptr(), int(w.dtype == torch.bfloat16), mu.data_ptr(),
-                sigma.data_ptr(), int(mu.shape[-1] != 1), out.data_ptr(), k,
-                G, R, C, stream)
+                sigma.data_ptr(), int(per_col), out.data_ptr(), int(packed),
+                int(route == VECTOR), k, G, R, C, stream)
     if rc != 0:
         raise RuntimeError(f"kquantile_quantize kernel launch failed with "
-                           f"code {rc} (G={G}, R={R}, C={C}, k={k})")
+                           f"code {rc} (G={G}, R={R}, C={C}, k={k}, "
+                           f"packed={packed}, {route})")
     kquantile_quantize.launches += 1
     return out
 
@@ -256,20 +356,109 @@ def kquantile_dequantize(codes: torch.Tensor, mu: torch.Tensor,
     G, R = codes.shape[:2]
     if codes.numel() == 0:
         return torch.empty((G, R, C), dtype=out_dtype, device=codes.device)
+    per_col = mu.shape[-1] != 1
     fn = _bind("kquantile_dequantize_launch")
     table = kref.level_table(k, codes.device)
     with loader.on_device(codes.device):
         out = torch.empty((G, R, C), dtype=out_dtype, device=codes.device)
+        route = codec_route(DEQUANTIZE, (G, R, C), per_col, out_dtype, packed,
+                            (out.data_ptr(), codes.data_ptr(), mu.data_ptr(),
+                             sigma.data_ptr()))
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         rc = fn(codes.data_ptr(), int(packed), mu.data_ptr(),
-                sigma.data_ptr(), int(mu.shape[-1] != 1), table.data_ptr(),
-                out.data_ptr(), int(out_dtype == torch.bfloat16), k, G, R, C,
-                stream)
+                sigma.data_ptr(), int(per_col), table.data_ptr(),
+                out.data_ptr(), int(out_dtype == torch.bfloat16),
+                int(route == VECTOR), k, G, R, C, stream)
     if rc != 0:
         raise RuntimeError(f"kquantile_dequantize kernel launch failed with "
                            f"code {rc} (G={G}, R={R}, C={C}, k={k}, "
-                           f"packed={packed})")
+                           f"packed={packed}, {route})")
     kquantile_dequantize.launches += 1
+    return out
+
+
+def _check_paged(codes, mu, sigma, block_tables, kv_bits, out_dtype):
+    """Raise on what ``kquantile_dequantize_paged`` does not take."""
+    if kv_bits not in (4, 8):
+        raise ValueError(f"kv_bits must be 4 or 8, got {kv_bits}")
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    want = torch.uint8 if kv_bits == 4 else torch.int8
+    if codes.ndim != 4 or codes.dtype != want:
+        raise ValueError(f"codes must be (P, page, KV, hd') {want} at "
+                         f"kv{kv_bits}, got {tuple(codes.shape)} "
+                         f"{codes.dtype}")
+    for name, t in (("mu", mu), ("sigma", sigma)):
+        if t.dtype != torch.bfloat16 or t.shape != codes.shape[:3]:
+            raise ValueError(f"{name} must be {tuple(codes.shape[:3])} "
+                             f"bfloat16, got {tuple(t.shape)} {t.dtype}")
+    if block_tables.ndim != 2 or block_tables.dtype not in (torch.int32,
+                                                            torch.int64):
+        raise ValueError(f"block_tables must be (B, n_pages) int32 or int64, "
+                         f"got {tuple(block_tables.shape)} "
+                         f"{block_tables.dtype}")
+    dev = codes.device
+    if any(t.device != dev for t in (mu, sigma, block_tables)):
+        raise ValueError("all operands must live on one device")
+    if dev.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"kquantile runs on cuda or cpu tensors, got "
+                           f"{dev}")
+
+
+def kquantile_dequantize_paged(codes: torch.Tensor, mu: torch.Tensor,
+                               sigma: torch.Tensor,
+                               block_tables: torch.Tensor, *, kv_bits: int,
+                               out_dtype=torch.bfloat16) -> torch.Tensor:
+    """The prefill pool read: one layer's coded pool gathered by block
+    table and dequantized, (B, n_pages * page, KV, hd) ``out_dtype``.
+
+    ``codes`` (P, page, KV, hd) int8 (kv8) or (P, page, KV, hd // 2) uint8
+    (kv4), ``mu`` / ``sigma`` (P, page, KV) bf16, ``block_tables``
+    (B, n_pages) int32 or int64 page ids in [0, P) (the plain version
+    refuses any other; the kernel traps on one, which ends the CUDA
+    context).  Every row is written, the sink page's rows too.
+    CUDA tensors launch ``dequant_paged_kernel`` once (or raise): no host
+    sync, no allocation but the output; CPU tensors take the plain version.
+    ``kquantile_dequantize_paged.launches`` counts kernel launches.
+    """
+    _check_paged(codes, mu, sigma, block_tables, kv_bits, out_dtype)
+    if codes.device.type == "cpu":
+        return kquantile_dequantize_paged_plain(
+            codes, mu, sigma, block_tables, kv_bits=kv_bits,
+            out_dtype=out_dtype)
+    _require_contiguous(codes=codes, mu=mu, sigma=sigma,
+                        block_tables=block_tables)
+    P, page, KV, hdc = codes.shape
+    hd = hdc * 2 if kv_bits == 4 else hdc
+    B, n_pages = block_tables.shape
+    if page * KV * hd >= MAX_GROUP or B * n_pages >= MAX_GROUP:
+        raise ValueError(f"a page of {page * KV * hd} values or a table of "
+                         f"{B * n_pages} entries: the kernel takes fewer "
+                         f"than 2^31")
+    out = torch.empty((B, n_pages * page, KV, hd), dtype=out_dtype,
+                      device=codes.device)
+    if out.numel() == 0:
+        return out
+    # a (row, head) of hd values is the group of the per-group body
+    route = codec_route(DEQUANTIZE, (B * n_pages * page * KV, 1, hd), False,
+                        out_dtype, kv_bits == 4,
+                        (out.data_ptr(), codes.data_ptr()))
+    fn = _bind("kquantile_dequantize_paged_launch")
+    table = kref.level_table(2 ** kv_bits, codes.device)
+    with loader.on_device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        rc = fn(codes.data_ptr(), kv_bits, mu.data_ptr(), sigma.data_ptr(),
+                block_tables.data_ptr(),
+                int(block_tables.dtype == torch.int64), table.data_ptr(),
+                out.data_ptr(), int(out_dtype == torch.bfloat16),
+                int(route == VECTOR), P, page, KV, hd, B, n_pages, stream)
+    if rc != 0:
+        raise RuntimeError(f"kquantile_dequantize_paged kernel launch failed "
+                           f"with code {rc} (P={P}, page={page}, KV={KV}, "
+                           f"hd={hd}, B={B}, n_pages={n_pages}, "
+                           f"kv{kv_bits}, {route})")
+    kquantile_dequantize_paged.launches += 1
     return out
 
 
@@ -319,4 +508,5 @@ def kv_append(pool, pages: torch.Tensor, rows: torch.Tensor,
 
 kquantile_quantize.launches = 0
 kquantile_dequantize.launches = 0
+kquantile_dequantize_paged.launches = 0
 kv_append.launches = 0

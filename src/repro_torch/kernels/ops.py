@@ -36,6 +36,7 @@ _COUNTED = {"qmatmul": _qmm.qmatmul,
             "qmatmul_lut": _qmm.qmatmul_lut,
             "kquantile_quantize": _kq.kquantile_quantize,
             "kquantile_dequantize": _kq.kquantile_dequantize,
+            "kquantile_dequantize_paged": _kq.kquantile_dequantize_paged,
             "kv_append": _kq.kv_append}
 
 
@@ -177,9 +178,10 @@ def quantize_weights(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     """Values -> stored codes of w's shape: (..., C // 2) uint8 packed two
     per byte at 4 bits, (..., C) int8 (k = 256 offset) at 8.
 
-    Statistics broadcast against ``w`` (see ``codec_layout``).
-    ``use_kernel=False`` is the comparison hook: the plain version on
-    whatever device the tensors are on.
+    Statistics broadcast against ``w`` (see ``codec_layout``).  4-bit
+    codes are packed inside the kernel.  ``use_kernel=False`` is the
+    comparison hook: the plain version on whatever device the tensors are
+    on.
     """
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
@@ -187,12 +189,14 @@ def quantize_weights(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     C = w.shape[-1]
     G, R, mu3, sigma3 = codec_layout(tuple(w.shape), C, mu, sigma)
     w3 = w.reshape(G, R, C)
+    packed = bits == 4
     if use_kernel:
-        codes = _kq.kquantile_quantize(w3.contiguous(), mu3, sigma3, k=k)
+        codes = _kq.kquantile_quantize(w3.contiguous(), mu3, sigma3, k=k,
+                                       packed=packed)
     else:
-        codes = _kq.kquantile_quantize_plain(w3, mu3, sigma3, k=k)
-    codes = codes.reshape(w.shape)
-    return packing.pack_int4(codes) if bits == 4 else codes
+        codes = _kq.kquantile_quantize_plain(w3, mu3, sigma3, k=k,
+                                             packed=packed)
+    return codes.reshape(packing.packed_shape(tuple(w.shape), bits))
 
 
 def dequantize_weights(codes: torch.Tensor, mu: torch.Tensor,

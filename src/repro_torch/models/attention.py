@@ -16,8 +16,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import kquantile as _kq
 from repro_torch.kernels import paged_attn as _pa
-from repro_torch.models import kv_cache as kvq
 from repro_torch.models.layers import softcap as _softcap
 
 NEG_INF = -1e30
@@ -106,13 +106,6 @@ def decode_attention(q, k_cache, v_cache, q_pos, p: AttnParams):
     return out.reshape(B, 1, H, D)
 
 
-def _gather(pool, block_tables):
-    """(P, page, ...) pool + (B, n_pages) table -> (B, n_pages*page, ...)."""
-    B, n_pages = block_tables.shape
-    g = pool[block_tables.to(torch.long)]
-    return g.reshape(B, n_pages * pool.shape[1], *pool.shape[2:])
-
-
 def paged_decode_attention(q, k_pages, v_pages, block_tables, q_pos,
                            p: AttnParams) -> torch.Tensor:
     """Decode attention against a dense paged KV pool.
@@ -122,8 +115,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, q_pos,
     position; q_pos (B,).  The gathered view is position-contiguous, so
     the masked ``decode_attention`` applies unchanged.
     """
-    k = _gather(k_pages, block_tables)
-    v = _gather(v_pages, block_tables)
+    k = _kq.gather_pages(k_pages, block_tables)
+    v = _kq.gather_pages(v_pages, block_tables)
     return decode_attention(q, k, v, q_pos, p)
 
 
@@ -153,8 +146,8 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, q_pos,
     q (B, C, H, D); the chunk's own rows must already be scattered in
     (write-before-read); q_pos (C,) or (B, C) absolute positions.
     """
-    k = _gather(k_pages, block_tables)
-    v = _gather(v_pages, block_tables)
+    k = _kq.gather_pages(k_pages, block_tables)
+    v = _kq.gather_pages(v_pages, block_tables)
     k_pos = torch.arange(k.shape[1], device=q.device)
     return full_attention(q, k.to(q.dtype), v.to(q.dtype), q_pos, k_pos, p)
 
@@ -163,17 +156,20 @@ def paged_prefill_attention_quant(q, cache, block_tables, q_pos,
                                   p: AttnParams, *, kv_bits: int,
                                   use_kernel: bool = True) -> torch.Tensor:
     """Chunked-prefill attention against a k-quantile-coded paged pool:
-    gathers + dequantizes the block-table row densely (the
-    ``kquantile_dequantize`` kernel on CUDA tensors) and defers to
-    ``full_attention`` — what whole prefill sees after ``fake_quant_kv``.
-    ``use_kernel=False`` is the comparison hook."""
-    def gather_dequant(codes, mu, sigma):
-        return kvq.dequantize_kv(_gather(codes, block_tables),
-                                 _gather(mu, block_tables),
-                                 _gather(sigma, block_tables), kv_bits,
-                                 dtype=q.dtype, use_kernel=use_kernel)
+    reads the block-table row densely, gathered and dequantized in one
+    ``kquantile_dequantize_paged`` launch for K and one for V on CUDA
+    tensors, and defers to ``full_attention`` — what whole prefill sees
+    after ``fake_quant_kv``.  ``use_kernel=False`` is the comparison hook:
+    the plain version (gathers, casts, dequantize) on whatever device the
+    tensors are on."""
+    read = _kq.kquantile_dequantize_paged if use_kernel \
+        else _kq.kquantile_dequantize_paged_plain
 
-    k = gather_dequant(cache["k_codes"], cache["k_mu"], cache["k_sigma"])
-    v = gather_dequant(cache["v_codes"], cache["v_mu"], cache["v_sigma"])
+    def dequant(side):
+        return read(cache[f"{side}_codes"], cache[f"{side}_mu"],
+                    cache[f"{side}_sigma"], block_tables, kv_bits=kv_bits,
+                    out_dtype=q.dtype)
+
+    k, v = dequant("k"), dequant("v")
     k_pos = torch.arange(k.shape[1], device=q.device)
     return full_attention(q, k, v, q_pos, k_pos, p)

@@ -404,3 +404,99 @@ def test_reference_kernel_refuses_what_the_port_takes():
     want = jref.kquantile_codes_ref(jnp.asarray(w), jnp.asarray(mu),
                                     jnp.asarray(sd), 16)
     _codes_close(np.asarray(want), got.numpy())
+
+
+# -- packed output of the quantize kernel, and the route between its bodies -
+
+@pytest.mark.parametrize("per_col", [True, False])
+@pytest.mark.parametrize("shape", [(1, 64, 48), (3, 37, 130), (4, 1, 16),
+                                   (2, 9, 6), (1, 3, 2)])
+def test_packed_quantize_matches_pack_int4_and_reference(shape, per_col):
+    """``kquantile_quantize(..., packed=True)`` (plain on the CPU) is
+    ``pack_int4`` of the int8 codes, bit for bit, and the reference's
+    packed serving codes within the flip bound."""
+    G, R, C = shape
+    w, mu, sd = _grouped_inputs(G, R, C, per_col, seed=G + R + C)
+    tw, tmu, tsd = _t(w, mu, sd)
+    packed = tkq.kquantile_quantize(tw, tmu, tsd, k=16, packed=True)
+    assert packed.dtype == torch.uint8 and tuple(packed.shape) == (G, R,
+                                                                   C // 2)
+    codes = tkq.kquantile_quantize_plain(tw, tmu, tsd, k=16)
+    assert torch.equal(packed, tpack.pack_int4(codes))
+    assert torch.equal(packed, tkq.kquantile_quantize_plain(
+        tw, tmu, tsd, k=16, packed=True))
+    stored_j = np.asarray(jops.quantize_weights(
+        jnp.asarray(w), jnp.asarray(mu), jnp.asarray(sd), bits=4,
+        use_pallas=True, interpret=True))
+    assert stored_j.shape == tuple(packed.shape)
+    _codes_close(_unpacked(stored_j, 4), _unpacked(packed.numpy(), 4))
+    # the serving entry hands the kernel the packing
+    assert torch.equal(tops.quantize_weights(tw, tmu, tsd, bits=4), packed)
+
+
+def test_packed_quantize_refuses_what_it_cannot_pack():
+    w, mu, sd = _t(*_grouped_inputs(2, 4, 7, True, seed=14))
+    with pytest.raises(ValueError):                    # odd C
+        tkq.kquantile_quantize(w, mu, sd, k=16, packed=True)
+    w, mu, sd = _t(*_grouped_inputs(2, 4, 8, True, seed=15))
+    with pytest.raises(ValueError):                    # k > 16
+        tkq.kquantile_quantize(w, mu, sd, k=256, packed=True)
+    with pytest.raises(ValueError):
+        tops.quantize_weights(w[..., :7], mu[..., :7], sd[..., :7], bits=4)
+
+
+# (op, shape, per_col, dtype, packed, (values ptr, codes ptr)) -> route: the
+# shapes of chip_smoke.py's kernel checks
+_F32, _BF16 = torch.float32, torch.bfloat16
+ROUTES = [
+    ("quantize", (1, 4096, 12800), True, _F32, False, (0, 0), "vector"),
+    ("quantize", (1, 4096, 12800), True, _BF16, True, (0, 0), "vector"),
+    ("dequantize", (1, 4096, 12800), True, _BF16, True, (0, 0), "vector"),
+    ("quantize", (1, 49155, 4096), True, _F32, True, (0, 0), "vector"),
+    ("dequantize", (1, 16, 4096), True, _BF16, True, (0, 0), "vector"),
+    ("quantize", (256, 1, 128), False, _F32, False, (0, 0), "vector"),
+    ("dequantize", (256, 1, 128), False, _F32, False, (0, 0), "vector"),
+    ("quantize", (3, 37, 131), True, _F32, False, (0, 0), "scalar"),
+    ("quantize", (3, 37, 131), False, _F32, False, (0, 0), "scalar"),
+    ("quantize", (2, 9, 6), True, _F32, True, (0, 0), "scalar"),
+    ("quantize", (2, 9, 6), False, _F32, False, (0, 0), "scalar"),
+    ("quantize", (3, 17, 20), True, _F32, False, (0, 0), "vector"),
+    ("quantize", (3, 17, 20), True, _BF16, False, (0, 0), "scalar"),
+    ("dequantize", (3, 17, 20), True, _F32, False, (0, 0), "scalar"),
+    ("quantize", (777, 1, 36), False, _F32, False, (0, 0), "vector"),
+    ("quantize", (777, 1, 36), False, _BF16, False, (0, 0), "scalar"),
+    ("dequantize", (777, 1, 36), False, _F32, False, (0, 0), "scalar"),
+    ("dequantize", (3, 16, 2), False, _F32, False, (0, 0), "vector"),
+    ("quantize", (1, 1, 3), False, _F32, False, (0, 0), "scalar"),
+    # pointers off their chunk's alignment
+    ("quantize", (1, 64, 128), True, _F32, False, (4, 0), "scalar"),
+    ("quantize", (1, 64, 128), True, _F32, True, (0, 2), "vector"),
+    ("quantize", (1, 64, 128), True, _F32, True, (0, 1), "scalar"),
+    ("dequantize", (1, 64, 128), True, _BF16, True, (0, 8), "vector"),
+    ("dequantize", (1, 64, 128), True, _BF16, False, (0, 8), "scalar"),
+    ("dequantize", (1, 64, 128), True, _BF16, False, (8, 0), "scalar"),
+    # statistics (mu, sigma) off a 16-byte boundary
+    ("quantize", (1, 64, 128), True, _F32, False, (0, 0, 0, 0), "vector"),
+    ("quantize", (1, 64, 128), True, _F32, False, (0, 0, 4, 0), "scalar"),
+    ("dequantize", (1, 64, 128), True, _BF16, True, (0, 0, 0, 8), "scalar"),
+    # G * R * C over 2^31 with groups below it
+    ("dequantize", (3, 32768, 24576), True, _BF16, False, (0, 0), "vector"),
+]
+
+
+@pytest.mark.parametrize("op,shape,per_col,dtype,packed,ptrs,want", ROUTES)
+def test_codec_route(op, shape, per_col, dtype, packed, ptrs, want):
+    assert tkq.codec_route(op, shape, per_col, dtype, packed, ptrs) == want
+
+
+def test_codec_route_refuses_groups_of_2_31_elements():
+    with pytest.raises(ValueError):
+        tkq.codec_route(tkq.QUANTIZE, (1, 32768, 65536), True, torch.float32,
+                        False)
+    with pytest.raises(ValueError):
+        tkq.codec_route(tkq.DEQUANTIZE, (2, 1, 1 << 31), False,
+                        torch.bfloat16, False)
+    assert tkq.codec_route(tkq.DEQUANTIZE, (1, 1, (1 << 31) - 16), False,
+                           torch.bfloat16, False) == tkq.VECTOR
+    with pytest.raises(ValueError):
+        tkq.codec_route("pack", (1, 4, 4), True, torch.float32, False)
