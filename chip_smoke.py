@@ -37,6 +37,21 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      every argmax that differs must be a near-tie (the plain logits' top-2
      margin at most the measured kernel-vs-plain logit error); compares a
      tiny f32 model on the card with the CPU;
+  5b. the closed batch and the slot cache: runs the serving CLI without
+     ``--engine`` (``serve.generate`` over the slot cache) at the full width
+     and depth of granite_3_8b, bf16, dense weights from ``--seed`` and
+     their W4 copy, three times (W4, W4 empirical, W4 with ``--a-bits 8``
+     fake-quant), counting each run's launches (``qmatmul`` or
+     ``qmatmul_lut`` 7 per layer a step, the embedding rows'
+     ``kquantile_dequantize`` once a step) and printing tok/s and the
+     greedy agreement with the dense model; then phase 4's stream at W4 +
+     kv16 through a slot-mode engine and a paged kv16 engine (pages of 64):
+     greedy tokens equal, or a near-tie where an argmax differs; each
+     engine's tok/s, TTFT, ITL and launches (no ``paged_quant_attention``,
+     no ``kv_append``); the slot engine again, and a paged engine with the
+     prefix cache, with ``checkify`` and the profiler ranges under
+     ``torch.profiler`` (the ranges present, the tokens unchanged); the
+     slot cache's plain decode attention timed;
   6. trains granite_3_8b at full width (depth ``--train-layers``, default 8)
      through the trainer's entry points for ``--train-steps`` steps (UNIQ
      noise, gradual freezing, AdamW), counting the ``uniq_noise`` launches
@@ -57,7 +72,8 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      one library call, and prints the ``kernels`` JSON line;
   8. prints ``{"ok": true, "device": {...}}`` as the last line.
 
-``--layers N`` cuts the serving depth (never the width); ``--quick`` stops after
+``--layers N`` cuts the serving depth (never the width; the closed batch
+runs the CLI at its full depth); ``--quick`` stops after
 phase 3 on a reduced shape list (for bringing a kernel up); ``--sweep``
 times the kernels' tuning axes (block rows, K splits; the attention
 body's splits, beside the CUDA-core body) at the
@@ -360,7 +376,8 @@ def attn_call(fn, t, **kw):
 def check_qmatmul(gen, quick: bool) -> float:
     worst = 0.0
     main_kn = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)]
-    shapes = [(M, K, N) for (K, N) in main_kn for M in (8, 16, 32, 256)]
+    # M = 4: the closed batch's decode steps (four rows, one token each)
+    shapes = [(M, K, N) for (K, N) in main_kn for M in (4, 8, 16, 32, 256)]
     shapes += [(5, 200, 130), (33, 520, 96), (70, 77, 258), (1, 64, 2)]
     # more rows than the tallest tile (128) and the 256 above, and an N
     # that is no multiple of the wgmma's 64-column warpgroup tile
@@ -464,7 +481,8 @@ def check_qmatmul_variants(gen, quick: bool):
     abs errors."""
     worst = {"qmatmul_a8": 0.0, "qmatmul_lut": 0.0}
     main_kn = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)]
-    shapes = [(M, K, N) for (K, N) in main_kn for M in (8, 16, 32, 256)]
+    # M = 4: the closed batch's decode steps (four rows, one token each)
+    shapes = [(M, K, N) for (K, N) in main_kn for M in (4, 8, 16, 32, 256)]
     shapes += [(5, 200, 130), (33, 520, 96), (70, 77, 258), (1, 64, 2)]
     shapes += [(300, 4096, 4096), (300, 1000, 200)]
     if quick:
@@ -625,12 +643,14 @@ def _codec_one(gen, G, R, C, k, per_col, w_dtype, shift=0):
 
 
 # (G, R, C), per-column statistics, in the --quick list: the KV rows of an
-# append and a prefill chunk, every distinct weight shape of granite_3_8b
-# and its embedding, then ragged ones: C not a multiple of 4 or 16, C < 4,
-# odd C, R = 1 with many groups
+# append and a prefill chunk, the embedding rows of the closed batch's decode
+# step (four tokens), every distinct weight shape of granite_3_8b and its
+# embedding, then ragged ones: C not a multiple of 4 or 16, C < 4, odd C,
+# R = 1 with many groups
 CODEC_CASES = (
     ((2 * 16 * 8, 1, 128), False, True), ((2 * 4 * 64 * 8, 1, 128), False,
                                           False),
+    ((1, 4, 4096), True, True),
     ((1, 4096, 12800), True, True), ((1, 12800, 4096), True, False),
     ((1, 4096, 4096), True, False), ((1, 4096, 1024), True, False),
     ((1, 49155, 4096), True, False), ((1, 256, 4096), True, False),
@@ -879,8 +899,9 @@ def _ordered_bf16(t):
 
 def _kv_append_one(gen, N, KV, hd, kv_bits, dtype, page=64):
     """One fused append against its plain version on one pool layer.
-    Returns the max abs error of the dequantized rows, and the (row, head,
-    K or V) statistics pairs one bf16 ulp apart and checked."""
+    Returns the max abs error of the dequantized rows, the (row, head,
+    K or V) statistics pairs one bf16 ulp apart and checked, and the load
+    and store routes (``kq.append_route``) the call took."""
     where = f"N={N} KV={KV} hd={hd} kv{kv_bits} {dtype}"
     k, v, pages, rows, P = make_kv_rows(gen, N, KV, hd, page, dtype)
     pool0 = make_kv_pool(gen, P, page, KV, hd, kv_bits)
@@ -937,19 +958,33 @@ def _kv_append_one(gen, N, KV, hd, kv_bits, dtype, page=64):
                 c, t["mu"].float()[..., None], t["sigma"].float()[..., None],
                 2 ** kv_bits, dtype=torch.float32)
         err = max(err, (dq(g) - dq(w)).abs().max().item())
+    load, store = kq.append_route(
+        hd, k.element_size(), kv_bits, (k.data_ptr(), v.data_ptr()),
+        (pool0["k_codes"].data_ptr(), pool0["v_codes"].data_ptr()))
     del got, again, want, pool0, target
-    return err, n_ulp, n_pairs
+    return err, n_ulp, n_pairs, {("load", load), ("store", store)}
 
 
 # (N, KV, hd, dtype): decode and one prefill chunk of granite_3_8b's
 # engine, a long prefill for the statistics' share, gemma2's head_dim 256,
-# the tiny f32 models (head_dim 16) and ragged counts
+# the tiny f32 models (head_dim 16) and ragged counts; then the head dims
+# that are not a power of two (stablelm_12b 160 and its smoke 20, kimi_k2
+# 112) at the engine's decode and prefill-chunk shapes, bf16 and f32, and
+# layouts of 2 and 3 chunks a lane (130, 132) and VPL 2 (6)
 KV_APPEND_CASES = (
     (16, 8, 128, torch.bfloat16), (256, 8, 128, torch.bfloat16),
     (4096, 8, 128, torch.bfloat16), (16, 8, 256, torch.bfloat16),
     (2, 2, 16, torch.float32), (5, 2, 16, torch.float32),
     (3, 4, 32, torch.float32), (7, 1, 64, torch.bfloat16),
-    (33, 8, 128, torch.float32))
+    (33, 8, 128, torch.float32)) + tuple(
+    (N, 8, hd, dtype) for hd in (20, 112, 160) for N in (16, 256)
+    for dtype in (torch.bfloat16, torch.float32)) + (
+    (9, 3, 130, torch.bfloat16), (9, 3, 132, torch.float32),
+    (5, 2, 6, torch.bfloat16))
+# the --quick subset: decode and a chunk at hd 128, the small f32 model,
+# and one decode case of each new head dim
+KV_APPEND_QUICK = KV_APPEND_CASES[:2] + KV_APPEND_CASES[4:6] + tuple(
+    c for c in KV_APPEND_CASES[9:] if c[0] == 16 and c[3] == torch.bfloat16)
 
 
 def check_kv_append(gen, quick: bool) -> float:
@@ -959,18 +994,24 @@ def check_kv_append(gen, quick: bool) -> float:
     ``TOL_KV_STATS_ULP`` of the pairs), codes bit-equal where they agree,
     every other pool byte untouched.  Returns the max abs error of the
     dequantized rows."""
-    cases = KV_APPEND_CASES[:2] + KV_APPEND_CASES[4:6] if quick \
-        else KV_APPEND_CASES
+    cases = KV_APPEND_QUICK if quick else KV_APPEND_CASES
     worst = 0.0
     n_ulp = n_pairs = 0
+    routes = set()
     for (N, KV, hd, dtype) in cases:
         for kv_bits in (8, 4):
-            err, u, n = _kv_append_one(gen, N, KV, hd, kv_bits, dtype)
+            err, u, n, r = _kv_append_one(gen, N, KV, hd, kv_bits, dtype)
             worst = max(worst, err)
             n_ulp += u
             n_pairs += n
-        say(f"[kernels] kv_append N={N} KV={KV} hd={hd} {dtype}: kv8 + kv4 "
-            f"against the plain version, untouched bytes unchanged")
+            routes.update(r)
+        say(f"[kernels] kv_append N={N} KV={KV} hd={hd} {dtype} (layout "
+            f"VPL x lanes {kq.append_layout(hd)}): kv8 + kv4 against the "
+            f"plain version, untouched bytes unchanged")
+    if routes != {("load", kq.VECTOR), ("load", kq.SCALAR),
+                  ("store", kq.VECTOR), ("store", kq.SCALAR)}:
+        raise SystemExit(f"kv_append: the cases did not take every load and "
+                         f"store route: {sorted(routes)}")
     frac = n_ulp / n_pairs
     say(f"[kernels] kv_append: {n_ulp} of {n_pairs} (row, head, K or V) "
         f"statistics pairs one bf16 ulp from the plain version ({frac:.3e}; "
@@ -1468,10 +1509,12 @@ def make_stream(cfg, seed: int, new_tokens: int):
 
 
 def run_stream(params, cfg, opts, seed: int, new_tokens: int,
-               a_bits: int = 32):
-    ec = EngineConfig(max_slots=16, max_len=2048, prefill_batch=4,
-                      page_size=64, kv_bits=8, prefix_cache=True,
-                      a_bits=a_bits)
+               a_bits: int = 32, ec=None):
+    """The stream of ``make_stream`` through one engine (phase 4's kv8
+    pool with the prefix cache unless ``ec`` says otherwise)."""
+    ec = ec or EngineConfig(max_slots=16, max_len=2048, prefill_batch=4,
+                            page_size=64, kv_bits=8, prefix_cache=True,
+                            a_bits=a_bits)
     eng = Engine(params, cfg, opts, ec, device=DEV)
     wave1, wave2 = make_stream(cfg, seed, new_tokens)
     outs = []
@@ -1733,17 +1776,19 @@ def recording_logits(store):
         engine_lib._sample_batch = orig
 
 
-def check_near_tie(where, k_row, p_row, err):
-    """A greedy flip between kernels and plain versions must be a near-tie:
-    the plain logits' top-2 margin at most the phase's measured max abs
-    kernel-vs-plain logit error (a flip needs margin <= 2 x that row's
-    error, so a margin above it would mean more than rounding)."""
+def check_near_tie(where, k_row, p_row, err, names=("kernels", "plain")):
+    """A greedy flip between kernels and plain versions (or the two sides
+    ``names``) must be a near-tie: the plain (second) logits' top-2 margin
+    at most the phase's measured max abs logit error between the sides (a
+    flip needs margin <= 2 x that row's error, so a margin above it would
+    mean more than rounding)."""
     top = p_row.topk(2).values
     margin = (top[0] - top[1]).item()
-    say(f"[plain] argmax flip at {where}: kernels {k_row.argmax().item()}, "
-        f"plain {p_row.argmax().item()}; plain top-2 margin {margin:.4f}, "
-        f"this row's max abs err {(k_row - p_row).abs().max().item():.4f}, "
-        f"the phase's {err:.4f}")
+    a, b = names
+    say(f"[near-tie] argmax flip at {where}: {a} {k_row.argmax().item()}, "
+        f"{b} {p_row.argmax().item()}; {b} top-2 margin {margin:.4f}, this "
+        f"row's max abs err {(k_row - p_row).abs().max().item():.4f}, the "
+        f"phase's {err:.4f}")
     if margin > err:
         raise SystemExit(f"argmax flip at {where} is not a near-tie: margin "
                          f"{margin:.4f} > max abs logit err {err:.4f}")
@@ -1802,6 +1847,225 @@ def check_head_logits(params, cfg, opts):
         f"rounding of them would be {rounding:.2e} off")
     if logits.dtype != torch.float32 or err > tol:
         raise SystemExit("the LM head's logits are not the f32 sums")
+
+
+# --------------------------------------------------------------------------
+# Phase 5b: the closed batch and the slot cache at full width
+# --------------------------------------------------------------------------
+
+# the closed batch's runs of the serving CLI (no --engine): the arguments
+# beyond the batch, and the matmul kernel that carries every projection of
+# the coded model's 7 per layer (--a-bits fake-quantizes layer outputs, so
+# it stays on qmatmul, not qmatmul_a8)
+CLOSED_BATCH_RUNS = (
+    ("W4", [], "qmatmul"),
+    ("W4 empirical", ["--w-dist", "empirical"], "qmatmul_lut"),
+    ("W4, a_bits 8", ["--a-bits", "8"], "qmatmul"))
+CLOSED_BATCH = dict(batch=4, prompt_len=16, new_tokens=32)
+
+
+def closed_batch_phase(seed: int):
+    """``python -m repro_torch.launch.serve`` without --engine at the full
+    width and depth of granite_3_8b (bf16): dense weights from --seed,
+    greedy generation with them and with their coded copy, counted."""
+    from repro_torch.launch import serve as serve_cli
+    cfg = cb.get("granite_3_8b")
+    c = CLOSED_BATCH
+    steps = c["prompt_len"] + c["new_tokens"] - 1
+    L = cfg.n_layers
+    out = {}
+    for name, extra, matmul in CLOSED_BATCH_RUNS:
+        argv = ["--arch", "granite_3_8b", "--w-bits", "4", "--batch",
+                str(c["batch"]), "--prompt-len", str(c["prompt_len"]),
+                "--new-tokens", str(c["new_tokens"]), "--seed", str(seed)
+                ] + extra
+        say(f"[closed] {name}: python -m repro_torch.launch.serve "
+            + " ".join(argv))
+        kops.reset_launch_counts()
+        res = serve_cli.main(argv)
+        sync()
+        counts = kops.launch_counts()
+        toks = res["tokens"]
+        if tuple(toks.shape) != (c["batch"], c["new_tokens"]) \
+                or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+            raise SystemExit(f"closed batch {name}: tokens of the wrong "
+                             f"shape or outside the vocabulary")
+        want_mm = 7 * L * steps
+        gaussian = "empirical" not in extra
+        say(f"[closed] {name}: kernel launches (the dense run's and the "
+            f"coded run's): {matmul} {counts[matmul]} (7 x {L} layers x "
+            f"{steps} decode steps = {want_mm}; the dense run launches "
+            f"none), kquantile_dequantize {counts['kquantile_dequantize']} "
+            f"(the embedding rows, one a step), kquantile_quantize "
+            f"{counts['kquantile_quantize']} (coding the weights), "
+            + ", ".join(f"{n} {counts[n]}" for n in (
+                "qmatmul", "qmatmul_a8", "qmatmul_lut",
+                "paged_quant_attention", "kv_append",
+                "kquantile_dequantize_paged") if n != matmul))
+        if counts[matmul] != want_mm \
+                or any(counts[m] for m in MATMULS if m != matmul) \
+                or counts["paged_quant_attention"] or counts["kv_append"] \
+                or counts["kquantile_dequantize_paged"] \
+                or counts["kquantile_dequantize"] != (steps if gaussian
+                                                       else 0) \
+                or (counts["kquantile_quantize"] > 0) != gaussian:
+            raise SystemExit(f"closed batch {name}: the main path did not go "
+                             f"through the kernels as expected")
+        say(f"[closed] {name}: {res['tok_per_s']:.1f} tok/s host loop "
+            f"(dense {res['dense_tok_per_s']:.1f}); greedy agreement with "
+            f"the dense {res['compute_dtype']} model "
+            f"{res['agreement'] * 100:.1f}%; weights coded in "
+            f"{res['prepare_s']:.2f}s; {CARD}")
+        out[name] = (counts, res)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+SLOT_RANGES = {"engine.decode", "engine.prefill", "engine.cache_insert"}
+PAGED_RANGES = {"engine.decode", "engine.prefill_chunk", "engine.cow"}
+
+
+def slot_phase(cfg, seed: int, new_tokens: int):
+    """Phase 4's 12-request stream at W4 (kv16) through the slot engine and
+    through the paged kv16 engine with pages of 64 (2048 = 32 x 64 rows:
+    the attended lengths match): greedy tokens equal, or a near-tie where
+    an argmax differs; then the slot engine again with checkify and the
+    profiler ranges under torch.profiler (the tokens unchanged), and the
+    paged engine with the prefix cache likewise, for the chunked-prefill
+    and copy-on-write ranges."""
+    say(f"[slot] W4 + kv16: granite_3_8b at full width, depth "
+        f"{cfg.n_layers}, bf16; slot engine (16 slots x 2048 rows) vs paged "
+        f"kv16 engine (pages of 64)")
+    params = model.init(seed, cfg, device=DEV, w_bits=4,
+                        dense_dtype=torch.bfloat16)
+    opts = lm.ModelOpts(compute_dtype=torch.bfloat16)
+    common = dict(max_slots=16, max_len=2048, prefill_batch=4)
+    slot_ec = EngineConfig(cache_mode="slot", **common)
+    paged_ec = EngineConfig(page_size=64, **common)
+    for ec in (slot_ec, paged_ec):          # warm-up outside the counted runs
+        Engine(params, cfg, opts, ec, device=DEV).generate([Request(
+            uid=-1, prompt=np.arange(70, dtype=np.int32),
+            sampling=SamplingParams(max_new_tokens=2))])
+    sync()
+    runs = {}
+    for name, ec in (("slot", slot_ec), ("paged", paged_ec)):
+        rows = {}
+        kops.reset_launch_counts()
+        with recording_logits(rows):
+            eng, outs, wall, n_req = run_stream(params, cfg, opts, seed,
+                                                new_tokens, ec=ec)
+        counts = kops.launch_counts()
+        steps, calls = eng.n_decode_steps, eng.n_prefill_calls
+        reg = eng.telemetry.registry
+        ttft = tele_lib.percentile_summary(reg["ttft_s"], scale=1e3)
+        itl = tele_lib.percentile_summary(reg["itl_s"], scale=1e3)
+        new = sum(len(o.token_ids) for o in outs)
+        want_mm = 7 * cfg.n_layers * (steps + calls)
+        say(f"[slot] {name} engine: {n_req} requests, {new} new tokens in "
+            f"{wall:.2f}s -> {new / wall:.1f} tok/s; TTFT p50 "
+            f"{ttft['p50']:.0f} ms p95 {ttft['p95']:.0f} ms; ITL p50 "
+            f"{itl['p50']:.1f} ms p95 {itl['p95']:.1f} ms; {steps} decode "
+            f"steps, {calls} prefill calls; launches qmatmul "
+            f"{counts['qmatmul']} (7 x {cfg.n_layers} x {steps + calls} = "
+            f"{want_mm}), paged_quant_attention "
+            f"{counts['paged_quant_attention']}, kv_append "
+            f"{counts['kv_append']}, kquantile_dequantize "
+            f"{counts['kquantile_dequantize']}; {CARD}")
+        if len(outs) != n_req or any(
+                o.finish_reason != "length" or len(o.token_ids) != new_tokens
+                for o in outs):
+            raise SystemExit(f"{name} engine: a request did not complete")
+        if counts["qmatmul"] != want_mm or counts["paged_quant_attention"] \
+                or counts["kv_append"] or counts["kquantile_dequantize"] \
+                != steps + calls:
+            raise SystemExit(f"{name} engine: the main path did not go "
+                             f"through the kernels as expected")
+        runs[name] = (outs, rows, counts,
+                      dict(tok_per_s=new / wall, ttft=ttft, itl=itl))
+        del eng
+    # greedy streams: equal, or a near-tie at each request's first
+    # differing token (the decode batches differ: the paged engine buckets
+    # its active rows, the slot engine always steps all 16 slots)
+    (outs_s, rows_s, _, _), (outs_p, rows_p, _, _) = runs["slot"], \
+        runs["paged"]
+    flips, err, big, same, tot = [], 0.0, 0.0, 0, 0
+    for a, b in zip(outs_s, outs_p):
+        if a.uid == 3:
+            continue                    # the sampled request
+        same += sum(x == y for x, y in zip(a.token_ids, b.token_ids))
+        tot += len(a.token_ids)
+        diff = [j for j, (x, y) in enumerate(zip(a.token_ids, b.token_ids))
+                if x != y]
+        for j in range(diff[0] + 1 if diff else len(a.token_ids)):
+            key = (1000 + a.uid, len(a.prompt) - 1 + j)
+            err = max(err, (rows_s[key] - rows_p[key]).abs().max().item())
+            big = max(big, rows_p[key].abs().max().item())
+        if diff:
+            flips.append((a.uid, diff[0], key))
+    sampled = [o.token_ids for o in outs_s if o.uid == 3] == \
+        [o.token_ids for o in outs_p if o.uid == 3]
+    say(f"[slot] greedy tokens, slot vs paged kv16: {same}/{tot} equal, "
+        f"{len(flips)} request(s) apart; max abs logit difference up to each "
+        f"request's first differing token {err:.4f} (tolerance "
+        f"{TOL_LOGITS_REL * big:.4f} = {TOL_LOGITS_REL} x max |logit|); the "
+        f"sampled request {'equal' if sampled else 'apart'}")
+    if err > TOL_LOGITS_REL * big:
+        raise SystemExit("slot and paged engines' logits disagree")
+    for uid, j, key in flips:
+        check_near_tie(f"request {uid} token {j}", rows_s[key], rows_p[key],
+                       err, names=("slot", "paged"))
+    # the debug aids leave the tokens as they were; the ranges name the steps
+    paged_prefix = dataclasses.replace(paged_ec, prefix_cache=True)
+    _, plain_prefix, _, _ = run_stream(params, cfg, opts, seed, new_tokens,
+                                       ec=paged_prefix)
+    for name, ec, want_outs, want_names in (
+            ("slot", slot_ec, outs_s, SLOT_RANGES),
+            ("paged + prefix cache", paged_prefix, plain_prefix,
+             PAGED_RANGES)):
+        ec = dataclasses.replace(ec, checkify=True, profile_annotations=True)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]) as prof:
+            _, outs, wall, _ = run_stream(params, cfg, opts, seed,
+                                          new_tokens, ec=ec)
+        # the raw events: key_averages() would first build a tree of the
+        # run's ~10^5 operations in Python (about a minute)
+        names = {e.name() for e in prof.profiler.kineto_results.events()
+                 if e.name().startswith("engine.")}
+        say(f"[slot] {name} engine with checkify and profiler ranges, under "
+            f"torch.profiler: {wall:.2f}s; ranges {sorted(names)}; tokens "
+            f"{'unchanged' if _toks(outs) == _toks(want_outs) else 'CHANGED'}")
+        if names != want_names or _toks(outs) != _toks(want_outs):
+            raise SystemExit(f"{name} engine: checkify / profile "
+                             f"annotations changed the tokens or lost a "
+                             f"range")
+    # the slot engine's decode attention: plain torch over each slot's whole
+    # region (16 x 2048 rows, KV 8, hd 128, bf16), beside the paged kernel
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    q = torch.randn((16, 1, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=DEV).to(torch.bfloat16)
+    kvs = [tuple(torch.randn((16, 2048, cfg.n_kv_heads, cfg.head_dim),
+                             generator=g, device=DEV).to(torch.bfloat16)
+                 for _ in range(2)) for _ in range(3)]
+    pos = torch.full((16,), 2047, device=DEV)
+    p = attn_lib.AttnParams()
+    ms = time_ms([lambda kv=kv: attn_lib.decode_attention(q, *kv, pos, p)
+                  for kv in kvs])
+    nbytes = 2 * 16 * 2048 * cfg.n_kv_heads * cfg.head_dim * 2
+    say(f"[slot] decode attention over the slot cache (plain torch, B=16, "
+        f"2048 rows, KV {cfg.n_kv_heads}, hd {cfg.head_dim}, bf16): "
+        f"{ms:.4f} ms a layer (bound {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} "
+        f"ms, {nbytes / 1e6:.1f} MB of K and V); {CARD}")
+    del kvs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: r[2:] for name, r in runs.items()}, ms
+
+
+def _toks(outs):
+    return [o.token_ids for o in outs]
 
 
 # --------------------------------------------------------------------------
@@ -2858,11 +3122,13 @@ def timing_phase(gen, counts, errs):
                 f"draw alone (Philox, f32 written) {r['e01_ms']:.4f} ms "
                 f"against its {r['e01_bound_ms']:.4f} ms write bound; host "
                 f"enqueue {r['host_us']:.0f} us per call")
-    for (N, what) in ((16, "decode, 16 rows"), (256, "a prefill chunk")):
+    for (N, hd, what) in ((16, 128, "decode, 16 rows"),
+                          (256, 128, "a prefill chunk"),
+                          (16, 160, "decode, stablelm_12b's head_dim")):
         for kv_bits in (8, 4):
-            r = time_kv_append(gen, N, 8, 128, kv_bits)
-            rows[("kv_append", N, kv_bits)] = r
-            say(f"[time] kv_append kv{kv_bits} N={N} KV=8 hd=128 bf16 "
+            r = time_kv_append(gen, N, 8, hd, kv_bits)
+            rows[("kv_append", N, kv_bits, hd)] = r
+            say(f"[time] kv_append kv{kv_bits} N={N} KV=8 hd={hd} bf16 "
                 f"({what}): fused kernel {r['ms']:.4f} ms device, "
                 f"{r['host_us']:.1f} us host; the eager append it replaced "
                 f"{r['eager_ms']:.4f} ms device, {r['eager_host_us']:.1f} us "
@@ -2897,7 +3163,7 @@ def timing_phase(gen, counts, errs):
     k8 = rows[("kquantile", 1, 4096, 12800, 256)]       # W8: int8
     ke = rows[("kquantile", 1, 16, 4096, 16)]           # embedding rows
     uo = rows[("uniq_onchip", L, 4096, 12800, 1)]
-    ka = rows[("kv_append", 16, 8)]
+    ka = rows[("kv_append", 16, 8, 128)]
 
     def entry(name, source, replaces, r, **more):
         e = {"name": name, "route": "cuda", "source": source,
@@ -2949,8 +3215,10 @@ def timing_phase(gen, counts, errs):
               cnn_leaf=rows[("uniq_onchip", 3, 3 * 512, 512, 1)]),
         entry("kv_append", "src/repro_torch/kernels/csrc/kquantile.cu",
               "src/repro/kernels/kquantile.py:67", ka,
-              kv4_decode=rows[("kv_append", 16, 4)],
-              prefill_n256=rows[("kv_append", 256, 8)])]}
+              kv4_decode=rows[("kv_append", 16, 4, 128)],
+              prefill_n256=rows[("kv_append", 256, 8, 128)],
+              hd160_decode=rows[("kv_append", 16, 8, 160)],
+              hd160_kv4_decode=rows[("kv_append", 16, 4, 160)])]}
 
 
 def profile_phase(cfg, seed: int, new_tokens: int):
@@ -3280,6 +3548,7 @@ def main(argv=None) -> int:
                     help="print ptxas' register / shared-memory report")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -3376,6 +3645,10 @@ def main(argv=None) -> int:
         gc.collect()            # an engine holds reference cycles: free its
         torch.cuda.empty_cache()  # pool before the next one is made
     small_reference_phase(args.seed)
+    say(f"[time] phases 1-5 done at {time.perf_counter() - t_start:.0f}s")
+    closed_batch_phase(args.seed)
+    slot_phase(cfg, args.seed, args.new_tokens)
+    say(f"[time] phase 5b done at {time.perf_counter() - t_start:.0f}s")
     train_counts, _ = train_phase(args.seed, args.train_layers,
                                   args.train_steps)
     torch.cuda.empty_cache()
@@ -3386,7 +3659,9 @@ def main(argv=None) -> int:
                   uniq_noise_bwd=train_counts["uniq_noise_bwd"],
                   uniq_noise_fwd_onchip=cnn_counts["uniq_noise_fwd_onchip"],
                   train_layers=args.train_layers)
+    say(f"[time] phase 6 done at {time.perf_counter() - t_start:.0f}s")
     line = timing_phase(gen, counts, errs)
+    say(f"[time] phase 7 done at {time.perf_counter() - t_start:.0f}s")
 
     say(card)
     say(json.dumps(line))

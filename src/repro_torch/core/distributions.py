@@ -18,6 +18,38 @@ import torch
 _EPS = 1e-6
 
 
+# rows of the first stage of ``_sum_fixed_order``.  torch reduces a tensor
+# to many values by giving each thread whole outputs, and splits a reduction
+# to one value among threads only from tens of thousands of elements on, far
+# above this; so neither stage's order depends on the number of threads
+_SUM_ROWS = 1024
+
+
+def _sum_fixed_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum of every element of f32 ``x``, in an order that does not depend
+    on the number of CPU threads: each of ``_SUM_ROWS`` rows (zero-padded
+    at the end) is summed whole by one thread, then the row sums in one
+    pass."""
+    flat = x.reshape(-1)
+    cols = -(-flat.numel() // _SUM_ROWS)
+    if cols * _SUM_ROWS != flat.numel():
+        flat = torch.nn.functional.pad(flat, (0, cols * _SUM_ROWS
+                                              - flat.numel()))
+    return flat.reshape(_SUM_ROWS, cols).sum(dim=1).sum()
+
+
+def _full_mean_std(w: torch.Tensor):
+    """Mean and population deviation of every element of ``w`` (f32, in a
+    fixed order; returned in w's dtype, shaped (1,) * w.ndim)."""
+    x = w.to(torch.float32)
+    n = x.numel()
+    mu = _sum_fixed_order(x) / n
+    var = _sum_fixed_order(torch.square(x - mu)) / n
+    shape = (1,) * w.ndim
+    return (mu.reshape(shape).to(w.dtype),
+            torch.sqrt(var).reshape(shape).to(w.dtype))
+
+
 def _axes_excluding(ndim: int, channel_axis: Optional[int]) -> Tuple[int, ...]:
     if channel_axis is None:
         return tuple(range(ndim))
@@ -39,8 +71,12 @@ class GaussianModel:
             channel_axis: Optional[int] = None) -> "GaussianModel":
         """Estimate (mu, sigma); sigma is the population deviation."""
         axes = _axes_excluding(w.ndim, channel_axis)
-        mu = torch.mean(w, dim=axes, keepdim=True)
-        sigma = torch.std(w, dim=axes, correction=0, keepdim=True)
+        if len(axes) == w.ndim:
+            mu, sigma = _full_mean_std(w)
+        else:
+            # one value a kept index, each reduced whole by one thread
+            mu = torch.mean(w, dim=axes, keepdim=True)
+            sigma = torch.std(w, dim=axes, correction=0, keepdim=True)
         sigma = torch.clamp(sigma, min=1e-8)
         return GaussianModel(mu=mu.detach(), sigma=sigma.detach())
 

@@ -70,14 +70,18 @@
 // What bounds it: nothing of the card at the engine's shapes -- 100 KB
 // moved at decode (16 rows, 8 heads, hd 128, bf16), 0.03 us of bytes; one
 // launch is ~3 us -- but the host.  What the design does about it: one
-// launch, no allocation, no host sync.  A group of hd / VPL lanes (VPL = 4
-// values, 8 at hd = 256) holds one (row, head, K or V) with one wide load
-// per lane, reduces the mean and the deviation in f32 by shuffles inside
-// the group, rounds both to bf16 and codes against the rounded values (so
-// codes and stored statistics agree, as in quantize_kv), packs its lane's
-// codes (kv4: low nibble first, as core/packing.py) and stores them with
-// one coalesced row store; the group's first lane stores the two
-// statistics.  The statistics are reduced in another order than torch.mean
+// launch, no allocation, no host sync.  A group of lanes (a power of two,
+// at most 32) holds one (row, head, K or V): the row is hd / VPL chunks of
+// VPL values (VPL 2, 4 or 8, by the fixed rule of
+// kernels/kquantile.py:append_layout on any even hd up to 256), a lane
+// loads its chunks with one wide load each (one load an element where rows
+// are not whole 16-byte units), lanes past the last chunk add 0.  The group
+// reduces the mean and the deviation in f32 by shuffles, rounds both to
+// bf16 and codes against the rounded values (so codes and stored
+// statistics agree, as in quantize_kv), packs each chunk's codes (kv4: low
+// nibble first, as core/packing.py) and stores them, one store a chunk
+// where code rows are whole 16-byte units, a byte at a time otherwise; the
+// group's first lane stores the two statistics.  The statistics are reduced in another order than torch.mean
 // / torch.std, so a bf16 statistic can land one ulp from the plain
 // version's in rare rows; the codes of a row whose statistics agree are
 // those of the plain version (quant_elem above).  A destination outside the
@@ -818,18 +822,39 @@ int paged_route(int vector, const void* codes, const void* mu,
 
 constexpr int APPEND_THREADS = 256;
 
-// VPL consecutive values of one lane: one or two 16-byte loads (f32), one
-// 8- or 16-byte load (bf16)
+// One chunk of VPL consecutive values.  VEC: one wide load (VPL * 4 or
+// VPL * 2 bytes; two 16-byte loads for f32 VPL = 8), which the caller only
+// asks for where rows are whole 16-byte units and the row pointers 16-byte
+// aligned; else one load an element.
 template <int VPL>
-__device__ __forceinline__ void load_lane(const float* p, float* o) {
-  static_assert(VPL == 4 || VPL == 8, "VPL is 4 or 8");
+__device__ __forceinline__ void load_chunk(const float* p, float* o,
+                                           bool vec) {
+  if (!vec) {
 #pragma unroll
-  for (int j = 0; j < VPL; j += 4) load4(p + j, o + j);
+    for (int j = 0; j < VPL; ++j) o[j] = __ldg(p + j);
+  } else if constexpr (VPL == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    o[0] = v.x;
+    o[1] = v.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < VPL; j += 4) load4(p + j, o + j);
+  }
 }
 template <int VPL>
-__device__ __forceinline__ void load_lane(const __nv_bfloat16* p, float* o) {
-  static_assert(VPL == 4 || VPL == 8, "VPL is 4 or 8");
-  if constexpr (VPL == 8) {
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float* o,
+                                           bool vec) {
+  if (!vec) {
+    const uint16_t* q = reinterpret_cast<const uint16_t*>(p);
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) o[j] = bf16_bits_to_f(__ldg(q + j));
+  } else if constexpr (VPL == 2) {
+    const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(p));
+    o[0] = bf16_bits_to_f(w & 0xFFFFu);
+    o[1] = bf16_bits_to_f(w >> 16);
+  } else if constexpr (VPL == 4) {
+    load4(p, o);
+  } else {
     const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
@@ -837,25 +862,51 @@ __device__ __forceinline__ void load_lane(const __nv_bfloat16* p, float* o) {
       o[2 * j] = bf16_bits_to_f(w[j] & 0xFFFFu);
       o[2 * j + 1] = bf16_bits_to_f(w[j] >> 16);
     }
-  } else {
-    load4(p, o);
   }
 }
 
-// sum over the LANES lanes of an aligned group of a warp; `mask` names
-// exactly the group's lanes (a warp's other groups may have exited)
-template <int LANES>
-__device__ __forceinline__ float group_sum(float x, unsigned mask) {
+// One chunk's BYTES code bytes (at most 8, little-endian in `packed`).
+// VEC: one store of BYTES bytes, which the caller only asks for where code
+// rows are whole 16-byte units and the code pointers 16-byte aligned; else
+// one store a byte.
+template <int BYTES>
+__device__ __forceinline__ void store_chunk(uint8_t* dst,
+                                            const uint32_t* packed,
+                                            bool vec) {
+  if (!vec) {
 #pragma unroll
-  for (int off = LANES / 2; off > 0; off >>= 1)
+    for (int b = 0; b < BYTES; ++b)
+      dst[b] = (uint8_t)(packed[b / 4] >> (8 * (b % 4)));
+  } else if constexpr (BYTES == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
+  } else if constexpr (BYTES == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = packed[0];
+  } else if constexpr (BYTES == 2) {
+    *reinterpret_cast<uint16_t*>(dst) = (uint16_t)packed[0];
+  } else {
+    static_assert(BYTES == 1, "1, 2, 4 or 8 code bytes a chunk");
+    *dst = (uint8_t)packed[0];
+  }
+}
+
+// sum over the `lanes` lanes (a power of two) of an aligned group of a warp;
+// `mask` names exactly the group's lanes (a warp's other groups may have
+// exited)
+__device__ __forceinline__ float group_sum(float x, unsigned mask,
+                                           int lanes) {
+  for (int off = lanes >> 1; off > 0; off >>= 1)
     x = __fadd_rn(x, __shfl_xor_sync(mask, x, off));
   return x;
 }
 
-// One group of LANES lanes per (row, head, K or V); a warp holds 32 / LANES
-// of them.  hd = LANES * VPL.  Codes: KV4 two per byte, else int8 with the
-// k = 256 offset.  Statistics are stored as bf16 bits.
-template <typename T, int VPL, int LANES, bool KV4>
+// One group of 2^lanes_log2 lanes per (row, head, K or V); a warp holds
+// 32 >> lanes_log2 of them.  A row of hd values is hd / VPL chunks; lane l
+// takes chunks l, l + lanes, ... (at most CH of them).  Lanes past the last
+// chunk load nothing and add 0 to both sums.  Codes: KV4 two per byte, else
+// int8 with the k = 256 offset.  Statistics are stored as bf16 bits.
+// WARP32: groups of 32 lanes known at compile time (the engine's head dims
+// 112-256), so the group's indexing and shuffle tree are constants.
+template <typename T, int VPL, int CH, bool WARP32, bool KV4>
 __global__ void __launch_bounds__(APPEND_THREADS)
 kv_append_kernel(const T* __restrict__ k, const T* __restrict__ v,
                  const int64_t* __restrict__ pages,
@@ -864,35 +915,56 @@ kv_append_kernel(const T* __restrict__ k, const T* __restrict__ v,
                  uint8_t* __restrict__ v_codes, uint16_t* __restrict__ k_mu,
                  uint16_t* __restrict__ k_sigma, uint16_t* __restrict__ v_mu,
                  uint16_t* __restrict__ v_sigma, int n_groups, int kv_heads,
-                 long long n_pages, int page_size) {
-  constexpr int HD = LANES * VPL;
-  constexpr int CODE_BYTES = KV4 ? VPL / 2 : VPL;  // per lane
+                 long long n_pages, int page_size, int hd, int lanes_log2,
+                 int vec_load, int vec_store) {
+  constexpr int CODE_BYTES = KV4 ? VPL / 2 : VPL;  // per chunk
+  if (WARP32) lanes_log2 = 5;
+  const int lanes = 1 << lanes_log2;
   const int t = blockIdx.x * APPEND_THREADS + threadIdx.x;
-  const int group = t / LANES;
-  const int lane = t % LANES;
+  const int group = t >> lanes_log2;
+  const int lane = t & (lanes - 1);
   // a group never straddles a warp, and its lanes exit or stay together
   if (group >= n_groups) return;
-  unsigned mask = 0xFFFFFFFFu;
-  if constexpr (LANES < 32)
-    mask = ((1u << LANES) - 1u) << ((threadIdx.x & 31) & ~(LANES - 1));
+  const unsigned mask =
+      lanes == 32 ? 0xFFFFFFFFu
+                  : ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
+  const int n_chunks = hd / VPL;
   const int which = group & 1;  // 0: K, 1: V
   const int rh = group >> 1;    // row * kv_heads + head
   const int n = rh / kv_heads;
   const int h = rh - n * kv_heads;
-  float x[VPL];
-  load_lane<VPL>((which ? v : k) + (int64_t)rh * HD + lane * VPL, x);
-
-  float s = x[0];
+  const T* src = (which ? v : k) + (int64_t)rh * hd;
+  float x[CH][VPL];
 #pragma unroll
-  for (int j = 1; j < VPL; ++j) s = __fadd_rn(s, x[j]);
-  const float mean = __fdiv_rn(group_sum<LANES>(s, mask), (float)HD);
+  for (int c = 0; c < CH; ++c) {
+    const int chunk = lane + c * lanes;
+    if (chunk < n_chunks) {
+      load_chunk<VPL>(src + chunk * VPL, x[c], vec_load);
+    } else {
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) x[c][j] = 0.0f;
+    }
+  }
+
+  // the lane's values in chunk order, then the group's shuffle tree
+  float s = x[0][0];
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+#pragma unroll
+    for (int j = (c == 0); j < VPL; ++j) s = __fadd_rn(s, x[c][j]);
+  const float mean = __fdiv_rn(group_sum(s, mask, lanes), (float)hd);
   float q = 0.0f;
 #pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const float d = __fsub_rn(x[j], mean);
-    q = __fadd_rn(q, __fmul_rn(d, d));
+  for (int c = 0; c < CH; ++c) {
+    if (lane + c * lanes < n_chunks) {
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        const float d = __fsub_rn(x[c][j], mean);
+        q = __fadd_rn(q, __fmul_rn(d, d));
+      }
+    }
   }
-  float sd = __fsqrt_rn(__fdiv_rn(group_sum<LANES>(q, mask), (float)HD));
+  float sd = __fsqrt_rn(__fdiv_rn(group_sum(q, mask, lanes), (float)hd));
   sd = sd < 1e-8f ? 1e-8f : sd;  // torch.clamp(min=): NaN stays NaN
   const uint32_t mu_b = f_to_bf16_bits(mean);
   const uint32_t sd_b = f_to_bf16_bits(sd);
@@ -903,30 +975,23 @@ kv_append_kernel(const T* __restrict__ k, const T* __restrict__ v,
   const long long row = rows[n];
   if (page < 0 || page >= n_pages || row < 0 || row >= page_size) __trap();
   const int64_t slot = ((int64_t)page * page_size + row) * kv_heads + h;
+  uint8_t* dst = (which ? v_codes : k_codes) + slot * (KV4 ? hd / 2 : hd);
 
   constexpr int K = KV4 ? 16 : 256;
-  uint32_t packed[2] = {0u, 0u};  // CODE_BYTES <= 8
 #pragma unroll
-  for (int j = 0; j < VPL; ++j) {
-    const int c = quant_elem(x[j], mu_r, sd_r, (float)K, (float)(K - 1),
-                             KV4 ? 0 : 128);
-    if (KV4) {
-      const int bit = 4 * j;  // element j: nibble j of the lane's bytes
-      packed[bit / 32] |= (uint32_t)(c & 0xF) << (bit % 32);
-    } else {
-      const int bit = 8 * j;
-      packed[bit / 32] |= (uint32_t)(uint8_t)c << (bit % 32);
+  for (int c = 0; c < CH; ++c) {
+    const int chunk = lane + c * lanes;
+    if (chunk >= n_chunks) continue;
+    uint32_t packed[2] = {0u, 0u};  // CODE_BYTES <= 8
+#pragma unroll
+    for (int j = 0; j < VPL; ++j) {
+      const int code = quant_elem(x[c][j], mu_r, sd_r, (float)K,
+                                  (float)(K - 1), KV4 ? 0 : 128);
+      // element j of the chunk: nibble j (kv4, low first) or byte j
+      const int bit = (KV4 ? 4 : 8) * j;
+      packed[bit / 32] |= (uint32_t)(code & (KV4 ? 0xF : 0xFF)) << (bit % 32);
     }
-  }
-  uint8_t* dst = (which ? v_codes : k_codes) + slot * (KV4 ? HD / 2 : HD) +
-                 lane * CODE_BYTES;
-  if constexpr (CODE_BYTES == 8) {
-    *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
-  } else if constexpr (CODE_BYTES == 4) {
-    *reinterpret_cast<uint32_t*>(dst) = packed[0];
-  } else {
-    static_assert(CODE_BYTES == 2, "2, 4 or 8 code bytes a lane");
-    *reinterpret_cast<uint16_t*>(dst) = (uint16_t)packed[0];
+    store_chunk<CODE_BYTES>(dst + chunk * CODE_BYTES, packed, vec_store);
   }
   if (lane == 0) {
     (which ? v_mu : k_mu)[slot] = (uint16_t)mu_b;
@@ -934,13 +999,14 @@ kv_append_kernel(const T* __restrict__ k, const T* __restrict__ v,
   }
 }
 
-template <typename T, int VPL, int LANES>
+template <typename T, int VPL, int CH, bool WARP32>
 int append(const void* k, const void* v, const int64_t* pages,
            const int64_t* rows, void* const* leaves, int kv4, int n_rows,
-           int kv_heads, long long n_pages, int page_size,
+           int kv_heads, long long n_pages, int page_size, int hd,
+           int lanes_log2, int vec_load, int vec_store,
            cudaStream_t stream) {
   const int n_groups = 2 * n_rows * kv_heads;
-  const long long threads = (long long)n_groups * LANES;
+  const long long threads = (long long)n_groups << lanes_log2;
   const unsigned blocks =
       (unsigned)((threads + APPEND_THREADS - 1) / APPEND_THREADS);
   auto* kc = static_cast<uint8_t*>(leaves[0]);
@@ -952,42 +1018,49 @@ int append(const void* k, const void* v, const int64_t* pages,
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   if (kv4)
-    kv_append_kernel<T, VPL, LANES, true><<<blocks, APPEND_THREADS, 0,
-                                           stream>>>(
+    kv_append_kernel<T, VPL, CH, WARP32, true><<<blocks, APPEND_THREADS, 0,
+                                                 stream>>>(
         kp, vp, pages, rows, kc, vc, km, ks, vm, vs, n_groups, kv_heads,
-        n_pages, page_size);
+        n_pages, page_size, hd, lanes_log2, vec_load, vec_store);
   else
-    kv_append_kernel<T, VPL, LANES, false><<<blocks, APPEND_THREADS, 0,
-                                            stream>>>(
+    kv_append_kernel<T, VPL, CH, WARP32, false><<<blocks, APPEND_THREADS, 0,
+                                                  stream>>>(
         kp, vp, pages, rows, kc, vc, km, ks, vm, vs, n_groups, kv_heads,
-        n_pages, page_size);
+        n_pages, page_size, hd, lanes_log2, vec_load, vec_store);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The layout (VPL values a chunk, 2^lanes_log2 lanes a group) is chosen by
+// the caller (kernels/kquantile.py:append_layout); here it is only checked
+// to be one the kernel can run: whole chunks, at most 32 lanes and 4 chunks
+// a lane.
 template <typename T>
-int append_hd(int hd, const void* k, const void* v, const int64_t* pages,
-              const int64_t* rows, void* const* leaves, int kv4, int n_rows,
-              int kv_heads, long long n_pages, int page_size,
-              cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return append<T, 4, 4>(k, v, pages, rows, leaves, kv4, n_rows,
-                             kv_heads, n_pages, page_size, stream);
-    case 32:
-      return append<T, 4, 8>(k, v, pages, rows, leaves, kv4, n_rows,
-                             kv_heads, n_pages, page_size, stream);
-    case 64:
-      return append<T, 4, 16>(k, v, pages, rows, leaves, kv4, n_rows,
-                              kv_heads, n_pages, page_size, stream);
-    case 128:
-      return append<T, 4, 32>(k, v, pages, rows, leaves, kv4, n_rows,
-                              kv_heads, n_pages, page_size, stream);
-    case 256:
-      return append<T, 8, 32>(k, v, pages, rows, leaves, kv4, n_rows,
-                              kv_heads, n_pages, page_size, stream);
-    default:
-      return -6;
-  }
+int append_layout_body(int vpl, int lanes_log2, int hd, const void* k,
+                       const void* v, const int64_t* pages,
+                       const int64_t* rows, void* const* leaves, int kv4,
+                       int n_rows, int kv_heads, long long n_pages,
+                       int page_size, int vec_load, int vec_store,
+                       cudaStream_t stream) {
+  if (hd <= 0 || hd > 256 || hd % 2 || lanes_log2 < 0 || lanes_log2 > 5 ||
+      (vpl != 2 && vpl != 4 && vpl != 8) || hd % vpl)
+    return -6;
+  const int lanes = 1 << lanes_log2;
+  const int ch = (hd / vpl + lanes - 1) / lanes;
+#define KV_APPEND_ARGS                                                     \
+  k, v, pages, rows, leaves, kv4, n_rows, kv_heads, n_pages, page_size, hd, \
+      lanes_log2, vec_load, vec_store, stream
+  if (vpl == 8 && ch == 1)
+    return lanes == 32 ? append<T, 8, 1, true>(KV_APPEND_ARGS)
+                       : append<T, 8, 1, false>(KV_APPEND_ARGS);
+  if (vpl == 4 && ch == 1)
+    return lanes == 32 ? append<T, 4, 1, true>(KV_APPEND_ARGS)
+                       : append<T, 4, 1, false>(KV_APPEND_ARGS);
+  if (vpl == 4 && ch == 2) return append<T, 4, 2, false>(KV_APPEND_ARGS);
+  if (vpl == 2 && ch == 1) return append<T, 2, 1, false>(KV_APPEND_ARGS);
+  if (vpl == 2 && ch == 2) return append<T, 2, 2, false>(KV_APPEND_ARGS);
+  if (vpl == 2 && ch <= 4) return append<T, 2, 4, false>(KV_APPEND_ARGS);
+#undef KV_APPEND_ARGS
+  return -6;
 }
 
 int check_args(long long G, long long R, long long C, int k) {
@@ -1093,14 +1166,17 @@ extern "C" int kquantile_dequantize_paged_launch(
 // six contiguous pool leaves of one layer in the order k_codes, k_mu,
 // k_sigma, v_codes, v_mu, v_sigma -- codes (n_pages, page_size, kv_heads,
 // hd) int8 (kv8) or (.., hd / 2) uint8 (kv4), statistics (n_pages,
-// page_size, kv_heads) bf16.  hd is 16, 32, 64, 128 or 256.
+// page_size, kv_heads) bf16.  hd is even and at most 256; (vpl, lanes_log2)
+// is its layout; vec_load / vec_store ask for wide loads of k, v / stores of
+// codes (see load_chunk, store_chunk).
 extern "C" int kv_append_launch(const void* k, const void* v, int kv_bf16,
                                 const void* pages, const void* rows,
                                 void* k_codes, void* k_mu, void* k_sigma,
                                 void* v_codes, void* v_mu, void* v_sigma,
                                 int kv_bits, int n_rows, int kv_heads, int hd,
-                                long long n_pages, int page_size,
-                                void* stream_ptr) {
+                                int vpl, int lanes_log2, int vec_load,
+                                int vec_store, long long n_pages,
+                                int page_size, void* stream_ptr) {
   if (n_rows <= 0 || kv_heads <= 0 || n_pages <= 0 || page_size <= 0)
     return -2;
   if (kv_bits != 4 && kv_bits != 8) return -4;
@@ -1110,9 +1186,12 @@ extern "C" int kv_append_launch(const void* k, const void* v, int kv_bf16,
   const int64_t* rp = static_cast<const int64_t*>(rows);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int kv4 = kv_bits == 4;
-  return kv_bf16 ? append_hd<__nv_bfloat16>(hd, k, v, pp, rp, leaves, kv4,
-                                            n_rows, kv_heads, n_pages,
-                                            page_size, stream)
-                 : append_hd<float>(hd, k, v, pp, rp, leaves, kv4, n_rows,
-                                    kv_heads, n_pages, page_size, stream);
+  return kv_bf16
+             ? append_layout_body<__nv_bfloat16>(
+                   vpl, lanes_log2, hd, k, v, pp, rp, leaves, kv4, n_rows,
+                   kv_heads, n_pages, page_size, vec_load, vec_store, stream)
+             : append_layout_body<float>(
+                   vpl, lanes_log2, hd, k, v, pp, rp, leaves, kv4, n_rows,
+                   kv_heads, n_pages, page_size, vec_load, vec_store,
+                   stream);
 }

@@ -138,9 +138,44 @@ def kquantile_dequantize_paged_plain(codes, mu, sigma, block_tables, *,
 # the pool leaves of one layer that a coded KV append writes, in the
 # kernel's argument order
 KV_LEAVES = ("k_codes", "k_mu", "k_sigma", "v_codes", "v_mu", "v_sigma")
-# head dims the fused append takes (hd / 4 lanes of 4 values, or 32 lanes of
-# 8 at 256): the engine's configs have 128 and 256, the small ones 16
-KV_APPEND_HEAD_DIMS = (16, 32, 64, 128, 256)
+# the largest head_dim the fused append takes (any even one up to it)
+KV_APPEND_MAX_HD = 256
+
+
+def append_layout(hd: int):
+    """The fused KV append's layout for head_dim ``hd``: (VPL, LANES), a
+    (row, head) of hd values taken as hd / VPL chunks of VPL consecutive
+    values by a group of LANES lanes.  A fixed rule on hd: VPL is the first
+    of 4, 8, 2 that divides hd into at most 32 chunks (else 4 where it
+    divides hd, else 2, and a lane takes up to 4 chunks); LANES is the power
+    of two at or above the chunk count, at most 32.  Lanes past the last
+    chunk load nothing.  Raises ValueError for an odd hd or hd above
+    ``KV_APPEND_MAX_HD``."""
+    if hd < 2 or hd % 2 or hd > KV_APPEND_MAX_HD:
+        raise ValueError(f"the fused KV append takes an even head_dim up to "
+                         f"{KV_APPEND_MAX_HD}, got {hd}")
+    fits = [vpl for vpl in (4, 8, 2) if hd % vpl == 0 and hd // vpl <= 32]
+    vpl = fits[0] if fits else (4 if hd % 4 == 0 else 2)
+    lanes = 1
+    while lanes < min(hd // vpl, 32):
+        lanes *= 2
+    return vpl, lanes
+
+
+def append_route(hd: int, itemsize: int, kv_bits: int, val_ptrs=(0, 0),
+                 code_ptrs=(0, 0)):
+    """Whether the fused KV append loads K / V a chunk at a time and stores
+    codes a chunk at a time: (load route, store route), each ``VECTOR`` or
+    ``SCALAR`` (one element, one byte a time).  A fixed rule: ``VECTOR``
+    where the rows (hd * itemsize bytes of values, hd or hd / 2 bytes of
+    codes) are whole 16-byte units and the pointers on a 16-byte
+    boundary."""
+    row_codes = hd // 2 if kv_bits == 4 else hd
+    load = VECTOR if (hd * itemsize) % 16 == 0 \
+        and not any(p % 16 for p in val_ptrs) else SCALAR
+    store = VECTOR if row_codes % 16 == 0 \
+        and not any(p % 16 for p in code_ptrs) else SCALAR
+    return load, store
 
 
 def kv_row_stats(x: torch.Tensor):
@@ -279,7 +314,8 @@ def _bind(name: str):
             "kquantile_dequantize_paged_launch":
                 [p, i, p, p, p, i, p, p, i, i, ll, i, i, i, i, i, p],
             "kv_append_launch":
-                [p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, ll, i, p]}[name]
+                [p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, ll,
+                 i, p]}[name]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
@@ -482,16 +518,12 @@ def kv_append(pool, pages: torch.Tensor, rows: torch.Tensor,
         kv_append_plain(pool, pages, rows, k, v, kv_bits=kv_bits)
         return
     N, KV, hd = k.shape
-    if hd not in KV_APPEND_HEAD_DIMS:
-        raise ValueError(f"the fused KV append takes head_dim in "
-                         f"{KV_APPEND_HEAD_DIMS}, got {hd}")
+    vpl, lanes = append_layout(hd)
     if N == 0:
         return
-    for name, t, a in (("k", k, 16), ("v", v, 16),
-                       ("k_codes", pool["k_codes"], 8),
-                       ("v_codes", pool["v_codes"], 8)):
-        if t.data_ptr() % a:
-            raise ValueError(f"{name} must start on a {a}-byte boundary")
+    load, store = append_route(
+        hd, k.element_size(), kv_bits, (k.data_ptr(), v.data_ptr()),
+        (pool["k_codes"].data_ptr(), pool["v_codes"].data_ptr()))
     fn = _bind("kv_append_launch")
     P, page = pool["k_codes"].shape[:2]
     with loader.on_device(k.device):
@@ -499,10 +531,12 @@ def kv_append(pool, pages: torch.Tensor, rows: torch.Tensor,
         rc = fn(k.data_ptr(), v.data_ptr(), int(k.dtype == torch.bfloat16),
                 pages.data_ptr(), rows.data_ptr(),
                 *(pool[n].data_ptr() for n in KV_LEAVES), kv_bits, N, KV, hd,
-                P, page, stream)
+                vpl, lanes.bit_length() - 1, int(load == VECTOR),
+                int(store == VECTOR), P, page, stream)
     if rc != 0:
         raise RuntimeError(f"kv_append kernel launch failed with code {rc} "
-                           f"(N={N}, KV={KV}, hd={hd}, kv_bits={kv_bits})")
+                           f"(N={N}, KV={KV}, hd={hd}, kv_bits={kv_bits}, "
+                           f"layout {vpl} x {lanes}, {load} / {store})")
     kv_append.launches += 1
 
 

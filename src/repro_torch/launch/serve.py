@@ -1,5 +1,18 @@
-"""Serving CLI: the continuous-batching engine under a request stream,
-with UNIQ-quantized weights, on the GPU (or, on request, the CPU).
+"""Serving CLI: batched generation and the continuous-batching engine
+under a request stream, with UNIQ-quantized weights, on the GPU (or, on
+request, the CPU).
+
+Closed batch (``serve.generate`` over the slot cache):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_8b \
+        --w-bits 4 --batch 4 --prompt-len 16 --new-tokens 32
+
+draws dense weights from --seed, generates greedily with them and with
+their k-quantile-coded copy (--w-bits, --w-dist; --a-bits fake-quantizes
+each layer's output), and reports tok/s of the host loop and the greedy
+agreement of the coded model with the dense one.
+
+Continuous-batching engine:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_8b \
         --engine --w-bits 4 --kv-bits 8 --requests 16 --rate 8 \
@@ -10,12 +23,14 @@ time-to-first-token, inter-token latency, slot occupancy, preemptions and
 effective KV utilization.  ``--smoke --device cpu`` runs the tiny variant of
 the architecture on the CPU.
 
-The KV cache is paged: sequences grow page by page out of a shared pool
-(--total-pages or a --pool-bytes byte budget) and are preempted+resumed
-when it runs dry.  --kv-bits 8/4 stores the pages as k-quantile codes +
-per-row stats (half / ~a third of the bytes, so a byte budget admits
-proportionally more sequences); --total-pages small enough forces
-preemption (--min-preemptions asserts it happened).
+The KV cache is paged by default (--cache-mode paged): sequences grow page
+by page out of a shared pool (--total-pages or a --pool-bytes byte budget)
+and are preempted+resumed when it runs dry. --cache-mode slot keeps the
+legacy fixed-region kv16 cache (one --max-len region per slot; a sequence
+that fills it finishes "evicted") for A/B comparison. --kv-bits 8/4 stores
+the pages as k-quantile codes + per-row stats (half / ~a third of the bytes,
+so a byte budget admits proportionally more sequences); --total-pages small
+enough forces preemption (--min-preemptions asserts it happened).
 
 --prefix-cache turns on codes-domain prefix caching with chunked prefill:
 admission attaches pool pages that already hold a prompt's prefix instead
@@ -96,6 +111,9 @@ def run_engine_stream(params, cfg, opts, args, device="cuda") -> dict:
                       checkify=args.checkify,
                       telemetry=not args.no_telemetry,
                       profile_annotations=args.profile_annotations)
+    if args.checkify:
+        print("[engine] checkify ON (index and NaN checks around every "
+              "device step; debug mode: two host syncs a step)")
     eng = Engine(params, cfg, opts, ec, device=device)
     if args.cache_mode == "paged":
         sch = eng.scheduler
@@ -241,9 +259,52 @@ def run_engine_stream(params, cfg, opts, args, device="cuda") -> dict:
     return stats
 
 
-def run_closed_batch(params, cfg, opts, args) -> None:
-    raise NotImplementedError(
-        "the closed-batch generate path is not ported yet; pass --engine")
+def _timed_generate(params, cfg, opts, sc, prompts, args, device):
+    """``serve.generate`` and its host-loop seconds (to a device sync)."""
+    t0 = time.perf_counter()
+    out = serve_lib.generate(params, cfg, opts, sc, prompts,
+                             args.new_tokens, seed=args.seed,
+                             check_finite=args.debug_nans)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def run_closed_batch(params, cfg, opts, args, device="cuda") -> dict:
+    """Generate greedily for ``--batch`` prompts of ``--prompt-len`` tokens
+    (drawn from --seed) with the dense params, then with their coded copy
+    (``prepare_params`` at --w-bits / --w-dist, ``make_serve_opts`` with
+    --a-bits); print tok/s of each host loop, the coded model's greedy
+    agreement with the dense one, a sample and the compute dtype."""
+    device = torch.device(device)
+    gen = torch.Generator().manual_seed(args.seed)
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                            generator=gen).to(device)
+    sc = serve_lib.ServeConfig(w_bits=args.w_bits, a_bits=args.a_bits,
+                               w_dist=args.w_dist)
+    out_fp, dt_fp = _timed_generate(params, cfg, opts, sc, prompts, args,
+                                    device)
+    t0 = time.perf_counter()
+    params_q = serve_lib.prepare_params(params, sc, device=device)
+    prepare_s = time.perf_counter() - t0
+    sopts = serve_lib.make_serve_opts(opts, sc)
+    out_q, dt = _timed_generate(params_q, cfg, sopts, sc, prompts, args,
+                                device) if args.w_bits < 16 \
+        else (out_fp, dt_fp)
+    match = float((out_fp == out_q).to(torch.float32).mean())
+    n_tok = args.batch * args.new_tokens
+    dtype = str(opts.compute_dtype).replace("torch.", "")
+    print(f"[serve] {n_tok} tokens in {dt:.2f}s ({n_tok / max(dt, 1e-9):.1f} "
+          f"tok/s host-loop; dense {n_tok / max(dt_fp, 1e-9):.1f} tok/s); "
+          f"weights coded in {prepare_s:.2f}s; compute {dtype}")
+    print(f"[serve] W{args.w_bits} ({args.w_dist}, a_bits {args.a_bits}) "
+          f"greedy agreement with the dense {dtype} model: "
+          f"{match * 100:.1f}%")
+    print("sample (quantized):", out_q[0][:16].tolist())
+    return {"tokens": out_q, "dense_tokens": out_fp, "agreement": match,
+            "tok_per_s": n_tok / max(dt, 1e-9),
+            "dense_tok_per_s": n_tok / max(dt_fp, 1e-9),
+            "prepare_s": prepare_s, "compute_dtype": dtype}
 
 
 def main(argv=None):
@@ -257,8 +318,9 @@ def main(argv=None):
                         "empirical per-tensor codebook (LUT) — match the "
                         "checkpoint's training cfg.dist")
     p.add_argument("--a-bits", type=int, default=32,
-                   help="activation bit-width: --engine mode serves a real "
-                        "per-token int8 codec (2..8) on every quantized "
+                   help="activation bit-width: the closed batch applies "
+                        "layer-output fake-quant; --engine mode serves a "
+                        "real per-token int8 codec (2..8) on every quantized "
                         "matmul (prefill + decode, the qmatmul_a8 kernel) "
                         "and reports it in the metrics meta; 32 = off")
     p.add_argument("--batch", type=int, default=4)
@@ -320,10 +382,20 @@ def main(argv=None):
                    help="disable metrics + tracing (A/B the overhead; "
                         "token streams are bit-identical either way)")
     p.add_argument("--profile-annotations", action="store_true",
-                   help="named profiler ranges around the engine steps "
-                        "(not ported yet)")
+                   help="wrap the engine's device steps in "
+                        "torch.profiler.record_function ranges (names show "
+                        "up in traces captured by torch.profiler)")
+    # opt-in debug sanitizers (both OFF by default)
     p.add_argument("--checkify", action="store_true",
-                   help="per-step index and NaN checks (not ported yet)")
+                   help="check the engine's indices before every device "
+                        "step and its logits after it (RuntimeError at the "
+                        "offending step; debug runs, a host sync each)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise at the first non-finite logits: eager "
+                        "PyTorch has no jax_debug_nans, so this turns on "
+                        "the per-step finite-logits check (--checkify's) in "
+                        "the engine and after every step of the closed "
+                        "batch; debug runs only")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the model runs; cuda raises when there is "
                         "no card (no silent CPU run)")
@@ -348,8 +420,14 @@ def main(argv=None):
     # is served with full attention
     opts = ModelOpts(compute_dtype=compute_dtype,
                      attn_chunked_min_len=1 << 30)
+    if args.debug_nans:
+        args.checkify = True
     if not args.engine:
-        run_closed_batch(None, cfg, opts, args)
+        # dense weights, as the reference draws them (it codes them in
+        # run_closed_batch), in the compute dtype
+        params = model.init(args.seed, cfg, device=device,
+                            dense_dtype=compute_dtype)
+        return run_closed_batch(params, cfg, opts, args, device=device)
     # engine mode routes --a-bits through EngineConfig; ServeConfig stays
     # at a_bits=32 so activation quantization is never applied twice
     sc = serve_lib.ServeConfig(w_bits=args.w_bits, a_bits=32,

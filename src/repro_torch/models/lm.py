@@ -8,7 +8,10 @@ k-quantile-coded: a weight leaf replaced by a ``{"q_codes", "q_mu",
 empirical codebook; see ``quantize_params_for_serving``) is multiplied
 through the dequant-fused ``qmatmul`` / ``qmatmul_lut`` kernel on the card
 (its plain version on the CPU), and with ``serve_a_bits < 32`` through the
-int8-activation ``qmatmul_a8``.  The paged KV pool is updated in place.
+int8-activation ``qmatmul_a8``.  ``a_bits < 32`` fake-quantizes each layer's
+output (``_maybe_quant_act``).  The KV cache — the slot layout of
+``init_cache`` or the paged pool of ``init_paged_cache`` — is updated in
+place.
 """
 
 from __future__ import annotations
@@ -480,9 +483,11 @@ def _ffn_block(x, lp, cfg: ArchConfig, opts: ModelOpts):
 
 
 def _maybe_quant_act(x, opts: ModelOpts):
+    """Layer-output activation fake-quant at ``opts.a_bits`` < 32: a
+    per-tensor absmax int-b round trip with a straight-through gradient
+    (``core/activations.py:fake_quant_act``)."""
     if opts.a_bits < 32:
-        raise NotImplementedError(
-            "activation fake-quant (a_bits < 32) is not ported yet")
+        return act.fake_quant_act(x, opts.a_bits)
     return x
 
 
@@ -652,6 +657,31 @@ def forward_prefill(params, cfg: ArchConfig, opts: ModelOpts, batch,
     return logits, cache
 
 
+def _cache_shape(cfg: ArchConfig, batch: int, max_len: int):
+    return (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+
+
+@torch.no_grad()
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda"):
+    """Zeroed slot KV cache {"k","v"} (L, B, S, KV, hd) on ``device``: one
+    fixed region of ``max_len`` rows per batch row, written positionally by
+    ``decode_step`` without block tables."""
+    dev = resolve_device(device)
+    shape = _cache_shape(cfg, batch, max_len)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16):
+    """The slot cache's shapes and dtypes without memory: ``device="meta"``
+    tensors (the counterpart of ``jax.ShapeDtypeStruct``)."""
+    shape = _cache_shape(cfg, batch, max_len)
+    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+            "v": torch.empty(shape, dtype=dtype, device="meta")}
+
+
 @torch.no_grad()
 def init_paged_cache(cfg: ArchConfig, total_pages: int, page_size: int,
                      dtype=torch.bfloat16, kv_bits: int = 16,
@@ -800,32 +830,40 @@ def decode_step(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
                 positions, block_tables=None):
     """One decode step.  tokens (B, 1); positions (B,) current index.
 
-    cache: paged layout (leaves (L, total_pages, page_size, ...), dense or
-    k-quantile-coded — see ``init_paged_cache``) with ``block_tables``
-    (B, n_pages) page indirection.  The step writes the fresh K/V row
-    (coded per (row, head) at ``opts.kv_bits < 16``) into the pool in place
-    *before* it attends; at kv8/kv4 attention runs off the coded pool
-    through the paged-attention kernel.
+    cache: slot layout {"k","v"} (L, B, S, KV, hd) when ``block_tables``
+    is None (``init_cache``): each batch row's fresh K/V row is written at
+    its position, then ``attention.decode_attention`` attends over the
+    row's region under the causal (and window) mask.  Paged layout (leaves
+    (L, total_pages, page_size, ...), dense or k-quantile-coded — see
+    ``init_paged_cache``) with ``block_tables`` (B, n_pages) page
+    indirection otherwise: the fresh K/V row (coded per (row, head) at
+    ``opts.kv_bits < 16``) goes into the pool *before* the step attends; at
+    kv8/kv4 attention runs off the coded pool through the paged-attention
+    kernel.  Either cache is updated in place.
 
-    Returns (logits (B, V), the pool).
+    Returns (logits (B, V), the cache).
     """
-    if block_tables is None:
-        raise NotImplementedError(
-            "the slot cache layout is not ported yet; pass block_tables")
+    paged = block_tables is not None
+    quant = kvq.is_quantized_cache(cache)
+    if quant and not paged:
+        raise ValueError("quantized KV cache requires the paged layout")
     dev = next(iter(cache.values())).device
     tokens = torch.as_tensor(tokens, device=dev)
     positions = torch.as_tensor(positions, device=dev).to(torch.long)
-    block_tables = torch.as_tensor(block_tables, device=dev)
     x = _embed_tokens(params, cfg, opts, tokens)          # (B, 1, d)
+    B = x.shape[0]
     pos2d = positions[:, None]
     windows = _window_schedule(cfg)
-    quant = kvq.is_quantized_cache(cache)
-    page = next(iter(cache.values())).shape[2]
-    write_page = torch.gather(block_tables.to(torch.long), 1,
-                              (positions // page)[:, None])[:, 0]
-    write_row = positions % page
-    bt32 = block_tables.to(torch.int32).contiguous()
-    pos32 = positions.to(torch.int32)
+    if paged:
+        block_tables = torch.as_tensor(block_tables, device=dev)
+        page = next(iter(cache.values())).shape[2]
+        write_page = torch.gather(block_tables.to(torch.long), 1,
+                                  (positions // page)[:, None])[:, 0]
+        write_row = positions % page
+        bt32 = block_tables.to(torch.int32).contiguous()
+        pos32 = positions.to(torch.int32)
+    else:
+        barange = torch.arange(B, device=dev)
     cos_sin = rope_cos_sin(pos2d, cfg.head_dim, cfg.rope_theta)
     for l in range(cfg.n_layers):
         lp = _layer(params, l)
@@ -833,15 +871,21 @@ def decode_step(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
         q, k, v = _qkv(hn, lp, cfg, opts, pos2d, cos_sin)
         p = attn.AttnParams(window=windows[l], logit_cap=cfg.attn_logit_cap,
                             causal=True)
-        kc = _write_rows(cache, l, write_page, write_row, k[:, 0], v[:, 0],
-                         opts.kv_bits, opts.use_kernels)
-        if quant:
-            o = attn.paged_decode_attention_quant(
-                q, kc, bt32, pos32, p, kv_bits=opts.kv_bits,
-                use_kernel=opts.use_kernels)
+        if not paged:
+            kc = {name: leaf[l] for name, leaf in cache.items()}
+            kc["k"][barange, positions] = k[:, 0].to(kc["k"].dtype)
+            kc["v"][barange, positions] = v[:, 0].to(kc["v"].dtype)
+            o = attn.decode_attention(q, kc["k"], kc["v"], positions, p)
         else:
-            o = attn.paged_decode_attention(q, kc["k"], kc["v"],
-                                            block_tables, positions, p)
+            kc = _write_rows(cache, l, write_page, write_row, k[:, 0],
+                             v[:, 0], opts.kv_bits, opts.use_kernels)
+            if quant:
+                o = attn.paged_decode_attention_quant(
+                    q, kc, bt32, pos32, p, kv_bits=opts.kv_bits,
+                    use_kernel=opts.use_kernels)
+            else:
+                o = attn.paged_decode_attention(q, kc["k"], kc["v"],
+                                                block_tables, positions, p)
         x = x + _attn_out(o, lp, cfg, opts)
         x = x + _ffn_block(x, lp, cfg, opts)
         x = _maybe_quant_act(x, opts)

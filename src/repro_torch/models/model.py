@@ -5,6 +5,10 @@
     prefill(params, cfg, opts, batch)   -> (logits, cache)
     decode(params, cfg, opts, cache, tokens, positions, block_tables)
                                         -> (logits, cache)
+
+and the two serving caches: the slot cache (``init_slot_cache`` /
+``cache_insert``: one fixed region of ``max_len`` rows per decode slot) and
+the paged pool (``init_paged_cache`` / ``cache_insert_paged``).
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ from repro_torch.models import lm
 from repro_torch.models.lm import ModelOpts
 
 __all__ = ["ModelOpts", "init", "loss_fn", "prefill", "decode",
-           "quantize_for_serving", "supports_paged_cache", "init_paged_cache",
-           "cache_insert_paged", "prefill_chunk"]
+           "quantize_for_serving", "cache_specs", "init_cache",
+           "supports_slot_cache", "init_slot_cache", "cache_insert",
+           "supports_paged_cache", "init_paged_cache", "cache_insert_paged",
+           "prefill_chunk"]
 
 
 def supports_paged_cache(cfg: ArchConfig) -> bool:
@@ -57,10 +63,69 @@ def prefill(params, cfg: ArchConfig, opts: ModelOpts, batch, last_idx=None):
 
 def decode(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
            positions, block_tables=None):
-    """One decode step against the paged pool (see lm.decode_step)."""
+    """One decode step against the slot cache (no ``block_tables``) or the
+    paged pool (see lm.decode_step)."""
     _require_dense(cfg, "decode")
     return lm.decode_step(params, cfg, opts, cache, tokens, positions,
                           block_tables=block_tables)
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16):
+    """Shapes and dtypes of the KV cache of ``batch`` sequences of
+    ``max_len`` rows, as ``device="meta"`` tensors (see lm.cache_specs).
+    The reference takes a ``ShapeConfig``; the port takes its batch and
+    sequence length."""
+    _require_dense(cfg, "cache_specs")
+    return lm.cache_specs(cfg, batch, max_len, dtype)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda"):
+    """Zeroed KV cache (L, batch, max_len, KV, hd) (see lm.init_cache)."""
+    _require_dense(cfg, "init_cache")
+    return lm.init_cache(cfg, batch, max_len, dtype, device=device)
+
+
+def supports_slot_cache(cfg: ArchConfig) -> bool:
+    """Slot-cache serving covers the families whose cache is the plain
+    (L, B, S, KV, hd) KV layout written positionally by lm.decode_step,
+    as in the reference: dense and moe (the port's moe model raises until
+    it is ported)."""
+    return cfg.family in ("dense", "moe")
+
+
+def init_slot_cache(cfg: ArchConfig, max_slots: int, max_len: int,
+                    dtype=torch.bfloat16, device="cuda"):
+    """Zeroed slot cache: one fixed (max_len) KV region per decode slot."""
+    if not supports_slot_cache(cfg):
+        raise ValueError(f"slot cache unsupported for family {cfg.family}")
+    return lm.init_cache(cfg, max_slots, max_len, dtype, device=device)
+
+
+@torch.no_grad()
+def cache_insert(cache, prefill_cache, slots):
+    """Write a prefill KV block into decode slots, in place.
+
+    cache          : {"k","v"} (L, max_slots, max_len, KV, hd)
+    prefill_cache  : {"k","v"} (L, G, S_pad, KV, hd) from a (padded)
+                     batched prefill of G admitted prompts
+    slots          : (G,) destination slot ids
+
+    Rows ``[:S_pad]`` of each slot are overwritten, cast to the cache's
+    dtype.  Rows past a prompt's true length hold right-padding garbage,
+    but they are never attended: decode at position t masks keys to
+    k_pos <= t and overwrites row t before attending, so every visible row
+    has been written by either the prompt prefix or an earlier decode
+    step.  A slot named twice (the engine pads a group with copies of its
+    first row) is written twice with the same rows.
+    """
+    s_pad = prefill_cache["k"].shape[2]
+    slots = torch.as_tensor(slots, device=cache["k"].device).to(torch.long)
+    for name in ("k", "v"):
+        cache[name][:, slots, :s_pad] = prefill_cache[name].to(
+            cache[name].dtype)
+    return cache
 
 
 def init_paged_cache(cfg: ArchConfig, total_pages: int, page_size: int,

@@ -14,9 +14,14 @@ Serves an open request stream:
     appends codes, so preemption/resume is bit-exact in the codes domain.
     The scheduler admits in *bytes* (``pool_bytes``), so at equal memory
     the kv8/kv4 pool holds ~2x/~3.6x the pages.
+  * **slot cache** (``cache_mode="slot"``) — the legacy fixed-region
+    layout: one ``max_len``-row kv16 region per decode slot, written
+    positionally; a sequence whose region fills is finished as
+    "evicted" (terminal).  Kept as the A/B baseline of the paged pool.
   * **batched prefill** — an admitted group runs ONE forward over the whole
     padded prompt block (``model.prefill`` with per-sequence ``last_idx``),
-    then scatters its KV into pool pages (``model.cache_insert_paged``).
+    then scatters its KV into pool pages (``model.cache_insert_paged``) or
+    slots (``model.cache_insert``).
   * **continuous decode** — one fixed-shape step advances *all* active
     slots each iteration; sequences join and leave mid-stream.
   * **per-request sampling** — temperature / top-k / stop conditions are
@@ -36,10 +41,18 @@ prefill and decode then run every layer matmul through the dequant-fused
 ``qmatmul`` kernel, and decode attention at kv8/kv4 through the paged
 attention kernel.  Everything runs under ``torch.no_grad()``; the per-step
 host sync is the copy of the sampled tokens to the host.
+
+Two debug aids, both off by default and neither changing a token:
+``checkify`` checks each device step's indices before it runs and its
+logits after it (``RuntimeError`` naming the step and the check), and
+``profile_annotations`` names the device steps in ``torch.profiler``
+traces (``engine.decode``, ``engine.prefill``, ``engine.cache_insert``,
+``engine.prefill_chunk``, ``engine.cow``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import List, Optional, Sequence as Seq
@@ -53,6 +66,7 @@ from repro_torch.models import kv_cache
 from repro_torch.models import lm
 from repro_torch.models import model
 from repro_torch.models.lm import ModelOpts
+from repro_torch.serve import sampling
 from repro_torch.serve import telemetry as tele_lib
 from repro_torch.serve.scheduler import (Request, SamplingParams,
                                          ScheduledSeq, Scheduler, Sequence)
@@ -70,7 +84,7 @@ class EngineConfig:
     max_len: int = 256          # per-sequence KV capacity (prompt + gen)
     prefill_batch: int = 4      # prompts prefilled per admission round
     min_bucket: int = 16        # smallest padded prompt length
-    cache_mode: str = "paged"   # "paged" ("slot" is not ported yet)
+    cache_mode: str = "paged"   # "paged" | "slot" (legacy A/B baseline)
     page_size: int = 64         # KV page size in tokens (paged mode)
     total_pages: Optional[int] = None
     # total_pages None => max_slots * ceil(max_len/page_size) + 1: every
@@ -113,8 +127,14 @@ class EngineConfig:
     # draws on (seed, position), never slot or batch (pinned in tests).
     # Engines with max_slots <= 8 never bucket.
     checkify: bool = False
-    # debug sanitizer of the reference (index and NaN checks per step);
-    # not ported yet: True raises NotImplementedError
+    # opt-in debug sanitizer (OFF by default: it reads a flag from the
+    # device before and after every device step, a host sync each): token
+    # ids, positions, block-table entries, slots and copy-on-write pages
+    # are checked to lie in range before a step writes with them, and its
+    # logits to be finite after it, so a bad index or a NaN raises
+    # RuntimeError at the offending step instead of corrupting the cache
+    # silently (an out-of-range index write on the card would end the CUDA
+    # context instead).  --checkify on launch/serve.py.
     telemetry: bool = True
     # structured observability (serve/telemetry.py): latency/queue
     # histograms, occupancy gauges and per-step spans in a bounded ring
@@ -125,8 +145,10 @@ class EngineConfig:
     # span/instant ring-buffer capacity; oldest whole spans drop first
     # (the export never emits an orphaned half-span)
     profile_annotations: bool = False
-    # named profiler ranges around the device steps; not ported yet:
-    # True raises NotImplementedError
+    # wrap the device steps in torch.profiler.record_function ranges
+    # (engine.decode / prefill / cache_insert / prefill_chunk / cow) so the
+    # engine's phases show up named in torch.profiler traces.  OFF by
+    # default: a range costs host time per call even with no profiler.
 
 
 @dataclasses.dataclass
@@ -138,30 +160,6 @@ class RequestOutput:
     ttft_s: float               # arrival -> first token (wall clock)
     latency_s: float            # arrival -> completion (wall clock)
     n_preempts: int = 0         # preempt/resume round-trips survived
-
-
-_MASK64 = (1 << 64) - 1
-
-
-def _draw_seed(seed: int, position: int) -> int:
-    """63-bit generator seed from (request seed, absolute position): a
-    splitmix64 finalizer over the pair, so neighbouring positions get
-    unrelated streams."""
-    z = ((int(seed) & 0xFFFFFFFF) << 32 | (int(position) & 0xFFFFFFFF))
-    z = (z + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) >> 1
-
-
-def _gumbel(seed: int, position: int, vocab: int, device) -> torch.Tensor:
-    """(V,) Gumbel noise on ``device``, a function of (seed, position) only:
-    a fresh generator of that device seeded from the pair, so the draw does
-    not depend on the slot, the batch or the bucket."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(_draw_seed(seed, position))
-    u = torch.rand(vocab, generator=gen, dtype=torch.float32, device=device)
-    return -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
 
 
 @torch.no_grad()
@@ -181,8 +179,8 @@ def _sample_batch(logits: torch.Tensor, temps: np.ndarray,
             kth = torch.sort(lt, descending=True).values[
                 min(max(k - 1, 0), V - 1)]
             lt = torch.where(lt < kth, torch.full_like(lt, -torch.inf), lt)
-        noise = _gumbel(int(seeds[i]), int(positions[i]), V, lt.device)
-        out[i] = int(torch.argmax(lt + noise))
+        out[i] = int(sampling.gumbel_max(lt[None], seeds[i:i + 1],
+                                         positions[i:i + 1])[0])
     return out
 
 
@@ -207,12 +205,6 @@ class Engine:
                 f"family {cfg.family!r} is not ported yet (dense only)")
         if ec.cache_mode not in ("paged", "slot"):
             raise ValueError(f"unknown cache_mode: {ec.cache_mode!r}")
-        if ec.cache_mode == "slot":
-            raise NotImplementedError(
-                "cache_mode='slot' is not ported yet; use the paged cache")
-        if ec.checkify or ec.profile_annotations:
-            raise NotImplementedError(
-                "checkify / profile_annotations are not ported yet")
         kv_cache.check_kv_bits(ec.kv_bits, cfg.head_dim)
         if ec.kv_bits < 16 and ec.cache_mode != "paged":
             raise ValueError("kv_bits < 16 requires the paged cache (the "
@@ -261,6 +253,12 @@ class Engine:
             self._cache = model.init_paged_cache(
                 cfg, self.scheduler.total_pages, ec.page_size, cache_dtype,
                 kv_bits=ec.kv_bits, device=self.device)
+        else:
+            self.scheduler = Scheduler(ec.max_slots, ec.prefill_batch,
+                                       ec.min_bucket, ec.max_len)
+            self._cache = model.init_slot_cache(cfg, ec.max_slots,
+                                                ec.max_len, cache_dtype,
+                                                device=self.device)
         M = ec.max_slots
         self._positions = np.zeros((M,), np.int32)   # next KV write index
         self._cur_tok = np.zeros((M,), np.int32)     # last sampled token
@@ -322,31 +320,105 @@ class Engine:
     def _t(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), device=self.device)
 
+    def _range(self, name: str):
+        """A ``torch.profiler`` range around a device step when
+        ``profile_annotations`` is on."""
+        if self.ec.profile_annotations:
+            return torch.profiler.record_function(name)
+        return contextlib.nullcontext()
+
+    def _check(self, step: str, **ok) -> None:
+        """``checkify``: each keyword is a device bool tensor, all True when
+        its check holds.  Folds them into one flag tensor, reads it (a host
+        sync) and raises RuntimeError naming the step and every failed
+        check."""
+        flags = torch.stack([torch.all(v) for v in ok.values()]).cpu()
+        failed = [n for n, f in zip(ok, flags.tolist()) if not f]
+        if failed:
+            raise RuntimeError(
+                f"checkify: {step} (decode step {self.n_decode_steps}, "
+                f"prefill call {self.n_prefill_calls}) failed: "
+                + ", ".join(failed))
+
+    def _check_inputs(self, step: str, tokens=None, **index) -> None:
+        """``checkify`` before a step: token ids in [0, vocab), positions
+        in [0, max_len), page ids in [0, total_pages), slots in
+        [0, max_slots)."""
+        hi = {"positions": self.ec.max_len,
+              "block_tables": getattr(self.scheduler, "total_pages", 0),
+              "pages": getattr(self.scheduler, "total_pages", 0),
+              "slots": self.ec.max_slots}
+        if tokens is not None:
+            index["tokens"] = tokens
+            hi["tokens"] = self.cfg.vocab
+        self._check(step, **{f"{n} in range": (t >= 0) & (t < hi[n])
+                             for n, t in index.items()})
+
     def _decode_step(self, tokens, positions, block_tables, temps, topks,
                      seeds) -> np.ndarray:
-        logits, self._cache = model.decode(
-            self.params, self.cfg, self.opts, self._cache,
-            self._t(tokens)[:, None], self._t(positions),
-            block_tables=self._t(block_tables))
-        return _sample_batch(logits, temps, topks, seeds, positions)
+        toks, pos = self._t(tokens)[:, None], self._t(positions)
+        bt = self._t(block_tables) if self.paged else None
+        if self.ec.checkify:
+            self._check_inputs("engine.decode", toks, positions=pos,
+                               **({"block_tables": bt} if self.paged
+                                  else {}))
+        with self._range("engine.decode"):
+            logits, self._cache = model.decode(
+                self.params, self.cfg, self.opts, self._cache, toks, pos,
+                block_tables=bt)
+            if self.ec.checkify:
+                self._check("engine.decode",
+                            **{"logits finite": torch.isfinite(logits)})
+            return _sample_batch(logits, temps, topks, seeds, positions)
 
     def _prefill_step(self, tokens, last_idx, temps, topks, seeds):
-        logits, kv = model.prefill(self.params, self.cfg, self.opts,
-                                   {"tokens": self._t(tokens)},
-                                   last_idx=self._t(last_idx))
-        return _sample_batch(logits, temps, topks, seeds, last_idx), kv
+        toks = self._t(tokens)
+        if self.ec.checkify:
+            self._check_inputs("engine.prefill", toks)
+        with self._range("engine.prefill"):
+            logits, kv = model.prefill(self.params, self.cfg, self.opts,
+                                       {"tokens": toks},
+                                       last_idx=self._t(last_idx))
+            if self.ec.checkify:
+                self._check("engine.prefill",
+                            **{"logits finite": torch.isfinite(logits)})
+            return _sample_batch(logits, temps, topks, seeds, last_idx), kv
+
+    def _cache_insert(self, kv, rows) -> None:
+        """Write a prefill block into the cache: ``rows`` are the group's
+        page tables (paged) or slots (slot mode)."""
+        rows = self._t(rows)
+        if self.ec.checkify:
+            self._check_inputs("engine.cache_insert",
+                               **({"pages": rows} if self.paged
+                                  else {"slots": rows}))
+        with self._range("engine.cache_insert"):
+            if self.paged:
+                self._cache = model.cache_insert_paged(self._cache, kv, rows)
+            else:
+                self._cache = model.cache_insert(self._cache, kv, rows)
 
     def _chunk_step(self, tokens, positions, write_pages, write_rows,
                     block_tables, last_idx, last_pos, temps, topks,
                     seeds) -> np.ndarray:
-        logits, self._cache = model.prefill_chunk(
-            self.params, self.cfg, self.opts, self._cache, self._t(tokens),
-            self._t(positions), self._t(write_pages), self._t(write_rows),
-            self._t(block_tables), self._t(last_idx))
-        # fold at the prompt's absolute last position: the sampled first
-        # token matches whole-prefill (and preempt/resume) bit for bit,
-        # whichever chunking produced it
-        return _sample_batch(logits, temps, topks, seeds, last_pos)
+        toks, pos, wp, bt = (self._t(tokens), self._t(positions),
+                             self._t(write_pages), self._t(block_tables))
+        if self.ec.checkify:
+            # a chunk's pad positions may run past max_len: they only rotate
+            # and mask rows that are written to the sink page
+            self._check_inputs("engine.prefill_chunk", toks, pages=wp,
+                               block_tables=bt)
+        with self._range("engine.prefill_chunk"):
+            logits, self._cache = model.prefill_chunk(
+                self.params, self.cfg, self.opts, self._cache, toks, pos, wp,
+                self._t(write_rows), bt, self._t(last_idx))
+            if self.ec.checkify:
+                self._check("engine.prefill_chunk",
+                            **{"logits finite": torch.isfinite(logits)})
+            # fold at the prompt's absolute last position: the sampled
+            # first token matches whole-prefill (and preempt/resume) bit
+            # for bit, whichever chunking produced it
+            return _sample_batch(logits, temps, topks, seeds, last_pos)
 
     def _collect_gauges(self) -> None:
         """Snapshot-time collector: mirror engine/scheduler state into the
@@ -501,6 +573,7 @@ class Engine:
         temps = np.zeros((P,), np.float32)
         topks = np.zeros((P,), np.int32)
         seeds = np.zeros((P,), np.int32)
+        slots = np.zeros((P,), np.int32)
         prompts = [ss.seq.full_prompt for ss in group]
         for i, ss in enumerate(group):
             sp = ss.request.sampling
@@ -508,11 +581,18 @@ class Engine:
             toks[i, :n] = prompts[i]
             last[i] = n - 1
             temps[i], topks[i], seeds[i] = sp.temperature, sp.top_k, sp.seed
-        # padded rows keep all-zero page tables: their KV scatters into the
-        # reserved sink page, so the insert needs no masking
-        rows = self.scheduler.page_table_rows(list(group), bucket)
-        page_tables = np.zeros((P, rows.shape[1]), np.int32)
-        page_tables[:G] = rows
+            slots[i] = ss.slot
+        if self.paged:
+            # padded rows keep all-zero page tables: their KV scatters into
+            # the reserved sink page, so the insert needs no masking
+            rows = self.scheduler.page_table_rows(list(group), bucket)
+            page_tables = np.zeros((P, rows.shape[1]), np.int32)
+            page_tables[:G] = rows
+        else:
+            # pad rows beyond G with copies of row 0: identical KV written
+            # to the same slot is a harmless repeat write
+            for i in range(G, P):
+                toks[i], last[i], slots[i] = toks[0], last[0], slots[0]
 
         tele = self.telemetry
         if tele.enabled:
@@ -520,8 +600,7 @@ class Engine:
                 tele.observe(self._m_queue_wait,
                              now - (ss.request.arrival_time or now))
         first_tok, kv = self._prefill_step(toks, last, temps, topks, seeds)
-        self._cache = model.cache_insert_paged(self._cache, kv,
-                                               self._t(page_tables))
+        self._cache_insert(kv, page_tables if self.paged else slots)
         self.n_prefill_calls += 1
         self.n_prefill_tokens += int(sum(p.size for p in prompts[:G]))
         first_np = np.asarray(first_tok)
@@ -573,7 +652,11 @@ class Engine:
         dst = np.zeros((n,), np.int32)
         for i, (s, d) in enumerate(copies):
             src[i], dst[i] = s, d
-        with self.telemetry.span("cow", n_copies=len(copies)):
+        if self.ec.checkify:
+            self._check_inputs("engine.cow",
+                               pages=self._t(np.concatenate([src, dst])))
+        with self.telemetry.span("cow", n_copies=len(copies)), \
+                self._range("engine.cow"):
             self._cache = kv_cache.clone_pages(self._cache, src, dst)
 
     def _advance_prefill_group(self, slots: List[int]) -> List[RequestOutput]:
@@ -745,6 +828,12 @@ class Engine:
                 next_tok = self._decode_step(
                     self._cur_tok, self._positions, block_tables,
                     self._temps, self._topks, self._seeds)
+        else:
+            # every slot decodes; an inactive one writes row 0 of its own
+            # region, which its next admission overwrites
+            next_tok = self._decode_step(self._cur_tok, self._positions,
+                                         None, self._temps, self._topks,
+                                         self._seeds)
         self.n_decode_steps += 1
         next_np = np.asarray(next_tok)       # host sync: the step is done
         if tele.enabled:

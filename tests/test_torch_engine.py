@@ -256,10 +256,14 @@ def test_engine_rejects_what_is_not_ported_and_bad_configs():
         return teng.Engine(pt, cfg, TOPTS, teng.EngineConfig(**kw),
                            device="cpu")
 
-    for kw in (dict(cache_mode="slot"), dict(checkify=True),
-               dict(profile_annotations=True)):
-        with pytest.raises(NotImplementedError):
-            make(**kw)
+    # the slot cache and both debug aids are ported (their behaviour is
+    # tests/test_torch_slot.py): each builds
+    slot = make(cache_mode="slot")
+    assert not slot.paged and not slot.scheduler.paged
+    assert tuple(slot._cache["k"].shape)[1:3] == (slot.ec.max_slots,
+                                                  slot.ec.max_len)
+    assert make(checkify=True).ec.checkify
+    assert make(profile_annotations=True).ec.profile_annotations
     # the int8 activation codec is ported: a_bits reaches the model options
     for bits in (8, 4, 2):
         assert make(a_bits=bits).opts.serve_a_bits == bits
@@ -294,8 +298,12 @@ def test_cli_engine_stream_on_cpu(capsys):
     assert stats["requests"] == 6 and stats["new_tokens"] == 24
     assert stats["cache_hit_pages"] >= 1
     assert "[engine]" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu"])
+    # without --engine: the closed batch (tests/test_torch_generate.py)
+    closed = tserve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                          "--batch", "2", "--prompt-len", "6",
+                          "--new-tokens", "3"])
+    assert tuple(closed["tokens"].shape) == (2, 3)
+    assert "greedy agreement" in capsys.readouterr().out
 
 
 def test_cli_serves_prompts_past_attn_chunked_min_len(monkeypatch):

@@ -393,6 +393,57 @@ def test_weight_code_flips_against_reference_at_scale(bits, shape,
     assert (d > 0).mean() <= WEIGHT_FLIPS_AT_SCALE, why
 
 
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape,per_channel", [((512, 1024), True),
+                                               ((512, 1024), False),
+                                               ((4, 256, 512), True),
+                                               ((4, 256, 512), False)])
+def test_weight_codes_at_scale_are_the_same_from_call_to_call(
+        bits, shape, per_channel):
+    """The inputs of ``test_weight_code_flips_against_reference_at_scale``
+    coded twice by each side in one process: the port under 1 and then 4
+    torch threads, the reference twice.  Statistics and codes must be
+    bit-identical from call to call, so a run whose flip count differs from
+    another's fails here (naming both calls' flip counts) instead of
+    passing under the flip bound."""
+    from repro.core import uniq as juniq
+    from repro_torch.core import uniq as tuniq
+    stacked = len(shape) == 3
+    w = (_rng(5 + len(shape)).standard_normal(shape) * 0.05).astype(
+        np.float32)
+
+    def ref_side():
+        q = juniq.quantize_tensor(jnp.asarray(w), bits,
+                                  per_channel=per_channel, stacked=stacked)
+        return (_unpacked(np.asarray(q.codes), bits).astype(np.int64),
+                np.asarray(q.mu), np.asarray(q.sigma))
+
+    def port_side(threads):
+        before = torch.get_num_threads()
+        torch.set_num_threads(threads)
+        try:
+            q = tuniq.quantize_tensor(torch.from_numpy(w), bits,
+                                      per_channel=per_channel,
+                                      stacked=stacked)
+        finally:
+            torch.set_num_threads(before)
+        return (_unpacked(q.codes.numpy(), bits).astype(np.int64),
+                q.mu.numpy(), q.sigma.numpy())
+
+    calls = {"reference, first": ref_side(), "reference, second": ref_side(),
+             "port, 1 thread": port_side(1), "port, 4 threads": port_side(4)}
+    flips = {name: int((calls["reference, first"][0] != c[0]).sum())
+             for name, c in calls.items() if name.startswith("port")}
+    why = ("codes flipped against the reference's first call: "
+           + ", ".join(f"{n} {f}" for n, f in flips.items())
+           + f" of {calls['reference, first'][0].size}")
+    for a, b in (("reference, first", "reference, second"),
+                 ("port, 1 thread", "port, 4 threads")):
+        for i, what in enumerate(("codes", "mu", "sigma")):
+            assert np.array_equal(calls[a][i], calls[b][i]), \
+                f"{what} differ between {a} and {b}; {why}"
+
+
 def test_reference_kernel_refuses_what_the_port_takes():
     """The TPU kernel's blocks refuse a ragged R beyond one block; the
     port's codec takes any shape."""

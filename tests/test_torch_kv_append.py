@@ -13,11 +13,14 @@ counter.  The kernel itself is held against the
 plain version on the card by ``chip_smoke.py`` phase 3.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import base as jcb
 from repro.models import kv_cache as jkv
 
 from repro_torch.configs import base as tcb
@@ -118,7 +121,19 @@ def test_append_matches_reference(arch, kv_bits):
     ``quantize_kv`` of K and of V and its ``.at[pages, rows].set`` of the
     six leaves, on the same starting pool; the sink page is excluded (its
     repeated rows land in no set order)."""
-    cfg = tcb.get_smoke(arch)
+    _check_against_reference(tcb.get_smoke(arch), kv_bits)
+
+
+@pytest.mark.parametrize("hd", [20, 112, 160])
+@pytest.mark.parametrize("kv_bits", [8, 4])
+def test_append_matches_reference_at_other_head_dims(hd, kv_bits):
+    """As above at the head dims of stablelm_12b (160, smoke 20) and
+    kimi_k2 (112), which the fused kernel takes by ``append_layout``."""
+    cfg = dataclasses.replace(tcb.get_smoke("granite_3_8b"), head_dim=hd)
+    _check_against_reference(cfg, kv_bits)
+
+
+def _check_against_reference(cfg, kv_bits):
     P, n = 9, 40
     _, view = _pool_layer(cfg, kv_bits, P, seed=1)
     ref = {name: _to_jax(leaf) for name, leaf in view.items()}
@@ -285,8 +300,57 @@ def test_launch_counter_counts_only_kernel_launches():
 
 
 def test_head_dims_the_kernel_takes_cover_the_configs():
-    """Every config's head_dim (full and small) is one the fused kernel
-    takes, so no serving model meets its refusal on the card."""
-    for arch in ARCHS:
-        for get in (tcb.get, tcb.get_smoke):
-            assert get(arch).head_dim in tkq.KV_APPEND_HEAD_DIMS
+    """Every head_dim of the reference's registry (full and small configs)
+    is one the fused kernel takes, so no model it serves meets a refusal on
+    the card; mamba2 (family "ssm") has no attention and no KV pool."""
+    for arch in jcb.ARCH_IDS:
+        for get in (jcb.get, jcb.get_smoke):
+            cfg = get(arch)
+            if cfg.family == "ssm":
+                continue
+            vpl, lanes = tkq.append_layout(cfg.head_dim)
+            assert cfg.head_dim % vpl == 0 and lanes <= 32, arch
+
+
+@pytest.mark.parametrize("hd", range(2, tkq.KV_APPEND_MAX_HD + 1, 2))
+def test_append_layout(hd):
+    """The fixed rule for every even head_dim: whole chunks of 2, 4 or 8
+    values, the fewest lanes (a power of two, at most 32) that cover them,
+    and no more chunks a lane than the kernel has a body for (4 at VPL 2,
+    2 at VPL 4, 1 at VPL 8); the head dims of the first kernel keep its
+    layout."""
+    vpl, lanes = tkq.append_layout(hd)
+    chunks = hd // vpl
+    assert vpl in (2, 4, 8) and hd % vpl == 0
+    assert lanes & (lanes - 1) == 0 and lanes <= 32
+    assert lanes >= min(chunks, 32) and (lanes == 1 or lanes < 2 * chunks)
+    assert -(-chunks // lanes) <= {2: 4, 4: 2, 8: 1}[vpl]
+    if chunks > 32:
+        assert not any(hd % v == 0 and hd // v <= 32 for v in (2, 4, 8))
+    first = {16: (4, 4), 32: (4, 8), 64: (4, 16), 128: (4, 32),
+             256: (8, 32)}
+    if hd in first:
+        assert (vpl, lanes) == first[hd]
+
+
+@pytest.mark.parametrize("hd", [0, 1, 15, 161, 257, 258, 512])
+def test_append_layout_refuses_odd_and_wide_head_dims(hd):
+    """An odd head_dim (which kv8 and the reference take; ROADMAP Queue 3)
+    and one above 256 are refused, on the card, before any launch."""
+    with pytest.raises(ValueError):
+        tkq.append_layout(hd)
+
+
+@pytest.mark.parametrize("hd,itemsize,kv_bits,vals,codes,want", [
+    (128, 2, 8, (0, 256), (512, 1024), ("vector", "vector")),
+    (128, 4, 4, (0, 512), (0, 64), ("vector", "vector")),
+    (20, 2, 8, (0, 40), (0, 20), ("scalar", "scalar")),      # 40 B rows
+    (20, 4, 8, (0, 80), (0, 20), ("vector", "scalar")),      # 80 B rows
+    (112, 2, 4, (0, 224), (0, 56), ("vector", "scalar")),    # 56 B codes
+    (160, 2, 4, (0, 320), (0, 80), ("vector", "vector")),
+    (16, 2, 4, (0, 32), (0, 8), ("vector", "scalar")),
+    (128, 2, 8, (8, 256), (0, 128), ("scalar", "vector")),   # k off 16 B
+    (128, 2, 8, (0, 256), (0, 136), ("vector", "scalar")),   # v codes off
+])
+def test_append_route(hd, itemsize, kv_bits, vals, codes, want):
+    assert tkq.append_route(hd, itemsize, kv_bits, vals, codes) == want

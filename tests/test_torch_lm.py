@@ -299,10 +299,10 @@ def test_init_params_codes_layer_by_layer():
 
 
 def test_not_yet_ported_options_raise_plainly():
-    """The slot cache layout and the MoE family still raise; the int8
-    activation codec (serve_a_bits=8) and empirical codebooks are ported
-    and now serve (their parity with the reference is
-    test_torch_serve_modes.py)."""
+    """The MoE family still raises; the int8 activation codec
+    (serve_a_bits=8) and empirical codebooks are ported and now serve
+    (their parity with the reference is test_torch_serve_modes.py), and so
+    is the slot cache layout (tests/test_torch_slot.py)."""
     cfg = tcb.get_smoke("granite_3_8b")
     _, pt = _params("granite_3_8b", 4)
     toks = torch.from_numpy(_tokens(cfg))
@@ -322,11 +322,17 @@ def test_not_yet_ported_options_raise_plainly():
     with pytest.raises(ValueError):
         tlm.quantize_params_for_serving({"w": torch.zeros(4, 4)}, 4,
                                         dist="laplace", device="cpu")
-    cache = tmodel.init_paged_cache(cfg, 3, PAGE, torch.float32,
-                                    device="cpu")
-    with pytest.raises(NotImplementedError):       # slot layout
-        tmodel.decode(pt, cfg, tlm.ModelOpts(compute_dtype=torch.float32),
-                      cache, toks[:, :1], torch.zeros(B, dtype=torch.long))
+    # the slot layout: decode without block tables writes row 0 of each
+    # batch row's region and attends over it
+    cache = tmodel.init_cache(cfg, B, PAGE, torch.float32, device="cpu")
+    logits, out = tmodel.decode(pt, cfg,
+                                tlm.ModelOpts(compute_dtype=torch.float32),
+                                cache, toks[:, :1],
+                                torch.zeros(B, dtype=torch.long))
+    assert out is cache and tuple(logits.shape) == (B, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert cache["k"][:, :, 0].abs().sum() > 0
+    assert not cache["k"][:, :, 1:].any()
     import dataclasses
     moe = dataclasses.replace(cfg, family="moe", n_experts=4)
     with pytest.raises(NotImplementedError):

@@ -21,6 +21,7 @@ import torch
 
 from repro.kernels import uniq_noise as jun
 
+from repro_torch.core import distributions as tdist
 from repro_torch.core import uniq as tuniq
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -137,11 +138,12 @@ def _leaf(shape, seed=0):
                                       (720, 1, 1)])
 def test_draw_is_independent_of_the_grouping(grouping):
     """The same leaf (720 elements) in other (G, R, C) views, per-tensor
-    statistics and every group NOISE: the flat output is the same, because
-    the draw depends on (key, flat index) only."""
+    statistics (as ``transform_param`` fits them) and every group NOISE:
+    the flat output is the same, because the draw depends on (key, flat
+    index) only."""
     w = _leaf((720,), seed=1)
-    mu = w.mean()
-    sd = w.std(correction=0)
+    fit = tdist.GaussianModel.fit(w)
+    mu, sd = fit.mu.reshape(()), fit.sigma.reshape(())
     key = 0x1234ABCD5678
     flat = (1, 720, 1)
 

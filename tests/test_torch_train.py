@@ -283,6 +283,32 @@ def test_forward_train_loss_and_grads_match_reference(arch):
                  _flat_np(g_j))
 
 
+@pytest.mark.parametrize("arch", ["granite_3_8b", "gemma2_9b"])
+def test_forward_train_at_a_bits_8_matches_reference(arch):
+    """As above with every layer's output fake-quantized to int8
+    (``_maybe_quant_act``: per-tensor absmax, straight-through gradient)
+    on both sides, remat on in the port."""
+    cfg_j, cfg_t = jcb.get_smoke(arch), tcb.get_smoke(arch)
+    pj = _jax_params(arch)
+    batch = _tokens(cfg_j, seed=2)
+    jo = dataclasses.replace(_jopts(), a_bits=8)
+    loss_j, g_j = jax.value_and_grad(
+        lambda p: jmodel.loss_fn(p, cfg_j, jo,
+                                 jax.tree_util.tree_map(jnp.asarray, batch))
+    )(pj)
+    pt = convert.params_from_numpy(_np_tree(pj), device="cpu")
+    leaves = list(tree_lib.leaves_with_paths(pt))
+    for _, t in leaves:
+        t.requires_grad_(True)
+    bt = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss_t = tmodel.loss_fn(pt, cfg_t, _topts(remat=True, a_bits=8), bt)
+    grads = torch.autograd.grad(loss_t, [t for _, t in leaves])
+    np.testing.assert_allclose(float(loss_t), float(loss_j),
+                               rtol=TOL_LOSS_REL)
+    _close_grads({p: g.numpy() for (p, _), g in zip(leaves, grads)},
+                 _flat_np(g_j))
+
+
 def test_bf16_head_accumulates_into_f32_like_the_reference():
     """bf16 activations @ a bf16 dense head with f32 logits: the port keeps
     the f32 sums (``jnp.dot(..., preferred_element_type=f32)``), not their
@@ -330,10 +356,14 @@ def _tc(kind, **kw):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_step(kind):
+def _jax_step(kind, a_bits=32, uniq=True):
     cfg = jcb.get_smoke("granite_3_8b")
     jt, _ = _tc(kind)
-    fn, _ = jsteps.make_train_step(cfg, _jopts(), jt)
+    if not uniq:
+        jt = dataclasses.replace(jt, uniq=dataclasses.replace(
+            jt.uniq, enabled=False))
+    fn, _ = jsteps.make_train_step(
+        cfg, dataclasses.replace(_jopts(), a_bits=a_bits), jt)
     return jax.jit(fn)
 
 
@@ -471,6 +501,49 @@ def test_train_step_with_noise_matches_reference(kind):
     np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]),
                                rtol=TOL_LOSS_REL)
     _compare_step(st, mt, sj0, sj1, mj, key, sched.modes_at(0), kind, tt)
+
+
+def _check_a8_step(kind, frozen=False):
+    """One train step with every layer's output fake-quantized to int8
+    (``a_bits=8``); loss, gradients (through the straight-through
+    estimator) and update within ``_compare_step``'s tolerances.
+
+    Both sides must run the same weights: a NOISE weight one ulp apart
+    would move an activation across a rounding edge of the int8 grid (one
+    step of absmax / 127).  So either the UNIQ transform is off on both
+    sides (every layer CLEAN), or ``frozen``: the step is past the
+    schedule's end, every quantized leaf is FROZEN and the forward runs the
+    transform's hard k-quantile weights, which no noise reaches."""
+    cfg_t = tcb.get_smoke("granite_3_8b")
+    jt, tt = _tc(kind)
+    if not frozen:
+        tt = dataclasses.replace(tt, uniq=dataclasses.replace(
+            tt.uniq, enabled=False))
+    sj0 = jsteps.init_state(jax.random.PRNGKey(0),
+                            jcb.get_smoke("granite_3_8b"), jt)
+    if frozen:
+        sj0["step"] = jnp.int32(8)
+    batch = _tokens(cfg_t, seed=1)
+    key = jax.random.PRNGKey(42)
+    sj1, mj = _jax_step(kind, 8, uniq=frozen)(
+        sj0, jax.tree_util.tree_map(jnp.asarray, batch), key)
+    step_t, sched = tsteps.make_train_step(cfg_t, _topts(a_bits=8), tt)
+    modes = (sched.modes_at(8) if frozen
+             else np.zeros(cfg_t.n_layers, np.int32))
+    if frozen:
+        assert modes.tolist() == [FROZEN] * cfg_t.n_layers
+    st = convert.train_state_from_numpy(_np_tree(sj0), device="cpu")
+    st, mt = step_t(st, {k: torch.from_numpy(v) for k, v in batch.items()},
+                    seed=0)
+    np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]),
+                               rtol=TOL_LOSS_REL)
+    _compare_step(st, mt, sj0, sj1, mj, key, modes, kind, tt)
+
+
+def test_a8_train_step_through_frozen_uniq_matches_reference():
+    """The trainer's a_bits=8 step with the UNIQ transform on: every layer
+    FROZEN, so the int8 fake-quant runs on the transform's hard weights."""
+    _check_a8_step("adamw", frozen=True)
 
 
 def test_all_frozen_step_matches_reference():
@@ -691,8 +764,10 @@ def test_not_yet_ported_training_options_raise_plainly():
     bt = {k: torch.from_numpy(v) for k, v in _tokens(cfg).items()}
     with pytest.raises(NotImplementedError, match="not ported"):
         tmodel.loss_fn(pt, cfg, _topts(), bt, uniq_scan=(None, None, None))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tmodel.loss_fn(pt, cfg, _topts(a_bits=8), bt)
+    # activation fake-quant (a_bits < 32) is ported: a train step at
+    # a_bits=8 agrees with the reference's (loss, gradients through the
+    # straight-through estimator, and the update: _compare_step)
+    _check_a8_step("adamw")
     with pytest.raises(NotImplementedError, match="not ported"):
         tmodel.loss_fn(pt, cfg, _topts(attn_chunked_min_len=8), bt)
     with pytest.raises(NotImplementedError, match="not ported"):
