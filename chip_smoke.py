@@ -18,7 +18,12 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      ``uniq_noise`` forwards, and a mode given by value, to the bit; the
      fused KV append's statistics at most one bf16 ulp from the plain
      version's, its codes bit-equal where they agree, every other pool
-     byte untouched);
+     byte untouched; the MoE expert matmuls ``qmatmul_experts`` /
+     ``qmatmul_lut_experts`` at kimi_k2's and llama4's expert widths (C =
+     8, and 16 and 32 as the engine's coalesced prefill gives them) and
+     ragged shapes, with idle experts' rows NaN on the way in and the
+     output and scratch allocated as NaN, the idle rows exactly zero on the
+     way out);
   4. serves a request stream through ``repro_torch``'s engine at the full
      width of granite_3_8b (bf16, kv8 pool), random weights made from
      ``--seed`` on the card, in three engines one after another: W4
@@ -31,6 +36,18 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      embedding rows of the Gaussian engines; ``kquantile_quantize`` codes
      the weights at load and runs no more in the stream);
      checks that the dense bf16 LM head gives f32 logits;
+  4c. (run after 5b) the MoE family at full width, depth ``--moe-layers``
+     (default 4):
+     kimi_k2_1t_a32b, then llama4_maverick_400b_a17b, W4 (Gaussian) + kv8,
+     bf16, each drawn and coded a layer slice at a time: phase 4's stream
+     through the paged engine with every launch counted (``qmatmul`` 4 x L
+     + 1 a call, ``qmatmul_experts`` 3 x L a call, the attention, the KV
+     append and the codec as in phase 4; the forwards printed by tokens
+     routed), one decode step profiled, a prefill of 16 x 64 tokens and a
+     decode step against the plain versions (the plain
+     prefill on the kernel run's expert ids; the decode rows whose expert
+     sets agree), and kimi_k2's closed batch (``serve.generate``); each
+     model freed before the next;
   5. repeats a prefill + one decode step with the plain versions forced and
      compares logits, for each engine; replays each engine's stream with
      the kernels and with the plain versions and prints greedy agreement;
@@ -73,7 +90,8 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
   8. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--layers N`` cuts the serving depth (never the width; the closed batch
-runs the CLI at its full depth); ``--quick`` stops after
+runs the CLI at its full depth), ``--moe-layers N`` the MoE models';
+``--quick`` stops after
 phase 3 on a reduced shape list (for bringing a kernel up); ``--sweep``
 times the kernels' tuning axes (block rows, K splits; the attention
 body's splits, beside the CUDA-core body) at the
@@ -90,6 +108,7 @@ read it replaced, and stops.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -133,8 +152,10 @@ from repro_torch.launch import train as train_cli             # noqa: E402
 from repro_torch.models import attention as attn_lib         # noqa: E402
 from repro_torch.models import kv_cache as kvc               # noqa: E402
 from repro_torch.models import lm, model                      # noqa: E402
+from repro_torch.models import moe as moe_lib                 # noqa: E402
 from repro_torch.optim.optim import OptimConfig               # noqa: E402
 from repro_torch.serve import engine as engine_lib           # noqa: E402
+from repro_torch.serve import serve as serve_lib              # noqa: E402
 from repro_torch.serve import telemetry as tele_lib           # noqa: E402
 from repro_torch.serve.engine import (Engine, EngineConfig,   # noqa: E402
                                       Request, SamplingParams)
@@ -561,6 +582,191 @@ def check_qmatmul_variants(gen, quick: bool):
                 lambda x: qmm.qmatmul_lut(x, w, lut, bits=bits), a)
     say("[kernels] qmatmul_a8 / qmatmul_lut bf16 outputs ok; qmatmul_a8 "
         "and qmatmul_lut rows are independent of M")
+    return worst
+
+
+# the expert stacks of the two MoE configs at full width: (E, K, N) of
+# eg / eu and of ed
+EXPERT_WIDTHS = {
+    "kimi_k2_1t_a32b": ((384, 7168, 2048), (384, 2048, 7168)),
+    "llama4_maverick_400b_a17b": ((128, 5120, 8192), (128, 8192, 5120)),
+}
+
+
+def moe_capacity(arch, T):
+    """The capacity C of a call of T tokens at ``arch`` (the engine's)."""
+    c = cb.get(arch)
+    return moe_lib.capacity(T, moe_lib.MoEConfig(c.n_experts, c.top_k,
+                                                 c.capacity_factor))
+
+
+def make_expert_rows(gen, E, C, used):
+    """(E,) int32 rows: ``used`` experts in use at random, each with 1 to C
+    rows (some with exactly C), the rest empty."""
+    rows = torch.zeros(E, dtype=torch.int32, device=DEV)
+    pick = torch.randperm(E, generator=gen, device=DEV)[:used]
+    rows[pick] = torch.randint(1, C + 1, (used,), generator=gen, device=DEV,
+                               dtype=torch.int32)
+    rows[pick[:max(1, used // 4)]] = C
+    return rows
+
+
+def make_expert_inputs(gen, E, C, K, N, bits, a_dtype, rows):
+    """Activations (E, C, K) with NaN in every row past rows[e] (the kernel
+    must not read them), coded weights (E, K, N), per-column statistics, a
+    (k,) codebook and the rows."""
+    a = torch.randn((E, C, K), generator=gen, device=DEV).to(a_dtype)
+    idle = torch.arange(C, device=DEV)[None, :] >= rows[:, None]
+    a[idle] = float("nan")
+    if bits == 4:
+        w = torch.randint(0, 256, (E, K, N // 2), generator=gen, device=DEV,
+                          dtype=torch.uint8)
+    else:
+        w = torch.randint(-128, 128, (E, K, N), generator=gen, device=DEV,
+                          dtype=torch.int8)
+    mu = torch.randn((1, N), generator=gen, device=DEV) * 0.002
+    sigma = 0.02 * (0.5 + torch.rand((1, N), generator=gen, device=DEV))
+    lut = make_lut(gen, N, bits, False)
+    return dict(a=a, w=w, mu=mu, sigma=sigma, lut=lut, rows=rows, idle=idle)
+
+
+@contextlib.contextmanager
+def nan_filled_empty():
+    """Inside, ``torch.empty`` hands out floating-point memory filled with
+    NaN (PyTorch's fill of uninitialized memory under its deterministic
+    mode), so what a kernel leaves unwritten in its output or its split-K
+    scratch shows; checked on a probe first."""
+    det = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    try:
+        if not bool(torch.empty(8, device=DEV).isnan().all()):
+            raise SystemExit("torch.empty did not fill with NaN")
+        yield
+    finally:
+        torch.use_deterministic_algorithms(det, warn_only=warn)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def _experts_checked(name, t, call, plain, tol_abs, tol_rel, where):
+    """One expert call twice (the second with its output and scratch
+    allocated as NaN) against its plain version: finite, exact zeros in
+    every idle row, within tolerance, the same bits both times."""
+    out = call()
+    with nan_filled_empty():
+        again = call()
+        sync()
+    want = plain()
+    tol = tol_abs if tol_rel is None \
+        else tol_rel * want.float().abs().max().item()
+    err = _matmul_checked(name, out, again, want, tol, where)
+    if out[t["idle"]].any():
+        raise SystemExit(f"{name}: a row past rows[e] is not zero ({where})")
+    return err
+
+
+# the engine's calls at full width, by tokens T routed in one call: a
+# decode bucket of 16, and the coalesced prefill of 4, 8 or 16 slots of one
+# 64-token page each (C = 8, 16, 32 at kimi_k2; 8, 8, 16 at llama4), and
+# 2560 tokens at llama4 for its C = 32 (a longer prefill chunk)
+EXPERT_CALL_TOKENS = {"kimi_k2_1t_a32b": (512, 1024),
+                      "llama4_maverick_400b_a17b": (1024, 2560)}
+
+
+def check_qmatmul_experts(gen, quick: bool):
+    """qmatmul_experts / qmatmul_lut_experts against their plain versions
+    (the 2-D plain matmul expert by expert): W4 / W8, Gaussian levels and
+    a (k,) codebook, bf16 / f32 activations (f32 out; the model's bf16 out
+    for bf16), at kimi_k2's and llama4's expert widths (C = 8 rows with a
+    third or most of the experts in use, and the rows of the engine's
+    coalesced prefill, T tokens routed top-k at C = capacity(T): 16 and 32)
+    and ragged shapes with taller tiles (C up to 128, rows 0 to C).  Every
+    activation row past rows[e] holds NaN and the second call's output and
+    scratch are allocated as NaN: the idle rows must come out exactly
+    zero."""
+    worst = {"qmatmul_experts": 0.0, "qmatmul_lut_experts": 0.0}
+    cases = []        # (arch, E, C, K, N, (E,) rows maker)
+    for arch, shapes in EXPERT_WIDTHS.items():
+        k = cb.get(arch).top_k
+        for (E, K, N) in shapes:
+            for used in (E // 3, E - E // 8):             # C = 8
+                cases.append((arch, E, 8, K, N, functools.partial(
+                    make_expert_rows, gen, E, 8, used)))
+            for T in EXPERT_CALL_TOKENS[arch]:            # C = 16, 32
+                C = moe_capacity(arch, T)
+                cases.append((arch, E, C, K, N, functools.partial(
+                    routed_rows, gen, T, E, k, C)))
+    for E, C, K, N, used in ((5, 24, 200, 130, 4), (3, 33, 520, 96, 3),
+                             (6, 70, 256, 258, 5), (4, 128, 512, 384, 3),
+                             (2, 1, 64, 2, 1), (16, 64, 2048, 1024, 12)):
+        cases.append(("ragged", E, C, K, N, functools.partial(
+            make_expert_rows, gen, E, C, used)))
+    if quick:      # kimi_k2 eg at C = 8 and 32, llama4 eg at C = 16, ragged
+        cases = [cases[0], cases[3], cases[10]] + cases[-6:-3]
+    for arch, E, C, K, N, make_rows in cases:
+        rows = make_rows()
+        used = int((rows > 0).sum())
+        for bits in (4, 8):
+            for a_dtype in (torch.bfloat16, torch.float32):
+                if a_dtype == torch.float32 and E * K * N > 1 << 31 \
+                        and used < E // 2:
+                    continue     # f32 at full width: most experts in use
+                t = make_expert_inputs(gen, E, C, K, N, bits, a_dtype, rows)
+                where = (f"{arch} E={E} C={C} K={K} N={N} W{bits} {a_dtype} "
+                         f"{used} experts in use, {int(rows.sum())} rows")
+                outs = [torch.float32]
+                if a_dtype == torch.bfloat16:
+                    outs.append(torch.bfloat16)
+                # the worst errors reported are the f32 outputs' (as row
+                # 1's); bf16 outputs are held to one bf16 step relative
+                for od in outs:
+                    rel = None if od == torch.float32 else TOL_QMM_BF16_REL
+                    errs = (_experts_checked(
+                        "qmatmul_experts", t,
+                        lambda: qmm.qmatmul_experts(
+                            t["a"], t["w"], t["mu"], t["sigma"], t["rows"],
+                            bits=bits, out_dtype=od),
+                        lambda: qmm.qmatmul_experts_plain(
+                            t["a"], t["w"], t["mu"], t["sigma"], t["rows"],
+                            bits=bits, out_dtype=od),
+                        TOL_QMM_F32, rel, f"{where} out {od}"),
+                        _experts_checked(
+                        "qmatmul_lut_experts", t,
+                        lambda: qmm.qmatmul_lut_experts(
+                            t["a"], t["w"], t["lut"], t["rows"], bits=bits,
+                            out_dtype=od),
+                        lambda: qmm.qmatmul_lut_experts_plain(
+                            t["a"], t["w"], t["lut"], t["rows"], bits=bits,
+                            out_dtype=od),
+                        TOL_QMM_LUT, rel, f"{where} out {od}"))
+                    if od == torch.float32:
+                        for name, err in zip(worst, errs):
+                            worst[name] = max(worst[name], err)
+                del t
+        say(f"[kernels] qmatmul_experts + qmatmul_lut_experts {arch} E={E} "
+            f"C={C} K={K} N={N}, {used} experts in use, {int(rows.sum())} "
+            f"rows: W4/W8 x bf16/f32, idle rows NaN in and zero out, output "
+            f"and scratch allocated as NaN: ok")
+        torch.cuda.empty_cache()
+    # an expert's rows do not depend on the other experts of the call:
+    # expert e alone, at the full call's split count, gives the same bits
+    t = make_expert_inputs(gen, 8, 16, 1024, 512, 4, torch.bfloat16,
+                           make_expert_rows(gen, 8, 16, 8))
+    full = qmm.qmatmul_experts(t["a"], t["w"], t["mu"], t["sigma"],
+                               t["rows"], bits=4)
+    nsplit = qmm.default_splitk(1024, 512, 8)
+    for e in (0, 5):
+        one = qmm.qmatmul_experts(t["a"][e:e + 1].contiguous(),
+                                  t["w"][e:e + 1].contiguous(), t["mu"],
+                                  t["sigma"], t["rows"][e:e + 1].contiguous(),
+                                  bits=4, splitk=nsplit)
+        if not torch.equal(one[0], full[e]):
+            raise SystemExit("qmatmul_experts: an expert's rows depend on "
+                             "the other experts of the call")
+    say("[kernels] qmatmul_experts: an expert's bits do not depend on the "
+        "other experts of the call")
     return worst
 
 
@@ -1850,6 +2056,303 @@ def check_head_logits(params, cfg, opts):
 
 
 # --------------------------------------------------------------------------
+# Phase 4c: the MoE family at full width
+# --------------------------------------------------------------------------
+
+MOE_ARCHS = ("kimi_k2_1t_a32b", "llama4_maverick_400b_a17b")
+
+
+@contextlib.contextmanager
+def routing(store, replay=None):
+    """Records, in call order, the tokens routed by each ``moe.router_topk``
+    call into ``store["tokens"]`` (where present) and their expert ids into
+    ``store["ids"]`` (where present); with ``replay`` (an earlier run's ids)
+    each call returns those ids instead, gated by this run's own router
+    probabilities at them, and ``store["differ"]`` gets, per call, which
+    tokens' own top-k expert sets differ from the replayed ones."""
+    orig = moe_lib.router_topk
+    forced = iter(replay) if replay is not None else None
+
+    def topk(x, router_w, cfg):
+        w, ids = orig(x, router_w, cfg)
+        if "tokens" in store:
+            store["tokens"].append(x.shape[0])
+        if "ids" in store:
+            store["ids"].append(ids.clone())
+        if forced is None:
+            return w, ids
+        want = next(forced)
+        store["differ"].append((ids.sort(-1).values
+                                != want.sort(-1).values).any(-1))
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        g = probs.gather(-1, want)
+        return g / g.sum(-1, keepdim=True).clamp(min=1e-9), want
+
+    moe_lib.router_topk = topk
+    try:
+        yield
+    finally:
+        moe_lib.router_topk = orig
+
+
+def moe_plain_check(params, cfg, name):
+    """Kernels vs plain versions on one prefill and one decode step (B = 8)
+    of the full-width MoE model.  The prefill is the engine's largest
+    coalesced prefill call: 16 slots of one 64-token page each, whose 1024
+    tokens route at the capacity the engine's steady prefill meets (C = 32
+    at kimi_k2, 16 at llama4).  A kernel / plain rounding difference can
+    move a token's top-k expert set where two router probabilities nearly
+    tie, and then its whole expert output.  So the plain prefill replays
+    the kernel run's expert ids (gated by its own router) and the logits
+    are held to TOL_LOGITS_REL; the decode step
+    runs both sides' own routing from the kernel prefill's pool, and the
+    logits of the rows whose expert sets agree in every layer are held to
+    it.  The count of tokens whose expert sets differ is printed."""
+    B, S, page, Bd = 16, 64, 64, 8
+    C = moe_capacity(name, B * S)
+    rng = np.random.default_rng(1)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, size=(B, S)), device=DEV)
+    kern = lm.ModelOpts(compute_dtype=torch.bfloat16, kv_bits=8)
+    plain = dataclasses.replace(kern, use_kernels=False)
+    rec_k, rec_p = {"ids": []}, {"ids": [], "differ": []}
+    t0 = time.perf_counter()
+    with routing(rec_k):
+        lk, kv = model.prefill(params, cfg, kern, {"tokens": toks})
+    sync()
+    before = kops.launch_counts()
+    with routing(rec_p, replay=rec_k["ids"]):
+        lp, _ = model.prefill(params, cfg, plain, {"tokens": toks})
+    sync()
+    if kops.launch_counts() != before:
+        raise SystemExit("use_kernels=False launched a kernel")
+    differ = torch.stack(rec_p["differ"])                  # (L, B * S)
+    err = (lk.float() - lp.float()).abs().max().item()
+    tol = TOL_LOGITS_REL * lp.float().abs().max().item()
+    say(f"[moe-plain] {name} prefill {B} x {S} tokens (expert capacity C = "
+        f"{C}), kernels vs plain versions (the plain run on the kernel "
+        f"run's expert ids): last-"
+        f"position logits max abs err {err:.4f} (tolerance {tol:.4f} = "
+        f"{TOL_LOGITS_REL} x max |logit|); token-layers whose own top-"
+        f"{cfg.top_k} expert set differs: {int(differ.sum())} of "
+        f"{differ.numel()}; {time.perf_counter() - t0:.1f}s")
+    if not torch.isfinite(lk).all() or err > tol:
+        raise SystemExit(f"{name} prefill logits disagree with the plain "
+                         f"versions")
+    # the decode step: Bd rows on the first Bd prefilled prompts
+    n_pages = S // page + 1
+    cache = model.init_paged_cache(cfg, 1 + Bd * n_pages, page,
+                                   torch.bfloat16, kv_bits=8, device=DEV)
+    tables = torch.arange(1, 1 + Bd * n_pages, device=DEV,
+                          dtype=torch.int32).reshape(Bd, n_pages)
+    kv2 = {k: v[:, :Bd].contiguous() for k, v in kv.items()}
+    model.cache_insert_paged(cache, kv2, tables[:, :S // page])
+    nxt = lk[:Bd].argmax(-1)
+    pos = torch.full((Bd,), S, device=DEV)
+    res = {}
+    for side, o in (("kernels", kern), ("plain", plain)):
+        rec = {"ids": []}
+        with routing(rec):
+            logits, _ = model.decode(params, cfg, o, cache, nxt[:, None], pos,
+                                     block_tables=tables)
+        res[side] = (logits.float(), torch.stack(
+            [r.sort(-1).values for r in rec["ids"]]))
+    sync()
+    (dk, ik), (dp, ip) = res["kernels"], res["plain"]
+    same = (ik == ip).all(-1).all(0)                       # (Bd,)
+    if not bool(same.any()):
+        raise SystemExit(f"{name} decode: no row kept its expert sets")
+    err = (dk[same] - dp[same]).abs().max().item()
+    tol = TOL_LOGITS_REL * dp[same].abs().max().item()
+    say(f"[moe-plain] {name} decode step B={Bd}: rows whose expert sets "
+        f"differ in some layer {int((~same).sum())} of {Bd}; the other "
+        f"rows' logits max abs err {err:.4f} (tolerance {tol:.4f})")
+    if not torch.isfinite(dk).all() or err > tol:
+        raise SystemExit(f"{name} decode logits disagree with the plain "
+                         f"versions")
+    del cache, kv, kv2
+
+
+def moe_phase(arch: str, seed: int, new_tokens: int, layers: int,
+              closed: bool):
+    """One MoE model at full width, depth cut to ``layers``: W4 (Gaussian)
+    weights drawn and coded a layer slice at a time, phase 4's stream
+    through the paged kv8 engine with every launch counted, the plain
+    check, and (``closed``) the closed batch (``serve.generate``)."""
+    cfg = dataclasses.replace(cb.get(arch), n_layers=layers)
+    L = cfg.n_layers
+    say(f"[moe] {arch} at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head_dim "
+        f"{cfg.head_dim}, vocab {cfg.vocab}), depth {L} of "
+        f"{cb.get(arch).n_layers} layers, W4 + kv8, bf16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kops.reset_launch_counts()
+    params = model.init(seed, cfg, device=DEV, w_bits=4,
+                        dense_dtype=torch.bfloat16)
+    sync()
+    load = kops.launch_counts()
+    say(f"[moe] weights drawn and coded a layer slice at a time in "
+        f"{time.perf_counter() - t0:.1f}s ({load['kquantile_quantize']} "
+        f"kquantile_quantize launches); "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if load["kquantile_quantize"] <= 0:
+        raise SystemExit("coding the weights launched no kquantile_quantize")
+    opts = lm.ModelOpts(compute_dtype=torch.bfloat16)
+    warm = Engine(params, cfg, opts, EngineConfig(
+        max_slots=16, max_len=2048, page_size=64, kv_bits=8,
+        prefix_cache=True), device=DEV)
+    warm.generate([Request(uid=-1, prompt=np.arange(70, dtype=np.int32),
+                           sampling=SamplingParams(max_new_tokens=2))])
+    del warm
+    sync()
+
+    kops.reset_launch_counts()
+    routed = {"tokens": []}
+    with routing(routed):
+        eng, outs, wall, n_req = run_stream(params, cfg, opts, seed,
+                                            new_tokens)
+    counts = kops.launch_counts()
+    if len(outs) != n_req or any(
+            o.finish_reason != "length" or len(o.token_ids) != new_tokens
+            or not all(0 <= t < cfg.vocab for t in o.token_ids)
+            for o in outs):
+        raise SystemExit(f"{arch}: the stream did not complete as expected")
+    steps, calls = eng.n_decode_steps, eng.n_prefill_calls
+    fwd = steps + calls
+    # 4 attention projections a layer and the coded LM head a call
+    want = {"qmatmul": (4 * L + 1) * fwd, "qmatmul_experts": 3 * L * fwd,
+            "paged_quant_attention": L * steps, "kv_append": L * fwd,
+            "kquantile_dequantize_paged": 2 * L * calls,
+            "kquantile_dequantize": fwd}
+    say(f"[moe] {arch}: {n_req} requests, {steps} decode steps, {calls} "
+        f"prefill-chunk calls; launches: " + ", ".join(
+            f"{k} {counts[k]} (want {v})" for k, v in want.items())
+        + "; " + ", ".join(f"{k} {counts[k]}" for k in counts
+                           if k not in want))
+    if any(counts[k] != v for k, v in want.items()) \
+            or min(want.values()) <= 0 \
+            or any(counts[k] for k in counts if k not in want):
+        raise SystemExit(f"{arch}: the main path did not go through the "
+                         f"kernels as expected")
+    # the expert calls' shapes: tokens routed per call (every layer's call
+    # of a forward routes the same rows) and the capacity C they give
+    per_call = collections.Counter(routed["tokens"][::L])
+    say(f"[moe] {arch}: the stream's forwards by tokens routed: " + ", ".join(
+        f"T={T} x {n} (C={moe_capacity(arch, T)})"
+        for T, n in sorted(per_call.items())))
+    st = eng.stats()
+    new = sum(len(o.token_ids) for o in outs)
+    reg = eng.telemetry.registry
+    ttft = tele_lib.percentile_summary(reg["ttft_s"], scale=1e3)
+    itl = tele_lib.percentile_summary(reg["itl_s"], scale=1e3)
+    say(f"[moe] {arch}: {new} new tokens in {wall:.2f}s -> "
+        f"{new / wall:.1f} tok/s; TTFT p50 {ttft['p50']:.0f} ms p95 "
+        f"{ttft['p95']:.0f} ms; ITL p50 {itl['p50']:.1f} ms p95 "
+        f"{itl['p95']:.1f} ms; cache hits {st['cache_hits']}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD}")
+    # the telemetry registry's gauges close over the engine (and its
+    # params): both go before the model is freed
+    del eng, reg
+    moe_decode_profile(params, cfg, opts)
+    moe_plain_check(params, cfg, arch)
+    if closed:
+        c = CLOSED_BATCH
+        steps = c["prompt_len"] + c["new_tokens"] - 1
+        sc = serve_lib.ServeConfig(w_bits=4)
+        prompts = torch.tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab, size=(c["batch"], c["prompt_len"])), device=DEV)
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = serve_lib.generate(params, cfg, opts, sc, prompts,
+                                  c["new_tokens"])
+        sync()
+        dt = time.perf_counter() - t0
+        cc = kops.launch_counts()
+        want_c = {"qmatmul": (4 * L + 1) * steps,
+                  "qmatmul_experts": 3 * L * steps,
+                  "kquantile_dequantize": steps}
+        say(f"[moe] {arch} closed batch (serve.generate, B={c['batch']}, "
+            f"{c['prompt_len']} + {c['new_tokens']} tokens, {steps} decode "
+            f"steps): {c['batch'] * c['new_tokens'] / dt:.1f} tok/s; "
+            f"launches " + ", ".join(f"{k} {cc[k]} (want {v})"
+                                     for k, v in want_c.items()))
+        if tuple(toks.shape) != (c["batch"], c["new_tokens"]) \
+                or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab \
+                or any(cc[k] != v for k, v in want_c.items()) \
+                or any(cc[k] for k in cc if k not in want_c):
+            raise SystemExit(f"{arch} closed batch: wrong tokens or "
+                             f"launches")
+        for k, v in cc.items():
+            counts[k] += v
+    return counts
+
+
+def moe_phases(seed: int, new_tokens: int, layers: int):
+    """Phase 4c: each MoE model in turn (kimi_k2 with its closed batch),
+    freed before the next; returns the launch counts summed over their
+    counted runs."""
+    total = {}
+    for arch in MOE_ARCHS:
+        before = torch.cuda.memory_allocated() / 2**30
+        counts = moe_phase(arch, seed, new_tokens, layers,
+                           closed=arch == MOE_ARCHS[0])
+        gc.collect()            # an engine holds reference cycles
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 2**30
+        say(f"[moe] {arch} freed: {left:.2f} GiB allocated ({before:.2f} "
+            f"before it)")
+        if left > before + 1.0:
+            raise SystemExit(f"{arch}: the model was not freed")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def moe_decode_profile(params, cfg, opts, B: int = 16, ctx: int = 300):
+    """Device busy share and kernel time by name of one decode step (B
+    rows, ``ctx`` rows of context each) under ``torch.profiler``."""
+    page = 64
+    n_pages = ctx // page + 2
+    cache = model.init_paged_cache(cfg, 1 + B * n_pages, page,
+                                   torch.bfloat16, kv_bits=8, device=DEV)
+    tables = torch.arange(1, 1 + B * n_pages, device=DEV,
+                          dtype=torch.int32).reshape(B, n_pages)
+    toks = torch.randint(0, cfg.vocab, (B, 1), device=DEV)
+    pos = torch.full((B,), ctx, device=DEV)
+    o = dataclasses.replace(opts, kv_bits=8)
+    walls = []
+    for _ in range(5):       # the first two warm up; the profiler adds host
+        sync()               # time, so the busy share is also stated
+        t0 = time.perf_counter()  # against an unprofiled step's wall
+        model.decode(params, cfg, o, cache, toks, pos, block_tables=tables)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    bare = sorted(walls[2:])[1] * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        model.decode(params, cfg, o, cache, toks, pos, block_tables=tables)
+        sync()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(((e.key, e.self_device_time_total) for e in kernels),
+                 key=lambda kv: -kv[1])[:4]
+    say(f"[moe] one decode step (B={B}, {ctx} rows of context, "
+        f"{cfg.n_layers} layers): device busy {dev_us / 1e3:.2f} ms of "
+        f"{wall * 1e3:.2f} ms wall under the profiler "
+        f"({100 * dev_us / 1e3 / (wall * 1e3):.1f}%), of {bare:.2f} ms "
+        f"without it (median of 3: {100 * dev_us / 1e3 / bare:.1f}%); by "
+        f"kernel: " + "; ".join(f"{n[:48]} {t / 1e3:.3f} ms"
+                                for n, t in top))
+    del cache
+
+
+# --------------------------------------------------------------------------
 # Phase 5b: the closed batch and the slot cache at full width
 # --------------------------------------------------------------------------
 
@@ -3059,6 +3562,90 @@ def time_codec(gen, rows):
             f"{r['copy_ms']:.4f} ms; {CARD}")
 
 
+def routed_rows(gen, T, E, k, C):
+    """(E,) int32 rows of a call of T tokens routed top-k at random: each
+    expert's copies, at most C (the capacity buffer's rows)."""
+    ids = torch.rand((T, E), generator=gen, device=DEV).topk(k).indices
+    counts = torch.bincount(ids.reshape(-1), minlength=E)
+    return counts.clamp(max=C).to(torch.int32)
+
+
+def time_qmatmul_experts(gen, E, C, K, N, rows, bits=4):
+    """The expert kernel at the model's types (bf16 in and out) on
+    ``rows``, its plain version, and ``torch.bmm`` on the dequantized bf16
+    stack of the experts in use (their rows only).
+
+    Bound: the bytes this call must move, each once: the codes of the
+    experts in use (an idle expert's are never read), their activation
+    rows, the whole (E, C, N) output, the statistics and the table; the
+    operations 2 * (rows in use) * K * N at the bf16 peak."""
+    a = torch.randn((E, C, K), generator=gen, device=DEV).to(torch.bfloat16)
+    _, _, mu, sigma = make_qmm_inputs(gen, 1, 64, N, bits, torch.bfloat16)
+    n_copies = 2 if E * K * N * bits // 8 > 120e6 else 4
+    ws = [torch.randint(0, 256, (E, K, N * bits // 8), generator=gen,
+                        device=DEV, dtype=torch.uint8).view(
+        torch.uint8 if bits == 4 else torch.int8) for _ in range(n_copies)]
+    out = torch.bfloat16
+    ms = time_ms([lambda w=w: qmm.qmatmul_experts(
+        a, w, mu, sigma, rows, bits=bits, out_dtype=out) for w in ws])
+    plain_ms = time_ms([lambda: qmm.qmatmul_experts_plain(
+        a, ws[0], mu, sigma, rows, bits=bits, out_dtype=out)],
+        warmup=1, iters=2)
+    used = (rows > 0).nonzero().flatten()
+    n_used, n_rows = int(used.numel()), int(rows.sum())
+    dense = kops.dequantize_weights(ws[0][used], mu, sigma, bits=bits,
+                                    out_dtype=torch.bfloat16)
+    a_used = a[used].contiguous()
+    lib_ms = time_ms([lambda: torch.bmm(a_used, dense)])
+    del dense
+    host = host_us(lambda: qmm.qmatmul_experts(
+        a, ws[0], mu, sigma, rows, bits=bits, out_dtype=out), iters=50)
+    nbytes = n_used * K * N * bits // 8 + n_rows * K * 2 + E * C * N * 2 \
+        + 2 * N * 4 + (2 ** bits) * 4 + E * 4
+    t_b = nbytes / PEAK_BYTES_PER_S
+    t_f = 2.0 * n_rows * K * N / PEAK_FLOPS["bf16"]
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=max(t_b, t_f) * 1e3,
+                bound_by="bytes" if t_b >= t_f else "operations",
+                bytes=nbytes, host_us=host, used=n_used, rows=n_rows)
+
+
+# phase 7's expert rows: (config, matrix, (E, K, N), tokens of the call);
+# a decode bucket of 16 tokens, and the engine's coalesced prefill of 4, 8
+# and 16 slots of one 64-token page (256, 512 and 1024 tokens; C =
+# capacity(T): 8, 16 and 32 at kimi_k2, 8 and 16 at llama4)
+EXPERT_TIMINGS = (
+    ("kimi_k2_1t_a32b", "eg", (384, 7168, 2048), 16),
+    ("kimi_k2_1t_a32b", "ed", (384, 2048, 7168), 16),
+    ("kimi_k2_1t_a32b", "eg", (384, 7168, 2048), 256),
+    ("kimi_k2_1t_a32b", "ed", (384, 2048, 7168), 256),
+    ("kimi_k2_1t_a32b", "eg", (384, 7168, 2048), 512),
+    ("kimi_k2_1t_a32b", "ed", (384, 2048, 7168), 512),
+    ("kimi_k2_1t_a32b", "eg", (384, 7168, 2048), 1024),
+    ("kimi_k2_1t_a32b", "ed", (384, 2048, 7168), 1024),
+    ("llama4_maverick_400b_a17b", "eg", (128, 5120, 8192), 16),
+    ("llama4_maverick_400b_a17b", "eg", (128, 5120, 8192), 256),
+    ("llama4_maverick_400b_a17b", "eg", (128, 5120, 8192), 1024),
+)
+
+
+def time_experts(gen, rows_out):
+    for arch, mat, (E, K, N), T in EXPERT_TIMINGS:
+        k, C = cb.get(arch).top_k, moe_capacity(arch, T)
+        rows = routed_rows(gen, T, E, k, C)
+        r = time_qmatmul_experts(gen, E, C, K, N, rows)
+        rows_out[("experts", arch, mat, T)] = r
+        say(f"[time] qmatmul_experts W4 bf16 {arch} {mat} E={E} C={C} K={K} "
+            f"N={N}, {T} tokens top-{k}: {r['used']} experts in use, "
+            f"{r['rows']} rows; kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.2f} ms, "
+            f"torch.bmm on the dequantized bf16 experts in use "
+            f"{r['library_ms']:.4f} ms; host enqueue {r['host_us']:.0f} us "
+            f"per call; {CARD}")
+
+
 def timing_phase(gen, counts, errs):
     rows = {}
     for bits in (4, 8):
@@ -3154,6 +3741,7 @@ def timing_phase(gen, counts, errs):
                     f"{r['plain_ms']:.3f} ms, {lib} {r['library_ms']:.4f} "
                     f"ms; host enqueue {r['host_us']:.0f} us per call")
     time_codec(gen, rows)
+    time_experts(gen, rows)
     q = rows[("qmatmul", 4, 16, 4096, 12800)]
     a = rows[("attn", 8, 2048)]
     u = rows[("uniq", L, 4096, 12800, (1,) * L)]
@@ -3218,7 +3806,31 @@ def timing_phase(gen, counts, errs):
               kv4_decode=rows[("kv_append", 16, 4, 128)],
               prefill_n256=rows[("kv_append", 256, 8, 128)],
               hd160_decode=rows[("kv_append", 16, 8, 160)],
-              hd160_kv4_decode=rows[("kv_append", 16, 4, 160)])]}
+              hd160_kv4_decode=rows[("kv_append", 16, 4, 160)]),
+        entry("qmatmul_experts", "src/repro_torch/kernels/csrc/qmatmul.cu",
+              "src/repro/models/moe.py:102",
+              rows[("experts", "kimi_k2_1t_a32b", "eg", 16)],
+              kimi_ed_decode=rows[("experts", "kimi_k2_1t_a32b", "ed", 16)],
+              kimi_eg_prefill256=rows[("experts", "kimi_k2_1t_a32b", "eg",
+                                       256)],
+              kimi_ed_prefill256=rows[("experts", "kimi_k2_1t_a32b", "ed",
+                                       256)],
+              kimi_eg_prefill512=rows[("experts", "kimi_k2_1t_a32b", "eg",
+                                       512)],
+              kimi_ed_prefill512=rows[("experts", "kimi_k2_1t_a32b", "ed",
+                                       512)],
+              kimi_eg_prefill1024=rows[("experts", "kimi_k2_1t_a32b", "eg",
+                                        1024)],
+              kimi_ed_prefill1024=rows[("experts", "kimi_k2_1t_a32b", "ed",
+                                        1024)],
+              llama4_eg_decode=rows[("experts", "llama4_maverick_400b_a17b",
+                                     "eg", 16)],
+              llama4_eg_prefill256=rows[("experts",
+                                         "llama4_maverick_400b_a17b", "eg",
+                                         256)],
+              llama4_eg_prefill1024=rows[("experts",
+                                          "llama4_maverick_400b_a17b", "eg",
+                                          1024)])]}
 
 
 def profile_phase(cfg, seed: int, new_tokens: int):
@@ -3534,6 +4146,10 @@ def main(argv=None) -> int:
                     help="depth of the full-width train run (default 8: "
                          "f32 AdamW state for all 40 exceeds 80 GB)")
     ap.add_argument("--train-steps", type=int, default=10)
+    ap.add_argument("--moe-layers", type=int, default=4,
+                    help="depth of the full-width MoE models of phase 4c "
+                         "(default 4: ~35 GB of W4 expert codes at "
+                         "kimi_k2; all 61 would be ~500 GB)")
     ap.add_argument("--quick", action="store_true",
                     help="build + a reduced kernel check, then stop")
     ap.add_argument("--sweep", nargs="?", const="all",
@@ -3614,6 +4230,7 @@ def main(argv=None) -> int:
         check_kquantile(gen, args.quick)
     errs["kquantile_dequantize_paged"] = check_paged_dequant(gen, args.quick)
     errs["kv_append"] = check_kv_append(gen, args.quick)
+    errs.update(check_qmatmul_experts(gen, args.quick))
     say("[kernels] max abs err vs plain versions: " + ", ".join(
         f"{n} {e:.3e}" for n, e in errs.items()))
     if args.quick:
@@ -3649,6 +4266,14 @@ def main(argv=None) -> int:
     closed_batch_phase(args.seed)
     slot_phase(cfg, args.seed, args.new_tokens)
     say(f"[time] phase 5b done at {time.perf_counter() - t_start:.0f}s")
+    # the MoE family at full width, one model after another (each freed
+    # before the next), after the dense serving phases so that their
+    # host-bound readings keep the conditions of earlier runs; the count of
+    # qmatmul_experts is summed over its counted runs (kimi_k2's and
+    # llama4's streams, kimi_k2's closed batch)
+    counts["qmatmul_experts"] = moe_phases(
+        args.seed, args.new_tokens, args.moe_layers)["qmatmul_experts"]
+    say(f"[time] phase 4c done at {time.perf_counter() - t_start:.0f}s")
     train_counts, _ = train_phase(args.seed, args.train_layers,
                                   args.train_steps)
     torch.cuda.empty_cache()

@@ -23,8 +23,9 @@ from repro_torch.devices import resolve_device
 
 # leaves of a training state that the port keeps as host values (CPU)
 _HOST_KEYS = ("step", "count")
-# leaves of a coded weight that stay f32 whatever dtype the rest is cast to
-_F32_KEYS = ("q_mu", "q_sigma", "q_lut")
+# leaves that stay f32 whatever dtype the rest is cast to: a coded weight's
+# statistics and codebook, and the MoE router (never coded; routing is f32)
+_F32_KEYS = ("q_mu", "q_sigma", "q_lut", "router")
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
@@ -51,8 +52,9 @@ def params_from_numpy(tree, device="cuda", dtype=None) -> Dict[str, Any]:
 
     Integer leaves (codes) keep their dtype (uint8 = 4-bit packed, int8 =
     8-bit); floating leaves are cast to ``dtype`` when given, except the
-    ``q_mu`` / ``q_sigma`` statistics and the ``q_lut`` codebooks, which
-    stay float32.
+    ``q_mu`` / ``q_sigma`` statistics, the ``q_lut`` codebooks and the MoE
+    ``router``, which stay float32.  An expert stack's code dicts keep
+    their 4-D layout.
     """
     dev = resolve_device(device)
 

@@ -92,11 +92,21 @@
 //     8-byte table entry ({h | d << 16, l}), replicated so the lanes of a
 //     half-warp never meet in a bank at W4; no FMA or convert per weight.
 //
+// qmatmul_experts / qmatmul_lut_experts (the MoE expert matmuls, whose
+// TPU-side counterpart is the reference's dequantize-everything einsum,
+// src/repro/models/moe.py:102-105): E products of one shape in one launch
+// of the same two bodies, the expert on the grid's z axis.  What bounds them
+// at decode is the weight bytes of the experts in use (16 tokens x top-8 use
+// at most 128 of kimi_k2's 384): a block reads `rows[e]` (on the device)
+// first and, where none of its rows is in use, writes zeros and returns
+// before it reads a weight byte; rows past rows[e] are loaded as zeros, so
+// the zeros a dropped token copy reads are exact.
+//
 // Determinism: a split writes its partial sums to a scratch buffer and a
 // second kernel adds the splits in a fixed order (no atomics).  Every output
 // element is accumulated over k in ascending order inside a split, and the
-// split count depends on (K, N) only, so a row's result does not depend on
-// M or on which rows share the call.
+// split count depends on (K, N) only (and E for an expert call), so a row's
+// result does not depend on M or on which rows share the call.
 //
 // Plain C interface; the caller allocates every buffer and passes the stream.
 
@@ -129,7 +139,47 @@ struct Args {
   void* out;                     // (M, N) f32 or bf16 (`out_bf16`): the
   int out_bf16;                  // result, where a block sums every split
   int M, K, N, kchunk;
+  // expert calls (qmatmul_experts / qmatmul_lut_experts): E weights of
+  // (K, N) one after another, E activation blocks of (M, K) and E output
+  // blocks of (M, N); expert e reads only its first rows[e] rows.  Plain
+  // calls: E = 1, rows = null.  `zsplit` is the grid's z extent per expert
+  // (the split count, or 1 for a tile that sums its splits itself);
+  // `direct`: the warpgroup body writes `out` itself (wg_writes_out).
+  const int* rows;
+  int E, zsplit, direct;
 };
+
+// The block's expert and split along the grid's z axis.
+__device__ __forceinline__ void expert_split(const Args& p, int& e,
+                                             int& split) {
+  e = blockIdx.z / p.zsplit;
+  split = blockIdx.z - e * p.zsplit;
+}
+
+// Rows of expert e that hold activations: rows[e] (at most M) for an
+// expert call, all M otherwise.
+__device__ __forceinline__ int rows_used(const Args& p, int e) {
+  return p.rows ? min(p.M, max(0, __ldg(p.rows + e))) : p.M;
+}
+
+// A block none of whose rows an expert uses: zeros for its (bm, BN) tile,
+// in the split's partial sums or (`to_out`) in the output, and no weight
+// byte read.  A dropped token copy reads such a row and multiplies it by 0.
+__device__ void zero_tile(const Args& p, int e, int split, int m0, int bm,
+                          int n0, bool to_out) {
+  for (int i = threadIdx.x; i < bm * BN; i += blockDim.x) {
+    const int m = m0 + i / BN;
+    const int n = n0 + i % BN;
+    if (m >= p.M || n >= p.N) continue;
+    const size_t o = ((size_t)e * p.M + m) * p.N + n;
+    if (!to_out)
+      p.part[(size_t)split * p.E * p.M * p.N + o] = 0.0f;
+    else if (p.out_bf16)
+      static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16(0.0f);
+    else
+      static_cast<float*>(p.out)[o] = 0.0f;
+  }
+}
 
 template <int WM>
 __device__ __forceinline__ float level(int code, float mu, float sigma,
@@ -169,16 +219,24 @@ __global__ void __launch_bounds__(TX * TY) qmatmul_kernel(const Args p) {
   __shared__ __align__(16) float s_w[BK * BN];
 
   const int M = p.M, K = p.K, N = p.N, kchunk = p.kchunk;
-  const uint8_t* __restrict__ w = p.w;
   const int tid = threadIdx.x;
   const int tx = tid % TX;
   const int ty = tid / TX;
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
-  const int split = blockIdx.z;
+  int e, split;
+  expert_split(p, e, split);
+  const int Mv = rows_used(p, e);
+  if (m0 >= Mv) {
+    zero_tile(p, e, split, m0, BM, n0, false);
+    return;
+  }
   const int k_begin = split * kchunk;
   const int k_end = min(K, k_begin + kchunk);
   const int ldw = N / CPB;                  // bytes per weight row
+  const uint8_t* __restrict__ w = p.w + (size_t)e * K * ldw;
+  const float* __restrict__ a = static_cast<const float*>(p.a) +
+                                (size_t)e * M * K;
   const int byte0 = n0 / CPB;
   const bool vec_ok = (ldw % 4 == 0) &&
                       ((reinterpret_cast<uintptr_t>(w) & 3) == 0);
@@ -210,8 +268,7 @@ __global__ void __launch_bounds__(TX * TY) qmatmul_kernel(const Args p) {
       const int m = m0 + r;
       const int k = k0 + kk;
       float v = 0.0f;
-      if (m < M && k < k_end)
-        v = static_cast<const float*>(p.a)[(size_t)m * K + k];
+      if (m < Mv && k < k_end) v = a[(size_t)m * K + k];
       s_a[r * AS + kk] = v;
     }
     // weights: packed bytes -> codes -> levels, (BK, BN) f32 in shared
@@ -277,7 +334,7 @@ __global__ void __launch_bounds__(TX * TY) qmatmul_kernel(const Args p) {
     __syncthreads();
   }
 
-  float* dst = p.part + (size_t)split * M * N;
+  float* dst = p.part + ((size_t)split * p.E + e) * M * N;
   const bool vec_out = (N % 4 == 0);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -493,8 +550,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
 
 // Tiles of at least this many rows sum every split of K inside the block
 // and write the result; narrower ones split K across blocks for the reduce
-// kernel to add.
+// kernel to add, or write the result too where there is one split.
 constexpr int WG_IN_BLOCK_BM = 64;
+
+// Whether the body writes the output itself, with no split-K scratch and no
+// reduce pass: the warpgroup body (bf16 activations, `wg`) in a tile that
+// sums its splits, or with a single split.  The one statement of the rule:
+// the launch, the reduce and the caller's scratch size
+// (qmatmul_scratch_splits) all read it.
+constexpr bool wg_writes_out(int wg, int bm, int splitk) {
+  return wg && (bm >= WG_IN_BLOCK_BM || splitk == 1);
+}
 
 // Shared memory of the warpgroup body (dynamic), in bytes.
 template <int BITS, int BM>
@@ -603,9 +669,6 @@ __global__ void __launch_bounds__(MMA_NT, BM <= 16 ? 4 : BM <= 32 ? 3
   const uint32_t empty0 = full0 + 8 * NS;           // 8 bytes each
 
   const int M = p.M, K = p.K, N = p.N;
-  const __nv_bfloat16* __restrict__ a =
-      static_cast<const __nv_bfloat16*>(p.a);
-  const uint8_t* __restrict__ w = p.w;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -613,10 +676,20 @@ __global__ void __launch_bounds__(MMA_NT, BM <= 16 ? 4 : BM <= 32 ? 3
   const int tig = lane & 3;      // A k pair / D column (token) pair
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
-  const int split = blockIdx.z;
+  int e, split;
+  expert_split(p, e, split);
+  const int Mv = rows_used(p, e);            // rows of a read; the rest 0
+  const bool direct = p.direct;               // writes `out`, not `part`
+  if (m0 >= Mv) {
+    zero_tile(p, e, split, m0, BM, n0, direct);
+    return;
+  }
   const int k_begin = IN_BLOCK ? 0 : split * p.kchunk;
   const int k_end = IN_BLOCK ? K : min(K, k_begin + p.kchunk);
   const int ldw = N * BITS / 8;              // bytes per weight row
+  const __nv_bfloat16* __restrict__ a =
+      static_cast<const __nv_bfloat16*>(p.a) + (size_t)e * M * K;
+  const uint8_t* __restrict__ w = p.w + (size_t)e * K * ldw;
   const int wbyte0 = n0 * BITS / 8;
   const bool vec_w = (ldw % 16 == 0) &&
                      ((reinterpret_cast<uintptr_t>(w) & 15) == 0);
@@ -649,7 +722,7 @@ __global__ void __launch_bounds__(MMA_NT, BM <= 16 ? 4 : BM <= 32 ? 3
         const int j = c & 7;
         const int m = m0 + r;
         const int k = k0 + 8 * j;
-        const int nbytes = m < M ? 2 * max(0, min(8, k_end - k)) : 0;
+        const int nbytes = m < Mv ? 2 * max(0, min(8, k_end - k)) : 0;
         copy16(s_a + buf * AST + r * 128 + ((j ^ (r & 7)) << 4),
                a_bytes + ((size_t)m * K + k) * 2, nbytes, vec_a, a_bytes);
       }
@@ -790,11 +863,13 @@ __global__ void __launch_bounds__(MMA_NT, BM <= 16 ? 4 : BM <= 32 ? 3
         const int n = c ? col1 : col0;
         const int i = 4 * j + 2 * c + h;
         if (n >= N) continue;
-        const size_t o = (size_t)m * N + n;
-        if constexpr (!IN_BLOCK) {
-          p.part[(size_t)split * M * N + o] = acc[i];
+        const size_t o = ((size_t)e * M + m) * N + n;
+        if (!direct) {
+          p.part[(size_t)split * p.E * M * N + o] = acc[i];
         } else {
-          const float v = first ? acc[i] : total[i * MMA_NT] + acc[i];
+          float v = acc[i];
+          if constexpr (IN_BLOCK)
+            if (!first) v = total[i * MMA_NT] + acc[i];
           if (p.out_bf16)
             static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16(v);
           else
@@ -816,9 +891,11 @@ int launch_wg(const Args& p, int splitk, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     ready = true;
   }
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM,
-            BM >= WG_IN_BLOCK_BM ? 1 : splitk);
-  qmatmul_wg_kernel<BITS, BM, WM><<<grid, MMA_NT, bytes, stream>>>(p);
+  Args q = p;
+  q.zsplit = BM >= WG_IN_BLOCK_BM ? 1 : splitk;
+  q.direct = wg_writes_out(1, BM, splitk);
+  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, q.zsplit * p.E);
+  qmatmul_wg_kernel<BITS, BM, WM><<<grid, MMA_NT, bytes, stream>>>(q);
   return 0;
 }
 
@@ -1138,8 +1215,10 @@ __global__ void qmatmul_reduce_kernel(const float* __restrict__ part,
 template <int BITS, int TX, int TY, int TM, int TN, int WM>
 void launch_tile(const Args& p, int splitk, cudaStream_t stream) {
   constexpr int BM = TY * TM;
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splitk);
-  qmatmul_kernel<BITS, TX, TY, TM, TN, WM><<<grid, TX * TY, 0, stream>>>(p);
+  Args q = p;
+  q.zsplit = splitk;
+  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splitk * p.E);
+  qmatmul_kernel<BITS, TX, TY, TM, TN, WM><<<grid, TX * TY, 0, stream>>>(q);
 }
 
 template <int BITS, int WM>
@@ -1192,6 +1271,8 @@ Args make_args(int M, int K, int N, int splitk, float* part, void* out,
   p.part = part;
   p.out = out;
   p.out_bf16 = out_bf16;
+  p.E = 1;
+  p.zsplit = splitk;
   return p;
 }
 
@@ -1202,7 +1283,7 @@ int reduce(int rc, const Args& p, int splitk, bool written,
   if (rc != 0) return rc;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || written) return static_cast<int>(err);
-  const size_t mn = (size_t)p.M * p.N;
+  const size_t mn = (size_t)p.E * p.M * p.N;
   const int threads = 256;
   const unsigned blocks = (unsigned)((mn + threads - 1) / threads);
   qmatmul_reduce_kernel<<<blocks, threads, 0, stream>>>(
@@ -1215,13 +1296,28 @@ int reduce(int rc, const Args& p, int splitk, bool written,
 // Each entry point returns 0 on success, a cudaError_t value if a launch was
 // refused, or a negative value for an argument the kernel does not take.
 
-// a: (M, K) f32 (a_bf16 = 0) or bf16; Gaussian levels.
+// The split-K scratch a call needs, in (M, N) f32 blocks per expert: none
+// where the body writes the output itself, else one per split.  `wg`: the
+// warpgroup body runs (bf16 activations, not qmatmul_a8).
+extern "C" int qmatmul_scratch_splits(int wg, int bm, int splitk) {
+  return wg_writes_out(wg, bm, splitk) ? 0 : splitk;
+}
+
+// E matmuls of one shape in one launch (E = 1: a plain call), expert e on
+// the grid's z axis after its splits.  a: (E, M, K) f32 (a_bf16 = 0) or
+// bf16; w: (E, K, N/2) uint8 or (E, K, N) int8, one after another; out:
+// (E, M, N).  rows: null (every row used) or (E,) int32 on the device, the
+// rows of expert e's block that hold activations: rows at or past rows[e]
+// are read as zeros, and a block with none of its rows in use writes zeros
+// and reads no weight byte.  The statistics (Gaussian levels) or the
+// codebook are shared by the E experts.
 extern "C" int qmatmul_launch(const void* a, int a_bf16, const void* w,
                               int bits, const float* mu, const float* sigma,
-                              const float* table, float* part, void* out,
-                              int out_bf16, int M, int K, int N, int bm,
-                              int splitk, void* stream_ptr) {
-  const int bad = check_shape(bits, M, K, N, splitk);
+                              const float* table, const int* rows, int E,
+                              float* part, void* out, int out_bf16, int M,
+                              int K, int N, int bm, int splitk,
+                              void* stream_ptr) {
+  const int bad = E <= 0 ? -5 : check_shape(bits, M, K, N, splitk);
   if (bad) return bad;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Args p = make_args(M, K, N, splitk, part, out, out_bf16);
@@ -1230,29 +1326,34 @@ extern "C" int qmatmul_launch(const void* a, int a_bf16, const void* w,
   p.mu = mu;
   p.sigma = sigma;
   p.table = table;
+  p.rows = rows;
+  p.E = E;
   const int rc = launch_body<W_GAUSS>(a_bf16, bits, bm, p, splitk, stream);
-  return reduce(rc, p, splitk, a_bf16 && bm >= WG_IN_BLOCK_BM, stream);
+  return reduce(rc, p, splitk, wg_writes_out(a_bf16, bm, splitk), stream);
 }
 
-// a: (M, K) f32 or bf16; lut: (k,) shared by every column (lut_per_col = 0)
-// or (k, N).
+// As qmatmul_launch with codebook levels: lut (k,) shared by every column
+// (lut_per_col = 0) or (k, N).
 extern "C" int qmatmul_lut_launch(const void* a, int a_bf16, const void* w,
                                   int bits, const float* lut, int lut_per_col,
-                                  float* part, void* out, int out_bf16, int M,
-                                  int K, int N, int bm, int splitk,
+                                  const int* rows, int E, float* part,
+                                  void* out, int out_bf16, int M, int K,
+                                  int N, int bm, int splitk,
                                   void* stream_ptr) {
-  const int bad = check_shape(bits, M, K, N, splitk);
+  const int bad = E <= 0 ? -5 : check_shape(bits, M, K, N, splitk);
   if (bad) return bad;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   Args p = make_args(M, K, N, splitk, part, out, out_bf16);
   p.a = a;
   p.w = static_cast<const uint8_t*>(w);
   p.lut = lut;
+  p.rows = rows;
+  p.E = E;
   const int rc =
       lut_per_col
           ? launch_body<W_LUT_COL>(a_bf16, bits, bm, p, splitk, stream)
           : launch_body<W_LUT_SHARED>(a_bf16, bits, bm, p, splitk, stream);
-  return reduce(rc, p, splitk, a_bf16 && bm >= WG_IN_BLOCK_BM, stream);
+  return reduce(rc, p, splitk, wg_writes_out(a_bf16, bm, splitk), stream);
 }
 
 // a_codes: (M, K) int8; scale: (M,) (scale_per_row = 1) or one f32 value;

@@ -5,7 +5,9 @@ function, and the launch counters (the build of the CUDA sources is
 
 ``qmatmul`` / ``qmatmul_lut`` / ``qmatmul_a8`` here take activations of any
 leading shape and per-tensor or per-channel statistics and hand the kernel
-wrappers what they take: a 2-D contiguous ``a`` and (1, N) statistics.
+wrappers what they take: a 2-D contiguous ``a`` and (1, N) statistics;
+``qmatmul_experts`` / ``qmatmul_lut_experts`` take an (E, C, K) expert
+buffer and a layer's stacked statistics ((1, 1, N) or (1, 1, 1)).
 ``quantize_weights`` / ``dequantize_weights`` take values of any shape with
 statistics that broadcast against them and hand the codec kernels the
 (G, R, C) layout.  ``uniq_transform`` differentiates through the
@@ -34,6 +36,8 @@ _COUNTED = {"qmatmul": _qmm.qmatmul,
             "uniq_noise_bwd": _un.uniq_noise_bwd,
             "qmatmul_a8": _qmm.qmatmul_a8,
             "qmatmul_lut": _qmm.qmatmul_lut,
+            "qmatmul_experts": _qmm.qmatmul_experts,
+            "qmatmul_lut_experts": _qmm.qmatmul_lut_experts,
             "kquantile_quantize": _kq.kquantile_quantize,
             "kquantile_dequantize": _kq.kquantile_dequantize,
             "kquantile_dequantize_paged": _kq.kquantile_dequantize_paged,
@@ -133,6 +137,46 @@ def qmatmul_a8(a_codes: torch.Tensor, a_scale: torch.Tensor,
     return out.reshape(*a_codes.shape[:-1], N)
 
 
+def qmatmul_experts(a: torch.Tensor, w_packed: torch.Tensor,
+                    mu: torch.Tensor, sigma: torch.Tensor,
+                    rows: torch.Tensor, *, bits: int, out_dtype=torch.float32,
+                    use_kernel: bool = True, **tuning) -> torch.Tensor:
+    """a (E, C, K) @ dequant(w[e]) (K, N) for each expert e -> (E, C, N),
+    rows of expert e at or past ``rows[e]`` (E,) taken as zeros.
+
+    ``mu``/``sigma`` are the layer's statistics shared by its experts, of
+    any shape with N or 1 trailing elements.  ``use_kernel=False`` is the
+    comparison hook: the plain version on whatever device the tensors are
+    on.
+    """
+    N = w_packed.shape[-1] * 2 if bits == 4 else w_packed.shape[-1]
+    mu = _stats(mu.reshape(1, -1), N)
+    sigma = _stats(sigma.reshape(1, -1), N)
+    rows = rows.to(torch.int32)
+    if use_kernel:
+        return _qmm.qmatmul_experts(a.contiguous(), w_packed, mu, sigma,
+                                    rows.contiguous(), bits=bits,
+                                    out_dtype=out_dtype, **tuning)
+    return _qmm.qmatmul_experts_plain(a, w_packed, mu, sigma, rows,
+                                      bits=bits, out_dtype=out_dtype)
+
+
+def qmatmul_lut_experts(a: torch.Tensor, w_packed: torch.Tensor,
+                        lut: torch.Tensor, rows: torch.Tensor, *, bits: int,
+                        out_dtype=torch.float32, use_kernel: bool = True,
+                        **tuning) -> torch.Tensor:
+    """``qmatmul_experts`` with a codebook ``lut`` (k,) or (k, N) f32 shared
+    by the experts.  ``use_kernel=False`` is the comparison hook."""
+    rows = rows.to(torch.int32)
+    if use_kernel:
+        return _qmm.qmatmul_lut_experts(a.contiguous(), w_packed,
+                                        lut.contiguous(), rows.contiguous(),
+                                        bits=bits, out_dtype=out_dtype,
+                                        **tuning)
+    return _qmm.qmatmul_lut_experts_plain(a, w_packed, lut, rows, bits=bits,
+                                          out_dtype=out_dtype)
+
+
 # --------------------------------------------------------------------------
 # The deterministic k-quantile codec (serving: weights at load, KV rows)
 # --------------------------------------------------------------------------
@@ -146,7 +190,9 @@ def codec_layout(shape, C: int, mu: torch.Tensor, sigma: torch.Tensor):
     the axes between them and the last one, along which they are constant:
     per-channel (1, N) statistics of a (K, N) weight give (1, K, N),
     per-layer (L, 1, N) of a stacked (L, K, N) weight (L, K, N), per-row
-    (..., KV, 1) of KV rows (..., KV, hd) (rows * KV, 1, hd).
+    (..., KV, 1) of KV rows (..., KV, hd) (rows * KV, 1, hd).  Where R * C
+    would reach ``kquantile.MAX_GROUP``, leading axes of R move into G (the
+    statistics are expanded along them): the codes do not change.
     """
     nd = len(shape)
     lead = tuple(shape[:-1])
@@ -162,6 +208,12 @@ def codec_layout(shape, C: int, mu: torch.Tensor, sigma: torch.Tensor):
     p = nd - 1
     while p > 0 and s_shape[p - 1] == 1:
         p -= 1
+    # a group the kernels refuse (2^31 elements or more) is cut along its
+    # leading axes, over which the statistics are constant: the layer slice
+    # of an expert stack (1, E, d, f) with per-column statistics is E groups
+    # of (d, f)
+    while p < nd - 1 and math.prod(lead[p:]) * C >= _kq.MAX_GROUP:
+        p += 1
     G = math.prod(lead[:p])
     R = math.prod(lead[p:])
 

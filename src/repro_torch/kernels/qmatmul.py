@@ -3,7 +3,10 @@ PyTorch versions.
 
 Replaces the TPU kernels ``qmatmul``, ``qmatmul_lut`` (codebook levels, the
 serving path of ``dist="empirical"`` checkpoints) and ``qmatmul_a8`` (int8
-activation codes) of ``src/repro/kernels/qmatmul.py``.  The kernel source
+activation codes) of ``src/repro/kernels/qmatmul.py``.  ``qmatmul_experts``
+/ ``qmatmul_lut_experts`` run the same bodies over a stack of E experts in
+one launch (the MoE expert matmuls, which the reference computes as a
+``materialize`` of the whole stack and an einsum).  The kernel source
 is ``csrc/qmatmul.cu`` (see its header for what bounds it on Hopper and what
 the design does about that).  Each wrapper launches its kernel for CUDA
 tensors and takes the plain version only for CPU tensors.
@@ -45,9 +48,6 @@ TUNED_BLOCKS = {
 _TILES = {"qmatmul_launch": (8, 16, 32, 64, 128),
           "qmatmul_lut_launch": (8, 16, 32, 64, 128),
           "qmatmul_a8_launch": (8, 16, 32, 64)}
-_IN_BLOCK_BM = 64             # csrc/qmatmul.cu WG_IN_BLOCK_BM: bf16 tiles this
-                              # tall sum every split in the block and write
-                              # the output, with no split-K scratch
 
 _DECODE_M_MAX = 32
 _MAX_SPLITK = 16
@@ -70,12 +70,13 @@ def default_blocks(M: int, a8: bool = False) -> BlockConfig:
     return TUNED_BLOCKS["prefill"]
 
 
-def default_splitk(K: int, N: int) -> int:
+def default_splitk(K: int, N: int, E: int = 1) -> int:
     """Split count over K: a power of two that brings the grid near
-    ``_TARGET_BLOCKS`` blocks, each split at least 256 rows of K deep.  A
-    function of (K, N) only — never of M — so a row's summation order, and
-    with it its bits, do not depend on which rows share the call."""
-    n_blocks = -(-N // 128)
+    ``_TARGET_BLOCKS`` blocks (over the E experts of an expert call), each
+    split at least 256 rows of K deep.  A function of (K, N, E) only —
+    never of M — so a row's summation order, and with it its bits, do not
+    depend on which rows share the call."""
+    n_blocks = -(-N // 128) * E
     want = max(1, min(_MAX_SPLITK, _TARGET_BLOCKS // n_blocks, K // 256))
     return 1 << (want.bit_length() - 1)
 
@@ -118,6 +119,41 @@ def qmatmul_a8_plain(a_codes: torch.Tensor, a_scale: torch.Tensor,
     computes ``lm.mm_a``)."""
     return kref.qmatmul_a8_ref(a_codes, a_scale, w_packed, mu, sigma, bits,
                                out_dtype)
+
+
+def _expert_rows_mask(a: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(E, C, K) activations with the rows at or past ``rows[e]`` of expert
+    e set to zero (by ``where``, so a NaN there is not read), as the expert
+    kernels read them."""
+    used = torch.arange(a.shape[1], device=a.device)[None, :] \
+        < rows.to(device=a.device, dtype=torch.int64)[:, None]
+    return torch.where(used[..., None], a, torch.zeros((), dtype=a.dtype,
+                                                       device=a.device))
+
+
+def qmatmul_experts_plain(a: torch.Tensor, w_packed: torch.Tensor,
+                          mu: torch.Tensor, sigma: torch.Tensor,
+                          rows: torch.Tensor, *, bits: int,
+                          out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the expert matmul: the unused rows zeroed, then
+    ``qmatmul_plain`` expert by expert (one expert's weight dequantized at
+    a time; the stack never is)."""
+    a = _expert_rows_mask(a, rows)
+    return torch.stack([qmatmul_plain(a[e], w_packed[e], mu, sigma,
+                                      bits=bits, out_dtype=out_dtype)
+                        for e in range(a.shape[0])])
+
+
+def qmatmul_lut_experts_plain(a: torch.Tensor, w_packed: torch.Tensor,
+                              lut: torch.Tensor, rows: torch.Tensor, *,
+                              bits: int,
+                              out_dtype=torch.float32) -> torch.Tensor:
+    """Plain version of the codebook expert matmul: the unused rows zeroed,
+    then ``qmatmul_lut_plain`` expert by expert."""
+    a = _expert_rows_mask(a, rows)
+    return torch.stack([qmatmul_lut_plain(a[e], w_packed[e], lut, bits=bits,
+                                          out_dtype=out_dtype)
+                        for e in range(a.shape[0])])
 
 
 def _check_w(w_packed, bits, K):
@@ -164,12 +200,16 @@ def _check_out_and_devices(out_dtype, a, *others):
                            f"{a.device}")
 
 
+_TAIL = "ppiiiiiip"     # part, out, out_bf16, M, K, N, bm, splitk, stream
 _ARGTYPES = {
-    # the operands before the shared tail (part, out, out_bf16, M, K, N, bm,
-    # splitk, stream) of each C entry point: p = pointer, i = int
-    "qmatmul_launch": "pipippp",
-    "qmatmul_lut_launch": "pipipi",
-    "qmatmul_a8_launch": "ppipippp",
+    # each C entry point's arguments: p = pointer, i = int.  The matmuls'
+    # operands come before the shared tail; qmatmul_launch and
+    # qmatmul_lut_launch take the expert rows and count E (null and 1 for a
+    # plain call)
+    "qmatmul_launch": "pipippppi" + _TAIL,
+    "qmatmul_lut_launch": "pipipipi" + _TAIL,
+    "qmatmul_a8_launch": "ppipippp" + _TAIL,
+    "qmatmul_scratch_splits": "iii",
 }
 _FNS = {}
 
@@ -181,17 +221,20 @@ def _bind(name: str):
     if fn is None:
         fn = getattr(loader.load("qmatmul"), name)
         c = {"p": ctypes.c_void_p, "i": ctypes.c_int}
-        fn.argtypes = [c[t] for t in _ARGTYPES[name] + "ppiiiiiip"]
+        fn.argtypes = [c[t] for t in _ARGTYPES[name]]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
 
 
+_MAX_GRID_Z = 65535
+
+
 def _launch(name, operands, tensors, M, K, N, out_dtype, blocks, splitk,
-            what):
+            what, E=1):
     """Checks that ``tensors`` (name -> tensor) are contiguous, allocates the
-    split-K scratch and the output on their device and runs entry point
-    ``name`` with ``operands`` followed by the shared tail."""
+    split-K scratch and the (E * M, N) output on their device and runs entry
+    point ``name`` with ``operands`` followed by the shared tail."""
     for tname, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{tname} must be contiguous")
@@ -199,15 +242,20 @@ def _launch(name, operands, tensors, M, K, N, out_dtype, blocks, splitk,
         M, a8=name == "qmatmul_a8_launch")
     if cfg.bm not in _TILES[name]:
         raise ValueError(f"no kernel instantiation for {cfg} in {name}")
-    nsplit = splitk if splitk is not None else default_splitk(K, N)
-    in_block = (name != "qmatmul_a8_launch" and cfg.bm >= _IN_BLOCK_BM
-                and tensors["a"].dtype == torch.bfloat16)
+    nsplit = splitk if splitk is not None else default_splitk(K, N, E)
+    if nsplit * E > _MAX_GRID_Z:
+        raise ValueError(f"{name}: {E} experts x {nsplit} splits exceed the "
+                         f"grid's {_MAX_GRID_Z} blocks along z")
     fn = _bind(name)
+    # the warpgroup body (bf16 activations) may write the output itself:
+    # the kernel source says when, and so how much scratch the call needs
+    wg = name != "qmatmul_a8_launch" and tensors["a"].dtype == torch.bfloat16
+    n_part = _bind("qmatmul_scratch_splits")(int(wg), cfg.bm, nsplit)
     dev = next(iter(tensors.values())).device
     with loader.on_device(dev):
-        part = torch.empty((0 if in_block else nsplit, M, N),
-                           dtype=torch.float32, device=dev)
-        out = torch.empty((M, N), dtype=out_dtype, device=dev)
+        part = torch.empty((n_part, E * M, N), dtype=torch.float32,
+                           device=dev)
+        out = torch.empty((E * M, N), dtype=out_dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*operands, part.data_ptr(), out.data_ptr(),
                 int(out_dtype == torch.bfloat16), M, K, N, cfg.bm, nsplit,
@@ -244,7 +292,7 @@ def qmatmul(a: torch.Tensor, w_packed: torch.Tensor, mu: torch.Tensor,
     out = _launch("qmatmul_launch",
                   (a.data_ptr(), int(a.dtype == torch.bfloat16),
                    w_packed.data_ptr(), bits, mu.data_ptr(), sigma.data_ptr(),
-                   table.data_ptr()),
+                   table.data_ptr(), None, 1),
                   {"a": a, "w": w_packed, "mu": mu, "sigma": sigma},
                   M, K, N, out_dtype, blocks, splitk, f"bits={bits}")
     qmatmul.launches += 1
@@ -282,7 +330,7 @@ def qmatmul_lut(a: torch.Tensor, w_packed: torch.Tensor, lut: torch.Tensor,
     out = _launch("qmatmul_lut_launch",
                   (a.data_ptr(), int(a.dtype == torch.bfloat16),
                    w_packed.data_ptr(), bits, lut.data_ptr(),
-                   int(lut.ndim == 2)),
+                   int(lut.ndim == 2), None, 1),
                   {"a": a, "w": w_packed, "lut": lut},
                   M, K, N, out_dtype, blocks, splitk,
                   f"bits={bits}, lut {tuple(lut.shape)}")
@@ -339,6 +387,95 @@ def qmatmul_a8(a_codes: torch.Tensor, a_scale: torch.Tensor,
     return out
 
 
+def _check_experts(a, w_packed, rows, bits):
+    """Checks an expert call; returns (E, C, K, N)."""
+    if a.ndim != 3:
+        raise ValueError(f"a must be (E, C, K), got {tuple(a.shape)}")
+    if a.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"a must be bfloat16 or float32, got {a.dtype}")
+    E, C, K = a.shape
+    if w_packed.ndim != 3 or w_packed.shape[0] != E:
+        raise ValueError(f"w must be ({E}, K, N) codes, got "
+                         f"{tuple(w_packed.shape)}")
+    N = _check_w(w_packed[0], bits, K)
+    if rows.dtype != torch.int32 or tuple(rows.shape) != (E,):
+        raise ValueError(f"rows must be ({E},) int32, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    return E, C, K, N
+
+
+def qmatmul_experts(a: torch.Tensor, w_packed: torch.Tensor,
+                    mu: torch.Tensor, sigma: torch.Tensor,
+                    rows: torch.Tensor, *, bits: int,
+                    out_dtype=torch.float32,
+                    blocks: Optional[BlockConfig] = None,
+                    splitk: Optional[int] = None) -> torch.Tensor:
+    """E products in one launch: out[e] = a[e] (C, K) @ dequant(w[e]) (K, N),
+    the rows of a[e] at or past ``rows[e]`` taken as zeros.
+
+    a        : (E, C, K) bf16 or f32.
+    w_packed : (E, K, N//2) uint8 if bits==4 else (E, K, N) int8.
+    mu/sigma : (1, N) f32, shared by the experts (per-column statistics of
+               the layer's whole stack).
+    rows     : (E,) int32 on a's device, never read on the host.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take the plain
+    version.  ``qmatmul_experts.launches`` counts kernel launches.
+    """
+    E, C, K, N = _check_experts(a, w_packed, rows, bits)
+    _check_stats(mu, sigma, N)
+    _check_out_and_devices(out_dtype, a, w_packed, mu, sigma, rows)
+    if a.device.type == "cpu":
+        return qmatmul_experts_plain(a, w_packed, mu, sigma, rows,
+                                     bits=bits, out_dtype=out_dtype)
+    if C == 0:
+        return torch.empty((E, 0, N), dtype=out_dtype, device=a.device)
+    table = kref.level_table(2 ** bits, a.device)
+    res = _launch("qmatmul_launch",
+                  (a.data_ptr(), int(a.dtype == torch.bfloat16),
+                   w_packed.data_ptr(), bits, mu.data_ptr(), sigma.data_ptr(),
+                   table.data_ptr(), rows.data_ptr(), E),
+                  {"a": a, "w": w_packed, "mu": mu, "sigma": sigma,
+                   "rows": rows},
+                  C, K, N, out_dtype, blocks, splitk, f"bits={bits}, E={E}",
+                  E=E)
+    qmatmul_experts.launches += 1
+    return res.reshape(E, C, N)
+
+
+def qmatmul_lut_experts(a: torch.Tensor, w_packed: torch.Tensor,
+                        lut: torch.Tensor, rows: torch.Tensor, *, bits: int,
+                        out_dtype=torch.float32,
+                        blocks: Optional[BlockConfig] = None,
+                        splitk: Optional[int] = None) -> torch.Tensor:
+    """``qmatmul_experts`` with codebook levels: ``lut`` (k,) (the layer's
+    one codebook, the engine's ``q_lut`` slice) or (k, N) f32, shared by
+    the experts.  ``qmatmul_lut_experts.launches`` counts kernel launches.
+    """
+    E, C, K, N = _check_experts(a, w_packed, rows, bits)
+    k = 2 ** bits
+    if lut.dtype != torch.float32 or tuple(lut.shape) not in ((k,), (k, N)):
+        raise ValueError(f"lut must be ({k},) or ({k}, {N}) float32, got "
+                         f"{tuple(lut.shape)} {lut.dtype}")
+    _check_out_and_devices(out_dtype, a, w_packed, lut, rows)
+    if a.device.type == "cpu":
+        return qmatmul_lut_experts_plain(a, w_packed, lut, rows, bits=bits,
+                                         out_dtype=out_dtype)
+    if C == 0:
+        return torch.empty((E, 0, N), dtype=out_dtype, device=a.device)
+    res = _launch("qmatmul_lut_launch",
+                  (a.data_ptr(), int(a.dtype == torch.bfloat16),
+                   w_packed.data_ptr(), bits, lut.data_ptr(),
+                   int(lut.ndim == 2), rows.data_ptr(), E),
+                  {"a": a, "w": w_packed, "lut": lut, "rows": rows},
+                  C, K, N, out_dtype, blocks, splitk,
+                  f"bits={bits}, lut {tuple(lut.shape)}, E={E}", E=E)
+    qmatmul_lut_experts.launches += 1
+    return res.reshape(E, C, N)
+
+
 qmatmul.launches = 0
 qmatmul_lut.launches = 0
 qmatmul_a8.launches = 0
+qmatmul_experts.launches = 0
+qmatmul_lut_experts.launches = 0

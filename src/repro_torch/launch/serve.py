@@ -21,7 +21,9 @@ Continuous-batching engine:
 drives a synthetic Poisson request stream and reports tokens/s,
 time-to-first-token, inter-token latency, slot occupancy, preemptions and
 effective KV utilization.  ``--smoke --device cpu`` runs the tiny variant of
-the architecture on the CPU.
+the architecture on the CPU.  ``--arch`` takes every architecture of the
+registry whose family is ported: dense (granite_3_8b, gemma2_9b, yi_6b,
+stablelm_12b) and moe (kimi_k2_1t_a32b, llama4_maverick_400b_a17b).
 
 The KV cache is paged by default (--cache-mode paged): sequences grow page
 by page out of a shared pool (--total-pages or a --pool-bytes byte budget)
@@ -309,7 +311,10 @@ def run_closed_batch(params, cfg, opts, args, device="cuda") -> dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True, choices=cb.ARCH_IDS,
+                   help="a registered architecture; the dense and moe "
+                        "families serve, the others raise "
+                        "NotImplementedError")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--w-bits", type=int, default=4)
     p.add_argument("--w-dist", choices=("gaussian", "empirical"),

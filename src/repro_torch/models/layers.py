@@ -85,7 +85,8 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
     """LeCun-normal in the matmul reduction dimension."""
     fan_in = shape[in_axis]
     std = (1.0 / fan_in) ** 0.5
-    return (_truncated_normal(gen, shape, device) * std).to(dtype)
+    # scaled in place: a full-width expert slice is 22.5 GB of f32
+    return _truncated_normal(gen, shape, device).mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32,

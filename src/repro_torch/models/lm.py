@@ -1,5 +1,6 @@
-"""Dense decoder-only LM: the training forward (``forward_train`` +
-``chunked_ce_loss``) and the serving path (prefill, chunked prefill, decode).
+"""Decoder-only LM (the dense and MoE families): the training forward
+(``forward_train`` + ``chunked_ce_loss``, dense only) and the serving path
+(prefill, chunked prefill, decode).
 
 Every per-layer parameter carries a leading (L,) axis and the forward pass
 is a Python loop over ``leaf[l]`` views.  Serving-time weights may be
@@ -8,8 +9,10 @@ k-quantile-coded: a weight leaf replaced by a ``{"q_codes", "q_mu",
 empirical codebook; see ``quantize_params_for_serving``) is multiplied
 through the dequant-fused ``qmatmul`` / ``qmatmul_lut`` kernel on the card
 (its plain version on the CPU), and with ``serve_a_bits < 32`` through the
-int8-activation ``qmatmul_a8``.  ``a_bits < 32`` fake-quantizes each layer's
-output (``_maybe_quant_act``).  The KV cache — the slot layout of
+int8-activation ``qmatmul_a8``.  An MoE layer's expert stacks ``eg`` / ``eu``
+/ ``ed`` go through ``models/moe.py`` (one ``qmatmul_experts`` launch per
+matrix; its f32 router is never coded).  ``a_bits < 32`` fake-quantizes each
+layer's output (``_maybe_quant_act``).  The KV cache — the slot layout of
 ``init_cache`` or the paged pool of ``init_paged_cache`` — is updated in
 place.
 """
@@ -35,11 +38,18 @@ from repro_torch.devices import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import kv_cache as kvq
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
                                        layer_norm, rms_norm, rope_cos_sin,
                                        softcap)
 
 BIG_WINDOW = 1 << 30
+# the empirical coding of one leaf slice holds an int64 rank and an f32
+# value for each element (``EmpiricalModel.cdf``): a slice of this many
+# elements or more is refused (an expert stack's layer slice at full width:
+# 5.6 G elements at kimi_k2, 5.4 G at llama4: 67 GB of them beside the
+# 22.5 GB draw)
+EMPIRICAL_MAX_ELEMS = 1 << 31
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,6 +223,12 @@ def _quantize_leaf_empirical(leaf: torch.Tensor, bits: int, stacked: bool):
     k = 2 ** bits
 
     def one(w):
+        if w.numel() >= EMPIRICAL_MAX_ELEMS:
+            raise ValueError(
+                f"empirical coding of a {tuple(w.shape)} slice "
+                f"({w.numel()} elements, at least {EMPIRICAL_MAX_ELEMS}) "
+                f"would hold an int64 rank and an f32 value per element; "
+                f"code it Gaussian (a streamed empirical fit is not ported)")
         m = EmpiricalModel.fit(w)
         codes = Q.kquantile_quantize(w, m, k)
         stored = packing.pack_int4(codes) if bits == 4 \
@@ -231,7 +247,9 @@ def _quantize_leaf(leaf: torch.Tensor, bits: int, per_channel: bool,
                    stacked: bool, dist: str = "gaussian"):
     """Code one leaf.  A stacked leaf is coded one layer at a time: its
     statistics are per layer anyway, and the temporaries stay one layer
-    large."""
+    large.  An expert stack (L, E, d, f) keeps per-(layer, column)
+    statistics over all E * d rows of the layer, as the reference's
+    ``_stats_axes`` (0, 3)."""
     if dist == "empirical":
         return _quantize_leaf_empirical(leaf, bits, stacked)
     if not stacked:
@@ -297,17 +315,19 @@ def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
 
     Matmul weights are drawn one layer at a time.  With ``w_bits`` 4 or 8
     each eligible layer slice is k-quantile coded (``w_dist`` "gaussian" or
-    "empirical") as soon as it is drawn, so a full-width model never holds
-    a dense stacked leaf: the result equals
-    ``quantize_params_for_serving(init_params(seed, cfg), w_bits,
-    dist=w_dist)``.  Leaves left dense are stored in ``dense_dtype``.
+    "empirical") as soon as it is drawn, and freed before the next is
+    drawn, so a full-width model never holds a dense stacked leaf (nor two
+    f32 layer slices of an expert stack: 22.5 GB each at kimi_k2): the
+    result equals ``quantize_params_for_serving(init_params(seed, cfg),
+    w_bits, dist=w_dist)``.  Leaves left dense are stored in
+    ``dense_dtype``, except the MoE ``router``, which stays f32.
     """
     if w_dist not in ("gaussian", "empirical"):
         raise ValueError(f"w_dist must be gaussian|empirical, got "
                          f"{w_dist!r}")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (dense and moe only)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -315,21 +335,26 @@ def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     quant = w_bits < 16
 
-    def weight(path, shape, init, stacked):
+    def weight(path, shape, init, stacked, dtype=dense_dtype, **kw):
         probe = torch.empty((1,) * len(shape)).expand(shape)
         code = quant and _eligible(path, probe, w_bits, default_quant_filter)
         if not stacked:
-            w = init(gen, shape, device=dev)
+            w = init(gen, shape, device=dev, **kw)
             return _quantize_leaf(w, w_bits, per_channel, False, w_dist) \
-                if code else w.to(dense_dtype)
-        parts = []
-        for _ in range(shape[0]):
-            w = init(gen, (1,) + tuple(shape[1:]), device=dev)
-            parts.append(_quantize_leaf(w, w_bits, per_channel, True, w_dist)
-                         if code else w.to(dense_dtype))
-        if code:
-            return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
-        return torch.cat(parts)
+                if code else w.to(dtype)
+        out = None                  # the stacked leaf, filled layer by layer
+        for l in range(shape[0]):
+            w = init(gen, (1,) + tuple(shape[1:]), device=dev, **kw)
+            part = _quantize_leaf(w, w_bits, per_channel, True, w_dist) \
+                if code else {"w": w.to(dtype)}
+            del w                   # before the next layer's slice is drawn
+            if out is None:
+                out = {k: v.new_empty((shape[0],) + tuple(v.shape[1:]))
+                       for k, v in part.items()}
+            for k, v in part.items():
+                out[k][l:l + 1].copy_(v)
+            del part
+        return out if code else out["w"]
 
     layers: Dict[str, Any] = {
         "attn_norm": norm_param(cfg, L, d, device=dev),
@@ -342,9 +367,20 @@ def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
     if cfg.post_norms:
         layers["post_attn_norm"] = torch.ones((L, d), device=dev)
         layers["post_mlp_norm"] = torch.ones((L, d), device=dev)
-    layers["w_gate"] = weight("layers/w_gate", (L, d, f), dense_init, True)
-    layers["w_up"] = weight("layers/w_up", (L, d, f), dense_init, True)
-    layers["w_down"] = weight("layers/w_down", (L, f, d), dense_init, True)
+    if cfg.is_moe:
+        E = cfg.n_experts
+        layers["router"] = weight("layers/router", (L, d, E), dense_init,
+                                  True, dtype=torch.float32)
+        layers["eg"] = weight("layers/eg", (L, E, d, f), dense_init, True)
+        layers["eu"] = weight("layers/eu", (L, E, d, f), dense_init, True)
+        layers["ed"] = weight("layers/ed", (L, E, f, d), dense_init, True,
+                              in_axis=-2)
+    else:
+        layers["w_gate"] = weight("layers/w_gate", (L, d, f), dense_init,
+                                  True)
+        layers["w_up"] = weight("layers/w_up", (L, d, f), dense_init, True)
+        layers["w_down"] = weight("layers/w_down", (L, f, d), dense_init,
+                                  True)
 
     params: Dict[str, Any] = {
         "embed": weight("embed", (V, d), embed_init, False),
@@ -470,13 +506,21 @@ def _attn_block(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
 
 
 def _ffn_block(x, lp, cfg: ArchConfig, opts: ModelOpts):
-    if cfg.is_moe:
-        raise NotImplementedError("MoE feed-forward is not ported yet")
     h = _norm(x, lp["mlp_norm"], cfg)
-    g = mm_a(h, lp["w_gate"], opts)
-    u = mm_a(h, lp["w_up"], opts)
-    g = F.silu(g) if cfg.mlp_act == "silu" else F.gelu(g, approximate="tanh")
-    o = mm_a(g * u, lp["w_down"], opts)
+    if cfg.is_moe:
+        # the reference's MoE branch: f32 router, expert stacks in the
+        # compute dtype (never through mm_a: serve_a_bits leaves them alone)
+        mcfg = moe_lib.MoEConfig(cfg.n_experts, cfg.top_k,
+                                 cfg.capacity_factor)
+        router_w = materialize(lp["router"], torch.float32, opts.use_kernels)
+        o = moe_lib.moe_ffn(h, router_w, lp["eg"], lp["eu"], lp["ed"], mcfg,
+                            act_fn=F.silu, use_kernels=opts.use_kernels)
+    else:
+        g = mm_a(h, lp["w_gate"], opts)
+        u = mm_a(h, lp["w_up"], opts)
+        g = F.silu(g) if cfg.mlp_act == "silu" \
+            else F.gelu(g, approximate="tanh")
+        o = mm_a(g * u, lp["w_down"], opts)
     if cfg.post_norms:
         o = _norm(o, lp["post_mlp_norm"], cfg)
     return o
@@ -589,7 +633,9 @@ def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch,
             "layer loop) is not ported yet; transform the tree first")
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r}: training is ported for the dense "
+            f"family only (MoE training, with moe.aux_load_balance_loss, is "
+            f"not ported yet)")
     if not isinstance(params["layers"], list):
         params = unstack_layers(params, cfg.n_layers)
     tokens = batch["tokens"]

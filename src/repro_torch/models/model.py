@@ -1,4 +1,4 @@
-"""Unified model API for the dense decoder family.
+"""Unified model API for the decoder families ported so far (dense, moe).
 
     init(seed, cfg, device)             -> params
     loss_fn(params, cfg, opts, batch)   -> scalar loss          (train)
@@ -8,7 +8,10 @@
 
 and the two serving caches: the slot cache (``init_slot_cache`` /
 ``cache_insert``: one fixed region of ``max_len`` rows per decode slot) and
-the paged pool (``init_paged_cache`` / ``cache_insert_paged``).
+the paged pool (``init_paged_cache`` / ``cache_insert_paged``).  The
+families ssm, hybrid, audio and vlm are registered (``configs/``) but not
+ported: every entry point raises ``NotImplementedError`` naming the family
+(``require_ported``).
 """
 
 from __future__ import annotations
@@ -25,39 +28,47 @@ __all__ = ["ModelOpts", "init", "loss_fn", "prefill", "decode",
            "quantize_for_serving", "cache_specs", "init_cache",
            "supports_slot_cache", "init_slot_cache", "cache_insert",
            "supports_paged_cache", "init_paged_cache", "cache_insert_paged",
-           "prefill_chunk"]
+           "prefill_chunk", "PORTED_FAMILIES", "require_ported"]
+
+# the families whose model this package has; the reference's registry also
+# holds ssm (mamba2), hybrid (zamba2), audio (whisper) and vlm (pixtral)
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def supports_paged_cache(cfg: ArchConfig) -> bool:
-    """Paged-cache serving covers the plain-KV dense decoder family."""
-    return cfg.family == "dense"
+    """Paged-cache serving covers the plain-KV decoder families, dense and
+    moe, as in the reference."""
+    return cfg.family in ("dense", "moe")
 
 
-def _require_dense(cfg: ArchConfig, what: str) -> None:
-    if not supports_paged_cache(cfg):
+def require_ported(cfg: ArchConfig, what: str) -> None:
+    """Raise NotImplementedError, naming the family, for a family this
+    package has no model of yet."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{what}: family {cfg.family!r} is not ported yet (dense only)")
+            f"{what}: family {cfg.family!r} is not ported yet (ported: "
+            f"{', '.join(PORTED_FAMILIES)})")
 
 
 def init(seed: int, cfg: ArchConfig, device="cuda", **kw) -> Any:
     """Random parameters from ``seed`` (see lm.init_params: ``w_bits`` /
     ``w_dist`` code them layer by layer, ``dense_dtype``,
     ``per_channel``)."""
-    _require_dense(cfg, "init")
+    require_ported(cfg, "init")
     return lm.init_params(seed, cfg, device=device, **kw)
 
 
 def loss_fn(params, cfg: ArchConfig, opts: ModelOpts, batch,
             uniq_scan=None) -> torch.Tensor:
     """Teacher-forced LM loss (see lm.forward_train)."""
-    _require_dense(cfg, "loss_fn")
+    require_ported(cfg, "loss_fn")
     return lm.forward_train(params, cfg, opts, batch, uniq_scan=uniq_scan)
 
 
 def prefill(params, cfg: ArchConfig, opts: ModelOpts, batch, last_idx=None):
     """``last_idx`` (B,) selects per-sequence last positions for padded
     batched prefill (see lm.forward_prefill)."""
-    _require_dense(cfg, "prefill")
+    require_ported(cfg, "prefill")
     return lm.forward_prefill(params, cfg, opts, batch, last_idx=last_idx)
 
 
@@ -65,7 +76,7 @@ def decode(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
            positions, block_tables=None):
     """One decode step against the slot cache (no ``block_tables``) or the
     paged pool (see lm.decode_step)."""
-    _require_dense(cfg, "decode")
+    require_ported(cfg, "decode")
     return lm.decode_step(params, cfg, opts, cache, tokens, positions,
                           block_tables=block_tables)
 
@@ -76,22 +87,21 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
     ``max_len`` rows, as ``device="meta"`` tensors (see lm.cache_specs).
     The reference takes a ``ShapeConfig``; the port takes its batch and
     sequence length."""
-    _require_dense(cfg, "cache_specs")
+    require_ported(cfg, "cache_specs")
     return lm.cache_specs(cfg, batch, max_len, dtype)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
     """Zeroed KV cache (L, batch, max_len, KV, hd) (see lm.init_cache)."""
-    _require_dense(cfg, "init_cache")
+    require_ported(cfg, "init_cache")
     return lm.init_cache(cfg, batch, max_len, dtype, device=device)
 
 
 def supports_slot_cache(cfg: ArchConfig) -> bool:
     """Slot-cache serving covers the families whose cache is the plain
     (L, B, S, KV, hd) KV layout written positionally by lm.decode_step,
-    as in the reference: dense and moe (the port's moe model raises until
-    it is ported)."""
+    as in the reference: dense and moe."""
     return cfg.family in ("dense", "moe")
 
 
@@ -132,7 +142,7 @@ def init_paged_cache(cfg: ArchConfig, total_pages: int, page_size: int,
                      dtype=torch.bfloat16, kv_bits: int = 16, device="cuda"):
     """Zeroed paged KV pool (page 0 is the reserved sink; see
     lm.init_paged_cache and models/kv_cache.py)."""
-    _require_dense(cfg, "paged cache")
+    require_ported(cfg, "paged cache")
     return lm.init_paged_cache(cfg, total_pages, page_size, dtype,
                                kv_bits=kv_bits, device=device)
 
@@ -147,7 +157,7 @@ def prefill_chunk(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
                   last_idx):
     """Run the next chunk of prompt tokens against (and into) the paged
     pool (see lm.prefill_chunk)."""
-    _require_dense(cfg, "chunked prefill")
+    require_ported(cfg, "chunked prefill")
     return lm.prefill_chunk(params, cfg, opts, cache, tokens, positions,
                             write_pages, write_rows, block_tables, last_idx)
 

@@ -200,9 +200,10 @@ class Engine:
     def __init__(self, params, cfg: ArchConfig, opts: ModelOpts,
                  ec: EngineConfig = EngineConfig(), device="cuda"):
         self.device = resolve_device(device)
-        if not model.supports_paged_cache(cfg):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+        model.require_ported(cfg, "Engine")
+        if not model.supports_slot_cache(cfg):
+            raise ValueError(
+                f"engine serves decoder-only KV families; got {cfg.family}")
         if ec.cache_mode not in ("paged", "slot"):
             raise ValueError(f"unknown cache_mode: {ec.cache_mode!r}")
         kv_cache.check_kv_bits(ec.kv_bits, cfg.head_dim)

@@ -102,6 +102,7 @@ def generate(params, cfg: ArchConfig, opts: ModelOpts, sc: ServeConfig,
     (a debug aid: a host sync a step) raises RuntimeError at the first step
     whose logits are not all finite.
     """
+    model.require_ported(cfg, "generate")
     tel = telemetry if telemetry is not None else tele_lib.NULL_TELEMETRY
     dev = _device_of(params)
     prompt = torch.as_tensor(prompt_tokens, device=dev)

@@ -8,7 +8,6 @@ decode bucketing, prefill coalescing and telemetry on/off leave the token
 streams bit-identical, and sampled streams replay from their seed.
 """
 
-import dataclasses
 import functools
 
 import jax
@@ -271,9 +270,10 @@ def test_engine_rejects_what_is_not_ported_and_bad_configs():
                dict(prefill_chunk=0)):
         with pytest.raises(ValueError):
             make(**kw)
-    moe = dataclasses.replace(cfg, family="moe", n_experts=4)
+    # a family still not ported (mamba2's smoke config, family "ssm")
+    ssm = tcb.get_smoke("mamba2_1_3b")
     with pytest.raises(NotImplementedError):
-        teng.Engine(pt, moe, TOPTS, teng.EngineConfig(), device="cpu")
+        teng.Engine(pt, ssm, TOPTS, teng.EngineConfig(), device="cpu")
 
 
 def test_default_device_raises_without_cuda():

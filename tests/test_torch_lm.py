@@ -299,7 +299,7 @@ def test_init_params_codes_layer_by_layer():
 
 
 def test_not_yet_ported_options_raise_plainly():
-    """The MoE family still raises; the int8 activation codec
+    """A family not ported (ssm) still raises; the int8 activation codec
     (serve_a_bits=8) and empirical codebooks are ported and now serve
     (their parity with the reference is test_torch_serve_modes.py), and so
     is the slot cache layout (tests/test_torch_slot.py)."""
@@ -333,10 +333,9 @@ def test_not_yet_ported_options_raise_plainly():
     assert bool(torch.isfinite(logits).all())
     assert cache["k"][:, :, 0].abs().sum() > 0
     assert not cache["k"][:, :, 1:].any()
-    import dataclasses
-    moe = dataclasses.replace(cfg, family="moe", n_experts=4)
+    # a family still not ported (mamba2's smoke config, family "ssm")
     with pytest.raises(NotImplementedError):
-        tmodel.init(0, moe, device="cpu")
+        tmodel.init(0, tcb.get_smoke("mamba2_1_3b"), device="cpu")
 
 
 def test_default_device_is_the_card():

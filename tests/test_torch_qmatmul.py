@@ -174,7 +174,8 @@ def test_launch_counter_counts_only_kernel_launches():
                            "uniq_noise_fwd", "uniq_noise_bwd", "qmatmul_a8",
                            "qmatmul_lut", "kquantile_quantize",
                            "kquantile_dequantize", "uniq_noise_fwd_onchip",
-                           "kquantile_dequantize_paged", "kv_append"}
+                           "kquantile_dequantize_paged", "kv_append",
+                           "qmatmul_experts", "qmatmul_lut_experts"}
 
 
 # -- the warpgroup body's arithmetic, emulated on the CPU ---------------------
