@@ -703,8 +703,19 @@ def check_qmatmul_experts(gen, quick: bool):
                              (2, 1, 64, 2, 1), (16, 64, 2048, 1024, 12)):
         cases.append(("ragged", E, C, K, N, functools.partial(
             make_expert_rows, gen, E, C, used)))
-    if quick:      # kimi_k2 eg at C = 8 and 32, llama4 eg at C = 16, ragged
-        cases = [cases[0], cases[3], cases[10]] + cases[-6:-3]
+    # the edges of the expert body's walk: no expert in use (at kimi_k2's
+    # width: every row zero, no weight byte read), every expert in use,
+    # one expert
+    E, K, N = EXPERT_WIDTHS["kimi_k2_1t_a32b"][0]
+    cases += [("no expert in use", E, 8, K, N, functools.partial(
+                  make_expert_rows, gen, E, 8, 0)),
+              ("every expert in use", 12, 8, 2048, 1024, functools.partial(
+                  make_expert_rows, gen, 12, 8, 12)),
+              ("one expert", 1, 16, 2048, 1024, functools.partial(
+                  make_expert_rows, gen, 1, 16, 1))]
+    if quick:      # kimi_k2 eg at C = 8 and 32, llama4 eg at C = 16, ragged,
+        # the three edges
+        cases = [cases[0], cases[3], cases[10]] + cases[-9:-6] + cases[-3:]
     for arch, E, C, K, N, make_rows in cases:
         rows = make_rows()
         used = int((rows > 0).sum())
@@ -751,22 +762,42 @@ def check_qmatmul_experts(gen, quick: bool):
             f"and scratch allocated as NaN: ok")
         torch.cuda.empty_cache()
     # an expert's rows do not depend on the other experts of the call:
-    # expert e alone, at the full call's split count, gives the same bits
-    t = make_expert_inputs(gen, 8, 16, 1024, 512, 4, torch.bfloat16,
-                           make_expert_rows(gen, 8, 16, 8))
-    full = qmm.qmatmul_experts(t["a"], t["w"], t["mu"], t["sigma"],
-                               t["rows"], bits=4)
-    nsplit = qmm.default_splitk(1024, 512, 8)
-    for e in (0, 5):
-        one = qmm.qmatmul_experts(t["a"][e:e + 1].contiguous(),
-                                  t["w"][e:e + 1].contiguous(), t["mu"],
-                                  t["sigma"], t["rows"][e:e + 1].contiguous(),
-                                  bits=4, splitk=nsplit)
-        if not torch.equal(one[0], full[e]):
-            raise SystemExit("qmatmul_experts: an expert's rows depend on "
-                             "the other experts of the call")
+    # expert e alone gives the same bits (the expert body at W4, which takes
+    # no split; qmatmul's body at W8, at the full call's split count)
+    for bits in (4, 8):
+        t = make_expert_inputs(gen, 8, 16, 1024, 512, bits, torch.bfloat16,
+                               make_expert_rows(gen, 8, 16, 8))
+        full = qmm.qmatmul_experts(t["a"], t["w"], t["mu"], t["sigma"],
+                                   t["rows"], bits=bits)
+        nsplit = None if bits == 4 else qmm.default_splitk(1024, 512, 8)
+        for e in (0, 5):
+            one = qmm.qmatmul_experts(
+                t["a"][e:e + 1].contiguous(), t["w"][e:e + 1].contiguous(),
+                t["mu"], t["sigma"], t["rows"][e:e + 1].contiguous(),
+                bits=bits, splitk=nsplit)
+            if not torch.equal(one[0], full[e]):
+                raise SystemExit(f"qmatmul_experts W{bits}: an expert's rows "
+                                 f"depend on the other experts of the call")
     say("[kernels] qmatmul_experts: an expert's bits do not depend on the "
-        "other experts of the call")
+        "other experts of the call (W4 and W8)")
+    # no idle expert's weight byte is read: with no expert in use, a call
+    # at kimi_k2's width takes a tenth of the time its whole stack's codes
+    # would take at the card's peak rate, or less
+    E, K, N = EXPERT_WIDTHS["kimi_k2_1t_a32b"][0]
+    t = make_expert_inputs(gen, E, 8, K, N, 4, torch.bfloat16,
+                           make_expert_rows(gen, E, 8, 0))
+    ms = time_ms([lambda: qmm.qmatmul_experts(
+        t["a"], t["w"], t["mu"], t["sigma"], t["rows"], bits=4,
+        out_dtype=torch.bfloat16)])
+    read_ms = t["w"].numel() / PEAK_BYTES_PER_S * 1e3
+    say(f"[kernels] qmatmul_experts with no expert in use (E={E} C=8 K={K} "
+        f"N={N}): {ms:.4f} ms; reading the stack's {t['w'].numel() / 1e9:.2f}"
+        f" GB of codes would take {read_ms:.4f} ms at the peak rate; {CARD}")
+    if ms > 0.1 * read_ms:
+        raise SystemExit("qmatmul_experts: a call with no expert in use "
+                         "takes as long as reading weights")
+    del t
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -982,10 +1013,12 @@ def make_paged_pool(gen, B, n_pages, page, KV, hd, kv_bits, shift=0):
 # (B, n_pages, page, KV, hd, shift, in the --quick list): the engine's
 # prefill pool read (32 pages of 64, 8 heads of 128) at B = 1 and 8, then
 # the small models' head_dim 16, a head_dim that is not whole chunks
-# (the scalar route), and codes off a 16-byte boundary
+# (the scalar route), codes off a 16-byte boundary, and odd head dims
+# (kv8 only: kv4 packs two codes a byte)
 PAGED_CASES = ((1, 32, 64, 8, 128, 0, True), (8, 32, 64, 8, 128, 0, False),
                (3, 5, 4, 2, 16, 0, True), (2, 3, 8, 2, 24, 0, False),
-               (2, 4, 8, 3, 32, 8, False))
+               (2, 4, 8, 3, 32, 8, False), (2, 4, 64, 2, 7, 0, True),
+               (2, 4, 64, 8, 129, 0, False))
 
 
 def check_paged_dequant(gen, quick: bool) -> float:
@@ -998,7 +1031,7 @@ def check_paged_dequant(gen, quick: bool) -> float:
     for B, n_pages, page, KV, hd, shift, in_quick in PAGED_CASES:
         if quick and not in_quick:
             continue
-        for kv_bits in (8, 4):
+        for kv_bits in (8, 4) if hd % 2 == 0 else (8,):
             codes, mu, sigma, tables = make_paged_pool(
                 gen, B, n_pages, page, KV, hd, kv_bits, shift)
             for bt in (tables, tables.to(torch.int64)):
@@ -1021,7 +1054,8 @@ def check_paged_dequant(gen, quick: bool) -> float:
                     n += got.numel()
             del codes, mu, sigma, tables, got, again, want
         say(f"[kernels] kquantile_dequantize_paged B={B} n_pages={n_pages} "
-            f"page={page} KV={KV} hd={hd} shift={shift}: kv8 + kv4, bf16 + "
+            f"page={page} KV={KV} hd={hd} shift={shift}: "
+            f"{'kv8 + kv4' if hd % 2 == 0 else 'kv8'}, bf16 + "
             f"f32 out, int32 + int64 tables with sink repeats, bit-equal to "
             f"the plain version")
     if not quick and routes != {kq.VECTOR, kq.SCALAR}:
@@ -1176,7 +1210,9 @@ def _kv_append_one(gen, N, KV, hd, kv_bits, dtype, page=64):
 # the tiny f32 models (head_dim 16) and ragged counts; then the head dims
 # that are not a power of two (stablelm_12b 160 and its smoke 20, kimi_k2
 # 112) at the engine's decode and prefill-chunk shapes, bf16 and f32, and
-# layouts of 2 and 3 chunks a lane (130, 132) and VPL 2 (6)
+# layouts of 2 and 3 chunks a lane (130, 132) and VPL 2 (6); then odd head
+# dims (kv8 only, VPL 1: 1, 4 and 5 chunks a lane), decode and a 256-row
+# chunk, bf16 and f32
 KV_APPEND_CASES = (
     (16, 8, 128, torch.bfloat16), (256, 8, 128, torch.bfloat16),
     (4096, 8, 128, torch.bfloat16), (16, 8, 256, torch.bfloat16),
@@ -1186,7 +1222,10 @@ KV_APPEND_CASES = (
     (N, 8, hd, dtype) for hd in (20, 112, 160) for N in (16, 256)
     for dtype in (torch.bfloat16, torch.float32)) + (
     (9, 3, 130, torch.bfloat16), (9, 3, 132, torch.float32),
-    (5, 2, 6, torch.bfloat16))
+    (5, 2, 6, torch.bfloat16)) + tuple(
+    (N, 8, hd, dtype) for hd in (7, 129) for N in (16, 256)
+    for dtype in (torch.bfloat16, torch.float32)) + (
+    (3, 2, 1, torch.float32), (5, 3, 155, torch.bfloat16))
 # the --quick subset: decode and a chunk at hd 128, the small f32 model,
 # and one decode case of each new head dim
 KV_APPEND_QUICK = KV_APPEND_CASES[:2] + KV_APPEND_CASES[4:6] + tuple(
@@ -1205,15 +1244,17 @@ def check_kv_append(gen, quick: bool) -> float:
     n_ulp = n_pairs = 0
     routes = set()
     for (N, KV, hd, dtype) in cases:
-        for kv_bits in (8, 4):
+        bits = (8, 4) if hd % 2 == 0 else (8,)     # kv4: two codes a byte
+        for kv_bits in bits:
             err, u, n, r = _kv_append_one(gen, N, KV, hd, kv_bits, dtype)
             worst = max(worst, err)
             n_ulp += u
             n_pairs += n
             routes.update(r)
         say(f"[kernels] kv_append N={N} KV={KV} hd={hd} {dtype} (layout "
-            f"VPL x lanes {kq.append_layout(hd)}): kv8 + kv4 against the "
-            f"plain version, untouched bytes unchanged")
+            f"VPL x lanes {kq.append_layout(hd)}): "
+            f"{' + '.join(f'kv{b}' for b in bits)} against the plain "
+            f"version, untouched bytes unchanged")
     if routes != {("load", kq.VECTOR), ("load", kq.SCALAR),
                   ("store", kq.VECTOR), ("store", kq.SCALAR)}:
         raise SystemExit(f"kv_append: the cases did not take every load and "
@@ -1231,8 +1272,9 @@ def check_kv_append(gen, quick: bool) -> float:
 # (geometry, extra inputs, in the --quick list): the four earlier shapes,
 # then the tensor-core body's edges (G = 8 and 1, D = 64 and 256, pages of
 # 16 in a 40-page table, one sequence over 2048 rows, the most splits;
-# ragged q_pos over sink-padded tables) and bf16 shapes that attn_route
-# gives the CUDA-core body (D not a multiple of 16, a page of 4)
+# ragged q_pos over sink-padded tables), bf16 shapes that attn_route
+# gives the CUDA-core body (D not a multiple of 16, a page of 4), and odd
+# head dims over 256 rows (kv8 only: kv4 packs two codes a byte)
 ATTN_GEOMS = (
     (dict(B=16, H=32, KV=8, D=128, page=64, n_pages=32), {}, True),
     (dict(B=3, H=4, KV=2, D=16, page=8, n_pages=3), {}, True),
@@ -1249,6 +1291,8 @@ ATTN_GEOMS = (
      dict(sink_tail=True), True),
     (dict(B=2, H=4, KV=2, D=24, page=8, n_pages=3), {}, False),
     (dict(B=2, H=4, KV=2, D=32, page=4, n_pages=6), {}, False),
+    (dict(B=4, H=8, KV=2, D=7, page=64, n_pages=4), {}, True),
+    (dict(B=4, H=16, KV=4, D=129, page=64, n_pages=4), {}, False),
 )
 
 
@@ -1291,7 +1335,7 @@ def check_attention(gen, quick: bool) -> float:
         if quick and not in_quick:
             continue
         routes = []
-        for kv_bits in (8, 4):
+        for kv_bits in (8, 4) if g["D"] % 2 == 0 else (8,):
             for q_dtype in (torch.float32, torch.bfloat16):
                 t = make_attn_inputs(gen, kv_bits=kv_bits, q_dtype=q_dtype,
                                      **g, **extra)
@@ -4111,7 +4155,7 @@ def attention_sweep(gen):
                                      q_pos=[ctx - 1] * B, **dict(g, B=B))
                     for _ in range(3)]
             default = pa.tc_splits(B, g["n_pages"], g["page"],
-                                   pa._sm_count(DEV))
+                                   loader.sm_count(DEV))
             t = sets[0]
             want = attn_call(pa.paged_quant_attention_plain, t, kv_bits=8)
             for route in (pa.CUDA_CORE, pa.TENSOR_CORE):

@@ -73,7 +73,8 @@
 // launch, no allocation, no host sync.  A group of lanes (a power of two,
 // at most 32) holds one (row, head, K or V): the row is hd / VPL chunks of
 // VPL values (VPL 2, 4 or 8, by the fixed rule of
-// kernels/kquantile.py:append_layout on any even hd up to 256), a lane
+// kernels/kquantile.py:append_layout on any even hd up to 256; VPL 1 for an
+// odd hd, which kv8 takes and kv4, two codes a byte, does not), a lane
 // loads its chunks with one wide load each (one load an element where rows
 // are not whole 16-byte units), lanes past the last chunk add 0.  The group
 // reduces the mean and the deviation in f32 by shuffles, rounds both to
@@ -829,7 +830,9 @@ constexpr int APPEND_THREADS = 256;
 template <int VPL>
 __device__ __forceinline__ void load_chunk(const float* p, float* o,
                                            bool vec) {
-  if (!vec) {
+  if constexpr (VPL == 1) {
+    o[0] = __ldg(p);
+  } else if (!vec) {
 #pragma unroll
     for (int j = 0; j < VPL; ++j) o[j] = __ldg(p + j);
   } else if constexpr (VPL == 2) {
@@ -844,7 +847,9 @@ __device__ __forceinline__ void load_chunk(const float* p, float* o,
 template <int VPL>
 __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float* o,
                                            bool vec) {
-  if (!vec) {
+  if constexpr (VPL == 1) {
+    o[0] = bf16_bits_to_f(__ldg(reinterpret_cast<const uint16_t*>(p)));
+  } else if (!vec) {
     const uint16_t* q = reinterpret_cast<const uint16_t*>(p);
 #pragma unroll
     for (int j = 0; j < VPL; ++j) o[j] = bf16_bits_to_f(__ldg(q + j));
@@ -1017,23 +1022,28 @@ int append(const void* k, const void* v, const int64_t* pages,
   auto* vs = static_cast<uint16_t*>(leaves[5]);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
-  if (kv4)
-    kv_append_kernel<T, VPL, CH, WARP32, true><<<blocks, APPEND_THREADS, 0,
-                                                 stream>>>(
-        kp, vp, pages, rows, kc, vc, km, ks, vm, vs, n_groups, kv_heads,
-        n_pages, page_size, hd, lanes_log2, vec_load, vec_store);
-  else
-    kv_append_kernel<T, VPL, CH, WARP32, false><<<blocks, APPEND_THREADS, 0,
-                                                  stream>>>(
-        kp, vp, pages, rows, kc, vc, km, ks, vm, vs, n_groups, kv_heads,
-        n_pages, page_size, hd, lanes_log2, vec_load, vec_store);
+  if constexpr (VPL % 2 == 0) {   // kv4 packs whole bytes: VPL even
+    if (kv4) {
+      kv_append_kernel<T, VPL, CH, WARP32, true><<<blocks, APPEND_THREADS, 0,
+                                                   stream>>>(
+          kp, vp, pages, rows, kc, vc, km, ks, vm, vs, n_groups, kv_heads,
+          n_pages, page_size, hd, lanes_log2, vec_load, vec_store);
+      return static_cast<int>(cudaGetLastError());
+    }
+  } else {
+    if (kv4) return -6;
+  }
+  kv_append_kernel<T, VPL, CH, WARP32, false><<<blocks, APPEND_THREADS, 0,
+                                                stream>>>(
+      kp, vp, pages, rows, kc, vc, km, ks, vm, vs, n_groups, kv_heads,
+      n_pages, page_size, hd, lanes_log2, vec_load, vec_store);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The layout (VPL values a chunk, 2^lanes_log2 lanes a group) is chosen by
 // the caller (kernels/kquantile.py:append_layout); here it is only checked
 // to be one the kernel can run: whole chunks, at most 32 lanes and 4 chunks
-// a lane.
+// a lane (8 at VPL 1, an odd hd at kv8, with scalar loads and stores).
 template <typename T>
 int append_layout_body(int vpl, int lanes_log2, int hd, const void* k,
                        const void* v, const int64_t* pages,
@@ -1041,8 +1051,9 @@ int append_layout_body(int vpl, int lanes_log2, int hd, const void* k,
                        int n_rows, int kv_heads, long long n_pages,
                        int page_size, int vec_load, int vec_store,
                        cudaStream_t stream) {
-  if (hd <= 0 || hd > 256 || hd % 2 || lanes_log2 < 0 || lanes_log2 > 5 ||
-      (vpl != 2 && vpl != 4 && vpl != 8) || hd % vpl)
+  if (hd <= 0 || hd > 256 || (kv4 && hd % 2) || lanes_log2 < 0 ||
+      lanes_log2 > 5 || (vpl != 1 && vpl != 2 && vpl != 4 && vpl != 8) ||
+      hd % vpl || (vpl == 1 && (vec_load || vec_store)))
     return -6;
   const int lanes = 1 << lanes_log2;
   const int ch = (hd / vpl + lanes - 1) / lanes;
@@ -1059,6 +1070,10 @@ int append_layout_body(int vpl, int lanes_log2, int hd, const void* k,
   if (vpl == 2 && ch == 1) return append<T, 2, 1, false>(KV_APPEND_ARGS);
   if (vpl == 2 && ch == 2) return append<T, 2, 2, false>(KV_APPEND_ARGS);
   if (vpl == 2 && ch <= 4) return append<T, 2, 4, false>(KV_APPEND_ARGS);
+  if (vpl == 1 && ch == 1) return append<T, 1, 1, false>(KV_APPEND_ARGS);
+  if (vpl == 1 && ch == 2) return append<T, 1, 2, false>(KV_APPEND_ARGS);
+  if (vpl == 1 && ch <= 4) return append<T, 1, 4, false>(KV_APPEND_ARGS);
+  if (vpl == 1 && ch <= 8) return append<T, 1, 8, false>(KV_APPEND_ARGS);
 #undef KV_APPEND_ARGS
   return -6;
 }
@@ -1166,8 +1181,8 @@ extern "C" int kquantile_dequantize_paged_launch(
 // six contiguous pool leaves of one layer in the order k_codes, k_mu,
 // k_sigma, v_codes, v_mu, v_sigma -- codes (n_pages, page_size, kv_heads,
 // hd) int8 (kv8) or (.., hd / 2) uint8 (kv4), statistics (n_pages,
-// page_size, kv_heads) bf16.  hd is even and at most 256; (vpl, lanes_log2)
-// is its layout; vec_load / vec_store ask for wide loads of k, v / stores of
+// page_size, kv_heads) bf16.  hd is at most 256 and even at kv4;
+// (vpl, lanes_log2) is its layout; vec_load / vec_store ask for wide loads of k, v / stores of
 // codes (see load_chunk, store_chunk).
 extern "C" int kv_append_launch(const void* k, const void* v, int kv_bf16,
                                 const void* pages, const void* rows,

@@ -979,8 +979,11 @@ int tc_launch_d(const TcArgs& a, int dev, dim3 grid, int smem,
 }  // namespace
 
 // Returns 0 on success, a cudaError_t value if a launch was refused, or a
-// negative value for an argument the kernel does not take (odd D, D > 256,
-// H / KV > 8, H / KV > 4 together with D > 128, bits other than 4 or 8).
+// negative value for an argument the kernel does not take (an odd D at 4
+// bits, D > 256, H / KV > 8, H / KV > 4 together with D > 128, bits other
+// than 4 or 8).  An odd D at 8 bits takes the byte-wise code load
+// (`load_bytes`, `aligned` false): a lane's codes past D are never scored
+// (their queries are 0) and never stored.
 extern "C" int paged_attn_launch(
     const void* q, int q_bf16, const void* k_codes, const void* k_mu,
     const void* k_sigma, const void* v_codes, const void* v_mu,
@@ -992,7 +995,7 @@ extern "C" int paged_attn_launch(
       splits <= 0)
     return -2;
   if (bits != 4 && bits != 8) return -3;
-  if (D % 2 || D > 256 || H % KV) return -4;
+  if ((bits == 4 && D % 2) || D > 256 || H % KV) return -4;
   const int G = H / KV;
   if (G > 8) return -5;
   const int gmax = G <= 1 ? 1 : (G <= 2 ? 2 : (G <= 4 ? 4 : 8));

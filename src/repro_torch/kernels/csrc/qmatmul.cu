@@ -94,13 +94,17 @@
 //
 // qmatmul_experts / qmatmul_lut_experts (the MoE expert matmuls, whose
 // TPU-side counterpart is the reference's dequantize-everything einsum,
-// src/repro/models/moe.py:102-105): E products of one shape in one launch
-// of the same two bodies, the expert on the grid's z axis.  What bounds them
-// at decode is the weight bytes of the experts in use (16 tokens x top-8 use
-// at most 128 of kimi_k2's 384): a block reads `rows[e]` (on the device)
-// first and, where none of its rows is in use, writes zeros and returns
-// before it reads a weight byte; rows past rows[e] are loaded as zeros, so
-// the zeros a dropped token copy reads are exact.
+// src/repro/models/moe.py:102-105): E products of one shape in one launch.
+// What bounds them is the weight bytes of the experts in use (16 tokens x
+// top-8 use at most 128 of kimi_k2's 384); rows past rows[e] (on the
+// device) are read as zeros and written as zeros, so the zeros a dropped
+// token copy reads are exact.  Two bodies:
+//   * bf16 activations at W4 (the engine's): qmatmul_experts_wg_kernel, a
+//     persistent grid over the tiles of the experts in use, one producer
+//     warp feeding a ring, four consumer warps on mma.sync (see there);
+//   * W8 or f32 activations (off the engine path): the two bodies above
+//     with the expert on the grid's z axis; a block with none of its rows
+//     in use writes zeros and returns before it reads a weight byte.
 //
 // Determinism: a split writes its partial sums to a scratch buffer and a
 // second kernel adds the splits in a fixed order (no atomics).  Every output
@@ -110,6 +114,7 @@
 //
 // Plain C interface; the caller allocates every buffer and passes the stream.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -379,6 +384,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -589,11 +602,11 @@ struct WgSmem {
 // The weight level of code c in column n, in f32: the plain version's
 // rounding (a separate multiply and add for Gaussian levels).
 template <int WM>
-__device__ __forceinline__ float wlevel(const Args& p, int c, int n, float mu,
-                                        float sigma, float t) {
+__device__ __forceinline__ float wlevel(const float* lut, int N, int c, int n,
+                                        float mu, float sigma, float t) {
   if (WM == W_GAUSS) return __fadd_rn(mu, __fmul_rn(sigma, t));
   if (WM == W_LUT_SHARED) return t;
-  return n < p.N ? __ldg(p.lut + (size_t)c * p.N + n) : 0.0f;
+  return n < N ? __ldg(lut + (size_t)c * N + n) : 0.0f;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t addr, int count) {
@@ -760,8 +773,8 @@ __global__ void __launch_bounds__(MMA_NT, BM <= 16 ? 4 : BM <= 32 ? 3
     for (int c = 0; c < 16; ++c) {
       const float t = WM == W_GAUSS ? __ldg(p.table + c)
                       : WM == W_LUT_SHARED ? __ldg(p.lut + c) : 0.0f;
-      tab[c * 32] = pack_bf16(wlevel<WM>(p, c, col0, mu0, sg0, t),
-                              wlevel<WM>(p, c, col1, mu1, sg1, t));
+      tab[c * 32] = pack_bf16(wlevel<WM>(p.lut, p.N, c, col0, mu0, sg0, t),
+                              wlevel<WM>(p.lut, p.N, c, col1, mu1, sg1, t));
     }
   } else if (WM != W_LUT_COL) {
     s_t[tid] = WM == W_GAUSS ? p.table[tid] : p.lut[tid];
@@ -798,12 +811,14 @@ __global__ void __launch_bounds__(MMA_NT, BM <= 16 ? 4 : BM <= 32 ? 3
         const int c10 = (((hi ? q0.w : q0.z) >> sh) & 0xFF) ^ 0x80;
         const int c11 = (((hi ? q1.w : q1.z) >> sh) & 0xFF) ^ 0x80;
         const bool tab_ok = WM != W_LUT_COL;
-        af[2 * half] = pack_bf16(
-            wlevel<WM>(p, c00, col0, mu0, sg0, tab_ok ? s_t[c00] : 0.0f),
-            wlevel<WM>(p, c01, col0, mu0, sg0, tab_ok ? s_t[c01] : 0.0f));
-        af[2 * half + 1] = pack_bf16(
-            wlevel<WM>(p, c10, col1, mu1, sg1, tab_ok ? s_t[c10] : 0.0f),
-            wlevel<WM>(p, c11, col1, mu1, sg1, tab_ok ? s_t[c11] : 0.0f));
+        auto lv = [&](int c, int col, float mu, float sg) {
+          return wlevel<WM>(p.lut, p.N, c, col, mu, sg,
+                            tab_ok ? s_t[c] : 0.0f);
+        };
+        af[2 * half] = pack_bf16(lv(c00, col0, mu0, sg0),
+                                 lv(c01, col0, mu0, sg0));
+        af[2 * half + 1] = pack_bf16(lv(c10, col1, mu1, sg1),
+                                     lv(c11, col1, mu1, sg1));
       }
     }
   };
@@ -913,6 +928,506 @@ int launch_wg_bm(int bm, const Args& p, int splitk, cudaStream_t stream) {
       return launch_wg<BITS, 128, WM>(p, splitk, stream);
     default:
       return -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The MoE expert matmuls with bf16 activations at W4 (qmatmul_experts /
+// qmatmul_lut_experts): a persistent warp-specialised body
+// ---------------------------------------------------------------------------
+
+// Threads of the expert body: four consumer warps (32 of a tile's 128
+// columns each) and one producer warp.
+constexpr int XP_CONS = 128;                  // consumer threads
+constexpr int XP_WARP = XP_CONS / 32;         // the producer warp's index
+constexpr int XP_NT = XP_CONS + 32;
+
+// The ring depth and the blocks an SM holds, by tile rows BM: the
+// accumulators and the B fragments (BM / 2 words a thread each) set the
+// registers, the stages the shared memory.  kernels/qmatmul.py
+// (EXPERT_BLOCKS_PER_SM) sizes the persistent grid from the same counts;
+// the launch checks that the card holds them.
+constexpr int xp_blocks_per_sm(int bm) {
+  return bm <= 8 ? 5 : bm <= 16 ? 4 : bm <= 32 ? 3 : 2;
+}
+constexpr int xp_stages(int bm) {
+  return bm <= 8 ? 5 : 6;
+}
+
+// Shared memory of the expert body (dynamic), in bytes: the ring (BM x 64
+// bf16 activations, each token's 128 bytes with 16-byte chunk j at j ^
+// (token % 8); then 64 staged code rows of 128 columns, 64 bytes each with
+// 16-byte chunk j at j ^ ((row / 2) % 4), so that the 8 rows an ldmatrix
+// reads meet no bank twice: TMA's 64- and 128-byte swizzles), the
+// per-thread level tables (as WgSmem's W4 table), the mbarriers, and each
+// expert's rows and the list of experts in use.
+template <int BM>
+struct XpSmem {
+  static constexpr int NS = xp_stages(BM);
+  static constexpr int WS = BN / 2;                   // staged row stride
+  static constexpr int AST = BM * MBK * 2;            // activation stage
+  static constexpr int A = 0;
+  static constexpr int W = A + NS * AST;
+  static constexpr int TAB = W + NS * MBK * WS;
+  static constexpr int BAR = TAB + XP_CONS * 32 * 4;  // 2 NS mbarriers
+  static constexpr int LIST = BAR + 16 * NS;          // rows[E], used[E], n
+  static int bytes(int E) { return LIST + 8 * E + 16; }
+  static_assert(W % 16 == 0 && TAB % 16 == 0, "16-byte aligned stages");
+};
+
+struct XArgs {
+  const __nv_bfloat16* a;        // (E, C, K)
+  const uint8_t* w;              // (E, K, N / 2) packed W4 codes
+  const float* mu;               // W_GAUSS: (N,) statistics, (16,) levels
+  const float* sigma;
+  const float* table;
+  const float* lut;              // W_LUT_*: (16,) or (16, N) levels
+  const int* rows;               // (E,) rows of each expert in use
+  void* out;                     // (E, C, N) f32 or bf16 (`out_bf16`)
+  int out_bf16;
+  int E, C, K, N;
+  int n_mb;                      // row blocks of BM per expert
+  int tma;                       // the ring is filled by TMA (see below)
+};
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t addr,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(addr), "r"(bytes) : "memory");
+}
+
+// one box of a 3-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// out[e] (C, N) = a[e] (C, K) . W[e] (K, N) for the experts in use; every
+// row at or past rows[e] (every row of an idle expert) is written 0.
+//
+// The grid is persistent: G blocks (the card's SMs x xp_blocks_per_sm),
+// fixed by the host from the tile shape and the SM count, never from
+// `rows`.  Each block reads `rows` into shared memory and lists the experts
+// in use in ascending order; the tiles (expert in use, row block, column
+// block of 128), numbered expert-major, go to blocks round robin: tile t to
+// block t mod G.  So an idle expert costs no block and no weight byte, and
+// the tiles of one expert's column blocks run side by side (its activation
+// rows stay in L2).  Rows at or past rows[e] are zeroed by plain stores,
+// shared out over the blocks by (expert, row).
+//
+// Warp XP_WARP is the producer: it walks the block's tiles and their K
+// stages in order and fills the ring (each stage's 64 code rows of 128
+// columns and its BM x 64 activations), waiting on the stage's `empty`
+// mbarrier before it refills it.  Where strides and bases are whole
+// 16-byte units (every engine shape) one lane issues two TMA boxes a stage
+// (3-D tensor maps over the (E, K, N/2) codes and the (E, C, K)
+// activations, built on the host per call; their 64- and 128-byte
+// swizzles are the layouts the consumers read) that complete on the
+// stage's `full` mbarrier by transaction count; otherwise the warp's lanes
+// copy 16-byte chunks by cp.async (rows past rows[e] and K zero filled)
+// into the same layout.  Only TMA keeps the copies off the load/store
+// pipe that the consumers' lookups saturate: with cp.async the loads alone
+// took 0.392 ms and the consumers alone 0.444 ms at kimi_k2 `eg` decode,
+// together 0.600 ms (PERF.md row 1c).  The ring runs across tiles: the
+// next tile's first stages load while the current tile's last ones are
+// multiplied and its output is stored.
+//
+// The four consumer warps issue no copy: each waits for a stage, reads the
+// codes of its 32 columns by ldmatrix.trans (a lane gets 4 columns at two
+// consecutive k, the A layout's k pair), builds its A fragments by table
+// lookup (as qmatmul_wg_kernel; the levels are exactly the plain version's
+// bf16 weights), reads the B fragments of the stage's activations by
+// ldmatrix and multiplies by mma.sync m16n8k16 (weight columns the
+// instruction's M, tokens its N), and releases the stage once its reads of
+// it are done.  Not wgmma: at a decode step's 8 tokens the warpgroup
+// instruction's N is 8, and four chained m64n8k16 a stage, with the next
+// stage's fragments built under them, measured 0.46 of 0.85 ms at kimi_k2
+// `eg` on the H100 (PERF.md row 1c).  What
+// bounds the consumers now is the shared-memory pipe: one 4-byte lookup
+// per weight (a wavefront per 32 weights) and the fragment loads.
+// Each output element is summed over K in ascending order from zero in
+// one block, whatever block takes its tile, so an expert's bits do not
+// depend on the other experts of the call.
+template <int BM, int WM>
+__global__ void __launch_bounds__(XP_NT, xp_blocks_per_sm(BM))
+    qmatmul_experts_wg_kernel(const XArgs p,
+                              const __grid_constant__ CUtensorMap map_w,
+                              const __grid_constant__ CUtensorMap map_a) {
+  using L = XpSmem<BM>;
+  constexpr int NS = L::NS, WS = L::WS, AST = L::AST;
+  constexpr int WROW = BN / 2;                   // packed bytes of a row
+  static_assert(BM % 8 == 0 && BM <= 64, "whole m16n8k16 token tiles");
+
+  extern __shared__ __align__(128) uint8_t xp_smem[];
+  uint8_t* smem = xp_smem;
+  uint8_t* s_a = smem + L::A;
+  uint8_t* s_w = smem + L::W;
+  const uint32_t s_a_addr = smem_u32(s_a);
+  const uint32_t full0 = smem_u32(smem + L::BAR);
+  const uint32_t empty0 = full0 + 8 * NS;
+  int* s_rows = reinterpret_cast<int*>(smem + L::LIST);
+  int* s_used = s_rows + p.E;
+  int* s_nused = s_used + p.E;
+
+  const int E = p.E, C = p.C, K = p.K, N = p.N;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ncb = (N + BN - 1) / BN;
+  const int nk = (K + MBK - 1) / MBK;
+  const int ldw = N / 2;
+
+  // the TMA swizzles address whole 512- and 1024-byte atoms: the stages
+  // must start on them
+  if (p.tma && (smem_u32(smem) & 1023)) __trap();
+  if (tid == 0) {
+    for (int b = 0; b < NS; ++b) {
+      mbar_init(full0 + 8 * b, p.tma ? 1 : 32);
+      mbar_init(empty0 + 8 * b, XP_CONS / 32);
+    }
+  }
+  for (int e = tid; e < E; e += XP_NT)
+    s_rows[e] = min(C, max(0, __ldg(p.rows + e)));
+  __syncthreads();
+  if (warp == 0) {       // the experts in use, ascending: a ballot scan
+    int n = 0;
+    for (int e0 = 0; e0 < E; e0 += 32) {
+      const int e = e0 + lane;
+      const bool in_use = e < E && s_rows[e] > 0;
+      const unsigned m = __ballot_sync(0xffffffffu, in_use);
+      if (in_use) s_used[n + __popc(m & ((1u << lane) - 1u))] = e;
+      n += __popc(m);
+    }
+    if (lane == 0) *s_nused = n;
+  }
+  __syncthreads();
+  const int n_tiles = *s_nused * p.n_mb * ncb;
+
+  // tile t: expert s_used[t / (n_mb ncb)], row block, column block; false
+  // where the row block holds no row in use (its rows are zeroed below)
+  auto tile = [&](int t, int& e, int& m0, int& n0, int& mv) {
+    const int per = p.n_mb * ncb;
+    const int u = t / per;
+    const int r = t - u * per;
+    e = s_used[u];
+    m0 = (r / ncb) * BM;
+    n0 = (r % ncb) * BN;
+    mv = s_rows[e];
+    return m0 < mv;
+  };
+
+  if (warp == XP_WARP) {
+    // ---- the producer ----
+    const bool vec_w = (ldw % 16 == 0) &&
+                       ((reinterpret_cast<uintptr_t>(p.w) & 15) == 0);
+    const bool vec_a = (K % 8 == 0) &&
+                       ((reinterpret_cast<uintptr_t>(p.a) & 15) == 0);
+    const uint8_t* a_bytes = reinterpret_cast<const uint8_t*>(p.a);
+    int q = 0;                                   // stages issued so far
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      int e, m0, n0, mv;
+      if (!tile(t, e, m0, n0, mv)) continue;
+      const uint8_t* w = p.w + (size_t)e * K * ldw;
+      const size_t a0 = (size_t)e * C * K;
+      const int wbyte0 = n0 / 2;
+      for (int s = 0; s < nk; ++s, ++q) {
+        const int buf = q % NS;
+        if (q >= NS) mbar_wait(empty0 + 8 * buf, (q / NS - 1) & 1);
+        const int k0 = s * MBK;
+        if (p.tma) {
+          // one box of codes (64 rows x 64 bytes, the 64-byte swizzle) and
+          // one of activations (BM rows x 64 values, the 128-byte swizzle);
+          // past K and C the boxes read zeros.  Rows in [rows[e], C) are
+          // loaded too: a token's activations reach only its own output
+          // column, which is not stored
+          if (lane == 0) {
+            const uint32_t bar = full0 + 8 * buf;
+            mbar_arrive_expect_tx(bar, MBK * WROW + BM * MBK * 2);
+            tma_load_3d(smem_u32(&s_w[buf * MBK * WS]), &map_w, wbyte0, k0,
+                        e, bar);
+            tma_load_3d(s_a_addr + buf * AST, &map_a, k0, m0, e, bar);
+          }
+          continue;
+        }
+#pragma unroll
+        for (int i = 0; i < MBK * WROW / 16 / 32; ++i) {
+          const int c = lane + 32 * i;
+          const int r = c / (WROW / 16);
+          const int col = (c % (WROW / 16)) * 16;
+          const int k = k0 + r;
+          const int gcol = wbyte0 + col;
+          const int nbytes = k < K ? max(0, min(16, ldw - gcol)) : 0;
+          copy16(&s_w[(buf * MBK + r) * WS + (col ^ (((r >> 1) & 3) << 4))],
+                 w + (size_t)k * ldw + gcol, nbytes, vec_w, p.w);
+        }
+#pragma unroll
+        for (int i = 0; i < (BM * 8 + 31) / 32; ++i) {
+          const int c = lane + 32 * i;
+          if (BM * 8 % 32 == 0 || c < BM * 8) {
+            const int r = c >> 3;
+            const int j = c & 7;
+            const int m = m0 + r;
+            const int k = k0 + 8 * j;
+            const int nbytes = m < mv ? 2 * max(0, min(8, K - k)) : 0;
+            copy16(s_a + buf * AST + r * 128 + ((j ^ (r & 7)) << 4),
+                   a_bytes + (a0 + (size_t)m * K + k) * 2, nbytes, vec_a,
+                   a_bytes);
+          }
+        }
+        mbar_arrive_cp_async(full0 + 8 * buf);   // and the plain stores, by
+        mbar_arrive(full0 + 8 * buf);            // the release of the arrival
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers ----
+  // rows at or past rows[e], every expert's: zeros, a row a unit, the units
+  // shared out over the blocks (while the producer fills the ring)
+  {
+    const size_t esz = p.out_bf16 ? 2 : 4;
+    const bool vec_o = (N * esz) % 16 == 0 &&
+                       (reinterpret_cast<uintptr_t>(p.out) & 15) == 0;
+    for (int u = blockIdx.x; u < E * C; u += gridDim.x) {
+      const int e = u / C;
+      const int m = u - e * C;
+      if (m < s_rows[e]) continue;
+      uint8_t* row = static_cast<uint8_t*>(p.out) + (size_t)u * N * esz;
+      if (vec_o) {
+        for (int i = tid; i < (int)(N * esz / 16); i += XP_CONS)
+          reinterpret_cast<uint4*>(row)[i] = make_uint4(0, 0, 0, 0);
+      } else if (p.out_bf16) {
+        for (int i = tid; i < N; i += XP_CONS)
+          reinterpret_cast<__nv_bfloat16*>(row)[i] = __float2bfloat16(0.0f);
+      } else {
+        for (int i = tid; i < N; i += XP_CONS)
+          reinterpret_cast<float*>(row)[i] = 0.0f;
+      }
+    }
+  }
+
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  // this thread's level tables, one bank per lane: word (j, c) = {bf16
+  // level of code c in column 4 gid + 2j of the warp's 32, in column
+  // 4 gid + 2j + 1}, at tab[(16 j + c) * 32]
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem + L::TAB) +
+                  warp * 32 * 32 + lane;
+  const uint8_t* tab_bytes = reinterpret_cast<const uint8_t*>(tab);
+  // the word of pair j for nibble n of a code register (see below)
+  auto look = [&](int j, uint32_t w, int n) {
+    return *reinterpret_cast<const uint32_t*>(
+        tab_bytes + j * 2048 + (((w >> (4 * n)) & 0xFu) << 7));
+  };
+  // The codes of k rows [32 ks2, 32 ks2 + 32) of this warp's 16 bytes (32
+  // columns) of the stage in `sw`, by one ldmatrix.x4.trans: lane l gives
+  // row 32 ks2 + l, and register i of lane (gid, tig) holds 2 bytes (the 4
+  // codes of columns 4 gid .. 4 gid + 3, low nibble first) of row 32 ks2 +
+  // 8 i + 2 tig in its low half and of the next row in its high half.
+  // Those are the k pairs of the m16n8k16 A layout: the fragments of k16
+  // step 2 ks2 + kk for the warp's m16 tile j (A rows gid and gid + 8 are
+  // columns 4 gid + 2j and 4 gid + 2j + 1) come from registers 2 kk (k
+  // 2 tig, 2 tig + 1) and 2 kk + 1 (k 2 tig + 8, 2 tig + 9), nibbles 2j,
+  // 2j + 4 and 2j + 1, 2j + 5.
+  const int wchunk = (warp ^ ((lane >> 1) & 3)) << 4;   // see XpSmem
+  auto load_codes = [&](const uint8_t* sw, int ks2, uint32_t (&cw)[4]) {
+    ldmatrix_x4_trans(cw, smem_u32(sw + (32 * ks2 + lane) * WS + wchunk));
+  };
+  auto build = [&](const uint32_t (&cw)[4], uint32_t (&af)[2][2][4]) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t w = cw[2 * kk + h];
+          af[kk][j][2 * h] = __byte_perm(look(j, w, 2 * j),
+                                         look(j, w, 2 * j + 4), 0x5410);
+          af[kk][j][2 * h + 1] = __byte_perm(look(j, w, 2 * j + 1),
+                                             look(j, w, 2 * j + 5), 0x7632);
+        }
+  };
+  // the B fragments of k16 steps 2 ks2 and 2 ks2 + 1 for tokens [8 nt,
+  // 8 nt + 8) of the activation stage at `sa`: one ldmatrix.x4, matrix i
+  // the 8 values k0 + 8 i of the 8 tokens (each a row of the 128-byte
+  // swizzled tile)
+  const int lrow = lane & 7;
+  const int lmat = lane >> 3;
+  auto load_b = [&](uint32_t sa, int ks2, int nt, uint32_t (&b)[4]) {
+    const int r = 8 * nt + lrow;
+    ldmatrix_x4(b, sa + r * 128 + (((4 * ks2 + lmat) ^ lrow) << 4));
+  };
+
+  float acc[2][BM / 8][4];
+  int q = 0;                                     // stages consumed so far
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    int e, m0, n0, mv;
+    if (!tile(t, e, m0, n0, mv)) continue;
+    const int colw = n0 + 32 * warp + 4 * gid;   // this thread's 4 columns
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {   // its level tables for the tile
+      const int ca = colw + 2 * j, cb = ca + 1;
+      float mua = 0.0f, sga = 0.0f, mub = 0.0f, sgb = 0.0f;
+      if (WM == W_GAUSS) {
+        if (ca < N) mua = __ldg(p.mu + ca), sga = __ldg(p.sigma + ca);
+        if (cb < N) mub = __ldg(p.mu + cb), sgb = __ldg(p.sigma + cb);
+      }
+#pragma unroll 4
+      for (int c = 0; c < 16; ++c) {
+        const float tv = WM == W_GAUSS ? __ldg(p.table + c)
+                         : WM == W_LUT_SHARED ? __ldg(p.lut + c) : 0.0f;
+        tab[(16 * j + c) * 32] =
+            pack_bf16(wlevel<WM>(p.lut, N, c, ca, mua, sga, tv),
+                      wlevel<WM>(p.lut, N, c, cb, mub, sgb, tv));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < BM / 8; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[j][i][r] = 0.0f;
+
+    for (int s = 0; s < nk; ++s, ++q) {
+      const int buf = q % NS;
+      mbar_wait(full0 + 8 * buf, (q / NS) & 1);
+      const uint8_t* sw = s_w + buf * MBK * WS;
+      const uint32_t sa = s_a_addr + buf * AST;
+      // every shared-memory matrix load of the stage first, so their
+      // latencies overlap; then each half's lookups and products (the
+      // lookups are plain loads, free to move ahead of the products)
+      uint32_t cw[MBK / 32][4], b[MBK / 32][BM / 8][4];
+#pragma unroll
+      for (int ks2 = 0; ks2 < MBK / 32; ++ks2) {
+        load_codes(sw, ks2, cw[ks2]);
+#pragma unroll
+        for (int nt = 0; nt < BM / 8; ++nt) load_b(sa, ks2, nt, b[ks2][nt]);
+      }
+#pragma unroll
+      for (int ks2 = 0; ks2 < MBK / 32; ++ks2) {
+        uint32_t af[2][2][4];
+        build(cw[ks2], af);
+#pragma unroll
+        for (int nt = 0; nt < BM / 8; ++nt)
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              mma_bf16(acc[j][nt], af[kk][j], b[ks2][nt][2 * kk],
+                       b[ks2][nt][2 * kk + 1]);
+      }
+      __syncwarp();             // this warp's reads of the stage are done
+      if (lane == 0) mbar_arrive(empty0 + 8 * buf);
+    }
+
+    // acc[j][nt][2c + h] is (column colw + 2j + c, token 8 nt + 2 tig + h):
+    // the two columns of a pair are one 4-byte (bf16) or 8-byte (f32)
+    // store; rows at or past rows[e] were zeroed above
+#pragma unroll
+    for (int nt = 0; nt < BM / 8; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 8 * nt + 2 * tig + h;
+        if (m >= mv) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = colw + 2 * j;
+          if (n >= N) continue;
+          const float v0 = acc[j][nt][h], v1 = acc[j][nt][2 + h];
+          const size_t o = ((size_t)e * C + m) * N + n;
+          if (p.out_bf16)
+            *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out) +
+                                         o) = pack_bf16(v0, v1);
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
+                make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// A 3-D tensor map (dims innermost first, strides in bytes of dims 1 and
+// 2) with the box {box0, box1, 1} and the given swizzle; 0 on success.
+int encode_3d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+              cuuint64_t d0, cuuint64_t d1, cuuint64_t d2, cuuint64_t s1,
+              cuuint64_t s2, cuuint32_t box0, cuuint32_t box1,
+              CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess || !fn)
+      return -9;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, type, 3, const_cast<void*>(base), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -10;
+}
+
+template <int BM, int WM>
+int launch_xp(const XArgs& p, int grid, cudaStream_t stream) {
+  const int bytes = XpSmem<BM>::bytes(p.E);
+  static int set_bytes = 0;      // the attribute, raised as E needs
+  if (bytes > set_bytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmatmul_experts_wg_kernel<BM, WM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set_bytes = bytes;
+  }
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, qmatmul_experts_wg_kernel<BM, WM>, XP_NT, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < xp_blocks_per_sm(BM)) return -8;  // the grid would not fit
+  CUtensorMap map_w = {}, map_a = {};    // unread without TMA
+  if (p.tma) {
+    const cuuint64_t ldw = p.N / 2;
+    int rc = encode_3d(&map_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.w, ldw, p.K,
+                       p.E, ldw, ldw * p.K, BN / 2, MBK,
+                       CU_TENSOR_MAP_SWIZZLE_64B);
+    if (!rc)
+      rc = encode_3d(&map_a, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.a, p.K, p.C,
+                     p.E, (cuuint64_t)p.K * 2, (cuuint64_t)p.K * p.C * 2, MBK,
+                     BM, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (rc) return rc;
+  }
+  qmatmul_experts_wg_kernel<BM, WM><<<grid, XP_NT, bytes, stream>>>(
+      p, map_w, map_a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int WM>
+int launch_xp_bm(int bm, const XArgs& p, int grid, cudaStream_t stream) {
+  switch (bm) {
+    case 8: return launch_xp<8, WM>(p, grid, stream);
+    case 16: return launch_xp<16, WM>(p, grid, stream);
+    case 32: return launch_xp<32, WM>(p, grid, stream);
+    case 64: return launch_xp<64, WM>(p, grid, stream);
+    default: return -1;
   }
 }
 
@@ -1330,6 +1845,49 @@ extern "C" int qmatmul_launch(const void* a, int a_bf16, const void* w,
   p.E = E;
   const int rc = launch_body<W_GAUSS>(a_bf16, bits, bm, p, splitk, stream);
   return reduce(rc, p, splitk, wg_writes_out(a_bf16, bm, splitk), stream);
+}
+
+// The expert body with bf16 activations at W4 (qmatmul_experts_wg_kernel):
+// a (E, C, K) bf16; w (E, K, N/2) packed codes; levels by `wm` (0: mu,
+// sigma, table; 1: lut (16,) shared by every column; 2: lut (16, N)); rows
+// (E,) int32 on the device; out (E, C, N) f32 or bf16, every element
+// written.  bm: the tile rows (8, 16, 32 or 64); grid: the persistent
+// grid, the card's SMs times xp_blocks_per_sm(bm) (-8 where the card does
+// not hold that many blocks an SM).
+extern "C" int qmatmul_experts_launch(const void* a, const void* w, int wm,
+                                      const float* mu, const float* sigma,
+                                      const float* table, const float* lut,
+                                      const int* rows, int E, void* out,
+                                      int out_bf16, int C, int K, int N,
+                                      int bm, int grid, void* stream_ptr) {
+  if (E <= 0 || C <= 0 || K <= 0 || N <= 0 || grid <= 0) return -2;
+  if (N % 2) return -4;
+  if (wm < W_GAUSS || wm > W_LUT_COL) return -5;
+  XArgs p = {};
+  p.a = static_cast<const __nv_bfloat16*>(a);
+  p.w = static_cast<const uint8_t*>(w);
+  p.mu = mu;
+  p.sigma = sigma;
+  p.table = table;
+  p.lut = lut;
+  p.rows = rows;
+  p.out = out;
+  p.out_bf16 = out_bf16;
+  p.E = E;
+  p.C = C;
+  p.K = K;
+  p.N = N;
+  p.n_mb = (C + bm - 1) / bm;
+  // TMA where its strides and base addresses are whole 16-byte units, the
+  // producer's cp.async copies otherwise (both fill the same layout)
+  p.tma = (N / 2) % 16 == 0 && K % 8 == 0 &&
+          (reinterpret_cast<uintptr_t>(w) & 15) == 0 &&
+          (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (wm == W_GAUSS) return launch_xp_bm<W_GAUSS>(bm, p, grid, stream);
+  if (wm == W_LUT_SHARED)
+    return launch_xp_bm<W_LUT_SHARED>(bm, p, grid, stream);
+  return launch_xp_bm<W_LUT_COL>(bm, p, grid, stream);
 }
 
 // As qmatmul_launch with codebook levels: lut (k,) shared by every column

@@ -138,24 +138,30 @@ def kquantile_dequantize_paged_plain(codes, mu, sigma, block_tables, *,
 # the pool leaves of one layer that a coded KV append writes, in the
 # kernel's argument order
 KV_LEAVES = ("k_codes", "k_mu", "k_sigma", "v_codes", "v_mu", "v_sigma")
-# the largest head_dim the fused append takes (any even one up to it)
+# the largest head_dim the fused append takes (any one up to it: odd ones
+# at kv8 only, as the reference's check_kv_bits)
 KV_APPEND_MAX_HD = 256
 
 
 def append_layout(hd: int):
     """The fused KV append's layout for head_dim ``hd``: (VPL, LANES), a
     (row, head) of hd values taken as hd / VPL chunks of VPL consecutive
-    values by a group of LANES lanes.  A fixed rule on hd: VPL is the first
-    of 4, 8, 2 that divides hd into at most 32 chunks (else 4 where it
-    divides hd, else 2, and a lane takes up to 4 chunks); LANES is the power
-    of two at or above the chunk count, at most 32.  Lanes past the last
-    chunk load nothing.  Raises ValueError for an odd hd or hd above
-    ``KV_APPEND_MAX_HD``."""
-    if hd < 2 or hd % 2 or hd > KV_APPEND_MAX_HD:
-        raise ValueError(f"the fused KV append takes an even head_dim up to "
+    values by a group of LANES lanes.  A fixed rule on hd: for an even hd,
+    VPL is the first of 4, 8, 2 that divides hd into at most 32 chunks
+    (else 4 where it divides hd, else 2, and a lane takes up to 4 chunks);
+    for an odd hd (kv8 only: kv4 packs two codes a byte) VPL is 1 and a lane
+    takes up to 8 chunks, which ``append_route`` sends to the scalar loads
+    and stores.  LANES is the power of two at or above the chunk count, at
+    most 32.  Lanes past the last chunk load nothing.  Raises ValueError for
+    hd below 1 or above ``KV_APPEND_MAX_HD``."""
+    if hd < 1 or hd > KV_APPEND_MAX_HD:
+        raise ValueError(f"the fused KV append takes a head_dim from 1 to "
                          f"{KV_APPEND_MAX_HD}, got {hd}")
-    fits = [vpl for vpl in (4, 8, 2) if hd % vpl == 0 and hd // vpl <= 32]
-    vpl = fits[0] if fits else (4 if hd % 4 == 0 else 2)
+    if hd % 2:
+        vpl = 1
+    else:
+        fits = [v for v in (4, 8, 2) if hd % v == 0 and hd // v <= 32]
+        vpl = fits[0] if fits else (4 if hd % 4 == 0 else 2)
     lanes = 1
     while lanes < min(hd // vpl, 32):
         lanes *= 2
@@ -181,8 +187,15 @@ def append_route(hd: int, itemsize: int, kv_bits: int, val_ptrs=(0, 0),
 def kv_row_stats(x: torch.Tensor):
     """Per-row statistics of KV rows (..., hd) f32, as the pool stores them:
     the mean and the population deviation (clamped at 1e-8), rounded to
-    bf16.  Rows are coded against these rounded values."""
-    mu = torch.mean(x, dim=-1).to(torch.bfloat16)
+    bf16.  Rows are coded against these rounded values.  The mean is the
+    sum divided by hd, correctly rounded, as the reference's ``jnp.mean``
+    and the CPU's ``torch.mean`` give it.  On the card ``torch.mean``, and a
+    division by a Python number, multiply by a rounded 1 / hd instead, which
+    moves the bf16 mean of ~0.7 % of the rows at hd 7 (a sum that hd
+    divides can sit exactly on a bf16 tie), so the divisor is a tensor on
+    the rows' device."""
+    s = torch.sum(x, dim=-1)
+    mu = (s / s.new_full((), x.shape[-1])).to(torch.bfloat16)
     sigma = torch.clamp(torch.std(x, dim=-1, correction=0),
                         min=1e-8).to(torch.bfloat16)
     return mu, sigma

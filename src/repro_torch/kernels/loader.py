@@ -104,6 +104,19 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+_SMS: Dict[Optional[int], int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device (the kernels' grids are
+    sized from it, never from data on the device)."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device.index] = n
+    return n
+
+
 _NO_SWITCH = contextlib.nullcontext()
 
 

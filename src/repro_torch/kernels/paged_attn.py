@@ -180,18 +180,6 @@ _ARGTYPES = {
 }
 
 
-_SMS = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    """The card's SM count, read once per device."""
-    n = _SMS.get(device.index)
-    if n is None:
-        n = torch.cuda.get_device_properties(device).multi_processor_count
-        _SMS[device.index] = n
-    return n
-
-
 def _bind(name: str):
     """A C entry point of the kernel's library, built and bound at first
     use."""
@@ -235,9 +223,9 @@ def paged_quant_attention(q: torch.Tensor, k_codes: torch.Tensor,
         raise ValueError(f"stats must be (P, page, KV), got "
                          f"{tuple(k_mu.shape)}")
     P, page, KV = k_mu.shape
-    if D % 2 or H % KV:
-        raise ValueError(f"need even D and H % KV == 0, got D={D}, H={H}, "
-                         f"KV={KV}")
+    if (kv_bits == 4 and D % 2) or H % KV:
+        raise ValueError(f"need H % KV == 0 and, at kv4 (two codes a "
+                         f"byte), an even D; got D={D}, H={H}, KV={KV}")
     code_shape = (P, page, KV, D // 2 if kv_bits == 4 else D)
     want = packing.storage_dtype(kv_bits)
     if not (k_codes.shape == v_codes.shape == code_shape
@@ -302,7 +290,7 @@ def _launch(route: str, q, k_codes, k_mu, k_sigma, v_codes, v_mu, v_sigma,
     n_pages = bt.shape[1]
     tc = route == TENSOR_CORE
     if tc:
-        nsplit = tc_splits(B, n_pages, page, _sm_count(q.device)) \
+        nsplit = tc_splits(B, n_pages, page, loader.sm_count(q.device)) \
             if splits is None else int(splits)
         nsplit = max(1, min(nsplit, n_pages * -(-page // TC_ROWS)))
     else:

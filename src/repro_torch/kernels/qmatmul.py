@@ -4,9 +4,12 @@ PyTorch versions.
 Replaces the TPU kernels ``qmatmul``, ``qmatmul_lut`` (codebook levels, the
 serving path of ``dist="empirical"`` checkpoints) and ``qmatmul_a8`` (int8
 activation codes) of ``src/repro/kernels/qmatmul.py``.  ``qmatmul_experts``
-/ ``qmatmul_lut_experts`` run the same bodies over a stack of E experts in
-one launch (the MoE expert matmuls, which the reference computes as a
-``materialize`` of the whole stack and an einsum).  The kernel source
+/ ``qmatmul_lut_experts`` multiply a stack of E experts in one launch (the
+MoE expert matmuls, which the reference computes as a ``materialize`` of
+the whole stack and an einsum): bf16 activations at W4, the serving path,
+take a persistent body of their own (``qmatmul_experts_wg_kernel``, planned
+by ``expert_plan``); W8 and f32 activations run the bodies of ``qmatmul``
+with the expert on the grid.  The kernel source
 is ``csrc/qmatmul.cu`` (see its header for what bounds it on Hopper and what
 the design does about that).  Each wrapper launches its kernel for CUDA
 tensors and takes the plain version only for CPU tensors.
@@ -79,6 +82,52 @@ def default_splitk(K: int, N: int, E: int = 1) -> int:
     n_blocks = -(-N // 128) * E
     want = max(1, min(_MAX_SPLITK, _TARGET_BLOCKS // n_blocks, K // 256))
     return 1 << (want.bit_length() - 1)
+
+
+# The expert body (bf16 activations, W4): its tile rows, the smallest that
+# holds C (8 at a decode step, so no activation row of a stage is zero
+# fill), and the blocks an SM holds at each (``xp_blocks_per_sm`` in
+# csrc/qmatmul.cu; the launch checks that the card holds them)
+EXPERT_TILES = (8, 16, 32, 64)
+EXPERT_BLOCKS_PER_SM = {8: 5, 16: 4, 32: 3, 64: 2}
+
+
+def expert_tile(C: int) -> int:
+    """Rows of the expert body's tile for a capacity of C rows."""
+    return next((t for t in EXPERT_TILES if t >= C), EXPERT_TILES[-1])
+
+
+def expert_plan(E: int, C: int, K: int, N: int, sms: int) -> dict:
+    """How the expert body takes an (E, C, K) x (E, K, N) call on a card
+    of ``sms`` SMs: the tile rows ``bm``, the row blocks of an expert, the
+    persistent grid (``sms`` times the blocks an SM holds at that tile) and
+    the split count over K (1: a tile walks all of K in one block).  A
+    function of these arguments only -- never of ``rows``, which stays on
+    the device -- so an expert's summation order, and its bits, do not
+    depend on the other experts of the call."""
+    bm = expert_tile(C)
+    return dict(bm=bm, row_blocks=-(-C // bm),
+                grid=sms * EXPERT_BLOCKS_PER_SM[bm], splits=1)
+
+
+def expert_tiles(rows, C: int, N: int, bm: int, grid: int):
+    """The expert body's walk, in Python: for each block of the persistent
+    grid, the (expert, first row, first column) of the tiles it takes, in
+    order.  The tiles are (expert in use, row block, column block of 128)
+    numbered expert-major over the experts in use in ascending order; tile
+    t goes to block t mod ``grid``; a row block with no row in use is
+    skipped (the kernel zeroes its rows).  Mirrors
+    ``qmatmul_experts_wg_kernel`` (``csrc/qmatmul.cu``)."""
+    rows = [min(C, max(0, int(r))) for r in rows]
+    used = [e for e, r in enumerate(rows) if r > 0]
+    n_mb, ncb = -(-C // bm), -(-N // 128)
+    out = [[] for _ in range(grid)]
+    for t in range(len(used) * n_mb * ncb):
+        u, r = divmod(t, n_mb * ncb)
+        e, m0, n0 = used[u], (r // ncb) * bm, (r % ncb) * 128
+        if m0 < rows[e]:
+            out[t % grid].append((e, m0, n0))
+    return out
 
 
 def qmatmul_plain(a: torch.Tensor, w_packed: torch.Tensor, mu: torch.Tensor,
@@ -210,6 +259,9 @@ _ARGTYPES = {
     "qmatmul_lut_launch": "pipipipi" + _TAIL,
     "qmatmul_a8_launch": "ppipippp" + _TAIL,
     "qmatmul_scratch_splits": "iii",
+    # a, w, wm, mu, sigma, table, lut, rows, E, out, out_bf16, C, K, N, bm,
+    # grid, stream
+    "qmatmul_experts_launch": "ppipppppipiiiiiip",
 }
 _FNS = {}
 
@@ -387,6 +439,46 @@ def qmatmul_a8(a_codes: torch.Tensor, a_scale: torch.Tensor,
     return out
 
 
+_W_GAUSS, _W_LUT_SHARED, _W_LUT_COL = 0, 1, 2     # csrc/qmatmul.cu's WM
+
+
+def _launch_experts(a, w_packed, rows, wm, mu, sigma, table, lut, out_dtype,
+                    blocks, splitk, what):
+    """Runs the expert body (bf16 activations, W4) on checked operands:
+    one launch of ``expert_plan``'s persistent grid; returns (E, C, N)."""
+    E, C, K = a.shape
+    N = w_packed.shape[2] * 2
+    for name, t in (("a", a), ("w", w_packed), ("rows", rows), ("mu", mu),
+                    ("sigma", sigma), ("lut", lut)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if splitk not in (None, 1):
+        raise ValueError(f"the expert body sums all of K in one block: "
+                         f"splitk must be None or 1, got {splitk}")
+    plan = expert_plan(E, C, K, N, loader.sm_count(a.device))
+    bm = plan["bm"] if blocks is None else blocks.bm
+    if bm not in EXPERT_TILES:
+        raise ValueError(f"no expert tile of {bm} rows (have "
+                         f"{EXPERT_TILES})")
+    grid = plan["grid"] if blocks is None \
+        else loader.sm_count(a.device) * EXPERT_BLOCKS_PER_SM[bm]
+    fn = _bind("qmatmul_experts_launch")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with loader.on_device(a.device):
+        out = torch.empty((E, C, N), dtype=out_dtype, device=a.device)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(a.data_ptr(), w_packed.data_ptr(), wm, ptr(mu), ptr(sigma),
+                ptr(table), ptr(lut), rows.data_ptr(), E, out.data_ptr(),
+                int(out_dtype == torch.bfloat16), C, K, N, bm, grid, stream)
+    if rc != 0:
+        raise RuntimeError(f"qmatmul_experts_launch failed with code {rc} "
+                           f"(E={E}, C={C}, K={K}, N={N}, {what}, bm={bm}, "
+                           f"grid={grid})")
+    return out
+
+
 def _check_experts(a, w_packed, rows, bits):
     """Checks an expert call; returns (E, C, K, N)."""
     if a.ndim != 3:
@@ -418,6 +510,10 @@ def qmatmul_experts(a: torch.Tensor, w_packed: torch.Tensor,
     mu/sigma : (1, N) f32, shared by the experts (per-column statistics of
                the layer's whole stack).
     rows     : (E,) int32 on a's device, never read on the host.
+    blocks / splitk : bf16 activations at W4 take the expert body, whose
+               tile rows ``blocks.bm`` may be any of ``EXPERT_TILES`` (None:
+               ``expert_plan``'s) and whose split count is 1; W8 and f32
+               activations take ``qmatmul``'s bodies and their axes.
 
     CUDA tensors launch the kernel (or raise); CPU tensors take the plain
     version.  ``qmatmul_experts.launches`` counts kernel launches.
@@ -431,6 +527,12 @@ def qmatmul_experts(a: torch.Tensor, w_packed: torch.Tensor,
     if C == 0:
         return torch.empty((E, 0, N), dtype=out_dtype, device=a.device)
     table = kref.level_table(2 ** bits, a.device)
+    if bits == 4 and a.dtype == torch.bfloat16:
+        res = _launch_experts(a, w_packed, rows, _W_GAUSS, mu, sigma, table,
+                              None, out_dtype, blocks, splitk,
+                              f"bits={bits}")
+        qmatmul_experts.launches += 1
+        return res
     res = _launch("qmatmul_launch",
                   (a.data_ptr(), int(a.dtype == torch.bfloat16),
                    w_packed.data_ptr(), bits, mu.data_ptr(), sigma.data_ptr(),
@@ -463,6 +565,13 @@ def qmatmul_lut_experts(a: torch.Tensor, w_packed: torch.Tensor,
                                          out_dtype=out_dtype)
     if C == 0:
         return torch.empty((E, 0, N), dtype=out_dtype, device=a.device)
+    if bits == 4 and a.dtype == torch.bfloat16:
+        res = _launch_experts(a, w_packed, rows, _W_LUT_COL if lut.ndim == 2
+                              else _W_LUT_SHARED, None, None, None, lut,
+                              out_dtype, blocks, splitk,
+                              f"bits={bits}, lut {tuple(lut.shape)}")
+        qmatmul_lut_experts.launches += 1
+        return res
     res = _launch("qmatmul_lut_launch",
                   (a.data_ptr(), int(a.dtype == torch.bfloat16),
                    w_packed.data_ptr(), bits, lut.data_ptr(),

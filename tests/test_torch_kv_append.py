@@ -133,6 +133,15 @@ def test_append_matches_reference_at_other_head_dims(hd, kv_bits):
     _check_against_reference(cfg, kv_bits)
 
 
+@pytest.mark.parametrize("hd", [7, 33])
+def test_append_matches_reference_at_odd_head_dims(hd):
+    """An odd head_dim at kv8, which the reference codes (its
+    ``check_kv_bits`` refuses one only at kv4): the append, by
+    ``append_layout``'s one-value chunks, against the reference."""
+    cfg = dataclasses.replace(tcb.get_smoke("granite_3_8b"), head_dim=hd)
+    _check_against_reference(cfg, 8)
+
+
 def _check_against_reference(cfg, kv_bits):
     P, n = 9, 40
     _, view = _pool_layer(cfg, kv_bits, P, seed=1)
@@ -333,12 +342,27 @@ def test_append_layout(hd):
         assert (vpl, lanes) == first[hd]
 
 
-@pytest.mark.parametrize("hd", [0, 1, 15, 161, 257, 258, 512])
+@pytest.mark.parametrize("hd", [0, 257, 258, 512])
 def test_append_layout_refuses_odd_and_wide_head_dims(hd):
-    """An odd head_dim (which kv8 and the reference take; ROADMAP Queue 3)
-    and one above 256 are refused, on the card, before any launch."""
+    """A head_dim of 0 or above 256, odd or even, is refused, on the card,
+    before any launch."""
     with pytest.raises(ValueError):
         tkq.append_layout(hd)
+
+
+@pytest.mark.parametrize("hd", [1, 15, 161])
+def test_append_layout_of_odd_head_dims(hd):
+    """An odd head_dim (kv8 only) takes one value a chunk: the fewest lanes
+    (a power of two, at most 32) that cover the chunks, at most 8 chunks a
+    lane (the kernel's bodies at VPL 1), and the scalar loads and stores
+    whatever the pointers."""
+    vpl, lanes = tkq.append_layout(hd)
+    assert vpl == 1
+    assert lanes & (lanes - 1) == 0 and min(hd, 32) <= lanes <= 32
+    assert lanes == 1 or lanes < 2 * hd
+    assert -(-hd // lanes) <= 8
+    for itemsize in (2, 4):
+        assert tkq.append_route(hd, itemsize, 8) == (tkq.SCALAR, tkq.SCALAR)
 
 
 @pytest.mark.parametrize("hd,itemsize,kv_bits,vals,codes,want", [

@@ -105,6 +105,51 @@ def test_plain_matches_reference_kernel_interpreted(kv_bits, splits):
         np.testing.assert_allclose(got.numpy(), out_k, atol=1e-5)
 
 
+@pytest.mark.parametrize("hd", [7, 33])
+def test_odd_head_dim_at_kv8_matches_reference(hd):
+    """An odd head_dim at kv8, which the reference takes (its
+    ``check_kv_bits`` refuses one only at kv4): the plain version against
+    the reference's jnp path and its kernel interpreted, window and cap
+    included."""
+    q, cache, tables, S = _pool(8, 4, 5, hd=hd, seed=4)
+    q_pos = np.array([2, S // 2, S - 1], np.int32)
+    tc = _to_torch(cache)
+    for window, cap in ((None, None), (7, 30.0)):
+        p = jattn.AttnParams(window=window, logit_cap=cap)
+        want = np.asarray(jattn.paged_decode_attention_quant(
+            jnp.asarray(q), cache, jnp.asarray(tables), jnp.asarray(q_pos),
+            p, kv_bits=8, use_pallas=False))
+        out_k = np.asarray(jpa.paged_quant_attention(
+            jnp.asarray(q), cache["k_codes"], cache["k_mu"],
+            cache["k_sigma"], cache["v_codes"], cache["v_mu"],
+            cache["v_sigma"], jnp.asarray(tables), jnp.asarray(q_pos),
+            kv_bits=8, window=window, logit_cap=cap, splits=2,
+            interpret=True))
+        got = _call(tpa.paged_quant_attention, q, tc, tables, q_pos,
+                    kv_bits=8, window=window, logit_cap=cap)
+        assert tuple(got.shape) == q.shape
+        # identical codes and stats; f32 softmax in two implementations
+        # (as test_plain_matches_reference), erfinv per element in the
+        # interpreted kernel (as test_plain_matches_reference_kernel_...)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+        np.testing.assert_allclose(got.numpy(), out_k, atol=1e-5)
+
+
+def test_kv4_refuses_an_odd_head_dim():
+    """kv4 packs two codes a byte along head_dim: an odd one is refused, as
+    the reference's ``check_kv_bits`` refuses it."""
+    q, cache, tables, S = _pool(4, 4, 3, hd=16)
+    tc = _to_torch(cache)
+    q_pos = np.array([1, 2, 3], np.int32)
+    odd = {n: (t[..., :7] if n.endswith("codes") else t)
+           for n, t in tc.items()}
+    with pytest.raises(ValueError):
+        _call(tpa.paged_quant_attention, q[..., :15].copy(), odd, tables,
+              q_pos, kv_bits=4)
+    with pytest.raises(ValueError):
+        jkv.check_kv_bits(4, 15)
+
+
 @pytest.mark.parametrize("kv_bits", [4, 8])
 def test_all_masked_row_gives_zeros_like_the_reference_kernel(kv_bits):
     """A query before every row (q_pos = -1) sees nothing: the reference
