@@ -36,7 +36,7 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      embedding rows of the Gaussian engines; ``kquantile_quantize`` codes
      the weights at load and runs no more in the stream);
      checks that the dense bf16 LM head gives f32 logits;
-  4c. (run after 5b) the MoE family at full width, depth ``--moe-layers``
+  4c. (run after 5d) the MoE family at full width, depth ``--moe-layers``
      (default 4):
      kimi_k2_1t_a32b, then llama4_maverick_400b_a17b, W4 (Gaussian) + kv8,
      bf16, each drawn and coded a layer slice at a time: phase 4's stream
@@ -69,6 +69,20 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      prefix cache, with ``checkify`` and the profiler ranges under
      ``torch.profiler`` (the ranges present, the tokens unchanged); the
      slot cache's plain decode attention timed;
+  5d. the state-space families on the closed batch: mamba2_1_3b, then
+     zamba2_2_7b, at full width and depth, bf16, each freed before the
+     next: the serving CLI without ``--engine`` (dense weights and their W4
+     copy, W4 and W4 empirical), every run's launches counted exactly
+     (``qmatmul`` or ``qmatmul_lut`` 2 x L + 1 a step at mamba2, 2 x L +
+     7 x 9 + 1 at zamba2: in_proj, out_proj, the shared block, the head;
+     ``kquantile_dequantize`` once a step; no paged kernel, no
+     ``qmatmul_a8``); then a W4 model drawn and coded a layer at a time: a
+     prefill of 4 x 256 tokens (two SSD chunks of 128: the chunked scan
+     with its state carried across chunks) and a decode step from its
+     cache with the kernels and with the plain versions forced (logits
+     within ``TOL_SSM_LOGITS_REL``, launches exact; the plain prefill again
+     with every coded matmul weight one level off must land outside it),
+     and one decode step under ``torch.profiler``;
   6. trains granite_3_8b at full width (depth ``--train-layers``, default 8)
      through the trainer's entry points for ``--train-steps`` steps (UNIQ
      noise, gradual freezing, AdamW), counting the ``uniq_noise`` launches
@@ -86,7 +100,9 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      MobileNet (width 16) for a few steps; then a tiny f32 ResNet-18 step on
      the card against the CPU (same params, batch and key);
   7. times each kernel (CUDA events) beside its bound, its plain version and
-     one library call, and prints the ``kernels`` JSON line;
+     one library call (``qmatmul`` also at the state-space models' decode
+     shapes whose N is no multiple of the 128-column tile, beside the
+     whole-tile N just below), and prints the ``kernels`` JSON line;
   8. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--layers N`` cuts the serving depth (never the width; the closed batch
@@ -151,7 +167,7 @@ from repro_torch.kernels import uniq_noise as un              # noqa: E402
 from repro_torch.launch import train as train_cli             # noqa: E402
 from repro_torch.models import attention as attn_lib         # noqa: E402
 from repro_torch.models import kv_cache as kvc               # noqa: E402
-from repro_torch.models import lm, model                      # noqa: E402
+from repro_torch.models import hybrid, lm, model              # noqa: E402
 from repro_torch.models import moe as moe_lib                 # noqa: E402
 from repro_torch.optim.optim import OptimConfig               # noqa: E402
 from repro_torch.serve import engine as engine_lib           # noqa: E402
@@ -206,6 +222,18 @@ TOL_ATT_BF16_REL = 2.0 ** -5
 #   and whose decode attention differs as above; stated relative to the
 #   largest logit of the reference.
 TOL_LOGITS_REL = 0.08
+# mamba2 / zamba2 at full width, bf16 logits, kernels vs plain versions: the
+#   same one-ulp freedom of each coded matmul's bf16 output (2 a layer, 7 at
+#   each shared block, the head f32), fed through 48 / 54 bf16 residual
+#   updates and the SSM recurrence, whose state is f32 on both sides and
+#   sees the same bf16 inputs up to those ulps; stated, as above, relative
+#   to the largest logit of the plain side.  Sound kernels read 4.5-5.1 %
+#   of it (PERF.md, PR 24): the limit sits 1.6x above that.  It must see a
+#   kernel that decodes its codes wrongly: phase 5d reruns the plain
+#   prefill with every coded matmul weight one level off (code c read as
+#   c ^ 1, the other level of its pair; it read 132 and 144 %) and fails
+#   unless that control lands above the limit.
+TOL_SSM_LOGITS_REL = 0.08
 # tiny f32 model, card (kernels) vs CPU (plain): f32 everywhere, different
 #   summation orders and transcendental implementations through 2 layers.
 TOL_SMALL_F32 = 2e-3
@@ -394,6 +422,19 @@ def attn_call(fn, t, **kw):
 # Phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+# the coded matmuls of mamba2_1_3b and zamba2_2_7b, (K, N): in_proj,
+# out_proj, the LM head; zamba2's shared wq / wk / wv / wo, w_gate / w_up,
+# w_down.  N = 8512, 10448 and 50280 are no multiple of the 128-column tile;
+# W4 rows of 5224 B (zamba2 in_proj) and 25140 B (the mamba2 head; 50280 B
+# at W8) are no multiple of 16 bytes.  Held at the closed batch's decode
+# (M = 4) and at phase 5d's prefill (4 x 256 tokens: M = 1024).
+SSM_QMM_KN = ((2048, 8512), (4096, 2048), (2048, 50280),
+              (2560, 10448), (5120, 2560), (2560, 32000),
+              (2560, 2560), (2560, 10240), (10240, 2560))
+SSM_QMM_SHAPES = [(M, K, N) for (K, N) in SSM_QMM_KN for M in (4, 1024)]
+SSM_QMM_QUICK = [(4, 2560, 10448), (4, 2048, 50280)]
+
+
 def check_qmatmul(gen, quick: bool) -> float:
     worst = 0.0
     main_kn = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096)]
@@ -403,9 +444,10 @@ def check_qmatmul(gen, quick: bool) -> float:
     # more rows than the tallest tile (128) and the 256 above, and an N
     # that is no multiple of the wgmma's 64-column warpgroup tile
     shapes += [(300, 4096, 4096), (300, 1000, 200)]
+    shapes += SSM_QMM_SHAPES
     if quick:
         shapes = [(16, 4096, 4096), (256, 4096, 1024), (5, 200, 130),
-                  (33, 520, 96), (300, 1000, 200)]
+                  (33, 520, 96), (300, 1000, 200)] + SSM_QMM_QUICK
     for (M, K, N) in shapes:
         for bits in (4, 8):
             for a_dtype in (torch.bfloat16, torch.float32):
@@ -506,9 +548,10 @@ def check_qmatmul_variants(gen, quick: bool):
     shapes = [(M, K, N) for (K, N) in main_kn for M in (4, 8, 16, 32, 256)]
     shapes += [(5, 200, 130), (33, 520, 96), (70, 77, 258), (1, 64, 2)]
     shapes += [(300, 4096, 4096), (300, 1000, 200)]
+    shapes += SSM_QMM_SHAPES
     if quick:
         shapes = [(16, 4096, 12800), (256, 4096, 1024), (5, 200, 130),
-                  (33, 520, 96), (300, 1000, 200)]
+                  (33, 520, 96), (300, 1000, 200)] + SSM_QMM_QUICK
     for (M, K, N) in shapes:
         for bits in (4, 8):
             _, w, mu, sigma = make_qmm_inputs(gen, 1, K, N, bits,
@@ -2354,6 +2397,40 @@ def moe_phases(seed: int, new_tokens: int, layers: int):
     return total
 
 
+def profile_step(step, what: str, tag: str):
+    """Device busy share and kernel time by name of one call of ``step``
+    under ``torch.profiler``, beside an unprofiled call's wall (the median
+    of three after two warm-ups: the profiler adds host time).  Returns
+    (device ms, unprofiled wall ms, the four kernels of most device time)."""
+    walls = []
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        step()
+        sync()
+        walls.append(time.perf_counter() - t0)
+    bare = sorted(walls[2:])[1] * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        sync()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_launch = sum(e.count for e in kernels)
+    top = sorted(((e.key, e.self_device_time_total / 1e3) for e in kernels),
+                 key=lambda kv: -kv[1])[:4]
+    say(f"[{tag}] {what}: device busy {dev_ms:.2f} ms of {wall * 1e3:.2f} ms "
+        f"wall under the profiler ({100 * dev_ms / (wall * 1e3):.1f}%), of "
+        f"{bare:.2f} ms without it (median of 3: {100 * dev_ms / bare:.1f}%); "
+        f"{n_launch} device kernels; by kernel: " + "; ".join(
+            f"{n[:48]} {t:.3f} ms" for n, t in top) + f"; {CARD}")
+    return dev_ms, bare, top
+
+
 def moe_decode_profile(params, cfg, opts, B: int = 16, ctx: int = 300):
     """Device busy share and kernel time by name of one decode step (B
     rows, ``ctx`` rows of context each) under ``torch.profiler``."""
@@ -2366,33 +2443,10 @@ def moe_decode_profile(params, cfg, opts, B: int = 16, ctx: int = 300):
     toks = torch.randint(0, cfg.vocab, (B, 1), device=DEV)
     pos = torch.full((B,), ctx, device=DEV)
     o = dataclasses.replace(opts, kv_bits=8)
-    walls = []
-    for _ in range(5):       # the first two warm up; the profiler adds host
-        sync()               # time, so the busy share is also stated
-        t0 = time.perf_counter()  # against an unprofiled step's wall
-        model.decode(params, cfg, o, cache, toks, pos, block_tables=tables)
-        sync()
-        walls.append(time.perf_counter() - t0)
-    bare = sorted(walls[2:])[1] * 1e3
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        model.decode(params, cfg, o, cache, toks, pos, block_tables=tables)
-        sync()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(((e.key, e.self_device_time_total) for e in kernels),
-                 key=lambda kv: -kv[1])[:4]
-    say(f"[moe] one decode step (B={B}, {ctx} rows of context, "
-        f"{cfg.n_layers} layers): device busy {dev_us / 1e3:.2f} ms of "
-        f"{wall * 1e3:.2f} ms wall under the profiler "
-        f"({100 * dev_us / 1e3 / (wall * 1e3):.1f}%), of {bare:.2f} ms "
-        f"without it (median of 3: {100 * dev_us / 1e3 / bare:.1f}%); by "
-        f"kernel: " + "; ".join(f"{n[:48]} {t / 1e3:.3f} ms"
-                                for n, t in top))
+    profile_step(lambda: model.decode(params, cfg, o, cache, toks, pos,
+                                      block_tables=tables),
+                 f"one decode step (B={B}, {ctx} rows of context, "
+                 f"{cfg.n_layers} layers)", "moe")
     del cache
 
 
@@ -2411,22 +2465,38 @@ CLOSED_BATCH_RUNS = (
 CLOSED_BATCH = dict(batch=4, prompt_len=16, new_tokens=32)
 
 
-def closed_batch_phase(seed: int):
+def coded_matmuls_per_step(cfg) -> int:
+    """The coded matmuls of one decode step at W4 (``qmatmul`` or
+    ``qmatmul_lut`` launches): each layer's projections, the shared block's
+    seven at each application (zamba2) and the LM head where it is coded
+    (an odd vocab cannot be int4-packed: granite_3_8b's 49155 stays
+    dense)."""
+    L = cfg.n_layers
+    head = int(not cfg.tie_embeddings and cfg.vocab % 2 == 0)
+    if cfg.family == "ssm":
+        return 2 * L + head                       # in_proj, out_proj
+    if cfg.family == "hybrid":
+        return 2 * L + 7 * (L // cfg.attn_every) + head
+    return 7 * L + head
+
+
+def closed_batch_phase(seed: int, arch: str = "granite_3_8b",
+                       runs=CLOSED_BATCH_RUNS, tag: str = "closed"):
     """``python -m repro_torch.launch.serve`` without --engine at the full
-    width and depth of granite_3_8b (bf16): dense weights from --seed,
-    greedy generation with them and with their coded copy, counted."""
+    width and depth of ``arch`` (bf16): dense weights from --seed, greedy
+    generation with them and with their coded copy, counted."""
     from repro_torch.launch import serve as serve_cli
-    cfg = cb.get("granite_3_8b")
+    cfg = cb.get(arch)
     c = CLOSED_BATCH
     steps = c["prompt_len"] + c["new_tokens"] - 1
-    L = cfg.n_layers
+    per_step = coded_matmuls_per_step(cfg)
     out = {}
-    for name, extra, matmul in CLOSED_BATCH_RUNS:
-        argv = ["--arch", "granite_3_8b", "--w-bits", "4", "--batch",
+    for name, extra, matmul in runs:
+        argv = ["--arch", arch, "--w-bits", "4", "--batch",
                 str(c["batch"]), "--prompt-len", str(c["prompt_len"]),
                 "--new-tokens", str(c["new_tokens"]), "--seed", str(seed)
                 ] + extra
-        say(f"[closed] {name}: python -m repro_torch.launch.serve "
+        say(f"[{tag}] {name}: python -m repro_torch.launch.serve "
             + " ".join(argv))
         kops.reset_launch_counts()
         res = serve_cli.main(argv)
@@ -2435,12 +2505,12 @@ def closed_batch_phase(seed: int):
         toks = res["tokens"]
         if tuple(toks.shape) != (c["batch"], c["new_tokens"]) \
                 or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
-            raise SystemExit(f"closed batch {name}: tokens of the wrong "
-                             f"shape or outside the vocabulary")
-        want_mm = 7 * L * steps
+            raise SystemExit(f"closed batch {arch} {name}: tokens of the "
+                             f"wrong shape or outside the vocabulary")
+        want_mm = per_step * steps
         gaussian = "empirical" not in extra
-        say(f"[closed] {name}: kernel launches (the dense run's and the "
-            f"coded run's): {matmul} {counts[matmul]} (7 x {L} layers x "
+        say(f"[{tag}] {name}: kernel launches (the dense run's and the "
+            f"coded run's): {matmul} {counts[matmul]} ({per_step} a step x "
             f"{steps} decode steps = {want_mm}; the dense run launches "
             f"none), kquantile_dequantize {counts['kquantile_dequantize']} "
             f"(the embedding rows, one a step), kquantile_quantize "
@@ -2456,9 +2526,9 @@ def closed_batch_phase(seed: int):
                 or counts["kquantile_dequantize"] != (steps if gaussian
                                                        else 0) \
                 or (counts["kquantile_quantize"] > 0) != gaussian:
-            raise SystemExit(f"closed batch {name}: the main path did not go "
-                             f"through the kernels as expected")
-        say(f"[closed] {name}: {res['tok_per_s']:.1f} tok/s host loop "
+            raise SystemExit(f"closed batch {arch} {name}: the main path "
+                             f"did not go through the kernels as expected")
+        say(f"[{tag}] {name}: {res['tok_per_s']:.1f} tok/s host loop "
             f"(dense {res['dense_tok_per_s']:.1f}); greedy agreement with "
             f"the dense {res['compute_dtype']} model "
             f"{res['agreement'] * 100:.1f}%; weights coded in "
@@ -2613,6 +2683,171 @@ def slot_phase(cfg, seed: int, new_tokens: int):
 
 def _toks(outs):
     return [o.token_ids for o in outs]
+
+
+# --------------------------------------------------------------------------
+# Phase 5d: the state-space families on the closed batch at full width
+# --------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2_1_3b", "zamba2_2_7b")
+# their closed-batch runs: every in_proj / out_proj, shared-block matrix and
+# LM head of the coded model on one matmul kernel (--a-bits 8 leaves these
+# families' decode unchanged, as in the reference, so it is not run)
+SSM_CLOSED_RUNS = CLOSED_BATCH_RUNS[:2]
+
+
+def _grown(cfg, cache, B: int, max_len: int):
+    """A zeroed decode cache of ``max_len`` rows holding ``cache`` (a
+    prefill's: zamba2's K/V rows go to the front)."""
+    full = model.init_cache(cfg, B, max_len, torch.bfloat16, device=DEV)
+    for name, leaf in cache.items():
+        full[name][tuple(slice(0, n) for n in leaf.shape)] = leaf
+    return full
+
+
+def _coded_matmul_weights(params):
+    """The coded leaves that ``qmatmul`` reads (every one but the
+    embedding's, whose rows ``kquantile_dequantize`` decodes)."""
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict) and "q_codes" in t:
+            out.append(t)
+        elif isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+    walk({k: v for k, v in params.items() if k != "embed"})
+    return out
+
+
+def ssm_plain_check(params, cfg, arch: str, B: int = 4, S: int = 256):
+    """A prefill of B x S tokens (S = 256: two SSD chunks, the state carried
+    from the first into the second) and one decode step from its cache,
+    with the kernels and with the plain versions forced (bf16): the kernel
+    side launches exactly the coded matmuls of two steps and two
+    embedding-row decodes, the plain side none; logits within
+    ``TOL_SSM_LOGITS_REL`` of the largest plain logit, and a differing
+    argmax a near-tie.  The control: the plain prefill with every coded
+    matmul weight's W4 codes one level off (c ^ 1) lands above that limit.
+    Then the kernel side's decode step under the profiler."""
+    per_step = coded_matmuls_per_step(cfg)
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(B, S)), device=DEV)
+    pos = torch.full((B,), S, device=DEV)
+    res = {}
+    for name, uk in (("kernels", True), ("plain", False)):
+        o = lm.ModelOpts(compute_dtype=torch.bfloat16, use_kernels=uk)
+        kops.reset_launch_counts()
+        logits_p, cache = model.prefill(params, cfg, o, {"tokens": toks})
+        nxt = res.setdefault("next", logits_p.argmax(-1))
+        cache = _grown(cfg, cache, B, S + 1)
+        logits_d, cache = model.decode(params, cfg, o, cache, nxt[:, None],
+                                       pos)
+        sync()
+        counts = kops.launch_counts()
+        want = {"qmatmul": 2 * per_step, "kquantile_dequantize": 2} if uk \
+            else {}
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            raise SystemExit(f"{arch} {name} prefill + decode: launches "
+                             f"{counts}, want {want}")
+        res[name] = (logits_p.float(), logits_d.float(), cache, o)
+    for i, what in enumerate((f"prefill ({B} x {S} tokens)",
+                              "decode step")):
+        k, p = res["kernels"][i], res["plain"][i]
+        if k.shape != (B, cfg.vocab) or not torch.isfinite(k).all():
+            raise SystemExit(f"{arch} {what} logits: wrong shape or not "
+                             f"finite")
+        err = (k - p).abs().max().item()
+        big = p.abs().max().item()
+        tol = TOL_SSM_LOGITS_REL * big
+        agree = (k.argmax(-1) == p.argmax(-1)).float().mean().item()
+        say(f"[ssm] {arch} {what} logits, kernels vs plain versions: max "
+            f"abs err {err:.4f} ({err / big * 100:.2f} % of max |logit|; "
+            f"tolerance {tol:.4f} = {TOL_SSM_LOGITS_REL} x max |logit|), "
+            f"argmax agreement {agree * 100:.0f}%; launches "
+            f"exact (kernels: qmatmul {2 * per_step} = 2 x {per_step}, "
+            f"kquantile_dequantize 2; plain: none)")
+        if err > tol:
+            raise SystemExit(f"{arch} {what} logits disagree with the plain "
+                             f"versions")
+        for r in (k.argmax(-1) != p.argmax(-1)).nonzero().flatten().tolist():
+            check_near_tie(f"{arch} {what} row {r}", k[r], p[r], err)
+    # the control: what a kernel that reads each code as its neighbour would
+    # give (packed int4: c ^ 1 in both nibbles), flipped in place and back
+    coded = _coded_matmul_weights(params)
+    if not coded or any(w["q_codes"].dtype != torch.uint8 for w in coded):
+        raise SystemExit(f"{arch}: the control wants packed W4 codes")
+    for w in coded:
+        w["q_codes"].bitwise_xor_(0x11)
+    try:
+        wrong, _ = model.prefill(params, cfg, res["plain"][3],
+                                 {"tokens": toks})
+    finally:
+        for w in coded:
+            w["q_codes"].bitwise_xor_(0x11)
+    p = res["plain"][0]
+    wrong_err = (wrong.float() - p).abs().max().item()
+    big = p.abs().max().item()
+    tol = TOL_SSM_LOGITS_REL * big
+    say(f"[ssm] {arch} control: the plain prefill with the codes of all "
+        f"{len(coded)} coded matmul leaves one level off moves the logits "
+        f"by {wrong_err:.4f} ({wrong_err / big * 100:.2f} % of max |logit|; "
+        f"the limit {tol:.4f} must sit below it)")
+    if wrong_err <= tol:
+        raise SystemExit(f"{arch}: the logit limit cannot see a kernel that "
+                         f"decodes its codes one level off")
+    _, _, cache, o = res.pop("kernels")
+    del res
+    nxt = toks[:, :1]
+    profile_step(lambda: model.decode(params, cfg, o, cache, nxt, pos),
+                 f"{arch} one decode step (B={B}, W4, bf16, "
+                 f"{cfg.n_layers} layers)", "ssm")
+
+
+def ssm_phase(arch: str, seed: int):
+    """The CLI's closed batch at ``arch``'s full width and depth (W4, W4
+    empirical), then a W4 model drawn and coded a layer at a time for the
+    kernels-vs-plain check and the profiled decode step.  Returns the
+    counted runs' launches, summed."""
+    cfg = cb.get(arch)
+    dims = hybrid.ssm_dims(cfg)
+    shared = (f"; a shared attention + MLP block ({cfg.n_heads} heads x "
+              f"{cfg.head_dim}, d_ff {cfg.d_ff}) after every "
+              f"{cfg.attn_every} layers" if cfg.family == "hybrid" else "")
+    say(f"[ssm] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_inner {dims.d_inner}, {dims.n_heads} SSD heads of "
+        f"{dims.headdim}, state {dims.state}, vocab {cfg.vocab}{shared}; "
+        f"{coded_matmuls_per_step(cfg)} coded matmuls a decode step")
+    total = collections.Counter()
+    for counts, _ in closed_batch_phase(seed, arch, SSM_CLOSED_RUNS,
+                                        tag="ssm").values():
+        total.update(counts)
+    t0 = time.perf_counter()
+    params = model.init(seed, cfg, device=DEV, w_bits=4,
+                        dense_dtype=torch.bfloat16)
+    sync()
+    say(f"[ssm] {arch}: W4 model drawn and coded a layer slice at a time "
+        f"in {time.perf_counter() - t0:.2f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    ssm_plain_check(params, cfg, arch)
+    del params
+    return total
+
+
+def ssm_phases(seed: int):
+    """Phase 5d: mamba2_1_3b, then zamba2_2_7b, each freed before the
+    next; returns the launches of their counted runs, summed."""
+    total = collections.Counter()
+    for arch in SSM_ARCHS:
+        before = torch.cuda.memory_allocated() / 2**30
+        total.update(ssm_phase(arch, seed))
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 2**30
+        if left > before + 1.0:
+            raise SystemExit(f"{arch}: the model was not freed ({left:.2f} "
+                             f"GiB allocated, {before:.2f} before it)")
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -3690,6 +3925,14 @@ def time_experts(gen, rows_out):
             f"per call; {CARD}")
 
 
+# phase 7's rows of the state-space models' decode (M = 4, bf16) whose N is
+# no multiple of the 128-column tile: (what, K, N, the N of whole tiles
+# just below, timed beside it)
+SSM_QMM_TIMED = (("mamba2 in_proj", 2048, 8512, 8448),
+                 ("zamba2 in_proj", 2560, 10448, 10368),
+                 ("mamba2 LM head", 2048, 50280, 50176))
+
+
 def timing_phase(gen, counts, errs):
     rows = {}
     for bits in (4, 8):
@@ -3707,6 +3950,21 @@ def timing_phase(gen, counts, errs):
                 f"{r['plain_ms']:.3f} ms, torch.matmul on dequantized bf16 "
                 f"{r['library_ms']:.4f} ms; host enqueue "
                 f"{r['host_us']:.0f} us per call")
+    for what, K, N, twin in SSM_QMM_TIMED:
+        for bits in ((4, 8) if what == "mamba2 LM head" else (4,)):
+            r = time_qmatmul(gen, 4, K, N, bits)
+            t = time_qmatmul(gen, 4, K, twin, bits)
+            rows[("qmatmul", bits, 4, K, N)] = r
+            pitch = N * bits // 8
+            say(f"[time] qmatmul W{bits} bf16 M=4 K={K} N={N} ({what}; code "
+                f"rows of {pitch} B, {'a' if pitch % 16 == 0 else 'no'} "
+                f"multiple of 16): kernel {r['ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.3f} ms, "
+                f"torch.matmul on dequantized bf16 {r['library_ms']:.4f} ms; "
+                f"host enqueue {r['host_us']:.0f} us per call; N={twin} "
+                f"(whole 128-column tiles, rows of {twin * bits // 8} B) "
+                f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; {CARD}")
     for kv_bits in (8, 4):
         for ctx in (2048, 512):
             r = time_attention(gen, kv_bits, ctx)
@@ -3811,7 +4069,11 @@ def timing_phase(gen, counts, errs):
     return {"kernels": [
         entry("qmatmul", "src/repro_torch/kernels/csrc/qmatmul.cu",
               "src/repro/kernels/qmatmul.py:182", q,
-              prefill_m256=rows[("qmatmul", 4, 256, 4096, 12800)]),
+              prefill_m256=rows[("qmatmul", 4, 256, 4096, 12800)],
+              mamba2_in_proj_m4=rows[("qmatmul", 4, 4, 2048, 8512)],
+              zamba2_in_proj_m4=rows[("qmatmul", 4, 4, 2560, 10448)],
+              mamba2_head_m4=rows[("qmatmul", 4, 4, 2048, 50280)],
+              mamba2_head_w8_m4=rows[("qmatmul", 8, 4, 2048, 50280)]),
         entry("paged_quant_attention",
               "src/repro_torch/kernels/csrc/paged_attn.cu",
               "src/repro/kernels/paged_attn.py:227", a,
@@ -4310,6 +4572,13 @@ def main(argv=None) -> int:
     closed_batch_phase(args.seed)
     slot_phase(cfg, args.seed, args.new_tokens)
     say(f"[time] phase 5b done at {time.perf_counter() - t_start:.0f}s")
+    # the state-space families' closed batch at full width (phase 5d); its
+    # counted runs' matmul and codec launches join the kernels line's
+    ssm_counts = ssm_phases(args.seed)
+    for c in ("qmatmul", "qmatmul_lut", "kquantile_dequantize",
+              "kquantile_quantize"):
+        counts[c] = counts.get(c, 0) + ssm_counts[c]
+    say(f"[time] phase 5d done at {time.perf_counter() - t_start:.0f}s")
     # the MoE family at full width, one model after another (each freed
     # before the next), after the dense serving phases so that their
     # host-bound readings keep the conditions of earlier runs; the count of

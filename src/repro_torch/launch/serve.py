@@ -2,7 +2,7 @@
 under a request stream, with UNIQ-quantized weights, on the GPU (or, on
 request, the CPU).
 
-Closed batch (``serve.generate`` over the slot cache):
+Closed batch (``serve.generate`` over the family's decode cache):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_8b \
         --w-bits 4 --batch 4 --prompt-len 16 --new-tokens 32
@@ -23,7 +23,11 @@ time-to-first-token, inter-token latency, slot occupancy, preemptions and
 effective KV utilization.  ``--smoke --device cpu`` runs the tiny variant of
 the architecture on the CPU.  ``--arch`` takes every architecture of the
 registry whose family is ported: dense (granite_3_8b, gemma2_9b, yi_6b,
-stablelm_12b) and moe (kimi_k2_1t_a32b, llama4_maverick_400b_a17b).
+stablelm_12b) and moe (kimi_k2_1t_a32b, llama4_maverick_400b_a17b) in both
+modes; ssm (mamba2_1_3b) and hybrid (zamba2_2_7b) in the closed batch only
+(their decode caches are a conv window and an SSM state per layer, not the
+engine's KV pool: --engine raises ValueError, as in the reference; their
+decode applies no --a-bits fake-quant, as in the reference).
 
 The KV cache is paged by default (--cache-mode paged): sequences grow page
 by page out of a shared pool (--total-pages or a --pool-bytes byte budget)
@@ -312,9 +316,10 @@ def run_closed_batch(params, cfg, opts, args, device="cuda") -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True, choices=cb.ARCH_IDS,
-                   help="a registered architecture; the dense and moe "
-                        "families serve, the others raise "
-                        "NotImplementedError")
+                   help="a registered architecture; dense and moe serve "
+                        "in both modes, ssm (mamba2) and hybrid (zamba2) in "
+                        "the closed batch only (--engine raises ValueError); "
+                        "audio and vlm raise NotImplementedError")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--w-bits", type=int, default=4)
     p.add_argument("--w-dist", choices=("gaussian", "empirical"),

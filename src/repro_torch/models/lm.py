@@ -67,6 +67,7 @@ class ModelOpts:
                                       #   backward (torch.utils.checkpoint)
     attn_chunked_min_len: int = 8192  # chunked attention from this S on
                                       #   (not ported: raises)
+    ssd_chunk: int = 128              # SSD scan chunk (ssm / hybrid prefill)
     ce_chunk: int = 1024              # cross-entropy chunk along S
     use_kernels: bool = True          # comparison hook: False computes every
                                       #   kernel's plain PyTorch version on
@@ -307,32 +308,25 @@ def norm_param(cfg: ArchConfig, *shape, device="cpu"):
     return torch.ones(shape, dtype=torch.float32, device=device)
 
 
-@torch.no_grad()
-def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
-                dense_dtype=torch.float32, per_channel: bool = True,
-                w_dist: str = "gaussian") -> Dict[str, Any]:
-    """Random dense-decoder parameter tree on ``device``, from ``seed``.
-
-    Matmul weights are drawn one layer at a time.  With ``w_bits`` 4 or 8
-    each eligible layer slice is k-quantile coded (``w_dist`` "gaussian" or
-    "empirical") as soon as it is drawn, and freed before the next is
-    drawn, so a full-width model never holds a dense stacked leaf (nor two
-    f32 layer slices of an expert stack: 22.5 GB each at kimi_k2): the
-    result equals ``quantize_params_for_serving(init_params(seed, cfg),
-    w_bits, dist=w_dist)``.  Leaves left dense are stored in
-    ``dense_dtype``, except the MoE ``router``, which stays f32.
-    """
+def weight_drawer(seed: int, device, w_bits: int = 16,
+                  dense_dtype=torch.float32, per_channel: bool = True,
+                  w_dist: str = "gaussian"):
+    """``(weight, gen, dev)``: ``weight(path, shape, init, stacked,
+    dtype=dense_dtype, **kw)`` draws one parameter leaf from ``gen`` (a
+    ``torch.Generator`` on ``dev`` seeded with ``seed``) by ``init``
+    (``dense_init`` / ``embed_init``).  A stacked leaf is drawn one layer
+    slice at a time.  With ``w_bits`` 4 or 8 each slice that
+    ``default_quant_filter`` selects is k-quantile coded (``w_dist``
+    "gaussian" or "empirical") as soon as it is drawn, and freed before the
+    next is drawn, so a full-width model never holds a dense stacked leaf;
+    the codes equal ``quantize_params_for_serving`` of the dense draw.
+    Leaves left dense are stored in ``dtype``."""
     if w_dist not in ("gaussian", "empirical"):
         raise ValueError(f"w_dist must be gaussian|empirical, got "
                          f"{w_dist!r}")
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense and moe only)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    L, d, f, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     quant = w_bits < 16
 
     def weight(path, shape, init, stacked, dtype=dense_dtype, **kw):
@@ -355,6 +349,32 @@ def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
                 out[k][l:l + 1].copy_(v)
             del part
         return out if code else out["w"]
+
+    return weight, gen, dev
+
+
+@torch.no_grad()
+def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
+                dense_dtype=torch.float32, per_channel: bool = True,
+                w_dist: str = "gaussian") -> Dict[str, Any]:
+    """Random dense-decoder parameter tree on ``device``, from ``seed``.
+
+    Matmul weights are drawn one layer at a time (``weight_drawer``): with
+    ``w_bits`` 4 or 8 each eligible layer slice is coded as soon as it is
+    drawn (nor are two f32 layer slices of an expert stack held at once:
+    22.5 GB each at kimi_k2), and the result equals
+    ``quantize_params_for_serving(init_params(seed, cfg), w_bits,
+    dist=w_dist)``.  Leaves left dense are stored in ``dense_dtype``,
+    except the MoE ``router``, which stays f32.
+    """
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"family {cfg.family!r}: lm.init_params draws the dense and moe "
+            f"families (ssm / hybrid: models/hybrid.py)")
+    weight, _, dev = weight_drawer(seed, device, w_bits, dense_dtype,
+                                   per_channel, w_dist)
+    L, d, f, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     layers: Dict[str, Any] = {
         "attn_norm": norm_param(cfg, L, d, device=dev),

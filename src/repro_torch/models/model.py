@@ -1,17 +1,20 @@
-"""Unified model API for the decoder families ported so far (dense, moe).
+"""Unified model API for the families ported so far: the decoder-only LMs
+(dense, moe: ``models/lm.py``) and the state-space families (ssm: mamba2,
+hybrid: zamba2; ``models/hybrid.py``).
 
     init(seed, cfg, device)             -> params
-    loss_fn(params, cfg, opts, batch)   -> scalar loss          (train)
+    loss_fn(params, cfg, opts, batch)   -> scalar loss   (train; dense only)
     prefill(params, cfg, opts, batch)   -> (logits, cache)
     decode(params, cfg, opts, cache, tokens, positions, block_tables)
                                         -> (logits, cache)
 
-and the two serving caches: the slot cache (``init_slot_cache`` /
-``cache_insert``: one fixed region of ``max_len`` rows per decode slot) and
-the paged pool (``init_paged_cache`` / ``cache_insert_paged``).  The
-families ssm, hybrid, audio and vlm are registered (``configs/``) but not
-ported: every entry point raises ``NotImplementedError`` naming the family
-(``require_ported``).
+and the serving caches: each family's decode cache (``init_cache`` /
+``cache_specs``), the slot cache (``init_slot_cache`` / ``cache_insert``:
+one fixed region of ``max_len`` rows per decode slot) and the paged pool
+(``init_paged_cache`` / ``cache_insert_paged``); the last two hold the
+plain KV layout of dense and moe only.  The families audio and vlm are
+registered (``configs/``) but not ported: every entry point raises
+``NotImplementedError`` naming the family (``require_ported``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import lm
+from repro_torch.models import hybrid, lm
 from repro_torch.models.lm import ModelOpts
 
 __all__ = ["ModelOpts", "init", "loss_fn", "prefill", "decode",
@@ -31,8 +34,11 @@ __all__ = ["ModelOpts", "init", "loss_fn", "prefill", "decode",
            "prefill_chunk", "PORTED_FAMILIES", "require_ported"]
 
 # the families whose model this package has; the reference's registry also
-# holds ssm (mamba2), hybrid (zamba2), audio (whisper) and vlm (pixtral)
-PORTED_FAMILIES = ("dense", "moe")
+# holds audio (whisper) and vlm (pixtral)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the state-space families: serving only, their caches a conv window and an
+# SSM state per layer (and the shared block's K/V at hybrid)
+SSM_FAMILIES = ("ssm", "hybrid")
 
 
 def supports_paged_cache(cfg: ArchConfig) -> bool:
@@ -51,10 +57,12 @@ def require_ported(cfg: ArchConfig, what: str) -> None:
 
 
 def init(seed: int, cfg: ArchConfig, device="cuda", **kw) -> Any:
-    """Random parameters from ``seed`` (see lm.init_params: ``w_bits`` /
-    ``w_dist`` code them layer by layer, ``dense_dtype``,
-    ``per_channel``)."""
+    """Random parameters from ``seed``; every family takes ``w_bits`` /
+    ``w_dist`` (code the weights layer by layer) and ``dense_dtype``, and
+    dense and moe also ``per_channel`` (see lm.init_params)."""
     require_ported(cfg, "init")
+    if cfg.family in SSM_FAMILIES:
+        return hybrid.init_params(seed, cfg, device=device, **kw)
     return lm.init_params(seed, cfg, device=device, **kw)
 
 
@@ -62,39 +70,63 @@ def loss_fn(params, cfg: ArchConfig, opts: ModelOpts, batch,
             uniq_scan=None) -> torch.Tensor:
     """Teacher-forced LM loss (see lm.forward_train)."""
     require_ported(cfg, "loss_fn")
+    if cfg.family in SSM_FAMILIES:
+        raise NotImplementedError(
+            f"loss_fn: training of family {cfg.family!r} is not ported yet "
+            f"(the reference's forward_train_mamba / forward_train_zamba; "
+            f"only its serving path is ported)")
     return lm.forward_train(params, cfg, opts, batch, uniq_scan=uniq_scan)
 
 
 def prefill(params, cfg: ArchConfig, opts: ModelOpts, batch, last_idx=None):
     """``last_idx`` (B,) selects per-sequence last positions for padded
-    batched prefill (see lm.forward_prefill)."""
+    batched prefill (decoder-only KV families; see lm.forward_prefill)."""
     require_ported(cfg, "prefill")
+    if cfg.family in SSM_FAMILIES:
+        if last_idx is not None:
+            raise ValueError(
+                f"last_idx is unsupported for family {cfg.family}: padded "
+                "batched prefill only covers decoder-only KV families")
+        return hybrid.prefill(params, cfg, opts, batch)
     return lm.forward_prefill(params, cfg, opts, batch, last_idx=last_idx)
 
 
 def decode(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
            positions, block_tables=None):
-    """One decode step against the slot cache (no ``block_tables``) or the
-    paged pool (see lm.decode_step)."""
+    """One decode step against the family's cache: the slot cache (no
+    ``block_tables``) or the paged pool (dense, moe; see lm.decode_step),
+    or the state caches of hybrid.decode_step."""
     require_ported(cfg, "decode")
+    if block_tables is not None and not supports_paged_cache(cfg):
+        raise ValueError(f"paged decode unsupported for family {cfg.family}")
+    if cfg.family in SSM_FAMILIES:
+        return hybrid.decode_step(params, cfg, opts, cache, tokens,
+                                  positions)
     return lm.decode_step(params, cfg, opts, cache, tokens, positions,
                           block_tables=block_tables)
 
 
 def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16):
-    """Shapes and dtypes of the KV cache of ``batch`` sequences of
-    ``max_len`` rows, as ``device="meta"`` tensors (see lm.cache_specs).
-    The reference takes a ``ShapeConfig``; the port takes its batch and
+    """Shapes and dtypes of the decode cache of ``batch`` sequences of
+    ``max_len`` rows, as ``device="meta"`` tensors (see lm.cache_specs,
+    hybrid.cache_specs; mamba2's ignores ``max_len``).  The
+    reference takes a ``ShapeConfig``; the port takes its batch and
     sequence length."""
     require_ported(cfg, "cache_specs")
+    if cfg.family in SSM_FAMILIES:
+        return hybrid.cache_specs(cfg, batch, max_len, dtype)
     return lm.cache_specs(cfg, batch, max_len, dtype)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    """Zeroed KV cache (L, batch, max_len, KV, hd) (see lm.init_cache)."""
+    """Zeroed decode cache: KV (L, batch, max_len, KV, hd) (see
+    lm.init_cache), or the state caches of hybrid.init_cache (mamba2's
+    ignores ``max_len``)."""
     require_ported(cfg, "init_cache")
+    if cfg.family in SSM_FAMILIES:
+        return hybrid.init_cache(cfg, batch, max_len, dtype, device=device)
     return lm.init_cache(cfg, batch, max_len, dtype, device=device)
 
 
@@ -143,6 +175,8 @@ def init_paged_cache(cfg: ArchConfig, total_pages: int, page_size: int,
     """Zeroed paged KV pool (page 0 is the reserved sink; see
     lm.init_paged_cache and models/kv_cache.py)."""
     require_ported(cfg, "paged cache")
+    if not supports_paged_cache(cfg):
+        raise ValueError(f"paged cache unsupported for family {cfg.family}")
     return lm.init_paged_cache(cfg, total_pages, page_size, dtype,
                                kv_bits=kv_bits, device=device)
 
@@ -158,6 +192,9 @@ def prefill_chunk(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
     """Run the next chunk of prompt tokens against (and into) the paged
     pool (see lm.prefill_chunk)."""
     require_ported(cfg, "chunked prefill")
+    if not supports_paged_cache(cfg):
+        raise ValueError(
+            f"chunked prefill unsupported for family {cfg.family}")
     return lm.prefill_chunk(params, cfg, opts, cache, tokens, positions,
                             write_pages, write_rows, block_tables, last_idx)
 

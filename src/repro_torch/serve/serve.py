@@ -91,10 +91,12 @@ def generate(params, cfg: ArchConfig, opts: ModelOpts, sc: ServeConfig,
     """Greedy / temperature generation: step the prompt, then decode.
 
     prompt_tokens (B, S0) int.  Returns (B, n_new) int32 generated ids on
-    the params' device.  The cache is a slot cache of S0 + n_new rows
-    (f32 for f32 compute, bf16 otherwise); the prompt is stepped token by
-    token through ``model.decode``, as the reference does, so the run makes
-    S0 + n_new - 1 decode steps.  Sampling at ``sc.temperature`` > 0 keys
+    the params' device.  The cache is the family's ``model.init_cache`` for
+    S0 + n_new rows (f32 for f32 compute, bf16 otherwise): the slot KV
+    cache of the decoder-only families, the conv windows and SSM states
+    (and zamba2's shared K/V) of ssm / hybrid; the prompt is stepped token
+    by token through ``model.decode``, as the reference does, so the run
+    makes S0 + n_new - 1 decode steps.  Sampling at ``sc.temperature`` > 0 keys
     row b's draw at position t by (``_row_seeds(seed, B)[b]``, t).
     ``telemetry`` (serve/telemetry.py) records a "generate" span and the
     ``prompt_tokens`` / ``tokens_decoded`` counters; with it on, the span

@@ -51,7 +51,8 @@ def test_the_walk_sees_the_package():
                 "launch/train.py", "tree.py", "kernels/kquantile.py",
                 "core/activations.py", "core/bops.py", "core/quantizers.py",
                 "cnn/__init__.py", "cnn/cnn.py", "cnn/train.py",
-                "configs/resnet18_cifar.py", "configs/mobilenet_cifar.py"):
+                "configs/resnet18_cifar.py", "configs/mobilenet_cifar.py",
+                "models/ssm.py", "models/hybrid.py"):
         assert os.path.join("src", "repro_torch", mod) in names
 
 
@@ -96,6 +97,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "repro_torch.core.bops, repro_torch.core.quantizers, "
         "repro_torch.configs.resnet18_cifar, "
         "repro_torch.configs.mobilenet_cifar\n"
+        "import repro_torch.models.ssm, repro_torch.models.hybrid\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'repro', 'triton')]\n"
         "assert not bad, bad\n"

@@ -333,9 +333,10 @@ def test_not_yet_ported_options_raise_plainly():
     assert bool(torch.isfinite(logits).all())
     assert cache["k"][:, :, 0].abs().sum() > 0
     assert not cache["k"][:, :, 1:].any()
-    # a family still not ported (mamba2's smoke config, family "ssm")
+    # a family still not ported (whisper_base's smoke config, family
+    # "audio")
     with pytest.raises(NotImplementedError):
-        tmodel.init(0, tcb.get_smoke("mamba2_1_3b"), device="cpu")
+        tmodel.init(0, tcb.get_smoke("whisper_base"), device="cpu")
 
 
 def test_default_device_is_the_card():

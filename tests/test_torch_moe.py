@@ -34,7 +34,9 @@ from repro_torch.serve import engine as teng
 from repro_torch.serve import serve as tserve
 
 MOE_ARCHS = ("kimi_k2_1t_a32b", "llama4_maverick_400b_a17b")
-NOT_PORTED = ("pixtral_12b", "zamba2_2_7b", "mamba2_1_3b", "whisper_base")
+NOT_PORTED = ("pixtral_12b", "whisper_base")
+# ported for the closed batch only: no KV pool, so no engine
+SSM_ARCHS = ("mamba2_1_3b", "zamba2_2_7b")
 
 # router weights: f32 x @ W, softmax, top-k, renorm in both frameworks;
 # only the summation order of the (T, d) @ (d, E) product differs
@@ -501,9 +503,28 @@ def test_families_not_ported_raise_naming_the_family(arch):
     assert not tmodel.supports_paged_cache(cfg)
 
 
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_state_space_families_serve_the_closed_batch_only(arch):
+    """ssm and hybrid are ported for serving: ``model.init`` draws them,
+    ``generate`` runs them, the engine refuses them with the reference's
+    ValueError, and they have no paged cache."""
+    cfg = tcb.get_smoke(arch)
+    pt = tmodel.init(0, cfg, device="cpu", w_bits=4)
+    assert tlm.is_qweight(pt["layers"]["in_proj"])
+    with pytest.raises(ValueError, match="decoder-only KV families"):
+        teng.Engine(pt, cfg, tlm.ModelOpts(compute_dtype=torch.float32),
+                    teng.EngineConfig(), device="cpu")
+    out = tserve.generate(pt, cfg, tlm.ModelOpts(compute_dtype=torch.float32),
+                          tserve.ServeConfig(),
+                          torch.zeros((1, 2), dtype=torch.int32), 3)
+    assert tuple(out.shape) == (1, 3)
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab
+    assert not tmodel.supports_paged_cache(cfg)
+
+
 def test_an_unknown_family_gets_the_reference_engine_error():
     """A ported family the engine does not serve keeps the reference's
-    ValueError wording; no registered config is one today."""
+    ValueError wording (as ssm and hybrid do, above)."""
     cfg = tcb.get_smoke("granite_3_8b")
     pt = tlm.init_params(0, cfg, device="cpu")
     saved = tmodel.PORTED_FAMILIES
