@@ -36,7 +36,7 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      embedding rows of the Gaussian engines; ``kquantile_quantize`` codes
      the weights at load and runs no more in the stream);
      checks that the dense bf16 LM head gives f32 logits;
-  4c. (run after 5d) the MoE family at full width, depth ``--moe-layers``
+  4c. (run after 5e) the MoE family at full width, depth ``--moe-layers``
      (default 4):
      kimi_k2_1t_a32b, then llama4_maverick_400b_a17b, W4 (Gaussian) + kv8,
      bf16, each drawn and coded a layer slice at a time: phase 4's stream
@@ -83,6 +83,21 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      within ``TOL_SSM_LOGITS_REL``, launches exact; the plain prefill again
      with every coded matmul weight one level off must land outside it),
      and one decode step under ``torch.profiler``;
+  5e. the audio and vlm families on the closed batch: whisper_base, then
+     pixtral_12b, at full width and depth, bf16, each freed before the
+     next: the serving CLI without ``--engine`` (dense weights and their W4
+     copy, W4 and W4 empirical), every run's launches counted exactly
+     (``qmatmul`` or ``qmatmul_lut`` 8 x 6 = 48 a step at whisper, whose
+     W4 head (odd vocab) stays dense, 7 x 40 + 1 = 281 at pixtral;
+     ``kquantile_dequantize`` once a step; no paged kernel, no
+     ``qmatmul_a8``); then a W4 model drawn and coded a layer at a time: a
+     prefill (whisper: 4 x 1500 frames through the encoder and 4 x 64
+     tokens through the decoder, its cross K/V of the encoder output;
+     pixtral: 4 x 256 patch embeddings ahead of 4 x 64 tokens, padded by a
+     row) and a decode step from its cache with the kernels and with the
+     plain versions forced (logits within ``TOL_ENCDEC_VLM_LOGITS_REL``,
+     launches exact; the wrong-code control of 5d), and one decode step
+     under ``torch.profiler``;
   6. trains granite_3_8b at full width (depth ``--train-layers``, default 8)
      through the trainer's entry points for ``--train-steps`` steps (UNIQ
      noise, gradual freezing, AdamW), counting the ``uniq_noise`` launches
@@ -102,7 +117,9 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
   7. times each kernel (CUDA events) beside its bound, its plain version and
      one library call (``qmatmul`` also at the state-space models' decode
      shapes whose N is no multiple of the 128-column tile, beside the
-     whole-tile N just below), and prints the ``kernels`` JSON line;
+     whole-tile N just below, and at whisper's and pixtral's shapes, the
+     odd N of whisper's W8 head among them), and prints the ``kernels``
+     JSON line;
   8. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--layers N`` cuts the serving depth (never the width; the closed batch
@@ -234,6 +251,16 @@ TOL_LOGITS_REL = 0.08
 #   c ^ 1, the other level of its pair; it read 132 and 144 %) and fails
 #   unless that control lands above the limit.
 TOL_SSM_LOGITS_REL = 0.08
+# whisper_base / pixtral_12b at full width, bf16 logits, kernels vs plain
+#   versions: the one-ulp freedom of each coded matmul's bf16 output
+#   through 6 + 6 (whisper: its encoder's output feeds every decoder layer's
+#   cross K/V) and 40 (pixtral) bf16 residual updates; stated relative to
+#   the largest logit of the plain side, as above.  Sound kernels read 0.74
+#   % (whisper) and 1.85 % (pixtral) of it (PERF.md §6): the limit sits
+#   2.2x above the larger.  It must see a kernel that decodes its codes
+#   wrongly: phase 5e's control (every coded matmul weight one level off;
+#   it read 100 and 130 %) must land above it.
+TOL_ENCDEC_VLM_LOGITS_REL = 0.04
 # tiny f32 model, card (kernels) vs CPU (plain): f32 everywhere, different
 #   summation orders and transcendental implementations through 2 layers.
 TOL_SMALL_F32 = 2e-3
@@ -433,6 +460,17 @@ SSM_QMM_KN = ((2048, 8512), (4096, 2048), (2048, 50280),
               (2560, 2560), (2560, 10240), (10240, 2560))
 SSM_QMM_SHAPES = [(M, K, N) for (K, N) in SSM_QMM_KN for M in (4, 1024)]
 SSM_QMM_QUICK = [(4, 2560, 10448), (4, 2048, 50280)]
+# the coded matmuls of whisper_base and pixtral_12b (phase 5e), (M, K, N):
+# whisper's projections (d 512, d_ff 2048) at the closed batch's decode
+# (M = 4) and at the encoder's prefill rows (4 x 1500 frames: M = 6000);
+# whisper's LM head at W8 (N = 51865 is odd: W8 only, whose rows of
+# 51865 B are no multiple of 16; W4 cannot pack it and leaves it dense);
+# pixtral's FFN and LM head at decode, its FFN at the prefill rows (4 x
+# (256 patches + 64 tokens): M = 1280).
+ENCDEC_VLM_QMM_SHAPES = [(M, K, N) for M in (4, 6000) for (K, N) in (
+    (512, 512), (512, 2048), (2048, 512))] + [
+    (4, 512, 51865), (4, 5120, 14336), (4, 5120, 131072),
+    (1280, 5120, 14336), (1280, 14336, 5120)]
 
 
 def check_qmatmul(gen, quick: bool) -> float:
@@ -444,12 +482,14 @@ def check_qmatmul(gen, quick: bool) -> float:
     # more rows than the tallest tile (128) and the 256 above, and an N
     # that is no multiple of the wgmma's 64-column warpgroup tile
     shapes += [(300, 4096, 4096), (300, 1000, 200)]
-    shapes += SSM_QMM_SHAPES
+    shapes += SSM_QMM_SHAPES + ENCDEC_VLM_QMM_SHAPES
     if quick:
         shapes = [(16, 4096, 4096), (256, 4096, 1024), (5, 200, 130),
-                  (33, 520, 96), (300, 1000, 200)] + SSM_QMM_QUICK
+                  (33, 520, 96), (300, 1000, 200)] + SSM_QMM_QUICK \
+            + [(4, 512, 51865)]
     for (M, K, N) in shapes:
-        for bits in (4, 8):
+        # an odd N cannot be int4-packed: W8 only
+        for bits in ((8,) if N % 2 else (4, 8)):
             for a_dtype in (torch.bfloat16, torch.float32):
                 a, w, mu, sigma = make_qmm_inputs(gen, M, K, N, bits, a_dtype)
                 out = qmm.qmatmul(a, w, mu, sigma, bits=bits)
@@ -468,7 +508,8 @@ def check_qmatmul(gen, quick: bool) -> float:
                         f"qmatmul is not deterministic: M={M} K={K} N={N} "
                         f"bits={bits} a={a_dtype}")
                 del a, w, mu, sigma, out, again, want
-        say(f"[kernels] qmatmul M={M} K={K} N={N}: W4/W8 x bf16/f32 ok")
+        say(f"[kernels] qmatmul M={M} K={K} N={N}: "
+            f"{'W8' if N % 2 else 'W4/W8'} x bf16/f32 ok")
     # what the model asks for: bf16 in, bf16 out, through the ops wrapper
     for bits in (4, 8):
         a, w, mu, sigma = make_qmm_inputs(gen, 16, 4096, 12800, bits,
@@ -2468,11 +2509,14 @@ CLOSED_BATCH = dict(batch=4, prompt_len=16, new_tokens=32)
 def coded_matmuls_per_step(cfg) -> int:
     """The coded matmuls of one decode step at W4 (``qmatmul`` or
     ``qmatmul_lut`` launches): each layer's projections, the shared block's
-    seven at each application (zamba2) and the LM head where it is coded
-    (an odd vocab cannot be int4-packed: granite_3_8b's 49155 stays
-    dense)."""
+    seven at each application (zamba2), the eight of each decoder layer
+    (whisper: self q / k / v / o, cross q / o, the MLP's two) and the LM
+    head where it is coded (an odd vocab cannot be int4-packed:
+    granite_3_8b's 49155 and whisper_base's 51865 stay dense)."""
     L = cfg.n_layers
     head = int(not cfg.tie_embeddings and cfg.vocab % 2 == 0)
+    if cfg.family == "audio":
+        return 8 * cfg.dec_layers + head
     if cfg.family == "ssm":
         return 2 * L + head                       # in_proj, out_proj
     if cfg.family == "hybrid":
@@ -2720,58 +2764,52 @@ def _coded_matmul_weights(params):
     return out
 
 
-def ssm_plain_check(params, cfg, arch: str, B: int = 4, S: int = 256):
-    """A prefill of B x S tokens (S = 256: two SSD chunks, the state carried
-    from the first into the second) and one decode step from its cache,
-    with the kernels and with the plain versions forced (bf16): the kernel
-    side launches exactly the coded matmuls of two steps and two
-    embedding-row decodes, the plain side none; logits within
-    ``TOL_SSM_LOGITS_REL`` of the largest plain logit, and a differing
-    argmax a near-tie.  The control: the plain prefill with every coded
-    matmul weight's W4 codes one level off (c ^ 1) lands above that limit.
-    Then the kernel side's decode step under the profiler."""
-    per_step = coded_matmuls_per_step(cfg)
-    toks = torch.tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab, size=(B, S)), device=DEV)
-    pos = torch.full((B,), S, device=DEV)
+def kernels_vs_plain(params, cfg, arch: str, tag: str, prefill, decode,
+                     want: dict, what: str, tol_rel: float):
+    """``prefill(opts)`` -> (logits, a cache with a row free for the next
+    token) and one ``decode(opts, cache, tokens)`` step from that cache
+    (the prefill's greedy tokens), with the
+    kernels and with the plain versions forced (bf16): the kernel side
+    launches exactly ``want``, the plain side nothing; logits within
+    ``tol_rel`` of the largest plain logit, and a differing argmax a
+    near-tie.  The control: the plain prefill with every coded matmul
+    weight's W4 codes one level off (c ^ 1) lands above that limit.  Then
+    the kernel side's decode step under the profiler."""
     res = {}
     for name, uk in (("kernels", True), ("plain", False)):
         o = lm.ModelOpts(compute_dtype=torch.bfloat16, use_kernels=uk)
         kops.reset_launch_counts()
-        logits_p, cache = model.prefill(params, cfg, o, {"tokens": toks})
+        logits_p, cache = prefill(o)
         nxt = res.setdefault("next", logits_p.argmax(-1))
-        cache = _grown(cfg, cache, B, S + 1)
-        logits_d, cache = model.decode(params, cfg, o, cache, nxt[:, None],
-                                       pos)
+        logits_d, cache = decode(o, cache, nxt[:, None])
         sync()
         counts = kops.launch_counts()
-        want = {"qmatmul": 2 * per_step, "kquantile_dequantize": 2} if uk \
-            else {}
-        if any(counts[k] != want.get(k, 0) for k in counts):
+        w = want if uk else {}
+        if any(counts[k] != w.get(k, 0) for k in counts):
             raise SystemExit(f"{arch} {name} prefill + decode: launches "
-                             f"{counts}, want {want}")
+                             f"{counts}, want {w}")
         res[name] = (logits_p.float(), logits_d.float(), cache, o)
-    for i, what in enumerate((f"prefill ({B} x {S} tokens)",
-                              "decode step")):
+    B = res["next"].shape[0]
+    for i, which in enumerate((f"prefill ({what})", "decode step")):
         k, p = res["kernels"][i], res["plain"][i]
         if k.shape != (B, cfg.vocab) or not torch.isfinite(k).all():
-            raise SystemExit(f"{arch} {what} logits: wrong shape or not "
+            raise SystemExit(f"{arch} {which} logits: wrong shape or not "
                              f"finite")
         err = (k - p).abs().max().item()
         big = p.abs().max().item()
-        tol = TOL_SSM_LOGITS_REL * big
+        tol = tol_rel * big
         agree = (k.argmax(-1) == p.argmax(-1)).float().mean().item()
-        say(f"[ssm] {arch} {what} logits, kernels vs plain versions: max "
+        say(f"[{tag}] {arch} {which} logits, kernels vs plain versions: max "
             f"abs err {err:.4f} ({err / big * 100:.2f} % of max |logit|; "
-            f"tolerance {tol:.4f} = {TOL_SSM_LOGITS_REL} x max |logit|), "
-            f"argmax agreement {agree * 100:.0f}%; launches "
-            f"exact (kernels: qmatmul {2 * per_step} = 2 x {per_step}, "
-            f"kquantile_dequantize 2; plain: none)")
+            f"tolerance {tol:.4f} = {tol_rel} x max |logit|), argmax "
+            f"agreement {agree * 100:.0f}%; launches exact (kernels: "
+            + ", ".join(f"{n} {c}" for n, c in want.items())
+            + "; plain: none)")
         if err > tol:
-            raise SystemExit(f"{arch} {what} logits disagree with the plain "
+            raise SystemExit(f"{arch} {which} logits disagree with the plain "
                              f"versions")
         for r in (k.argmax(-1) != p.argmax(-1)).nonzero().flatten().tolist():
-            check_near_tie(f"{arch} {what} row {r}", k[r], p[r], err)
+            check_near_tie(f"{arch} {which} row {r}", k[r], p[r], err)
     # the control: what a kernel that reads each code as its neighbour would
     # give (packed int4: c ^ 1 in both nibbles), flipped in place and back
     coded = _coded_matmul_weights(params)
@@ -2780,16 +2818,15 @@ def ssm_plain_check(params, cfg, arch: str, B: int = 4, S: int = 256):
     for w in coded:
         w["q_codes"].bitwise_xor_(0x11)
     try:
-        wrong, _ = model.prefill(params, cfg, res["plain"][3],
-                                 {"tokens": toks})
+        wrong, _ = prefill(res["plain"][3])
     finally:
         for w in coded:
             w["q_codes"].bitwise_xor_(0x11)
     p = res["plain"][0]
     wrong_err = (wrong.float() - p).abs().max().item()
     big = p.abs().max().item()
-    tol = TOL_SSM_LOGITS_REL * big
-    say(f"[ssm] {arch} control: the plain prefill with the codes of all "
+    tol = tol_rel * big
+    say(f"[{tag}] {arch} control: the plain prefill with the codes of all "
         f"{len(coded)} coded matmul leaves one level off moves the logits "
         f"by {wrong_err:.4f} ({wrong_err / big * 100:.2f} % of max |logit|; "
         f"the limit {tol:.4f} must sit below it)")
@@ -2797,11 +2834,31 @@ def ssm_plain_check(params, cfg, arch: str, B: int = 4, S: int = 256):
         raise SystemExit(f"{arch}: the logit limit cannot see a kernel that "
                          f"decodes its codes one level off")
     _, _, cache, o = res.pop("kernels")
+    nxt = res.pop("next")[:, None]
     del res
-    nxt = toks[:, :1]
-    profile_step(lambda: model.decode(params, cfg, o, cache, nxt, pos),
+    profile_step(lambda: decode(o, cache, nxt),
                  f"{arch} one decode step (B={B}, W4, bf16, "
-                 f"{cfg.n_layers} layers)", "ssm")
+                 f"{cfg.n_layers} layers)", tag)
+
+
+def ssm_plain_check(params, cfg, arch: str, B: int = 4, S: int = 256):
+    """``kernels_vs_plain`` on a prefill of B x S tokens (S = 256: two SSD
+    chunks, the state carried from the first into the second) and one
+    decode step from its cache: the coded matmuls of two steps and two
+    embedding-row decodes, within ``TOL_SSM_LOGITS_REL``."""
+    per_step = coded_matmuls_per_step(cfg)
+    toks = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(B, S)), device=DEV)
+    pos = torch.full((B,), S, device=DEV)
+    def prefill(o):
+        logits, cache = model.prefill(params, cfg, o, {"tokens": toks})
+        return logits, _grown(cfg, cache, B, S + 1)
+
+    kernels_vs_plain(
+        params, cfg, arch, "ssm", prefill,
+        lambda o, cache, nxt: model.decode(params, cfg, o, cache, nxt, pos),
+        {"qmatmul": 2 * per_step, "kquantile_dequantize": 2},
+        f"{B} x {S} tokens", TOL_SSM_LOGITS_REL)
 
 
 def ssm_phase(arch: str, seed: int):
@@ -2841,6 +2898,118 @@ def ssm_phases(seed: int):
     for arch in SSM_ARCHS:
         before = torch.cuda.memory_allocated() / 2**30
         total.update(ssm_phase(arch, seed))
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 2**30
+        if left > before + 1.0:
+            raise SystemExit(f"{arch}: the model was not freed ({left:.2f} "
+                             f"GiB allocated, {before:.2f} before it)")
+    return total
+
+
+# --------------------------------------------------------------------------
+# Phase 5e: the audio and vlm families on the closed batch at full width
+# --------------------------------------------------------------------------
+
+ENCDEC_VLM_ARCHS = ("whisper_base", "pixtral_12b")
+# phase 5e's W4 prefill: whisper's encoder over its 30-second window of
+# 1500 frames and a 64-token decoder prompt; pixtral's 256 patches ahead of
+# 64 tokens.  The stub frontends' embeddings are drawn at the token
+# embeddings' scale (embed_init: 0.02).
+ENCDEC_FRAMES = 1500
+PREFILL_TOKENS = 64
+FRONTEND_STD = 0.02
+
+
+def encdec_vlm_plain_check(params, cfg, arch: str, B: int = 4):
+    """``kernels_vs_plain`` on a W4 prefill and one decode step from its
+    cache.  whisper: frames (B, 1500, d) and B x 64 tokens through
+    ``model.prefill`` (the encoder's 6 coded matmuls a layer, the
+    decoder's 10: its cross K/V of the encoder output), the self K/V grown
+    by a row, one ``model.decode`` step (the 8 a decoder layer);
+    pixtral: patch embeddings (B, 256, d) ahead of B x 64 tokens through
+    ``lm.forward_prefill(pad_to=...)``, one ``lm.decode_step``.  Each side
+    decodes the embedding rows once a call."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (B, PREFILL_TOKENS), generator=gen,
+                         device=DEV)
+    per_step = coded_matmuls_per_step(cfg)
+    if cfg.family == "audio":
+        frames = torch.randn((B, ENCDEC_FRAMES, cfg.d_model), generator=gen,
+                             device=DEV).mul_(FRONTEND_STD)
+        batch = {"frames": frames, "tokens": toks}
+        S = PREFILL_TOKENS
+        head = per_step - 8 * cfg.dec_layers          # 1 where coded
+        n_prefill = 6 * cfg.enc_layers + 10 * cfg.dec_layers + head
+
+        def prefill(o):
+            logits, cache = model.prefill(params, cfg, o, batch)
+            for name in ("k", "v"):
+                c = cache[name]
+                cache[name] = torch.cat([c, c.new_zeros(c[:, :, :1].shape)],
+                                        dim=2)
+            return logits, cache
+
+        what = (f"{B} x {ENCDEC_FRAMES} frames, {B} x {S} tokens")
+    else:
+        patches = torch.randn((B, cfg.n_patches, cfg.d_model), generator=gen,
+                              device=DEV).mul_(FRONTEND_STD)
+        batch = {"patch_embeds": patches, "tokens": toks}
+        S = cfg.n_patches + PREFILL_TOKENS
+        n_prefill = per_step
+
+        def prefill(o):
+            return lm.forward_prefill(params, cfg, o, batch, pad_to=S + 1)
+
+        what = (f"{B} x ({cfg.n_patches} patches + {PREFILL_TOKENS} "
+                f"tokens)")
+    pos = torch.full((B,), S, device=DEV)
+    kernels_vs_plain(
+        params, cfg, arch, "5e", prefill,
+        lambda o, cache, nxt: model.decode(params, cfg, o, cache, nxt, pos),
+        {"qmatmul": n_prefill + per_step, "kquantile_dequantize": 2},
+        what, TOL_ENCDEC_VLM_LOGITS_REL)
+
+
+def encdec_vlm_phase(arch: str, seed: int):
+    """The CLI's closed batch at ``arch``'s full width and depth (W4, W4
+    empirical), then a W4 model drawn and coded a layer at a time for the
+    kernels-vs-plain check and the profiled decode step.  Returns the
+    counted runs' launches, summed."""
+    cfg = cb.get(arch)
+    if cfg.family == "audio":
+        shape = (f"{cfg.enc_layers} encoder + {cfg.dec_layers} decoder "
+                 f"layers")
+    else:
+        shape = f"{cfg.n_layers} layers, {cfg.n_patches} patches"
+    say(f"[5e] {arch} ({cfg.family}): {shape}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; {coded_matmuls_per_step(cfg)} "
+        f"coded matmuls a decode step")
+    total = collections.Counter()
+    for counts, _ in closed_batch_phase(seed, arch, SSM_CLOSED_RUNS,
+                                        tag="5e").values():
+        total.update(counts)
+    t0 = time.perf_counter()
+    params = model.init(seed, cfg, device=DEV, w_bits=4,
+                        dense_dtype=torch.bfloat16)
+    sync()
+    say(f"[5e] {arch}: W4 model drawn and coded a layer slice at a time "
+        f"in {time.perf_counter() - t0:.2f}s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    encdec_vlm_plain_check(params, cfg, arch)
+    del params
+    return total
+
+
+def encdec_vlm_phases(seed: int):
+    """Phase 5e: whisper_base, then pixtral_12b, each freed before the
+    next; returns the launches of their counted runs, summed."""
+    total = collections.Counter()
+    for arch in ENCDEC_VLM_ARCHS:
+        before = torch.cuda.memory_allocated() / 2**30
+        total.update(encdec_vlm_phase(arch, seed))
         gc.collect()
         torch.cuda.empty_cache()
         left = torch.cuda.memory_allocated() / 2**30
@@ -3933,6 +4102,23 @@ SSM_QMM_TIMED = (("mamba2 in_proj", 2048, 8512, 8448),
                  ("mamba2 LM head", 2048, 50280, 50176))
 
 
+# phase 7's rows of whisper_base's and pixtral_12b's coded matmuls (bf16):
+# (key of the kernels line, what, M, K, N, bits, the N of whole 128-column
+# tiles just below or None), timed as the closed batch's decode (M = 4) and
+# the prefill rows of phase 5e give them
+ENCDEC_VLM_QMM_TIMED = (
+    ("whisper_qkvo_m4", "whisper wq / wk / wv / wo", 4, 512, 512, 4, None),
+    ("whisper_up_m4", "whisper w_up", 4, 512, 2048, 4, None),
+    ("whisper_down_m4", "whisper w_down", 4, 2048, 512, 4, None),
+    ("whisper_head_w8_m4", "whisper LM head, W8", 4, 512, 51865, 8, 51840),
+    ("whisper_up_m6000", "whisper encoder w_up, 4 x 1500 frames", 6000, 512,
+     2048, 4, None),
+    ("pixtral_up_m4", "pixtral w_gate / w_up", 4, 5120, 14336, 4, None),
+    ("pixtral_head_m4", "pixtral LM head", 4, 5120, 131072, 4, None),
+    ("pixtral_up_m1280", "pixtral w_gate / w_up, 4 x 320 rows", 1280, 5120,
+     14336, 4, None))
+
+
 def timing_phase(gen, counts, errs):
     rows = {}
     for bits in (4, 8):
@@ -3965,6 +4151,23 @@ def timing_phase(gen, counts, errs):
                 f"host enqueue {r['host_us']:.0f} us per call; N={twin} "
                 f"(whole 128-column tiles, rows of {twin * bits // 8} B) "
                 f"{t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; {CARD}")
+    for key, what, M, K, N, bits, twin in ENCDEC_VLM_QMM_TIMED:
+        r = time_qmatmul(gen, M, K, N, bits)
+        rows[key] = r
+        pitch = N * bits // 8
+        side = ""
+        if twin:
+            t = time_qmatmul(gen, M, K, twin, bits)
+            side = (f"; N={twin} (whole 128-column tiles, rows of "
+                    f"{twin * bits // 8} B) {t['ms']:.4f} ms, bound "
+                    f"{t['bound_ms']:.4f} ms")
+        say(f"[time] qmatmul W{bits} bf16 M={M} K={K} N={N} ({what}; code "
+            f"rows of {pitch} B, {'a' if pitch % 16 == 0 else 'no'} "
+            f"multiple of 16): kernel {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.3f} ms, "
+            f"torch.matmul on dequantized bf16 {r['library_ms']:.4f} ms; "
+            f"host enqueue {r['host_us']:.0f} us per call{side}; {CARD}")
     for kv_bits in (8, 4):
         for ctx in (2048, 512):
             r = time_attention(gen, kv_bits, ctx)
@@ -4073,7 +4276,8 @@ def timing_phase(gen, counts, errs):
               mamba2_in_proj_m4=rows[("qmatmul", 4, 4, 2048, 8512)],
               zamba2_in_proj_m4=rows[("qmatmul", 4, 4, 2560, 10448)],
               mamba2_head_m4=rows[("qmatmul", 4, 4, 2048, 50280)],
-              mamba2_head_w8_m4=rows[("qmatmul", 8, 4, 2048, 50280)]),
+              mamba2_head_w8_m4=rows[("qmatmul", 8, 4, 2048, 50280)],
+              **{key: rows[key] for key, *_ in ENCDEC_VLM_QMM_TIMED}),
         entry("paged_quant_attention",
               "src/repro_torch/kernels/csrc/paged_attn.cu",
               "src/repro/kernels/paged_attn.py:227", a,
@@ -4579,6 +4783,13 @@ def main(argv=None) -> int:
               "kquantile_quantize"):
         counts[c] = counts.get(c, 0) + ssm_counts[c]
     say(f"[time] phase 5d done at {time.perf_counter() - t_start:.0f}s")
+    # the audio and vlm families' closed batch at full width (phase 5e);
+    # its counted runs' launches join the kernels line's as 5d's do
+    ev_counts = encdec_vlm_phases(args.seed)
+    for c in ("qmatmul", "qmatmul_lut", "kquantile_dequantize",
+              "kquantile_quantize"):
+        counts[c] += ev_counts[c]
+    say(f"[time] phase 5e done at {time.perf_counter() - t_start:.0f}s")
     # the MoE family at full width, one model after another (each freed
     # before the next), after the dense serving phases so that their
     # host-bound readings keep the conditions of earlier runs; the count of

@@ -22,12 +22,15 @@ drives a synthetic Poisson request stream and reports tokens/s,
 time-to-first-token, inter-token latency, slot occupancy, preemptions and
 effective KV utilization.  ``--smoke --device cpu`` runs the tiny variant of
 the architecture on the CPU.  ``--arch`` takes every architecture of the
-registry whose family is ported: dense (granite_3_8b, gemma2_9b, yi_6b,
-stablelm_12b) and moe (kimi_k2_1t_a32b, llama4_maverick_400b_a17b) in both
-modes; ssm (mamba2_1_3b) and hybrid (zamba2_2_7b) in the closed batch only
-(their decode caches are a conv window and an SSM state per layer, not the
-engine's KV pool: --engine raises ValueError, as in the reference; their
-decode applies no --a-bits fake-quant, as in the reference).
+registry: dense (granite_3_8b, gemma2_9b, yi_6b, stablelm_12b) and moe
+(kimi_k2_1t_a32b, llama4_maverick_400b_a17b) in both modes; ssm
+(mamba2_1_3b), hybrid (zamba2_2_7b), audio (whisper_base) and vlm
+(pixtral_12b) in the closed batch only (their decode caches are not the
+engine's KV pool: --engine raises ValueError, as in the reference).  As in
+the reference, the closed batch of ssm and hybrid applies no --a-bits
+fake-quant in its decode steps, whisper's none at all (and never runs its
+encoder: the cross-attention reads zero K/V), and pixtral's sees no patch
+embeddings (the decode steps are the dense decoder's).
 
 The KV cache is paged by default (--cache-mode paged): sequences grow page
 by page out of a shared pool (--total-pages or a --pool-bytes byte budget)
@@ -317,9 +320,9 @@ def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True, choices=cb.ARCH_IDS,
                    help="a registered architecture; dense and moe serve "
-                        "in both modes, ssm (mamba2) and hybrid (zamba2) in "
-                        "the closed batch only (--engine raises ValueError); "
-                        "audio and vlm raise NotImplementedError")
+                        "in both modes, ssm (mamba2), hybrid (zamba2), audio "
+                        "(whisper) and vlm (pixtral) in the closed batch "
+                        "only (--engine raises ValueError)")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--w-bits", type=int, default=4)
     p.add_argument("--w-dist", choices=("gaussian", "empirical"),
@@ -433,6 +436,10 @@ def main(argv=None):
     if args.debug_nans:
         args.checkify = True
     if not args.engine:
+        if cfg.family == "audio" and args.a_bits < 32:
+            print(f"[serve] --a-bits {args.a_bits} leaves {cfg.name} "
+                  f"unchanged: the encoder-decoder applies no activation "
+                  f"fake-quant, as in the reference")
         # dense weights, as the reference draws them (it codes them in
         # run_closed_batch), in the compute dtype
         params = model.init(args.seed, cfg, device=device,

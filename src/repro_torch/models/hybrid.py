@@ -36,8 +36,8 @@ from repro_torch.devices import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import lm
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
-                                       rms_norm, rope_cos_sin)
+from repro_torch.models.layers import (dense_init, embed_init, rms_norm,
+                                       rope_cos_sin)
 from repro_torch.models.lm import ModelOpts, mm
 
 
@@ -156,19 +156,6 @@ def _shared_mlp(x, sp, cfg: ArchConfig, opts: ModelOpts):
     return x + mm(g, sp["w_down"], opts.use_kernels)
 
 
-def _shared_qkv(hn, sp, cfg: ArchConfig, opts: ModelOpts, positions,
-                cos_sin):
-    B, S, _ = hn.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    uk = opts.use_kernels
-    q = apply_rope(mm(hn, sp["wq"], uk).reshape(B, S, H, hd), positions,
-                   cfg.rope_theta, cos_sin)
-    k = apply_rope(mm(hn, sp["wk"], uk).reshape(B, S, KV, hd), positions,
-                   cfg.rope_theta, cos_sin)
-    v = mm(hn, sp["wv"], uk).reshape(B, S, KV, hd)
-    return q, k, v
-
-
 def _shared_attn_apply(x, sp, cfg: ArchConfig, opts: ModelOpts, positions,
                        cos_sin):
     """The shared attention + MLP block on (B, S, d) (causal, global, no
@@ -181,7 +168,7 @@ def _shared_attn_apply(x, sp, cfg: ArchConfig, opts: ModelOpts, positions,
             f"chunked attention (S={S} >= attn_chunked_min_len="
             f"{opts.attn_chunked_min_len}) is not ported yet")
     h = rms_norm(x, sp["attn_norm"], cfg.norm_eps)
-    q, k, v = _shared_qkv(h, sp, cfg, opts, positions, cos_sin)
+    q, k, v = lm._qkv_mm(h, sp, cfg, opts, positions, cos_sin)
     p = attn.AttnParams(window=None, logit_cap=None, causal=True)
     pos1d = positions[0]
     o = attn.full_attention(q, k, v, pos1d, pos1d, p)
@@ -277,7 +264,7 @@ def decode_step(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
         if _shared_after(cfg, l):
             g = l // cfg.attn_every
             hn = rms_norm(x, sp["attn_norm"], cfg.norm_eps)
-            q, k, v = _shared_qkv(hn, sp, cfg, opts, pos2d, cos_sin)
+            q, k, v = lm._qkv_mm(hn, sp, cfg, opts, pos2d, cos_sin)
             kc, vc = cache["k"][g], cache["v"][g]
             kc[barange, positions] = k[:, 0].to(kc.dtype)
             vc[barange, positions] = v[:, 0].to(vc.dtype)

@@ -1,6 +1,7 @@
-"""Decoder-only LM (the dense and MoE families): the training forward
+"""Decoder-only LM (the dense, MoE and vlm families): the training forward
 (``forward_train`` + ``chunked_ce_loss``, dense only) and the serving path
-(prefill, chunked prefill, decode).
+(prefill, chunked prefill, decode).  The vlm family (pixtral) is the dense
+decoder with precomputed patch embeddings ahead of the prompt at prefill.
 
 Every per-layer parameter carries a leading (L,) axis and the forward pass
 is a Python loop over ``leaf[l]`` views.  Serving-time weights may be
@@ -357,7 +358,9 @@ def weight_drawer(seed: int, device, w_bits: int = 16,
 def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
                 dense_dtype=torch.float32, per_channel: bool = True,
                 w_dist: str = "gaussian") -> Dict[str, Any]:
-    """Random dense-decoder parameter tree on ``device``, from ``seed``.
+    """Random dense-decoder parameter tree on ``device``, from ``seed``
+    (the vlm family's too: its patch embeddings come precomputed, so its
+    tree is the dense one).
 
     Matmul weights are drawn one layer at a time (``weight_drawer``): with
     ``w_bits`` 4 or 8 each eligible layer slice is coded as soon as it is
@@ -367,10 +370,11 @@ def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
     dist=w_dist)``.  Leaves left dense are stored in ``dense_dtype``,
     except the MoE ``router``, which stays f32.
     """
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: lm.init_params draws the dense and moe "
-            f"families (ssm / hybrid: models/hybrid.py)")
+            f"family {cfg.family!r}: lm.init_params draws the dense, moe "
+            f"and vlm families (ssm / hybrid: models/hybrid.py; audio: "
+            f"models/encdec.py)")
     weight, _, dev = weight_drawer(seed, device, w_bits, dense_dtype,
                                    per_channel, w_dist)
     L, d, f, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
@@ -418,8 +422,9 @@ def _layer_view(layers, l: int):
                 else v[l]) for k, v in layers.items()}
 
 
-def unstack_layers(params, n_layers: int):
-    """Shallow copy of ``params`` whose "layers" is a list of per-layer view
+def unstack_layers(params, n_layers: int, key: str = "layers"):
+    """Shallow copy of ``params`` whose ``key`` stack ("layers", or the
+    audio family's "enc_layers" / "dec_layers") is a list of per-layer view
     dicts (``unbind``: no data is copied).  The forward passes take either
     form; a long-lived caller such as the engine unstacks once instead of
     slicing every leaf on every call.  Under autograd, ``unbind`` has one
@@ -429,16 +434,16 @@ def unstack_layers(params, n_layers: int):
         return v.unbind(0)[:n_layers]
 
     cols = {k: ({kk: cut(vv) for kk, vv in v.items()} if isinstance(v, dict)
-                else cut(v)) for k, v in params["layers"].items()}
+                else cut(v)) for k, v in params[key].items()}
     out = dict(params)
-    out["layers"] = [{k: ({kk: vv[l] for kk, vv in c.items()}
-                          if isinstance(c, dict) else c[l])
-                      for k, c in cols.items()} for l in range(n_layers)]
+    out[key] = [{k: ({kk: vv[l] for kk, vv in c.items()}
+                     if isinstance(c, dict) else c[l])
+                 for k, c in cols.items()} for l in range(n_layers)]
     return out
 
 
-def _layer(params, l: int):
-    layers = params["layers"]
+def _layer(params, l: int, key: str = "layers"):
+    layers = params[key]
     return layers[l] if isinstance(layers, list) \
         else _layer_view(layers, l)
 
@@ -474,6 +479,22 @@ def _qkv(hn, lp, cfg: ArchConfig, opts: ModelOpts, positions, cos_sin):
     v = mm_a(hn, lp["wv"], opts).reshape(B, S, KV, hd)
     q = apply_rope(q, positions, cfg.rope_theta, cos_sin)
     k = apply_rope(k, positions, cfg.rope_theta, cos_sin)
+    return q, k, v
+
+
+def _qkv_mm(hn, lp, cfg: ArchConfig, opts: ModelOpts, positions, cos_sin):
+    """``_qkv`` through ``mm``, without the serving activation codec: the
+    projections of zamba2's shared block and of whisper, which the
+    reference computes so (the engine, which sets ``serve_a_bits``, serves
+    neither)."""
+    B, S, _ = hn.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    uk = opts.use_kernels
+    q = apply_rope(mm(hn, lp["wq"], uk).reshape(B, S, H, hd), positions,
+                   cfg.rope_theta, cos_sin)
+    k = apply_rope(mm(hn, lp["wk"], uk).reshape(B, S, KV, hd), positions,
+                   cfg.rope_theta, cos_sin)
+    v = mm(hn, lp["wv"], uk).reshape(B, S, KV, hd)
     return q, k, v
 
 
@@ -654,8 +675,9 @@ def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch,
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r}: training is ported for the dense "
-            f"family only (MoE training, with moe.aux_load_balance_loss, is "
-            f"not ported yet)")
+            f"family only (MoE training, with moe.aux_load_balance_loss, "
+            f"and the vlm's training on patch-prefixed sequences are not "
+            f"ported yet)")
     if not isinstance(params["layers"], list):
         params = unstack_layers(params, cfg.n_layers)
     tokens = batch["tokens"]
@@ -689,9 +711,15 @@ def forward_prefill(params, cfg: ArchConfig, opts: ModelOpts, batch,
     {"k","v"} or codes + stats at ``opts.kv_bits < 16``).  ``last_idx`` (B,)
     selects a per-sequence "last" position instead of S-1 (right-padded
     prompt groups; padding beyond last_idx is inert under the causal mask).
+    At the vlm family ``batch["patch_embeds"]`` (B, P, d), cast to the
+    compute dtype, goes ahead of the token embeddings: positions, the cache
+    and ``last_idx`` run over the P + S rows.
     """
     tokens = batch["tokens"]
     x = _embed_tokens(params, cfg, opts, tokens)
+    if cfg.family == "vlm":
+        pe = batch["patch_embeds"].to(device=x.device, dtype=x.dtype)
+        x = torch.cat([pe, x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     windows = _window_schedule(cfg)

@@ -1,6 +1,7 @@
-"""Unified model API for the families ported so far: the decoder-only LMs
-(dense, moe: ``models/lm.py``) and the state-space families (ssm: mamba2,
-hybrid: zamba2; ``models/hybrid.py``).
+"""Unified model API over every family of the registry: the decoder-only
+LMs (dense, moe, vlm: ``models/lm.py``), the state-space families (ssm:
+mamba2, hybrid: zamba2; ``models/hybrid.py``) and the encoder-decoder
+(audio: whisper; ``models/encdec.py``).
 
     init(seed, cfg, device)             -> params
     loss_fn(params, cfg, opts, batch)   -> scalar loss   (train; dense only)
@@ -12,9 +13,9 @@ and the serving caches: each family's decode cache (``init_cache`` /
 ``cache_specs``), the slot cache (``init_slot_cache`` / ``cache_insert``:
 one fixed region of ``max_len`` rows per decode slot) and the paged pool
 (``init_paged_cache`` / ``cache_insert_paged``); the last two hold the
-plain KV layout of dense and moe only.  The families audio and vlm are
-registered (``configs/``) but not ported: every entry point raises
-``NotImplementedError`` naming the family (``require_ported``).
+plain KV layout of dense and moe only.  A family outside
+``PORTED_FAMILIES`` raises ``NotImplementedError`` naming it
+(``require_ported``); ``loss_fn`` raises it for every family but dense.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, lm
+from repro_torch.models import encdec, hybrid, lm
 from repro_torch.models.lm import ModelOpts
 
 __all__ = ["ModelOpts", "init", "loss_fn", "prefill", "decode",
@@ -33,12 +34,17 @@ __all__ = ["ModelOpts", "init", "loss_fn", "prefill", "decode",
            "supports_paged_cache", "init_paged_cache", "cache_insert_paged",
            "prefill_chunk", "PORTED_FAMILIES", "require_ported"]
 
-# the families whose model this package has; the reference's registry also
-# holds audio (whisper) and vlm (pixtral)
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the families whose model this package has: every one of the registry
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 # the state-space families: serving only, their caches a conv window and an
 # SSM state per layer (and the shared block's K/V at hybrid)
 SSM_FAMILIES = ("ssm", "hybrid")
+# the families whose training is not ported, and the reference's training
+# forward of each
+_TRAIN_NOT_PORTED = {
+    "ssm": "forward_train_mamba", "hybrid": "forward_train_zamba",
+    "audio": "forward_train_encdec",
+    "vlm": "lm.forward_train's patch-prefixed branch"}
 
 
 def supports_paged_cache(cfg: ArchConfig) -> bool:
@@ -59,10 +65,12 @@ def require_ported(cfg: ArchConfig, what: str) -> None:
 def init(seed: int, cfg: ArchConfig, device="cuda", **kw) -> Any:
     """Random parameters from ``seed``; every family takes ``w_bits`` /
     ``w_dist`` (code the weights layer by layer) and ``dense_dtype``, and
-    dense and moe also ``per_channel`` (see lm.init_params)."""
+    dense, moe and vlm also ``per_channel`` (see lm.init_params)."""
     require_ported(cfg, "init")
     if cfg.family in SSM_FAMILIES:
         return hybrid.init_params(seed, cfg, device=device, **kw)
+    if cfg.family == "audio":
+        return encdec.init_params(seed, cfg, device=device, **kw)
     return lm.init_params(seed, cfg, device=device, **kw)
 
 
@@ -70,23 +78,27 @@ def loss_fn(params, cfg: ArchConfig, opts: ModelOpts, batch,
             uniq_scan=None) -> torch.Tensor:
     """Teacher-forced LM loss (see lm.forward_train)."""
     require_ported(cfg, "loss_fn")
-    if cfg.family in SSM_FAMILIES:
+    if cfg.family in _TRAIN_NOT_PORTED:
         raise NotImplementedError(
             f"loss_fn: training of family {cfg.family!r} is not ported yet "
-            f"(the reference's forward_train_mamba / forward_train_zamba; "
-            f"only its serving path is ported)")
+            f"(the reference's {_TRAIN_NOT_PORTED[cfg.family]}; only its "
+            f"serving path is ported)")
     return lm.forward_train(params, cfg, opts, batch, uniq_scan=uniq_scan)
 
 
 def prefill(params, cfg: ArchConfig, opts: ModelOpts, batch, last_idx=None):
     """``last_idx`` (B,) selects per-sequence last positions for padded
-    batched prefill (decoder-only KV families; see lm.forward_prefill)."""
+    batched prefill (decoder-only KV families; see lm.forward_prefill).
+    The audio family's batch holds ``frames`` (B, Te, d) beside the
+    tokens, the vlm's ``patch_embeds`` (B, P, d)."""
     require_ported(cfg, "prefill")
-    if cfg.family in SSM_FAMILIES:
+    if cfg.family in SSM_FAMILIES + ("audio",):
         if last_idx is not None:
             raise ValueError(
                 f"last_idx is unsupported for family {cfg.family}: padded "
                 "batched prefill only covers decoder-only KV families")
+        if cfg.family == "audio":
+            return encdec.forward_prefill(params, cfg, opts, batch)
         return hybrid.prefill(params, cfg, opts, batch)
     return lm.forward_prefill(params, cfg, opts, batch, last_idx=last_idx)
 
@@ -95,12 +107,16 @@ def decode(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
            positions, block_tables=None):
     """One decode step against the family's cache: the slot cache (no
     ``block_tables``) or the paged pool (dense, moe; see lm.decode_step),
-    or the state caches of hybrid.decode_step."""
+    the state caches of hybrid.decode_step or the self and cross K/V of
+    encdec.decode_step."""
     require_ported(cfg, "decode")
     if block_tables is not None and not supports_paged_cache(cfg):
         raise ValueError(f"paged decode unsupported for family {cfg.family}")
     if cfg.family in SSM_FAMILIES:
         return hybrid.decode_step(params, cfg, opts, cache, tokens,
+                                  positions)
+    if cfg.family == "audio":
+        return encdec.decode_step(params, cfg, opts, cache, tokens,
                                   positions)
     return lm.decode_step(params, cfg, opts, cache, tokens, positions,
                           block_tables=block_tables)
@@ -110,23 +126,29 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16):
     """Shapes and dtypes of the decode cache of ``batch`` sequences of
     ``max_len`` rows, as ``device="meta"`` tensors (see lm.cache_specs,
-    hybrid.cache_specs; mamba2's ignores ``max_len``).  The
+    hybrid.cache_specs, encdec.cache_specs; mamba2's ignores ``max_len``,
+    whisper's self and cross K/V take ``max_len // 2`` rows each).  The
     reference takes a ``ShapeConfig``; the port takes its batch and
     sequence length."""
     require_ported(cfg, "cache_specs")
     if cfg.family in SSM_FAMILIES:
         return hybrid.cache_specs(cfg, batch, max_len, dtype)
+    if cfg.family == "audio":
+        return encdec.cache_specs(cfg, batch, max_len, dtype)
     return lm.cache_specs(cfg, batch, max_len, dtype)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
     """Zeroed decode cache: KV (L, batch, max_len, KV, hd) (see
-    lm.init_cache), or the state caches of hybrid.init_cache (mamba2's
-    ignores ``max_len``)."""
+    lm.init_cache), the state caches of hybrid.init_cache (mamba2's
+    ignores ``max_len``) or encdec.init_cache's self and cross K/V of
+    ``max_len // 2`` rows each."""
     require_ported(cfg, "init_cache")
     if cfg.family in SSM_FAMILIES:
         return hybrid.init_cache(cfg, batch, max_len, dtype, device=device)
+    if cfg.family == "audio":
+        return encdec.init_cache(cfg, batch, max_len, dtype, device=device)
     return lm.init_cache(cfg, batch, max_len, dtype, device=device)
 
 

@@ -94,9 +94,12 @@ def generate(params, cfg: ArchConfig, opts: ModelOpts, sc: ServeConfig,
     the params' device.  The cache is the family's ``model.init_cache`` for
     S0 + n_new rows (f32 for f32 compute, bf16 otherwise): the slot KV
     cache of the decoder-only families, the conv windows and SSM states
-    (and zamba2's shared K/V) of ssm / hybrid; the prompt is stepped token
-    by token through ``model.decode``, as the reference does, so the run
-    makes S0 + n_new - 1 decode steps.  Sampling at ``sc.temperature`` > 0 keys
+    (and zamba2's shared K/V) of ssm / hybrid, whisper's self and cross K/V
+    of (S0 + n_new) // 2 rows each; the prompt is stepped token by token
+    through ``model.decode``, as the reference does, so the run makes
+    S0 + n_new - 1 decode steps.  As in the reference, whisper's encoder
+    never runs here (its cross K/V stay zeros) and the vlm's steps see no
+    patch embeddings.  Sampling at ``sc.temperature`` > 0 keys
     row b's draw at position t by (``_row_seeds(seed, B)[b]``, t).
     ``telemetry`` (serve/telemetry.py) records a "generate" span and the
     ``prompt_tokens`` / ``tokens_decoded`` counters; with it on, the span
@@ -113,9 +116,12 @@ def generate(params, cfg: ArchConfig, opts: ModelOpts, sc: ServeConfig,
     dtype = torch.float32 if opts.compute_dtype == torch.float32 \
         else torch.bfloat16
     cache = model.init_cache(cfg, B, max_len, dtype, device=dev)
-    if not isinstance(params["layers"], list):
-        # per-layer views sliced once, not on every step
-        params = lm.unstack_layers(params, cfg.n_layers)
+    # the stack the step walks, sliced into per-layer views once, not on
+    # every step
+    key, n = ("dec_layers", cfg.dec_layers) if cfg.family == "audio" \
+        else ("layers", cfg.n_layers)
+    if not isinstance(params[key], list):
+        params = lm.unstack_layers(params, n, key)
     serve_step = make_decode_step(cfg, opts)
     seeds = _row_seeds(seed, B)
     tok = prompt[:, :1]

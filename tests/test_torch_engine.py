@@ -270,11 +270,10 @@ def test_engine_rejects_what_is_not_ported_and_bad_configs():
                dict(prefill_chunk=0)):
         with pytest.raises(ValueError):
             make(**kw)
-    # a family still not ported (whisper_base's smoke config, family
-    # "audio"), and a ported one without a KV pool (mamba2's, family "ssm":
-    # the reference's ValueError)
+    # ported families without a KV pool (whisper_base's smoke config, family
+    # "audio", and mamba2's, family "ssm"): the reference's ValueError
     audio = tcb.get_smoke("whisper_base")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="decoder-only KV families"):
         teng.Engine(pt, audio, TOPTS, teng.EngineConfig(), device="cpu")
     ssm = tcb.get_smoke("mamba2_1_3b")
     with pytest.raises(ValueError, match="decoder-only KV families"):

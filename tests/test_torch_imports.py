@@ -52,7 +52,7 @@ def test_the_walk_sees_the_package():
                 "core/activations.py", "core/bops.py", "core/quantizers.py",
                 "cnn/__init__.py", "cnn/cnn.py", "cnn/train.py",
                 "configs/resnet18_cifar.py", "configs/mobilenet_cifar.py",
-                "models/ssm.py", "models/hybrid.py"):
+                "models/ssm.py", "models/hybrid.py", "models/encdec.py"):
         assert os.path.join("src", "repro_torch", mod) in names
 
 
@@ -97,7 +97,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "repro_torch.core.bops, repro_torch.core.quantizers, "
         "repro_torch.configs.resnet18_cifar, "
         "repro_torch.configs.mobilenet_cifar\n"
-        "import repro_torch.models.ssm, repro_torch.models.hybrid\n"
+        "import repro_torch.models.ssm, repro_torch.models.hybrid, "
+        "repro_torch.models.encdec\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'repro', 'triton')]\n"
         "assert not bad, bad\n"

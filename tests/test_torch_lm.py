@@ -333,10 +333,14 @@ def test_not_yet_ported_options_raise_plainly():
     assert bool(torch.isfinite(logits).all())
     assert cache["k"][:, :, 0].abs().sum() > 0
     assert not cache["k"][:, :, 1:].any()
-    # a family still not ported (whisper_base's smoke config, family
-    # "audio")
-    with pytest.raises(NotImplementedError):
-        tmodel.init(0, tcb.get_smoke("whisper_base"), device="cpu")
+    # whisper_base's smoke config (family "audio", once not ported) draws
+    # its encoder-decoder tree; lm.init_params still refuses it
+    wcfg = tcb.get_smoke("whisper_base")
+    wp = tmodel.init(0, wcfg, device="cpu")
+    assert tuple(wp["enc_layers"]["wq"].shape)[0] == wcfg.enc_layers
+    assert tuple(wp["dec_layers"]["cross_wq"].shape)[0] == wcfg.dec_layers
+    with pytest.raises(NotImplementedError, match="audio"):
+        tlm.init_params(0, wcfg, device="cpu")
 
 
 def test_default_device_is_the_card():
