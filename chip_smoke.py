@@ -114,12 +114,36 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      the all-FROZEN eval with its accuracy, a profile of one more step, and
      MobileNet (width 16) for a few steps; then a tiny f32 ResNet-18 step on
      the card against the CPU (same params, batch and key);
+  6b. trains the state-space, audio and vlm families through the trainer's
+     entry points with its defaults (f32, AdamW, batch 8 x seq 64, W4, a
+     gradual block per layer), ``FAMILY_TRAIN_STEPS`` (6) steps each, each
+     model freed before the next: mamba2_1_3b, zamba2_2_7b and whisper_base
+     at full width and depth, pixtral_12b at full width and depth
+     ``--train-vlm-layers`` (default 4 of 40; 256 zero patch embeddings
+     ahead of the 64 tokens); per family one step with the plain versions
+     forced (loss and gradients within phase 6's bounds), the steps with
+     every ``uniq_noise_fwd`` / ``_bwd`` launch counted (one of each per
+     quantized leaf), the loss and every parameter finite after each step
+     (so every gradient element was), FROZEN slices bit-unchanged and a
+     NOISE slice moved by more than weight decay wherever the gradient norm
+     is finite; whisper's gradient norm overflows on the trainer's zero
+     frames (the clip then zeroes the update, as in the reference), so it
+     takes one more counted step on frames drawn from ``--seed``, whose
+     norm must be finite and whose update must move its first encoder
+     layer's norm scale by more than weight decay; then the all-FROZEN
+     eval, a profiled step (busy share, median step, peak memory) and the
+     tiny f32 step of its smoke config on the card against the CPU; phase
+     3 holds the ``uniq_noise`` kernels at these trainers' leaf shapes
+     (mamba2's and zamba2's stacked ``in_proj``, zamba2's shared ``w_up``,
+     whisper's unstacked encoder stack with one statistic, pixtral's
+     ``w_up`` stack and embedding);
   7. times each kernel (CUDA events) beside its bound, its plain version and
      one library call (``qmatmul`` also at the state-space models' decode
      shapes whose N is no multiple of the 128-column tile, beside the
      whole-tile N just below, and at whisper's and pixtral's shapes, the
-     odd N of whisper's W8 head among them), and prints the ``kernels``
-     JSON line;
+     odd N of whisper's W8 head among them; ``uniq_noise_fwd`` / ``_bwd``
+     also at mamba2's and zamba2's ``in_proj`` stacks), and prints the
+     ``kernels`` JSON line;
   8. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--layers N`` cuts the serving depth (never the width; the closed batch
@@ -171,8 +195,9 @@ from repro_torch.cnn.train import CNNTrainer                  # noqa: E402
 from repro_torch.configs import base as cb                    # noqa: E402
 from repro_torch.core import activations as act              # noqa: E402
 from repro_torch.core import packing                          # noqa: E402
-from repro_torch.core.uniq import (FROZEN, UniqConfig,        # noqa: E402
-                                   leaf_noise, onchip_noise)
+from repro_torch.core.uniq import (FROZEN, NOISE,            # noqa: E402
+                                   UniqConfig, default_quant_filter,
+                                   leaf_noise, lm_mode_fn, onchip_noise)
 from repro_torch.data.synthetic import (LMStreamConfig,       # noqa: E402
                                         image_batch, lm_batch)
 from repro_torch.kernels import kquantile as kq               # noqa: E402
@@ -1498,21 +1523,39 @@ def check_attention(gen, quick: bool) -> float:
     return worst
 
 
-def make_uniq_inputs(gen, G, R, C, dtype, per_col, modes):
+def make_uniq_inputs(gen, G, R, C, dtype, per_col, modes,
+                     one_stat=False):
     """Gaussian weights with per-group offsets and scales, their statistics
-    as ``fit_gaussian`` takes them (per column or per group), U[0,1) noise
-    and a (G,) mode vector."""
+    as ``fit_gaussian`` takes them (per column or per group; with
+    ``one_stat`` one over the whole tensor, in every group's place, as
+    ``grouped_stats`` lays out an unstacked 3-D leaf's), U[0,1) noise and a
+    (G,) mode vector."""
     scale = 0.01 + 0.04 * torch.rand((G, 1, 1), generator=gen, device=DEV)
     w = (torch.randn((G, R, C), generator=gen, device=DEV) * scale
          + 0.1 * scale).to(dtype)
     wf = w.float()
-    dims = (1,) if per_col else (1, 2)
-    mu = wf.mean(dim=dims, keepdim=True)
-    sigma = wf.std(dim=dims, correction=0, keepdim=True).clamp_min(1e-8)
+    dims = (0, 1, 2) if one_stat else (1,) if per_col else (1, 2)
+    mu = wf.mean(dim=dims, keepdim=True).expand(G, 1, -1)
+    sigma = wf.std(dim=dims, correction=0, keepdim=True).clamp_min(
+        1e-8).expand(G, 1, -1)
     del wf
     e01 = torch.rand((G, R, C), generator=gen, device=DEV)
     mode = torch.tensor(modes, dtype=torch.int32, device=DEV)
     return w, mu.contiguous(), sigma.contiguous(), mode, e01
+
+
+# the trainer's new leaf shapes of phase 6b, (G, R, C), one statistic over
+# the whole tensor, what: mamba2's and zamba2's stacked in_proj (zamba2's
+# 10448 columns no multiple of 128), zamba2's unstacked shared w_up,
+# whisper's unstacked encoder w_up stack (6 layers, one mode, one
+# statistic), pixtral's stacked w_up at phase 6b's depth and its embedding
+FAMILY_UNIQ_SHAPES = (
+    ((48, 2048, 8512), False, "mamba2 layers/in_proj"),
+    ((54, 2560, 10448), False, "zamba2 layers/in_proj"),
+    ((1, 2560, 10240), False, "zamba2 shared/w_up"),
+    ((6, 512, 2048), True, "whisper enc_layers/w_up"),
+    ((4, 5120, 14336), False, "pixtral layers/w_up (4 layers)"),
+    ((1, 131072, 5120), False, "pixtral embed"))
 
 
 def check_uniq(gen, quick: bool, layers: int):
@@ -1549,6 +1592,31 @@ def check_uniq(gen, quick: bool, layers: int):
                         bwd_rel[dtype] = max(bwd_rel[dtype], res["bwd_rel"])
         say(f"[kernels] uniq_noise G={G} R={R} C={C}: fwd + bwd x f32/bf16 "
             f"x per-group/per-column stats x modes {mode_sets} ok")
+    for (G, R, C), one_stat, what in ([] if quick else FAMILY_UNIQ_SHAPES):
+        # the trainer's leaves as phase 6b gives them: f32, W4, the
+        # statistics transform_tree fits (per layer, or one), the modes of
+        # the schedule (mixed across the layers of a stacked leaf; one for
+        # an unstacked leaf)
+        mode_sets = ([[m] * G for m in (1, 2, 0)] if G == 1 or one_stat
+                     else [[(g + s) % 3 for g in range(G)] for s in (0, 1)])
+        route = un.onchip_route(G, R, C, False)
+        for modes in mode_sets:
+            res = _check_uniq_one(gen, G, R, C, torch.float32, False, modes,
+                                  16, one_stat)
+            worst_f = max(worst_f, res["fwd_err"])
+            worst_b = max(worst_b, res["bwd_err"])
+            flips += res["flips"]
+            n_frozen += res["n_frozen"]
+            noise_sigma[torch.float32] = max(noise_sigma[torch.float32],
+                                             res["noise_sigma"])
+            bwd_rel[torch.float32] = max(bwd_rel[torch.float32],
+                                         res["bwd_rel"])
+            torch.cuda.empty_cache()
+        say(f"[kernels] uniq_noise {what} G={G} R={R} C={C} ({route} body, "
+            f"held against the plain version and the flat body to the "
+            f"bit): fwd + bwd f32, "
+            f"{'one statistic' if one_stat else 'per-layer statistics'}, "
+            f"modes {[sorted(set(m)) for m in mode_sets]} ok")
     say(f"[kernels] uniq_noise: FROZEN outputs differing from the plain "
         f"version {flips} of {n_frozen}; NOISE max |diff| / sigma: f32 "
         f"{noise_sigma[torch.float32]:.3e}, bf16 (beyond one bf16 ulp) "
@@ -1561,14 +1629,15 @@ def check_uniq(gen, quick: bool, layers: int):
     return worst_f, worst_b
 
 
-def _check_uniq_one(gen, G, R, C, dtype, per_col, modes, k):
+def _check_uniq_one(gen, G, R, C, dtype, per_col, modes, k, one_stat=False):
     w, mu, sigma, mode, e01 = make_uniq_inputs(gen, G, R, C, dtype, per_col,
-                                               modes)
+                                               modes, one_stat)
     out = un.uniq_noise_fwd(w, mu, sigma, mode, e01, k=k)
     again = un.uniq_noise_fwd(w, mu, sigma, mode, e01, k=k)
     sync()
     want = un.uniq_noise_fwd_plain(w, mu, sigma, mode, e01, k=k)
-    where = f"G={G} R={R} C={C} {dtype} per_col={per_col} modes={modes} k={k}"
+    where = (f"G={G} R={R} C={C} {dtype} per_col={per_col} "
+             f"one_stat={one_stat} modes={modes} k={k}")
     if not torch.equal(out, again):
         raise SystemExit(f"uniq_noise_fwd is not deterministic: {where}")
     if not torch.isfinite(out).all():
@@ -3028,15 +3097,17 @@ def encdec_vlm_phases(seed: int):
 TRAIN_LEAVES = 9
 
 
-def train_setup(layers: int, steps: int, seed: int, smoke: bool = False):
+def train_setup(layers, steps: int, seed: int, smoke: bool = False,
+                arch: str = "granite_3_8b"):
     """The trainer CLI's own configuration (``launch/train.py`` defaults:
     f32, AdamW lr 1e-3, batch 8 x seq 64, W4, one gradual block per
-    layer), its depth cut to ``layers``."""
-    argv = ["--arch", "granite_3_8b", "--steps", str(steps), "--seed",
+    layer) of ``arch``, its depth cut to ``layers`` (None: the full
+    depth)."""
+    argv = ["--arch", arch, "--steps", str(steps), "--seed",
             str(seed)] + (["--smoke"] if smoke else [])
     args = train_cli.parse_args(argv)
     cfg, opts, tc = train_cli.setup(args)
-    if not smoke:
+    if layers and not smoke:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     data = LMStreamConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                           global_batch=args.batch, seed=seed)
@@ -3045,30 +3116,47 @@ def train_setup(layers: int, steps: int, seed: int, smoke: bool = False):
 
 def train_plain_check(state, cfg, opts, tc, data, sched, seed, step):
     """Loss and gradients of one step from ``state``, kernels vs plain
-    versions forced, on the same batch and noise."""
+    versions forced, on the same batch and noise.  The optimizer's moments
+    and then the kernels' gradients wait in host memory meanwhile (at
+    zamba2 or pixtral, two gradient trees and the plain transform's
+    intermediates beside the whole state do not fit the card)."""
     modes = sched.modes_at(step)
-    batch = lm_batch(data, step, device=DEV)
+    batch = train_cli.train_batch(cfg, data, step, DEV)
+    devices = {p: t.device for p, t in tree_lib.leaves_with_paths(
+        state["opt"])}
+    state["opt"] = tree_lib.map_with_path(lambda _p, t: t.cpu(), state["opt"])
     res = {}
     for name, use in (("kernels", True), ("plain", False)):
         before = kops.launch_counts()
-        res[name] = train_steps.loss_and_grads(
+        loss, grads = train_steps.loss_and_grads(
             state["params"], batch, modes, leaf_noise(seed, step), cfg,
             dataclasses.replace(opts, use_kernels=use), tc)
         sync()
         if not use and kops.launch_counts() != before:
             raise SystemExit("use_kernels=False launched a kernel")
+        if use:
+            grads = tree_lib.map_with_path(lambda _p, t: t.cpu(), grads)
+        res[name] = (loss, grads)
+        del grads
     (lk, gk), (lp, gp) = res["kernels"], res["plain"]
     loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
     worst = 0.0
     for (path, a), (_, b) in zip(tree_lib.leaves_with_paths(gk),
                                  tree_lib.leaves_with_paths(gp)):
+        a = a.to(DEV)
         rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        finite = bool(torch.isfinite(a).all())
+        del a
         worst = max(worst, rel)
-        if not torch.isfinite(a).all() or rel > TOL_TRAIN_PLAIN_GRAD_REL:
+        if not finite or rel > TOL_TRAIN_PLAIN_GRAD_REL:
             raise SystemExit(f"train step gradient of {path}: kernels vs "
                              f"plain versions {rel:.3e} > "
                              f"{TOL_TRAIN_PLAIN_GRAD_REL}")
-    say(f"[train] step {step} (modes {modes.tolist()}) loss and gradients, "
+    del res, gk, gp
+    state["opt"] = tree_lib.map_with_path(lambda p, t: t.to(devices[p]),
+                                          state["opt"])
+    say(f"[train] {cfg.name} step {step} (modes {modes.tolist()}) loss and "
+        f"gradients, "
         f"kernels vs plain versions forced: loss {lk.item():.6f} vs "
         f"{lp.item():.6f} (rel {loss_rel:.1e}, tolerance "
         f"{TOL_TRAIN_PLAIN_LOSS_REL}); worst gradient leaf max |diff| / max "
@@ -3078,29 +3166,56 @@ def train_plain_check(state, cfg, opts, tc, data, sched, seed, step):
                          "versions")
 
 
+def _at(tree, path: str):
+    """The leaf (or subtree) of a nested dict at a '/'-joined path."""
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def _quantized(params):
+    """(path, leaf) of every leaf the UNIQ transform quantizes."""
+    return [(p, t) for p, t in tree_lib.leaves_with_paths(params)
+            if default_quant_filter(p, t)]
+
+
 def _frozen_snapshot(state, modes):
-    """Copies of what one step must leave untouched under ``modes``: the
-    quantized slices of the first FROZEN layer (parameters and the
-    momentum of w_down), and the embedding / head when FROZEN."""
-    params, mu = state["params"], state["opt"]["mu"]
-    snap = {}
+    """Copies of what one step must leave untouched under ``modes``: of
+    every quantized leaf, the slice of the first FROZEN layer of a stacked
+    (``layers/*``) leaf, with its momentum, or the whole unstacked leaf
+    (the embedding, the head, zamba2's ``shared/*``, whisper's two stacks)
+    when its mode (``lm_mode_fn``) is FROZEN."""
+    mode_for = lm_mode_fn(modes)
     frozen = [l for l, m in enumerate(modes.tolist()) if m == FROZEN]
-    if frozen:
-        l = frozen[0]
-        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
-            snap[f"layers/{name}[{l}]"] = (
-                lambda st, n=name: st["params"]["layers"][n][l],
-                params["layers"][name][l].clone())
-        snap[f"opt/mu/layers/w_down/m[{l}]"] = (
-            lambda st: st["opt"]["mu"]["layers"]["w_down"]["m"][l],
-            mu["layers"]["w_down"]["m"][l].clone())
-    if modes[0] == FROZEN:
-        snap["embed"] = (lambda st: st["params"]["embed"],
-                         params["embed"].clone())
-    if modes[-1] == FROZEN:
-        snap["lm_head"] = (lambda st: st["params"]["lm_head"],
-                           params["lm_head"].clone())
+    snap = {}
+    for p, t in _quantized(state["params"]):
+        if p.startswith("layers"):
+            if not frozen:
+                continue
+            l = frozen[0]
+            for root, sub in (("params", p), ("opt", f"mu/{p}/m")):
+                snap[f"{root}/{sub}[{l}]"] = (
+                    lambda st, r=root, q=sub, l=l: _at(st[r], q)[l],
+                    _at(state[root], sub)[l].clone())
+        elif int(mode_for(p)) == FROZEN:
+            snap[p] = (lambda st, q=p: _at(st["params"], q), t.clone())
     return snap
+
+
+def _noise_probe(state, modes):
+    """(path, getter, copy) of the first quantized slice under NOISE this
+    step (a stacked leaf's first NOISE layer, or an unstacked leaf whose
+    mode is NOISE), which the step must move; None where there is none."""
+    mode_for = lm_mode_fn(modes)
+    noisy = [l for l, m in enumerate(modes.tolist()) if m == NOISE]
+    for p, t in _quantized(state["params"]):
+        if p.startswith("layers") and noisy:
+            l = noisy[0]
+            return (f"{p}[{l}]", lambda st, q=p, l=l: _at(st["params"], q)[l],
+                    t[l].clone())
+        if not p.startswith("layers") and int(mode_for(p)) == NOISE:
+            return p, lambda st, q=p: _at(st["params"], q), t.clone()
+    return None
 
 
 def train_phase(seed: int, layers: int, steps: int):
@@ -3133,9 +3248,7 @@ def train_phase(seed: int, layers: int, steps: int):
     for step in range(steps):
         modes = sched.modes_at(step)
         snap = _frozen_snapshot(state, modes)
-        noisy = [l for l, m in enumerate(modes.tolist()) if m == 1]
-        probe = state["params"]["layers"]["wq"][noisy[0]].clone() \
-            if noisy else None
+        probe = _noise_probe(state, modes)
         before = kops.launch_counts()
         t0 = time.perf_counter()
         batch = lm_batch(data, step, device=DEV)
@@ -3161,10 +3274,9 @@ def train_phase(seed: int, layers: int, steps: int):
                              f"uniq_noise launches forward and backward")
         if kept != len(snap):
             raise SystemExit(f"train step {step}: a FROZEN slice changed")
-        if probe is not None and torch.equal(
-                state["params"]["layers"]["wq"][noisy[0]], probe):
-            raise SystemExit(f"train step {step}: the NOISE layer did not "
-                             f"move")
+        if probe is not None and torch.equal(probe[1](state), probe[2]):
+            raise SystemExit(f"train step {step}: the NOISE slice "
+                             f"{probe[0]} did not move")
         del snap, probe
     counts = kops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3183,15 +3295,16 @@ def train_phase(seed: int, layers: int, steps: int):
         f"{ev:.4f}; uniq_noise_fwd launches {n_ev}")
     if not math.isfinite(ev) or n_ev != TRAIN_LEAVES:
         raise SystemExit("eval_step failed")
-    train_profile(state, step_fn, data, steps, seed)
+    train_profile(state, step_fn, cfg, data, steps, seed)
     return counts, times
 
 
-def train_profile(state, step_fn, data, step, seed):
+def train_profile(state, step_fn, cfg, data, step, seed, rows: int = 14):
     """Device time of one more step by kernel (torch.profiler), and the
-    device's busy share of the step's wall time."""
+    device's busy share of the step's wall time: returns (device ms, wall
+    ms)."""
     from torch.profiler import ProfilerActivity, profile
-    batch = lm_batch(data, step, device=DEV)
+    batch = train_cli.train_batch(cfg, data, step, DEV)
     sync()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as tp:
@@ -3213,20 +3326,23 @@ def train_profile(state, step_fn, data, step, seed):
              "random (noise draw)" if "philox" in n or "random" in n
              or "uniform" in n else "other (elementwise, reductions)")
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total
-    say(f"[profile] one train step: device busy {dev_us / 1e3:.1f} ms of "
+    say(f"[profile] one {cfg.name} train step: device busy "
+        f"{dev_us / 1e3:.1f} ms of "
         f"{wall * 1e3:.1f} ms wall ({100 * dev_us / 1e3 / (wall * 1e3):.1f}"
         f"%); by kind: " + ", ".join(
             f"{g} {us / 1e3:.1f} ms" for g, us in
             sorted(groups.items(), key=lambda kv: -kv[1])))
-    say(events.table(sort_by="self_device_time_total", row_limit=14,
+    say(events.table(sort_by="self_device_time_total", row_limit=rows,
                      max_name_column_width=60))
+    return dev_us / 1e3, wall * 1e3
 
 
-def small_train_phase(seed: int):
-    """A tiny f32 train step on the card (kernels) against the same step on
-    the CPU (plain versions): one SGD step from one state, on one batch and
-    one noise draw (made on the CPU and copied)."""
-    cfg, opts, tc, data = train_setup(0, 8, seed, smoke=True)
+def small_train_phase(seed: int, arch: str = "granite_3_8b"):
+    """A tiny f32 train step of ``arch``'s smoke config on the card
+    (kernels) against the same step on the CPU (plain versions): one SGD
+    step from one state, on one batch and one noise draw (made on the CPU
+    and copied)."""
+    cfg, opts, tc, data = train_setup(None, 8, seed, smoke=True, arch=arch)
     tc = dataclasses.replace(tc, optim=dataclasses.replace(tc.optim,
                                                            kind="sgd"))
     step_fn, sched = train_steps.make_train_step(cfg, opts, tc)
@@ -3240,7 +3356,7 @@ def small_train_phase(seed: int):
     def noise(path, leaf):
         return draw(path, torch.empty(leaf.shape)).to(leaf.device)
 
-    batch = lm_batch(data, 0, device="cpu")
+    batch = train_cli.train_batch(cfg, data, 0, "cpu")
     res = []
     for st, dev in ((st_cpu, "cpu"), (st_gpu, DEV)):
         st, m = step_fn(st, {k: v.to(dev) for k, v in batch.items()}, seed,
@@ -3263,6 +3379,222 @@ def small_train_phase(seed: int):
             or worst > TOL_SMALL_TRAIN_UPDATE_REL:
         raise SystemExit("the tiny train step on the card disagrees with "
                          "the CPU")
+
+
+# --------------------------------------------------------------------------
+# Phase 6b: UNIQ training of the state-space, audio and vlm families
+# --------------------------------------------------------------------------
+
+FAMILY_TRAIN_ARCHS = ("mamba2_1_3b", "zamba2_2_7b", "whisper_base",
+                      "pixtral_12b")
+FAMILY_TRAIN_STEPS = 6
+# the least change of a trained slice beyond AdamW's weight decay, max
+# |p' - p (1 - lr wd)|, as a share of the step's lr: AdamW moves an element
+# with a gradient by ~lr (m / sqrt(v) ~ 1), weight decay alone by lr wd |p|
+# (~1e-6 lr here), f32 rounding by ~1e-7 |p|
+TRAIN_MOVE_MIN_LR = 0.1
+# whisper's witness that its backward reaches the encoder: the first
+# encoder layer's LayerNorm scale (never frozen; its gradient is exactly 0
+# on zero frames, whose normalized rows are all 0)
+WHISPER_ENC_PROBE = "enc_layers/attn_norm/scale"
+_ATTN = ("wq", "wk", "wv", "wo")
+# each family's quantized leaves: one uniq_noise_fwd and one uniq_noise_bwd
+# launch a step each (whisper's stacks and zamba2's shared block are not
+# under ``layers``: one mode, one statistic over the whole tensor)
+FAMILY_TRAIN_LEAVES = {
+    "mamba2_1_3b": ("embed", "layers/in_proj", "layers/out_proj",
+                    "lm_head"),
+    "zamba2_2_7b": ("embed", "layers/in_proj", "layers/out_proj", "lm_head")
+    + tuple(f"shared/{n}" for n in _ATTN + ("w_gate", "w_up", "w_down")),
+    "whisper_base": ("embed", "lm_head")
+    + tuple(f"enc_layers/{n}" for n in _ATTN + ("w_up", "w_down"))
+    + tuple(f"dec_layers/{n}" for n in _ATTN + tuple(
+        f"cross_{a}" for a in _ATTN) + ("w_up", "w_down")),
+    "pixtral_12b": ("embed", "lm_head") + tuple(
+        f"layers/{n}" for n in _ATTN + ("w_gate", "w_up", "w_down")),
+}
+
+
+def _beyond_decay(probe, state, lr: float, wd: float) -> float:
+    """max |p' - p (1 - lr wd)| of a probed slice: the part of its change
+    in one step that AdamW's weight decay does not explain."""
+    _, get, old = probe
+    return float((get(state) - (old - lr * wd * old)).abs().max())
+
+
+def _all_finite(tree) -> bool:
+    return bool(torch.stack([torch.isfinite(t).all()
+                             for t in tree_lib.leaves(tree)]).all())
+
+
+def family_train_phase(arch: str, seed: int, steps: int, layers=None):
+    """The trainer's main path for one family at full width (depth
+    ``layers``; None: the published depth): one step's loss and gradients
+    with the plain versions forced, ``steps`` steps (every launch of
+    ``uniq_noise_fwd`` / ``_bwd`` counted, the loss and every parameter
+    finite after each step, FROZEN slices bit-unchanged, a NOISE slice
+    moved by more than weight decay where the gradient norm is finite;
+    whisper: one more step on drawn frames, see below), the all-FROZEN
+    eval, one profiled step, then the tiny f32 step of its smoke config on
+    the card against the CPU.  Returns the steps' launch counts and
+    readings."""
+    t_phase = time.perf_counter()
+    cfg, opts, tc, data = train_setup(layers, steps, seed, arch=arch)
+    step_fn, sched = train_steps.make_train_step(cfg, opts, tc)
+    full = cb.get(arch).n_layers
+    depth = (f"{cfg.n_layers} of {full} layers" if cfg.n_layers != full
+             else f"full depth, {cfg.n_layers} layers")
+    if cfg.family == "audio":
+        depth = f"full depth, {cfg.enc_layers} + {cfg.dec_layers} layers"
+    say(f"[train6b] {arch} ({cfg.family}) at full width (d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}), {depth}; the trainer's "
+        f"defaults: f32, {tc.optim.kind} lr {tc.optim.lr}, batch "
+        f"{data.global_batch} x seq {data.seq_len}"
+        + (f" after {cfg.n_patches} zero patch embeddings"
+           if cfg.family == "vlm" else "")
+        + (f", {data.seq_len} zero frames through the encoder"
+           if cfg.family == "audio" else "")
+        + f", W{tc.uniq.w_bits}, ssd_chunk {opts.ssd_chunk}, "
+        f"{sched.n_stages} gradual stages of {sched.steps_per_stage} "
+        f"step(s), {steps} steps")
+    t0 = time.perf_counter()
+    state = train_steps.init_state(seed, cfg, tc, device=DEV)
+    sync()
+    leaves = sorted(p for p, _ in _quantized(state["params"]))
+    n_leaves = len(leaves)
+    if leaves != sorted(FAMILY_TRAIN_LEAVES[arch]):
+        raise SystemExit(f"{arch}: quantized leaves {leaves}, expected "
+                         f"{sorted(FAMILY_TRAIN_LEAVES[arch])}")
+    n_params = sum(t.numel() for t in tree_lib.leaves(state["params"]))
+    say(f"[train6b] {arch} state drawn on the card in "
+        f"{time.perf_counter() - t0:.1f}s: {n_params / 1e9:.3f} B f32 "
+        f"parameters, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        f"allocated with the AdamW moments; {n_leaves} quantized leaves "
+        f"({', '.join(leaves)})")
+    # FROZEN, NOISE and CLEAN layers at once (whisper: only its embedding
+    # (modes[0]) and the rest (modes[-1]) are moded: the last block NOISE)
+    train_plain_check(state, cfg, opts, tc, data, sched, seed,
+                      steps - 1 if cfg.family == "audio"
+                      else min(3, steps - 1))
+    torch.cuda.empty_cache()            # the plain check's cached blocks
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    audio = cfg.family == "audio"
+    wd = tc.optim.weight_decay
+    times = []
+    # whisper's encoder normalizes the zero frames' rows to 0 and scales
+    # their gradient by ~1 / sqrt(eps) a LayerNorm: its gradient norm
+    # overflows f32 at full depth (finite elements; the reference's too,
+    # tests/test_torch_train_families.py), the clip zeroes every gradient
+    # and the weights move by weight decay alone.  One more step, on frames
+    # drawn from the seed, shows the gradient reaching the encoder.
+    for step in range(steps + audio):
+        drawn = audio and step == steps
+        modes = sched.modes_at(step)
+        snap = _frozen_snapshot(state, modes)
+        probes = [_noise_probe(state, modes)]
+        if drawn:
+            probes.append((f"{WHISPER_ENC_PROBE}[0]",
+                           lambda st: _at(st["params"], WHISPER_ENC_PROBE)[0],
+                           _at(state["params"], WHISPER_ENC_PROBE)[0].clone()))
+        probes = [pr for pr in probes if pr is not None]
+        before = kops.launch_counts()
+        t0 = time.perf_counter()
+        batch = train_cli.train_batch(cfg, data, step, DEV)
+        if drawn:
+            gen = torch.Generator(device=DEV).manual_seed(seed)
+            batch["frames"] = torch.randn(batch["frames"].shape,
+                                          generator=gen, device=DEV)
+        state, m = step_fn(state, batch, seed)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        sync()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        after = kops.launch_counts()
+        nf = after["uniq_noise_fwd"] - before["uniq_noise_fwd"]
+        nb = after["uniq_noise_bwd"] - before["uniq_noise_bwd"]
+        # a NaN or inf gradient element turns its parameter NaN (through
+        # the clip's factor or AdamW's moments, FROZEN ones included)
+        finite = _all_finite(state["params"])
+        kept = sum(torch.equal(get(state), old) for get, old in snap.values())
+        lr = float(m["lr"])
+        moves = [(pr[0], not torch.equal(pr[1](state), pr[2]),
+                  _beyond_decay(pr, state, lr, wd)) for pr in probes]
+        say(f"[train6b] {arch} step {step} modes (first / last layer) "
+            f"{int(modes[0])} / {int(modes[-1])}"
+            + (", frames drawn from the seed" if drawn else "")
+            + f": loss {loss:.4f}, grad norm {gnorm:.4f}, every parameter "
+            f"finite {finite}, {dt * 1e3:.0f} ms; uniq_noise launches fwd "
+            f"{nf} bwd {nb}; FROZEN tensors unchanged {kept}/{len(snap)}"
+            + "".join(f"; slice {name} moved {mv}, by {beyond:.2e} beyond "
+                      f"weight decay (lr {lr:.2e})"
+                      for name, mv, beyond in moves))
+        if not (math.isfinite(loss) and finite):
+            raise SystemExit(f"{arch} train step {step}: loss or a gradient "
+                             f"element not finite")
+        if not (math.isfinite(gnorm) or (audio and not drawn)):
+            raise SystemExit(f"{arch} train step {step}: gradient norm "
+                             f"{gnorm}")
+        if nf != n_leaves or nb != n_leaves:
+            raise SystemExit(f"{arch} train step {step}: expected "
+                             f"{n_leaves} uniq_noise launches forward and "
+                             f"backward")
+        if kept != len(snap):
+            raise SystemExit(f"{arch} train step {step}: a FROZEN slice "
+                             f"changed")
+        for name, mv, beyond in moves:
+            if not mv or (math.isfinite(gnorm)
+                          and beyond < TRAIN_MOVE_MIN_LR * lr):
+                raise SystemExit(f"{arch} train step {step}: the slice "
+                                 f"{name} moved by {beyond:.2e} beyond "
+                                 f"weight decay (at least "
+                                 f"{TRAIN_MOVE_MIN_LR} x lr {lr:.2e})")
+        del snap, probes, batch
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(times[1:]))
+    before = kops.launch_counts()
+    ev = float(train_steps.eval_step(cfg, opts)(
+        state["params"], train_cli.train_batch(cfg, data, steps, DEV),
+        tc.uniq.w_bits))
+    n_ev = kops.launch_counts()["uniq_noise_fwd"] - before["uniq_noise_fwd"]
+    say(f"[train6b] {arch} eval_step (every quantized weight FROZEN, W4): "
+        f"loss {ev:.4f}; uniq_noise_fwd launches {n_ev}")
+    if not math.isfinite(ev) or n_ev != n_leaves:
+        raise SystemExit(f"{arch} eval_step failed")
+    dev_ms, wall_ms = train_profile(state, step_fn, cfg, data, steps, seed,
+                                    rows=8)
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_train_phase(seed, arch)
+    res = dict(fwd=counts["uniq_noise_fwd"], bwd=counts["uniq_noise_bwd"],
+               leaves=n_leaves, median_ms=med * 1e3, first_ms=times[0] * 1e3,
+               peak_gib=peak, busy=dev_ms / wall_ms, params=n_params,
+               dev_ms=dev_ms, seconds=time.perf_counter() - t_phase)
+    say(f"[train6b] {arch}: {len(times)} steps, median step "
+        f"{res['median_ms']:.0f}"
+        f" ms after the first ({res['first_ms']:.0f} ms); peak "
+        f"{peak:.1f} GiB allocated; a profiled step {dev_ms:.1f} ms of "
+        f"device time in {wall_ms:.1f} ms ({100 * res['busy']:.1f} % busy; "
+        f"{100 * dev_ms / res['median_ms']:.1f} % of the median step); "
+        f"launches uniq_noise_fwd {res['fwd']}, uniq_noise_bwd "
+        f"{res['bwd']} ({n_leaves} a step); phase {res['seconds']:.0f}s; "
+        f"{CARD}")
+    return res
+
+
+def family_train_phases(seed: int, vlm_layers: int):
+    """Phase 6b: each family's trainer in turn, each model freed before the
+    next; returns the launch counts summed over their steps."""
+    total = {"uniq_noise_fwd": 0, "uniq_noise_bwd": 0}
+    for arch in FAMILY_TRAIN_ARCHS:
+        res = family_train_phase(
+            arch, seed, FAMILY_TRAIN_STEPS,
+            layers=vlm_layers if arch == "pixtral_12b" else None)
+        total["uniq_noise_fwd"] += res["fwd"]
+        total["uniq_noise_bwd"] += res["bwd"]
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -4119,6 +4451,12 @@ ENCDEC_VLM_QMM_TIMED = (
      14336, 4, None))
 
 
+# the largest leaves of phase 6b's trainers, timed beside row 7's: the
+# stacked in_proj of mamba2 (48 x 2048 x 8512) and zamba2 (54 x 2560 x
+# 10448)
+FAMILY_UNIQ_TIMED = ((48, 2048, 8512), (54, 2560, 10448))
+
+
 def timing_phase(gen, counts, errs):
     rows = {}
     for bits in (4, 8):
@@ -4182,7 +4520,7 @@ def timing_phase(gen, counts, errs):
                 f"us per call")
     L = counts["train_layers"]
     for (G, R, C) in ((L, 4096, 12800), (L, 12800, 4096), (L, 4096, 4096),
-                      (1, 4096, 49155)):
+                      (1, 4096, 49155)) + FAMILY_UNIQ_TIMED:
         for modes in ([1] * G, [m % 3 for m in range(G)]):
             r = time_uniq(gen, G, R, C, modes)
             rows[("uniq", G, R, C, tuple(modes))] = r
@@ -4190,11 +4528,14 @@ def timing_phase(gen, counts, errs):
                 t = r[key]
                 body = (f" ({t['route']} body; the flat body "
                         f"{t['flat_ms']:.4f} ms)" if key == "fwd" else "")
+                shown = modes if G <= 8 else (
+                    "all NOISE" if set(modes) == {1} else "mixed 1, 2, 0")
                 say(f"[time] uniq_noise_{key} f32 G={G} R={R} C={C} modes "
-                    f"{modes}{body}: kernel {t['ms']:.4f} ms, bound "
+                    f"{shown}{body}: kernel {t['ms']:.4f} ms, bound "
                     f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
                     f"{t['bytes'] / 1e6:.1f} MB), plain {t['plain_ms']:.3f} "
-                    f"ms; host enqueue {t['host_us']:.0f} us per call")
+                    f"ms; host enqueue {t['host_us']:.0f} us per call; "
+                    f"{CARD}")
     for (G, R, C), what, copies, by_value in (
             ((L, 4096, 12800), "granite w_up stack, row 7's shape", 1,
              False),
@@ -4250,6 +4591,8 @@ def timing_phase(gen, counts, errs):
     q = rows[("qmatmul", 4, 16, 4096, 12800)]
     a = rows[("attn", 8, 2048)]
     u = rows[("uniq", L, 4096, 12800, (1,) * L)]
+    um, uz = (rows[("uniq", G, R, C, (1,) * G)]
+              for (G, R, C) in FAMILY_UNIQ_TIMED)
     q8 = rows[("qmatmul_a8", 4, 16, 4096, 12800)]
     ql = rows[("qmatmul_lut", 4, 16, 4096, 12800)]
     kw = rows[("kquantile", 1, 4096, 12800, 16)]        # W4: packed
@@ -4284,9 +4627,11 @@ def timing_phase(gen, counts, errs):
               ctx512=rows[("attn", 8, 512)],
               kv4_ctx2048=rows[("attn", 4, 2048)]),
         entry("uniq_noise_fwd", "src/repro_torch/kernels/csrc/uniq_noise.cu",
-              "src/repro/kernels/uniq_noise.py:123", u["fwd"]),
+              "src/repro/kernels/uniq_noise.py:123", u["fwd"],
+              mamba2_in_proj=um["fwd"], zamba2_in_proj=uz["fwd"]),
         entry("uniq_noise_bwd", "src/repro_torch/kernels/csrc/uniq_noise.cu",
-              "src/repro/kernels/ops.py:72", u["bwd"]),
+              "src/repro/kernels/ops.py:72", u["bwd"],
+              mamba2_in_proj=um["bwd"], zamba2_in_proj=uz["bwd"]),
         entry("qmatmul_a8", "src/repro_torch/kernels/csrc/qmatmul.cu",
               "src/repro/kernels/qmatmul.py:316", q8),
         entry("qmatmul_lut", "src/repro_torch/kernels/csrc/qmatmul.cu",
@@ -4656,6 +5001,10 @@ def main(argv=None) -> int:
                     help="depth of the full-width train run (default 8: "
                          "f32 AdamW state for all 40 exceeds 80 GB)")
     ap.add_argument("--train-steps", type=int, default=10)
+    ap.add_argument("--train-vlm-layers", type=int, default=4,
+                    help="depth of pixtral_12b in phase 6b (default 4 of "
+                         "40: its f32 AdamW state at 4 layers is ~39 GB, "
+                         "its embedding and head ~1.34 B parameters)")
     ap.add_argument("--moe-layers", type=int, default=4,
                     help="depth of the full-width MoE models of phase 4c "
                          "(default 4: ~35 GB of W4 expert codes at "
@@ -4804,11 +5153,17 @@ def main(argv=None) -> int:
     small_train_phase(args.seed)
     cnn_counts, _ = cnn_phase(args.seed, CNN_STEPS)
     small_cnn_phase(args.seed)
-    counts = dict(counts, uniq_noise_fwd=train_counts["uniq_noise_fwd"],
-                  uniq_noise_bwd=train_counts["uniq_noise_bwd"],
+    say(f"[time] phase 6 done at {time.perf_counter() - t_start:.0f}s")
+    # the state-space, audio and vlm trainers (phase 6b); their steps'
+    # launches join the LM trainer's in the kernels line
+    family_counts = family_train_phases(args.seed, args.train_vlm_layers)
+    counts = dict(counts, uniq_noise_fwd=train_counts["uniq_noise_fwd"]
+                  + family_counts["uniq_noise_fwd"],
+                  uniq_noise_bwd=train_counts["uniq_noise_bwd"]
+                  + family_counts["uniq_noise_bwd"],
                   uniq_noise_fwd_onchip=cnn_counts["uniq_noise_fwd_onchip"],
                   train_layers=args.train_layers)
-    say(f"[time] phase 6 done at {time.perf_counter() - t_start:.0f}s")
+    say(f"[time] phase 6b done at {time.perf_counter() - t_start:.0f}s")
     line = timing_phase(gen, counts, errs)
     say(f"[time] phase 7 done at {time.perf_counter() - t_start:.0f}s")
 

@@ -166,16 +166,22 @@ def uniq_transform_ref(w: torch.Tensor, mu: torch.Tensor,
     step is one f32 operation in the order the kernel performs it, so the
     two agree to the bit wherever ``erf`` does (FROZEN) and differ only by
     ``erfinv``'s implementation (NOISE).  ``1/k`` is exact: k is a power of
-    two.
+    two.  Each intermediate is freed once read for the last time: on the
+    card a leaf of 1.4 G elements is 5.4 GiB a copy.
     """
     z = (w.to(torch.float32) - mu) / sigma
     u = torch.clamp(0.5 * (1.0 + torch.erf(z * _RSQRT2)), _EPS, 1.0 - _EPS)
+    del z
     u_noise = torch.clamp(u + (e01 - 0.5) * (1.0 / k), _EPS, 1.0 - _EPS)
     codes = torch.clamp(torch.floor(u * k), 0, k - 1).to(torch.int64)
+    del u
     frozen = mu + sigma * level_table(k, w.device)[codes]
+    del codes
     noisy = mu + sigma * (_SQRT2 * torch.erfinv(2.0 * u_noise - 1.0))
+    del u_noise
     m = mode.reshape(-1, 1, 1)
     w_hat = torch.where(m == NOISE, noisy, frozen).to(w.dtype)
+    del noisy, frozen
     return torch.where(m == CLEAN, w, w_hat)
 
 
@@ -195,7 +201,9 @@ def uniq_grad_ref(g: torch.Tensor, w: torch.Tensor, w_hat: torch.Tensor,
     z = (w.to(torch.float32) - mu) / sigma
     zh = (w_hat.to(torch.float32) - mu) / sigma
     ratio = torch.exp(torch.clamp(0.5 * (zh * zh - z * z), -30.0, 30.0))
+    del z
     ratio = torch.where(zh.abs() >= _RAIL_Z, 0.0, ratio)
+    del zh
     m = mode.reshape(-1, 1, 1)
     dw = torch.where(m == NOISE, ratio, (m == CLEAN).to(torch.float32))
     return g * dw.to(g.dtype)

@@ -6,6 +6,11 @@ card and raises where there is none):
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_8b \\
         --smoke --device cpu --steps 4
 
+Every family but MoE trains: dense, the state-space mamba2 / zamba2, the
+audio whisper (zero stub frames, as many as tokens) and the vlm pixtral
+(zero patch embeddings ahead of the tokens), as the reference's trainer
+feeds them.
+
 Fault tolerance: periodic atomic checkpoints (params + optimizer + step) in
 the reference's layout; on start, the trainer resumes from LATEST if
 present.  The data stream and the noise are keyed by (seed, step), so the
@@ -63,12 +68,31 @@ def setup(args: argparse.Namespace):
     line."""
     cfg = cb.get_smoke(args.arch) if args.smoke else cb.get(args.arch)
     opts = ModelOpts(compute_dtype=torch.float32, remat=False,
-                     attn_chunked_min_len=1 << 30, ce_chunk=512)
+                     attn_chunked_min_len=1 << 30, ce_chunk=512,
+                     ssd_chunk=16)
     tc = train_steps.TrainConfig(
         uniq=UniqConfig(w_bits=args.w_bits, a_bits=args.a_bits),
         optim=OptimConfig(kind=args.optim, lr=args.lr, weight_decay=1e-4),
         total_steps=args.steps, n_blocks=args.n_blocks)
     return cfg, opts, tc
+
+
+def train_batch(cfg: cb.ArchConfig, dcfg: LMStreamConfig, step: int,
+                device):
+    """Step ``step``'s batch: ``lm_batch``'s tokens / targets (B, S), and
+    the zero f32 inputs the reference's trainer puts beside them: at the
+    vlm family ``patch_embeds`` (B, n_patches, d), at audio ``frames``
+    (B, S, d)."""
+    batch = lm_batch(dcfg, step, device=device)
+    B, S = batch["tokens"].shape
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.zeros(
+            (B, cfg.n_patches, cfg.d_model), dtype=torch.float32,
+            device=device)
+    elif cfg.family == "audio":
+        batch["frames"] = torch.zeros((B, S, cfg.d_model),
+                                      dtype=torch.float32, device=device)
+    return batch
 
 
 def main(argv=None):
@@ -89,7 +113,7 @@ def main(argv=None):
     metrics = None
     for step in range(start_step, args.steps):
         t0 = time.perf_counter()
-        batch = lm_batch(dcfg, step, device=dev)
+        batch = train_batch(cfg, dcfg, step, dev)
         state, metrics = step_fn(state, batch, args.seed)
         loss = float(metrics["loss"])            # waits for the step
         dt = time.perf_counter() - t0

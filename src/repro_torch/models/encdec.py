@@ -1,6 +1,6 @@
 """Whisper-style encoder-decoder (the audio family): parameters, the
-encoder, prefill, the decode caches and the decode step (serving; training
-is not ported).
+encoder, the training forward, prefill, the decode caches and the decode
+step.
 
 Encoder: bidirectional self-attention over stub frame embeddings (the
 conv / mel frontend is a stub, as in the reference: a prefill batch carries
@@ -135,26 +135,69 @@ def _cross_attn(x, ek, ev, lp, cfg: ArchConfig, opts: ModelOpts):
     return _out(o, lp["cross_wo"], cfg, opts)
 
 
-def _positions(B: int, S: int, cfg: ArchConfig, device):
-    positions = torch.arange(S, device=device)[None].expand(B, S)
-    return positions, rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+def _enc_layer(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, cos_sin):
+    a, _ = _self_attn(_ln(x, lp["attn_norm"], cfg), lp, cfg, opts,
+                      positions, cos_sin, causal=False)
+    x = x + a
+    return x + _mlp_apply(_ln(x, lp["mlp_norm"], cfg), lp, opts)
 
 
-@torch.no_grad()
 def encode(params, cfg: ArchConfig, opts: ModelOpts, frames):
     """frames (B, Te, d) stub embeddings -> encoder output (B, Te, d) in
-    the compute dtype."""
+    the compute dtype; differentiable (the serving callers run it under
+    ``torch.no_grad``), each layer recomputed in the backward pass under
+    ``opts.remat``."""
     x = frames.to(opts.compute_dtype)
     B, Te, _ = x.shape
     _check_len(Te, opts)
-    positions, cos_sin = _positions(B, Te, cfg, x.device)
+    positions, cos_sin = lm.rope_positions(B, Te, cfg, x.device)
     for l in range(cfg.enc_layers):
-        lp = lm._layer(params, l, "enc_layers")
-        a, _ = _self_attn(_ln(x, lp["attn_norm"], cfg), lp, cfg, opts,
-                          positions, cos_sin, causal=False)
-        x = x + a
-        x = x + _mlp_apply(_ln(x, lp["mlp_norm"], cfg), lp, opts)
+        x = lm.apply_layer(_enc_layer, opts.remat, x,
+                           lm._layer(params, l, "enc_layers"), cfg, opts,
+                           positions, cos_sin)
     return _ln(x, params["enc_final_norm"], cfg)
+
+
+def _dec_layer(x, lp, enc_out, cfg: ArchConfig, opts: ModelOpts, positions,
+               cos_sin):
+    """One decoder layer over (B, S, d): causal self-attention, the
+    cross-attention over this layer's cross K/V of the encoder output, the
+    MLP.  Returns (x, (k, v, cross k, cross v))."""
+    B, Te = enc_out.shape[:2]
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    a, (k, v) = _self_attn(_ln(x, lp["attn_norm"], cfg), lp, cfg, opts,
+                           positions, cos_sin, causal=True)
+    x = x + a
+    ek = mm(enc_out, lp["cross_wk"], opts.use_kernels).reshape(B, Te, KV, hd)
+    ev = mm(enc_out, lp["cross_wv"], opts.use_kernels).reshape(B, Te, KV, hd)
+    x = x + _cross_attn(_ln(x, lp["cross_norm"], cfg), ek, ev, lp, cfg, opts)
+    x = x + _mlp_apply(_ln(x, lp["mlp_norm"], cfg), lp, opts)
+    return x, (k, v, ek, ev)
+
+
+def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch):
+    """Teacher-forced LM loss (the reference's ``forward_train_encdec``):
+    encode ``batch["frames"]`` (B, Te, d), the decoder over
+    ``batch["tokens"]`` with each layer's cross K/V of the encoder output,
+    the final LayerNorm and the chunked cross-entropy on the LM head against
+    ``batch["targets"]``.  No cache; with ``opts.remat`` every layer of
+    both stacks is recomputed in the backward pass."""
+    for key, n in (("enc_layers", cfg.enc_layers),
+                   ("dec_layers", cfg.dec_layers)):
+        if not isinstance(params[key], list):
+            params = lm.unstack_layers(params, n, key)
+    enc_out = encode(params, cfg, opts, batch["frames"])
+    x = lm._embed_tokens(params, cfg, opts, batch["tokens"])
+    B, S, _ = x.shape
+    _check_len(S, opts)
+    positions, cos_sin = lm.rope_positions(B, S, cfg, x.device)
+    for l in range(cfg.dec_layers):
+        x, _ = lm.apply_layer(_dec_layer, opts.remat, x,
+                              lm._layer(params, l, "dec_layers"), enc_out,
+                              cfg, opts, positions, cos_sin)
+    x = _ln(x, params["final_norm"], cfg)
+    return lm.chunked_ce_loss(x, params["lm_head"], batch["targets"], cfg,
+                              opts)
 
 
 @torch.no_grad()
@@ -167,25 +210,12 @@ def forward_prefill(params, cfg: ArchConfig, opts: ModelOpts, batch):
     x = lm._embed_tokens(params, cfg, opts, batch["tokens"])
     B, S, _ = x.shape
     _check_len(S, opts)
-    Te = enc_out.shape[1]
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
-    positions, cos_sin = _positions(B, S, cfg, x.device)
+    positions, cos_sin = lm.rope_positions(B, S, cfg, x.device)
     caches = {"k": [], "v": [], "cross_k": [], "cross_v": []}
     for l in range(cfg.dec_layers):
-        lp = lm._layer(params, l, "dec_layers")
-        a, (k, v) = _self_attn(_ln(x, lp["attn_norm"], cfg), lp, cfg, opts,
-                               positions, cos_sin, causal=True)
-        x = x + a
-        # this layer's cross K/V of the encoder output
-        ek = mm(enc_out, lp["cross_wk"], opts.use_kernels).reshape(
-            B, Te, KV, hd)
-        ev = mm(enc_out, lp["cross_wv"], opts.use_kernels).reshape(
-            B, Te, KV, hd)
-        x = x + _cross_attn(_ln(x, lp["cross_norm"], cfg), ek, ev, lp, cfg,
-                            opts)
-        x = x + _mlp_apply(_ln(x, lp["mlp_norm"], cfg), lp, opts)
-        for name, t in (("k", k), ("v", v), ("cross_k", ek),
-                        ("cross_v", ev)):
+        x, kvs = _dec_layer(x, lm._layer(params, l, "dec_layers"), enc_out,
+                            cfg, opts, positions, cos_sin)
+        for name, t in zip(("k", "v", "cross_k", "cross_v"), kvs):
             caches[name].append(t)
     x = _ln(x, params["final_norm"], cfg)
     logits = lm._logits(x[:, -1], params, cfg, opts)

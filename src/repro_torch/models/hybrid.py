@@ -1,5 +1,5 @@
-"""Mamba-2 (ssm) and Zamba2 (hybrid) model assemblies: parameters, prefill,
-the decode caches and the decode step (serving; training is not ported).
+"""Mamba-2 (ssm) and Zamba2 (hybrid) model assemblies: parameters, the
+training forward, prefill, the decode caches and the decode step.
 
 mamba2  : a stack of Mamba-2 blocks (attention-free; decode state O(1)).
 zamba2  : a Mamba-2 backbone with one *weight-shared* attention + MLP block
@@ -20,7 +20,7 @@ f32, and at zamba2 the shared block's dense K/V (groups, B, max_len, KV,
 hd), read by ``attention.decode_attention`` (no paged pool).
 
 As in the reference, ``opts.a_bits`` fake-quantizes each Mamba layer's
-output at prefill only: the decode steps leave it alone.
+output in training and at prefill only: the decode steps leave it alone.
 """
 
 from __future__ import annotations
@@ -177,6 +177,30 @@ def _shared_attn_apply(x, sp, cfg: ArchConfig, opts: ModelOpts, positions,
     return _shared_mlp(x, sp, cfg, opts), (k, v)
 
 
+def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch):
+    """Teacher-forced LM loss (the reference's ``forward_train_mamba`` /
+    ``forward_train_zamba``): the Mamba stack (each layer's output
+    fake-quantized at ``opts.a_bits`` < 32), at zamba2 the shared block
+    after every ``attn_every``-th layer, the final norm and the chunked
+    cross-entropy on the LM head.  With ``opts.remat`` each Mamba layer is
+    recomputed in the backward pass; the shared block is not, as the
+    reference wraps only its inner Mamba layers."""
+    if not isinstance(params["layers"], list):
+        params = lm.unstack_layers(params, cfg.n_layers)
+    x = lm._embed_tokens(params, cfg, opts, batch["tokens"])
+    if cfg.family == "hybrid":
+        positions, cos_sin = lm.rope_positions(*x.shape[:2], cfg, x.device)
+    for l in range(cfg.n_layers):
+        x, _ = lm.apply_layer(_mamba_layer_apply, opts.remat, x,
+                              lm._layer(params, l), cfg, opts)
+        if _shared_after(cfg, l):
+            x, _ = _shared_attn_apply(x, params["shared"], cfg, opts,
+                                      positions, cos_sin)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm.chunked_ce_loss(x, params["lm_head"], batch["targets"], cfg,
+                              opts)
+
+
 @torch.no_grad()
 def prefill(params, cfg: ArchConfig, opts: ModelOpts, batch):
     """Run the prompt through the stack (the reference's ``prefill_mamba``
@@ -184,10 +208,8 @@ def prefill(params, cfg: ArchConfig, opts: ModelOpts, batch):
     cache: per layer the (conv window, SSM state), and at zamba2 the
     shared block's K/V of each application ((groups, B, S, KV, hd))."""
     x = lm._embed_tokens(params, cfg, opts, batch["tokens"])
-    B, S, _ = x.shape
     if cfg.family == "hybrid":
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        positions, cos_sin = lm.rope_positions(*x.shape[:2], cfg, x.device)
     convs, ssms, ks, vs = [], [], [], []
     for l in range(cfg.n_layers):
         x, (conv_c, ssm_c) = _mamba_layer_apply(x, lm._layer(params, l), cfg,

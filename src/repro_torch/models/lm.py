@@ -1,7 +1,8 @@
 """Decoder-only LM (the dense, MoE and vlm families): the training forward
-(``forward_train`` + ``chunked_ce_loss``, dense only) and the serving path
-(prefill, chunked prefill, decode).  The vlm family (pixtral) is the dense
-decoder with precomputed patch embeddings ahead of the prompt at prefill.
+(``forward_train`` + ``chunked_ce_loss``: dense and vlm) and the serving
+path (prefill, chunked prefill, decode).  The vlm family (pixtral) is the
+dense decoder with precomputed patch embeddings ahead of the tokens (at
+prefill and in training).
 
 Every per-layer parameter carries a leading (L,) axis and the forward pass
 is a Python loop over ``leaf[l]`` views.  Serving-time weights may be
@@ -655,6 +656,30 @@ def chunked_ce_loss(x, head_w, targets, cfg: ArchConfig, opts: ModelOpts):
     return total / torch.clamp(count, min=1.0)
 
 
+def rope_positions(B: int, S: int, cfg: ArchConfig, device):
+    """Positions 0 .. S-1 of B rows (B, S) and their RoPE (cos, sin)."""
+    positions = torch.arange(S, device=device)[None].expand(B, S)
+    return positions, rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+
+def apply_layer(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` (and autograd on) its activations are
+    recomputed in the backward pass instead of kept
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def refuse_uniq_scan(uniq_scan) -> None:
+    """``uniq_scan`` (the UNIQ transform applied per layer inside the layer
+    loop) is not ported: raise where one is given."""
+    if uniq_scan is not None:
+        raise NotImplementedError(
+            "uniq_scan (the UNIQ transform applied per layer inside the "
+            "layer loop) is not ported yet; transform the tree first")
+
+
 def _train_layer(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
                  cos_sin):
     a, _ = _attn_block(x, lp, cfg, opts, positions, window, cos_sin)
@@ -666,33 +691,33 @@ def _train_layer(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
 def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch,
                   uniq_scan=None):
     """Teacher-forced LM loss (a differentiable scalar).  batch: tokens /
-    targets (B, S).  With ``opts.remat`` each layer is recomputed in the
-    backward pass instead of keeping its activations."""
-    if uniq_scan is not None:
+    targets (B, S), and at the vlm family ``patch_embeds`` (B, P, d), cast
+    to the compute dtype and put ahead of the tokens: positions run over the
+    P + S rows and the loss covers the token rows only.  With
+    ``opts.remat`` each layer is recomputed in the backward pass instead of
+    keeping its activations."""
+    refuse_uniq_scan(uniq_scan)
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
-            "uniq_scan (the UNIQ transform applied per layer inside the "
-            "layer loop) is not ported yet; transform the tree first")
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: training is ported for the dense "
-            f"family only (MoE training, with moe.aux_load_balance_loss, "
-            f"and the vlm's training on patch-prefixed sequences are not "
-            f"ported yet)")
+            f"family {cfg.family!r}: training of the MoE family (with "
+            f"moe.aux_load_balance_loss) is not ported yet")
     if not isinstance(params["layers"], list):
         params = unstack_layers(params, cfg.n_layers)
-    tokens = batch["tokens"]
-    x = _embed_tokens(params, cfg, opts, tokens)
+    x = _embed_tokens(params, cfg, opts, batch["tokens"])
+    n_patches = 0
+    if cfg.family == "vlm":
+        pe = batch["patch_embeds"].to(device=x.device, dtype=x.dtype)
+        x = torch.cat([pe, x], dim=1)
+        n_patches = pe.shape[1]
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    positions, cos_sin = rope_positions(B, S, cfg, x.device)
     windows = _window_schedule(cfg)
-    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    remat = opts.remat and torch.is_grad_enabled()
     for l in range(cfg.n_layers):
-        args = (x, _layer(params, l), cfg, opts, positions, windows[l],
-                cos_sin)
-        x = _ckpt.checkpoint(_train_layer, *args, use_reentrant=False) \
-            if remat else _train_layer(*args)
+        x = apply_layer(_train_layer, opts.remat, x, _layer(params, l), cfg,
+                        opts, positions, windows[l], cos_sin)
     x = _norm_final(x, params, cfg)
+    if n_patches:
+        x = x[:, n_patches:]
     return chunked_ce_loss(x, _head_weight(params, cfg, opts.use_kernels),
                            batch["targets"], cfg, opts)
 
@@ -721,9 +746,8 @@ def forward_prefill(params, cfg: ArchConfig, opts: ModelOpts, batch,
         pe = batch["patch_embeds"].to(device=x.device, dtype=x.dtype)
         x = torch.cat([pe, x], dim=1)
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    positions, cos_sin = rope_positions(B, S, cfg, x.device)
     windows = _window_schedule(cfg)
-    cos_sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     kvs = []
     for l in range(cfg.n_layers):
         lp = _layer(params, l)

@@ -4,7 +4,7 @@ mamba2, hybrid: zamba2; ``models/hybrid.py``) and the encoder-decoder
 (audio: whisper; ``models/encdec.py``).
 
     init(seed, cfg, device)             -> params
-    loss_fn(params, cfg, opts, batch)   -> scalar loss   (train; dense only)
+    loss_fn(params, cfg, opts, batch)   -> scalar loss   (train; not moe)
     prefill(params, cfg, opts, batch)   -> (logits, cache)
     decode(params, cfg, opts, cache, tokens, positions, block_tables)
                                         -> (logits, cache)
@@ -15,7 +15,8 @@ one fixed region of ``max_len`` rows per decode slot) and the paged pool
 (``init_paged_cache`` / ``cache_insert_paged``); the last two hold the
 plain KV layout of dense and moe only.  A family outside
 ``PORTED_FAMILIES`` raises ``NotImplementedError`` naming it
-(``require_ported``); ``loss_fn`` raises it for every family but dense.
+(``require_ported``); ``loss_fn`` raises it for the MoE family, whose
+training is not ported.
 """
 
 from __future__ import annotations
@@ -36,15 +37,10 @@ __all__ = ["ModelOpts", "init", "loss_fn", "prefill", "decode",
 
 # the families whose model this package has: every one of the registry
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
-# the state-space families: serving only, their caches a conv window and an
-# SSM state per layer (and the shared block's K/V at hybrid)
+# the state-space families: closed-batch serving and training, their caches
+# a conv window and an SSM state per layer (and the shared block's K/V at
+# hybrid)
 SSM_FAMILIES = ("ssm", "hybrid")
-# the families whose training is not ported, and the reference's training
-# forward of each
-_TRAIN_NOT_PORTED = {
-    "ssm": "forward_train_mamba", "hybrid": "forward_train_zamba",
-    "audio": "forward_train_encdec",
-    "vlm": "lm.forward_train's patch-prefixed branch"}
 
 
 def supports_paged_cache(cfg: ArchConfig) -> bool:
@@ -76,13 +72,16 @@ def init(seed: int, cfg: ArchConfig, device="cuda", **kw) -> Any:
 
 def loss_fn(params, cfg: ArchConfig, opts: ModelOpts, batch,
             uniq_scan=None) -> torch.Tensor:
-    """Teacher-forced LM loss (see lm.forward_train)."""
+    """Teacher-forced LM loss: encdec.forward_train (audio; the batch holds
+    ``frames`` beside the tokens), hybrid.forward_train (ssm, hybrid) or
+    lm.forward_train (dense, vlm with ``patch_embeds``; MoE raises
+    NotImplementedError).  ``uniq_scan`` is not ported: it raises."""
     require_ported(cfg, "loss_fn")
-    if cfg.family in _TRAIN_NOT_PORTED:
-        raise NotImplementedError(
-            f"loss_fn: training of family {cfg.family!r} is not ported yet "
-            f"(the reference's {_TRAIN_NOT_PORTED[cfg.family]}; only its "
-            f"serving path is ported)")
+    if cfg.family in SSM_FAMILIES + ("audio",):
+        lm.refuse_uniq_scan(uniq_scan)
+        forward = encdec.forward_train if cfg.family == "audio" \
+            else hybrid.forward_train
+        return forward(params, cfg, opts, batch)
     return lm.forward_train(params, cfg, opts, batch, uniq_scan=uniq_scan)
 
 

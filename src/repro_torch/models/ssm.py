@@ -114,6 +114,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     Cc = Cm.reshape(Bsz, nc, chunk, n).to(torch.float32)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))[None, :, :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     h = torch.zeros((Bsz, nh, hd, n), dtype=torch.float32, device=x.device)
     ys = []
@@ -124,12 +125,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         cs = torch.cumsum(lac[:, c], dim=1)                 # (B, Q, nh)
         # intra-chunk: scores[i,j] = (C_i.B_j) exp(cs_i - cs_j) dt_j, j<=i
         cb = torch.einsum("bin,bjn->bij", Cb, Bb)           # (B, Q, Q)
-        dec = torch.exp(cs[:, :, None] - cs[:, None, :])    # (B, Q, Q, nh)
-        sc = cb[..., None] * dec * dtb[:, None]
-        # exp(cs_i - cs_j) for j > i is a growth factor that may overflow:
-        # select, never multiply by the mask (inf * 0 = NaN)
-        sc = torch.where(mask, sc, torch.zeros((), dtype=sc.dtype,
-                                               device=sc.device))
+        # exp(cs_i - cs_j) for j > i is a growth factor that may overflow,
+        # and the backward of a product with inf is NaN even where it is
+        # masked: mask the exponent before the exp (the kept triangle is
+        # the same f32 operations), then select the product
+        seg = torch.where(mask, cs[:, :, None] - cs[:, None, :], zero)
+        sc = cb[..., None] * torch.exp(seg) * dtb[:, None]  # (B, Q, Q, nh)
+        sc = torch.where(mask, sc, zero)
         y_intra = torch.einsum("bijh,bjhd->bihd", sc, xb)
         # inter-chunk: y_i += C_i . h_prev * exp(cs_i)
         y_inter = torch.einsum("bin,bhdn,bih->bihd", Cb, h, torch.exp(cs))

@@ -136,23 +136,30 @@ def apply_updates(params: Any, grads: Any, state: Any, cfg: OptimConfig,
         if clip is not None:
             g = (g.to(torch.float32) * clip).to(g.dtype)
         g32 = g.to(torch.float32)
+        del g
         p32 = p.to(torch.float32)
         m_prev = _decode_m(mu_d["m"], mu_d.get("ms"), cfg.momentum_dtype)
         mask = _mask_of(mk, p)
+        # each leaf-sized temporary is dropped once read for the last time
+        # (a leaf of 1.4 G elements is 5.4 GiB a copy)
         if cfg.kind == "sgd":
             m_new = cfg.momentum * m_prev + (g32 + cfg.weight_decay * p32)
+            del g32
             upd = lr * m_new
         else:
             m_new = cfg.beta1 * m_prev + (1 - cfg.beta1) * g32
             nu.copy_(cfg.beta2 * nu + (1 - cfg.beta2) * g32 * g32)
-            mhat = m_new / bc1
-            nhat = nu / bc2
-            upd = lr * (mhat / (torch.sqrt(nhat) + cfg.eps)
-                        + cfg.weight_decay * p32)
+            del g32
+            # mhat / (sqrt(nhat) + eps), mhat = m / bc1, nhat = nu / bc2
+            denom = torch.sqrt(nu / bc2) + cfg.eps
+            upd = (m_new / bc1) / denom
+            del denom
+            upd = lr * (upd + cfg.weight_decay * p32)
         p_next = p32 - upd * mask
+        del upd
         # frozen params also keep their previous momentum
         m_keep = m_prev * (1.0 - mask) + m_new * mask
-        del upd, m_new
+        del m_new
         codes, scale = _encode_m(m_keep, cfg.momentum_dtype)
         mu_d["m"].copy_(codes)
         if scale is not None:

@@ -400,7 +400,8 @@ def test_a_bits_8_leaves_whisper_unchanged_as_in_the_reference():
 def test_whisper_refuses_what_it_does_not_serve():
     """The engine keeps the reference's ValueError; the paged pool, the
     slot cache, chunked and padded prefill are refused as in the
-    reference; training raises NotImplementedError naming it."""
+    reference.  Training is ported: the loss of the dense tree is finite
+    (its parity with the reference is ``test_torch_train_families.py``'s)."""
     _, ct = _cfgs()
     _, pt = _params(4)
     _, to = _opts()
@@ -423,10 +424,9 @@ def test_whisper_refuses_what_it_does_not_serve():
                              None, None)
     with pytest.raises(ValueError, match="slot cache"):
         tmodel.init_slot_cache(ct, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="training of family 'audio'.*forward_train_"
-                             "encdec"):
-        tmodel.loss_fn(pt, ct, to, {"tokens": None, "targets": None})
+    _, dense = _params(16)
+    loss = tmodel.loss_fn(dense, ct, to, dict(bt, targets=bt["tokens"]))
+    assert loss.shape == () and bool(torch.isfinite(loss))
     assert not tmodel.supports_paged_cache(ct)
     assert not tmodel.supports_slot_cache(ct)
 

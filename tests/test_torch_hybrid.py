@@ -304,8 +304,9 @@ def test_a_bits_8_applies_at_prefill_only_as_in_the_reference(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_state_space_families_refuse_what_they_do_not_serve(arch):
     """The engine keeps the reference's ValueError; the paged pool and
-    padded prefill are refused as in the reference; training raises
-    NotImplementedError naming the family."""
+    padded prefill are refused as in the reference.  Training is ported:
+    the loss of the dense tree is finite (its parity with the reference is
+    ``test_torch_train_families.py``'s)."""
     cfg = tcb.get_smoke(arch)
     _, pt = _params(arch, 4)
     _, to = _opts()
@@ -328,9 +329,10 @@ def test_state_space_families_refuse_what_they_do_not_serve(arch):
                              None, None)
     with pytest.raises(ValueError, match="slot cache"):
         tmodel.init_slot_cache(cfg, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"training of family "
-                                                  f"'{cfg.family}'"):
-        tmodel.loss_fn(pt, cfg, to, {"tokens": None, "targets": None})
+    _, dense = _params(arch, 16)
+    toks = torch.from_numpy(_tokens(cfg))
+    loss = tmodel.loss_fn(dense, cfg, to, {"tokens": toks, "targets": toks})
+    assert loss.shape == () and bool(torch.isfinite(loss))
     assert not tmodel.supports_paged_cache(cfg)
     assert not tmodel.supports_slot_cache(cfg)
 

@@ -103,15 +103,29 @@ def _old_write_rows_body(view, pages, rows, k, v, kv_bits):
 
 
 def _to_jax(leaf):
+    """A JAX copy of a pool leaf.  ``jnp.asarray`` of a 64-byte aligned
+    torch buffer is zero-copy on the CPU (JAX then takes the memory as
+    immutable), and the append writes this very pool in place afterwards:
+    copy, so the reference never reads memory the port mutates."""
     if leaf.dtype == torch.bfloat16:
-        return jnp.asarray(leaf.float().numpy()).astype(jnp.bfloat16)
-    return jnp.asarray(leaf.numpy())
+        return jnp.array(leaf.float().numpy(), copy=True).astype(
+            jnp.bfloat16)
+    return jnp.array(leaf.numpy(), copy=True)
 
 
-def _codes_close(cj, ct, bound):
+def _codes_close(cj, ct, bound, stats=None):
+    """Codes (rows, heads, hd) at most one bin apart and at most ``bound``
+    of them apart.  ``stats`` ({name: (rows, heads) array}, both sides'
+    bf16 mu / sigma) goes into the failure message, row by row."""
     d = np.abs(cj.astype(np.int64) - ct.astype(np.int64))
-    assert d.max() <= 1, "a code is off by more than one bin"
-    assert (d > 0).mean() <= bound, f"mismatch rate {(d > 0).mean():.2e}"
+    bad = np.argwhere((d > 0).any(axis=-1))
+    where = "; ".join(
+        f"row {r} head {h}: {int((d[r, h] > 0).sum())} codes, "
+        + ", ".join(f"{n} {float(v[r, h])!r}" for n, v in stats.items())
+        for r, h in bad[:4]) if stats else ""
+    assert d.max() <= 1, f"a code is off by more than one bin: {where}"
+    assert (d > 0).mean() <= bound, \
+        f"mismatch rate {(d > 0).mean():.2e}: {where}"
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -171,7 +185,9 @@ def _check_against_reference(cfg, kv_bits):
         if kv_bits == 4:
             ct = tpack.unpack_int4(torch.from_numpy(ct)).numpy()
             cj = tpack.unpack_int4(torch.from_numpy(cj)).numpy()
-        _codes_close(cj, ct, KV_CODE_MISMATCH)
+        _codes_close(cj, ct, KV_CODE_MISMATCH,
+                     {"port mu": mt, "ref mu": mj, "port sigma": gt,
+                      "ref sigma": gj})
     # every slot the append did not target holds the reference's (= the
     # starting pool's) bytes on both sides
     untouched = np.ones((P, PAGE), bool)

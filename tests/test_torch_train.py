@@ -389,21 +389,21 @@ def _noise_tol_sigma(z_hat):
     return TOL_NOISE_U / pdf + 1e-5
 
 
-def _grad_tol(params_j, key, modes, g):
+def _grad_tol(params_j, key, modes, g, grad_rel=TOL_STEP_GRAD_REL):
     """Per-element tolerance on the (unclipped) gradient of one train step.
 
     The gradient of a NOISE weight is g_hat * pdf(z) / pdf(z_hat); z_hat
     comes from each side's own forward, which differ as stated in
     ``_noise_tol_sigma``, so the factor's relative error is |z_hat| *
     dz_hat (twice that, for both sides' errors).  Every gradient also
-    carries TOL_STEP_GRAD_REL of its leaf's largest."""
+    carries ``grad_rel`` (TOL_STEP_GRAD_REL) of its leaf's largest."""
     w_hat = _flat_np(juniq.transform_tree(
         params_j, key, juniq.lm_mode_fn(jnp.asarray(modes)),
         juniq.UniqConfig(w_bits=4)))
     w_all = _flat_np(params_j)
     tol = {}
     for p, gp in g.items():
-        tol[p] = TOL_STEP_GRAD_REL * float(np.abs(gp).max()) + 1e-12
+        tol[p] = grad_rel * float(np.abs(gp).max()) + 1e-12
         w, wh = w_all[p], w_hat[p]
         if np.array_equal(w, wh):                     # CLEAN / not quantized
             continue
@@ -415,7 +415,8 @@ def _grad_tol(params_j, key, modes, g):
     return tol
 
 
-def _compare_step(st, mt, sj0, sj1, mj, key, modes, kind, tc):
+def _compare_step(st, mt, sj0, sj1, mj, key, modes, kind, tc,
+                  grad_rel=TOL_STEP_GRAD_REL):
     """Port state and metrics vs the reference's after the same step from
     the same state ``sj0``.  The reference's applied gradient is read back
     from its momentum; every tolerance is derived from ``_grad_tol``
@@ -438,7 +439,7 @@ def _compare_step(st, mt, sj0, sj1, mj, key, modes, kind, tc):
     norm = float(mj["grad_norm"])
     scale = min(1.0, oc.grad_clip / norm) if oc.grad_clip > 0 else 1.0
     tol_g = _grad_tol(sj0["params"], key, modes,
-                      {n: gc[n] / scale for n in names})
+                      {n: gc[n] / scale for n in names}, grad_rel)
     tol_norm = float(np.sqrt(sum(np.sum(np.square(
         np.broadcast_to(tol_g[n], gc[n].shape))) for n in names)))
     assert abs(float(mt["grad_norm"]) - norm) <= tol_norm + 1e-6 * norm

@@ -193,7 +193,10 @@ def test_init_draws_the_dense_decoder_tree():
 
 def test_vlm_refuses_the_engine_and_training():
     """The engine keeps the reference's ValueError (the closed batch serves
-    the vlm); training raises NotImplementedError naming it."""
+    the vlm).  Training is ported: the loss of the dense tree, patch
+    embeddings ahead of the tokens, is finite through ``model.loss_fn`` and
+    ``lm.forward_train`` alike (its parity with the reference is
+    ``test_torch_train_families.py``'s)."""
     cfg = tcb.get_smoke(ARCH)
     _, pt = _params(4)
     _, to = _opts()
@@ -202,12 +205,12 @@ def test_vlm_refuses_the_engine_and_training():
     with pytest.raises(ValueError, match="paged cache"):
         tmodel.init_paged_cache(cfg, 4, 8, device="cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
-             "targets": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="training of family "
-                                                  "'vlm'"):
-        tmodel.loss_fn(pt, cfg, to, batch)
-    with pytest.raises(NotImplementedError, match="vlm's training"):
-        tlm.forward_train(pt, cfg, to, batch)
+             "targets": torch.zeros((1, 4), dtype=torch.long),
+             "patch_embeds": torch.ones((1, cfg.n_patches, cfg.d_model))}
+    _, dense = _params(16)
+    loss = tmodel.loss_fn(dense, cfg, to, batch)
+    assert loss.shape == () and bool(torch.isfinite(loss))
+    assert torch.equal(tlm.forward_train(dense, cfg, to, batch), loss)
     assert not tmodel.supports_paged_cache(cfg)
     assert not tmodel.supports_slot_cache(cfg)
 
