@@ -46,7 +46,13 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      routed), one decode step profiled, a prefill of 16 x 64 tokens and a
      decode step against the plain versions (the plain
      prefill on the kernel run's expert ids; the decode rows whose expert
-     sets agree), and kimi_k2's closed batch (``serve.generate``); each
+     sets agree), and kimi_k2's closed batch (``serve.generate``); then
+     each again at W4 empirical (``--w-dist empirical``: every slice's
+     codebook fitted on its subsample and its codes written an expert
+     block at a time, the coding timed at load): the stream with
+     ``qmatmul_lut`` 4 x L + 1 and ``qmatmul_lut_experts`` 3 x L a call
+     counted exactly, the plain check with a wrong-code control (every
+     coded weight one level off must land above the logit limit); each
      model freed before the next;
   5. repeats a prefill + one decode step with the plain versions forced and
      compares logits, for each engine; replays each engine's stream with
@@ -102,7 +108,14 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      through the trainer's entry points for ``--train-steps`` steps (UNIQ
      noise, gradual freezing, AdamW), counting the ``uniq_noise`` launches
      of each step and checking that FROZEN slices stay put; before it, one
-     step's loss and gradients with the plain versions forced; after it,
+     step's loss and gradients with the plain versions forced, and the same
+     step with the UNIQ transform per layer inside the layer loop
+     (``uniq_in_scan``, remat on) against the whole-tree transform fed the
+     same noise (loss and gradients within the same bounds; both peaks
+     printed; each side's ``uniq_noise`` launches counted from 0 and exact:
+     in scan a forward per layer weight and layer, again in remat's
+     recompute, whole-tree one per leaf; both join the kernels line's
+     counts); after it,
      one all-FROZEN eval step and a profile of one more step; then a tiny
      f32 train step on the card against the CPU; then the paper's CNN
      trainer (``repro_torch.cnn.train``): ResNet-18 at its published widths
@@ -136,14 +149,30 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      3 holds the ``uniq_noise`` kernels at these trainers' leaf shapes
      (mamba2's and zamba2's stacked ``in_proj``, zamba2's shared ``w_up``,
      whisper's unstacked encoder stack with one statistic, pixtral's
-     ``w_up`` stack and embedding);
+     ``w_up`` stack and embedding, and phase 6c's expert stacks);
+  6c. trains the MoE family through the trainer's entry points with the
+     CLI's settings but ``--optim sgd`` (f32, batch 8 x seq 64, W4):
+     kimi_k2_1t_a32b and llama4_maverick_400b_a17b at their published
+     widths, depth 1 and the expert count cut to the largest multiple of 8
+     whose reckoned peak stays under 70 GB (16 and 8; the reckoning
+     printed before the run, the peak after), each freed before the next:
+     one step with the plain versions forced, the schedule's 4 steps (the
+     layer NOISE) and 2 past its end (everything FROZEN) with every
+     ``uniq_noise_fwd`` / ``_bwd`` launch counted (one of each per
+     quantized leaf), the loss and every parameter finite, FROZEN slices of
+     the (L, E, d, f) stacks bit-unchanged, a NOISE expert slice and (top-k
+     > 1) the router moved by their gradient, the copies each step drops
+     printed; one more step whose first six rows repeat one token must
+     drop copies; the all-FROZEN eval, a profiled step and the tiny f32
+     step of its smoke config on the card against the CPU;
   7. times each kernel (CUDA events) beside its bound, its plain version and
      one library call (``qmatmul`` also at the state-space models' decode
      shapes whose N is no multiple of the 128-column tile, beside the
      whole-tile N just below, and at whisper's and pixtral's shapes, the
      odd N of whisper's W8 head among them; ``uniq_noise_fwd`` / ``_bwd``
-     also at mamba2's and zamba2's ``in_proj`` stacks), and prints the
-     ``kernels`` JSON line;
+     also at mamba2's and zamba2's ``in_proj`` stacks and phase 6c's
+     expert stacks; ``qmatmul_lut_experts`` at kimi_k2's ``eg`` decode and
+     256-token shapes), and prints the ``kernels`` JSON line;
   8. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--layers N`` cuts the serving depth (never the width; the closed batch
@@ -197,7 +226,8 @@ from repro_torch.core import activations as act              # noqa: E402
 from repro_torch.core import packing                          # noqa: E402
 from repro_torch.core.uniq import (FROZEN, NOISE,            # noqa: E402
                                    UniqConfig, default_quant_filter,
-                                   leaf_noise, lm_mode_fn, onchip_noise)
+                                   layer_noise, leaf_noise, lm_mode_fn,
+                                   onchip_noise)
 from repro_torch.data.synthetic import (LMStreamConfig,       # noqa: E402
                                         image_batch, lm_batch)
 from repro_torch.kernels import kquantile as kq               # noqa: E402
@@ -350,7 +380,13 @@ TOL_TRAIN_PLAIN_GRAD_REL = 1e-5
 #   is lr x gradient, whose NOISE factor pdf(z) / pdf(z_hat) is steep next
 #   to the u clamp, where one ulp of u between CUDA's and the CPU's erf
 #   moves z_hat by up to 1e-2 and the factor by up to ~5%: stated relative
-#   to the leaf's largest update.
+#   to the leaf's largest update.  The update is read as p' - p, each p'
+#   rounded to f32 on its side: a leaf whose whole update is a few ulps of
+#   p (the norm scales at 1 of the MoE smoke configs: 6 ulps) differs by
+#   that rounding alone, so one ulp of p' is allowed beside it.  The MoE
+#   configs' CPU step replays the card's expert ids (a top-k set can differ
+#   where two router probabilities nearly tie, and with it a token's whole
+#   expert output, as in phase 4c's plain check).
 TOL_SMALL_TRAIN_LOSS_REL = 1e-5
 TOL_SMALL_TRAIN_UPDATE_REL = 5e-2
 
@@ -1555,7 +1591,21 @@ FAMILY_UNIQ_SHAPES = (
     ((1, 2560, 10240), False, "zamba2 shared/w_up"),
     ((6, 512, 2048), True, "whisper enc_layers/w_up"),
     ((4, 5120, 14336), False, "pixtral layers/w_up (4 layers)"),
-    ((1, 131072, 5120), False, "pixtral embed"))
+    ((1, 131072, 5120), False, "pixtral embed")) + tuple(
+    # phase 6c's expert stacks (1 layer; kimi_k2 cut to 16 experts, llama4
+    # to 8), (L, E, d, f) grouped as (L, E * d, f): one group of 235 M / 336
+    # M elements; and a layer's (E, d, f) slice as the per-layer transform
+    # inside the layer loop gives it, E groups with one statistic
+    (shape, one_stat, f"{arch} {what}")
+    for arch, n_exp in (("kimi_k2_1t_a32b", 16),
+                        ("llama4_maverick_400b_a17b", 8))
+    for shape, one_stat, what in (
+        ((1, n_exp * cb.get(arch).d_model, cb.get(arch).d_ff), False,
+         f"layers/eg ({n_exp} experts)"),
+        ((1, n_exp * cb.get(arch).d_ff, cb.get(arch).d_model), False,
+         f"layers/ed ({n_exp} experts)"))) + (
+    ((16, 7168, 2048), True,
+     "kimi_k2_1t_a32b eg, one layer's slice in the layer loop"),)
 
 
 def check_uniq(gen, quick: bool, layers: int):
@@ -2292,7 +2342,7 @@ def routing(store, replay=None):
         moe_lib.router_topk = orig
 
 
-def moe_plain_check(params, cfg, name):
+def moe_plain_check(params, cfg, name, control: bool = False):
     """Kernels vs plain versions on one prefill and one decode step (B = 8)
     of the full-width MoE model.  The prefill is the engine's largest
     coalesced prefill call: 16 slots of one 64-token page each, whose 1024
@@ -2304,7 +2354,10 @@ def moe_plain_check(params, cfg, name):
     are held to TOL_LOGITS_REL; the decode step
     runs both sides' own routing from the kernel prefill's pool, and the
     logits of the rows whose expert sets agree in every layer are held to
-    it.  The count of tokens whose expert sets differ is printed."""
+    it.  The count of tokens whose expert sets differ is printed.  With
+    ``control``, the plain prefill again with every coded matmul weight's
+    W4 codes one level off (c ^ 1, the experts' too; on the same expert
+    ids) must land above that limit."""
     B, S, page, Bd = 16, 64, 64, 8
     C = moe_capacity(name, B * S)
     rng = np.random.default_rng(1)
@@ -2335,6 +2388,28 @@ def moe_plain_check(params, cfg, name):
     if not torch.isfinite(lk).all() or err > tol:
         raise SystemExit(f"{name} prefill logits disagree with the plain "
                          f"versions")
+    if control:
+        coded = _coded_matmul_weights(params)
+        if any(w["q_codes"].dtype != torch.uint8 for w in coded):
+            raise SystemExit(f"{name}: the control wants packed W4 codes")
+        for w in coded:
+            w["q_codes"].bitwise_xor_(0x11)
+        try:
+            with routing({"differ": []}, replay=rec_k["ids"]):
+                wrong, _ = model.prefill(params, cfg, plain,
+                                         {"tokens": toks})
+        finally:
+            for w in coded:
+                w["q_codes"].bitwise_xor_(0x11)
+        wrong_err = (wrong.float() - lp.float()).abs().max().item()
+        say(f"[moe-plain] {name} control: the plain prefill with the codes "
+            f"of all {len(coded)} coded matmul leaves one level off moves "
+            f"the logits by {wrong_err:.4f} (the limit {tol:.4f} must sit "
+            f"below it)")
+        if wrong_err <= tol:
+            raise SystemExit(f"{name}: the logit limit cannot see a kernel "
+                             f"that decodes its codes one level off")
+        del wrong
     # the decode step: Bd rows on the first Bd prefilled prompts
     n_pages = S // page + 1
     cache = model.init_paged_cache(cfg, 1 + Bd * n_pages, page,
@@ -2370,32 +2445,40 @@ def moe_plain_check(params, cfg, name):
 
 
 def moe_phase(arch: str, seed: int, new_tokens: int, layers: int,
-              closed: bool):
-    """One MoE model at full width, depth cut to ``layers``: W4 (Gaussian)
-    weights drawn and coded a layer slice at a time, phase 4's stream
-    through the paged kv8 engine with every launch counted, the plain
-    check, and (``closed``) the closed batch (``serve.generate``)."""
+              closed: bool, w_dist: str = "gaussian"):
+    """One MoE model at full width, depth cut to ``layers``: W4 weights
+    (Gaussian, or ``w_dist`` "empirical": a codebook a leaf slice, fitted
+    on the slice and coded an expert block at a time) drawn and coded a
+    layer slice at a time, phase 4's stream through the paged kv8 engine
+    with every launch counted, the plain check (empirical: with the
+    wrong-code control), and (``closed``) the closed batch
+    (``serve.generate``)."""
     cfg = dataclasses.replace(cb.get(arch), n_layers=layers)
     L = cfg.n_layers
+    emp = w_dist == "empirical"
     say(f"[moe] {arch} at full width (d_model {cfg.d_model}, "
         f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, "
         f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head_dim "
         f"{cfg.head_dim}, vocab {cfg.vocab}), depth {L} of "
-        f"{cb.get(arch).n_layers} layers, W4 + kv8, bf16")
+        f"{cb.get(arch).n_layers} layers, W4 {w_dist} + kv8, bf16")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     kops.reset_launch_counts()
     params = model.init(seed, cfg, device=DEV, w_bits=4,
-                        dense_dtype=torch.bfloat16)
+                        dense_dtype=torch.bfloat16, w_dist=w_dist)
     sync()
     load = kops.launch_counts()
     say(f"[moe] weights drawn and coded a layer slice at a time in "
-        f"{time.perf_counter() - t0:.1f}s ({load['kquantile_quantize']} "
-        f"kquantile_quantize launches); "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if load["kquantile_quantize"] <= 0:
-        raise SystemExit("coding the weights launched no kquantile_quantize")
+        f"{time.perf_counter() - t0:.1f}s ("
+        + (f"the streamed empirical fit: each slice's codebook from its "
+           f"65,536-value subsample, its codes in blocks of at most "
+           f"{lm.EMPIRICAL_BLOCK_ELEMS} elements" if emp else
+           f"{load['kquantile_quantize']} kquantile_quantize launches")
+        + f"); {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {CARD}")
+    if (load["kquantile_quantize"] <= 0) != emp:
+        raise SystemExit(f"coding the weights launched "
+                         f"{load['kquantile_quantize']} kquantile_quantize")
     opts = lm.ModelOpts(compute_dtype=torch.bfloat16)
     warm = Engine(params, cfg, opts, EngineConfig(
         max_slots=16, max_len=2048, page_size=64, kv_bits=8,
@@ -2418,11 +2501,16 @@ def moe_phase(arch: str, seed: int, new_tokens: int, layers: int,
         raise SystemExit(f"{arch}: the stream did not complete as expected")
     steps, calls = eng.n_decode_steps, eng.n_prefill_calls
     fwd = steps + calls
-    # 4 attention projections a layer and the coded LM head a call
-    want = {"qmatmul": (4 * L + 1) * fwd, "qmatmul_experts": 3 * L * fwd,
+    # 4 attention projections a layer and the coded LM head a call; the
+    # embedding rows decoded by kquantile_dequantize (Gaussian) or gathered
+    # from their codebook (empirical)
+    mm, ex = ("qmatmul_lut", "qmatmul_lut_experts") if emp \
+        else ("qmatmul", "qmatmul_experts")
+    want = {mm: (4 * L + 1) * fwd, ex: 3 * L * fwd,
             "paged_quant_attention": L * steps, "kv_append": L * fwd,
-            "kquantile_dequantize_paged": 2 * L * calls,
-            "kquantile_dequantize": fwd}
+            "kquantile_dequantize_paged": 2 * L * calls}
+    if not emp:
+        want["kquantile_dequantize"] = fwd
     say(f"[moe] {arch}: {n_req} requests, {steps} decode steps, {calls} "
         f"prefill-chunk calls; launches: " + ", ".join(
             f"{k} {counts[k]} (want {v})" for k, v in want.items())
@@ -2452,8 +2540,9 @@ def moe_phase(arch: str, seed: int, new_tokens: int, layers: int,
     # the telemetry registry's gauges close over the engine (and its
     # params): both go before the model is freed
     del eng, reg
-    moe_decode_profile(params, cfg, opts)
-    moe_plain_check(params, cfg, arch)
+    if not emp:
+        moe_decode_profile(params, cfg, opts)
+    moe_plain_check(params, cfg, arch, control=emp)
     if closed:
         c = CLOSED_BATCH
         steps = c["prompt_len"] + c["new_tokens"] - 1
@@ -2487,19 +2576,22 @@ def moe_phase(arch: str, seed: int, new_tokens: int, layers: int,
 
 
 def moe_phases(seed: int, new_tokens: int, layers: int):
-    """Phase 4c: each MoE model in turn (kimi_k2 with its closed batch),
-    freed before the next; returns the launch counts summed over their
-    counted runs."""
+    """Phase 4c: each MoE model in turn, W4 Gaussian (kimi_k2 with its
+    closed batch) and then W4 empirical, each freed before the next;
+    returns the launch counts summed over their counted runs."""
     total = {}
-    for arch in MOE_ARCHS:
+    for arch, w_dist in ((a, d) for a in MOE_ARCHS
+                         for d in ("gaussian", "empirical")):
         before = torch.cuda.memory_allocated() / 2**30
         counts = moe_phase(arch, seed, new_tokens, layers,
-                           closed=arch == MOE_ARCHS[0])
+                           closed=(arch, w_dist) == (MOE_ARCHS[0],
+                                                     "gaussian"),
+                           w_dist=w_dist)
         gc.collect()            # an engine holds reference cycles
         torch.cuda.empty_cache()
         left = torch.cuda.memory_allocated() / 2**30
-        say(f"[moe] {arch} freed: {left:.2f} GiB allocated ({before:.2f} "
-            f"before it)")
+        say(f"[moe] {arch} ({w_dist}) freed: {left:.2f} GiB allocated "
+            f"({before:.2f} before it)")
         if left > before + 1.0:
             raise SystemExit(f"{arch}: the model was not freed")
         for k, v in counts.items():
@@ -3098,13 +3190,13 @@ TRAIN_LEAVES = 9
 
 
 def train_setup(layers, steps: int, seed: int, smoke: bool = False,
-                arch: str = "granite_3_8b"):
+                arch: str = "granite_3_8b", extra=()):
     """The trainer CLI's own configuration (``launch/train.py`` defaults:
     f32, AdamW lr 1e-3, batch 8 x seq 64, W4, one gradual block per
-    layer) of ``arch``, its depth cut to ``layers`` (None: the full
-    depth)."""
+    layer; ``extra``: more of its arguments) of ``arch``, its depth cut to
+    ``layers`` (None: the full depth)."""
     argv = ["--arch", arch, "--steps", str(steps), "--seed",
-            str(seed)] + (["--smoke"] if smoke else [])
+            str(seed)] + (["--smoke"] if smoke else []) + list(extra)
     args = train_cli.parse_args(argv)
     cfg, opts, tc = train_cli.setup(args)
     if layers and not smoke:
@@ -3114,56 +3206,153 @@ def train_setup(layers, steps: int, seed: int, smoke: bool = False,
     return cfg, opts, tc, data
 
 
-def train_plain_check(state, cfg, opts, tc, data, sched, seed, step):
-    """Loss and gradients of one step from ``state``, kernels vs plain
-    versions forced, on the same batch and noise.  The optimizer's moments
-    and then the kernels' gradients wait in host memory meanwhile (at
-    zamba2 or pixtral, two gradient trees and the plain transform's
-    intermediates beside the whole state do not fit the card)."""
-    modes = sched.modes_at(step)
-    batch = train_cli.train_batch(cfg, data, step, DEV)
+def compare_loss_grads(state, sides):
+    """Loss and gradients of one step's loss computed two ways from
+    ``state`` (``sides``: two (name, fn), each fn() giving (loss, grads)).
+    The optimizer's moments and then the first side's gradients wait in
+    host memory meanwhile (at zamba2 or pixtral, two gradient trees and the
+    plain transform's intermediates beside the whole state do not fit the
+    card).  Every gradient must be finite.  Returns the two losses, the
+    worst leaf's max |diff| / max |grad|, and each side's peak GiB."""
     devices = {p: t.device for p, t in tree_lib.leaves_with_paths(
         state["opt"])}
     state["opt"] = tree_lib.map_with_path(lambda _p, t: t.cpu(), state["opt"])
-    res = {}
-    for name, use in (("kernels", True), ("plain", False)):
-        before = kops.launch_counts()
-        loss, grads = train_steps.loss_and_grads(
-            state["params"], batch, modes, leaf_noise(seed, step), cfg,
-            dataclasses.replace(opts, use_kernels=use), tc)
+    res, peaks = {}, {}
+    for i, (name, fn) in enumerate(sides):
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = fn()
         sync()
-        if not use and kops.launch_counts() != before:
-            raise SystemExit("use_kernels=False launched a kernel")
-        if use:
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        if i == 0:
             grads = tree_lib.map_with_path(lambda _p, t: t.cpu(), grads)
         res[name] = (loss, grads)
         del grads
-    (lk, gk), (lp, gp) = res["kernels"], res["plain"]
-    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
-    worst = 0.0
-    for (path, a), (_, b) in zip(tree_lib.leaves_with_paths(gk),
-                                 tree_lib.leaves_with_paths(gp)):
+    (la, ga), (lb, gb) = (res[name] for name, _ in sides)
+    worst, worst_path = 0.0, ""
+    for (path, a), (_, b) in zip(tree_lib.leaves_with_paths(ga),
+                                 tree_lib.leaves_with_paths(gb)):
         a = a.to(DEV)
         rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-        finite = bool(torch.isfinite(a).all())
+        finite = bool(torch.isfinite(a).all() and torch.isfinite(b).all())
         del a
-        worst = max(worst, rel)
-        if not finite or rel > TOL_TRAIN_PLAIN_GRAD_REL:
-            raise SystemExit(f"train step gradient of {path}: kernels vs "
-                             f"plain versions {rel:.3e} > "
-                             f"{TOL_TRAIN_PLAIN_GRAD_REL}")
-    del res, gk, gp
+        if not finite:
+            raise SystemExit(f"gradient of {path} is not finite")
+        if rel >= worst:
+            worst, worst_path = rel, path
+    del res, ga, gb
     state["opt"] = tree_lib.map_with_path(lambda p, t: t.to(devices[p]),
                                           state["opt"])
-    say(f"[train] {cfg.name} step {step} (modes {modes.tolist()}) loss and "
-        f"gradients, "
-        f"kernels vs plain versions forced: loss {lk.item():.6f} vs "
-        f"{lp.item():.6f} (rel {loss_rel:.1e}, tolerance "
-        f"{TOL_TRAIN_PLAIN_LOSS_REL}); worst gradient leaf max |diff| / max "
-        f"|grad| {worst:.1e} (tolerance {TOL_TRAIN_PLAIN_GRAD_REL})")
-    if loss_rel > TOL_TRAIN_PLAIN_LOSS_REL:
-        raise SystemExit("train step loss: kernels disagree with the plain "
-                         "versions")
+    return la.item(), lb.item(), worst, worst_path, peaks
+
+
+def _checked(what, la, lb, worst, worst_path, names):
+    """Raise unless two sides' loss and gradients agree within phase 6's
+    bounds (TOL_TRAIN_PLAIN_*); return the loss's relative difference."""
+    loss_rel = abs(la - lb) / abs(lb)
+    say(f"[train] {what}, {names[0]} vs {names[1]}: loss {la:.6f} vs "
+        f"{lb:.6f} (rel {loss_rel:.1e}, tolerance "
+        f"{TOL_TRAIN_PLAIN_LOSS_REL}); worst gradient leaf ({worst_path}) "
+        f"max |diff| / max |grad| {worst:.1e} (tolerance "
+        f"{TOL_TRAIN_PLAIN_GRAD_REL})")
+    if loss_rel > TOL_TRAIN_PLAIN_LOSS_REL \
+            or worst > TOL_TRAIN_PLAIN_GRAD_REL:
+        raise SystemExit(f"{what}: {names[0]} and {names[1]} disagree")
+    return loss_rel
+
+
+def train_plain_check(state, cfg, opts, tc, data, sched, seed, step):
+    """Loss and gradients of one step from ``state``, kernels vs plain
+    versions forced, on the same batch and noise (``compare_loss_grads``).
+    Returns the two sides' peak GiB."""
+    modes = sched.modes_at(step)
+    batch = train_cli.train_batch(cfg, data, step, DEV)
+
+    def side(use):
+        def fn():
+            before = kops.launch_counts()
+            out = train_steps.loss_and_grads(
+                state["params"], batch, modes, leaf_noise(seed, step), cfg,
+                dataclasses.replace(opts, use_kernels=use), tc)
+            sync()
+            if not use and kops.launch_counts() != before:
+                raise SystemExit("use_kernels=False launched a kernel")
+            return out
+        return fn
+
+    la, lb, worst, path, peaks = compare_loss_grads(
+        state, (("kernels", side(True)), ("plain", side(False))))
+    _checked(f"{cfg.name} step {step} (modes {modes.tolist()}) loss and "
+             f"gradients", la, lb, worst, path,
+             ("kernels", "plain versions forced"))
+    return peaks
+
+
+def in_scan_check(state, cfg, opts, tc, data, sched, seed, step):
+    """One step's loss and gradients with the UNIQ transform per layer
+    inside the layer loop (``uniq_in_scan``, remat on: one layer's
+    transformed copy live, recomputed in the backward) against the
+    whole-tree transform under the same remat, fed the same noise: the
+    embedding's and head's per leaf, each layer's per (weight, layer)
+    (``layer_noise``; the whole tree takes the stack of a leaf's layer
+    draws).  Within phase 6's bounds; prints both sides' peaks.  Each
+    side's ``uniq_noise`` launches are counted from 0 and must be exact: in
+    scan one forward per tree-level leaf and per layer weight and layer,
+    again in the recompute, and one backward each; whole-tree one of each
+    per leaf.  Returns the peaks and the two sides' launches summed."""
+    modes = sched.modes_at(step)
+    batch = train_cli.train_batch(cfg, data, step, DEV)
+    scan_noise = layer_noise(seed, step)
+    tree_noise = leaf_noise(seed, step)
+    quant = _quantized(state["params"])
+    n_layer = sum(p.startswith("layers/") for p, _ in quant)
+    n_tree, L = len(quant) - n_layer, cfg.n_layers
+    want = {"in scan": (n_tree + 2 * L * n_layer, n_tree + L * n_layer),
+            "whole tree": (n_tree + n_layer, n_tree + n_layer)}
+
+    def stacked_noise(path, leaf):
+        if path.startswith("layers/"):
+            name = path.split("/", 1)[1]
+            return torch.stack([scan_noise(name, l, leaf[l])
+                                for l in range(leaf.shape[0])])
+        return tree_noise(path, leaf)
+
+    o = dataclasses.replace(opts, remat=True)
+    got = {}
+
+    def side(name, t):
+        def fn():
+            kops.reset_launch_counts()
+            out = train_steps.loss_and_grads(
+                state["params"], batch, modes, stacked_noise, cfg, o, t,
+                scan_noise=scan_noise)
+            sync()
+            c = kops.launch_counts()
+            got[name] = (c["uniq_noise_fwd"], c["uniq_noise_bwd"])
+            return out
+        return name, fn
+
+    la, lb, worst, path, peaks = compare_loss_grads(state, [
+        side(name, dataclasses.replace(tc, uniq_in_scan=scan))
+        for name, scan in (("in scan", True), ("whole tree", False))])
+    _checked(f"{cfg.name} step {step} (modes {modes.tolist()}, remat on) "
+             f"loss and gradients", la, lb, worst, path,
+             ("the per-layer transform in the layer loop", "the whole-tree "
+              "transform"))
+    say(f"[train] {cfg.name} uniq_in_scan: peak {peaks['in scan']:.2f} GiB "
+        f"allocated in scan, {peaks['whole tree']:.2f} GiB whole-tree "
+        f"({peaks['whole tree'] - peaks['in scan']:.2f} GiB less in scan; "
+        f"the optimizer's moments parked on the host); {CARD}")
+    say(f"[train] {cfg.name} uniq_noise launches (fwd, bwd): in scan "
+        f"{got['in scan']} (want {want['in scan']}: {n_tree} tree-level "
+        f"leaves + {L} layers x {n_layer} weights, the forward again in "
+        f"remat's recompute), whole tree {got['whole tree']} (want "
+        f"{want['whole tree']})")
+    if got != want:
+        raise SystemExit(f"{cfg.name} uniq_in_scan: uniq_noise launches "
+                         f"{got}, want {want}")
+    return peaks, {k: sum(got[n][i] for n in got)
+                   for i, k in enumerate(("uniq_noise_fwd",
+                                          "uniq_noise_bwd"))}
 
 
 def _at(tree, path: str):
@@ -3179,12 +3368,14 @@ def _quantized(params):
             if default_quant_filter(p, t)]
 
 
-def _frozen_snapshot(state, modes):
-    """Copies of what one step must leave untouched under ``modes``: of
-    every quantized leaf, the slice of the first FROZEN layer of a stacked
+def _frozen_snapshot(state, modes, keep="cuda"):
+    """Copies (on ``keep``: the host where the card has no room for them)
+    of what one step must leave untouched under ``modes``: of every
+    quantized leaf, the slice of the first FROZEN layer of a stacked
     (``layers/*``) leaf, with its momentum, or the whole unstacked leaf
     (the embedding, the head, zamba2's ``shared/*``, whisper's two stacks)
-    when its mode (``lm_mode_fn``) is FROZEN."""
+    when its mode (``lm_mode_fn``) is FROZEN.  ``_unchanged`` counts the
+    copies a state still equals."""
     mode_for = lm_mode_fn(modes)
     frozen = [l for l, m in enumerate(modes.tolist()) if m == FROZEN]
     snap = {}
@@ -3196,10 +3387,16 @@ def _frozen_snapshot(state, modes):
             for root, sub in (("params", p), ("opt", f"mu/{p}/m")):
                 snap[f"{root}/{sub}[{l}]"] = (
                     lambda st, r=root, q=sub, l=l: _at(st[r], q)[l],
-                    _at(state[root], sub)[l].clone())
+                    _at(state[root], sub)[l].to(keep, copy=True))
         elif int(mode_for(p)) == FROZEN:
-            snap[p] = (lambda st, q=p: _at(st["params"], q), t.clone())
+            snap[p] = (lambda st, q=p: _at(st["params"], q),
+                       t.to(keep, copy=True))
     return snap
+
+
+def _unchanged(snap, state) -> int:
+    return sum(torch.equal(get(state).to(old.device), old)
+               for get, old in snap.values())
 
 
 def _noise_probe(state, modes):
@@ -3241,6 +3438,9 @@ def train_phase(seed: int, layers: int, steps: int):
     # all three modes at once: layers < 3 FROZEN, 3 NOISE, > 3 CLEAN
     train_plain_check(state, cfg, opts, tc, data, sched, seed,
                       min(3, steps - 1))
+    _, scan_counts = in_scan_check(state, cfg, opts, tc, data, sched, seed,
+                                   min(3, steps - 1))
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
     kops.reset_launch_counts()
@@ -3260,8 +3460,7 @@ def train_phase(seed: int, layers: int, steps: int):
         after = kops.launch_counts()
         nf = after["uniq_noise_fwd"] - before["uniq_noise_fwd"]
         nb = after["uniq_noise_bwd"] - before["uniq_noise_bwd"]
-        kept = sum(torch.equal(get(state), old)
-                   for get, old in snap.values())
+        kept = _unchanged(snap, state)
         say(f"[train] step {step} modes {modes.tolist()}: loss {loss:.4f}, "
             f"grad norm {float(m['grad_norm']):.4f}, lr "
             f"{float(m['lr']):.3e}, {dt * 1e3:.0f} ms; uniq_noise launches "
@@ -3296,7 +3495,8 @@ def train_phase(seed: int, layers: int, steps: int):
     if not math.isfinite(ev) or n_ev != TRAIN_LEAVES:
         raise SystemExit("eval_step failed")
     train_profile(state, step_fn, cfg, data, steps, seed)
-    return counts, times
+    # the in-scan check's two counted steps join the kernels line's
+    return {k: v + scan_counts.get(k, 0) for k, v in counts.items()}, times
 
 
 def train_profile(state, step_fn, cfg, data, step, seed, rows: int = 14):
@@ -3341,7 +3541,8 @@ def small_train_phase(seed: int, arch: str = "granite_3_8b"):
     """A tiny f32 train step of ``arch``'s smoke config on the card
     (kernels) against the same step on the CPU (plain versions): one SGD
     step from one state, on one batch and one noise draw (made on the CPU
-    and copied)."""
+    and copied); at the MoE configs the CPU step on the card's expert
+    ids."""
     cfg, opts, tc, data = train_setup(None, 8, seed, smoke=True, arch=arch)
     tc = dataclasses.replace(tc, optim=dataclasses.replace(tc.optim,
                                                            kind="sgd"))
@@ -3357,23 +3558,38 @@ def small_train_phase(seed: int, arch: str = "granite_3_8b"):
         return draw(path, torch.empty(leaf.shape)).to(leaf.device)
 
     batch = train_cli.train_batch(cfg, data, 0, "cpu")
-    res = []
-    for st, dev in ((st_cpu, "cpu"), (st_gpu, DEV)):
-        st, m = step_fn(st, {k: v.to(dev) for k, v in batch.items()}, seed,
-                        noise=noise)
-        res.append((float(m["loss"]), {p: t.cpu() for p, t in
-                                       tree_lib.leaves_with_paths(
-                                           st["params"])}))
-    loss_rel = abs(res[0][0] - res[1][0]) / abs(res[0][0])
-    worst = 0.0
+    card_ids, replayed = {"ids": []}, {"differ": []}
+    res = {}
+    for st, dev, rec in ((st_gpu, DEV, lambda: routing(card_ids)),
+                         (st_cpu, "cpu", lambda: routing(replayed, replay=[
+                             i.cpu() for i in card_ids["ids"]]))):
+        with rec():
+            st, m = step_fn(st, {k: v.to(dev) for k, v in batch.items()},
+                            seed, noise=noise)
+        res[str(dev)] = (float(m["loss"]), {p: t.cpu() for p, t in
+                                            tree_lib.leaves_with_paths(
+                                                st["params"])})
+    (l_cpu, p_cpu), (l_gpu, p_gpu) = res["cpu"], res[str(DEV)]
+    loss_rel = abs(l_cpu - l_gpu) / abs(l_cpu)
+    worst, worst_path = 0.0, ""
     for p, t0 in start.items():
-        u_cpu, u_gpu = res[0][1][p] - t0, res[1][1][p] - t0
+        u_cpu, u_gpu = p_cpu[p] - t0, p_gpu[p] - t0
         scale = u_cpu.abs().max().clamp_min(1e-30)
-        worst = max(worst, ((u_gpu - u_cpu).abs().max() / scale).item())
+        ulp = torch.ldexp(torch.ones_like(p_cpu[p]),
+                          torch.frexp(p_cpu[p]).exponent - 24)
+        rel = (((u_gpu - u_cpu).abs() - ulp).clamp_min(0.0).max()
+               / scale).item()
+        if rel >= worst:
+            worst, worst_path = rel, p
+    differ = int(torch.stack(replayed["differ"]).sum()) \
+        if replayed["differ"] else 0
     say(f"[small] {cfg.name} f32 SGD train step (modes "
-        f"{sched.modes_at(0).tolist()}), card vs CPU: loss rel diff "
-        f"{loss_rel:.1e} (tolerance {TOL_SMALL_TRAIN_LOSS_REL}); worst leaf "
-        f"update max |diff| / max |update| {worst:.1e} (tolerance "
+        f"{sched.modes_at(0).tolist()}), card vs CPU"
+        + (f" (the CPU on the card's expert ids; token-layers whose own "
+           f"top-{cfg.top_k} set differs: {differ})" if cfg.is_moe else "")
+        + f": loss rel diff {loss_rel:.1e} (tolerance "
+        f"{TOL_SMALL_TRAIN_LOSS_REL}); worst leaf ({worst_path}) update max "
+        f"|diff| beyond one ulp of p' / max |update| {worst:.1e} (tolerance "
         f"{TOL_SMALL_TRAIN_UPDATE_REL})")
     if loss_rel > TOL_SMALL_TRAIN_LOSS_REL \
             or worst > TOL_SMALL_TRAIN_UPDATE_REL:
@@ -3516,7 +3732,7 @@ def family_train_phase(arch: str, seed: int, steps: int, layers=None):
         # a NaN or inf gradient element turns its parameter NaN (through
         # the clip's factor or AdamW's moments, FROZEN ones included)
         finite = _all_finite(state["params"])
-        kept = sum(torch.equal(get(state), old) for get, old in snap.values())
+        kept = _unchanged(snap, state)
         lr = float(m["lr"])
         moves = [(pr[0], not torch.equal(pr[1](state), pr[2]),
                   _beyond_decay(pr, state, lr, wd)) for pr in probes]
@@ -3592,6 +3808,247 @@ def family_train_phases(seed: int, vlm_layers: int):
         res = family_train_phase(
             arch, seed, FAMILY_TRAIN_STEPS,
             layers=vlm_layers if arch == "pixtral_12b" else None)
+        total["uniq_noise_fwd"] += res["fwd"]
+        total["uniq_noise_bwd"] += res["bwd"]
+    return total
+
+
+# --------------------------------------------------------------------------
+# Phase 6c: UNIQ training of the MoE family
+# --------------------------------------------------------------------------
+
+# the steps of the trainer's schedule (its --steps), and the steps run: 2 x 2
+# stages of NOISE at one layer, then two steps past the schedule's end, where
+# every quantized leaf is FROZEN (one layer alone has no FROZEN block within
+# the schedule)
+MOE_SCHEDULE_STEPS = 4
+MOE_TRAIN_STEPS = 6
+# the reckoned bytes a parameter takes in a train step: the f32 parameter,
+# its gradient and SGD momentum, its UNIQ-transformed copy and that copy's
+# gradient (a quantized leaf; the rest 12)
+MOE_BYTES_QUANT, MOE_BYTES_OTHER = 20, 12
+MOE_PEAK_LIMIT = 70e9
+MOE_TRAIN_LEAVES = ("embed", "lm_head") + tuple(
+    f"layers/{n}" for n in _ATTN + ("eg", "eu", "ed"))
+
+
+def moe_reckoning(cfg, n_experts: int):
+    """(quantized parameters, other parameters, reckoned bytes) of one
+    layer of ``cfg`` at ``n_experts`` experts."""
+    d, f, V, L = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers
+    attn = 2 * d * cfg.n_heads * cfg.head_dim \
+        + 2 * d * cfg.n_kv_heads * cfg.head_dim
+    quant = 2 * V * d + L * (attn + 3 * n_experts * d * f)
+    other = L * (d * n_experts + 2 * d) + d
+    return quant, other, quant * MOE_BYTES_QUANT + other * MOE_BYTES_OTHER
+
+
+def moe_expert_cut(arch: str) -> int:
+    """The largest multiple of 8 experts whose reckoned one-layer train
+    step stays under MOE_PEAK_LIMIT."""
+    cfg = dataclasses.replace(cb.get(arch), n_layers=1)
+    n = 8
+    while moe_reckoning(cfg, n + 8)[2] <= MOE_PEAK_LIMIT:
+        n += 8
+    return n
+
+
+def _dropped(ids, cfg) -> int:
+    """Copies past their expert's capacity in one router call's (T, k)
+    ids (the drop rule of ``moe.route``)."""
+    C = moe_lib.capacity(ids.shape[0], moe_lib.MoEConfig(
+        cfg.n_experts, cfg.top_k, cfg.capacity_factor))
+    counts = torch.bincount(ids.reshape(-1), minlength=cfg.n_experts)
+    return int((counts - C).clamp_min(0).sum())
+
+
+def _sgd_probe(state, path: str, l: int):
+    """(name, getter, parameter copy, momentum copy) of slice ``l`` of a
+    stacked leaf."""
+    return (f"{path}[{l}]", lambda st: _at(st["params"], path)[l],
+            _at(state["params"], path)[l].clone(),
+            _at(state["opt"], f"mu/{path}/m")[l].clone())
+
+
+def _beyond_sgd_decay(probe, state, lr: float, oc) -> float:
+    """max |p' - (p - lr (momentum m + wd p))| of a probed slice, in f32
+    ulps of its largest |p|: what the step's gradient moved it by, beyond
+    what SGD's momentum and weight decay alone give."""
+    _, get, p, m = probe
+    alone = p - lr * (oc.momentum * m + oc.weight_decay * p)
+    ulp = float(p.abs().max()) * 2.0 ** -23
+    return float((get(state) - alone).abs().max()) / ulp
+
+
+def moe_train_phase(arch: str, seed: int):
+    """The trainer's main path for one MoE model at its published widths,
+    depth 1 and the expert count cut (``moe_expert_cut``): the CLI's
+    settings with ``--optim sgd``.  One step's loss and gradients with the
+    plain versions forced, MOE_TRAIN_STEPS steps (every ``uniq_noise_fwd``
+    / ``_bwd`` launch counted, the loss and every parameter finite, FROZEN
+    slices of the 4-D stacks bit-unchanged, a NOISE expert slice and, at
+    top-k > 1, the router moved by their gradient; the copies each step
+    drops), one more step whose first rows repeat one token (its routing
+    must drop copies), the all-FROZEN eval, a profiled step, and the tiny
+    f32 step of the smoke config on the card against the CPU."""
+    t_phase = time.perf_counter()
+    full = cb.get(arch)
+    n_exp = moe_expert_cut(arch)
+    cfg, opts, tc, data = train_setup(1, MOE_SCHEDULE_STEPS, seed, arch=arch,
+                                      extra=("--optim", "sgd"))
+    cfg = dataclasses.replace(cfg, n_experts=n_exp)
+    step_fn, sched = train_steps.make_train_step(cfg, opts, tc)
+    quant, other, reck = moe_reckoning(cfg, n_exp)
+    C = moe_lib.capacity(data.global_batch * data.seq_len, moe_lib.MoEConfig(
+        n_exp, cfg.top_k, cfg.capacity_factor))
+    say(f"[train6c] {arch} (moe) at its published widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff} an expert, vocab {cfg.vocab}, "
+        f"top-{cfg.top_k}, capacity factor {cfg.capacity_factor}); cut: "
+        f"depth 1 of {full.n_layers} layers, {n_exp} of {full.n_experts} "
+        f"experts (the largest multiple of 8 whose reckoned peak stays "
+        f"under {MOE_PEAK_LIMIT / 1e9:.0f} GB); the CLI's settings with "
+        f"--optim sgd: f32, {tc.optim.kind} lr {tc.optim.lr} momentum "
+        f"{tc.optim.momentum} wd {tc.optim.weight_decay}, batch "
+        f"{data.global_batch} x seq {data.seq_len} (C = {C} rows an "
+        f"expert), W{tc.uniq.w_bits}, {sched.n_stages} gradual stages of "
+        f"{sched.steps_per_stage} step(s) in --steps {MOE_SCHEDULE_STEPS}, "
+        f"{MOE_TRAIN_STEPS} steps run; reckoned peak {quant / 1e9:.3f} G "
+        f"quantized parameters x {MOE_BYTES_QUANT} B + {other / 1e6:.2f} M "
+        f"others x {MOE_BYTES_OTHER} B = {reck / 1e9:.1f} GB")
+    t0 = time.perf_counter()
+    state = train_steps.init_state(seed, cfg, tc, device=DEV)
+    sync()
+    leaves = sorted(p for p, _ in _quantized(state["params"]))
+    if leaves != sorted(MOE_TRAIN_LEAVES):
+        raise SystemExit(f"{arch}: quantized leaves {leaves}, expected "
+                         f"{sorted(MOE_TRAIN_LEAVES)}")
+    n_leaves = len(leaves)
+    n_params = sum(t.numel() for t in tree_lib.leaves(state["params"]))
+    say(f"[train6c] {arch} state drawn on the card in "
+        f"{time.perf_counter() - t0:.1f}s: {n_params / 1e9:.3f} B f32 "
+        f"parameters, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        f"allocated with the momentum; {n_leaves} quantized leaves "
+        f"({', '.join(leaves)}; layers/eg {tuple(state['params']['layers']['eg'].shape)})")
+    plain_peaks = train_plain_check(state, cfg, opts, tc, data, sched, seed,
+                                    MOE_SCHEDULE_STEPS - 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    oc = tc.optim
+    times, drops = [], []
+    for step in range(MOE_TRAIN_STEPS + 1):
+        repeated = step == MOE_TRAIN_STEPS
+        modes = sched.modes_at(step)
+        # the embedding and head of a FROZEN step (4.7 GB each at kimi_k2)
+        # do not fit beside the step: their copies wait on the host
+        snap = _frozen_snapshot(state, modes, keep="cpu")
+        probes = []
+        if int(modes[0]) == NOISE:
+            probes.append(_sgd_probe(state, "layers/eg", 0))
+        if cfg.top_k > 1:
+            probes.append(_sgd_probe(state, "layers/router", 0))
+        before = kops.launch_counts()
+        batch = train_cli.train_batch(cfg, data, step, DEV)
+        if repeated:
+            # six rows of one token: their hidden rows, and so their top-k
+            # experts, are the same: 384 copies an expert, past C
+            batch["tokens"][:6] = batch["tokens"][0, 0]
+        rec = {"ids": []}
+        t0 = time.perf_counter()
+        with routing(rec):
+            state, m = step_fn(state, batch, seed)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        sync()
+        dt = time.perf_counter() - t0
+        if not repeated:
+            times.append(dt)
+        after = kops.launch_counts()
+        nf = after["uniq_noise_fwd"] - before["uniq_noise_fwd"]
+        nb = after["uniq_noise_bwd"] - before["uniq_noise_bwd"]
+        n_drop = sum(_dropped(ids, cfg) for ids in rec["ids"])
+        drops.append(n_drop)
+        finite = _all_finite(state["params"])
+        kept = _unchanged(snap, state)
+        lr = float(m["lr"])
+        moves = [(pr[0], _beyond_sgd_decay(pr, state, lr, oc))
+                 for pr in probes]
+        say(f"[train6c] {arch} step {step} mode {int(modes[0])}"
+            + (", rows 0-5 one token" if repeated else "")
+            + f": loss {loss:.4f}, grad norm {gnorm:.4f}, every parameter "
+            f"finite {finite}, {dt * 1e3:.0f} ms; copies dropped {n_drop} "
+            f"of {sum(ids.numel() for ids in rec['ids'])}; uniq_noise "
+            f"launches fwd {nf} bwd {nb}; FROZEN tensors unchanged {kept}/"
+            f"{len(snap)}" + "".join(
+                f"; slice {name} moved by its gradient {ulps:.1f} f32 ulps "
+                f"of its largest |p| beyond momentum and weight decay"
+                for name, ulps in moves))
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and finite):
+            raise SystemExit(f"{arch} train step {step}: loss, gradient "
+                             f"norm or a parameter not finite")
+        if nf != n_leaves or nb != n_leaves:
+            raise SystemExit(f"{arch} train step {step}: expected "
+                             f"{n_leaves} uniq_noise launches forward and "
+                             f"backward")
+        if kept != len(snap):
+            raise SystemExit(f"{arch} train step {step}: a FROZEN slice "
+                             f"changed")
+        for name, ulps in moves:
+            if ulps < 4.0:
+                raise SystemExit(f"{arch} train step {step}: the slice "
+                                 f"{name} did not move by its gradient")
+        if repeated and n_drop == 0:
+            raise SystemExit(f"{arch}: the repeated-token step dropped no "
+                             f"copy")
+        del snap, probes, batch, rec
+    seen = {int(sched.modes_at(s)[0]) for s in range(MOE_TRAIN_STEPS)}
+    if seen != {NOISE, FROZEN}:
+        raise SystemExit(f"{arch}: the steps saw modes {seen}, not NOISE "
+                         f"and FROZEN")
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(times[1:]))
+    if cfg.top_k == 1:
+        say(f"[train6c] {arch}: the router is not probed: a renormalised "
+            f"top-1 gate is 1 whatever the router, so its gradient is "
+            f"zero (as in the reference) and weight decay alone moves it")
+    before = kops.launch_counts()
+    ev = float(train_steps.eval_step(cfg, opts)(
+        state["params"], train_cli.train_batch(cfg, data, MOE_TRAIN_STEPS,
+                                               DEV), tc.uniq.w_bits))
+    n_ev = kops.launch_counts()["uniq_noise_fwd"] - before["uniq_noise_fwd"]
+    say(f"[train6c] {arch} eval_step (every quantized weight FROZEN, W4): "
+        f"loss {ev:.4f}; uniq_noise_fwd launches {n_ev}")
+    if not math.isfinite(ev) or n_ev != n_leaves:
+        raise SystemExit(f"{arch} eval_step failed")
+    dev_ms, wall_ms = train_profile(state, step_fn, cfg, data,
+                                    MOE_TRAIN_STEPS, seed, rows=8)
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_train_phase(seed, arch)
+    res = dict(fwd=counts["uniq_noise_fwd"], bwd=counts["uniq_noise_bwd"],
+               median_ms=med * 1e3, peak_gib=peak, busy=dev_ms / wall_ms,
+               seconds=time.perf_counter() - t_phase)
+    say(f"[train6c] {arch}: {MOE_TRAIN_STEPS + 1} steps, median step "
+        f"{med * 1e3:.0f} ms after the first ({times[0] * 1e3:.0f} ms) over "
+        f"the schedule's data; peak {peak:.1f} GiB allocated ({peak * 2**30 / 1e9:.1f} GB; "
+        f"reckoned {reck / 1e9:.1f} GB; the plain-versions check "
+        f"{plain_peaks['plain']:.1f} GiB with the momentum parked on the "
+        f"host); copies dropped by step {drops}; a profiled step "
+        f"{dev_ms:.1f} ms of device time in {wall_ms:.1f} ms "
+        f"({100 * res['busy']:.1f} % busy); launches uniq_noise_fwd "
+        f"{res['fwd']}, uniq_noise_bwd {res['bwd']} ({n_leaves} a step); "
+        f"phase {res['seconds']:.0f}s; {CARD}")
+    return res
+
+
+def moe_train_phases(seed: int):
+    """Phase 6c: each MoE model's trainer in turn, each freed before the
+    next; returns the launch counts summed over their steps."""
+    total = {"uniq_noise_fwd": 0, "uniq_noise_bwd": 0}
+    for arch in MOE_ARCHS:
+        res = moe_train_phase(arch, seed)
         total["uniq_noise_fwd"] += res["fwd"]
         total["uniq_noise_bwd"] += res["bwd"]
     return total
@@ -4350,38 +4807,55 @@ def routed_rows(gen, T, E, k, C):
     return counts.clamp(max=C).to(torch.int32)
 
 
-def time_qmatmul_experts(gen, E, C, K, N, rows, bits=4):
+def time_qmatmul_experts(gen, E, C, K, N, rows, bits=4, lut=False):
     """The expert kernel at the model's types (bf16 in and out) on
     ``rows``, its plain version, and ``torch.bmm`` on the dequantized bf16
-    stack of the experts in use (their rows only).
+    stack of the experts in use (their rows only); ``lut``: the codebook
+    kernel ``qmatmul_lut_experts`` with a (k,) codebook.
 
     Bound: the bytes this call must move, each once: the codes of the
     experts in use (an idle expert's are never read), their activation
-    rows, the whole (E, C, N) output, the statistics and the table; the
-    operations 2 * (rows in use) * K * N at the bf16 peak."""
+    rows, the whole (E, C, N) output, the statistics or the codebook and
+    the table; the operations 2 * (rows in use) * K * N at the bf16
+    peak."""
     a = torch.randn((E, C, K), generator=gen, device=DEV).to(torch.bfloat16)
     _, _, mu, sigma = make_qmm_inputs(gen, 1, 64, N, bits, torch.bfloat16)
+    book = make_lut(gen, N, bits, per_col=False)
     n_copies = 2 if E * K * N * bits // 8 > 120e6 else 4
     ws = [torch.randint(0, 256, (E, K, N * bits // 8), generator=gen,
                         device=DEV, dtype=torch.uint8).view(
         torch.uint8 if bits == 4 else torch.int8) for _ in range(n_copies)]
     out = torch.bfloat16
-    ms = time_ms([lambda w=w: qmm.qmatmul_experts(
-        a, w, mu, sigma, rows, bits=bits, out_dtype=out) for w in ws])
-    plain_ms = time_ms([lambda: qmm.qmatmul_experts_plain(
-        a, ws[0], mu, sigma, rows, bits=bits, out_dtype=out)],
-        warmup=1, iters=2)
+    if lut:
+        def kern(w):
+            return qmm.qmatmul_lut_experts(a, w, book, rows, bits=bits,
+                                           out_dtype=out)
+
+        def plain():
+            return qmm.qmatmul_lut_experts_plain(a, ws[0], book, rows,
+                                                 bits=bits, out_dtype=out)
+    else:
+        def kern(w):
+            return qmm.qmatmul_experts(a, w, mu, sigma, rows, bits=bits,
+                                       out_dtype=out)
+
+        def plain():
+            return qmm.qmatmul_experts_plain(a, ws[0], mu, sigma, rows,
+                                             bits=bits, out_dtype=out)
+    ms = time_ms([lambda w=w: kern(w) for w in ws])
+    plain_ms = time_ms([plain], warmup=1, iters=2)
     used = (rows > 0).nonzero().flatten()
     n_used, n_rows = int(used.numel()), int(rows.sum())
-    dense = kops.dequantize_weights(ws[0][used], mu, sigma, bits=bits,
-                                    out_dtype=torch.bfloat16)
+    dense = lm.materialize({"q_codes": ws[0][used], "q_lut": book},
+                           torch.bfloat16) if lut else \
+        kops.dequantize_weights(ws[0][used], mu, sigma, bits=bits,
+                                out_dtype=torch.bfloat16)
     a_used = a[used].contiguous()
     lib_ms = time_ms([lambda: torch.bmm(a_used, dense)])
     del dense
-    host = host_us(lambda: qmm.qmatmul_experts(
-        a, ws[0], mu, sigma, rows, bits=bits, out_dtype=out), iters=50)
+    host = host_us(lambda: kern(ws[0]), iters=50)
     nbytes = n_used * K * N * bits // 8 + n_rows * K * 2 + E * C * N * 2 \
-        + 2 * N * 4 + (2 ** bits) * 4 + E * 4
+        + (book.numel() * 4 if lut else 2 * N * 4) + (2 ** bits) * 4 + E * 4
     t_b = nbytes / PEAK_BYTES_PER_S
     t_f = 2.0 * n_rows * K * N / PEAK_FLOPS["bf16"]
     torch.cuda.empty_cache()
@@ -4410,13 +4884,22 @@ EXPERT_TIMINGS = (
 )
 
 
+# the codebook kernel's rows (phase 4c's empirical engine): kimi_k2's eg at
+# a decode bucket and a 256-token prefill
+LUT_EXPERT_TIMINGS = (("kimi_k2_1t_a32b", "eg", (384, 7168, 2048), 16),
+                      ("kimi_k2_1t_a32b", "eg", (384, 7168, 2048), 256))
+
+
 def time_experts(gen, rows_out):
-    for arch, mat, (E, K, N), T in EXPERT_TIMINGS:
+    for (arch, mat, (E, K, N), T), lut in (
+            [(t, False) for t in EXPERT_TIMINGS]
+            + [(t, True) for t in LUT_EXPERT_TIMINGS]):
         k, C = cb.get(arch).top_k, moe_capacity(arch, T)
         rows = routed_rows(gen, T, E, k, C)
-        r = time_qmatmul_experts(gen, E, C, K, N, rows)
-        rows_out[("experts", arch, mat, T)] = r
-        say(f"[time] qmatmul_experts W4 bf16 {arch} {mat} E={E} C={C} K={K} "
+        r = time_qmatmul_experts(gen, E, C, K, N, rows, lut=lut)
+        name = "qmatmul_lut_experts" if lut else "qmatmul_experts"
+        rows_out[("lut_experts" if lut else "experts", arch, mat, T)] = r
+        say(f"[time] {name} W4 bf16 {arch} {mat} E={E} C={C} K={K} "
             f"N={N}, {T} tokens top-{k}: {r['used']} experts in use, "
             f"{r['rows']} rows; kernel {r['ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
@@ -4424,6 +4907,7 @@ def time_experts(gen, rows_out):
             f"torch.bmm on the dequantized bf16 experts in use "
             f"{r['library_ms']:.4f} ms; host enqueue {r['host_us']:.0f} us "
             f"per call; {CARD}")
+        torch.cuda.empty_cache()
 
 
 # phase 7's rows of the state-space models' decode (M = 4, bf16) whose N is
@@ -4455,6 +4939,10 @@ ENCDEC_VLM_QMM_TIMED = (
 # stacked in_proj of mamba2 (48 x 2048 x 8512) and zamba2 (54 x 2560 x
 # 10448)
 FAMILY_UNIQ_TIMED = ((48, 2048, 8512), (54, 2560, 10448))
+# phase 6c's expert stacks, timed beside row 7's: kimi_k2's layers/eg at 16
+# experts (1 x 114688 x 2048) and llama4's at 8 (1 x 40960 x 8192), one
+# group each, NOISE and FROZEN
+MOE_UNIQ_TIMED = ((1, 16 * 7168, 2048), (1, 8 * 5120, 8192))
 
 
 def timing_phase(gen, counts, errs):
@@ -4520,8 +5008,9 @@ def timing_phase(gen, counts, errs):
                 f"us per call")
     L = counts["train_layers"]
     for (G, R, C) in ((L, 4096, 12800), (L, 12800, 4096), (L, 4096, 4096),
-                      (1, 4096, 49155)) + FAMILY_UNIQ_TIMED:
-        for modes in ([1] * G, [m % 3 for m in range(G)]):
+                      (1, 4096, 49155)) + FAMILY_UNIQ_TIMED + MOE_UNIQ_TIMED:
+        mixed = [2] if G == 1 else [m % 3 for m in range(G)]
+        for modes in ([1] * G, mixed):
             r = time_uniq(gen, G, R, C, modes)
             rows[("uniq", G, R, C, tuple(modes))] = r
             for key in ("fwd", "bwd"):
@@ -4593,6 +5082,8 @@ def timing_phase(gen, counts, errs):
     u = rows[("uniq", L, 4096, 12800, (1,) * L)]
     um, uz = (rows[("uniq", G, R, C, (1,) * G)]
               for (G, R, C) in FAMILY_UNIQ_TIMED)
+    uk, ul = (rows[("uniq", G, R, C, (1,) * G)]
+              for (G, R, C) in MOE_UNIQ_TIMED)
     q8 = rows[("qmatmul_a8", 4, 16, 4096, 12800)]
     ql = rows[("qmatmul_lut", 4, 16, 4096, 12800)]
     kw = rows[("kquantile", 1, 4096, 12800, 16)]        # W4: packed
@@ -4628,10 +5119,12 @@ def timing_phase(gen, counts, errs):
               kv4_ctx2048=rows[("attn", 4, 2048)]),
         entry("uniq_noise_fwd", "src/repro_torch/kernels/csrc/uniq_noise.cu",
               "src/repro/kernels/uniq_noise.py:123", u["fwd"],
-              mamba2_in_proj=um["fwd"], zamba2_in_proj=uz["fwd"]),
+              mamba2_in_proj=um["fwd"], zamba2_in_proj=uz["fwd"],
+              kimi_eg16=uk["fwd"], llama4_eg8=ul["fwd"]),
         entry("uniq_noise_bwd", "src/repro_torch/kernels/csrc/uniq_noise.cu",
               "src/repro/kernels/ops.py:72", u["bwd"],
-              mamba2_in_proj=um["bwd"], zamba2_in_proj=uz["bwd"]),
+              mamba2_in_proj=um["bwd"], zamba2_in_proj=uz["bwd"],
+              kimi_eg16=uk["bwd"], llama4_eg8=ul["bwd"]),
         entry("qmatmul_a8", "src/repro_torch/kernels/csrc/qmatmul.cu",
               "src/repro/kernels/qmatmul.py:316", q8),
         entry("qmatmul_lut", "src/repro_torch/kernels/csrc/qmatmul.cu",
@@ -4685,7 +5178,12 @@ def timing_phase(gen, counts, errs):
                                          256)],
               llama4_eg_prefill1024=rows[("experts",
                                           "llama4_maverick_400b_a17b", "eg",
-                                          1024)])]}
+                                          1024)]),
+        entry("qmatmul_lut_experts", "src/repro_torch/kernels/csrc/qmatmul.cu",
+              "src/repro/models/moe.py:102",
+              rows[("lut_experts", "kimi_k2_1t_a32b", "eg", 16)],
+              kimi_eg_prefill256=rows[("lut_experts", "kimi_k2_1t_a32b",
+                                       "eg", 256)])]}
 
 
 def profile_phase(cfg, seed: int, new_tokens: int):
@@ -5144,8 +5642,10 @@ def main(argv=None) -> int:
     # host-bound readings keep the conditions of earlier runs; the count of
     # qmatmul_experts is summed over its counted runs (kimi_k2's and
     # llama4's streams, kimi_k2's closed batch)
-    counts["qmatmul_experts"] = moe_phases(
-        args.seed, args.new_tokens, args.moe_layers)["qmatmul_experts"]
+    moe_counts = moe_phases(args.seed, args.new_tokens, args.moe_layers)
+    counts["qmatmul_experts"] = moe_counts["qmatmul_experts"]
+    counts["qmatmul_lut_experts"] = moe_counts["qmatmul_lut_experts"]
+    counts["qmatmul_lut"] += moe_counts["qmatmul_lut"]
     say(f"[time] phase 4c done at {time.perf_counter() - t_start:.0f}s")
     train_counts, _ = train_phase(args.seed, args.train_layers,
                                   args.train_steps)
@@ -5157,13 +5657,18 @@ def main(argv=None) -> int:
     # the state-space, audio and vlm trainers (phase 6b); their steps'
     # launches join the LM trainer's in the kernels line
     family_counts = family_train_phases(args.seed, args.train_vlm_layers)
-    counts = dict(counts, uniq_noise_fwd=train_counts["uniq_noise_fwd"]
-                  + family_counts["uniq_noise_fwd"],
-                  uniq_noise_bwd=train_counts["uniq_noise_bwd"]
-                  + family_counts["uniq_noise_bwd"],
+    say(f"[time] phase 6b done at {time.perf_counter() - t_start:.0f}s")
+    # the MoE trainers (phase 6c); their steps' launches join the others'
+    moe_train_counts = moe_train_phases(args.seed)
+    counts = dict(counts, uniq_noise_fwd=sum(
+        c["uniq_noise_fwd"] for c in (train_counts, family_counts,
+                                      moe_train_counts)),
+                  uniq_noise_bwd=sum(
+        c["uniq_noise_bwd"] for c in (train_counts, family_counts,
+                                      moe_train_counts)),
                   uniq_noise_fwd_onchip=cnn_counts["uniq_noise_fwd_onchip"],
                   train_layers=args.train_layers)
-    say(f"[time] phase 6b done at {time.perf_counter() - t_start:.0f}s")
+    say(f"[time] phase 6c done at {time.perf_counter() - t_start:.0f}s")
     line = timing_phase(gen, counts, errs)
     say(f"[time] phase 7 done at {time.perf_counter() - t_start:.0f}s")
 

@@ -20,7 +20,9 @@ sources give a leaf its noise:
   * ``leaf_noise(seed, step)``, a ``NoiseFn``: a (leaf-shaped) U[0, 1)
     tensor drawn by a ``torch.Generator`` seeded with the key, read by the
     kernel as an operand (the LM trainer; a test hands in the reference's
-    own draw through a ``NoiseFn``);
+    own draw through a ``NoiseFn``); ``layer_noise(seed, step)`` draws
+    one layer slice's noise under a (seed, step, weight, layer) key for the
+    transform inside the layer loop (``lm.forward_train``'s ``uniq_scan``);
   * ``onchip_noise(seed, step)``, a ``NoiseFn`` too: the leaf's int key
     itself, from which the forward kernel draws inside (Philox4x32-10; the
     CNN trainer).  Its plain version draws the same bits, so the card and
@@ -48,8 +50,8 @@ from repro_torch.kernels.ref import CLEAN, FROZEN, NOISE
 
 __all__ = ["CLEAN", "NOISE", "FROZEN", "UniqConfig", "transform_param",
            "transform_tree", "lm_mode_fn", "leaf_noise", "onchip_noise",
-           "leaf_key", "GradualSchedule",
-           "fit_gaussian", "default_quant_filter", "path_str",
+           "leaf_key", "layer_noise", "GradualSchedule",
+           "fit_gaussian", "fit_layers", "default_quant_filter", "path_str",
            "QuantizedTensor", "quantize_tensor"]
 
 
@@ -114,6 +116,15 @@ def _fit_dist(w: torch.Tensor, cfg: UniqConfig, stacked: bool):
     return fit_gaussian(w, axes)
 
 
+def fit_layers(w: torch.Tensor, cfg: UniqConfig) -> GaussianModel:
+    """The per-layer statistics of a stacked (L, ...) leaf as the
+    whole-tree transform fits them.  The transform inside the layer loop
+    (``lm.forward_train``'s ``uniq_scan``) hands layer l's slice of them to
+    ``transform_param``, so both paths see the same values to the bit and
+    the stack is reduced once a step, not a slice at a time."""
+    return _fit_dist(w, cfg, stacked=True)
+
+
 def _broadcast_mode(mode, w: torch.Tensor, stacked: bool) -> torch.Tensor:
     mode = torch.as_tensor(mode)
     if stacked and mode.ndim == 1:
@@ -134,7 +145,8 @@ def _ablation(w: torch.Tensor, e01: torch.Tensor, mode, cfg: UniqConfig,
 
 def transform_param(w: torch.Tensor, noise: Union[torch.Tensor, int], mode,
                     cfg: UniqConfig, stacked: bool = False,
-                    use_kernel: bool = True) -> torch.Tensor:
+                    use_kernel: bool = True,
+                    model: Optional[GaussianModel] = None) -> torch.Tensor:
     """Apply the 3-way UNIQ transform to one parameter.
 
     ``mode`` is one value for a plain parameter, or (L,) per layer for a
@@ -144,7 +156,9 @@ def transform_param(w: torch.Tensor, noise: Union[torch.Tensor, int], mode,
     and the ablation quantizers draw through ``keyed_uniform``.
     Differentiable in ``w``: through the fused kernel's backward
     (k-quantile), through torch autograd (ablation).  ``use_kernel=False``
-    forces the kernels' plain versions (the comparison hook).
+    forces the kernels' plain versions (the comparison hook).  ``model``
+    gives w's statistics where they were fitted beforehand (a layer's slice
+    of ``fit_layers``); else they are fitted here.
     """
     if not cfg.enabled or cfg.w_bits >= 32:
         return w
@@ -154,7 +168,8 @@ def transform_param(w: torch.Tensor, noise: Union[torch.Tensor, int], mode,
             raise ValueError(f"unknown quantizer: {cfg.method!r}")
         e01 = keyed_uniform(noise, w) if onchip else noise
         return _ablation(w, e01, mode, cfg, stacked)
-    model = _fit_dist(w, cfg, stacked)
+    if model is None:
+        model = _fit_dist(w, cfg, stacked)
     wg, ungroup = kops._grouped(w)
     mode_g = _broadcast_mode(mode, w, stacked).reshape(-1)
     mu = kops.grouped_stats(model.mu, w)
@@ -239,6 +254,22 @@ def onchip_noise(seed: int, step: int) -> NoiseFn:
     def key(path: str, _leaf: torch.Tensor) -> int:
         return leaf_key(seed, step, path)
     return key
+
+
+# (key, layer, leaf) -> one layer's U[0, 1) draw of one of its weights
+LayerNoiseFn = Callable[[str, int, torch.Tensor], torch.Tensor]
+
+
+def layer_noise(seed: int, step: int) -> LayerNoiseFn:
+    """The per-layer noise source of ``uniq_scan``: ``draw(key, layer,
+    leaf)`` draws one layer slice's shape of a layer's weight ``key``
+    ("wq", "eg", ...) under the reference's ``fold_in(_fold_path(rng, key),
+    layer)`` (``rng`` the step's key, as in ``leaf_key``): the same bits
+    however often the layer is recomputed."""
+    def draw(key: str, layer: int, leaf: torch.Tensor) -> torch.Tensor:
+        return keyed_uniform(
+            fold_in(_fold_path(fold_in(seed, step), key), layer), leaf)
+    return draw
 
 
 def lm_mode_fn(layer_modes: torch.Tensor):

@@ -6,10 +6,10 @@ card and raises where there is none):
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite_3_8b \\
         --smoke --device cpu --steps 4
 
-Every family but MoE trains: dense, the state-space mamba2 / zamba2, the
-audio whisper (zero stub frames, as many as tokens) and the vlm pixtral
-(zero patch embeddings ahead of the tokens), as the reference's trainer
-feeds them.
+Every family trains: dense, the MoE kimi_k2 / llama4 (cross-entropy alone,
+as the reference's), the state-space mamba2 / zamba2, the audio whisper
+(zero stub frames, as many as tokens) and the vlm pixtral (zero patch
+embeddings ahead of the tokens), as the reference's trainer feeds them.
 
 Fault tolerance: periodic atomic checkpoints (params + optimizer + step) in
 the reference's layout; on start, the trainer resumes from LATEST if

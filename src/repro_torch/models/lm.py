@@ -33,9 +33,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import activations as act
 from repro_torch.core import packing
 from repro_torch.core import quantizers as Q
-from repro_torch.core.distributions import EmpiricalModel
-from repro_torch.core.uniq import (default_quant_filter, path_str,
-                                   quantize_tensor)
+from repro_torch.core.distributions import EmpiricalModel, GaussianModel
+from repro_torch.core.uniq import (default_quant_filter, fit_layers,
+                                   path_str, quantize_tensor,
+                                   transform_param)
 from repro_torch.devices import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
@@ -46,12 +47,12 @@ from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
                                        softcap)
 
 BIG_WINDOW = 1 << 30
-# the empirical coding of one leaf slice holds an int64 rank and an f32
-# value for each element (``EmpiricalModel.cdf``): a slice of this many
-# elements or more is refused (an expert stack's layer slice at full width:
-# 5.6 G elements at kimi_k2, 5.4 G at llama4: 67 GB of them beside the
-# 22.5 GB draw)
-EMPIRICAL_MAX_ELEMS = 1 << 31
+# the empirical coding holds an int64 rank and an f32 value for each element
+# it codes (``EmpiricalModel.cdf``): a leaf slice is coded in blocks of its
+# leading axis of at most this many elements (at least one row), so an
+# expert stack's layer slice at full width (5.6 G elements at kimi_k2, 5.4 G
+# at llama4: 67 GB of ranks and values whole) holds a block's worth
+EMPIRICAL_BLOCK_ELEMS = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,20 +223,26 @@ def _quantize_leaf_empirical(leaf: torch.Tensor, bits: int, stacked: bool):
     codebook per layer, (L, k); the layer loop slices it to (k,) with the
     codes.  Codes keep the weight path's storage conventions (int4
     packing, int8 k = 256 offset), so ``qmatmul_lut`` takes them as they
-    are."""
+    are.
+
+    The codebook is fitted on the whole slice's strided subsample
+    (``EmpiricalModel.fit``); the slice is then coded a block of its
+    leading axis at a time (``EMPIRICAL_BLOCK_ELEMS``: an expert stack's
+    experts, a matrix's rows) into the preallocated codes.  The CDF is
+    elementwise, so the codes equal coding the slice whole, bit for bit."""
     k = 2 ** bits
 
     def one(w):
-        if w.numel() >= EMPIRICAL_MAX_ELEMS:
-            raise ValueError(
-                f"empirical coding of a {tuple(w.shape)} slice "
-                f"({w.numel()} elements, at least {EMPIRICAL_MAX_ELEMS}) "
-                f"would hold an int64 rank and an f32 value per element; "
-                f"code it Gaussian (a streamed empirical fit is not ported)")
         m = EmpiricalModel.fit(w)
-        codes = Q.kquantile_quantize(w, m, k)
-        stored = packing.pack_int4(codes) if bits == 4 \
-            else (codes - 128).to(torch.int8)
+        stored = torch.empty(packing.packed_shape(tuple(w.shape), bits),
+                             dtype=packing.storage_dtype(bits),
+                             device=w.device)
+        rows = max(1, EMPIRICAL_BLOCK_ELEMS // max(1, w[0].numel()))
+        for i in range(0, w.shape[0], rows):
+            codes = Q.kquantile_quantize(w[i:i + rows], m, k)
+            stored[i:i + rows] = packing.pack_int4(codes) if bits == 4 \
+                else (codes - 128).to(torch.int8)
+            del codes
         return stored, m.level_values(k).to(torch.float32)
 
     if not stacked:
@@ -671,17 +678,38 @@ def apply_layer(fn, remat: bool, *args):
     return fn(*args)
 
 
-def refuse_uniq_scan(uniq_scan) -> None:
-    """``uniq_scan`` (the UNIQ transform applied per layer inside the layer
-    loop) is not ported: raise where one is given."""
-    if uniq_scan is not None:
-        raise NotImplementedError(
-            "uniq_scan (the UNIQ transform applied per layer inside the "
-            "layer loop) is not ported yet; transform the tree first")
+# the matmul weights of a layer that the per-layer UNIQ transform covers
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+               "eg", "eu", "ed")
+
+
+def _uniq_layer(lp, uniq_scan, l: int, use_kernel: bool):
+    """Layer ``l``'s weights through the UNIQ transform (``uniq_scan``, the
+    reference's ``_uniq_layer``): each dense ``_QUANT_KEYS`` leaf of the
+    layer with the layer's mode and per-tensor statistics over the whole
+    slice (layer l's of the stack's, ``fit_layers``, where the layers came
+    stacked), its noise drawn for this (leaf, layer) alone.  Called inside
+    the function ``apply_layer`` checkpoints, so under remat the
+    transformed copy is recomputed in the backward pass (the same keyed
+    draw gives the same bits) and one layer's copy is live at a time."""
+    if uniq_scan is None:
+        return lp
+    ucfg, modes, noise, stats = uniq_scan
+    out = dict(lp)
+    for key in _QUANT_KEYS:
+        if key in lp and not is_qweight(lp[key]):
+            m = stats.get(key)
+            out[key] = transform_param(
+                lp[key], noise(key, l, lp[key]), modes[l], ucfg,
+                stacked=False, use_kernel=use_kernel,
+                model=None if m is None else GaussianModel(mu=m.mu[l],
+                                                           sigma=m.sigma[l]))
+    return out
 
 
 def _train_layer(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
-                 cos_sin):
+                 cos_sin, uniq_scan=None, l: int = 0):
+    lp = _uniq_layer(lp, uniq_scan, l, opts.use_kernels)
     a, _ = _attn_block(x, lp, cfg, opts, positions, window, cos_sin)
     x = x + a
     x = x + _ffn_block(x, lp, cfg, opts)
@@ -690,17 +718,30 @@ def _train_layer(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
 
 def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch,
                   uniq_scan=None):
-    """Teacher-forced LM loss (a differentiable scalar).  batch: tokens /
-    targets (B, S), and at the vlm family ``patch_embeds`` (B, P, d), cast
-    to the compute dtype and put ahead of the tokens: positions run over the
-    P + S rows and the loss covers the token rows only.  With
-    ``opts.remat`` each layer is recomputed in the backward pass instead of
-    keeping its activations."""
-    refuse_uniq_scan(uniq_scan)
-    if cfg.family not in ("dense", "vlm"):
+    """Teacher-forced LM loss (a differentiable scalar; cross-entropy alone,
+    at the MoE family too, as in the reference).  batch: tokens / targets
+    (B, S), and at the vlm family ``patch_embeds`` (B, P, d), cast to the
+    compute dtype and put ahead of the tokens: positions run over the P + S
+    rows and the loss covers the token rows only.  With ``opts.remat`` each
+    layer is recomputed in the backward pass instead of keeping its
+    activations.
+
+    ``uniq_scan = (UniqConfig, (L,) host modes, noise)`` applies the UNIQ
+    transform per layer inside the layer loop (``_uniq_layer``);
+    ``noise(key, layer, leaf)`` gives a layer's leaf its U[0, 1) draw
+    (``core/uniq.py:layer_noise``).  The statistics of stacked layers are
+    fitted here, once, as the whole-tree transform fits them."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: training of the MoE family (with "
-            f"moe.aux_load_balance_loss) is not ported yet")
+            f"family {cfg.family!r}: lm.forward_train trains the dense, "
+            f"moe and vlm families (ssm / hybrid: models/hybrid.py; audio: "
+            f"models/encdec.py)")
+    if uniq_scan is not None:
+        ucfg, modes, noise = uniq_scan
+        stats = {} if isinstance(params["layers"], list) else {
+            k: fit_layers(v, ucfg) for k, v in params["layers"].items()
+            if k in _QUANT_KEYS and not is_qweight(v)}
+        uniq_scan = (ucfg, modes, noise, stats)
     if not isinstance(params["layers"], list):
         params = unstack_layers(params, cfg.n_layers)
     x = _embed_tokens(params, cfg, opts, batch["tokens"])
@@ -714,7 +755,7 @@ def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch,
     windows = _window_schedule(cfg)
     for l in range(cfg.n_layers):
         x = apply_layer(_train_layer, opts.remat, x, _layer(params, l), cfg,
-                        opts, positions, windows[l], cos_sin)
+                        opts, positions, windows[l], cos_sin, uniq_scan, l)
     x = _norm_final(x, params, cfg)
     if n_patches:
         x = x[:, n_patches:]

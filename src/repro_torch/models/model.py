@@ -4,7 +4,7 @@ mamba2, hybrid: zamba2; ``models/hybrid.py``) and the encoder-decoder
 (audio: whisper; ``models/encdec.py``).
 
     init(seed, cfg, device)             -> params
-    loss_fn(params, cfg, opts, batch)   -> scalar loss   (train; not moe)
+    loss_fn(params, cfg, opts, batch)   -> scalar loss   (train)
     prefill(params, cfg, opts, batch)   -> (logits, cache)
     decode(params, cfg, opts, cache, tokens, positions, block_tables)
                                         -> (logits, cache)
@@ -15,8 +15,7 @@ one fixed region of ``max_len`` rows per decode slot) and the paged pool
 (``init_paged_cache`` / ``cache_insert_paged``); the last two hold the
 plain KV layout of dense and moe only.  A family outside
 ``PORTED_FAMILIES`` raises ``NotImplementedError`` naming it
-(``require_ported``); ``loss_fn`` raises it for the MoE family, whose
-training is not ported.
+(``require_ported``).
 """
 
 from __future__ import annotations
@@ -74,11 +73,16 @@ def loss_fn(params, cfg: ArchConfig, opts: ModelOpts, batch,
             uniq_scan=None) -> torch.Tensor:
     """Teacher-forced LM loss: encdec.forward_train (audio; the batch holds
     ``frames`` beside the tokens), hybrid.forward_train (ssm, hybrid) or
-    lm.forward_train (dense, vlm with ``patch_embeds``; MoE raises
-    NotImplementedError).  ``uniq_scan`` is not ported: it raises."""
+    lm.forward_train (dense, moe, vlm with ``patch_embeds``).
+    ``uniq_scan = (UniqConfig, (L,) modes, noise)`` applies the UNIQ
+    transform per layer inside the layer loop (the decoder families: the
+    others raise ValueError, as no train step hands them one)."""
     require_ported(cfg, "loss_fn")
     if cfg.family in SSM_FAMILIES + ("audio",):
-        lm.refuse_uniq_scan(uniq_scan)
+        if uniq_scan is not None:
+            raise ValueError(
+                f"uniq_scan: family {cfg.family!r} takes the whole-tree "
+                f"transform (the per-layer one covers dense, moe and vlm)")
         forward = encdec.forward_train if cfg.family == "audio" \
             else hybrid.forward_train
         return forward(params, cfg, opts, batch)

@@ -164,8 +164,9 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, gate_w, up_w, down_w,
 
 def aux_load_balance_loss(x: torch.Tensor, router_w: torch.Tensor,
                           cfg: MoEConfig) -> torch.Tensor:
-    """Switch-style load-balancing auxiliary loss (mean over tokens); kept
-    for the MoE trainer, which is not ported yet."""
+    """Switch-style load-balancing auxiliary loss (mean over tokens).  The
+    reference defines it but never adds it to a loss: its MoE training loss
+    is cross-entropy alone, and so is the port's (``lm.forward_train``)."""
     logits = x.reshape(-1, x.shape[-1]).to(torch.float32) \
         @ router_w.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                    # (T, E)

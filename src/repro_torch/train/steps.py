@@ -2,7 +2,8 @@
 
 ``make_train_step`` closes over static config and returns
 
-    train_step(state, batch, seed, noise=None) -> (state, metrics)
+    train_step(state, batch, seed, noise=None, scan_noise=None)
+        -> (state, metrics)
 
 where ``state = {"params", "opt", "step"}``.  The gradual schedule gives
 per-layer modes from the step (a host integer); FROZEN layers are
@@ -11,11 +12,19 @@ optimizer.  Every quantized leaf passes through the ``uniq_noise`` kernels
 (``core/uniq.py:transform_tree``).  The step updates ``state`` in place
 (see ``optim.apply_updates``) and returns it.
 
+With ``TrainConfig.uniq_in_scan`` (dense, moe, vlm) the layers are
+transformed one at a time inside the layer loop (``lm.forward_train``'s
+``uniq_scan``) and only the embedding and the head at the tree level, as in
+the reference: one layer's transformed copy is live at a time, recomputed
+in the backward pass under remat.
+
 Noise: each leaf's U[0, 1) draw comes from a generator keyed by (seed,
 step, md5 of the leaf path) on the parameters' device
-(``core/uniq.py:leaf_noise``), so it never depends on launch order and a
-run resumed from a checkpoint replays the unbroken run bit for bit.
-``noise`` overrides the draw (a test hands in the reference's own).
+(``core/uniq.py:leaf_noise``), in scan each layer slice's by (seed, step,
+md5 of the weight's key, layer) (``layer_noise``), so it never depends on
+launch order and a run resumed from a checkpoint replays the unbroken run
+bit for bit.  ``noise`` / ``scan_noise`` override the draws (a test hands
+in the reference's own).
 """
 
 from __future__ import annotations
@@ -28,8 +37,8 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.uniq import (FROZEN, GradualSchedule, UniqConfig,
-                                   default_quant_filter, leaf_noise,
-                                   lm_mode_fn, transform_tree)
+                                   default_quant_filter, layer_noise,
+                                   leaf_noise, lm_mode_fn, transform_tree)
 from repro_torch.devices import resolve_device
 from repro_torch.models import model
 from repro_torch.models.lm import ModelOpts
@@ -45,18 +54,15 @@ class TrainConfig:
     lr_schedule: str = "stage"   # stage | cosine | constant
     dp_compress_bits: int = 0    # >0: compressed cross-pod grad sync (not
                                  #   ported: raises)
-    uniq_in_scan: bool = False   # transform per layer inside the layer loop
-                                 #   (not ported: raises)
+    uniq_in_scan: bool = False   # transform per layer inside the layer
+                                 #   loop (dense, moe, vlm): one layer's
+                                 #   transformed copy live at a time
 
     def __post_init__(self):
         if self.dp_compress_bits > 0:
             raise NotImplementedError(
                 "dp_compress_bits > 0 (the compressed cross-pod gradient "
                 "sync) is not ported yet")
-        if self.uniq_in_scan:
-            raise NotImplementedError(
-                "uniq_in_scan=True (the UNIQ transform inside the layer "
-                "loop) is not ported yet")
 
     @property
     def uniq_active(self) -> bool:
@@ -99,13 +105,29 @@ def freeze_mask_tree(params: Any, layer_modes: torch.Tensor,
     return tree_lib.map_with_path(one, params)
 
 
+def in_scan(cfg: ArchConfig, tc: TrainConfig) -> bool:
+    """Whether the step transforms the layers inside the layer loop: with
+    ``uniq_in_scan`` at the decoder families, as the reference decides (the
+    others take the whole-tree transform)."""
+    return (tc.uniq_in_scan and tc.uniq_active
+            and cfg.family in ("dense", "moe", "vlm"))
+
+
+def _outside_layers(p: str, leaf) -> bool:
+    return default_quant_filter(p, leaf) and not p.startswith("layers")
+
+
 def loss_and_grads(params: Any, batch, modes: torch.Tensor, noise,
                    cfg: ArchConfig, opts: ModelOpts, tc: TrainConfig,
-                   loss_fn: Optional[Callable] = None):
+                   loss_fn: Optional[Callable] = None, scan_noise=None):
     """(loss, grads) of the loss at the UNIQ-transformed parameters, for
-    per-layer ``modes`` (host int32) and the per-leaf ``noise`` source.
+    per-layer ``modes`` (host int32), the per-leaf ``noise`` source and,
+    in scan (``in_scan``), the per-layer ``scan_noise`` source (see
+    ``core/uniq.py:layer_noise``): the embedding and the head are
+    transformed here, the layers inside ``lm.forward_train``.
     ``opts.use_kernels=False`` takes the transform's plain versions."""
     base_loss = loss_fn or (lambda p, b: model.loss_fn(p, cfg, opts, b))
+    scan = in_scan(cfg, tc)
     flat = list(tree_lib.leaves_with_paths(params))
     with torch.enable_grad():
         req = {p: t.detach().requires_grad_(True) for p, t in flat}
@@ -113,8 +135,14 @@ def loss_and_grads(params: Any, batch, modes: torch.Tensor, noise,
         if tc.uniq_active:
             dev = flat[0][1].device
             p_in = transform_tree(p_in, noise, lm_mode_fn(modes.to(dev)),
-                                  tc.uniq, use_kernel=opts.use_kernels)
-        loss = base_loss(p_in, batch)
+                                  tc.uniq,
+                                  quant_filter=_outside_layers if scan
+                                  else None, use_kernel=opts.use_kernels)
+        if scan:
+            loss = model.loss_fn(p_in, cfg, opts, batch,
+                                 uniq_scan=(tc.uniq, modes, scan_noise))
+        else:
+            loss = base_loss(p_in, batch)
         del p_in
         grads = torch.autograd.grad(loss, [req[p] for p, _ in flat],
                                     allow_unused=True)
@@ -130,12 +158,14 @@ def make_train_step(cfg: ArchConfig, opts: ModelOpts, tc: TrainConfig,
     schedule = make_schedule(cfg, tc)
     lr_fn = make_lr_fn(tc, schedule)
 
-    def train_step(state, batch, seed: int, noise=None):
+    def train_step(state, batch, seed: int, noise=None, scan_noise=None):
         step = int(state["step"])
         modes = schedule.modes_at(step)
         noise = noise or leaf_noise(seed, step)
+        scan_noise = scan_noise or layer_noise(seed, step)
         loss_val, grads = loss_and_grads(state["params"], batch, modes,
-                                         noise, cfg, opts, tc, loss_fn)
+                                         noise, cfg, opts, tc, loss_fn,
+                                         scan_noise)
         mask = (freeze_mask_tree(state["params"], modes)
                 if tc.uniq_active else None)
         lr = lr_fn(step)

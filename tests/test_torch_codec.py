@@ -27,6 +27,8 @@ from repro_torch.core import uniq as tuniq
 from repro_torch.kernels import ref as tref
 from repro_torch.models import kv_cache as tkv
 
+from test_torch_kquantile import flip_report
+
 # Codes flip where the two frameworks' CDFs differ in the last ulp at a bin
 # edge.  Measured on these tensors: <= 6e-6 (weights, ndtr) and <= 8e-5 (KV
 # rows, erf, including rows whose bf16 sigma landed one ulp apart); never
@@ -41,10 +43,15 @@ def _rng(seed=0):
     return np.random.default_rng(seed)
 
 
-def _codes_close(cj, ct, bound):
+def _codes_close(cj, ct, bound, inputs=None):
+    """As ``test_torch_kquantile._codes_close``: with ``inputs`` (w, mu,
+    sigma, k) a failure lists every flipped element (``flip_report``)."""
     d = np.abs(cj.astype(np.int64) - ct.astype(np.int64))
-    assert d.max() <= 1, "a code is off by more than one bin"
-    assert (d > 0).mean() <= bound, f"mismatch rate {(d > 0).mean():.2e}"
+    ok = d.max() <= 1 and (d > 0).mean() <= bound
+    why = "" if ok or inputs is None else "\n" + flip_report(cj, ct, inputs)
+    assert d.max() <= 1, "a code is off by more than one bin" + why
+    assert (d > 0).mean() <= bound, f"mismatch rate {(d > 0).mean():.2e}" \
+        + why
 
 
 # -- packing ---------------------------------------------------------------
@@ -118,7 +125,7 @@ def test_kquantile_codes_and_dequant(k):
     ct = tref.kquantile_codes_ref(torch.from_numpy(w), torch.from_numpy(mu),
                                   torch.from_numpy(sd), k)
     assert ct.dtype == torch.int8
-    _codes_close(cj, ct.numpy(), KV_CODE_MISMATCH)
+    _codes_close(cj, ct.numpy(), KV_CODE_MISMATCH, inputs=(w, mu, sd, k))
     # dequant of the SAME codes: identical table gather + one multiply-add
     dj = np.asarray(jref.kquantile_dequant_ref(
         jnp.asarray(cj), jnp.asarray(mu), jnp.asarray(sd), k,
@@ -165,7 +172,8 @@ def test_kquantile_quantizer(k):
     ct = tquant.kquantile_quantize(torch.from_numpy(w), mt, k)
     assert ct.dtype == torch.int32
     assert int(ct.min()) >= 0 and int(ct.max()) <= k - 1
-    _codes_close(cj, ct.numpy(), 1e-3)       # 2048 values: at most 2 flips
+    _codes_close(cj, ct.numpy(), 1e-3,       # 2048 values: at most 2 flips
+                 inputs=(w, mt.mu.numpy(), mt.sigma.numpy(), k))
     dj = np.asarray(jquant.kquantile_dequantize(jnp.asarray(cj), mj, k))
     dt = tquant.kquantile_dequantize(torch.from_numpy(cj), mt, k)
     np.testing.assert_allclose(dt.numpy(), dj, atol=1e-5)
@@ -196,7 +204,8 @@ def test_quantize_tensor(bits, per_channel, stacked):
     if bits == 4:
         cj = np.asarray(jpack.unpack_int4(qj.codes))
         ct = tpack.unpack_int4(qt.codes)
-    _codes_close(cj, ct.numpy(), WEIGHT_CODE_MISMATCH)
+    _codes_close(cj, ct.numpy(), WEIGHT_CODE_MISMATCH,
+                 inputs=(w, qt.mu.numpy(), qt.sigma.numpy(), 2 ** bits))
     dj = np.asarray(qj.dequantize(jnp.float32))
     dt = qt.dequantize(torch.float32).numpy()
     same = cj == ct.numpy()
@@ -248,7 +257,9 @@ def test_quantize_kv(kv_bits):
     cj, ct = np.asarray(sj), st
     if kv_bits == 4:
         cj, ct = np.asarray(jpack.unpack_int4(sj)), tpack.unpack_int4(st)
-    _codes_close(cj, ct.numpy(), KV_CODE_MISMATCH)
+    _codes_close(cj, ct.numpy(), KV_CODE_MISMATCH,
+                 inputs=(x, mt.float().numpy()[..., None],
+                         gt.float().numpy()[..., None], 2 ** kv_bits))
     # what attention sees: the dequantized rows.  One code step of a
     # kv4 row is up to ~0.6 sigma at the tails, of a kv8 row ~0.3 sigma.
     dj = np.asarray(jkv.dequantize_kv(sj, mj, gj, kv_bits))

@@ -66,10 +66,54 @@ def _unpacked(stored, bits):
         else np.asarray(stored)
 
 
-def _codes_close(cj, ct, bound=CODE_FLIPS):
+def _cpu_model():
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return "unknown"
+
+
+def flip_report(cj, ct, inputs) -> str:
+    """One line per element whose codes differ: w, mu and sigma as f32 bit
+    patterns, the port's z, erf(z / sqrt2) and u k (the plain kernel's
+    formula, evaluated over the whole broadcast tensor as the port does),
+    both codes; then the process's CPU capability, torch thread count and
+    CPU model.  ``inputs`` is (w, mu, sigma, k), broadcastable to the
+    codes' shape."""
+    w, mu, sd, k = inputs
+    w, mu, sd = (np.array(np.broadcast_to(np.asarray(x, np.float32),
+                                          cj.shape)) for x in (w, mu, sd))
+    tw, tmu, tsd = (torch.from_numpy(x) for x in (w, mu, sd))
+    z = (tw - tmu) / tsd
+    e = torch.erf(z * tref._RSQRT2)
+    uk = torch.clamp(0.5 * (1.0 + e), tref._EPS, 1.0 - tref._EPS) * k
+    lines = []
+    for idx in zip(*np.nonzero(cj.astype(np.int64) != ct.astype(np.int64))):
+        bits = " ".join(f"{n}=0x{x[idx].view(np.uint32):08x}"
+                        for n, x in (("w", w), ("mu", mu), ("sigma", sd)))
+        lines.append(f"  {tuple(int(i) for i in idx)}: {bits} "
+                     f"z={float(z[idx]):.9g} erf={float(e[idx]):.9g} "
+                     f"uk={float(uk[idx]):.9g} ref={int(cj[idx])} "
+                     f"port={int(ct[idx])}")
+    lines.append(f"  cpu capability "
+                 f"{torch.backends.cpu.get_cpu_capability()}, torch threads "
+                 f"{torch.get_num_threads()}, cpu {_cpu_model()!r}")
+    return "\n".join(lines)
+
+
+def _codes_close(cj, ct, bound=CODE_FLIPS, inputs=None):
+    """Codes of the two sides at most one bin apart, and flipped in at most
+    ``bound`` of the elements; with ``inputs`` (see ``flip_report``) a
+    failure lists every flipped element."""
     d = np.abs(cj.astype(np.int64) - ct.astype(np.int64))
-    assert d.max() <= 1, "a code is off by more than one bin"
-    assert (d > 0).mean() <= bound, f"flip share {(d > 0).mean():.2e}"
+    ok = d.max() <= 1 and (d > 0).mean() <= bound
+    why = "" if ok or inputs is None else "\n" + flip_report(cj, ct, inputs)
+    assert d.max() <= 1, "a code is off by more than one bin" + why
+    assert (d > 0).mean() <= bound, f"flip share {(d > 0).mean():.2e}" + why
     return d > 0
 
 
@@ -96,7 +140,7 @@ def test_quantize_and_dequantize_match_reference_kernels(bits, shape,
     assert stored_t.dtype == tpack.storage_dtype(bits)
     assert tuple(stored_t.shape) == stored_j.shape
     flips = _codes_close(_unpacked(stored_j, bits), _unpacked(
-        stored_t.numpy(), bits))
+        stored_t.numpy(), bits), inputs=(w, mu, sd, k))
     if bits == 4:
         # packed bytes: equal wherever neither nibble flipped
         pair = flips.reshape(G, R, C // 2, 2).any(-1)
@@ -154,7 +198,8 @@ def test_kv_row_layout_matches_reference_kernel(kv_bits):
     stored_t = tops.quantize_weights(tx, tmu, tsd, bits=kv_bits)
     assert tuple(stored_t.shape) == stored_j.shape
     _codes_close(_unpacked(stored_j, kv_bits),
-                 _unpacked(stored_t.numpy(), kv_bits))
+                 _unpacked(stored_t.numpy(), kv_bits),
+                 inputs=(x, mu[..., None], sd[..., None], 2 ** kv_bits))
     # the port's KV codec is this call: its codes are these codes
     st, mu_t, sd_t = tkv_quantize(x, kv_bits)
     assert torch.equal(st, tops.quantize_weights(
@@ -454,7 +499,7 @@ def test_reference_kernel_refuses_what_the_port_takes():
     got = tkq.kquantile_quantize(*_t(w, mu, sd), k=16)
     want = jref.kquantile_codes_ref(jnp.asarray(w), jnp.asarray(mu),
                                     jnp.asarray(sd), 16)
-    _codes_close(np.asarray(want), got.numpy())
+    _codes_close(np.asarray(want), got.numpy(), inputs=(w, mu, sd, 16))
 
 
 # -- packed output of the quantize kernel, and the route between its bodies -
@@ -480,7 +525,8 @@ def test_packed_quantize_matches_pack_int4_and_reference(shape, per_col):
         jnp.asarray(w), jnp.asarray(mu), jnp.asarray(sd), bits=4,
         use_pallas=True, interpret=True))
     assert stored_j.shape == tuple(packed.shape)
-    _codes_close(_unpacked(stored_j, 4), _unpacked(packed.numpy(), 4))
+    _codes_close(_unpacked(stored_j, 4), _unpacked(packed.numpy(), 4),
+                 inputs=(w, mu, sd, 16))
     # the serving entry hands the kernel the packing
     assert torch.equal(tops.quantize_weights(tw, tmu, tsd, bits=4), packed)
 

@@ -437,20 +437,101 @@ def test_params_from_numpy_keeps_router_f32():
                                   tree["layers"]["eg"]["q_codes"])
 
 
-def test_empirical_coding_refuses_a_full_width_expert_slice(monkeypatch):
-    """Trap (g): the empirical fit of a slice of EMPIRICAL_MAX_ELEMS
-    elements or more raises ValueError naming the size (cut here to 1024
-    so a small leaf shows it) instead of allocating until it fails; the
-    Gaussian coding takes it."""
-    monkeypatch.setattr(tlm, "EMPIRICAL_MAX_ELEMS", 1024)
-    w = torch.randn(1, 4, 16, 32)
-    with pytest.raises(ValueError, match="2048 elements"):
-        tlm._quantize_leaf(w, 4, True, True, "empirical")
-    q = tlm._quantize_leaf(w, 4, True, True, "gaussian")
-    assert tuple(q["q_codes"].shape) == (1, 4, 16, 16)
-    small = tlm._quantize_leaf(torch.randn(1, 4, 8, 16), 4, True, True,
-                               "empirical")
-    assert tuple(small["q_lut"].shape) == (1, 16)
+def _count_codings(monkeypatch):
+    """Count the blocks the empirical coding codes (its calls of the
+    quantizer)."""
+    calls = []
+    orig = tlm.Q.kquantile_quantize
+
+    def counted(w, m, k, **kw):
+        calls.append(tuple(w.shape))
+        return orig(w, m, k, **kw)
+
+    monkeypatch.setattr(tlm.Q, "kquantile_quantize", counted)
+    return calls
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("block,n_blocks", [(1, 8), (16 * 32, 8),
+                                            (3 * 16 * 32, 3)])
+def test_streamed_empirical_coding_equals_whole_slice_coding(
+        bits, block, n_blocks, monkeypatch):
+    """A (1, E, d, f) expert slice is fitted whole and coded a block of
+    experts at a time (``EMPIRICAL_BLOCK_ELEMS`` cut to one row, one
+    expert, three experts: blocks of 3, 3 and 2 of the 8): codes and
+    codebook equal coding the slice in one call, bit for bit."""
+    w = torch.from_numpy((_rng(40 + bits).standard_normal((1, 8, 16, 32))
+                          * 0.05).astype(np.float32))
+    k = 2 ** bits
+    m = tlm.EmpiricalModel.fit(w[0])
+    codes = tlm.Q.kquantile_quantize(w[0], m, k)
+    want = tlm.packing.pack_int4(codes) if bits == 4 \
+        else (codes - 128).to(torch.int8)
+    monkeypatch.setattr(tlm, "EMPIRICAL_BLOCK_ELEMS", block)
+    calls = _count_codings(monkeypatch)
+    got = tlm._quantize_leaf(w, bits, True, True, "empirical")
+    assert len(calls) == n_blocks
+    assert max(c[0] for c in calls) == max(1, block // (16 * 32))
+    assert got["q_codes"].dtype == want.dtype
+    assert torch.equal(got["q_codes"][0], want)
+    assert torch.equal(got["q_lut"][0], m.level_values(k))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_streamed_empirical_coding_matches_reference(bits, monkeypatch):
+    """A stacked (2, E, d, f) expert leaf coded one expert at a time
+    against the reference's ``_quantize_leaf_empirical`` (each layer
+    coded whole): codes bit-equal, codebook levels within 4 ulps (the
+    bounds of test_torch_kquantile)."""
+    w = (_rng(50 + bits).standard_normal((2, 8, 16, 32)) * 0.05).astype(
+        np.float32)
+    monkeypatch.setattr(tlm, "EMPIRICAL_BLOCK_ELEMS", 16 * 32)
+    calls = _count_codings(monkeypatch)
+    qt = tlm._quantize_leaf_empirical(torch.from_numpy(w), bits, True)
+    assert len(calls) == 2 * 8
+    qj = jlm._quantize_leaf_empirical(jnp.asarray(w), bits, True)
+    np.testing.assert_array_equal(qt["q_codes"].numpy(),
+                                  np.asarray(qj["q_codes"]))
+    lj = np.asarray(qj["q_lut"])
+    assert tuple(qt["q_lut"].shape) == lj.shape == (2, 2 ** bits)
+    np.testing.assert_allclose(qt["q_lut"].numpy(), lj, rtol=0,
+                               atol=4 * np.spacing(np.abs(lj).max()))
+
+
+def test_streamed_empirical_kimi_engine_matches_reference(monkeypatch):
+    """kimi_k2 smoke coded W4 empirical with the block cut to one expert
+    (the embedding 64 rows a block, the head 8): the codes equal the
+    reference's ``quantize_for_serving(dist="empirical")`` and the paged
+    kv8 engine gives the reference engine's greedy tokens (capacity factor
+    64, as test_torch_moe_engine)."""
+    from repro.serve import engine as jeng
+    from test_torch_moe_engine import (ENGINES, JOPTS, NO_DROP, TOPTS,
+                                       _cfgs, _prompts, _reqs, _tok)
+    arch = "kimi_k2_1t_a32b"
+    cj, ct = _cfgs(arch, NO_DROP)
+    pj = jmodel.init(jax.random.PRNGKey(0), cj)
+    dense = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, pj),
+                                      device="cpu")
+    pj = jmodel.quantize_for_serving(pj, 4, dist="empirical")
+    monkeypatch.setattr(tlm, "EMPIRICAL_BLOCK_ELEMS", ct.d_model * ct.d_ff)
+    calls = _count_codings(monkeypatch)
+    pt = tmodel.quantize_for_serving(dense, 4, dist="empirical",
+                                     device="cpu")
+    # per layer: 4 projections of one block and 3 stacks of 8 experts;
+    # the embedding's 512 rows and the head's 64 in 8 blocks each
+    assert len(calls) == ct.n_layers * (4 + 3 * 8) + 2 * 8
+    for name in ("eg", "eu", "ed", "wq"):
+        np.testing.assert_array_equal(
+            pt["layers"][name]["q_codes"].numpy(),
+            np.asarray(pj["layers"][name]["q_codes"]), err_msg=name)
+    prompts = _prompts([9, 5, 13, 7], seed=4)
+    ec = dict(max_slots=3, max_len=48, prefill_batch=2, min_bucket=8,
+              **ENGINES["paged_kv8"])
+    ej = jeng.Engine(pj, cj, JOPTS, jeng.EngineConfig(**ec))
+    et = teng.Engine(pt, ct, TOPTS, teng.EngineConfig(**ec), device="cpu")
+    oj = ej.generate(_reqs(jeng, prompts, 6))
+    ot = et.generate(_reqs(teng, prompts, 6))
+    assert _tok(ot) == _tok(oj)
 
 
 def test_codec_cuts_a_group_past_the_kernel_limit():

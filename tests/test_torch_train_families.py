@@ -270,8 +270,8 @@ def test_eval_step_matches_reference(arch):
     flips at a bin edge moves the loss by far less)."""
     cfg_j, cfg_t = jcb.get_smoke(arch), tcb.get_smoke(arch)
     batch = _batch(cfg_t, seed=5)
-    want = jsteps.eval_step(cfg_j, _jo())(_jax_params(arch), _jbatch(batch),
-                                          4)
+    want = jax.jit(jsteps.eval_step(cfg_j, _jo()), static_argnums=2)(
+        _jax_params(arch), _jbatch(batch), 4)
     pt = convert.params_from_numpy(_np_tree(_jax_params(arch)), device="cpu")
     got = tsteps.eval_step(cfg_t, _to())(pt, _tbatch(batch), 4)
     assert np.isfinite(float(got))
@@ -327,14 +327,17 @@ def test_train_batch_feeds_the_reference_trainers_extra_inputs():
 
 
 def test_moe_training_still_raises():
-    """MoE training is not ported: ``loss_fn`` raises NotImplementedError
-    naming the family."""
+    """MoE training is ported (test_torch_moe_train.py): ``loss_fn`` gives
+    kimi_k2 a finite loss.  What still raises is ``lm.forward_train`` on a
+    family it does not train, naming the family."""
+    from repro_torch.models import lm as tlm
     cfg = tcb.get_smoke("kimi_k2_1t_a32b")
     pt = tmodel.init(0, cfg, device="cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
              "targets": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="'moe'.*MoE"):
-        tmodel.loss_fn(pt, cfg, _to(), batch)
+    assert torch.isfinite(tmodel.loss_fn(pt, cfg, _to(), batch))
+    with pytest.raises(NotImplementedError, match="'ssm'"):
+        tlm.forward_train(pt, tcb.get_smoke("mamba2_1_3b"), _to(), batch)
 
 
 def test_whisper_grad_norm_overflows_on_zero_frames_in_both_frameworks():
