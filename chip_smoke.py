@@ -35,7 +35,41 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      for K and one for V per layer; ``kquantile_dequantize`` decodes the
      embedding rows of the Gaussian engines; ``kquantile_quantize`` codes
      the weights at load and runs no more in the stream);
-     checks that the dense bf16 LM head gives f32 logits;
+     checks that the dense bf16 LM head gives f32 logits; writes the W4
+     engine's metrics snapshot and Chrome trace as the serving CLI's
+     ``--metrics-out`` / ``--trace-out`` do (a temporary directory) and
+     runs ``analysis/traceview`` over them (no problem allowed; its cost
+     attribution printed);
+  4L. long context, right after the W4 engine and on its coded weights
+     (the library's default ``ModelOpts``: chunked attention from 8,192
+     rows in KV chunks of 1,024): an engine with the prefix cache off (so
+     admission is the whole prompt's ``forward_prefill``), one prompt a
+     prefill and ``max_len`` 32,832, serving prompts of 8,192, 16,000 and
+     32,000 tokens (buckets 8,192, 16,384 and 32,768 rows) 32 greedy tokens
+     each, every launch counted exactly (``qmatmul`` 7 x L a call and a
+     step, ``paged_quant_attention`` and ``kv_append`` L a step over up to
+     513 pages a sequence, ``kquantile_quantize`` / ``_dequantize`` L a
+     prefill for its K/V, ``kquantile_dequantize`` once a call for the
+     embedding rows); the prefill time by bucket, TTFT, ITL, the peak
+     memory beside the reckoning, a decode step profiled, traceview over
+     its artifacts; the 16,000-token request again with the plain versions
+     (greedy tokens equal or a near-tie, logits within ``TOL_LOGITS_REL``,
+     a wrong-code control outside it); chunked against whole attention on
+     an 8,192-row prefill of granite_3_8b, then (after the three engines)
+     of gemma2_9b and zamba2_2_7b at full width and depth (the first
+     attention's K/V bit-equal, the next layer's within
+     ``TOL_CHUNKED_KV1_REL``; last logits within ``TOL_CHUNKED_LOGITS_REL``,
+     the greedy token equal or a near-tie, every layer's K/V within
+     ``TOL_CHUNKED_KV_REL``; gemma2's stack grows a bf16 difference past
+     those, so its whole stack is held in f32 with the plain versions and
+     dense K/V, within ``TOL_CHUNKED_F32_REL``); after phase 6's trainer,
+     one f32 step of
+     granite_3_8b (2 layers, batch 1 x 8,192, all NOISE) chunked against
+     whole on the same noise, then an AdamW step, ``uniq_noise`` launches
+     counted; and one step under ``UniqConfig(dist="empirical")`` (7 + 7
+     ``uniq_noise`` launches for the stacked layer weights; the embedding
+     and head, empirical, get a zero loss gradient and move by weight
+     decay alone);
   4c. (run after 5e) the MoE family at full width, depth ``--moe-layers``
      (default 4):
      kimi_k2_1t_a32b, then llama4_maverick_400b_a17b, W4 (Gaussian) + kv8,
@@ -172,7 +206,9 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      odd N of whisper's W8 head among them; ``uniq_noise_fwd`` / ``_bwd``
      also at mamba2's and zamba2's ``in_proj`` stacks and phase 6c's
      expert stacks; ``qmatmul_lut_experts`` at kimi_k2's ``eg`` decode and
-     256-token shapes), and prints the ``kernels`` JSON line;
+     256-token shapes; ``qmatmul`` at a 16,384-row prefill and
+     ``paged_quant_attention`` over 16,384 and 32,768 rows, phase 4L's),
+     and prints the ``kernels`` JSON line;
   8. prints ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--layers N`` cuts the serving depth (never the width; the closed batch
@@ -184,6 +220,7 @@ body's splits, beside the CUDA-core body) at the
 serving shapes, holds ``qmatmul_a8`` and its plain version against the
 exact sum, and stops (``--sweep attention``: the attention part alone;
 ``--sweep codec``: phase 7's codec rows alone);
+``--long`` runs phase 4L alone (on a fresh granite load) and stops;
 ``--profile`` profiles an engine run (host by cProfile, device by
 torch.profiler), counts the device operations of one decode step with the
 fused KV append and with the eager append it replaced, of one prefill-chunk
@@ -204,6 +241,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -218,6 +256,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch import convert                               # noqa: E402
+from repro_torch.analysis import traceview                    # noqa: E402
 from repro_torch import tree as tree_lib                       # noqa: E402
 from repro_torch.cnn import cnn as cnn_lib                    # noqa: E402
 from repro_torch.cnn.train import CNNTrainer                  # noqa: E402
@@ -2003,7 +2042,8 @@ CODECS = ("kquantile_quantize", "kquantile_dequantize",
           "kquantile_dequantize_paged", "kv_append")
 
 
-def engine_phase(cfg, seed: int, new_tokens: int, mode: dict):
+def engine_phase(cfg, seed: int, new_tokens: int, mode: dict,
+                 art_dir=None):
     say(f"[engine] {mode['name']}: granite_3_8b at full width, depth "
         f"{cfg.n_layers} layers (d_model {cfg.d_model}, {cfg.n_heads} heads, "
         f"{cfg.n_kv_heads} KV heads, head_dim {cfg.head_dim}, d_ff "
@@ -2099,6 +2139,10 @@ def engine_phase(cfg, seed: int, new_tokens: int, mode: dict):
         f"{new / wall:.1f} tok/s; TTFT p50 {ttft['p50']:.0f} ms p95 "
         f"{ttft['p95']:.0f} ms; ITL p50 {itl['p50']:.1f} ms p95 "
         f"{itl['p95']:.1f} ms")
+    if art_dir:
+        write_artifacts(eng, art_dir, "phase4", {
+            "w_bits": 4, "a_bits": mode["a_bits"], "dist": mode["w_dist"],
+            "smoke": False})
     if mode["matmul"] == "qmatmul":
         check_head_logits(params, cfg, opts)
     return params, opts, outs, counts
@@ -2300,6 +2344,542 @@ def check_head_logits(params, cfg, opts):
         f"rounding of them would be {rounding:.2e} off")
     if logits.dtype != torch.float32 or err > tol:
         raise SystemExit("the LM head's logits are not the f32 sums")
+
+
+# --------------------------------------------------------------------------
+# Phase 4L: long context (chunked attention from 8,192 rows)
+# --------------------------------------------------------------------------
+
+# prompt lengths: the engine pads each to its power-of-two bucket, 8,192,
+# 16,384 and 32,768 rows (prefill_32k's length, at batch 1); every
+# admission is one whole-prompt forward_prefill, chunked from
+# ModelOpts.attn_chunked_min_len (8,192) on in KV chunks of kv_chunk (1,024)
+LONG_PROMPTS = (8192, 16000, 32000)
+LONG_PAGE = 64
+# a 32,768-row bucket and the new tokens in whole pages: 513 pages a slot
+LONG_MAX_LEN = 32768 + LONG_PAGE
+# chunked against whole attention at 8,192 rows, bf16 serving: the whole
+# path rounds its softmax probabilities to bf16 before P.V, the chunked one
+# keeps them f32 to the end (the reference's math on both sides); that
+# rounding through the stack moves the last logits as the kernels-vs-plain
+# rounding does, so the same limit applies (of the largest logit)
+TOL_CHUNKED_LOGITS_REL = TOL_LOGITS_REL
+# the K/V past the first attention (whose own K/V precede any attention and
+# must be bit-equal): their inputs carry that rounding too, so their codes
+# move by whole bins wherever it moves a value (kv8 bins are ~0.01 sigma
+# wide near the mean, ~0.35 sigma at the tails); held by value instead,
+# dequantized, as a layer's ||diff|| / ||value|| (a tail bin's flip alone
+# would be ~12 % of the largest |value|), to the logits' limit
+TOL_CHUNKED_KV_REL = TOL_LOGITS_REL
+# the layer after the first attention: its K/V differ by one attention's
+# bf16 rounding of the probabilities (2.5e-3 of the attention's output by
+# norm on random inputs of gemma2's shape) carried through one layer, and
+# by the kv8 codes that moves across bin edges (1.1-1.2 % by norm at the
+# smoke configs)
+TOL_CHUNKED_KV1_REL = 0.03
+# f32 with the plain versions: the two paths sum the same f32 terms in
+# another order (3.5e-7 of one attention's output by norm); the stack may
+# amplify that a hundredfold and stay far below this
+TOL_CHUNKED_F32_REL = 1e-3
+# training at 8,192 rows, f32: chunked vs whole attention on the same
+# noise; the online softmax sums the same terms in another order
+TOL_LONG_TRAIN_LOSS_REL = 1e-5
+TOL_LONG_TRAIN_GRAD_REL = 1e-4
+LONG_TRAIN_LAYERS = 2
+LONG_TRAIN_ROWS = 8192
+
+
+def long_reckoning(cfg, S, kv_chunk, pool_bytes):
+    """The memory the chunked path should need at S rows, B = 1 (GB): one
+    chunk's f32 scores (and as much again for its exponentials), the f32
+    accumulator, the whole path's scores at 8,192 rows, the pool."""
+    H, D = cfg.n_heads, cfg.head_dim
+    return {"chunk_scores": H * S * kv_chunk * 4 / 1e9,
+            "accumulator": H * S * D * 4 / 1e9,
+            "whole_scores_8192": H * 8192 * 8192 * 4 / 1e9,
+            "pool": pool_bytes / 1e9}
+
+
+def long_requests(cfg, seed: int, new_tokens: int):
+    rng = np.random.default_rng(seed + 40)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=n).astype(
+        np.int32), sampling=SamplingParams(max_new_tokens=new_tokens,
+                                           seed=2000 + i))
+            for i, n in enumerate(LONG_PROMPTS)]
+
+
+def long_engine(params, cfg, opts):
+    """The long-context engine: prefix cache off (admission is the whole
+    prompt's forward_prefill), one prompt a prefill, a slot per request."""
+    return Engine(params, cfg, opts, EngineConfig(
+        max_slots=len(LONG_PROMPTS), max_len=LONG_MAX_LEN, prefill_batch=1,
+        page_size=LONG_PAGE, kv_bits=8, prefix_cache=False), device=DEV)
+
+
+def long_context_phase(params, cfg, seed: int, new_tokens: int,
+                       art_dir: str):
+    """Phase 4L on phase 4's coded granite weights: the three long prompts
+    through the engine with every launch counted, TTFT / ITL / peak memory
+    beside the reckoning, a decode step profiled, the 16,000-token request
+    against the plain versions (with a wrong-code control), the engine's
+    artifacts through traceview, then chunked against whole attention at
+    8,192 rows.  Returns the launch counts of the counted run."""
+    t_phase = time.perf_counter()
+    opts = lm.ModelOpts(compute_dtype=torch.bfloat16)
+    L = cfg.n_layers
+    say(f"[long] granite_3_8b at full width, {L} layers, W4 + kv8, bf16, "
+        f"the library's default ModelOpts (chunked attention from "
+        f"{opts.attn_chunked_min_len} rows, kv_chunk {opts.kv_chunk}); "
+        f"prompts {LONG_PROMPTS} tokens, {new_tokens} greedy new tokens "
+        f"each; max_len {LONG_MAX_LEN} ({LONG_MAX_LEN // LONG_PAGE} pages "
+        f"of {LONG_PAGE}), prefix cache off")
+    # warm-up outside the counted run (first launches, allocator)
+    warm = long_engine(params, cfg, opts)
+    warm.generate([Request(uid=-1, prompt=np.arange(70, dtype=np.int32),
+                           sampling=SamplingParams(max_new_tokens=2))])
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = long_engine(params, cfg, opts)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = long_requests(cfg, seed, new_tokens)
+    rows_k = {}
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with recording_logits(rows_k):
+        outs = eng.generate(reqs)
+    sync()
+    wall = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps, calls = eng.n_decode_steps, eng.n_prefill_calls
+    for o in outs:
+        if o.finish_reason != "length" or len(o.token_ids) != new_tokens \
+                or not all(0 <= t < cfg.vocab for t in o.token_ids):
+            raise SystemExit(f"long request {o.uid} did not complete: "
+                             f"{o.finish_reason}, {len(o.token_ids)} tokens")
+    want = {"qmatmul": 7 * L * (steps + calls),
+            "paged_quant_attention": L * steps, "kv_append": L * steps,
+            "kquantile_quantize": L * calls,
+            "kquantile_dequantize": L * calls + steps + calls}
+    say(f"[long] {len(outs)} requests, {calls} prefill calls, {steps} decode "
+        f"steps in {wall:.1f}s; launches: " + ", ".join(
+            f"{k} {counts[k]} (want {v})" for k, v in want.items())
+        + f"; the K/V of each prefill coded by kquantile_quantize and read "
+        f"back by kquantile_dequantize once a layer, the embedding rows "
+        f"by kquantile_dequantize once a call; kv_append and "
+        f"paged_quant_attention once a layer a decode step")
+    if calls != len(LONG_PROMPTS) or any(
+            counts[k] != want.get(k, 0) for k in counts):
+        raise SystemExit(f"the long-context path did not go through the "
+                         f"kernels as expected: {counts}")
+    spans = sorted((s.args["bucket"], s.dur) for s in
+                   eng.telemetry.tracer.spans()
+                   if s.name == "prefill" and "bucket" in (s.args or {}))
+    reg = eng.telemetry.registry
+    itl = tele_lib.percentile_summary(reg["itl_s"], scale=1e3)
+    pool = eng.page_bytes * eng.scheduler.total_pages
+    rk = long_reckoning(cfg, 32768, opts.kv_chunk, pool)
+    say("[long] prefill call by bucket (host clock to the first token): "
+        + ", ".join(f"{b} rows {d:.2f} s" for b, d in spans)
+        + "; TTFT by prompt (arrival to first token, the later prompts "
+        "queued behind the earlier prefills): " + ", ".join(
+            f"{len(o.prompt)} tokens {o.ttft_s:.2f} s" for o in outs)
+        + f"; ITL p50 {itl['p50']:.1f} ms p95 {itl['p95']:.1f} ms over "
+        f"{steps} decode steps; {CARD}")
+    say(f"[long] memory: {base / 2**30:.2f} GiB allocated before the run "
+        f"(the coded weights and the {pool / 1e9:.2f} GB kv8 pool, "
+        f"{eng.page_bytes / LONG_PAGE / 1e3:.1f} KB a row), peak "
+        f"{peak / 2**30:.2f} GiB, {(peak - base) / 1e9:.2f} GB above it; "
+        f"reckoned at 32,768 rows: one chunk's f32 scores "
+        f"{rk['chunk_scores']:.2f} GB and as much again for their "
+        f"exponentials, the accumulator {rk['accumulator']:.2f} GB (whole "
+        f"attention at 8,192 rows would hold {rk['whole_scores_8192']:.2f} "
+        f"GB of scores)")
+    # one decode step at the three requests' lengths, from the engine's pool
+    n_pages = LONG_MAX_LEN // LONG_PAGE
+    tables = torch.arange(1, 1 + len(outs) * n_pages, device=DEV,
+                          dtype=torch.int32).reshape(len(outs), n_pages)
+    pos = torch.tensor([len(o.prompt) + new_tokens - 1 for o in outs],
+                       device=DEV)
+    toks = torch.tensor([[o.token_ids[-1]] for o in outs], device=DEV)
+    o8 = dataclasses.replace(opts, kv_bits=8)
+    profile_step(lambda: model.decode(params, cfg, o8, eng._cache, toks, pos,
+                                      block_tables=tables),
+                 f"one decode step (B={len(outs)}, rows "
+                 f"{pos.tolist()}, {(pos // LONG_PAGE + 1).tolist()} pages a "
+                 f"sequence, {L} layers)", "long")
+    write_artifacts(eng, art_dir, "long", {"w_bits": 4, "a_bits": 32,
+                                           "dist": "gaussian",
+                                           "smoke": False})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    long_plain_check(params, cfg, outs, rows_k, new_tokens)
+    chunked_vs_whole(params, cfg, "granite_3_8b")
+    say(f"[long] phase 4L engine and checks took "
+        f"{time.perf_counter() - t_phase:.0f}s")
+    return counts
+
+
+def long_plain_check(params, cfg, outs, rows_k, new_tokens):
+    """The 16,000-token request again through an engine with the plain
+    versions forced: its greedy tokens equal the kernel run's (a differing
+    token must be a near-tie), its logits within TOL_LOGITS_REL of the
+    largest; the control: the plain prefill with every coded matmul weight
+    one level off lands outside that limit."""
+    got = next(o for o in outs if len(o.prompt) == LONG_PROMPTS[1])
+    req = Request(uid=got.uid, prompt=got.prompt,
+                  sampling=SamplingParams(max_new_tokens=new_tokens,
+                                          seed=2000 + got.uid))
+    plain = lm.ModelOpts(compute_dtype=torch.bfloat16, use_kernels=False)
+    rows_p = {}
+    before = kops.launch_counts()
+    t0 = time.perf_counter()
+    with recording_logits(rows_p):
+        (out_p,) = long_engine(params, cfg, plain).generate([req])
+    sync()
+    wall = time.perf_counter() - t0
+    if kops.launch_counts() != before:
+        raise SystemExit("use_kernels=False launched a kernel")
+    diff = [j for j, (a, b) in enumerate(zip(got.token_ids, out_p.token_ids))
+            if a != b]
+    last = diff[0] if diff else new_tokens - 1
+    err = big = 0.0
+    for j in range(last + 1):
+        key = (req.sampling.seed, len(req.prompt) - 1 + j)
+        err = max(err, (rows_k[key] - rows_p[key]).abs().max().item())
+        big = max(big, rows_p[key].abs().max().item())
+    tol = TOL_LOGITS_REL * big
+    first_key = (req.sampling.seed, len(req.prompt) - 1)
+    first_err = (rows_k[first_key] - rows_p[first_key]).abs().max().item()
+    say(f"[long] {len(req.prompt)}-token request, kernels vs plain versions "
+        f"(plain run {wall:.1f}s): greedy tokens equal "
+        f"{new_tokens - len(diff)}/{new_tokens}"
+        + (f" (first difference at token {diff[0]})" if diff else "")
+        + f"; last-position logits at the prefill max abs err "
+        f"{first_err:.4f}, up to the first differing token {err:.4f} "
+        f"({err / big * 100:.2f} % of max |logit|; limit {tol:.4f} = "
+        f"{TOL_LOGITS_REL} x max |logit|)")
+    if err > tol:
+        raise SystemExit("the long request's logits disagree with the plain "
+                         "versions")
+    if diff:
+        key = (req.sampling.seed, len(req.prompt) - 1 + diff[0])
+        check_near_tie(f"{len(req.prompt)}-token request token {diff[0]}",
+                       rows_k[key], rows_p[key], err)
+    # the control as the engine ran it: the prompt right-padded to its
+    # bucket (16,384 rows; 16,000 is no multiple of kv_chunk, and the
+    # single-chunk fallback would hold 33 GB of scores), the last real row
+    coded = _coded_matmul_weights(params)
+    n = len(req.prompt)
+    toks = torch.zeros((1, 1 << (n - 1).bit_length()), dtype=torch.int64,
+                       device=DEV)
+    toks[0, :n] = torch.from_numpy(req.prompt.astype(np.int64))
+    for w in coded:
+        w["q_codes"].bitwise_xor_(0x11)
+    try:
+        wrong, _ = model.prefill(
+            params, cfg, dataclasses.replace(plain, kv_bits=8),
+            {"tokens": toks}, last_idx=torch.tensor([n - 1], device=DEV))
+    finally:
+        for w in coded:
+            w["q_codes"].bitwise_xor_(0x11)
+    wrong_err = (wrong[0].float() - rows_p[first_key]).abs().max().item()
+    big0 = rows_p[first_key].abs().max().item()
+    say(f"[long] control: the plain prefill of that prompt with all "
+        f"{len(coded)} coded matmul leaves one level off moves its logits by "
+        f"{wrong_err:.4f} ({wrong_err / big0 * 100:.2f} % of max |logit|; "
+        f"the limit {TOL_LOGITS_REL * big0:.4f} must sit below it)")
+    if wrong_err <= TOL_LOGITS_REL * big0:
+        raise SystemExit("the long request's logit limit cannot see a kernel "
+                         "that decodes its codes one level off")
+
+
+def chunked_vs_whole(params, cfg, arch: str, S: int = 8192,
+                     f32: bool = False, gate_end: bool = True):
+    """``model.prefill`` of one S-row prompt (B = 1) with chunked attention
+    (the library's default ModelOpts) and with whole attention
+    (``attn_chunked_min_len`` past S): bf16 with the kernels and the kv8
+    codes, or (``f32``) f32 with the plain versions and dense K/V, where
+    the two differ by the order of f32 sums alone (a kv8 code that this
+    moves across a bin edge would move its key by up to 0.35 sigma).  The first attention's K/V must be bit-equal and the next
+    layer's (one attention's rounding apart) within TOL_CHUNKED_KV1_REL;
+    with ``gate_end`` the last logits within TOL_CHUNKED_LOGITS_REL (f32:
+    TOL_CHUNKED_F32_REL), every layer's K/V as close, the greedy token
+    equal or a near-tie.  Prints each layer's K/V distance and both
+    peaks."""
+    toks = torch.tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, size=(1, S)), device=DEV)
+    kv_bits = 8 if cfg.family in ("dense", "moe", "vlm") and not f32 \
+        else 16
+    chunked = lm.ModelOpts(compute_dtype=torch.float32 if f32
+                           else torch.bfloat16, kv_bits=kv_bits,
+                           use_kernels=not f32)
+    whole = dataclasses.replace(chunked, attn_chunked_min_len=1 << 30)
+    res = {}
+    for name, o in (("chunked", chunked), ("whole", whole)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, cfg, o, {"tokens": toks})
+        sync()
+        res[name] = (logits[0].float(), cache,
+                     (torch.cuda.max_memory_allocated() - base) / 2**30,
+                     time.perf_counter() - t0)
+    (lc, cc, pc, tc), (lw, cw, pw, tw) = res["chunked"], res["whole"]
+    err = (lc - lw).abs().max().item()
+    big = lw.abs().max().item()
+    tol_rel = TOL_CHUNKED_F32_REL if f32 else TOL_CHUNKED_LOGITS_REL
+    kv_tol = TOL_CHUNKED_F32_REL if f32 else TOL_CHUNKED_KV_REL
+    coded = kv_bits < 16
+    same0 = all(torch.equal(cc[k][0], cw[k][0]) for k in cc)
+    n_l = cc["k_codes" if coded else "k"].shape[0]
+    by_layer, flips = [], []
+    for l in range(n_l):
+        rel = 0.0
+        for n in ("k", "v"):
+            if coded:
+                a, b = (kvc.dequantize_kv(c[f"{n}_codes"][l], c[f"{n}_mu"][l],
+                                          c[f"{n}_sigma"][l], kv_bits)
+                        for c in (cc, cw))
+                if l:
+                    flips.append((cc[f"{n}_codes"][l] != cw[f"{n}_codes"][l])
+                                 .float().mean().item())
+            else:
+                a, b = cc[n][l].float(), cw[n][l].float()
+            rel = max(rel, ((a - b).norm() / b.norm()).item())
+            del a, b
+        by_layer.append(rel)
+    first = ("layer 0's K/V codes and statistics" if coded
+             else "the first shared block's K/V" if cfg.family == "hybrid"
+             else "layer 0's K/V")
+    where = "f32, plain versions" if f32 else "bf16, kernels"
+    say(f"[long] {arch} prefill of {S} rows ({where}), chunked vs whole "
+        f"attention: last logits max abs err {err:.4f} ({err / big * 100:.2f}"
+        f" % of max |logit|; limit {tol_rel * 100:g} %"
+        + ("" if gate_end else ", not held here: the f32 run holds the stack")
+        + f"), greedy "
+        f"{lc.argmax().item()} / {lw.argmax().item()}; {first} bit-equal: "
+        f"{same0}; each layer's K/V ||diff|| / ||value|| in %: "
+        + " ".join(f"{r * 100:.2g}" for r in by_layer)
+        + f" (limit {kv_tol * 100:g} %"
+        + ("" if gate_end else f" for all, {TOL_CHUNKED_KV1_REL * 100:g} % "
+           f"for the layer after the first attention") + ")"
+        + (f"; codes differing in {min(flips) * 100:.2f}-"
+           f"{max(flips) * 100:.2f} % a layer past layer 0" if flips else "")
+        + f"; {tc:.2f} s / {tw:.2f} s, peak above the weights {pc:.2f} / "
+        f"{pw:.2f} GiB; {CARD}")
+    ok = same0 and torch.isfinite(lc).all() and (
+        by_layer[min(1, n_l - 1)] <= TOL_CHUNKED_KV1_REL if not f32 else True)
+    if gate_end:
+        ok = ok and err <= tol_rel * big and max(by_layer) <= kv_tol
+    if not ok:
+        raise SystemExit(f"{arch}: chunked and whole attention disagree")
+    if gate_end and lc.argmax() != lw.argmax():
+        check_near_tie(f"{arch} {S}-row prefill", lc, lw, err,
+                       ("chunked", "whole"))
+    del res, cc, cw
+
+
+def long_family_checks(seed: int):
+    """Chunked against whole attention at 8,192 rows in gemma2_9b (its
+    4,096-row sliding window crosses chunk edges, its logit cap of 50 acts
+    inside each chunk) and in zamba2_2_7b's shared block, each at full
+    width and depth, W4, drawn and coded on the card, freed before the
+    next.  gemma2's random-weight stack carries a difference of its first
+    layers on and grows it layer by layer (PR 28's run: its K/V 1.2 % apart
+    after the first attention, 24 % after 42 layers, the last logits 23.6
+    % of the largest, from the whole path's bf16 probabilities and the kv8
+    codes they move), so its bf16 run holds the first attention's
+    consequences and an f32 run with dense K/V (the plain versions) holds
+    the whole stack."""
+    for arch in ("gemma2_9b", "zamba2_2_7b"):
+        cfg = cb.get(arch)
+        t0 = time.perf_counter()
+        params = model.init(seed, cfg, device=DEV, w_bits=4,
+                            dense_dtype=torch.bfloat16)
+        sync()
+        say(f"[long] {arch} at full width and depth ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.n_heads} heads, window "
+            f"{cfg.sliding_window}, logit cap {cfg.attn_logit_cap}) drawn "
+            f"and coded W4 in {time.perf_counter() - t0:.1f}s")
+        if arch == "gemma2_9b":
+            chunked_vs_whole(params, cfg, arch, gate_end=False)
+            chunked_vs_whole(params, cfg, arch, f32=True)
+        else:
+            chunked_vs_whole(params, cfg, arch)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def long_train_check(seed: int):
+    """granite_3_8b at full width, LONG_TRAIN_LAYERS layers, f32, batch 1 x
+    8,192, AdamW, W4, every layer NOISE, the library's default ModelOpts
+    (chunked attention from 8,192 rows, each layer recomputed in the
+    backward; the trainer CLI, as the reference's, never chunks): one
+    step's loss and gradients with chunked attention and with whole
+    attention on the same noise (within TOL_LONG_TRAIN_*), each side's
+    uniq_noise launches exact, both peaks; then the chunked step through
+    the trainer (AdamW), counted.  Returns the launch counts."""
+    cfg, _, tc, data = train_setup(
+        LONG_TRAIN_LAYERS, 1, seed,
+        extra=["--batch", "1", "--seq-len", str(LONG_TRAIN_ROWS),
+               "--n-blocks", "1"])
+    opts = lm.ModelOpts(compute_dtype=torch.float32)
+    state = train_steps.init_state(seed, cfg, tc, device=DEV)
+    batch = train_cli.train_batch(cfg, data, 0, DEV)
+    modes = torch.full((cfg.n_layers,), NOISE, dtype=torch.int32)
+    whole = dataclasses.replace(opts, attn_chunked_min_len=1 << 30)
+    total = {"uniq_noise_fwd": 0, "uniq_noise_bwd": 0}
+    launches = {}
+
+    def side(name, o):
+        def fn():
+            kops.reset_launch_counts()
+            out = train_steps.loss_and_grads(
+                state["params"], batch, modes, leaf_noise(seed, 0), cfg, o,
+                tc)
+            sync()
+            c = kops.launch_counts()
+            launches[name] = (c["uniq_noise_fwd"], c["uniq_noise_bwd"])
+            for k in total:
+                total[k] += c[k]
+            return out
+        return fn
+
+    t0 = time.perf_counter()
+    la, lb, worst, path, peaks = compare_loss_grads(
+        state, (("chunked", side("chunked", opts)),
+                ("whole", side("whole", whole))))
+    loss_rel = abs(la - lb) / abs(lb)
+    say(f"[long] training step, granite_3_8b full width, {cfg.n_layers} "
+        f"layers, f32, batch {data.global_batch} x {data.seq_len}, W4 all "
+        f"NOISE, chunked vs whole attention on the same noise: loss "
+        f"{la:.6f} vs {lb:.6f} (rel {loss_rel:.1e}, limit "
+        f"{TOL_LONG_TRAIN_LOSS_REL}); worst gradient leaf ({path}) max "
+        f"|diff| / max |grad| {worst:.1e} (limit {TOL_LONG_TRAIN_GRAD_REL}); "
+        f"uniq_noise_fwd / _bwd launches {launches} (want "
+        f"{TRAIN_LEAVES} / {TRAIN_LEAVES} each); peak {peaks['chunked']:.2f}"
+        f" / {peaks['whole']:.2f} GiB ({time.perf_counter() - t0:.1f}s)")
+    if loss_rel > TOL_LONG_TRAIN_LOSS_REL or worst > TOL_LONG_TRAIN_GRAD_REL \
+            or not math.isfinite(la) or any(
+                v != (TRAIN_LEAVES, TRAIN_LEAVES) for v in launches.values()):
+        raise SystemExit("training at 8,192 rows: chunked and whole "
+                         "attention disagree")
+    step_fn, _ = train_steps.make_train_step(cfg, opts, tc)
+    kops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch, seed)
+    sync()
+    c = kops.launch_counts()
+    say(f"[long] one AdamW train step at {data.seq_len} rows, chunked: loss "
+        f"{m['loss'].item():.6f}, {time.perf_counter() - t0:.2f}s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, uniq_noise "
+        f"launches {c['uniq_noise_fwd']} / {c['uniq_noise_bwd']}; {CARD}")
+    if (c["uniq_noise_fwd"], c["uniq_noise_bwd"]) != (TRAIN_LEAVES,
+                                                     TRAIN_LEAVES) \
+            or not _all_finite(state["params"]):
+        raise SystemExit("the chunked train step went wrong")
+    for k in total:
+        total[k] += c[k]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def empirical_train_check(seed: int):
+    """One step of granite_3_8b at full width, 2 layers, f32, every block
+    NOISE, ``UniqConfig(dist="empirical", per_channel=False)``: the stacked
+    layer weights stay Gaussian (7 ``uniq_noise_fwd`` and 7 ``_bwd``), the
+    embedding and the head go empirical (no kernel: a searchsorted CDF),
+    so their loss gradient is zero and the step moves them by weight decay
+    alone; the loss finite.  Returns the launch counts."""
+    cfg, opts, tc, data = train_setup(2, 1, seed, extra=["--n-blocks", "1"])
+    tc = dataclasses.replace(tc, uniq=dataclasses.replace(
+        tc.uniq, dist="empirical", per_channel=False))
+    state = train_steps.init_state(seed, cfg, tc, device=DEV)
+    batch = train_cli.train_batch(cfg, data, 0, DEV)
+    modes = torch.full((cfg.n_layers,), NOISE, dtype=torch.int32)
+    kops.reset_launch_counts()
+    loss, grads = train_steps.loss_and_grads(
+        state["params"], batch, modes, leaf_noise(seed, 0), cfg, opts, tc)
+    sync()
+    c1 = kops.launch_counts()
+    zero = {p: float(grads[p].abs().max()) for p in ("embed", "lm_head")}
+    layer = float(_at(grads, "layers/wq").abs().max())
+    del grads
+    probes = {p: state["params"][p].clone() for p in ("embed", "lm_head")}
+    step_fn, _ = train_steps.make_train_step(cfg, opts, tc)
+    kops.reset_launch_counts()
+    state, m = step_fn(state, batch, seed)
+    sync()
+    c2 = kops.launch_counts()
+    lr, wd = float(m["lr"]), tc.optim.weight_decay
+    beyond = {p: float((state["params"][p] - (o - lr * wd * o)).abs().max())
+              for p, o in probes.items()}
+    moved = {p: float((state["params"][p] - o).abs().max())
+             for p, o in probes.items()}
+    want = TRAIN_LEAVES - 2
+    say(f"[train] empirical step: granite_3_8b full width, {cfg.n_layers} "
+        f"layers, f32, batch {data.global_batch} x {data.seq_len}, every "
+        f"block NOISE, dist empirical, per-tensor statistics: loss "
+        f"{loss.item():.6f}; uniq_noise_fwd / _bwd launches "
+        f"{c1['uniq_noise_fwd']} / {c1['uniq_noise_bwd']} (gradient), {c2['uniq_noise_fwd']} / "
+        f"{c2['uniq_noise_bwd']} (the step; want {want} / {want} each: the "
+        f"stacked layer weights); max |loss gradient| embedding "
+        f"{zero['embed']:.1e}, head {zero['lm_head']:.1e} (want 0), a layer "
+        f"weight's {layer:.1e}; the step moved them by "
+        f"{moved['embed']:.2e} / {moved['lm_head']:.2e}, of which beyond "
+        f"weight decay {beyond['embed']:.1e} / {beyond['lm_head']:.1e}")
+    if not math.isfinite(loss.item()) or any(zero.values()) \
+            or layer <= 0.0 or any(
+                (c["uniq_noise_fwd"], c["uniq_noise_bwd"]) != (want, want)
+                for c in (c1, c2)) \
+            or any(v > 1e-6 * float(probes[p].abs().max())
+                   for p, v in beyond.items()):
+        raise SystemExit("the empirical train step went wrong")
+    del state, probes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: c1[k] + c2[k] for k in ("uniq_noise_fwd", "uniq_noise_bwd")}
+
+
+def write_artifacts(eng, art_dir: str, tag: str, meta: dict):
+    """The engine's metrics snapshot and Chrome trace as the serving CLI's
+    --metrics-out / --trace-out write them, then traceview over both: no
+    problem allowed; its attribution printed."""
+    m = os.path.join(art_dir, f"{tag}_metrics.json")
+    t = os.path.join(art_dir, f"{tag}_trace.json")
+    with open(m, "w") as fh:
+        json.dump(eng.metrics_snapshot(meta), fh, indent=2, sort_keys=True)
+    with open(t, "w") as fh:
+        json.dump(eng.chrome_trace(), fh)
+    with open(m) as fm, open(t) as ft:
+        metrics, trace = json.load(fm), json.load(ft)
+    problems = traceview.validate_chrome_trace(trace) + \
+        traceview.require_nonzero(metrics, TRACEVIEW_NONZERO)
+    att = traceview.attribution(metrics)
+    s = traceview.trace_summary(trace)
+    say(f"[traceview] {tag}: {s['spans']} spans, {s['instants']} instants, "
+        f"{s['lanes']} lanes, {s['dropped']} dropped; problems: "
+        f"{problems or 'none'}")
+    for line in traceview.format_attribution(att).splitlines():
+        say(f"[traceview] {tag} {line}")
+    if problems:
+        raise SystemExit(f"traceview found problems in the {tag} engine's "
+                         f"artifacts")
+
+
+TRACEVIEW_NONZERO = ["decode_steps", "tokens_decoded", "prefill_tokens",
+                     "ttft_s", "itl_s", "e2e_latency_s"]
 
 
 # --------------------------------------------------------------------------
@@ -4592,8 +5172,9 @@ def gathered_kv(t, kv_bits, ctx_rows):
             one(t["v_codes"], t["v_mu"], t["v_sigma"]))
 
 
-def time_attention(gen, kv_bits, ctx_rows):
-    g = dict(B=16, H=32, KV=8, D=128, page=64, n_pages=32)
+def time_attention(gen, kv_bits, ctx_rows, B=16):
+    g = dict(B=B, H=32, KV=8, D=128, page=64,
+             n_pages=max(32, -(-ctx_rows // 64)))
     S = g["page"] * g["n_pages"]
     sets = [make_attn_inputs(gen, kv_bits=kv_bits, q_dtype=torch.bfloat16,
                              q_pos=[min(ctx_rows, S) - 1] * g["B"], **g)
@@ -4945,6 +5526,28 @@ FAMILY_UNIQ_TIMED = ((48, 2048, 8512), (54, 2560, 10448))
 MOE_UNIQ_TIMED = ((1, 16 * 7168, 2048), (1, 8 * 5120, 8192))
 
 
+def time_long_rows(gen, rows):
+    """Phase 7's rows at phase 4L's shapes."""
+    # phase 4L's prefill rows: a 16,384-row bucket through granite's FFN
+    r = time_qmatmul(gen, 16384, 4096, 12800, 4)
+    rows[("qmatmul", 4, 16384, 4096, 12800)] = r
+    say(f"[time] qmatmul W4 bf16 M=16384 K=4096 N=12800 (phase 4L's "
+        f"16,384-row prefill): kernel {r['ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.1f} "
+        f"MB), plain {r['plain_ms']:.3f} ms, torch.matmul on dequantized "
+        f"bf16 {r['library_ms']:.4f} ms; {CARD}")
+    # phase 4L's decode: B = 4 sequences of 16,384 and 32,768 rows
+    for ctx in (16384, 32768):
+        r = time_attention(gen, 8, ctx, B=4)
+        rows[("attn", 8, ctx)] = r
+        say(f"[time] paged_quant_attention kv8 B=4 H=32 KV=8 D=128 page=64 "
+            f"ctx={ctx} ({ctx // 64} pages a sequence; {r['route']} body): "
+            f"kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), plain "
+            f"{r['plain_ms']:.3f} ms, SDPA on the gathered bf16 K/V "
+            f"{r['library_ms']:.4f} ms; {CARD}")
+
+
 def timing_phase(gen, counts, errs):
     rows = {}
     for bits in (4, 8):
@@ -4962,6 +5565,7 @@ def timing_phase(gen, counts, errs):
                 f"{r['plain_ms']:.3f} ms, torch.matmul on dequantized bf16 "
                 f"{r['library_ms']:.4f} ms; host enqueue "
                 f"{r['host_us']:.0f} us per call")
+    time_long_rows(gen, rows)
     for what, K, N, twin in SSM_QMM_TIMED:
         for bits in ((4, 8) if what == "mamba2 LM head" else (4,)):
             r = time_qmatmul(gen, 4, K, N, bits)
@@ -5107,6 +5711,7 @@ def timing_phase(gen, counts, errs):
         entry("qmatmul", "src/repro_torch/kernels/csrc/qmatmul.cu",
               "src/repro/kernels/qmatmul.py:182", q,
               prefill_m256=rows[("qmatmul", 4, 256, 4096, 12800)],
+              prefill_m16384=rows[("qmatmul", 4, 16384, 4096, 12800)],
               mamba2_in_proj_m4=rows[("qmatmul", 4, 4, 2048, 8512)],
               zamba2_in_proj_m4=rows[("qmatmul", 4, 4, 2560, 10448)],
               mamba2_head_m4=rows[("qmatmul", 4, 4, 2048, 50280)],
@@ -5116,7 +5721,9 @@ def timing_phase(gen, counts, errs):
               "src/repro_torch/kernels/csrc/paged_attn.cu",
               "src/repro/kernels/paged_attn.py:227", a,
               ctx512=rows[("attn", 8, 512)],
-              kv4_ctx2048=rows[("attn", 4, 2048)]),
+              kv4_ctx2048=rows[("attn", 4, 2048)],
+              b4_ctx16384=rows[("attn", 8, 16384)],
+              b4_ctx32768=rows[("attn", 8, 32768)]),
         entry("uniq_noise_fwd", "src/repro_torch/kernels/csrc/uniq_noise.cu",
               "src/repro/kernels/uniq_noise.py:123", u["fwd"],
               mamba2_in_proj=um["fwd"], zamba2_in_proj=uz["fwd"],
@@ -5517,6 +6124,11 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="build, profile an engine run (host and device), "
                          "then stop")
+    ap.add_argument("--long", action="store_true",
+                    help="build, run phase 4L alone (the long-context engine "
+                         "on a fresh granite load, its chunked-vs-whole and "
+                         "training checks, the empirical train step, its "
+                         "phase 7 rows), then stop")
     ap.add_argument("--ptxas", action="store_true",
                     help="print ptxas' register / shared-memory report")
     args = ap.parse_args(argv)
@@ -5576,6 +6188,25 @@ def main(argv=None) -> int:
         say(card)
         say("profile run: stopped after the profile")
         return 0
+    art = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    if args.long:
+        cfg = dataclasses.replace(cb.get("granite_3_8b"),
+                                  n_layers=args.layers)
+        params = model.init(args.seed, cfg, device=DEV, w_bits=4,
+                            dense_dtype=torch.bfloat16)
+        long_context_phase(params, cfg, args.seed, args.new_tokens, art.name)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        long_family_checks(args.seed)
+        long_train_check(args.seed)
+        empirical_train_check(args.seed)
+        time_long_rows(gen, {})
+        art.cleanup()
+        say(f"[time] long run done at {time.perf_counter() - t_start:.0f}s")
+        say(card)
+        say("long run: stopped after phase 4L")
+        return 0
     errs = {"qmatmul": check_qmatmul(gen, args.quick),
             "paged_quant_attention": check_attention(gen, args.quick)}
     errs["uniq_noise_fwd"], errs["uniq_noise_bwd"] = check_uniq(
@@ -5606,7 +6237,8 @@ def main(argv=None) -> int:
     counts = {c: 0 for c in CODECS}
     for i, mode in enumerate(ENGINE_MODES):
         params, opts, outs, run_counts = engine_phase(
-            cfg, args.seed, args.new_tokens, mode)
+            cfg, args.seed, args.new_tokens, mode,
+            art.name if i == 0 else None)
         plain_phase(params, cfg, opts, outs, args.seed, args.new_tokens,
                     mode)
         counts[mode["matmul"]] = run_counts[mode["matmul"]]
@@ -5615,9 +6247,22 @@ def main(argv=None) -> int:
         if i == 0:
             counts["paged_quant_attention"] = \
                 run_counts["paged_quant_attention"]
+            # phase 4L on the W4 engine's coded weights; its counted run's
+            # launches join the kernels line's
+            say(f"[time] phase 4 (W4) done at "
+                f"{time.perf_counter() - t_start:.0f}s")
+            long_counts = long_context_phase(params, cfg, args.seed,
+                                             args.new_tokens, art.name)
+            for c, n in long_counts.items():
+                if n:
+                    counts[c] = counts.get(c, 0) + n
+            say(f"[time] phase 4L engine done at "
+                f"{time.perf_counter() - t_start:.0f}s")
         del params, opts, outs
         gc.collect()            # an engine holds reference cycles: free its
         torch.cuda.empty_cache()  # pool before the next one is made
+    long_family_checks(args.seed)
+    say(f"[time] phase 4L done at {time.perf_counter() - t_start:.0f}s")
     small_reference_phase(args.seed)
     say(f"[time] phases 1-5 done at {time.perf_counter() - t_start:.0f}s")
     closed_batch_phase(args.seed)
@@ -5650,6 +6295,12 @@ def main(argv=None) -> int:
     train_counts, _ = train_phase(args.seed, args.train_layers,
                                   args.train_steps)
     torch.cuda.empty_cache()
+    # phase 4L's training step at 8,192 rows and the empirical step; their
+    # launches join the LM trainer's
+    for extra in (long_train_check(args.seed),
+                  empirical_train_check(args.seed)):
+        for c, n in extra.items():
+            train_counts[c] += n
     small_train_phase(args.seed)
     cnn_counts, _ = cnn_phase(args.seed, CNN_STEPS)
     small_cnn_phase(args.seed)
@@ -5671,6 +6322,7 @@ def main(argv=None) -> int:
     say(f"[time] phase 6c done at {time.perf_counter() - t_start:.0f}s")
     line = timing_phase(gen, counts, errs)
     say(f"[time] phase 7 done at {time.perf_counter() - t_start:.0f}s")
+    art.cleanup()
 
     say(card)
     say(json.dumps(line))

@@ -28,7 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import quantizers as Q
-from repro_torch.core.distributions import GaussianModel
+from repro_torch.core.distributions import GaussianModel, fit_model
 
 
 def uniform_noise(gen: torch.Generator, shape, k: int,
@@ -40,23 +40,15 @@ def uniform_noise(gen: torch.Generator, shape, k: int,
     return u * (1.0 / k) - 0.5 / k
 
 
-def _fit(w: torch.Tensor, dist: str, channel_axis: Optional[int]):
-    if dist == "gaussian":
-        return GaussianModel.fit(w, channel_axis=channel_axis)
-    if dist == "empirical":
-        raise NotImplementedError(
-            "dist='empirical' in training (noise injection through the "
-            "EmpiricalModel) is not ported yet")
-    raise ValueError(f"unknown distribution model: {dist!r}")
-
-
 def inject_kquantile(w: torch.Tensor, gen: torch.Generator, k: int,
                      model=None, channel_axis: Optional[int] = None,
                      dist: str = "gaussian") -> torch.Tensor:
     """UNIQ forward transform for the k-quantile quantizer: one CDF, one
-    uniform draw, one quantile.  Noise amplitude 1/(2k) for every bin."""
+    uniform draw, one quantile.  Noise amplitude 1/(2k) for every bin.
+    ``dist`` "empirical" takes the CDF of w's sorted (sub)sample, whose
+    ``searchsorted`` passes no gradient to ``w``."""
     if model is None:
-        model = _fit(w, dist, channel_axis)
+        model = fit_model(w, dist, channel_axis=channel_axis)
     u = model.cdf(w)
     e = uniform_noise(gen, w.shape, k, dtype=u.dtype)
     u_hat = torch.clamp(u + e, 0.5 / k * 1e-3, 1.0 - 0.5 / k * 1e-3)

@@ -29,7 +29,10 @@ sources give a leaf its noise:
     the CPU see the same noise.
 
 The uniform / k-means ablation quantizers (paper Table 3) are plain torch
-ops (``core/noise.py``), as they are jnp in the reference.
+ops (``core/noise.py``), as they are jnp in the reference; so is the
+k-quantile transform of a leaf under ``dist="empirical"`` (per-tensor,
+unstacked leaves only: ``_fit_dist``), whose CDF is a ``searchsorted`` and
+so passes no gradient to its weight in NOISE, as in the reference.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from repro_torch import tree as tree_lib
 from repro_torch.core import noise as noise_lib
 from repro_torch.core import packing
 from repro_torch.core import quantizers as Q
-from repro_torch.core.distributions import GaussianModel
+from repro_torch.core.distributions import EmpiricalModel, GaussianModel
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import CLEAN, FROZEN, NOISE
 
@@ -52,7 +55,7 @@ __all__ = ["CLEAN", "NOISE", "FROZEN", "UniqConfig", "transform_param",
            "transform_tree", "lm_mode_fn", "leaf_noise", "onchip_noise",
            "leaf_key", "layer_noise", "GradualSchedule",
            "fit_gaussian", "fit_layers", "default_quant_filter", "path_str",
-           "QuantizedTensor", "quantize_tensor"]
+           "QuantizedTensor", "quantize_tensor", "quantize_tree"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +65,7 @@ class UniqConfig:
     w_bits: int = 4                 # weight bits  -> k = 2**w_bits levels
     a_bits: int = 8                 # activation bits (32 = off)
     method: str = "kquantile"       # kquantile | uniform | kmeans
-    dist: str = "gaussian"          # gaussian (empirical: serving only)
+    dist: str = "gaussian"          # gaussian | empirical (per-tensor leaves)
     per_channel: bool = False       # beyond-paper: per-out-channel (mu, sigma)
     quantize_embed: bool = True     # paper quantizes first & last layers
     n_stages: int = 0               # 0 => one stage per block group
@@ -105,12 +108,11 @@ def _fit_dist(w: torch.Tensor, cfg: UniqConfig, stacked: bool):
     """Distribution model for the kquantile path, honoring ``cfg.dist``.
 
     As in the reference, a non-Gaussian model applies to per-tensor
-    statistics only; per-channel / stacked statistics stay Gaussian."""
+    statistics only (the sorted-sample ECDF has no per-channel form);
+    per-channel / stacked statistics stay Gaussian."""
     axes = _stats_axes(w, cfg.per_channel, stacked)
     if cfg.dist == "empirical" and axes is None:
-        raise NotImplementedError(
-            "dist='empirical' in training (the UNIQ transform through the "
-            "EmpiricalModel) is not ported yet")
+        return EmpiricalModel.fit(w)
     if cfg.dist not in ("gaussian", "empirical"):
         raise ValueError(f"unknown distribution model: {cfg.dist!r}")
     return fit_gaussian(w, axes)
@@ -170,6 +172,9 @@ def transform_param(w: torch.Tensor, noise: Union[torch.Tensor, int], mode,
         return _ablation(w, e01, mode, cfg, stacked)
     if model is None:
         model = _fit_dist(w, cfg, stacked)
+    if isinstance(model, EmpiricalModel):
+        e01 = keyed_uniform(noise, w) if onchip else noise
+        return _transform_empirical(w, e01, mode, cfg, model, stacked)
     wg, ungroup = kops._grouped(w)
     mode_g = _broadcast_mode(mode, w, stacked).reshape(-1)
     mu = kops.grouped_stats(model.mu, w)
@@ -182,6 +187,26 @@ def transform_param(w: torch.Tensor, noise: Union[torch.Tensor, int], mode,
                                   kops._grouped(noise)[0], k=cfg.k,
                                   use_kernel=use_kernel)
     return ungroup(out)
+
+
+def _transform_empirical(w: torch.Tensor, e01: torch.Tensor, mode,
+                         cfg: UniqConfig, model: EmpiricalModel,
+                         stacked: bool) -> torch.Tensor:
+    """The k-quantile transform through an empirical CDF (the reference's
+    ``uniq.py:119-130``), plain torch as the reference's jnp: no kernel
+    takes a sorted sample.  ``u = cdf(w)`` is a ``searchsorted`` and the
+    sample is detached, so NOISE passes no gradient to ``w``; FROZEN none
+    either (bin centres); CLEAN gives ``w``."""
+    k = cfg.k
+    u = model.cdf(w)
+    u_noise = torch.clamp(u + (e01.to(u.device) - 0.5) * (1.0 / k),
+                          1e-6, 1.0 - 1e-6)
+    codes = torch.clamp(torch.floor(u * k), 0, k - 1)
+    m = _broadcast_mode(mode, w, stacked).to(w.device)
+    u_sel = torch.where(m == NOISE, u_noise, (codes + 0.5) / k)
+    w_hat = model.quantile(u_sel).to(w.dtype)
+    w_hat = torch.where(m == FROZEN, w_hat.detach(), w_hat)
+    return torch.where(m == CLEAN, w, w_hat)
 
 
 def default_quant_filter(path: str, leaf: torch.Tensor) -> bool:
@@ -421,3 +446,24 @@ def quantize_tensor(w: torch.Tensor, bits: int, per_channel: bool = True,
     return QuantizedTensor(stored, model.mu.to(torch.float32),
                            model.sigma.to(torch.float32), bits,
                            tuple(w.shape))
+
+
+def quantize_tree(params: Any, bits: int,
+                  quant_filter: Optional[Callable[[str, torch.Tensor],
+                                                  bool]] = None,
+                  per_channel: bool = True,
+                  stacked_prefixes: tuple = ("layers",)) -> Any:
+    """Quantize every eligible leaf of a parameter tree for serving: a
+    ``QuantizedTensor`` where ``quant_filter(path, leaf)`` holds (leaves
+    under ``stacked_prefixes`` with per-layer statistics), the leaf itself
+    elsewhere."""
+    quant_filter = quant_filter or default_quant_filter
+
+    def one(p, leaf):
+        if not quant_filter(p, leaf):
+            return leaf
+        stacked = any(p.startswith(pre) for pre in stacked_prefixes)
+        return quantize_tensor(leaf, bits, per_channel=per_channel,
+                               stacked=stacked)
+
+    return tree_lib.map_with_path(one, params)

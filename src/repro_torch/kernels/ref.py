@@ -32,7 +32,16 @@ _RAIL_Z = 4.75
 
 
 def phi(z: torch.Tensor) -> torch.Tensor:
-    """Standard normal CDF via erf (the KV-row / kernel formulation)."""
+    """Standard normal CDF via erf (the KV-row / kernel formulation).
+
+    An f32 ``z`` on the CPU is taken through the f64 ``erf`` and rounded
+    once to f32: the codes then floor an exact CDF and cannot move with the
+    f32 ``erf`` routine a CPU process happens to run (one was seen ~2e-5
+    off, enough to flip a code 2e-4 of a bin from its edge).  On the card
+    the plain version stays f32, the formula of the codec kernels, so they
+    stay bit-equal to it."""
+    if z.device.type == "cpu" and z.dtype == torch.float32:
+        return (0.5 * (1.0 + torch.erf(z.double() * _RSQRT2))).float()
     return 0.5 * (1.0 + torch.erf(z * _RSQRT2))
 
 

@@ -1,6 +1,8 @@
 """Attention: GQA with sliding window, logit soft-capping, paged KV cache.
 
   * ``full_attention``   — materialized (B, H, Sq, Sk) scores (prefill).
+  * ``chunked_attention`` — a loop over KV chunks with an online softmax
+    (O(Sq * chunk) live scores); long prefill and training.
   * ``decode_attention`` — one query position against a cache; linear in S.
   * ``paged_*``          — the same math against the page pool, dense or
     k-quantile-coded; the coded decode path is the CUDA kernel of
@@ -79,6 +81,55 @@ def full_attention(q, k, v, q_pos, k_pos, p: AttnParams) -> torch.Tensor:
     """Materialized-scores attention.  positions: (Sq,) (or (B, Sq) for
     per-sequence chunk offsets), (Sk,) int."""
     return _attend(q, k, v, _mask(q_pos, k_pos, p), p)
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, p: AttnParams,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (flash-style), in f32.
+
+    The reference's math step for step: the queries scaled by D^-0.5 in f32
+    first, per chunk the capped logits, the masked running max, its
+    rescale of ``(l, acc)``; rows whose every key so far is masked keep a
+    finite max (``m_safe``).  ``Sk % kv_chunk != 0`` falls back to one
+    chunk.  Positions as ``full_attention``'s."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    if Sk % kv_chunk:
+        kv_chunk = Sk                                     # one chunk
+    f32 = torch.float32
+    # (B, KV, G, Sq, D): one layout copy, then a batched matmul per chunk
+    qg = (q.to(f32) * (D ** -0.5)).reshape(B, Sq, KV, G, D).permute(
+        0, 2, 3, 1, 4)
+    m = torch.full((B, KV, G, Sq), float("-inf"), dtype=f32, device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=f32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, D), dtype=f32, device=q.device)
+    for c0 in range(0, Sk, kv_chunk):
+        kb = k[:, c0:c0 + kv_chunk].to(f32).permute(0, 2, 3, 1)[:, :, None]
+        vb = v[:, c0:c0 + kv_chunk].to(f32).permute(0, 2, 1, 3)[:, :, None]
+        s = _softcap(torch.matmul(qg, kb), p.logit_cap)   # (B,KV,G,Sq,kc)
+        mask = _mask(q_pos, k_pos[c0:c0 + kv_chunk], p)
+        mask = mask[:, None, None] if mask.ndim == 3 else mask
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        pexp = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+        l = l * alpha + pexp.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(pexp, vb)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)      # (B,KV,G,Sq,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attend(q, k, v, q_pos, k_pos, p: AttnParams, opts) -> torch.Tensor:
+    """Self-attention over a whole sequence as the models take it: chunked
+    from S = ``opts.attn_chunked_min_len`` on (KV chunks of
+    ``opts.kv_chunk``), materialized below."""
+    if q.shape[1] >= opts.attn_chunked_min_len:
+        return chunked_attention(q, k, v, q_pos, k_pos, p,
+                                 kv_chunk=opts.kv_chunk)
+    return full_attention(q, k, v, q_pos, k_pos, p)
 
 
 def decode_attention(q, k_cache, v_cache, q_pos, p: AttnParams):

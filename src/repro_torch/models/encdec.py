@@ -92,15 +92,6 @@ def init_params(seed: int, cfg: ArchConfig, device="cuda", w_bits: int = 16,
             "lm_head": weight("lm_head", (d, cfg.vocab), dense_init, False)}
 
 
-def _check_len(S: int, opts: ModelOpts) -> None:
-    """From S = ``opts.attn_chunked_min_len`` on the reference attends in
-    KV chunks, which is not ported: raise there."""
-    if S >= opts.attn_chunked_min_len:
-        raise NotImplementedError(
-            f"chunked attention (S={S} >= attn_chunked_min_len="
-            f"{opts.attn_chunked_min_len}) is not ported yet")
-
-
 def _mlp_apply(x, lp, opts: ModelOpts):
     h = F.gelu(mm(x, lp["w_up"], opts.use_kernels), approximate="tanh")
     return mm(h, lp["w_down"], opts.use_kernels)
@@ -114,12 +105,12 @@ def _out(o, w, cfg: ArchConfig, opts: ModelOpts):
 
 def _self_attn(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, cos_sin,
                causal: bool):
-    """Self-attention over (B, S, d) (x already normed); returns (out,
-    (k, v))."""
+    """Self-attention over (B, S, d) (x already normed; chunked from S =
+    ``opts.attn_chunked_min_len`` on); returns (out, (k, v))."""
     q, k, v = lm._qkv_mm(x, lp, cfg, opts, positions, cos_sin)
     p = attn.AttnParams(window=None, logit_cap=None, causal=causal)
     pos1d = positions[0]
-    o = attn.full_attention(q, k, v, pos1d, pos1d, p)
+    o = attn.attend(q, k, v, pos1d, pos1d, p, opts)
     return _out(o, lp["wo"], cfg, opts), (k, v)
 
 
@@ -149,7 +140,6 @@ def encode(params, cfg: ArchConfig, opts: ModelOpts, frames):
     ``opts.remat``."""
     x = frames.to(opts.compute_dtype)
     B, Te, _ = x.shape
-    _check_len(Te, opts)
     positions, cos_sin = lm.rope_positions(B, Te, cfg, x.device)
     for l in range(cfg.enc_layers):
         x = lm.apply_layer(_enc_layer, opts.remat, x,
@@ -189,7 +179,6 @@ def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch):
     enc_out = encode(params, cfg, opts, batch["frames"])
     x = lm._embed_tokens(params, cfg, opts, batch["tokens"])
     B, S, _ = x.shape
-    _check_len(S, opts)
     positions, cos_sin = lm.rope_positions(B, S, cfg, x.device)
     for l in range(cfg.dec_layers):
         x, _ = lm.apply_layer(_dec_layer, opts.remat, x,
@@ -209,7 +198,6 @@ def forward_prefill(params, cfg: ArchConfig, opts: ModelOpts, batch):
     enc_out = encode(params, cfg, opts, batch["frames"])
     x = lm._embed_tokens(params, cfg, opts, batch["tokens"])
     B, S, _ = x.shape
-    _check_len(S, opts)
     positions, cos_sin = lm.rope_positions(B, S, cfg, x.device)
     caches = {"k": [], "v": [], "cross_k": [], "cross_v": []}
     for l in range(cfg.dec_layers):

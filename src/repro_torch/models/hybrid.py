@@ -159,19 +159,14 @@ def _shared_mlp(x, sp, cfg: ArchConfig, opts: ModelOpts):
 def _shared_attn_apply(x, sp, cfg: ArchConfig, opts: ModelOpts, positions,
                        cos_sin):
     """The shared attention + MLP block on (B, S, d) (causal, global, no
-    logit cap).  Returns (x, (k, v)).  From S = ``opts.attn_chunked_min_len``
-    on the reference attends in KV chunks, which is not ported: raises
-    there."""
+    logit cap; chunked from S = ``opts.attn_chunked_min_len`` on).  Returns
+    (x, (k, v))."""
     B, S, _ = x.shape
-    if S >= opts.attn_chunked_min_len:
-        raise NotImplementedError(
-            f"chunked attention (S={S} >= attn_chunked_min_len="
-            f"{opts.attn_chunked_min_len}) is not ported yet")
     h = rms_norm(x, sp["attn_norm"], cfg.norm_eps)
     q, k, v = lm._qkv_mm(h, sp, cfg, opts, positions, cos_sin)
     p = attn.AttnParams(window=None, logit_cap=None, causal=True)
     pos1d = positions[0]
-    o = attn.full_attention(q, k, v, pos1d, pos1d, p)
+    o = attn.attend(q, k, v, pos1d, pos1d, p, opts)
     x = x + mm(o.reshape(B, S, cfg.n_heads * cfg.head_dim), sp["wo"],
                opts.use_kernels)
     return _shared_mlp(x, sp, cfg, opts), (k, v)

@@ -1,4 +1,5 @@
-"""Shared building blocks: norms, RoPE, logit soft-capping, initializers.
+"""Shared building blocks: norms, RoPE, the gated MLP, logit soft-capping,
+initializers.
 
 Conventions:
   * activations are (B, S, D), compute dtype bf16 (configurable);
@@ -11,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
@@ -63,6 +65,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor,
+           down_w: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Gated MLP: down( act(x @ gate) * (x @ up) ), the weights cast to
+    x's dtype; ``act`` silu or gelu (tanh approximation)."""
+    dtype = x.dtype
+    g = x @ gate_w.to(dtype)
+    u = x @ up_w.to(dtype)
+    if act == "silu":
+        g = F.silu(g)
+    elif act == "gelu":
+        g = F.gelu(g, approximate="tanh")
+    else:
+        raise ValueError(act)
+    return (g * u) @ down_w.to(dtype)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

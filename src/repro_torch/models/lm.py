@@ -68,8 +68,8 @@ class ModelOpts:
     kv_bits: int = 16                 # 8/4 => k-quantile-coded KV cache
     remat: bool = True                # training: recompute each layer in the
                                       #   backward (torch.utils.checkpoint)
+    kv_chunk: int = 1024              # chunked-attention KV block
     attn_chunked_min_len: int = 8192  # chunked attention from this S on
-                                      #   (not ported: raises)
     ssd_chunk: int = 128              # SSD scan chunk (ssm / hybrid prefill)
     ce_chunk: int = 1024              # cross-entropy chunk along S
     use_kernels: bool = True          # comparison hook: False computes every
@@ -521,17 +521,10 @@ def _attn_block(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
     ``kv`` (when requested) is ``(k, v)`` dense, or the k-quantile code
     dict when ``opts.kv_bits < 16``: serving prefill then fake-quantizes
     K/V *before* attending, so the queries see exactly the dequantized
-    rows a later incremental decode reads from the paged pool.
-
-    From S = ``opts.attn_chunked_min_len`` on, the reference attends in KV
-    chunks (``chunked_attention``), which is not ported: raises there, for
-    every caller (training and prefill).
+    rows a later incremental decode reads from the paged pool.  From S =
+    ``opts.attn_chunked_min_len`` on it attends in KV chunks
+    (``attn.attend``), for every caller (training and prefill).
     """
-    S = x.shape[1]
-    if S >= opts.attn_chunked_min_len:
-        raise NotImplementedError(
-            f"chunked attention (S={S} >= attn_chunked_min_len="
-            f"{opts.attn_chunked_min_len}) is not ported yet")
     h = _norm(x, lp["attn_norm"], cfg)
     q, k, v = _qkv(h, lp, cfg, opts, positions, cos_sin)
     kv = None
@@ -550,7 +543,7 @@ def _attn_block(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
     p = attn.AttnParams(window=window, logit_cap=cfg.attn_logit_cap,
                         causal=True)
     pos1d = positions[0]
-    o = attn.full_attention(q, k, v, pos1d, pos1d, p)
+    o = attn.attend(q, k, v, pos1d, pos1d, p, opts)
     return _attn_out(o, lp, cfg, opts), kv
 
 

@@ -474,19 +474,25 @@ def test_convert_carries_the_tree(bits, dist):
 
 
 def test_attention_raises_where_the_reference_would_chunk():
-    """From S = attn_chunked_min_len on (the encoder's frames or the
-    decoder's tokens) the reference attends in chunks, not ported."""
+    """From S = attn_chunked_min_len on (the encoder's frames, then the
+    decoder's tokens as well) both stacks attend in KV chunks, as the
+    reference does; below it the materialized path runs unchanged.  Chunks
+    of 2 rows divide both lengths; 3 rows fall back to one chunk."""
     _, pt = _params(16)
     _, to = _opts()
     _, ct = _cfgs()
     _, bt = _batch(ct)
+    want, _ = tmodel.prefill(pt, ct, to, bt)
     for n in (TE, S):
-        with pytest.raises(NotImplementedError, match="chunked attention"):
-            tmodel.prefill(pt, ct, dataclasses.replace(
-                to, attn_chunked_min_len=n), bt)
+        for kc in (2, 3):
+            got, _ = tmodel.prefill(pt, ct, dataclasses.replace(
+                to, attn_chunked_min_len=n, kv_chunk=kc), bt)
+            # f32, the softmax summed in another order: 1e-5 of the logits
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                       atol=1e-5 * max(1.0, float(
+                                           want.abs().max())))
     got, _ = tmodel.prefill(pt, ct, dataclasses.replace(
         to, attn_chunked_min_len=TE + 1), bt)
-    want, _ = tmodel.prefill(pt, ct, to, bt)
     assert torch.equal(got, want)
 
 

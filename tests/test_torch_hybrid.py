@@ -389,12 +389,18 @@ def test_shared_attention_raises_where_the_reference_would_chunk():
     _, pt = _params("zamba2_2_7b", 16)
     _, to = _opts()
     toks = torch.from_numpy(_tokens(cfg, shape=(1, 8)))
-    with pytest.raises(NotImplementedError, match="chunked attention"):
-        tmodel.prefill(pt, cfg, dataclasses.replace(
-            to, attn_chunked_min_len=8), {"tokens": toks})
+    # from S = attn_chunked_min_len on the shared block attends in KV
+    # chunks (as the reference's); below it the materialized path runs
+    want, _ = tmodel.prefill(pt, cfg, to, {"tokens": toks})
+    for kc in (2, 8, 3):
+        got, _ = tmodel.prefill(pt, cfg, dataclasses.replace(
+            to, attn_chunked_min_len=8, kv_chunk=kc), {"tokens": toks})
+        # f32, the softmax summed in another order: 1e-5 of the logits
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5 * max(1.0, float(
+                                       want.abs().max())))
     got, _ = tmodel.prefill(pt, cfg, dataclasses.replace(
         to, attn_chunked_min_len=9), {"tokens": toks})
-    want, _ = tmodel.prefill(pt, cfg, to, {"tokens": toks})
     assert torch.equal(got, want)
 
 

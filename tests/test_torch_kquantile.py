@@ -8,12 +8,14 @@ kernels in interpret mode (or its jnp oracles) and through the port's
 wrappers, which compute their plain versions for CPU tensors.
 """
 
+import math
 import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy import special
 
 from repro.core import activations as jact
 from repro.core import distributions as jdist
@@ -77,28 +79,53 @@ def _cpu_model():
     return "unknown"
 
 
+def f64_uk(w, mu, sd, k):
+    """Phi(z) k in f64 from the f32 inputs (clamped as the codec clamps u),
+    and the code it gives: what an exact CDF would code."""
+    z = (np.asarray(w, np.float64) - np.asarray(mu, np.float64)) \
+        / np.asarray(sd, np.float64)
+    u = np.clip(0.5 * (1.0 + special.erf(z / math.sqrt(2.0))), tref._EPS,
+                1.0 - tref._EPS)
+    uk = u * k
+    return uk, np.clip(np.floor(uk), 0, k - 1).astype(np.int64)
+
+
 def flip_report(cj, ct, inputs) -> str:
     """One line per element whose codes differ: w, mu and sigma as f32 bit
-    patterns, the port's z, erf(z / sqrt2) and u k (the plain kernel's
-    formula, evaluated over the whole broadcast tensor as the port does),
-    both codes; then the process's CPU capability, torch thread count and
-    CPU model.  ``inputs`` is (w, mu, sigma, k), broadcastable to the
-    codes' shape."""
+    patterns, the port's z, its f32 erf(z / sqrt2) and u k (the plain
+    kernel's formula over the whole broadcast tensor, as the port
+    evaluates it), the f64 u k and code, both codes; then, over the whole
+    tensor, the largest |erf - f64 erf| of torch's f32 erf and |u k - f64
+    u k| of the port's CDF at this moment, how many codes of each side
+    differ from the f64 codes, and the process's CPU capability, torch
+    thread count and CPU model.  ``inputs`` is (w, mu, sigma, k),
+    broadcastable to the codes' shape."""
     w, mu, sd, k = inputs
     w, mu, sd = (np.array(np.broadcast_to(np.asarray(x, np.float32),
                                           cj.shape)) for x in (w, mu, sd))
     tw, tmu, tsd = (torch.from_numpy(x) for x in (w, mu, sd))
     z = (tw - tmu) / tsd
     e = torch.erf(z * tref._RSQRT2)
-    uk = torch.clamp(0.5 * (1.0 + e), tref._EPS, 1.0 - tref._EPS) * k
+    uk = torch.clamp(tref.phi(z), tref._EPS, 1.0 - tref._EPS) * k
+    uk64, code64 = f64_uk(w, mu, sd, k)
+    off = tref.code_offset(k) if cj.dtype == np.int8 else 0
+    code64 = code64 - off
+    e64 = special.erf(z.double().numpy() / math.sqrt(2.0))
     lines = []
     for idx in zip(*np.nonzero(cj.astype(np.int64) != ct.astype(np.int64))):
         bits = " ".join(f"{n}=0x{x[idx].view(np.uint32):08x}"
                         for n, x in (("w", w), ("mu", mu), ("sigma", sd)))
         lines.append(f"  {tuple(int(i) for i in idx)}: {bits} "
                      f"z={float(z[idx]):.9g} erf={float(e[idx]):.9g} "
-                     f"uk={float(uk[idx]):.9g} ref={int(cj[idx])} "
+                     f"uk={float(uk[idx]):.9g} f64 uk={uk64[idx]:.9g} "
+                     f"f64 code={int(code64[idx])} ref={int(cj[idx])} "
                      f"port={int(ct[idx])}")
+    lines.append(
+        f"  whole tensor: max |erf - f64| "
+        f"{np.abs(e.double().numpy() - e64).max():.3g}, "
+        f"max |uk - f64 uk| {np.abs(uk.double().numpy() - uk64).max():.3g}; "
+        f"codes off f64: ref {int((cj.astype(np.int64) != code64).sum())}, "
+        f"port {int((ct.astype(np.int64) != code64).sum())} of {cj.size}")
     lines.append(f"  cpu capability "
                  f"{torch.backends.cpu.get_cpu_capability()}, torch threads "
                  f"{torch.get_num_threads()}, cpu {_cpu_model()!r}")
@@ -178,6 +205,52 @@ def test_quantize_and_dequantize_match_reference_kernels(bits, shape,
     table = tref.level_table(k).numpy()
     want = (mu + (sd * table[idx]).astype(np.float32)).astype(np.float32)
     np.testing.assert_array_equal(dt, want)
+
+
+# u k at least this far from an integer: no CDF accurate to 1e-4 / k can
+# move such an element's code
+EDGE_GAP = 1e-4
+
+
+@pytest.mark.parametrize("per_col", [True, False])
+@pytest.mark.parametrize("bits,shape", CASES)
+def test_cpu_codes_equal_f64_codes_away_from_edges(bits, shape, per_col):
+    G, R, C = shape
+    w, mu, sd = _grouped_inputs(G, R, C, per_col, seed=G * R + C)
+    k = 2 ** bits
+    uk64, code64 = f64_uk(w, mu, sd, k)
+    far = np.abs(uk64 - np.round(uk64)) >= EDGE_GAP
+    got = tkq.kquantile_quantize(*_t(w, mu, sd), k=k).numpy().astype(
+        np.int64) + tref.code_offset(k)
+    np.testing.assert_array_equal(got[far], code64[far])      # exact
+
+
+def _erf_as_7_1_25(x):
+    """Abramowitz-Stegun 7.1.25 (|error| < 2.5e-5): an f32 erf as
+    inaccurate as the one a failing run implied."""
+    t = 1.0 / (1.0 + 0.47047 * x.abs())
+    y = 1.0 - t * (0.3480242 + t * (-0.0958798 + t * 0.7478556)) \
+        * torch.exp(-x * x)
+    return torch.copysign(y, x)
+
+
+def test_cpu_codes_do_not_follow_an_inaccurate_f32_erf(monkeypatch):
+    w, mu, sd = _grouped_inputs(1, 130, 258, True, seed=130 + 258)
+    k = 256
+    uk64, code64 = f64_uk(w, mu, sd, k)
+    far = np.abs(uk64 - np.round(uk64)) >= EDGE_GAP
+    exact_erf = torch.erf
+    monkeypatch.setattr(torch, "erf", lambda x: _erf_as_7_1_25(x)
+                        if x.dtype == torch.float32 else exact_erf(x))
+    # control: the f32 formula on this erf does move codes far from edges
+    z = (torch.from_numpy(w) - torch.from_numpy(mu)) / torch.from_numpy(sd)
+    u32 = torch.clamp(0.5 * (1.0 + torch.erf(z * tref._RSQRT2)), tref._EPS,
+                      1.0 - tref._EPS)
+    c32 = torch.clamp(torch.floor(u32 * k), 0, k - 1).numpy().astype(np.int64)
+    assert (c32[far] != code64[far]).sum() >= 10
+    got = tkq.kquantile_quantize(*_t(w, mu, sd), k=k).numpy().astype(
+        np.int64) + tref.code_offset(k)
+    np.testing.assert_array_equal(got[far], code64[far])      # exact
 
 
 @pytest.mark.parametrize("kv_bits", [8, 4])

@@ -361,17 +361,22 @@ def test_default_device_is_the_card():
 
 def test_forward_prefill_raises_where_the_reference_would_chunk():
     """The reference's ``_attn_block`` switches to ``chunked_attention`` at
-    S >= ``attn_chunked_min_len`` for every caller; the port has no chunked
-    attention, so its prefill raises there instead of building the full
-    score tensor, and runs unchanged below it."""
+    S >= ``attn_chunked_min_len`` for every caller; so does the port's,
+    instead of building the full score tensor, and it runs unchanged
+    below it."""
     import dataclasses
     cfg = tcb.get_smoke("granite_3_8b")
     _, pt = _params("granite_3_8b", 4)
     _, to = _opts(8)
-    small = dataclasses.replace(to, attn_chunked_min_len=8)
-    with pytest.raises(NotImplementedError, match="chunked attention"):
-        tlm.forward_prefill(pt, cfg, small, {"tokens": torch.from_numpy(
-            _tokens(cfg, shape=(B, 8)))})
+    small = dataclasses.replace(to, attn_chunked_min_len=8, kv_chunk=4)
+    toks8 = {"tokens": torch.from_numpy(_tokens(cfg, shape=(B, 8)))}
+    got, kv = tlm.forward_prefill(pt, cfg, small, toks8)
+    want, kv_w = tlm.forward_prefill(pt, cfg, to, toks8)
+    # f32, the softmax summed in another order: 1e-5 of the logits; the
+    # first layer's K/V come before any attention, so its codes are equal
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * max(1.0, float(want.abs().max())))
+    assert torch.equal(kv["k_codes"][0], kv_w["k_codes"][0])
     toks = {"tokens": torch.from_numpy(_tokens(cfg, shape=(B, 7)))}
     got, _ = tlm.forward_prefill(pt, cfg, small, toks)
     want, _ = tlm.forward_prefill(pt, cfg, to, toks)

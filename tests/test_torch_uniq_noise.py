@@ -417,9 +417,10 @@ def test_inject_kquantile_matches_reference_formula():
 
 
 def test_not_yet_ported_quantizers_raise_plainly():
-    """The training half of dist='empirical' still raises plainly; the
-    uniform / k-means ablation quantizers now run (their parity with the
-    reference is test_torch_quantizers')."""
+    """The training half of dist='empirical' runs now (its parity with the
+    reference is test_torch_empirical_train's); so do the uniform / k-means
+    ablation quantizers (test_torch_quantizers'); an unknown method still
+    raises plainly."""
     w = torch.randn(8, 8, generator=torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(0)
     for method in ("uniform", "kmeans"):
@@ -430,10 +431,11 @@ def test_not_yet_ported_quantizers_raise_plainly():
                                         tuniq.UniqConfig(method=method))
             assert out.shape == w.shape and torch.isfinite(out).all()
             assert torch.equal(out, w) == (mode == CLEAN)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tuniq.transform_param(w, torch.rand(8, 8), NOISE,
-                              tuniq.UniqConfig(dist="empirical"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tnoise.inject_kquantile(w, gen, 16, dist="empirical")
+    for mode in (NOISE, FROZEN):
+        out = tuniq.transform_param(w, torch.rand(8, 8), mode,
+                                    tuniq.UniqConfig(dist="empirical"))
+        assert out.shape == w.shape and torch.isfinite(out).all()
+    out = tnoise.inject_kquantile(w, gen, 16, dist="empirical")
+    assert out.shape == w.shape and torch.isfinite(out).all()
     with pytest.raises(ValueError):
         tnoise.inject(w, gen, 16, method="lloyd")
