@@ -70,6 +70,28 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      ``uniq_noise`` launches for the stacked layer weights; the embedding
      and head, empirical, get a zero loss gradient and move by weight
      decay alone);
+  4M. the analysis subsystem, after 4L and on phase 4's coded weights:
+     the model checker over every universe, the mutants' too, on the
+     sound scheduler (exhausted, zero findings);
+     every trace of ``tests/data/mc_corpus`` and a healthy forward trace
+     replayed on the engine at granite_3_8b's full width and depth (W4,
+     bf16, the universe's kv_bits, pages of 4): each mutant trace trips
+     its invariant with no action skipped, the regression trace runs
+     clean, two healthy replays (kv16, and a kv8 twin of 6 new tokens a
+     request whose decode takes ``paged_quant_attention``'s CUDA-core
+     body, read from the launch records) give bit-identical streams, the
+     kv8 replay with the plain versions forced and fed the kernel side's
+     tokens gives logits within ``TOL_LOGITS_REL`` at every sampling call
+     (prefill chunks and decode steps; a flip a near-tie) and the same
+     replay with every coded matmul weight one level off lands above
+     that limit, every replay's launches exact; then the check CLI's
+     four passes (lint, the
+     kernel audit, the compile audit with granite_3_8b's and kimi_k2's
+     published widths, the model checker) against
+     ``analysis_baseline_torch.json`` (exit 0, no finding), the audit's
+     shared memory / registers / occupancy printed per kernel and added
+     to each kernel's entry of the ``kernels`` line; then each example of
+     ``examples/*_torch.py`` as a subprocess on the card (exit 0);
   4c. (run after 5e) the MoE family at full width, depth ``--moe-layers``
      (default 4):
      kimi_k2_1t_a32b, then llama4_maverick_400b_a17b, W4 (Gaussian) + kv8,
@@ -194,7 +216,9 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      layer NOISE) and 2 past its end (everything FROZEN) with every
      ``uniq_noise_fwd`` / ``_bwd`` launch counted (one of each per
      quantized leaf), the loss and every parameter finite, FROZEN slices of
-     the (L, E, d, f) stacks bit-unchanged, a NOISE expert slice and (top-k
+     the (L, E, d, f) stacks, the embedding and the head bit-unchanged at
+     the first FROZEN step (their host copies move ~15 GB at kimi_k2: the
+     later FROZEN steps do not repeat it), a NOISE expert slice and (top-k
      > 1) the router moved by their gradient, the copies each step drops
      printed; one more step whose first six rows repeat one token must
      drop copies; the all-FROZEN eval, a profiled step and the tiny f32
@@ -236,6 +260,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -256,6 +281,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch import convert                               # noqa: E402
+from repro_torch.analysis import check as check_cli           # noqa: E402
+from repro_torch.analysis import kernel_audit                 # noqa: E402
+from repro_torch.analysis.kernel_audit import (              # noqa: E402
+    TOL_ATT_BF16, TOL_ATT_F32, TOL_QMM_A8, TOL_QMM_BF16_REL, TOL_QMM_F32,
+    TOL_QMM_LUT, TOL_UNIQ_BWD_REL, TOL_UNIQ_NOISE_SIGMA)
+from repro_torch.analysis import modelcheck                   # noqa: E402
 from repro_torch.analysis import traceview                    # noqa: E402
 from repro_torch import tree as tree_lib                       # noqa: E402
 from repro_torch.cnn import cnn as cnn_lib                    # noqa: E402
@@ -296,32 +327,14 @@ CARD = ""
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
-# Tolerances of the kernel-vs-plain comparisons, with their reasons.
-# qmatmul, f32 result: both sides multiply the same level values (f32 for
-#   f32 activations; rounded to bf16 on both sides for bf16 activations,
-#   whose products are then exact in f32) and accumulate in f32; only the
-#   summation order over K differs.  With |a| ~ 1 and |w| ~ 0.02 the result
-#   is O(1) and order effects are O(1e-5).
-TOL_QMM_F32 = 5e-4
-# qmatmul, bf16 result: the f32 sums are rounded to bf16 on both sides, so
-#   a sum that straddles a rounding boundary lands one bf16 ulp apart:
-#   2^-8 relative to the largest result.
-TOL_QMM_BF16_REL = 2.0 ** -7
-# attention, f32 queries: everything is f32 on both sides; the softmax is
-#   accumulated online in another order and expf/tanhf differ from torch's
-#   by ulps.  Outputs are O(1).
-TOL_ATT_F32 = 2e-4
-# attention, bf16 queries, absolute: the plain version rounds the
-#   dequantized K/V and the softmax weights to bf16 before its products;
-#   the CUDA-core body keeps all three in f32, the tensor-core body takes
-#   the plain version's own bf16 K/V and rounds P relative to the running
-#   max; both round the result to bf16.  A few 2^-8 relative steps on
-#   values below 2.
-TOL_ATT_BF16 = 4e-2
+# Tolerances of the kernel-vs-plain comparisons, with their reasons; those
+# of qmatmul (f32 and bf16 results), qmatmul_a8, qmatmul_lut, the attention
+# (f32 and bf16 queries, absolute) and uniq_noise (NOISE, backward) are
+# ``analysis/kernel_audit.py``'s, which holds the same kernels to them.
 # attention, bf16 queries, relative: max |out - plain| over a sequence's
 #   heads and dims, over max |plain| of that sequence.  A long context's
 #   outputs are small (V averages out: ~0.08 at most over 2048 rows), so
-#   the absolute limit above cannot see a lost chunk of rows.  Both bodies
+#   the absolute limit TOL_ATT_BF16 cannot see a lost chunk of rows.  Both bodies
 #   read up to about 2^-7 (one bf16 step of the result near its largest
 #   value); a chunk of 16 rows dropped reads 0.09 and more (``PERF.md``
 #   §6).  This limit sits between them, and phase 3 requires the
@@ -364,13 +377,6 @@ TOL_SMALL_F32 = 2e-3
 #   differ in the last ulp next to a bin edge: a code flips there.  Bound on
 #   the share of FROZEN outputs that may differ.
 TOL_UNIQ_FROZEN_FLIPS = 1e-6
-# uniq_noise NOISE: u and u + e are identical on both sides; Phi^-1 is
-#   erfinvf in the kernel and torch's own erfinv in the plain version.
-#   Stated in units of the group's sigma (bf16: beyond one rounding step).
-TOL_UNIQ_NOISE_SIGMA = 1e-3
-# uniq_noise backward: the same operations on the same (w, w_hat); expf
-#   against torch's exp, a few ulps relative (bf16: beyond one step).
-TOL_UNIQ_BWD_REL = 1e-5
 # uniq_noise_fwd_onchip: its draw must equal the plain Philox to the bit (no
 #   tolerance), and given it the forward runs the body of uniq_noise_fwd, so
 #   FROZEN and NOISE are held to TOL_UNIQ_FROZEN_FLIPS / TOL_UNIQ_NOISE_SIGMA
@@ -378,15 +384,6 @@ TOL_UNIQ_BWD_REL = 1e-5
 #   within half a bin (1 / 2k) of its weight in u; Phi of the output
 #   recomputes u + e to a few f32 ulps of u (the erf / erfinv round trip).
 TOL_ONCHIP_BIN_U = 1e-5
-# qmatmul_a8, f32 result: the plain version sums f32 code * scale times
-#   f32 levels (cuBLAS in f32); the kernel sums exact products of the codes
-#   and three bf16 parts of each level on the tensor cores and applies
-#   scale, mu and sigma after the sum.  Only the order of the sum and where
-#   those three are applied differ.  Results are O(1-10).
-TOL_QMM_A8 = 5e-4
-# qmatmul_lut: as qmatmul (bf16 activations meet levels rounded to bf16 on
-#   both sides, f32 activations f32 levels), f32 result.
-TOL_QMM_LUT = 5e-4
 # kquantile_quantize / kquantile_dequantize / kquantile_dequantize_paged:
 #   none.  Both sides run the same correctly rounded f32 operations in the
 #   same order (z / sqrt2 taken as z * (1 / sqrt2) on both), CUDA's erff
@@ -2883,6 +2880,335 @@ TRACEVIEW_NONZERO = ["decode_steps", "tokens_decoded", "prefill_tokens",
 
 
 # --------------------------------------------------------------------------
+# Phase 4M: the analysis subsystem on the card
+# --------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MC_CORPUS = os.path.join(ROOT, "tests", "data", "mc_corpus")
+MC_HEALTHY_REQUESTS = 2
+# new tokens a request of the kv8 healthy replay: its decode steps cross a
+# page boundary at pages of 4 (6-token prompts, 11 positions)
+MC_KV8_NEW_TOKENS = 6
+# the port's examples, each run as a user would (a subprocess), on the card;
+# the CNN trainer at fewer steps than its default 400
+EXAMPLES = (("quickstart_torch.py", ()),
+            ("serve_quantized_lm_torch.py", ()),
+            ("train_cnn_uniq_torch.py", ("--steps", "40")))
+
+
+def mc_forward_trace(u, n_requests: int, cap: int = 64):
+    """Normal engine progress as an action trace: always the first enabled
+    action among submit < schedule < chunk < decode (the model checker's
+    own order), until ``n_requests`` requests finish."""
+    w = modelcheck.World(u)
+    actions = []
+    forward = ("submit", "schedule", "chunk", "decode")
+    while w.n_finished < n_requests and len(actions) < cap:
+        act = next(a for a in w.enabled_actions()
+                   if a[0] in forward
+                   and not (a[0] == "submit" and w.uid >= n_requests))
+        w.apply(act)
+        actions.append(act)
+    if w.n_finished != n_requests:
+        raise SystemExit(f"forward trace of {u.name} finished "
+                         f"{w.n_finished} of {n_requests} requests")
+    return actions
+
+
+def replay_launches(rep, L: int, kv_bits: int) -> dict:
+    """What a replay's model calls launch at granite_3_8b W4 (Gaussian,
+    bf16, pages of 4): per prefill-chunk call and decode step 7 x L
+    ``qmatmul`` and one ``kquantile_dequantize`` (the embedding rows); with
+    a coded pool also L ``kv_append`` each, L ``paged_quant_attention`` a
+    decode step and 2 x L ``kquantile_dequantize_paged`` a chunk call (its
+    K and V read); nothing else."""
+    calls, steps = rep.prefill_calls, rep.decode_steps
+    want = {name: 0 for name in kops.launch_counts()}
+    want["qmatmul"] = 7 * L * (calls + steps)
+    want["kquantile_dequantize"] = calls + steps
+    if kv_bits < 16:
+        want["kv_append"] = L * (calls + steps)
+        want["paged_quant_attention"] = L * steps
+        want["kquantile_dequantize_paged"] = 2 * L * calls
+    return want
+
+
+@contextlib.contextmanager
+def recording_calls(store, forced=None):
+    """Records every sampling call's logits (f32 copies) and the tokens it
+    returns into ``store`` in order, by wrapping the engine's sampler.  With
+    ``forced`` (another replay's store) each call returns that replay's
+    tokens of the same call instead of its own, so that both replays feed
+    the model the same tokens and every call's logits compare at equal
+    inputs."""
+    orig = engine_lib._sample_batch
+
+    def sample(logits, temps, top_ks, seeds, positions):
+        toks = orig(logits, temps, top_ks, seeds, positions)
+        if forced is not None:
+            i = len(store)
+            if i >= len(forced) or forced[i][1].shape != toks.shape:
+                raise SystemExit(f"sampling call {i} has no counterpart of "
+                                 f"its shape in the replay it follows")
+            toks = forced[i][1].copy()
+        store.append((logits.float().clone(), toks.copy()))
+        return toks
+    engine_lib._sample_batch = sample
+    try:
+        yield
+    finally:
+        engine_lib._sample_batch = orig
+
+
+def logit_err(rows_a, rows_b, what: str) -> tuple:
+    """Max abs difference of two replays' logits over every sampling call
+    and the largest |logit| of the second; both must be finite."""
+    err = big = 0.0
+    for i, ((a, _), (b, _)) in enumerate(zip(rows_a, rows_b)):
+        if a.shape != b.shape or not (torch.isfinite(a).all()
+                                      and torch.isfinite(b).all()):
+            raise SystemExit(f"{what}: sampling call {i}'s logits differ in "
+                             f"shape or are not finite")
+        err = max(err, (a - b).abs().max().item())
+        big = max(big, b.abs().max().item())
+    return err, big
+
+
+def mc_replays(params, cfg, opts) -> dict:
+    """Every corpus trace and a healthy forward trace (u2p6 at kv16, and
+    its twin at kv8 with ``MC_KV8_NEW_TOKENS`` new tokens a request, whose
+    decode runs ``paged_quant_attention``'s CUDA-core body at pages of 4)
+    replayed on the engine at full width, then the kv8 twin against the
+    plain versions; returns the launches of the healthy kernel replays, by
+    kernel."""
+    L = cfg.n_layers
+    total = collections.Counter()
+
+    def replay(u, actions, mutant=None, use_kernels=True, what=""):
+        o = opts if use_kernels else dataclasses.replace(opts,
+                                                         use_kernels=False)
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = modelcheck.replay_on_engine(u, actions, mutant=mutant,
+                                          device=DEV, params=params,
+                                          cfg=cfg, opts=o)
+        sync()
+        got = kops.launch_counts()
+        want = replay_launches(rep, L, u.kv_bits) if use_kernels \
+            else {n: 0 for n in got}
+        say(f"[4M] replay {what} ({u.name}, kv{u.kv_bits}, page "
+            f"{u.page_size}{', ' + mutant if mutant else ''}"
+            f"{'' if use_kernels else ', plain versions'}): "
+            f"{rep.n_applied} actions applied, {rep.n_skipped} skipped, "
+            f"{rep.prefill_calls} prefill-chunk calls, {rep.decode_steps} "
+            f"decode steps, violation {rep.violation_key}; launches "
+            + ", ".join(f"{n} {c}" for n, c in got.items() if c)
+            + f"; {time.perf_counter() - t0:.2f}s")
+        if got != want:
+            raise SystemExit(f"replay {what}: launches {got} != the calls' "
+                             f"{want}")
+        if rep.n_skipped:
+            raise SystemExit(f"replay {what}: {rep.n_skipped} actions were "
+                             f"not enabled on the engine")
+        return rep, got
+
+    for path in sorted(os.listdir(MC_CORPUS)):
+        doc = modelcheck.load_trace(os.path.join(MC_CORPUS, path))
+        rep, _ = replay(doc["universe"], doc["actions"], doc["mutant"],
+                        what=path)
+        want = None if doc.get("expect_clean") else doc["invariant"]
+        if rep.violation_key != want:
+            raise SystemExit(f"{path} tripped {rep.violation_key} on the "
+                             f"engine at full width; the corpus says {want}")
+
+    u16 = next(u for u in modelcheck.UNIVERSES if u.name == "u2p6")
+    u8 = dataclasses.replace(u16, name="u2p6-kv8", kv_bits=8,
+                             max_new=MC_KV8_NEW_TOKENS)
+    route = pa.attn_route(torch.bfloat16, cfg.head_dim, cfg.n_kv_heads,
+                          u8.page_size, u8.kv_bits)
+    if route != pa.CUDA_CORE:
+        raise SystemExit(f"pages of {u8.page_size} were to take the "
+                         f"CUDA-core attention body, attn_route says {route}")
+    traces = {u.name: mc_forward_trace(u, MC_HEALTHY_REQUESTS)
+              for u in (u16, u8)}
+    for u in (u16, u8):
+        actions = traces[u.name]
+        with kernel_audit.launch_records(DEV) as recs:
+            a, got = replay(u, actions, what=f"healthy {len(actions)} "
+                            f"actions")
+        b, _ = replay(u, actions, what="healthy again")
+        total.update(got)
+        if a.violation_key or b.violation_key or not a.streams \
+                or len(a.streams) != MC_HEALTHY_REQUESTS:
+            raise SystemExit(f"healthy replay of {u.name} tripped "
+                             f"{a.violation_key or b.violation_key} or "
+                             f"finished {len(a.streams)} requests")
+        if a.streams != b.streams:
+            raise SystemExit(f"healthy replays of {u.name} differ: "
+                             f"{a.streams} vs {b.streams}")
+        bodies = sorted({r["name"] for r in recs
+                         if r["library"] == "paged_attn"})
+        say(f"[4M] {u.name}: streams {a.streams} bit-identical over two "
+            f"replays; attention bodies launched: {bodies or 'none'}")
+        if u.kv_bits < 16 and (
+                not any(n.startswith("paged_attn_kernel<") for n in bodies)
+                or any(n.startswith("paged_attn_tc_kernel<")
+                       for n in bodies)):
+            raise SystemExit(f"the kv8 replay did not take the CUDA-core "
+                             f"attention body alone: {bodies}")
+    # the kv8 twin with the plain versions forced, fed the kernel side's
+    # tokens at every sampling call (so a near-tie flip does not end the
+    # comparison): every call's logits, prefill chunks and each page-4
+    # decode step, within TOL_LOGITS_REL of the largest plain logit; an
+    # argmax flip a near-tie (phase 4's rule).  The control: the same plain
+    # replay with every coded matmul weight's W4 codes one level off (what
+    # a kernel that reads each code as its neighbour would give) must land
+    # above that limit
+    trace = traces[u8.name]
+    k_rows, p_rows, w_rows = [], [], []
+    with recording_calls(k_rows):
+        k, _ = replay(u8, trace, what="kernels, logits recorded")
+    with recording_calls(p_rows, forced=k_rows):
+        p, _ = replay(u8, trace, use_kernels=False,
+                      what="plain, fed the kernel side's tokens")
+    if len(k_rows) != len(p_rows) or p.streams != k.streams:
+        raise SystemExit("the plain replay sampled a different number of "
+                         "times or did not follow the kernel side's tokens")
+    err, big = logit_err(k_rows, p_rows, "kv8 replay, kernels vs plain")
+    tol = TOL_LOGITS_REL * big
+    flips = [(i, int(r)) for i, ((kr, _), (pr, _)) in enumerate(
+        zip(k_rows, p_rows))
+        for r in (kr.argmax(-1) != pr.argmax(-1)).nonzero().flatten()]
+    say(f"[4M] kv8 replay, kernels vs plain versions fed the same tokens: "
+        f"{len(k_rows)} sampling calls ({k.prefill_calls} prefill-chunk, "
+        f"{k.decode_steps} decode at pages of {u8.page_size}), max abs "
+        f"logit err {err:.4f} ({err / big * 100:.2f} % of max |logit|; "
+        f"tolerance {tol:.4f} = {TOL_LOGITS_REL} x max |logit|), argmax "
+        f"flips {len(flips)} of {sum(kr.shape[0] for kr, _ in k_rows)} "
+        f"rows; streams {k.streams}")
+    if err > tol:
+        raise SystemExit("kv8 replay: the kernels' logits disagree with the "
+                         "plain versions'")
+    for i, r in flips:
+        check_near_tie(f"4M kv8 replay call {i} row {r}", k_rows[i][0][r],
+                       p_rows[i][0][r], err)
+    coded = _coded_matmul_weights(params)
+    if not coded or any(w["q_codes"].dtype != torch.uint8 for w in coded):
+        raise SystemExit("4M: the control wants packed W4 codes")
+    for w in coded:
+        w["q_codes"].bitwise_xor_(0x11)
+    try:
+        with recording_calls(w_rows, forced=k_rows):
+            replay(u8, trace, use_kernels=False,
+                   what="control, codes one level off")
+    finally:
+        for w in coded:
+            w["q_codes"].bitwise_xor_(0x11)
+    wrong_err, _ = logit_err(w_rows, p_rows, "kv8 replay control")
+    say(f"[4M] control: the plain replay with the codes of all "
+        f"{len(coded)} coded matmul leaves one level off moves the logits "
+        f"by {wrong_err:.4f} ({wrong_err / big * 100:.2f} % of max |logit|; "
+        f"the limit {tol:.4f} must sit below it)")
+    if wrong_err <= tol:
+        raise SystemExit("4M: the logit limit cannot see a kernel that "
+                         "decodes its codes one level off")
+    return dict(total)
+
+
+def analysis_check():
+    """The check CLI's four passes on the card against the checked-in
+    baseline; returns its JSON (the kernel table and the byte cells)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = check_cli.main(["--only", "lint,kernel,compile,mc",
+                             "--baseline", os.path.join(
+                                 ROOT, "analysis_baseline_torch.json"),
+                             "--format", "json"])
+    out = json.loads(buf.getvalue())
+    for f in out["findings"]:
+        say(f"[4M] finding {f['rule']} {f['path']} {f['detail']}: "
+            f"{f['message']}")
+    if rc != 0 or out["findings"]:
+        raise SystemExit(f"the analysis check exited {rc} with "
+                         f"{len(out['findings'])} findings")
+    info = out["info"]
+    for st in info["mc"]:
+        say(f"[4M] mc {st['universe']}: depth {st['depth']}, states "
+            f"{st['states']}, transitions {st['transitions']}, exhausted "
+            f"{st['exhausted']}")
+    for c in info["step_shapes"]:
+        say(f"[4M] step shapes kv{c['kv_bits']}: decode "
+            f"{c['decode_signatures']}, prefill {c['prefill_signatures']} "
+            f"({c['buckets']} buckets)")
+    for c in info["byte_cells"]:
+        if ":full" in c["cell"]:
+            say(f"[4M] byte cell {c['cell']}: pool {c['pool_bytes']} B, "
+                f"{c['page_bytes']} B a page (= page_kv_bytes)")
+    table = kernel_audit.kernel_table(info)
+    for name, row in sorted(table.items()):
+        say(f"[4M] audit {name}: {len(row['cases'])} cases, "
+            f"{len(row['instantiations'])} instantiations, shared memory "
+            f"static <= {row['static_smem']} B, dynamic <= "
+            f"{row['dynamic_smem']} B, registers <= {row['regs']}, local "
+            f"<= {row['local_bytes']} B, blocks an SM >= "
+            f"{row['blocks_per_sm']}; {CARD}")
+    for k in info["kernels"]:
+        for e in k["instantiations"]:
+            say(f"[4M] audit {k['kernel']}: {e['name']} static "
+                f"{e['static_smem']} B, dynamic {e['dynamic_smem']} B, "
+                f"{e['regs']} registers, {e['local_bytes']} B local, "
+                f"{e['threads']} threads, {e['blocks_per_sm']} blocks an SM")
+    return table
+
+
+def run_examples():
+    """Each example as a subprocess on the card, as a user runs it; its
+    lines echoed."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for name, extra in EXAMPLES:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable,
+                              os.path.join(ROOT, "examples", name),
+                              "--device", "cuda", *extra],
+                             capture_output=True, text=True, timeout=300,
+                             env=env, cwd=ROOT)
+        for line in res.stdout.strip().splitlines():
+            say(f"[4M] {name}: {line}")
+        if res.returncode != 0:
+            say(res.stderr[-4000:])
+            raise SystemExit(f"example {name} exited {res.returncode}")
+        say(f"[4M] {name} {' '.join(extra)}: exit 0 in "
+            f"{time.perf_counter() - t0:.1f}s")
+
+
+def analysis_phase(params, cfg) -> tuple:
+    """Phase 4M on phase 4's coded weights: the model checker (every
+    universe, zero findings), the replays on the engine at full width, the
+    check CLI's four passes, the examples.  Returns (launches of the
+    healthy replays by kernel, the kernel audit's table)."""
+    t0 = time.perf_counter()
+    # the committed universes and the mutants' own, on the sound scheduler
+    universes = modelcheck.UNIVERSES + tuple(
+        u for _, u in modelcheck.MUTANTS.values())
+    universes = tuple({u.name: u for u in universes}.values())
+    findings, stats = modelcheck.run_mc(budget_s=120.0, universes=universes)
+    if findings or not all(st["exhausted"] for st in stats):
+        raise SystemExit(f"the model checker found {findings} or did not "
+                         f"exhaust its universes")
+    say(f"[4M] run_mc: {len(stats)} universes exhausted, zero findings ("
+        + ", ".join(f"{st['universe']} {st['states']}" for st in stats)
+        + f" states) in {time.perf_counter() - t0:.1f}s")
+    opts = lm.ModelOpts(compute_dtype=torch.bfloat16)
+    counts = mc_replays(params, cfg, opts)
+    say(f"[time] phase 4M replays done in {time.perf_counter() - t0:.0f}s")
+    table = analysis_check()
+    say(f"[time] phase 4M check done in {time.perf_counter() - t0:.0f}s")
+    run_examples()
+    say(f"[time] phase 4M done in {time.perf_counter() - t0:.0f}s")
+    return counts, table
+
+
+# --------------------------------------------------------------------------
 # Phase 4c: the MoE family at full width
 # --------------------------------------------------------------------------
 
@@ -3794,17 +4120,23 @@ def compare_loss_grads(state, sides):
     plain transform's intermediates beside the whole state do not fit the
     card).  Every gradient must be finite.  Returns the two losses, the
     worst leaf's max |diff| / max |grad|, and each side's peak GiB."""
+    t0 = time.perf_counter()
+    marks = []
     devices = {p: t.device for p, t in tree_lib.leaves_with_paths(
         state["opt"])}
     state["opt"] = tree_lib.map_with_path(lambda _p, t: t.cpu(), state["opt"])
+    marks.append(("moments to the host", time.perf_counter()))
     res, peaks = {}, {}
     for i, (name, fn) in enumerate(sides):
         torch.cuda.reset_peak_memory_stats()
         loss, grads = fn()
         sync()
+        marks.append((f"{name} side", time.perf_counter()))
         peaks[name] = torch.cuda.max_memory_allocated() / 2**30
         if i == 0:
             grads = tree_lib.map_with_path(lambda _p, t: t.cpu(), grads)
+            marks.append((f"{name} gradients to the host",
+                          time.perf_counter()))
         res[name] = (loss, grads)
         del grads
     (la, ga), (lb, gb) = (res[name] for name, _ in sides)
@@ -3820,8 +4152,13 @@ def compare_loss_grads(state, sides):
         if rel >= worst:
             worst, worst_path = rel, path
     del res, ga, gb
+    marks.append(("comparison", time.perf_counter()))
     state["opt"] = tree_lib.map_with_path(lambda p, t: t.to(devices[p]),
                                           state["opt"])
+    marks.append(("moments back", time.perf_counter()))
+    say("[time] loss and gradients two ways: " + ", ".join(
+        f"{what} {t - t_prev:.1f}s" for (what, t), t_prev in zip(
+            marks, [t0] + [t for _, t in marks[:-1]])))
     return la.item(), lb.item(), worst, worst_path, peaks
 
 
@@ -4092,7 +4429,9 @@ def train_profile(state, step_fn, cfg, data, step, seed, rows: int = 14):
         step_fn(state, batch, seed)
         sync()
         wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
     events = tp.key_averages()
+    t_avg = time.perf_counter() - t0
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
@@ -4114,6 +4453,8 @@ def train_profile(state, step_fn, cfg, data, step, seed, rows: int = 14):
             sorted(groups.items(), key=lambda kv: -kv[1])))
     say(events.table(sort_by="self_device_time_total", row_limit=rows,
                      max_name_column_width=60))
+    say(f"[time] profile of {cfg.name}: key_averages {t_avg:.1f}s, the "
+        f"whole read-out {time.perf_counter() - t0:.1f}s")
     return dev_us / 1e3, wall * 1e3
 
 
@@ -4269,6 +4610,8 @@ def family_train_phase(arch: str, seed: int, steps: int, layers=None):
         f"({', '.join(leaves)})")
     # FROZEN, NOISE and CLEAN layers at once (whisper: only its embedding
     # (modes[0]) and the rest (modes[-1]) are moded: the last block NOISE)
+    say(f"[time] phase 6b {arch}: state drawn at "
+        f"{time.perf_counter() - t_phase:.0f}s")
     train_plain_check(state, cfg, opts, tc, data, sched, seed,
                       steps - 1 if cfg.family == "audio"
                       else min(3, steps - 1))
@@ -4350,6 +4693,8 @@ def family_train_phase(arch: str, seed: int, steps: int, layers=None):
     peak = torch.cuda.max_memory_allocated() / 2**30
     med = float(np.median(times[1:]))
     before = kops.launch_counts()
+    say(f"[time] phase 6b {arch}: plain check and steps done at "
+        f"{time.perf_counter() - t_phase:.0f}s")
     ev = float(train_steps.eval_step(cfg, opts)(
         state["params"], train_cli.train_batch(cfg, data, steps, DEV),
         tc.uniq.w_bits))
@@ -4363,6 +4708,8 @@ def family_train_phase(arch: str, seed: int, steps: int, layers=None):
     del state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
+    say(f"[time] phase 6b {arch}: eval and profile done at "
+        f"{time.perf_counter() - t_phase:.0f}s")
     small_train_phase(seed, arch)
     res = dict(fwd=counts["uniq_noise_fwd"], bwd=counts["uniq_noise_bwd"],
                leaves=n_leaves, median_ms=med * 1e3, first_ms=times[0] * 1e3,
@@ -4385,11 +4732,13 @@ def family_train_phases(seed: int, vlm_layers: int):
     next; returns the launch counts summed over their steps."""
     total = {"uniq_noise_fwd": 0, "uniq_noise_bwd": 0}
     for arch in FAMILY_TRAIN_ARCHS:
+        t0 = time.perf_counter()
         res = family_train_phase(
             arch, seed, FAMILY_TRAIN_STEPS,
             layers=vlm_layers if arch == "pixtral_12b" else None)
         total["uniq_noise_fwd"] += res["fwd"]
         total["uniq_noise_bwd"] += res["bwd"]
+        say(f"[time] phase 6b {arch} took {time.perf_counter() - t0:.0f}s")
     return total
 
 
@@ -4510,6 +4859,8 @@ def moe_train_phase(arch: str, seed: int):
         f"parameters, {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
         f"allocated with the momentum; {n_leaves} quantized leaves "
         f"({', '.join(leaves)}; layers/eg {tuple(state['params']['layers']['eg'].shape)})")
+    say(f"[time] phase 6c {arch}: state drawn at "
+        f"{time.perf_counter() - t_phase:.0f}s")
     plain_peaks = train_plain_check(state, cfg, opts, tc, data, sched, seed,
                                     MOE_SCHEDULE_STEPS - 1)
     torch.cuda.empty_cache()
@@ -4517,12 +4868,20 @@ def moe_train_phase(arch: str, seed: int):
     kops.reset_launch_counts()
     oc = tc.optim
     times, drops = [], []
+    first_frozen = next(s for s in range(MOE_TRAIN_STEPS)
+                        if int(sched.modes_at(s)[0]) == FROZEN)
     for step in range(MOE_TRAIN_STEPS + 1):
         repeated = step == MOE_TRAIN_STEPS
         modes = sched.modes_at(step)
         # the embedding and head of a FROZEN step (4.7 GB each at kimi_k2)
-        # do not fit beside the step: their copies wait on the host
-        snap = _frozen_snapshot(state, modes, keep="cpu")
+        # do not fit beside the step: their copies wait on the host.  Taken
+        # and compared at the first FROZEN step alone (each such step's
+        # copies and comparison took ~15 s at kimi_k2)
+        snap = _frozen_snapshot(state, modes, keep="cpu") \
+            if step == first_frozen else {}
+        if step == first_frozen and not snap:
+            raise SystemExit(f"{arch} train step {step}: nothing FROZEN to "
+                             f"hold unchanged")
         probes = []
         if int(modes[0]) == NOISE:
             probes.append(_sgd_probe(state, "layers/eg", 0))
@@ -4558,8 +4917,9 @@ def moe_train_phase(arch: str, seed: int):
             + f": loss {loss:.4f}, grad norm {gnorm:.4f}, every parameter "
             f"finite {finite}, {dt * 1e3:.0f} ms; copies dropped {n_drop} "
             f"of {sum(ids.numel() for ids in rec['ids'])}; uniq_noise "
-            f"launches fwd {nf} bwd {nb}; FROZEN tensors unchanged {kept}/"
-            f"{len(snap)}" + "".join(
+            f"launches fwd {nf} bwd {nb}; FROZEN tensors unchanged "
+            + (f"{kept}/{len(snap)}" if snap else "not compared")
+            + "".join(
                 f"; slice {name} moved by its gradient {ulps:.1f} f32 ulps "
                 f"of its largest |p| beyond momentum and weight decay"
                 for name, ulps in moves))
@@ -4593,6 +4953,8 @@ def moe_train_phase(arch: str, seed: int):
             f"top-1 gate is 1 whatever the router, so its gradient is "
             f"zero (as in the reference) and weight decay alone moves it")
     before = kops.launch_counts()
+    say(f"[time] phase 6c {arch}: plain check and steps done at "
+        f"{time.perf_counter() - t_phase:.0f}s")
     ev = float(train_steps.eval_step(cfg, opts)(
         state["params"], train_cli.train_batch(cfg, data, MOE_TRAIN_STEPS,
                                                DEV), tc.uniq.w_bits))
@@ -4606,6 +4968,8 @@ def moe_train_phase(arch: str, seed: int):
     del state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
+    say(f"[time] phase 6c {arch}: eval and profile done at "
+        f"{time.perf_counter() - t_phase:.0f}s")
     small_train_phase(seed, arch)
     res = dict(fwd=counts["uniq_noise_fwd"], bwd=counts["uniq_noise_bwd"],
                median_ms=med * 1e3, peak_gib=peak, busy=dev_ms / wall_ms,
@@ -4628,9 +4992,11 @@ def moe_train_phases(seed: int):
     next; returns the launch counts summed over their steps."""
     total = {"uniq_noise_fwd": 0, "uniq_noise_bwd": 0}
     for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
         res = moe_train_phase(arch, seed)
         total["uniq_noise_fwd"] += res["fwd"]
         total["uniq_noise_bwd"] += res["bwd"]
+        say(f"[time] phase 6c {arch} took {time.perf_counter() - t0:.0f}s")
     return total
 
 
@@ -6129,6 +6495,10 @@ def main(argv=None) -> int:
                          "on a fresh granite load, its chunked-vs-whole and "
                          "training checks, the empirical train step, its "
                          "phase 7 rows), then stop")
+    ap.add_argument("--analysis", action="store_true",
+                    help="build, run phase 4M alone (the model checker, its "
+                         "replays on a fresh granite_3_8b W4 load, the check "
+                         "CLI's four passes, the examples), then stop")
     ap.add_argument("--ptxas", action="store_true",
                     help="print ptxas' register / shared-memory report")
     args = ap.parse_args(argv)
@@ -6189,6 +6559,18 @@ def main(argv=None) -> int:
         say("profile run: stopped after the profile")
         return 0
     art = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    if args.analysis:
+        cfg = dataclasses.replace(cb.get("granite_3_8b"),
+                                  n_layers=args.layers)
+        params = model.init(args.seed, cfg, device=DEV, w_bits=4,
+                            dense_dtype=torch.bfloat16)
+        analysis_phase(params, cfg)
+        art.cleanup()
+        say(f"[time] analysis run done at "
+            f"{time.perf_counter() - t_start:.0f}s")
+        say(card)
+        say("analysis run: stopped after phase 4M")
+        return 0
     if args.long:
         cfg = dataclasses.replace(cb.get("granite_3_8b"),
                                   n_layers=args.layers)
@@ -6258,6 +6640,14 @@ def main(argv=None) -> int:
                     counts[c] = counts.get(c, 0) + n
             say(f"[time] phase 4L engine done at "
                 f"{time.perf_counter() - t_start:.0f}s")
+            # phase 4M on the same coded weights; its healthy replays'
+            # launches join the kernels line's too
+            mc_counts, audit_table = analysis_phase(params, cfg)
+            for c, n in mc_counts.items():
+                if n:
+                    counts[c] = counts.get(c, 0) + n
+            say(f"[time] phase 4M done at "
+                f"{time.perf_counter() - t_start:.0f}s")
         del params, opts, outs
         gc.collect()            # an engine holds reference cycles: free its
         torch.cuda.empty_cache()  # pool before the next one is made
@@ -6321,6 +6711,14 @@ def main(argv=None) -> int:
                   train_layers=args.train_layers)
     say(f"[time] phase 6c done at {time.perf_counter() - t_start:.0f}s")
     line = timing_phase(gen, counts, errs)
+    # phase 4M's audit figures beside each kernel's times
+    for e in line["kernels"]:
+        row = audit_table.get(e["name"])
+        if row is None:
+            raise SystemExit(f"the kernel audit has no case of {e['name']}")
+        e["audit"] = {k: row[k] for k in (
+            "static_smem", "dynamic_smem", "regs", "local_bytes",
+            "blocks_per_sm", "instantiations")}
     say(f"[time] phase 7 done at {time.perf_counter() - t_start:.0f}s")
     art.cleanup()
 

@@ -94,6 +94,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_audit.cuh"
+
 namespace {
 
 constexpr float EPS = 1e-6f;
@@ -689,6 +691,9 @@ int quant_body(const void* w, const float* mu, const float* sigma,
     const ColGrid cg = col_grid(G, R, C, VEC, cap);
     const long long blocks = G * cg.strips * (long long)cg.tiles;
     if (blocks > 0x7FFFFFFFLL) return -3;
+    LAUNCH_AUDIT((quant_col_kernel<T, VEC, WIDE, PACKED>), THREADS, 0,
+                 "quant_col_kernel<%s,%d,%d,%d>", launch_audit::dtype_name<T>(),
+                 VEC, (int)WIDE, (int)PACKED);
     quant_col_kernel<T, VEC, WIDE, PACKED>
         <<<(unsigned)blocks, THREADS, 0, stream>>>(wp, mu, sigma, op, cg, k);
   } else {
@@ -698,6 +703,9 @@ int quant_body(const void* w, const float* mu, const float* sigma,
     const long long blocks = (fg.n_chunks + fg.chunks_per_block - 1) /
                              fg.chunks_per_block;
     if (blocks > 0x7FFFFFFFLL) return -3;
+    LAUNCH_AUDIT((quant_grp_kernel<T, VEC, WIDE, PACKED>), THREADS, 0,
+                 "quant_grp_kernel<%s,%d,%d,%d>", launch_audit::dtype_name<T>(),
+                 VEC, (int)WIDE, (int)PACKED);
     quant_grp_kernel<T, VEC, WIDE, PACKED>
         <<<(unsigned)blocks, THREADS, 0, stream>>>(wp, mu, sigma, op, fg, k);
   }
@@ -717,6 +725,9 @@ int dequant_body(const void* codes, const float* mu, const float* sigma,
     const ColGrid cg = col_grid(G, R, C, VEC, cap);
     const long long blocks = G * cg.strips * (long long)cg.tiles;
     if (blocks > 0x7FFFFFFFLL) return -3;
+    LAUNCH_AUDIT((dequant_col_kernel<T, VEC, WIDE, PACKED>), THREADS, 0,
+                 "dequant_col_kernel<%s,%d,%d,%d>",
+                 launch_audit::dtype_name<T>(), VEC, (int)WIDE, (int)PACKED);
     dequant_col_kernel<T, VEC, WIDE, PACKED>
         <<<(unsigned)blocks, THREADS, 0, stream>>>(cp, mu, sigma, table, op,
                                                    cg, k);
@@ -727,6 +738,9 @@ int dequant_body(const void* codes, const float* mu, const float* sigma,
     const long long blocks = (fg.n_chunks + fg.chunks_per_block - 1) /
                              fg.chunks_per_block;
     if (blocks > 0x7FFFFFFFLL) return -3;
+    LAUNCH_AUDIT((dequant_grp_kernel<T, VEC, WIDE, PACKED>), THREADS, 0,
+                 "dequant_grp_kernel<%s,%d,%d,%d>",
+                 launch_audit::dtype_name<T>(), VEC, (int)WIDE, (int)PACKED);
     dequant_grp_kernel<T, VEC, WIDE, PACKED>
         <<<(unsigned)blocks, THREADS, 0, stream>>>(cp, mu, sigma, table, op,
                                                    fg, k);
@@ -753,6 +767,10 @@ int paged_body(const void* codes, const void* mu, const void* sigma,
                make_fastdiv((uint32_t)(hd / VEC))};
   const long long blocks = segs * pg.frac;
   if (cpp > 0x7FFFFFFFLL || blocks > 0x7FFFFFFFLL) return -3;
+  LAUNCH_AUDIT((dequant_paged_kernel<T, I, VEC, WIDE, PACKED>), THREADS, 0,
+               "dequant_paged_kernel<%s,i%d,%d,%d,%d>",
+               launch_audit::dtype_name<T>(), (int)(8 * sizeof(I)), VEC,
+               (int)WIDE, (int)PACKED);
   dequant_paged_kernel<T, I, VEC, WIDE, PACKED>
       <<<(unsigned)blocks, THREADS, 0, stream>>>(
           static_cast<const uint8_t*>(codes),
@@ -1024,6 +1042,9 @@ int append(const void* k, const void* v, const int64_t* pages,
   const T* vp = static_cast<const T*>(v);
   if constexpr (VPL % 2 == 0) {   // kv4 packs whole bytes: VPL even
     if (kv4) {
+      LAUNCH_AUDIT((kv_append_kernel<T, VPL, CH, WARP32, true>),
+                   APPEND_THREADS, 0, "kv_append_kernel<%s,%d,%d,%d,1>",
+                   launch_audit::dtype_name<T>(), VPL, CH, (int)WARP32);
       kv_append_kernel<T, VPL, CH, WARP32, true><<<blocks, APPEND_THREADS, 0,
                                                    stream>>>(
           kp, vp, pages, rows, kc, vc, km, ks, vm, vs, n_groups, kv_heads,
@@ -1033,6 +1054,9 @@ int append(const void* k, const void* v, const int64_t* pages,
   } else {
     if (kv4) return -6;
   }
+  LAUNCH_AUDIT((kv_append_kernel<T, VPL, CH, WARP32, false>),
+               APPEND_THREADS, 0, "kv_append_kernel<%s,%d,%d,%d,0>",
+               launch_audit::dtype_name<T>(), VPL, CH, (int)WARP32);
   kv_append_kernel<T, VPL, CH, WARP32, false><<<blocks, APPEND_THREADS, 0,
                                                 stream>>>(
       kp, vp, pages, rows, kc, vc, km, ks, vm, vs, n_groups, kv_heads,
@@ -1086,6 +1110,8 @@ int check_args(long long G, long long R, long long C, int k) {
 }
 
 }  // namespace
+
+LAUNCH_AUDIT_EXPORTS(kquantile)
 
 // Returns 0 on success, a cudaError_t value if the launch was refused, or a
 // negative value for an argument the kernel does not take (-7: `vector`

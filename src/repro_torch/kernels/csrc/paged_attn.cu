@@ -78,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_audit.cuh"
+
 namespace {
 
 constexpr int NW = 8;  // warps per block
@@ -413,6 +415,8 @@ struct Args {
 template <int BITS, int LPR, int PPL, int GMAX>
 void launch_one(const Args& a) {
   dim3 grid(a.B, a.KV, a.splits);
+  LAUNCH_AUDIT((paged_attn_kernel<BITS, LPR, PPL, GMAX>), NW * 32, 0,
+               "paged_attn_kernel<%d,%d,%d,%d>", BITS, LPR, PPL, GMAX);
   paged_attn_kernel<BITS, LPR, PPL, GMAX><<<grid, NW * 32, 0, a.stream>>>(
       a.q, a.q_bf16, a.k_codes, a.k_mu, a.k_sigma, a.v_codes, a.v_mu,
       a.v_sigma, a.block_tables, a.q_pos, a.table, a.m_part, a.l_part,
@@ -963,6 +967,8 @@ int tc_launch(const TcArgs& a, int dev, dim3 grid, int smem,
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev] = true;
   }
+  LAUNCH_AUDIT((paged_attn_tc_kernel<BITS, DMAX>), (tc_warps<DMAX>() + 1) * 32,
+               smem, "paged_attn_tc_kernel<%d,%d>", BITS, DMAX);
   paged_attn_tc_kernel<BITS, DMAX>
       <<<grid, (tc_warps<DMAX>() + 1) * 32, smem, stream>>>(a);
   return 0;
@@ -977,6 +983,8 @@ int tc_launch_d(const TcArgs& a, int dev, dim3 grid, int smem,
 }
 
 }  // namespace
+
+LAUNCH_AUDIT_EXPORTS(paged_attn)
 
 // Returns 0 on success, a cudaError_t value if a launch was refused, or a
 // negative value for an argument the kernel does not take (an odd D at 4
@@ -1029,6 +1037,8 @@ extern "C" int paged_attn_launch(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = D < 128 ? 32 * ((D + 31) / 32) : 128;
+  LAUNCH_AUDIT(paged_attn_combine_kernel, threads, 0,
+               "paged_attn_combine_kernel");
   paged_attn_combine_kernel<<<B * H, threads, 0, a.stream>>>(
       m_part, l_part, acc_part, out, q_bf16, H, D, splits);
   return static_cast<int>(cudaGetLastError());
@@ -1131,6 +1141,8 @@ extern "C" int paged_attn_tc_launch(
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  LAUNCH_AUDIT(paged_attn_combine_kernel, threads, 0,
+               "paged_attn_combine_kernel");
   err = cudaLaunchKernelEx(&cfg, paged_attn_combine_kernel,
                            (const float*)m_part, (const float*)l_part,
                            (const float*)acc_part, out, 1, H, D, splits);

@@ -119,6 +119,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_audit.cuh"
+
 namespace {
 
 constexpr int BK = 32;   // K rows per stage of the CUDA-core body
@@ -910,6 +912,8 @@ int launch_wg(const Args& p, int splitk, cudaStream_t stream) {
   q.zsplit = BM >= WG_IN_BLOCK_BM ? 1 : splitk;
   q.direct = wg_writes_out(1, BM, splitk);
   dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, q.zsplit * p.E);
+  LAUNCH_AUDIT((qmatmul_wg_kernel<BITS, BM, WM>), MMA_NT, bytes,
+               "qmatmul_wg_kernel<%d,%d,%d>", BITS, BM, WM);
   qmatmul_wg_kernel<BITS, BM, WM><<<grid, MMA_NT, bytes, stream>>>(q);
   return 0;
 }
@@ -1415,6 +1419,8 @@ int launch_xp(const XArgs& p, int grid, cudaStream_t stream) {
                      BM, CU_TENSOR_MAP_SWIZZLE_128B);
     if (rc) return rc;
   }
+  LAUNCH_AUDIT((qmatmul_experts_wg_kernel<BM, WM>), XP_NT, bytes,
+               "qmatmul_experts_wg_kernel<%d,%d>", BM, WM);
   qmatmul_experts_wg_kernel<BM, WM><<<grid, XP_NT, bytes, stream>>>(
       p, map_w, map_a);
   return static_cast<int>(cudaGetLastError());
@@ -1693,6 +1699,8 @@ int launch_a8(const Args& p, int splitk, cudaStream_t stream) {
     ready = true;
   }
   dim3 grid((p.N + BN - 1) / BN, (p.M + MT * 16 - 1) / (MT * 16), splitk);
+  LAUNCH_AUDIT((qmatmul_a8_mma_kernel<BITS, MT>), MMA_NT, bytes,
+               "qmatmul_a8_mma_kernel<%d,%d>", BITS, MT);
   qmatmul_a8_mma_kernel<BITS, MT><<<grid, MMA_NT, bytes, stream>>>(p);
   return 0;
 }
@@ -1733,6 +1741,8 @@ void launch_tile(const Args& p, int splitk, cudaStream_t stream) {
   Args q = p;
   q.zsplit = splitk;
   dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM, splitk * p.E);
+  LAUNCH_AUDIT((qmatmul_kernel<BITS, TX, TY, TM, TN, WM>), TX * TY, 0,
+               "qmatmul_kernel<%d,%d,%d,%d,%d,%d>", BITS, TX, TY, TM, TN, WM);
   qmatmul_kernel<BITS, TX, TY, TM, TN, WM><<<grid, TX * TY, 0, stream>>>(q);
 }
 
@@ -1801,12 +1811,15 @@ int reduce(int rc, const Args& p, int splitk, bool written,
   const size_t mn = (size_t)p.E * p.M * p.N;
   const int threads = 256;
   const unsigned blocks = (unsigned)((mn + threads - 1) / threads);
+  LAUNCH_AUDIT(qmatmul_reduce_kernel, threads, 0, "qmatmul_reduce_kernel");
   qmatmul_reduce_kernel<<<blocks, threads, 0, stream>>>(
       p.part, p.out, p.out_bf16, splitk, mn);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+LAUNCH_AUDIT_EXPORTS(qmatmul)
 
 // Each entry point returns 0 on success, a cudaError_t value if a launch was
 // refused, or a negative value for an argument the kernel does not take.

@@ -74,6 +74,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "launch_audit.cuh"
+
 namespace {
 
 constexpr int CLEAN = 0;
@@ -517,6 +521,12 @@ int fwd(const void* w, Noise noise, const FwdArgs& a, void* out, int64_t G,
     const int64_t cap = MAX_BLOCKS / G > 0 ? MAX_BLOCKS / G : 1;
     const dim3 grid((unsigned)(per_group < cap ? per_group : cap),
                     (unsigned)G);
+    LAUNCH_AUDIT((vec ? (const void*)uniq_fwd_group_kernel<T, true, Noise>
+                      : (const void*)uniq_fwd_group_kernel<T, false, Noise>),
+                 THREADS, 0, "uniq_fwd_group_kernel<%s,%d,%s>",
+                 launch_audit::dtype_name<T>(), (int)vec,
+                 std::is_same<Noise, NoisePhilox>::value ? "philox"
+                                                         : "operand");
     if (vec)
       uniq_fwd_group_kernel<T, true, Noise><<<grid, THREADS, 0, stream>>>(
           wp, noise, a.mu, a.sigma, a.mode, a.mode_value, a.table, op, n,
@@ -528,6 +538,12 @@ int fwd(const void* w, Noise noise, const FwdArgs& a, void* out, int64_t G,
     return static_cast<int>(cudaGetLastError());
   }
   const unsigned blocks = grid_for(n);
+  LAUNCH_AUDIT((vec ? (const void*)uniq_fwd_kernel<T, true, Noise>
+                    : (const void*)uniq_fwd_kernel<T, false, Noise>),
+               THREADS, 0, "uniq_fwd_kernel<%s,%d,%s>",
+               launch_audit::dtype_name<T>(), (int)vec,
+               std::is_same<Noise, NoisePhilox>::value ? "philox"
+                                                       : "operand");
   if (vec)
     uniq_fwd_kernel<T, true, Noise><<<blocks, THREADS, 0, stream>>>(
         wp, noise, a.mu, a.sigma, a.mode, a.mode_value, a.table, op, n, rc,
@@ -579,6 +595,10 @@ int bwd(const void* g, const void* w, const void* w_hat, const float* mu,
   const bool vec = aligned(g, a) && aligned(w, a) && aligned(w_hat, a) &&
                    aligned(dw, a);
   const unsigned blocks = grid_for(n);
+  LAUNCH_AUDIT((vec ? (const void*)uniq_bwd_kernel<T, true>
+                    : (const void*)uniq_bwd_kernel<T, false>),
+               THREADS, 0, "uniq_bwd_kernel<%s,%d>",
+               launch_audit::dtype_name<T>(), (int)vec);
   if (vec)
     uniq_bwd_kernel<T, true><<<blocks, THREADS, 0, stream>>>(
         static_cast<const T*>(g), static_cast<const T*>(w),
@@ -593,6 +613,8 @@ int bwd(const void* g, const void* w, const void* w_hat, const float* mu,
 }
 
 }  // namespace
+
+LAUNCH_AUDIT_EXPORTS(uniq_noise)
 
 // `group`: the per-group body (the caller's onchip_route); `mode_value`: one
 // mode for every group by value, or -1 to read `mode` (G,) int32.
@@ -621,6 +643,7 @@ extern "C" int uniq_noise_onchip_e01_launch(float* out, long long n,
                                             unsigned key_lo, unsigned key_hi,
                                             void* stream_ptr) {
   if (n <= 0) return -2;
+  LAUNCH_AUDIT(onchip_e01_kernel, THREADS, 0, "onchip_e01_kernel");
   onchip_e01_kernel<<<grid_for(n), THREADS, 0,
                       static_cast<cudaStream_t>(stream_ptr)>>>(
       NoisePhilox{key_lo, key_hi}, out, n);

@@ -361,7 +361,7 @@ def kquantile_quantize(w: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     per_col = mu.shape[-1] != 1
     fn = _bind("kquantile_quantize_launch")
     with loader.on_device(w.device):
-        out = torch.empty(shape, dtype=dtype, device=w.device)
+        out = loader.empty(shape, dtype, w.device)
         route = codec_route(QUANTIZE, (G, R, C), per_col, w.dtype, packed,
                             (w.data_ptr(), out.data_ptr(), mu.data_ptr(),
                              sigma.data_ptr()))
@@ -409,7 +409,7 @@ def kquantile_dequantize(codes: torch.Tensor, mu: torch.Tensor,
     fn = _bind("kquantile_dequantize_launch")
     table = kref.level_table(k, codes.device)
     with loader.on_device(codes.device):
-        out = torch.empty((G, R, C), dtype=out_dtype, device=codes.device)
+        out = loader.empty((G, R, C), out_dtype, codes.device)
         route = codec_route(DEQUANTIZE, (G, R, C), per_col, out_dtype, packed,
                             (out.data_ptr(), codes.data_ptr(), mu.data_ptr(),
                              sigma.data_ptr()))
@@ -485,10 +485,10 @@ def kquantile_dequantize_paged(codes: torch.Tensor, mu: torch.Tensor,
         raise ValueError(f"a page of {page * KV * hd} values or a table of "
                          f"{B * n_pages} entries: the kernel takes fewer "
                          f"than 2^31")
-    out = torch.empty((B, n_pages * page, KV, hd), dtype=out_dtype,
-                      device=codes.device)
-    if out.numel() == 0:
-        return out
+    if B * n_pages * page * KV * hd == 0:
+        return torch.empty((B, n_pages * page, KV, hd), dtype=out_dtype,
+                           device=codes.device)
+    out = loader.empty((B, n_pages * page, KV, hd), out_dtype, codes.device)
     # a (row, head) of hd values is the group of the per-group body
     route = codec_route(DEQUANTIZE, (B * n_pages * page * KV, 1, hd), False,
                         out_dtype, kv_bits == 4,

@@ -3,9 +3,14 @@
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, compiled by ``nvcc`` for ``sm_90a`` at first use: all stale sources
 are compiled together, one ``nvcc`` process each, started at the same time.
-Libraries are cached by a hash of the source and the command line in the
-build directory (``build/repro_torch_kernels`` at the root of the checkout,
-or ``$REPRO_TORCH_BUILD_DIR``).  A build failure raises; nothing falls back.
+Libraries are cached by a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the command line in the build directory
+(``build/repro_torch_kernels`` at the root of the checkout, or
+``$REPRO_TORCH_BUILD_DIR``).  A build failure raises; nothing falls back.
+
+``empty`` allocates the kernel wrappers' outputs and scratch: ``torch.empty``
+unless the kernel audit (``analysis/kernel_audit.py``) has installed its
+guarded allocator.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -51,6 +56,8 @@ def find_nvcc() -> str:
 def _lib_path(name: str, extra_flags: Iterable[str]) -> Path:
     src = CSRC / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -102,6 +109,28 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name, ())))
         _LIBS[name] = lib
     return lib
+
+
+# the allocator of the wrappers' outputs and scratch: None is torch.empty;
+# the kernel audit installs one (``set_allocator``) for the span of a case
+_ALLOCATOR: Optional[Callable] = None
+
+
+def empty(shape, dtype: torch.dtype, device, role: str = "out"
+          ) -> torch.Tensor:
+    """An uninitialised tensor a kernel writes: ``role`` is ``"out"`` (the
+    result) or ``"scratch"`` (split partials the kernel reads back)."""
+    if _ALLOCATOR is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    return _ALLOCATOR(tuple(shape), dtype, torch.device(device), role)
+
+
+def set_allocator(alloc: Optional[Callable]) -> Optional[Callable]:
+    """Install ``alloc(shape, dtype, device, role)`` for ``empty`` (None:
+    back to ``torch.empty``); returns the one it replaces."""
+    global _ALLOCATOR
+    prev, _ALLOCATOR = _ALLOCATOR, alloc
+    return prev
 
 
 _SMS: Dict[Optional[int], int] = {}

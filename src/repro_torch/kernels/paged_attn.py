@@ -301,9 +301,10 @@ def _launch(route: str, q, k_codes, k_mu, k_sigma, v_codes, v_mu, v_sigma,
     with loader.on_device(q.device):
         # the (m, l, acc) partials of every split in one allocation
         n = B * nsplit * H
-        buf = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+        buf = loader.empty((n * (D + 2),), torch.float32, q.device,
+                           "scratch")
         m_part, l_part, acc_part = buf[:n], buf[n:2 * n], buf[2 * n:]
-        out = torch.empty_like(q)
+        out = loader.empty(q.shape, q.dtype, q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (k_codes.data_ptr(), k_mu.data_ptr(), k_sigma.data_ptr(),
                  v_codes.data_ptr(), v_mu.data_ptr(), v_sigma.data_ptr(),

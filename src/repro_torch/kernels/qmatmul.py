@@ -305,9 +305,9 @@ def _launch(name, operands, tensors, M, K, N, out_dtype, blocks, splitk,
     n_part = _bind("qmatmul_scratch_splits")(int(wg), cfg.bm, nsplit)
     dev = next(iter(tensors.values())).device
     with loader.on_device(dev):
-        part = torch.empty((n_part, E * M, N), dtype=torch.float32,
-                           device=dev)
-        out = torch.empty((E * M, N), dtype=out_dtype, device=dev)
+        part = loader.empty((n_part, E * M, N), torch.float32, dev,
+                            "scratch")
+        out = loader.empty((E * M, N), out_dtype, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*operands, part.data_ptr(), out.data_ptr(),
                 int(out_dtype == torch.bfloat16), M, K, N, cfg.bm, nsplit,
@@ -467,7 +467,7 @@ def _launch_experts(a, w_packed, rows, wm, mu, sigma, table, lut, out_dtype,
     def ptr(t):
         return None if t is None else t.data_ptr()
     with loader.on_device(a.device):
-        out = torch.empty((E, C, N), dtype=out_dtype, device=a.device)
+        out = loader.empty((E, C, N), out_dtype, a.device)
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = fn(a.data_ptr(), w_packed.data_ptr(), wm, ptr(mu), ptr(sigma),
                 ptr(table), ptr(lut), rows.data_ptr(), E, out.data_ptr(),

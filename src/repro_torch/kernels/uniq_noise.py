@@ -175,7 +175,7 @@ def _launch_fwd(route: str, w, mu, sigma, mode, *, k: int, e01=None,
     per_col = mu.shape[-1] != 1
     mode_ptr, mode_value = _mode_arg(mode)
     with loader.on_device(w.device):
-        out = torch.empty_like(w)
+        out = loader.empty(w.shape, w.dtype, w.device)
         stream = torch.cuda.current_stream(w.device).cuda_stream
         head = (w.data_ptr(), int(w.dtype == torch.bfloat16))
         tail = (mu.data_ptr(), sigma.data_ptr(), int(per_col), mode_ptr,
@@ -279,7 +279,7 @@ def uniq_noise_bwd(g: torch.Tensor, w: torch.Tensor, w_hat: torch.Tensor,
     fn = _bind("uniq_noise_bwd_launch")
     mode_ptr, mode_value = _mode_arg(mode)
     with loader.on_device(w.device):
-        dw = torch.empty_like(w)
+        dw = loader.empty(w.shape, w.dtype, w.device)
         stream = torch.cuda.current_stream(w.device).cuda_stream
         rc = fn(g.data_ptr(), w.data_ptr(), w_hat.data_ptr(),
                 int(w.dtype == torch.bfloat16), mu.data_ptr(),

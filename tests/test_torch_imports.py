@@ -18,6 +18,9 @@ def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(PKG):
         out += [os.path.join(base, f) for f in files if f.endswith(".py")]
+    examples = os.path.join(ROOT, "examples")
+    out += [os.path.join(examples, f) for f in os.listdir(examples)
+            if f.endswith("_torch.py")]
     return sorted(out)
 
 
@@ -52,8 +55,15 @@ def test_the_walk_sees_the_package():
                 "core/activations.py", "core/bops.py", "core/quantizers.py",
                 "cnn/__init__.py", "cnn/cnn.py", "cnn/train.py",
                 "configs/resnet18_cifar.py", "configs/mobilenet_cifar.py",
-                "models/ssm.py", "models/hybrid.py", "models/encdec.py"):
+                "models/ssm.py", "models/hybrid.py", "models/encdec.py",
+                "analysis/findings.py", "analysis/modelcheck.py",
+                "analysis/lint.py", "analysis/compile_audit.py",
+                "analysis/kernel_audit.py", "analysis/check.py",
+                "analysis/traceview.py"):
         assert os.path.join("src", "repro_torch", mod) in names
+    for ex in ("quickstart_torch.py", "serve_quantized_lm_torch.py",
+               "train_cnn_uniq_torch.py"):
+        assert os.path.join("examples", ex) in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -71,9 +81,12 @@ def test_no_jax_and_no_reference_package(path):
 
 def test_csrc_has_the_kernel_sources_and_no_library_products():
     csrc = os.path.join(PKG, "kernels", "csrc")
-    names = sorted(os.listdir(csrc))
+    # the four kernel sources, and the launch records they share with the
+    # kernel audit (a header, compiled into each)
+    names = sorted(n for n in os.listdir(csrc) if n != "launch_audit.cuh")
     assert names == ["kquantile.cu", "paged_attn.cu", "qmatmul.cu",
                      "uniq_noise.cu"]
+    assert os.path.isfile(os.path.join(csrc, "launch_audit.cuh"))
     for n in names:
         with open(os.path.join(csrc, n)) as fh:
             text = fh.read()
@@ -99,6 +112,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "repro_torch.configs.mobilenet_cifar\n"
         "import repro_torch.models.ssm, repro_torch.models.hybrid, "
         "repro_torch.models.encdec\n"
+        "import repro_torch.analysis.check, "
+        "repro_torch.analysis.modelcheck, repro_torch.analysis.lint, "
+        "repro_torch.analysis.compile_audit, "
+        "repro_torch.analysis.kernel_audit\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'repro', 'triton')]\n"
         "assert not bad, bad\n"
