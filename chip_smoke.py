@@ -110,6 +110,22 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      counted exactly, the plain check with a wrong-code control (every
      coded weight one level off must land above the logit limit); each
      model freed before the next;
+  4D. the multi-device layer on an NCCL world of this one process (a file
+     store in a temporary directory; the process group destroyed before
+     the next phase): (a) on 4c's kimi_k2 W4 weights, the expert-parallel
+     MoE (``moe_axis="model"``) on a (1, 1) mesh in both ``moe_mode``s: a
+     256-token prefill and 8 decode steps through ``lm``, every call's
+     logits bit-equal to the same calls without a mesh, launches exact
+     (``qmatmul_experts`` 3 x L a call) and the collective wrapper's calls
+     exact (L all-reduces a call in either mode; L all-gathers of the
+     tokens' output in gather mode),
+     the mesh path's plain versions within ``TOL_LOGITS_REL``; (b) after
+     phase 6's steps, on its granite_3_8b state (8 of 40 layers, f32): one
+     step's loss and gradients with ``dp_compress_bits=8`` on a ``pod``
+     mesh of 1 beside the same without (loss bit-equal, every coded leaf
+     within half a code step of the exact gradient, the exact leaves
+     bit-equal), and one whole step each way, timed beside phase 6's, with
+     its peak;
   5. repeats a prefill + one decode step with the plain versions forced and
      compares logits, for each engine; replays each engine's stream with
      the kernels and with the plain versions and prints greedy agreement;
@@ -200,7 +216,8 @@ What it does, in order, failing (non-zero exit) as soon as a phase fails:
      takes one more counted step on frames drawn from ``--seed``, whose
      norm must be finite and whose update must move its first encoder
      layer's norm scale by more than weight decay; then the all-FROZEN
-     eval, a profiled step (busy share, median step, peak memory) and the
+     eval, a profiled step (busy share, median step, peak memory; the
+     kernel times read from the profiler's raw events) and the
      tiny f32 step of its smoke config on the card against the CPU; phase
      3 holds the ``uniq_noise`` kernels at these trainers' leaf shapes
      (mamba2's and zamba2's stacked ``in_proj``, zamba2's shared ``w_up``,
@@ -245,6 +262,14 @@ serving shapes, holds ``qmatmul_a8`` and its plain version against the
 exact sum, and stops (``--sweep attention``: the attention part alone;
 ``--sweep codec``: phase 7's codec rows alone);
 ``--long`` runs phase 4L alone (on a fresh granite load) and stops;
+``--multi-device`` runs phase 4D alone (on a fresh kimi_k2 load at
+``--moe-layers`` and a fresh granite state at ``--train-layers``) and
+stops;
+``--train-profile`` runs phase 6b alone (no process group made in the
+process; with ``--after-nccl`` after an NCCL world of 1 joined, used once
+and destroyed, as phase 4D leaves the whole run), reads each model's train
+profile both ways (the raw kineto events, as the whole run does, and
+``key_averages``) and stops;
 ``--profile`` profiles an engine run (host by cProfile, device by
 torch.profiler), counts the device operations of one decode step with the
 fused KV append and with the eager append it replaced, of one prefill-chunk
@@ -306,12 +331,14 @@ from repro_torch.kernels import paged_attn as pa              # noqa: E402
 from repro_torch.kernels import qmatmul as qmm                # noqa: E402
 from repro_torch.kernels import ref as kref                   # noqa: E402
 from repro_torch.kernels import uniq_noise as un              # noqa: E402
+from repro_torch.launch import mesh as mesh_lib               # noqa: E402
 from repro_torch.launch import train as train_cli             # noqa: E402
 from repro_torch.models import attention as attn_lib         # noqa: E402
 from repro_torch.models import kv_cache as kvc               # noqa: E402
 from repro_torch.models import hybrid, lm, model              # noqa: E402
 from repro_torch.models import moe as moe_lib                 # noqa: E402
 from repro_torch.optim.optim import OptimConfig               # noqa: E402
+from repro_torch.parallel import collectives as coll          # noqa: E402
 from repro_torch.serve import engine as engine_lib           # noqa: E402
 from repro_torch.serve import serve as serve_lib              # noqa: E402
 from repro_torch.serve import telemetry as tele_lib           # noqa: E402
@@ -322,6 +349,9 @@ from repro_torch.train import steps as train_steps            # noqa: E402
 DEV = torch.device("cuda")
 # the card's name and power limit (nvidia-smi), printed beside the times
 CARD = ""
+# --train-profile: each train profile read both ways (raw events and
+# key_averages), to show the two give the same figures
+PROFILE_BOTH = False
 
 # Published peaks of one H100 SXM (dense): what the bounds are stated against.
 PEAK_BYTES_PER_S = 3.35e12
@@ -3478,6 +3508,12 @@ def moe_phase(arch: str, seed: int, new_tokens: int, layers: int,
                              f"launches")
         for k, v in cc.items():
             counts[k] += v
+        # phase 4D (a) on the same coded weights; its counted runs'
+        # launches join the phase's
+        t0 = time.perf_counter()
+        for k, v in ep_check(params, cfg).items():
+            counts[k] += v
+        say(f"[time] phase 4D (a) took {time.perf_counter() - t0:.0f}s")
     return counts
 
 
@@ -3556,6 +3592,217 @@ def moe_decode_profile(params, cfg, opts, B: int = 16, ctx: int = 300):
                  f"one decode step (B={B}, {ctx} rows of context, "
                  f"{cfg.n_layers} layers)", "moe")
     del cache
+
+
+# --------------------------------------------------------------------------
+# Phase 4D: the multi-device layer on an NCCL world of one rank
+# --------------------------------------------------------------------------
+
+# the expert-parallel run: a 256-token prefill and 8 decode steps (B = 1)
+EP_PROMPT, EP_STEPS = 256, 8
+
+
+@contextlib.contextmanager
+def nccl_world():
+    """An NCCL world of this one process over a file store in a temporary
+    directory, destroyed on the way out (before the next phase)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_world_") as d:
+        t0 = time.perf_counter()
+        mesh_lib.init_world("cuda", store_path=os.path.join(d, "store"),
+                            rank=0, world_size=1)
+        t_join = time.perf_counter() - t0
+        # NCCL makes its communicator at the first collective: one here
+        # (not through the counted wrapper), so that no timed call pays it
+        torch.distributed.all_reduce(torch.ones(1, device=DEV))
+        sync()
+        say(f"[4D] NCCL world of 1 (backend "
+            f"{torch.distributed.get_backend()}) joined in {t_join:.2f}s, "
+            f"its communicator made by a first all-reduce in "
+            f"{time.perf_counter() - t0 - t_join:.2f}s")
+        try:
+            yield
+        finally:
+            mesh_lib.destroy_world()
+            if torch.distributed.is_initialized():
+                raise SystemExit("the process group outlived its phase")
+            say("[4D] process group destroyed")
+
+
+def ep_calls(params, cfg, opts, prompt, feed=None):
+    """The prefill of ``prompt`` and EP_STEPS decode steps through ``lm``
+    (a slot cache of the prefill's dense K/V); the next token is the
+    greedy one, or ``feed``'s.  Returns (each call's f32 logits, tokens)."""
+    S = prompt.shape[1]
+    logits, cache = lm.forward_prefill(params, cfg, opts, {"tokens": prompt},
+                                       pad_to=S + EP_STEPS)
+    outs, toks = [logits.float()], []
+    for i in range(EP_STEPS):
+        nxt = logits.argmax(-1) if feed is None else feed[i]
+        toks.append(nxt)
+        logits, cache = lm.decode_step(params, cfg, opts, cache, nxt[:, None],
+                                       torch.full((1,), S + i, device=DEV))
+        outs.append(logits.float())
+    sync()
+    return outs, toks
+
+
+def ep_check(params, cfg):
+    """Phase 4D (a): the expert-parallel MoE (``moe_axis="model"``) on a
+    (1, 1) mesh of the NCCL world, in both ``moe_mode``s, beside the same
+    calls without a mesh: logits bit-equal (a one-rank all-reduce and
+    all-gather are copies, and every other operation is the same), the
+    launches and the collective wrapper's calls exact, the mesh path's
+    plain versions within TOL_LOGITS_REL on the kernel run's expert ids.
+    Returns the counted runs' launches."""
+    L = cfg.n_layers
+    calls = 1 + EP_STEPS
+    prompt = torch.tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, size=(1, EP_PROMPT)), device=DEV)
+    base = lm.ModelOpts(compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    want, feed = ep_calls(params, cfg, base, prompt)
+    say(f"[4D] {cfg.name} without a mesh: a {EP_PROMPT}-token prefill and "
+        f"{EP_STEPS} decode steps in {time.perf_counter() - t0:.2f}s")
+    total = collections.Counter()
+    with nccl_world():
+        mesh = mesh_lib.make_host_mesh(1, 1)
+        for mode in ("gather", "reduce"):
+            o = dataclasses.replace(base, moe_axis="model", mesh=mesh,
+                                    moe_mode=mode)
+            kops.reset_launch_counts()
+            coll.reset_collective_counts()
+            t0 = time.perf_counter()
+            got, _ = ep_calls(params, cfg, o, prompt, feed)
+            dt = time.perf_counter() - t0
+            counts, cc = kops.launch_counts(), coll.collective_counts()
+            want_k = {"qmatmul": (4 * L + 1) * calls,
+                      "qmatmul_experts": 3 * L * calls,
+                      "kquantile_dequantize": calls}
+            # gather: the tokens' output gathered over "data" a layer (the
+            # rank takes its experts' whole weights); reduce: the tokens
+            # stay whole, nothing is gathered
+            want_c = {"all_reduce": L * calls,
+                      "all_gather": L * calls if mode == "gather" else 0}
+            equal = [torch.equal(a, b) for a, b in zip(got, want)]
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            say(f"[4D] {cfg.name} EP on a (1, 1) mesh, moe_mode {mode}: "
+                f"{dt:.2f}s; logits bit-equal to the no-mesh calls in "
+                f"{sum(equal)} of {calls} calls (max abs diff {err:.3e}); "
+                f"launches " + ", ".join(f"{k} {counts[k]} (want {v})"
+                                         for k, v in want_k.items())
+                + "; collective wrapper " + ", ".join(
+                    f"{k} {cc[k]} (want {v})" for k, v in want_c.items()))
+            if not all(equal):
+                raise SystemExit(f"EP ({mode}) logits differ from the "
+                                 f"no-mesh path")
+            if any(counts[k] != v for k, v in want_k.items()) \
+                    or any(counts[k] for k in counts if k not in want_k) \
+                    or cc != want_c:
+                raise SystemExit(f"EP ({mode}): wrong launches or "
+                                 f"collectives")
+            total.update(counts)
+            # the mesh path's plain versions on the kernel run's expert ids
+            rec_k, rec_p = {"ids": []}, {"ids": [], "differ": []}
+            with routing(rec_k):
+                lk, _ = lm.forward_prefill(params, cfg, o,
+                                           {"tokens": prompt})
+            before = kops.launch_counts()
+            with routing(rec_p, replay=rec_k["ids"]):
+                lp, _ = lm.forward_prefill(
+                    params, cfg, dataclasses.replace(o, use_kernels=False),
+                    {"tokens": prompt})
+            sync()
+            if kops.launch_counts() != before:
+                raise SystemExit("use_kernels=False launched a kernel")
+            perr = (lk.float() - lp.float()).abs().max().item()
+            tol = TOL_LOGITS_REL * lp.float().abs().max().item()
+            say(f"[4D] {mode}: prefill kernels vs plain versions (the plain "
+                f"run on the kernel run's expert ids) max abs err "
+                f"{perr:.4f} (tolerance {tol:.4f} = {TOL_LOGITS_REL} x max "
+                f"|logit|)")
+            if not torch.isfinite(lk).all() or perr > tol:
+                raise SystemExit(f"EP ({mode}) disagrees with its plain "
+                                 f"versions")
+    return total
+
+
+def compressed_sync_check(state, cfg, opts, tc, data, sched, seed, step,
+                          phase6):
+    """Phase 4D (b): one step's loss and gradients with
+    ``dp_compress_bits=8`` on a ``pod`` mesh of one rank beside the same
+    without, from one state, batch and noise: the loss bit-equal, each
+    coded leaf (float, ndim >= 2, > 128 elements) within half its slice's
+    code step of the exact gradient (plus one f32 ulp of it for the two
+    roundings), the others bit-equal; then one whole step each way, timed,
+    with its peak.  Returns the counted runs' launches."""
+    modes = sched.modes_at(step)
+    batch = train_cli.train_batch(cfg, data, step, DEV)
+    noise = leaf_noise(seed, step)
+    counts = collections.Counter()
+    with nccl_world():
+        mesh = mesh_lib.make_mesh((1,), ("pod",))
+        tc_c = dataclasses.replace(tc, dp_compress_bits=8)
+        opts_c = dataclasses.replace(opts, mesh=mesh)
+        kops.reset_launch_counts()
+        le, ge = train_steps.make_loss_and_grads(cfg, opts, tc)(
+            state["params"], batch, modes, noise, None)
+        lc, gc_ = train_steps.make_loss_and_grads(cfg, opts_c, tc_c)(
+            state["params"], batch, modes, noise, None)
+        sync()
+        counts.update(kops.launch_counts())
+        worst, n_coded, n_exact = 0.0, 0, 0
+        for (path, e), (_, c) in zip(tree_lib.leaves_with_paths(ge),
+                                     tree_lib.leaves_with_paths(gc_)):
+            if e.ndim >= 2 and e.numel() > 128 and e.is_floating_point():
+                amax = torch.amax(e.abs(), dim=tuple(range(1, e.ndim)),
+                                  keepdim=True)
+                scale = amax.clamp_min(1e-30) / 127.0
+                err = (c - e).abs()
+                if not bool((err <= scale / 2 + e.abs() * 2.0 ** -23)
+                            .all()):
+                    raise SystemExit(f"compressed gradient of {path} is "
+                                     f"more than half a step off")
+                worst = max(worst, (err / scale).max().item())
+                n_coded += 1
+            else:
+                if not torch.equal(c, e):
+                    raise SystemExit(f"exact leaf {path} differs")
+                n_exact += 1
+        say(f"[4D] {cfg.name} ({cfg.n_layers} layers, f32) loss and "
+            f"gradients with dp_compress_bits=8 on a pod mesh of 1 vs "
+            f"without: loss {lc.item():.6f} vs {le.item():.6f} "
+            f"({'bit-equal' if torch.equal(lc, le) else 'DIFFERENT'}); "
+            f"{n_coded} coded leaves, worst |coded - exact| / step "
+            f"{worst:.4f} (limit 0.5); {n_exact} exact leaves bit-equal; "
+            f"uniq_noise launches fwd {counts['uniq_noise_fwd']} bwd "
+            f"{counts['uniq_noise_bwd']}")
+        if not torch.equal(lc, le):
+            raise SystemExit("the compressed step's loss differs")
+        if counts["uniq_noise_fwd"] != 2 * TRAIN_LEAVES \
+                or counts["uniq_noise_bwd"] != 2 * TRAIN_LEAVES:
+            raise SystemExit("wrong uniq_noise launches")
+        del ge, gc_
+        torch.cuda.empty_cache()
+        timed = {}
+        for name, o, t in (("exact", opts, tc), ("dp_compress 8", opts_c,
+                                                  tc_c)):
+            step_fn, _ = train_steps.make_train_step(cfg, o, t)
+            torch.cuda.reset_peak_memory_stats()
+            before = kops.launch_counts()
+            t0 = time.perf_counter()
+            step_fn(state, batch, seed)
+            sync()
+            timed[name] = (time.perf_counter() - t0,
+                           torch.cuda.max_memory_allocated() / 2**30)
+            after = kops.launch_counts()
+            counts.update({k: after[k] - before[k] for k in after})
+        say(f"[4D] one whole step: " + "; ".join(
+            f"{n} {dt * 1e3:.0f} ms, peak {pk:.1f} GiB"
+            for n, (dt, pk) in timed.items())
+            + (f" (phase 6: median step {phase6[0] * 1e3:.0f} ms, peak "
+               f"{phase6[1]:.1f} GiB)" if phase6 else " (phase 6 not run)")
+            + f"; {CARD}")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -4412,14 +4659,21 @@ def train_phase(seed: int, layers: int, steps: int):
     if not math.isfinite(ev) or n_ev != TRAIN_LEAVES:
         raise SystemExit("eval_step failed")
     train_profile(state, step_fn, cfg, data, steps, seed)
-    # the in-scan check's two counted steps join the kernels line's
-    return {k: v + scan_counts.get(k, 0) for k, v in counts.items()}, times
+    # phase 4D (b) on the trained state; the in-scan check's two counted
+    # steps and 4D's join the kernels line's
+    t0 = time.perf_counter()
+    md_counts = compressed_sync_check(state, cfg, opts, tc, data, sched,
+                                      seed, min(3, steps - 1), (med, peak))
+    say(f"[time] phase 4D (b) took {time.perf_counter() - t0:.0f}s")
+    return {k: v + scan_counts.get(k, 0) + md_counts.get(k, 0)
+            for k, v in counts.items()}, times
 
 
 def train_profile(state, step_fn, cfg, data, step, seed, rows: int = 14):
     """Device time of one more step by kernel (torch.profiler), and the
     device's busy share of the step's wall time: returns (device ms, wall
-    ms)."""
+    ms).  Read from the raw events: ``key_averages()`` first builds a tree
+    of the step's operations in Python (18-24 s a Mamba model's step)."""
     from torch.profiler import ProfilerActivity, profile
     batch = train_cli.train_batch(cfg, data, step, DEV)
     sync()
@@ -4430,32 +4684,59 @@ def train_profile(state, step_fn, cfg, data, step, seed, rows: int = 14):
         sync()
         wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    events = tp.key_averages()
-    t_avg = time.perf_counter() - t0
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kernels)
+    kernels = collections.defaultdict(lambda: [0, 0.0])   # count, us
+    for e in tp.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            k = kernels[e.name()]
+            k[0] += 1
+            k[1] += e.duration_ns() / 1e3
+    t_raw = time.perf_counter() - t0
+    report_train_profile(cfg, kernels, wall, "raw events", rows)
+    say(f"[time] profile of {cfg.name}: the raw events' read-out "
+        f"{time.perf_counter() - t0:.1f}s")
+    if PROFILE_BOTH:
+        t0 = time.perf_counter()
+        averaged = {e.key: [e.count, e.self_device_time_total]
+                    for e in tp.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA}
+        t_avg = time.perf_counter() - t0
+        report_train_profile(cfg, averaged, wall, "key_averages", rows)
+        raw_us = sum(us for _, us in kernels.values())
+        avg_us = sum(us for _, us in averaged.values())
+        say(f"[profile] {cfg.name} read both ways: raw events "
+            f"{raw_us / 1e3:.3f} ms in {sum(c for c, _ in kernels.values())} "
+            f"kernels ({t_raw:.2f}s), key_averages {avg_us / 1e3:.3f} ms in "
+            f"{sum(c for c, _ in averaged.values())} kernels ({t_avg:.2f}s); "
+            f"{len(kernels)} / {len(averaged)} kernel names")
+    return sum(us for _, us in kernels.values()) / 1e3, wall * 1e3
+
+
+def report_train_profile(cfg, kernels, wall, how: str, rows: int):
+    """The busy share, the groups by kind and the top kernels of one train
+    step's profile ``kernels`` ({name: [count, device us]}) read ``how``."""
+    dev_us = sum(us for _, us in kernels.values())
     groups = {}
-    for e in kernels:
-        n = e.key.lower()
+    for name, (_, us) in kernels.items():
+        n = name.lower()
         g = ("uniq_noise_fwd" if "uniq_fwd" in n else
              "uniq_noise_bwd" if "uniq_bwd" in n else
              "matmul (cuBLAS)" if "gemm" in n or "xmma" in n
              or "cutlass" in n else
              "random (noise draw)" if "philox" in n or "random" in n
              or "uniform" in n else "other (elementwise, reductions)")
-        groups[g] = groups.get(g, 0.0) + e.self_device_time_total
-    say(f"[profile] one {cfg.name} train step: device busy "
+        groups[g] = groups.get(g, 0.0) + us
+    say(f"[profile] one {cfg.name} train step ({how}): device busy "
         f"{dev_us / 1e3:.1f} ms of "
         f"{wall * 1e3:.1f} ms wall ({100 * dev_us / 1e3 / (wall * 1e3):.1f}"
         f"%); by kind: " + ", ".join(
             f"{g} {us / 1e3:.1f} ms" for g, us in
             sorted(groups.items(), key=lambda kv: -kv[1])))
-    say(events.table(sort_by="self_device_time_total", row_limit=rows,
-                     max_name_column_width=60))
-    say(f"[time] profile of {cfg.name}: key_averages {t_avg:.1f}s, the "
-        f"whole read-out {time.perf_counter() - t0:.1f}s")
-    return dev_us / 1e3, wall * 1e3
+    say(f"{'device kernel':<60} {'calls':>6} {'total ms':>10} "
+        f"{'avg us':>9}")
+    for name, (count, us) in sorted(kernels.items(),
+                                    key=lambda kv: -kv[1][1])[:rows]:
+        say(f"{name[:60]:<60} {count:>6} {us / 1e3:>10.3f} "
+            f"{us / count:>9.1f}")
 
 
 def small_train_phase(seed: int, arch: str = "granite_3_8b"):
@@ -6499,6 +6780,20 @@ def main(argv=None) -> int:
                     help="build, run phase 4M alone (the model checker, its "
                          "replays on a fresh granite_3_8b W4 load, the check "
                          "CLI's four passes, the examples), then stop")
+    ap.add_argument("--multi-device", action="store_true",
+                    help="build, run phase 4D alone (on an NCCL world of 1: "
+                         "the expert-parallel MoE on a fresh kimi_k2 load "
+                         "at --moe-layers, the compressed gradient sync on "
+                         "a fresh granite_3_8b state at --train-layers), "
+                         "then stop")
+    ap.add_argument("--train-profile", action="store_true",
+                    help="build, run phase 6b alone (no process group made "
+                         "in this process), reading each train profile both "
+                         "ways (raw events, key_averages), then stop")
+    ap.add_argument("--after-nccl", action="store_true",
+                    help="with --train-profile: first join an NCCL world of "
+                         "1, run one all-reduce and destroy it, as phase 4D "
+                         "does before phase 6b in the whole run")
     ap.add_argument("--ptxas", action="store_true",
                     help="print ptxas' register / shared-memory report")
     args = ap.parse_args(argv)
@@ -6515,7 +6810,7 @@ def main(argv=None) -> int:
         timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         and smi.stdout.strip() else f"{kind}, power limit unknown"
-    global CARD
+    global CARD, PROFILE_BOTH
     CARD = card
 
     nvcc = subprocess.run([loader.find_nvcc(), "--version"],
@@ -6570,6 +6865,48 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t_start:.0f}s")
         say(card)
         say("analysis run: stopped after phase 4M")
+        return 0
+    if args.multi_device:
+        cfg = dataclasses.replace(cb.get(MOE_ARCHS[0]),
+                                  n_layers=args.moe_layers)
+        t0 = time.perf_counter()
+        params = model.init(args.seed, cfg, device=DEV, w_bits=4,
+                            dense_dtype=torch.bfloat16)
+        sync()
+        say(f"[4D] {cfg.name} at full width, {cfg.n_layers} layers, W4: "
+            f"drawn and coded in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        ep_check(params, cfg)
+        say(f"[time] phase 4D (a) took {time.perf_counter() - t0:.0f}s")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, opts, tc, data = train_setup(args.train_layers,
+                                          args.train_steps, args.seed)
+        _, sched = train_steps.make_train_step(cfg, opts, tc)
+        state = train_steps.init_state(args.seed, cfg, tc, device=DEV)
+        t0 = time.perf_counter()
+        compressed_sync_check(state, cfg, opts, tc, data, sched, args.seed,
+                              min(3, args.train_steps - 1), None)
+        say(f"[time] phase 4D (b) took {time.perf_counter() - t0:.0f}s")
+        del state
+        art.cleanup()
+        say(f"[time] multi-device run done at "
+            f"{time.perf_counter() - t_start:.0f}s")
+        say(card)
+        say("multi-device run: stopped after phase 4D")
+        return 0
+    if args.train_profile:
+        PROFILE_BOTH = True
+        if args.after_nccl:
+            with nccl_world():      # joined, one all-reduce, destroyed
+                pass
+        family_train_phases(args.seed, args.train_vlm_layers)
+        art.cleanup()
+        say(f"[time] train-profile run done at "
+            f"{time.perf_counter() - t_start:.0f}s")
+        say(card)
+        say("train-profile run: stopped after phase 6b")
         return 0
     if args.long:
         cfg = dataclasses.replace(cb.get("granite_3_8b"),

@@ -1,5 +1,5 @@
-"""Compile audit of the port: the two contracts of the JAX package's audit
-that mean something without a tracer.
+"""Compile audit of the port: the three contracts of the JAX package's
+audit that mean something without a tracer.
 
   * **byte accounting** — for every engine family x kv_bits x page_size,
     the pool ``models/model.py:init_paged_cache`` actually allocates must
@@ -9,6 +9,12 @@ that mean something without a tracer.
     (``pool_bytes``).  The smoke configs always; with ``full=True`` also
     the published widths of granite_3_8b and kimi_k2 (a real allocation:
     on the card).
+  * **sharding coverage** — every parameter leaf of every substrate
+    (dense / moe / ssm / hybrid / encdec at their smoke sizes), raw *and*
+    W4-coded under both ``w_dist`` values, must classify to exactly one
+    named rule of ``parallel/sharding.py:param_rule_spec``; a leaf falling
+    through to the implicit replicated fallback is a finding
+    (``AUDIT-SHARDING``).
   * **step-shape budget** — the port runs eagerly, so there is no jit
     cache to count; what would make a compiled step recompile is a new
     (shape, dtype) signature of the tensors the engine hands the model.
@@ -19,9 +25,8 @@ that mean something without a tracer.
     signature per prompt bucket (growth moves block tables and positions,
     never shapes).
 
-The JAX audit's sharding coverage, ``eval_shape`` entry points and config
-hashability read XLA or jit and are not ported (ROADMAP.md, "Not ported,
-by design").
+The JAX audit's ``eval_shape`` entry points and config hashability read
+XLA or jit and are not ported (ROADMAP.md, "Not ported, by design").
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ from repro_torch.analysis.findings import Finding
 
 KV_BITS_MATRIX = (16, 8, 4)
 PAGE_SIZE_MATRIX = (8, 16)
+W_DIST_MATRIX = ("gaussian", "empirical")
+# >= 4 model configs across distinct substrates (smoke variants)
+AUDIT_ARCHS = ("granite_3_8b", "kimi_k2_1t_a32b", "mamba2_1_3b",
+               "zamba2_2_7b", "whisper_base")
 # the engine families (the paged-cache ones), at their smoke sizes
 ENGINE_ARCHS = ("granite_3_8b", "kimi_k2_1t_a32b")
 # the published widths the audit also allocates on the card
@@ -91,6 +100,49 @@ def check_byte_accounting(archs: Sequence[str] = ENGINE_ARCHS,
                                 f"{want} B — the scheduler admits in a "
                                 "currency the pool no longer spends"))
     return findings, {"byte_cells": cells}
+
+
+# -- sharding coverage ------------------------------------------------------
+
+def check_sharding_coverage(archs: Sequence[str] = AUDIT_ARCHS,
+                            w_dists: Sequence[str] = W_DIST_MATRIX,
+                            device="cpu",
+                            ) -> Tuple[List[Finding], Dict[str, Any]]:
+    """Classify every leaf of each arch's smoke parameters (raw, and W4
+    coded under each ``w_dist``, drawn on ``device``) by
+    ``param_rule_spec``; an unmatched leaf is a finding."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import base as cb
+    from repro_torch.models import model
+    from repro_torch.parallel import sharding
+    findings: List[Finding] = []
+    n_leaves = 0
+    rules_hit = set()
+    for arch in archs:
+        cfg = cb.get_smoke(arch)
+        trees = {"raw": model.init(0, cfg, device=device)}
+        for dist in w_dists:
+            trees[f"w4/{dist}"] = model.init(0, cfg, device=device,
+                                             w_bits=4, w_dist=dist)
+        for variant, tree in trees.items():
+            for path, leaf in tree_lib.leaves_with_paths(tree):
+                n_leaves += 1
+                shape = tuple(leaf.shape)
+                rule, _spec = sharding.param_rule_spec(
+                    path, shape, cfg, fsdp=True, mesh=None)
+                if rule is None:
+                    findings.append(Finding(
+                        rule="AUDIT-SHARDING", path="parallel/sharding.py",
+                        detail=f"{arch}:{variant}:{path}",
+                        message=f"{arch} [{variant}] leaf `{path}` "
+                                f"{shape} matches no sharding rule — it "
+                                "would silently replicate (or worse, "
+                                "inherit a wrong parent rule): add it to "
+                                "a named rule or REPLICATED_PARAMS"))
+                else:
+                    rules_hit.add(rule)
+    return findings, {"sharded_leaves": n_leaves,
+                      "rules_hit": sorted(rules_hit)}
 
 
 # -- step-shape budget ------------------------------------------------------
@@ -200,6 +252,9 @@ def run_compile_audit(kv_bits_list: Sequence[int] = KV_BITS_MATRIX,
                       full: bool = False,
                       ) -> Tuple[List[Finding], Dict[str, Any]]:
     findings, info = check_byte_accounting(device=device, full=full)
+    fs, i = check_sharding_coverage(device=device)
+    findings.extend(fs)
+    info.update(i)
     if with_engine:
         fs, i = check_step_shapes(kv_bits_list, device=device)
         findings.extend(fs)
@@ -207,6 +262,7 @@ def run_compile_audit(kv_bits_list: Sequence[int] = KV_BITS_MATRIX,
     return findings, info
 
 
-__all__ = ["check_byte_accounting", "check_step_shapes",
+__all__ = ["check_byte_accounting", "check_sharding_coverage",
+           "check_step_shapes",
            "record_step_shapes", "run_compile_audit",
            "two_bucket_requests"]

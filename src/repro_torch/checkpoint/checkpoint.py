@@ -90,9 +90,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
         return int(f.read().strip())
 
 
-def restore(ckpt_dir: str, target: Any, step: Optional[int] = None):
+def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
+            shardings: Optional[Any] = None):
     """Restore into the structure of ``target`` (a tree of tensors: each
     leaf gives the shape, dtype and device of what is restored there).
+    ``shardings``: a matching tree of ``parallel.sharding.Sharding`` (the
+    reference's ``NamedSharding`` tree): each leaf is checked against the
+    whole target shape and placed by its sharding, so each rank holds its
+    block (elastic restore onto another mesh than the one that saved).
 
     Returns (tree, step, extra).
     """
@@ -113,7 +118,7 @@ def restore(ckpt_dir: str, target: Any, step: Optional[int] = None):
             for leaf in leaves:
                 loaded[leaf["path"]] = z[leaf["key"]]
 
-    def one(path, tgt):
+    def one(path, tgt, shd=None):
         if path not in loaded:
             raise KeyError(f"checkpoint missing leaf {path!r}")
         arr = loaded[path]
@@ -121,9 +126,14 @@ def restore(ckpt_dir: str, target: Any, step: Optional[int] = None):
         if tuple(arr.shape) != tuple(tgt.shape):
             raise ValueError(f"shape mismatch for {path}: ckpt {arr.shape} "
                              f"vs target {tuple(tgt.shape)}")
-        return tensor_from_numpy(arr).to(device=tgt.device, dtype=tgt.dtype)
+        t = tensor_from_numpy(arr)
+        if shd is not None:
+            t = shd.place(t).clone()        # the block alone, not a view
+        return t.to(device=tgt.device, dtype=tgt.dtype)
 
-    return tree_lib.map_with_path(one, target), step, manifest["extra"]
+    rest = () if shardings is None else (shardings,)
+    return (tree_lib.map_with_path(one, target, *rest), step,
+            manifest["extra"])
 
 
 def prune_old(ckpt_dir: str, keep: int = 3):

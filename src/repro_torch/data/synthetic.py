@@ -26,8 +26,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree as tree_lib
 from repro_torch.core.uniq import fold_in
 from repro_torch.devices import resolve_device
+from repro_torch.parallel.sharding import input_shardings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,3 +109,12 @@ def image_batch(cfg: ImageStreamConfig, step: int,
     noise = torch.randn((cfg.batch, cfg.hw, cfg.hw, cfg.channels),
                         generator=gen) * cfg.noise
     return (protos[labels] + noise).to(dev), labels.to(dev)
+
+
+def shard_batch(batch, mesh, specs=None):
+    """This rank's block of a whole batch (every rank draws the same bits):
+    the leading (batch) dim over the DP axes, by ``input_shardings``, or by
+    ``specs`` (a matching tree of ``parallel.sharding.Sharding``)."""
+    if specs is None:
+        specs = input_shardings(batch, mesh)
+    return tree_lib.map_tree(lambda x, s: s.place(x), batch, specs)

@@ -52,15 +52,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--straggler-factor", type=float, default=3.0)
-    p.add_argument("--data-mesh", type=int, default=1)
+    p.add_argument("--data-mesh", type=int, default=1,
+                   help="parsed and not read, as in the reference's "
+                        "trainer: this CLI trains one process, whatever "
+                        "the value (data parallelism over ranks is the "
+                        "library's: launch/mesh.py, "
+                        "TrainConfig.dp_compress_bits)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
-    args = p.parse_args(argv)
-    if args.data_mesh != 1:
-        raise NotImplementedError(
-            "--data-mesh > 1 (data-parallel training) is not ported yet")
-    return args
+    return p.parse_args(argv)
 
 
 def setup(args: argparse.Namespace):

@@ -22,6 +22,7 @@ place.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -45,6 +46,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
                                        layer_norm, rms_norm, rope_cos_sin,
                                        softcap)
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding as shd
 
 BIG_WINDOW = 1 << 30
 # the empirical coding holds an int64 rank and an f32 value for each element
@@ -75,6 +78,17 @@ class ModelOpts:
     use_kernels: bool = True          # comparison hook: False computes every
                                       #   kernel's plain PyTorch version on
                                       #   whatever device the tensors are on
+    moe_axis: Optional[str] = None    # 'model' => expert-parallel MoE over
+                                      #   the mesh (_moe_ep_sharded)
+    mesh: Any = None                  # DeviceMesh (launch/mesh.py) of the
+                                      #   expert-parallel region
+    fsdp_axes: tuple = ("data",)      # axes expert weights are FSDP-sharded on
+    manual_axes: tuple = ()           # mesh axes the caller already splits
+                                      #   (the compressed sync's "pod")
+    moe_mode: str = "gather"          # gather: each rank its experts' whole
+                                      #   weights, the tokens split over the
+                                      #   DP axes; reduce: d_ff split over
+                                      #   fsdp_axes, the partial outputs summed
 
 
 # --------------------------------------------------------------------------
@@ -547,6 +561,91 @@ def _attn_block(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
     return _attn_out(o, lp, cfg, opts), kv
 
 
+def _ep_block(w, mesh, f_axis: int = 0, fa: tuple = ()):
+    """This rank's block of a layer's expert weight — dense (E, a, b) or its
+    coded dict — cut out of the whole leaf: the experts over ``model``, and
+    with ``fa`` dim ``f_axis`` over those axes, each leaf where its dim
+    divides (statistics' size-1 dims stay whole; the (k,) codebook too).
+    The weight itself (its codes) must split over ``fa``, or it raises."""
+    sizes = shd.axis_sizes(mesh)
+    fa_n = math.prod(sizes[a] for a in fa)
+
+    def one(leaf, main):
+        if leaf.ndim < 3:
+            return leaf
+        spec = [None, None, None]
+        if leaf.shape[0] % sizes["model"] == 0:
+            spec[0] = "model"
+        if fa and leaf.shape[f_axis] % fa_n == 0:
+            spec[f_axis] = fa
+        elif fa and main:
+            raise ValueError(f"moe_mode 'reduce': an expert weight's d_ff "
+                             f"({leaf.shape[f_axis]}) does not split over "
+                             f"{fa} ({fa_n})")
+        return shd.Sharding(mesh, shd.P(*spec)).place(leaf).contiguous()
+
+    if is_qweight(w):
+        return {k: one(v, k == "q_codes") for k, v in w.items()}
+    return one(w, True)
+
+
+def _moe_ep_sharded(h, router_w, eg, eu, ed, mcfg, opts: ModelOpts):
+    """Expert-parallel MoE over ``opts.mesh`` (the reference's shard_map
+    region, written out on each rank's blocks).
+
+    Experts are split over ``model`` (E_l = E / tp per rank).  Every rank
+    holds every weight whole (``param_shardings``' blocks are not fed to
+    the model), so the region cuts its blocks out of the whole tensors, as
+    shard_map takes them from replicated operands, and hands the result
+    back whole.  The reference's two FSDP layouts of the expert weights
+    over ``opts.fsdp_axes``:
+
+    gather: the reference all-gathers the d-slices per layer, which gives
+      back the rank's whole experts: here the rank takes them directly (no
+      weight moves).  The tokens split over the DP axes; each rank's
+      experts on its tokens, summed over ``model`` (``moe.moe_ffn(group=)``).
+    reduce: d_ff stays split; every rank computes a partial-f SwiGLU of
+      its tokens (split over the DP axes not in the FSDP ones: silu and the
+      product are elementwise in f, so partial-f is exact) and the partial
+      outputs are summed over ("model",) + fsdp axes.  No weight moves.
+
+    A coded stack stays coded: its f-slice is a slice of the packed codes'
+    bytes (eg / eu: f is their last dim) or of ed's rows, through
+    ``qmatmul_experts`` / ``qmatmul_lut_experts`` on the rank's block."""
+    mesh = opts.mesh
+    sizes = shd.axis_sizes(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in sizes
+               and a not in opts.manual_axes)
+    fa = tuple(a for a in opts.fsdp_axes if a in sizes)
+    reduce = opts.moe_mode == "reduce" and fa
+    if reduce:
+        dp = tuple(a for a in dp if a not in fa)
+    B = h.shape[0]
+    bspec = dp if dp and B % math.prod(sizes[a] for a in dp) == 0 else None
+    hb = shd.Sharding(mesh, shd.P(bspec, None, None)).place(h) \
+        if bspec else h
+    groups = {a: mesh.get_group(a) for a in sizes}
+    if reduce:
+        g, u, dn = (_ep_block(w, mesh, ax, fa)
+                    for w, ax in ((eg, 2), (eu, 2), (ed, 1)))
+        B_, S_, d_ = hb.shape
+        y = moe_lib.moe_ffn_local(
+            hb.reshape(B_ * S_, d_), router_w, g, u, dn, mcfg,
+            act_fn=F.silu, use_kernels=opts.use_kernels,
+            shard_idx=shd.mesh_coords(mesh)["model"],
+            n_shards=sizes["model"])
+        y = coll.all_reduce(y, [groups[a] for a in ("model",) + fa])
+        y = y.reshape(B_, S_, d_)
+    else:
+        g, u, dn = (_ep_block(w, mesh) for w in (eg, eu, ed))
+        y = moe_lib.moe_ffn(hb, router_w, g, u, dn, mcfg, act_fn=F.silu,
+                            use_kernels=opts.use_kernels,
+                            group=groups["model"])
+    if bspec:
+        y = coll.all_gather(y, [groups[a] for a in bspec], dim=0)
+    return y
+
+
 def _ffn_block(x, lp, cfg: ArchConfig, opts: ModelOpts):
     h = _norm(x, lp["mlp_norm"], cfg)
     if cfg.is_moe:
@@ -555,8 +654,13 @@ def _ffn_block(x, lp, cfg: ArchConfig, opts: ModelOpts):
         mcfg = moe_lib.MoEConfig(cfg.n_experts, cfg.top_k,
                                  cfg.capacity_factor)
         router_w = materialize(lp["router"], torch.float32, opts.use_kernels)
-        o = moe_lib.moe_ffn(h, router_w, lp["eg"], lp["eu"], lp["ed"], mcfg,
-                            act_fn=F.silu, use_kernels=opts.use_kernels)
+        if opts.moe_axis and opts.mesh is not None:
+            o = _moe_ep_sharded(h, router_w, lp["eg"], lp["eu"], lp["ed"],
+                                mcfg, opts)
+        else:
+            o = moe_lib.moe_ffn(h, router_w, lp["eg"], lp["eu"], lp["ed"],
+                                mcfg, act_fn=F.silu,
+                                use_kernels=opts.use_kernels)
     else:
         g = mm_a(h, lp["w_gate"], opts)
         u = mm_a(h, lp["w_up"], opts)

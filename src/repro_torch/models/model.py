@@ -15,24 +15,29 @@ one fixed region of ``max_len`` rows per decode slot) and the paged pool
 (``init_paged_cache`` / ``cache_insert_paged``); the last two hold the
 plain KV layout of dense and moe only.  A family outside
 ``PORTED_FAMILIES`` raises ``NotImplementedError`` naming it
-(``require_ported``).
+(``require_ported``), and so does a mesh whose ranks would split the work
+of dense layers (``require_mesh_ported``).
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import math
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, hybrid, lm
 from repro_torch.models.lm import ModelOpts
+from repro_torch.parallel.sharding import axis_sizes
 
 __all__ = ["ModelOpts", "init", "loss_fn", "prefill", "decode",
            "quantize_for_serving", "cache_specs", "init_cache",
            "supports_slot_cache", "init_slot_cache", "cache_insert",
            "supports_paged_cache", "init_paged_cache", "cache_insert_paged",
-           "prefill_chunk", "PORTED_FAMILIES", "require_ported"]
+           "prefill_chunk", "PORTED_FAMILIES", "require_ported",
+           "require_mesh_ported"]
 
 # the families whose model this package has: every one of the registry
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -57,6 +62,28 @@ def require_ported(cfg: ArchConfig, what: str) -> None:
             f"{', '.join(PORTED_FAMILIES)})")
 
 
+def require_mesh_ported(cfg: ArchConfig, opts: ModelOpts, what: str) -> None:
+    """Raise NotImplementedError, naming it, where ``opts.mesh`` has more
+    than one rank on the axes the caller does not split itself
+    (``opts.manual_axes``) and the model is not an expert-parallel MoE: the
+    tensor and FSDP parallelism that GSPMD derives in the reference from
+    ``param_shardings`` and ``shard_act`` is not ported, and each rank
+    would otherwise compute the whole model alone.  The expert-parallel MoE
+    (``opts.moe_axis``) splits its expert layers over the mesh and runs the
+    others whole on every rank."""
+    if opts.mesh is None:
+        return
+    sizes = axis_sizes(opts.mesh)
+    ranks = math.prod(n for a, n in sizes.items()
+                      if a not in opts.manual_axes)
+    if ranks > 1 and not (cfg.is_moe and opts.moe_axis):
+        raise NotImplementedError(
+            f"{what}: {cfg.name} ({cfg.family}) on a {sizes} mesh: the "
+            f"tensor / FSDP parallelism of its layers over {ranks} ranks "
+            f"is not ported (only the expert-parallel MoE splits over a "
+            f"mesh)")
+
+
 def init(seed: int, cfg: ArchConfig, device="cuda", **kw) -> Any:
     """Random parameters from ``seed``; every family takes ``w_bits`` /
     ``w_dist`` (code the weights layer by layer) and ``dense_dtype``, and
@@ -78,6 +105,7 @@ def loss_fn(params, cfg: ArchConfig, opts: ModelOpts, batch,
     transform per layer inside the layer loop (the decoder families: the
     others raise ValueError, as no train step hands them one)."""
     require_ported(cfg, "loss_fn")
+    require_mesh_ported(cfg, opts, "loss_fn")
     if cfg.family in SSM_FAMILIES + ("audio",):
         if uniq_scan is not None:
             raise ValueError(
@@ -95,6 +123,7 @@ def prefill(params, cfg: ArchConfig, opts: ModelOpts, batch, last_idx=None):
     The audio family's batch holds ``frames`` (B, Te, d) beside the
     tokens, the vlm's ``patch_embeds`` (B, P, d)."""
     require_ported(cfg, "prefill")
+    require_mesh_ported(cfg, opts, "prefill")
     if cfg.family in SSM_FAMILIES + ("audio",):
         if last_idx is not None:
             raise ValueError(
@@ -113,6 +142,7 @@ def decode(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
     the state caches of hybrid.decode_step or the self and cross K/V of
     encdec.decode_step."""
     require_ported(cfg, "decode")
+    require_mesh_ported(cfg, opts, "decode")
     if block_tables is not None and not supports_paged_cache(cfg):
         raise ValueError(f"paged decode unsupported for family {cfg.family}")
     if cfg.family in SSM_FAMILIES:
@@ -217,6 +247,7 @@ def prefill_chunk(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
     """Run the next chunk of prompt tokens against (and into) the paged
     pool (see lm.prefill_chunk)."""
     require_ported(cfg, "chunked prefill")
+    require_mesh_ported(cfg, opts, "chunked prefill")
     if not supports_paged_cache(cfg):
         raise ValueError(
             f"chunked prefill unsupported for family {cfg.family}")

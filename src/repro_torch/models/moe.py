@@ -1,7 +1,10 @@
-"""Mixture-of-Experts FFN on one device.
+"""Mixture-of-Experts FFN with expert parallelism.
 
-The counterpart of ``src/repro/models/moe.py`` without its mesh: every
-expert lives on this device (the reference's ``n_shards=1`` case).  A
+The counterpart of ``src/repro/models/moe.py``.  On one device every
+expert lives there (``n_shards=1``); under expert parallelism each shard of
+the ``model`` axis holds E / n_shards of them and computes their
+contribution alone (``moe_ffn_local(shard_idx=, n_shards=)``), summed over
+the axis by ``moe_ffn(group=)``.  A
 token's copies are routed by an f32 router (softmax, top-k, the top-k
 weights renormalised to sum 1), packed by a stable sort into a fixed
 ``(E, C, d)`` capacity buffer, multiplied by the experts' SwiGLU and
@@ -26,9 +29,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import collectives as coll
 
 
 class MoEConfig(NamedTuple):
@@ -56,29 +61,40 @@ def capacity(n_tokens: int, cfg: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def route(x: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig):
+def route(x: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
+          shard_idx: int = 0, n_local: int = 0):
     """The reference's drop rule: router, stable sort of the T*k copies by
     expert, each copy's position in its expert's group, kept while that
-    position is below the capacity.
+    position is below the capacity.  With ``n_local`` experts on this
+    shard (0: all of them), the shard's experts are ``shard_idx *
+    n_local`` onwards: copies routed to another shard sort last and are
+    not kept (the reference's local-expert rule).
 
     Returns a dict of (T*k,) tensors in sorted order — ``order`` (the
-    copies' flat (token, slot) index), ``stok`` (token), ``expert``,
-    ``sgate`` (f32 gate), ``keep`` (bool), ``buf_idx`` (row of the
-    flattened (E*C) buffer; E*C for a dropped copy) — and ``rows`` (E,)
-    int32, the copies each expert keeps, plus the capacity ``C``."""
+    copies' flat (token, slot) index), ``stok`` (token), ``expert`` (the
+    local expert; ``n_local`` for another shard's), ``sgate`` (f32 gate),
+    ``keep`` (bool), ``buf_idx`` (row of the flattened (E_l*C) buffer;
+    E_l*C for a copy not kept) — and ``rows`` (E_l,) int32, the copies
+    each local expert keeps, plus the capacity ``C`` (of the global expert
+    count, as the reference's)."""
     T = x.shape[0]
     E, k = cfg.n_experts, cfg.top_k
+    E_l = n_local or E
     C = capacity(T, cfg)
     gates, ids = router_topk(x, router_w, cfg)
     flat_ids = ids.reshape(-1)
     dev = x.device
+    if E_l != E:
+        local = flat_ids - shard_idx * E_l
+        flat_ids = torch.where((local >= 0) & (local < E_l), local,
+                               torch.full_like(local, E_l))
     order = torch.argsort(flat_ids, stable=True)
     se = flat_ids[order]
-    starts = torch.searchsorted(se, torch.arange(E + 1, device=dev,
+    starts = torch.searchsorted(se, torch.arange(E_l + 1, device=dev,
                                                  dtype=se.dtype))
-    pos = torch.arange(T * k, device=dev) - starts[se]
-    keep = pos < C
-    buf_idx = torch.where(keep, se * C + pos, torch.full_like(se, E * C))
+    pos = torch.arange(T * k, device=dev) - starts[torch.clamp(se, max=E_l)]
+    keep = (se < E_l) & (pos < C)
+    buf_idx = torch.where(keep, se * C + pos, torch.full_like(se, E_l * C))
     rows = torch.clamp(starts[1:] - starts[:-1], max=C).to(torch.int32)
     return {"order": order, "stok": order // k, "expert": se,
             "sgate": gates.reshape(-1)[order], "keep": keep,
@@ -106,13 +122,21 @@ def expert_matmul(buf: torch.Tensor, w, rows: torch.Tensor,
     return torch.bmm(buf, w.to(buf.dtype))
 
 
+def _n_experts(w) -> int:
+    return (w["q_codes"] if isinstance(w, dict) else w).shape[0]
+
+
 def moe_ffn_local(x: torch.Tensor, router_w: torch.Tensor, gate_w, up_w,
                   down_w, cfg: MoEConfig, act_fn=F.silu,
-                  use_kernels: bool = True) -> torch.Tensor:
-    """The MoE FFN of (T, d) tokens on this device.
+                  use_kernels: bool = True, shard_idx: int = 0,
+                  n_shards: int = 1) -> torch.Tensor:
+    """The contribution of this shard's experts to the MoE FFN of (T, d)
+    tokens (all of it with ``n_shards`` 1; the caller sums the shards'
+    otherwise).
 
-    router_w : (d, E) f32
-    gate/up  : (E, d, f) dense, or their coded dicts;  down : (E, f, d)
+    router_w : (d, E) f32, the full router
+    gate/up  : (E_l, d, f) dense, or their coded dicts;  down : (E_l, f, d)
+               — shard ``shard_idx``'s experts (E_l = E / n_shards)
     returns  : (T, d) in x's dtype.
 
     A token's k contributions are added in the order the reference's
@@ -122,8 +146,12 @@ def moe_ffn_local(x: torch.Tensor, router_w: torch.Tensor, gate_w, up_w,
     kernels write zeros for the rows they skip, so that row is finite.
     """
     T, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    r = route(x, router_w, cfg)
+    k = cfg.top_k
+    E = _n_experts(gate_w)
+    if E * n_shards != cfg.n_experts:
+        raise ValueError(f"{E} experts on each of {n_shards} shards; the "
+                         f"router has {cfg.n_experts}")
+    r = route(x, router_w, cfg, shard_idx, E)
     C = r["C"]
     cd = x.dtype
     # pack: kept copies into their (expert, position) rows, dropped ones
@@ -152,13 +180,22 @@ def moe_ffn_local(x: torch.Tensor, router_w: torch.Tensor, gate_w, up_w,
 
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, gate_w, up_w, down_w,
-            cfg: MoEConfig, act_fn=F.silu,
-            use_kernels: bool = True) -> torch.Tensor:
+            cfg: MoEConfig, act_fn=F.silu, use_kernels: bool = True,
+            group=None) -> torch.Tensor:
     """MoE FFN on (B, S, d): every row of B*S is routed, padding rows
-    included (they take capacity, as in the reference)."""
+    included (they take capacity, as in the reference).  With ``group``
+    (the ``model`` axis's process group) the weights are this rank's
+    experts, rank r of n holding experts r * E/n onwards, and the shards'
+    contributions are summed over the group."""
     B, S, d = x.shape
+    idx, n = 0, 1
+    if group is not None:
+        idx, n = dist.get_rank(group), dist.get_world_size(group)
     y = moe_ffn_local(x.reshape(B * S, d), router_w, gate_w, up_w, down_w,
-                      cfg, act_fn=act_fn, use_kernels=use_kernels)
+                      cfg, act_fn=act_fn, use_kernels=use_kernels,
+                      shard_idx=idx, n_shards=n)
+    if group is not None:
+        y = coll.all_reduce(y, group)
     return y.reshape(B, S, d)
 
 

@@ -18,6 +18,11 @@ transformed one at a time inside the layer loop (``lm.forward_train``'s
 the reference: one layer's transformed copy is live at a time, recomputed
 in the backward pass under remat.
 
+With ``TrainConfig.dp_compress_bits`` on a mesh with a ``pod`` axis each
+rank trains on its ``pod`` block of the batch and the gradients sync by the
+int8 absmax codec (``make_loss_and_grads``); every rank applies the same
+averaged gradients, so the parameters stay identical across ranks.
+
 Noise: each leaf's U[0, 1) draw comes from a generator keyed by (seed,
 step, md5 of the leaf path) on the parameters' device
 (``core/uniq.py:leaf_noise``), in scan each layer slice's by (seed, step,
@@ -43,6 +48,8 @@ from repro_torch.devices import resolve_device
 from repro_torch.models import model
 from repro_torch.models.lm import ModelOpts
 from repro_torch.optim import optim as optim_lib
+from repro_torch.parallel.collectives import make_pod_compressed_grads
+from repro_torch.parallel.sharding import axis_sizes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,17 +59,12 @@ class TrainConfig:
     total_steps: int = 1000
     n_blocks: int = 0            # 0 -> one block per layer (paper App. B)
     lr_schedule: str = "stage"   # stage | cosine | constant
-    dp_compress_bits: int = 0    # >0: compressed cross-pod grad sync (not
-                                 #   ported: raises)
+    dp_compress_bits: int = 0    # >0: int8-compress the cross-pod grad
+                                 #   sync (parallel/collectives.py) on a
+                                 #   mesh with a "pod" axis
     uniq_in_scan: bool = False   # transform per layer inside the layer
                                  #   loop (dense, moe, vlm): one layer's
                                  #   transformed copy live at a time
-
-    def __post_init__(self):
-        if self.dp_compress_bits > 0:
-            raise NotImplementedError(
-                "dp_compress_bits > 0 (the compressed cross-pod gradient "
-                "sync) is not ported yet")
 
     @property
     def uniq_active(self) -> bool:
@@ -152,20 +154,49 @@ def loss_and_grads(params: Any, batch, modes: torch.Tensor, noise,
                                                  params)
 
 
+def make_loss_and_grads(cfg: ArchConfig, opts: ModelOpts, tc: TrainConfig,
+                        loss_fn: Optional[Callable] = None):
+    """``fn(params, batch, modes, noise, scan_noise) -> (loss, grads)``:
+    ``loss_and_grads`` under ``opts``, and with ``tc.dp_compress_bits`` on
+    a mesh with a ``pod`` axis (``opts.mesh``) each rank's ``pod`` block of
+    the batch, the gradients synced by ``compressed_pmean`` over ``pod``
+    and the loss by the exact mean (the inner options take
+    ``manual_axes=("pod",)``).  A MoE config raises there, as the
+    reference does."""
+    inner_opts = opts
+    compress = bool(tc.dp_compress_bits) and opts.mesh is not None \
+        and "pod" in axis_sizes(opts.mesh)
+    if compress:
+        inner_opts = dataclasses.replace(opts, manual_axes=("pod",))
+        if cfg.is_moe:
+            raise NotImplementedError(
+                "dp_compress + shard_map EP would nest manual regions; "
+                "use GSPMD sync for MoE cells")
+
+    def fn(params, batch, modes, noise, scan_noise):
+        return loss_and_grads(params, batch, modes, noise, cfg, inner_opts,
+                              tc, loss_fn, scan_noise)
+
+    if compress:
+        fn = make_pod_compressed_grads(fn, opts.mesh,
+                                       bits=tc.dp_compress_bits)
+    return fn
+
+
 def make_train_step(cfg: ArchConfig, opts: ModelOpts, tc: TrainConfig,
                     loss_fn: Optional[Callable] = None):
     """Returns (train_step, schedule)."""
     schedule = make_schedule(cfg, tc)
     lr_fn = make_lr_fn(tc, schedule)
+    grads_fn = make_loss_and_grads(cfg, opts, tc, loss_fn)
 
     def train_step(state, batch, seed: int, noise=None, scan_noise=None):
         step = int(state["step"])
         modes = schedule.modes_at(step)
         noise = noise or leaf_noise(seed, step)
         scan_noise = scan_noise or layer_noise(seed, step)
-        loss_val, grads = loss_and_grads(state["params"], batch, modes,
-                                         noise, cfg, opts, tc, loss_fn,
-                                         scan_noise)
+        loss_val, grads = grads_fn(state["params"], batch, modes, noise,
+                                   scan_noise)
         mask = (freeze_mask_tree(state["params"], modes)
                 if tc.uniq_active else None)
         lr = lr_fn(step)

@@ -34,6 +34,18 @@ from repro_torch.models import model as tmodel
 from test_torch_lm import TOL_LOGITS, TOL_LOGITS_KVQ, _compare_kv, \
     _jax_cache_np
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # one attention output, f32, from the same inputs: the two frameworks sum
 # each chunk's products in other orders (einsum vs matmul) and take other
 # exp implementations; stated relative to max(1, |reference|)

@@ -29,6 +29,18 @@ from repro_torch.models import kv_cache as tkv
 
 from test_torch_kquantile import flip_report
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # Codes flip where the two frameworks' CDFs differ in the last ulp at a bin
 # edge.  Measured on these tensors: <= 6e-6 (weights, ndtr) and <= 8e-5 (KV
 # rows, erf, including rows whose bf16 sigma landed one ulp apart); never

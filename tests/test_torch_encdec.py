@@ -36,6 +36,18 @@ from repro_torch.models import model as tmodel
 from repro_torch.serve import engine as teng
 from repro_torch.serve import serve as tserve
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "whisper_base"
 B, S, TE = 2, 6, 10
 

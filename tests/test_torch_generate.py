@@ -32,6 +32,18 @@ from repro_torch.models import model as tmodel
 from repro_torch.serve import serve as tserve
 from repro_torch.serve import telemetry as ttele
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("granite_3_8b", "gemma2_9b", "yi_6b")
 B, S0, N_NEW = 2, 24, 14          # 38 positions: past gemma2's window of 32
 

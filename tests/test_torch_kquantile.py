@@ -35,6 +35,18 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import lm as tlm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # Codes flip where the two frameworks' Phi(z) k differ across an integer:
 # the reference's kernel takes XLA's erf(z / sqrt2), the port's
 # erf(z * (1 / sqrt2)) (the form that rounds alike on the card).  Measured

@@ -14,6 +14,18 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _rng(seed=0):
     return np.random.default_rng(seed)
 

@@ -23,6 +23,18 @@ from repro_torch.models import kv_cache as tkv
 from repro_torch.models import lm as tlm
 from repro_torch.models import model as tmodel
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 PAGE = 8
 B, S = 2, 12
 

@@ -33,6 +33,18 @@ from repro_torch.models import moe as tmoe
 from repro_torch.serve import engine as teng
 from repro_torch.serve import serve as tserve
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MOE_ARCHS = ("kimi_k2_1t_a32b", "llama4_maverick_400b_a17b")
 # ported for the closed batch only (audio, vlm): the engine refuses them
 NOT_PORTED = ("pixtral_12b", "whisper_base")

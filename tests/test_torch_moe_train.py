@@ -64,6 +64,18 @@ from test_torch_train import (TOL_GRAD_REL, TOL_LOSS_REL, _compare_step,
 from test_torch_train_families import (TOL_FAMILY_STEP_GRAD_REL,
                                        TOL_FAMILY_STEP_LOSS_REL)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MOE_ARCHS = ("kimi_k2_1t_a32b", "llama4_maverick_400b_a17b")
 FROZEN, NOISE = 2, 1
 B, S = 3, 12

@@ -20,6 +20,18 @@ from repro_torch.kernels import ref as tkref
 from repro_torch.models import attention as tattn
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _pool(kv_bits, page, n_pages, B=3, KV=2, G=2, hd=16, seed=0):
     """A pool coded by the reference (so both sides read identical codes
     and stats), with page 0 the zero sink."""

@@ -22,6 +22,18 @@ from repro_torch.kernels import ops as tops
 from repro_torch.models import attention as tattn
 from repro_torch.models import kv_cache as tkv
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 P, PAGE, KV, HD = 6, 4, 2, 16
 # test_torch_codec.py::test_quantize_kv: the same codes and statistics
 # dequantize within this in f32 (the two frameworks' level tables differ

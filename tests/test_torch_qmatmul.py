@@ -20,6 +20,18 @@ from repro_torch.kernels import qmatmul as tqmm
 from repro_torch.kernels import ref as tref
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _inputs(M, K, N, bits, seed=0):
     """a, packed codes and per-channel stats, coded by the reference so
     both sides multiply identical codes."""

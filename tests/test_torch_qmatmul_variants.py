@@ -26,6 +26,18 @@ from repro_torch.kernels import qmatmul as tqmm
 from repro_torch.kernels import ref as tref
 from repro_torch.models import lm as tlm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MKN = [(8, 64, 32), (48, 384, 192), (33, 520, 96), (5, 200, 130), (1, 16, 2)]
 
 

@@ -34,6 +34,18 @@ from repro_torch.core import quantizers as tQ
 from repro_torch.core import uniq as tuniq
 from repro_torch.core.distributions import GaussianModel as TGaussian
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CLEAN, NOISE, FROZEN = 0, 1, 2
 # relative error of thresholds / levels computed from the same f32
 # statistics (mu +- 3 sigma, a few f32 operations)

@@ -29,6 +29,18 @@ from repro_torch.configs import base as tcb
 from repro_torch.models import hybrid as thy
 from repro_torch.models import ssm as tssm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # f32 on both sides; only the order of the sums differs (XLA's convolution
 # and einsums against torch's): a few f32 ulps of O(1) values
 TOL_F32 = 1e-5

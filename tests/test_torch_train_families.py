@@ -45,6 +45,18 @@ from test_torch_train import (TOL_GRAD_REL, TOL_LOSS_REL, _close_grads,
                               _compare_step, _flat_np, _jopts, _np_tree,
                               _ref_noise, _tc, _topts)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("mamba2_1_3b", "zamba2_2_7b", "whisper_base", "pixtral_12b")
 B, S = 2, 12
 # encoder frames of the audio batch: another length than the tokens'

@@ -42,6 +42,18 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import uniq_noise as tun
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CLEAN, NOISE, FROZEN = 0, 1, 2
 MODE_SETS = ([CLEAN] * 3, [NOISE] * 3, [FROZEN] * 3, [CLEAN, NOISE, FROZEN])
 

@@ -46,6 +46,18 @@ from test_torch_train import (_compare_step, _flat_np, _jopts, _np_tree,
 from test_torch_train_families import (TOL_FAMILY_STEP_GRAD_REL,
                                        TOL_FAMILY_STEP_LOSS_REL, _batch)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op torch thread for this module, restored after it: at
+    these sizes more threads only add their OpenMP spin-waits, which take
+    the cores of the suite's other parallel workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("granite_3_8b", "kimi_k2_1t_a32b", "pixtral_12b")
 FROZEN, NOISE = 2, 1
 # 8 steps over 2 layers, two iterations: step 2 is stage 1, layer 0 (and
