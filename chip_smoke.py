@@ -339,6 +339,7 @@ from repro_torch.models import hybrid, lm, model              # noqa: E402
 from repro_torch.models import moe as moe_lib                 # noqa: E402
 from repro_torch.optim.optim import OptimConfig               # noqa: E402
 from repro_torch.parallel import collectives as coll          # noqa: E402
+from repro_torch.parallel import tensor_parallel as tpar      # noqa: E402
 from repro_torch.serve import engine as engine_lib           # noqa: E402
 from repro_torch.serve import serve as serve_lib              # noqa: E402
 from repro_torch.serve import telemetry as tele_lib           # noqa: E402
@@ -3682,7 +3683,8 @@ def ep_check(params, cfg):
             # rank takes its experts' whole weights); reduce: the tokens
             # stay whole, nothing is gathered
             want_c = {"all_reduce": L * calls,
-                      "all_gather": L * calls if mode == "gather" else 0}
+                      "all_gather": L * calls if mode == "gather" else 0,
+                      "reduce_scatter": 0}
             equal = [torch.equal(a, b) for a, b in zip(got, want)]
             err = max((a - b).abs().max().item() for a, b in zip(got, want))
             say(f"[4D] {cfg.name} EP on a (1, 1) mesh, moe_mode {mode}: "
@@ -3803,6 +3805,393 @@ def compressed_sync_check(state, cfg, opts, tc, data, sched, seed, step,
                f"{phase6[1]:.1f} GiB)" if phase6 else " (phase 6 not run)")
             + f"; {CARD}")
     return counts
+
+
+# --------------------------------------------------------------------------
+# Phase 4D (c): tensor and FSDP parallelism of the dense decoder
+# --------------------------------------------------------------------------
+
+# (i): the closed batch, B 4, a 16-token prompt and 32 decode steps
+TP_B, TP_PROMPT, TP_NEW = 4, 16, 32
+# (iii): each rank's block of granite_3_8b's and pixtral_12b's coded leaves
+# at a model axis of 2 and of 4 (column-parallel: K whole, N / m;
+# row-parallel: K / m, N whole): (name, K, N)
+TP_BLOCKS = (("granite wq /2", 4096, 2048), ("granite wq /4", 4096, 1024),
+             ("granite w_gate /2", 4096, 6400),
+             ("granite w_gate /4", 4096, 3200),
+             ("granite wo /2", 2048, 4096), ("granite wo /4", 1024, 4096),
+             ("granite w_down /2", 6400, 4096),
+             ("granite w_down /4", 3200, 4096),
+             ("pixtral w_gate /2", 5120, 7168),
+             ("pixtral w_gate /4", 5120, 3584))
+TP_BLOCK_ROWS = (4, 256)
+# (iii)'s times by kernel, joined to the kernels line
+TP_BLOCK_TIMES = collections.defaultdict(list)
+
+
+def tp_collectives_per_call(cfg, mode) -> dict:
+    """The collective wrapper's calls of one placed prefill or decode call
+    of a W4 granite_3_8b on a (1, 1) mesh, from its depth L.  A layer's 5
+    column-parallel weights gather their K rows over "data" (the codes, and
+    the statistics' row of 1, which a data axis of 1 divides: 3 calls; an
+    empirical weight's codes alone, its codebook is whole), its 2
+    row-parallel weights their N columns (3 / 1), whose partial sums are
+    all-reduced (at serve_a_bits 8 their per-token scales first: a max
+    all-reduce); then the embedding's d columns (3 / 1) and the all-reduce
+    of its rows, and three gathers: the dense head's d rows (an odd
+    vocabulary stays dense), its vocabulary columns of the logits, the
+    batch's rows."""
+    L = cfg.n_layers
+    per = 1 if mode["w_dist"] == "empirical" else 3
+    a8 = int(mode["a_bits"] < 32)
+    return {"all_reduce": (2 + 2 * a8) * L + 1,
+            "all_gather": 7 * per * L + per + 3, "reduce_scatter": 0}
+
+
+def tp_calls(params, cfg, opts, prompt, feed=None):
+    """The closed batch through the model's entry points: ``model.prefill``
+    of the prompt, its K / V copied by ``cache_insert`` into
+    ``model.init_cache``'s (the rank's block on a mesh; f32 at f32
+    activations, else bf16, as ``serve.generate``'s), TP_NEW
+    ``model.decode`` steps on the greedy tokens (or ``feed``'s).  Returns
+    (each call's f32 logits, the tokens)."""
+    B, S = prompt.shape
+    logits, kv = model.prefill(params, cfg, opts, {"tokens": prompt})
+    cache = model.init_cache(cfg, B, S + TP_NEW, torch.float32
+                             if opts.compute_dtype == torch.float32
+                             else torch.bfloat16, device=DEV, opts=opts)
+    model.cache_insert(cache, kv, torch.arange(kv["k"].shape[1],
+                                               device=DEV))
+    del kv
+    outs, toks = [logits.float()], []
+    for i in range(TP_NEW):
+        nxt = logits.argmax(-1) if feed is None else feed[i]
+        toks.append(nxt)
+        logits, cache = model.decode(params, cfg, opts, cache, nxt[:, None],
+                                     torch.full((B,), S + i, device=DEV))
+        outs.append(logits.float())
+    sync()
+    return outs, toks
+
+
+def placed_serving_check(params, cfg, mode):
+    """Phase 4D (c) (i): the closed batch (``tp_calls``) on ``params`` (a
+    granite_3_8b coded for ``mode``) without a mesh, then on a (1, 1) mesh
+    of the NCCL world through the placed path (``place_params``: every
+    block is its whole leaf; the gathers and all-reduces are one-rank
+    copies).  The logits bit-equal, the launches equal the unplaced run's
+    and the prediction from L, the collective wrapper's calls the
+    prediction (``tp_collectives_per_call``).  Returns the placed run's
+    launches."""
+    L = cfg.n_layers
+    calls = 1 + TP_NEW
+    prompt = torch.tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab, size=(TP_B, TP_PROMPT)), device=DEV)
+    base = lm.ModelOpts(compute_dtype=torch.bfloat16,
+                        serve_a_bits=mode["a_bits"])
+    predicted = {mode["matmul"]: 7 * L * calls}
+    if mode["w_dist"] == "gaussian":
+        predicted["kquantile_dequantize"] = calls   # the embedding's rows
+    want_c = {k: v * calls
+              for k, v in tp_collectives_per_call(cfg, mode).items()}
+    say(f"[4D] (i) {cfg.name} {mode['name'].split(' +')[0]}, {L} layers, "
+        f"B {TP_B}, {TP_PROMPT} + {TP_NEW} tokens: predicted from L for "
+        f"{calls} calls: launches {predicted}, collective wrapper {want_c}")
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    want, feed = tp_calls(params, cfg, base, prompt)
+    t_plain = time.perf_counter() - t0
+    plain_k = {k: v for k, v in kops.launch_counts().items() if v}
+    with nccl_world():
+        mesh = mesh_lib.make_host_mesh(1, 1)
+        placed, opts = tpar.place_params(
+            params, cfg, dataclasses.replace(base, mesh=mesh))
+        kops.reset_launch_counts()
+        coll.reset_collective_counts()
+        t0 = time.perf_counter()
+        got, _ = tp_calls(placed, cfg, opts, prompt, feed)
+        dt = time.perf_counter() - t0
+        counts = {k: v for k, v in kops.launch_counts().items() if v}
+        cc = coll.collective_counts()
+        del placed
+    equal = [torch.equal(a, b) for a, b in zip(got, want)]
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    say(f"[4D] (i) unplaced {t_plain:.2f}s, placed on (1, 1) {dt:.2f}s; "
+        f"logits bit-equal in {sum(equal)} of {calls} calls (max abs diff "
+        f"{err:.3e}); launches placed {counts}, unplaced {plain_k}; "
+        f"collective wrapper {cc}; {CARD}")
+    if not all(equal):
+        raise SystemExit(f"(i) {mode['name']}: the placed logits differ")
+    if counts != plain_k or counts != predicted:
+        raise SystemExit(f"(i) {mode['name']}: launches differ from the "
+                         f"unplaced run's or the prediction")
+    if cc != want_c:
+        raise SystemExit(f"(i) {mode['name']}: collective calls differ from "
+                         f"the prediction")
+    return counts
+
+
+def placed_train_check(state, cfg, opts, tc, data, seed, step, phase6):
+    """Phase 4D (c) (ii): one whole train step from phase 6's state, batch
+    ``step`` of its stream, unplaced on the state and placed on a (1, 1)
+    mesh of the NCCL world on a device copy of it (``place_state``: FSDP
+    and TP placement, whole blocks; the loss by the vocabulary-parallel
+    cross-entropy, the norm by ``global_norm(placement=)``).  Loss within
+    TOL_TRAIN_PLAIN_LOSS_REL, the gradient norm within
+    TOL_TRAIN_PLAIN_GRAD_REL, every parameter within what a gradient within
+    TOL_TRAIN_PLAIN_GRAD_REL of its leaf's largest moves an AdamW step
+    (tests/test_torch_train.py's step bound; |g| bounded by
+    sqrt(nu / (1 - beta2)) of the step's second moment).  Returns the
+    placed step's launches."""
+    batch = train_cli.train_batch(cfg, data, step, DEV)
+    oc = tc.optim
+    if oc.kind != "adamw" or oc.momentum_dtype != "float32":
+        raise SystemExit("(ii) holds an f32 AdamW step")
+    t0 = time.perf_counter()
+    twin = tree_lib.map_tree(lambda t: t.clone(), {
+        "params": state["params"], "opt": state["opt"],
+        "step": state["step"]})
+    sync()
+    t_copy = time.perf_counter() - t0
+    runs = {}
+    for name, st in (("unplaced", state), ("placed (1, 1)", twin)):
+        with (nccl_world() if st is twin else contextlib.nullcontext()):
+            o = opts
+            if st is twin:
+                st, o = train_steps.place_state(
+                    twin, cfg, dataclasses.replace(
+                        opts, mesh=mesh_lib.make_host_mesh(1, 1)))
+                coll.reset_collective_counts()
+            step_fn, _ = train_steps.make_train_step(cfg, o, tc)
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            kops.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, m = step_fn(st, batch, seed)
+            sync()
+            runs[name] = dict(
+                dt=time.perf_counter() - t0,
+                peak=torch.cuda.max_memory_allocated() / 2**30,
+                loss=float(m["loss"]), norm=float(m["grad_norm"]),
+                lr=float(m["lr"]), launches={
+                    k: v for k, v in kops.launch_counts().items() if v},
+                cc=coll.collective_counts() if st is not state else {})
+    u, pl = runs["unplaced"], runs["placed (1, 1)"]
+    count = int(state["opt"]["count"])
+    bc1, bc2 = 1 - oc.beta1 ** count, 1 - oc.beta2 ** count
+    worst, worst_path = 0.0, ""
+    for p, t in tree_lib.leaves_with_paths(state["params"]):
+        m1, nu = state["opt"]["mu"], state["opt"]["nu"]
+        for k in p.split("/"):
+            m1, nu = m1[k], nu[k]
+        m1 = m1["m"]
+        g = torch.sqrt(nu / (1 - oc.beta2))          # >= |g| of the step
+        tgc = TOL_TRAIN_PLAIN_GRAD_REL * (g.max() + g)
+        tol_m = (1 - oc.beta1) * tgc
+        tol_v = (1 - oc.beta2) * (2 * g + tgc) * tgc
+        del g, tgc
+        m_hat, v_hat = m1 / bc1, nu / bc2
+        s = torch.sqrt(v_hat)
+        ds = (tol_v / bc2) / (s + torch.sqrt(torch.clamp(
+            v_hat - tol_v / bc2, min=0.0)) + 1e-30)
+        lo = torch.clamp(s - ds, min=0.0) + oc.eps
+        dr = (tol_m / bc1) / lo + m_hat.abs() * ds / ((s + oc.eps) * lo)
+        r = m_hat.abs() / (s + oc.eps)
+        del s, ds, lo, m_hat, v_hat, tol_m, tol_v
+        other = twin["params"]
+        for k in p.split("/"):
+            other = other[k]
+        tol_p = u["lr"] * 1.01 * torch.minimum(dr, 2 * (r + 1)) \
+            + 2 * torch.finfo(torch.float32).eps * t.abs() + 1e-30
+        del dr, r
+        ratio = ((t - other).abs() / tol_p).max().item()
+        del tol_p
+        if ratio >= worst:
+            worst, worst_path = ratio, p
+    del twin
+    torch.cuda.empty_cache()
+    loss_rel = abs(pl["loss"] - u["loss"]) / abs(u["loss"])
+    norm_rel = abs(pl["norm"] - u["norm"]) / abs(u["norm"])
+    say(f"[4D] (ii) {cfg.name} ({cfg.n_layers} layers, f32, UNIQ, AdamW) "
+        f"one step from phase 6's state, placed on (1, 1) vs unplaced: loss "
+        f"{pl['loss']:.6f} vs {u['loss']:.6f} (rel {loss_rel:.1e}, limit "
+        f"{TOL_TRAIN_PLAIN_LOSS_REL}); grad norm {pl['norm']:.6f} vs "
+        f"{u['norm']:.6f} (rel {norm_rel:.1e}, limit "
+        f"{TOL_TRAIN_PLAIN_GRAD_REL}); parameters: worst |diff| / bound "
+        f"{worst:.3f} ({worst_path}); launches placed {pl['launches']}, "
+        f"unplaced {u['launches']}; collective wrapper {pl['cc']}")
+    say(f"[4D] (ii) one whole step: unplaced {u['dt'] * 1e3:.0f} ms, peak "
+        f"{u['peak']:.1f} GiB; placed {pl['dt'] * 1e3:.0f} ms, peak "
+        f"{pl['peak']:.1f} GiB (both beside a device copy of the state, "
+        f"made in {t_copy:.2f}s)" + (
+            f" (phase 6: median step {phase6[0] * 1e3:.0f} ms, peak "
+            f"{phase6[1]:.1f} GiB)" if phase6 else " (phase 6 not run)")
+        + f"; {CARD}")
+    if loss_rel > TOL_TRAIN_PLAIN_LOSS_REL or norm_rel > \
+            TOL_TRAIN_PLAIN_GRAD_REL or worst > 1.0:
+        raise SystemExit("(ii) the placed step is outside phase 6's bounds")
+    if pl["launches"] != u["launches"]:
+        raise SystemExit("(ii) the placed step's launches differ")
+    return pl["launches"]
+
+
+def block_shapes_check(gen):
+    """Phase 4D (c) (iii): every block shape of TP_BLOCKS at M of
+    TP_BLOCK_ROWS through ``qmatmul`` (bf16 activations), ``qmatmul_a8``
+    (per-token int8 codes) and ``qmatmul_lut`` (a (k,) codebook), W4, each
+    against its plain version at phase 3's tolerances and deterministic,
+    then timed beside its plain version.  A block whose rows of codes are
+    no multiple of 16 bytes, or whose K is no multiple of the activation
+    chunk, takes the kernels' staged loads: printed."""
+    for name, K, N in TP_BLOCKS:
+        pitch = N * 4 // 8
+        staged = [k for k, ok in (("qmatmul", K % 8 == 0),
+                                  ("qmatmul_lut", K % 8 == 0),
+                                  ("qmatmul_a8", K % 16 == 0))
+                  if not (ok and pitch % 16 == 0)]
+        for M in TP_BLOCK_ROWS:
+            a, w, mu, sigma = make_qmm_inputs(gen, M, K, N, 4,
+                                              torch.bfloat16)
+            codes, scale = make_a8_inputs(gen, M, K)
+            lut = make_lut(gen, N, 4, False)
+            errs = {}
+            for kname, fn, plain, tol in (
+                    ("qmatmul", lambda: qmm.qmatmul(a, w, mu, sigma, bits=4),
+                     lambda: qmm.qmatmul_plain(a, w, mu, sigma, bits=4),
+                     TOL_QMM_F32),
+                    ("qmatmul_a8", lambda: qmm.qmatmul_a8(
+                        codes, scale, w, mu, sigma, bits=4),
+                     lambda: qmm.qmatmul_a8_plain(codes, scale, w, mu, sigma,
+                                                  bits=4), TOL_QMM_A8),
+                    ("qmatmul_lut", lambda: qmm.qmatmul_lut(a, w, lut,
+                                                            bits=4),
+                     lambda: qmm.qmatmul_lut_plain(a, w, lut, bits=4),
+                     TOL_QMM_LUT)):
+                out, again = fn(), fn()
+                sync()
+                errs[kname] = _matmul_checked(kname, out, again, plain(), tol,
+                                              f"{name} M={M} K={K} N={N}")
+                del out, again
+                ms, plain_ms = time_ms([fn]), time_ms([plain])
+                TP_BLOCK_TIMES[kname].append(dict(
+                    block=name, M=M, K=K, N=N, ms=ms, plain_ms=plain_ms,
+                    max_abs_err=errs[kname], staged=kname in staged))
+            del a, w, mu, sigma, codes, scale, lut
+            say(f"[4D] (iii) {name} (K {K}, N {N}) M={M}: " + ", ".join(
+                f"{k} err {e:.2e} {r[-1]['ms']:.4f} ms (plain "
+                f"{r[-1]['plain_ms']:.4f} ms)" for k, e, r in (
+                    (k, e, TP_BLOCK_TIMES[k]) for k, e in errs.items()))
+                + f"; code rows of {pitch} B: "
+                + (f"staged loads in {', '.join(staged)}" if staged
+                   else "whole 16-byte loads") + f"; {CARD}")
+
+
+# two ranks on the one card: gloo over CUDA tensors (NCCL refuses two ranks
+# of one GPU), granite_3_8b at full width and this depth, W4, (i)'s closed
+# batch on a (1, 2) mesh; rank 0's logits against the unplaced ones (a
+# world of one's: (i) holds those bit-equal) relative to their largest.
+# f32 activations: the split sums differ from the whole ones in their
+# order alone, and the greedy tokens must be equal.  bf16 activations
+# (phase 4's): a row-parallel product's f32 partial sums are rounded to
+# bf16 once, as the whole product's are, but a different sum flips a bf16
+# ulp here and there and the flips grow through the layers (1.0e-2 of the
+# largest logit at 8 layers on the card): fed the unplaced run's tokens,
+# held to the kernels-vs-plain bound of phase 4 (TOL_LOGITS_REL).
+TWO_RANK_LAYERS = 8
+TOL_TWO_RANK_REL = 2e-4
+
+
+def two_ranks_rank(rank: int, store: str, out: str, seed: int) -> None:
+    """One rank of ``two_ranks_check`` (a process of its own): the
+    unplaced closed batch, then the same on a (1, 2) mesh of a gloo world
+    of two; writes its result, or the collective's refusal, to
+    ``out/rank<r>.json``."""
+    cfg = dataclasses.replace(cb.get("granite_3_8b"),
+                              n_layers=TWO_RANK_LAYERS)
+    prompt = torch.tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab, size=(TP_B, TP_PROMPT)), device=DEV)
+    res = {"rank": rank}
+    mesh_lib.init_world("cuda", store_path=store, rank=rank, world_size=2,
+                        backend="gloo")
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            params = model.init(seed, cfg, device=DEV, w_bits=4,
+                                dense_dtype=dtype)
+            base = lm.ModelOpts(compute_dtype=dtype)
+            want, feed = tp_calls(params, cfg, base, prompt)
+            placed, opts = tpar.place_params(
+                params, cfg, dataclasses.replace(
+                    base, mesh=mesh_lib.make_host_mesh(1, 2)))
+            coll.reset_collective_counts()
+            t0 = time.perf_counter()
+            got, _ = tp_calls(placed, cfg, opts, prompt, feed)
+            dt = time.perf_counter() - t0
+            # each call's greedy tokens against the unplaced ones: a token
+            # that differs is a near-tie if the unplaced top-2 margin is
+            # within twice the call's largest logit difference
+            flips = ties = 0
+            for a, b in zip(got, want):
+                differ = a.argmax(-1) != b.argmax(-1)
+                top2 = b.topk(2, dim=-1).values
+                near = (top2[:, 0] - top2[:, 1]) <= 2 * (a - b).abs().max()
+                flips += int(differ.sum())
+                ties += int((differ & near).sum())
+            res[name] = dict(
+                seconds=dt, flips=flips, near_ties=ties,
+                rel_err=max(((a - b).abs().max()
+                             / b.abs().max().clamp_min(1e-30)).item()
+                            for a, b in zip(got, want)),
+                collectives=coll.collective_counts())
+            del params, placed, want, got
+            torch.cuda.empty_cache()
+    except RuntimeError as e:
+        res["refused"] = str(e)
+    finally:
+        mesh_lib.destroy_world()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def two_ranks_check(seed: int) -> None:
+    """Two ranks on the one card: ``two_ranks_rank`` in two processes of
+    this script over a file store, each fed the unplaced run's tokens.  At
+    f32 activations rank 0's logits within TOL_TWO_RANK_REL of the unplaced
+    ones and the greedy tokens equal; at bf16 within TOL_LOGITS_REL, every
+    greedy token that differs a near-tie; a refused collective is printed
+    and raises."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_two_") as d:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--two-ranks-rank", str(r),
+                                   "--two-ranks-dir", d, "--seed", str(seed)])
+                 for r in range(2)]
+        try:
+            codes = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        res = []
+        for r in range(2):
+            path = os.path.join(d, f"rank{r}.json")
+            if not os.path.exists(path):
+                raise SystemExit(f"two ranks: rank {r} exited {codes[r]} "
+                                 f"without a result")
+            with open(path) as f:
+                res.append(json.load(f))
+    say(f"[4D] two ranks on the one card (gloo over CUDA tensors), "
+        f"{TWO_RANK_LAYERS} layers, (1, 2) mesh, in "
+        f"{time.perf_counter() - t0:.0f}s: " + "; ".join(
+            json.dumps(r) for r in res) + f"; {CARD}")
+    if any("refused" in r for r in res):
+        raise SystemExit("two ranks: gloo refused a collective of the path")
+    f32, bf16 = res[0]["float32"], res[0]["bfloat16"]
+    if f32["rel_err"] > TOL_TWO_RANK_REL or f32["flips"] \
+            or bf16["rel_err"] > TOL_LOGITS_REL \
+            or bf16["flips"] != bf16["near_ties"]:
+        raise SystemExit("two ranks: logits or tokens differ")
 
 
 # --------------------------------------------------------------------------
@@ -4665,8 +5054,12 @@ def train_phase(seed: int, layers: int, steps: int):
     md_counts = compressed_sync_check(state, cfg, opts, tc, data, sched,
                                       seed, min(3, steps - 1), (med, peak))
     say(f"[time] phase 4D (b) took {time.perf_counter() - t0:.0f}s")
+    t0 = time.perf_counter()
+    tp_counts = placed_train_check(state, cfg, opts, tc, data, seed, steps,
+                                   (med, peak))
+    say(f"[time] phase 4D (c) (ii) took {time.perf_counter() - t0:.0f}s")
     return {k: v + scan_counts.get(k, 0) + md_counts.get(k, 0)
-            for k, v in counts.items()}, times
+            + tp_counts.get(k, 0) for k, v in counts.items()}, times
 
 
 def train_profile(state, step_fn, cfg, data, step, seed, rows: int = 14):
@@ -6783,9 +7176,11 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-device", action="store_true",
                     help="build, run phase 4D alone (on an NCCL world of 1: "
                          "the expert-parallel MoE on a fresh kimi_k2 load "
-                         "at --moe-layers, the compressed gradient sync on "
-                         "a fresh granite_3_8b state at --train-layers), "
-                         "then stop")
+                         "at --moe-layers, the compressed gradient sync and "
+                         "the placed train step on a fresh granite_3_8b "
+                         "state at --train-layers, the placed closed batch "
+                         "on a fresh granite_3_8b W4 load at --layers, the "
+                         "block shapes), then stop")
     ap.add_argument("--train-profile", action="store_true",
                     help="build, run phase 6b alone (no process group made "
                          "in this process), reading each train profile both "
@@ -6796,7 +7191,19 @@ def main(argv=None) -> int:
                          "does before phase 6b in the whole run")
     ap.add_argument("--ptxas", action="store_true",
                     help="print ptxas' register / shared-memory report")
+    ap.add_argument("--two-ranks", action="store_true",
+                    help="build, run two ranks of a gloo world on the one "
+                         "card ((i)'s closed batch on a (1, 2) mesh at "
+                         f"{TWO_RANK_LAYERS} layers), then stop")
+    ap.add_argument("--two-ranks-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--two-ranks-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.two_ranks_rank is not None:
+        two_ranks_rank(args.two_ranks_rank,
+                       os.path.join(args.two_ranks_dir, "store"),
+                       args.two_ranks_dir, args.seed)
+        return 0
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6889,12 +7296,40 @@ def main(argv=None) -> int:
         compressed_sync_check(state, cfg, opts, tc, data, sched, args.seed,
                               min(3, args.train_steps - 1), None)
         say(f"[time] phase 4D (b) took {time.perf_counter() - t0:.0f}s")
+        t0 = time.perf_counter()
+        placed_train_check(state, cfg, opts, tc, data, args.seed,
+                           min(3, args.train_steps - 1), None)
+        say(f"[time] phase 4D (c) (ii) took {time.perf_counter() - t0:.0f}s")
         del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cb.get("granite_3_8b"),
+                                  n_layers=args.layers)
+        t0 = time.perf_counter()
+        params = model.init(args.seed, cfg, device=DEV, w_bits=4,
+                            dense_dtype=torch.bfloat16)
+        sync()
+        say(f"[4D] {cfg.name} at full width, {cfg.n_layers} layers, W4: "
+            f"drawn and coded in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        placed_serving_check(params, cfg, ENGINE_MODES[0])
+        say(f"[time] phase 4D (c) (i) took {time.perf_counter() - t0:.0f}s")
+        del params
+        t0 = time.perf_counter()
+        block_shapes_check(gen)
+        say(f"[time] phase 4D (c) (iii) took "
+            f"{time.perf_counter() - t0:.0f}s")
         art.cleanup()
         say(f"[time] multi-device run done at "
             f"{time.perf_counter() - t_start:.0f}s")
         say(card)
         say("multi-device run: stopped after phase 4D")
+        return 0
+    if args.two_ranks:
+        two_ranks_check(args.seed)
+        art.cleanup()
+        say(card)
+        say("two-ranks run: stopped after the two ranks")
         return 0
     if args.train_profile:
         PROFILE_BOTH = True
@@ -6963,6 +7398,13 @@ def main(argv=None) -> int:
         counts[mode["matmul"]] = run_counts[mode["matmul"]]
         for c in CODECS:
             counts[c] += run_counts[c]
+        # phase 4D (c) (i) on the mode's coded weights: its placed run's
+        # launches join the kernels line's
+        t0 = time.perf_counter()
+        for c, n in placed_serving_check(params, cfg, mode).items():
+            counts[c] = counts.get(c, 0) + n
+        say(f"[time] phase 4D (c) (i) {mode['name']} took "
+            f"{time.perf_counter() - t0:.0f}s")
         if i == 0:
             counts["paged_quant_attention"] = \
                 run_counts["paged_quant_attention"]
@@ -6990,6 +7432,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()  # pool before the next one is made
     long_family_checks(args.seed)
     say(f"[time] phase 4L done at {time.perf_counter() - t_start:.0f}s")
+    block_shapes_check(gen)
+    say(f"[time] phase 4D (c) (iii) done at "
+        f"{time.perf_counter() - t_start:.0f}s")
+    two_ranks_check(args.seed)
+    say(f"[time] two ranks on the card done at "
+        f"{time.perf_counter() - t_start:.0f}s")
     small_reference_phase(args.seed)
     say(f"[time] phases 1-5 done at {time.perf_counter() - t_start:.0f}s")
     closed_batch_phase(args.seed)
@@ -7056,6 +7504,10 @@ def main(argv=None) -> int:
         e["audit"] = {k: row[k] for k in (
             "static_smem", "dynamic_smem", "regs", "local_bytes",
             "blocks_per_sm", "instantiations")}
+    # phase 4D (c) (iii)'s block shapes beside each matmul's times
+    for e in line["kernels"]:
+        if e["name"] in TP_BLOCK_TIMES:
+            e["tp_blocks"] = TP_BLOCK_TIMES[e["name"]]
     say(f"[time] phase 7 done at {time.perf_counter() - t_start:.0f}s")
     art.cleanup()
 

@@ -65,7 +65,7 @@ def _leaf_bytes(tree) -> int:
 def check_byte_accounting(archs: Sequence[str] = ENGINE_ARCHS,
                           kv_bits_list: Sequence[int] = KV_BITS_MATRIX,
                           page_sizes: Sequence[int] = PAGE_SIZE_MATRIX,
-                          device="cpu", full: bool = False,
+                          device="cuda", full: bool = False,
                           ) -> Tuple[List[Finding], Dict[str, Any]]:
     """Allocate each cell's pool on ``device`` and hold its bytes to the
     admission formula; ``full`` adds ``FULL_ARCHS`` at published widths
@@ -106,7 +106,7 @@ def check_byte_accounting(archs: Sequence[str] = ENGINE_ARCHS,
 
 def check_sharding_coverage(archs: Sequence[str] = AUDIT_ARCHS,
                             w_dists: Sequence[str] = W_DIST_MATRIX,
-                            device="cpu",
+                            device="cuda",
                             ) -> Tuple[List[Finding], Dict[str, Any]]:
     """Classify every leaf of each arch's smoke parameters (raw, and W4
     coded under each ``w_dist``, drawn on ``device``) by
@@ -200,7 +200,7 @@ def two_bucket_requests(vocab: int, seed: int = 0):
 
 
 def check_step_shapes(kv_bits_list: Sequence[int] = KV_BITS_MATRIX,
-                      arch: str = "granite_3_8b", device="cpu",
+                      arch: str = "granite_3_8b", device="cuda",
                       ) -> Tuple[List[Finding], Dict[str, Any]]:
     """Serve the two-bucket mix on a smoke engine per kv_bits (f32, max 4
     slots, pages of 8); the distinct decode / prefill signatures must be
@@ -248,7 +248,7 @@ def check_step_shapes(kv_bits_list: Sequence[int] = KV_BITS_MATRIX,
 # -- driver -----------------------------------------------------------------
 
 def run_compile_audit(kv_bits_list: Sequence[int] = KV_BITS_MATRIX,
-                      with_engine: bool = True, device="cpu",
+                      with_engine: bool = True, device="cuda",
                       full: bool = False,
                       ) -> Tuple[List[Finding], Dict[str, Any]]:
     findings, info = check_byte_accounting(device=device, full=full)

@@ -33,8 +33,25 @@ from repro_torch.convert import tensor_from_numpy, tensor_to_numpy
 MAX_SHARD_BYTES = 1 << 30  # 1 GiB per npz shard
 
 
-def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None):
-    """Write a checkpoint for ``step``; returns the step directory."""
+def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
+         shardings: Optional[Any] = None):
+    """Write a checkpoint for ``step``; returns the step directory.
+
+    ``shardings``: ``tree`` holds a rank's blocks, placed by this matching
+    tree of ``parallel.sharding.Sharding`` (every rank calls it): each leaf
+    is gathered whole (``Sharding.whole``) and rank 0 writes the whole
+    leaves, the reference's on-disk form; every rank returns once it is
+    written."""
+    if shardings is not None:
+        import torch.distributed as dist
+        tree = tree_lib.map_tree(lambda t, shd: shd.whole(torch.as_tensor(t)),
+                                 tree, shardings)
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return os.path.join(ckpt_dir, f"step_{step}")
+        out = save(ckpt_dir, step, tree, extra)
+        dist.barrier()
+        return out
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
     final = os.path.join(ckpt_dir, f"step_{step}")

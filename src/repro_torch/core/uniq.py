@@ -118,13 +118,58 @@ def _fit_dist(w: torch.Tensor, cfg: UniqConfig, stacked: bool):
     return fit_gaussian(w, axes)
 
 
-def fit_layers(w: torch.Tensor, cfg: UniqConfig) -> GaussianModel:
+def fit_layers(w: torch.Tensor, cfg: UniqConfig, placement=None,
+               path: str = "") -> GaussianModel:
     """The per-layer statistics of a stacked (L, ...) leaf as the
     whole-tree transform fits them.  The transform inside the layer loop
     (``lm.forward_train``'s ``uniq_scan``) hands layer l's slice of them to
     ``transform_param``, so both paths see the same values to the bit and
-    the stack is reduced once a step, not a slice at a time."""
+    the stack is reduced once a step, not a slice at a time.  With
+    ``placement`` w is a rank's block of the leaf at ``path``
+    (``fit_placed``)."""
+    if placement is not None:
+        return fit_placed(w, cfg, True, path, placement)
     return _fit_dist(w, cfg, stacked=True)
+
+
+@torch.no_grad()
+def fit_placed(w: torch.Tensor, cfg: UniqConfig, stacked: bool, path: str,
+               placement):
+    """The whole leaf's distribution model from a rank's block ``w`` of the
+    leaf at ``path`` of a placed tree (``sharding.Placement``): the
+    reduced dims' sum all-reduced over the axes they are split on, the
+    mean, then the centred sum of squares all-reduced, the standard
+    deviation (the two passes of ``torch.mean`` / ``torch.std``, in another
+    order of summation); the statistics of the dims kept are the block's
+    own.  Where no reduced dim is split over more than one rank the block
+    holds them whole, and they are fitted as without a mesh, to the bit (a
+    NOISE weight's gradient moves far with its statistics' last bit, where
+    its draw lands near the clamp).  An empirical model needs the whole
+    sorted sample: the leaf is all-gathered."""
+    axes = _stats_axes(w, cfg.per_channel, stacked)
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import axis_sizes
+    red = tuple(a for a in range(w.ndim) if axes is None or a not in axes)
+    sizes = axis_sizes(placement.mesh)
+    split = tuple(a for a in placement.split_axes(path, red)
+                  if sizes[a] > 1)
+    if not split:
+        return _fit_dist(w, cfg, stacked)
+    if cfg.dist == "empirical" and axes is None:
+        return EmpiricalModel.fit(placement.sharding(path).whole(w))
+    if cfg.dist not in ("gaussian", "empirical"):
+        raise ValueError(f"unknown distribution model: {cfg.dist!r}")
+    whole = placement.whole_shape(path, w.shape)
+    n = 1
+    for a in red:
+        n *= whole[a]
+    groups = placement.groups(split)
+    s = coll.all_reduce(torch.sum(w, dim=red, keepdim=True), groups)
+    mu = s / n
+    c = coll.all_reduce(torch.sum(torch.square(w - mu), dim=red,
+                                  keepdim=True), groups)
+    return GaussianModel(mu=mu, sigma=torch.clamp(torch.sqrt(c / n),
+                                                  min=1e-8))
 
 
 def _broadcast_mode(mode, w: torch.Tensor, stacked: bool) -> torch.Tensor:
@@ -314,7 +359,7 @@ def lm_mode_fn(layer_modes: torch.Tensor):
 def transform_tree(params: Any, noise: NoiseFn, modes: Any, cfg: UniqConfig,
                    quant_filter: Optional[Callable] = None,
                    stacked_prefixes: tuple = ("layers",),
-                   use_kernel: bool = True) -> Any:
+                   use_kernel: bool = True, placement=None) -> Any:
     """Apply UNIQ to a parameter tree (nested dicts of tensors).
 
     ``noise(path, leaf)`` gives each transformed leaf its U[0, 1) draw
@@ -323,7 +368,11 @@ def transform_tree(params: Any, noise: NoiseFn, modes: Any, cfg: UniqConfig,
     (``onchip_noise``).  ``modes``: one mode for every quantized leaf, or a
     callable ``path -> mode`` (see ``lm_mode_fn``).  Leaves whose path
     starts with one of ``stacked_prefixes`` carry a leading layer axis and
-    may receive an (L,) per-layer mode vector.
+    may receive an (L,) per-layer mode vector.  With ``placement``
+    (``sharding.Placement``) the leaves are a rank's blocks: each takes the
+    whole leaf's statistics (``fit_placed``), and ``noise`` must give the
+    block of the whole leaf's draw; the ablation quantizers are not placed
+    (they raise).
     """
     quant_filter = quant_filter or default_quant_filter
     mode_for = modes if callable(modes) else (lambda _p: modes)
@@ -334,8 +383,17 @@ def transform_tree(params: Any, noise: NoiseFn, modes: Any, cfg: UniqConfig,
         if not cfg.quantize_embed and ("embed" in p or "head" in p):
             return leaf
         stacked = any(p.startswith(pre) for pre in stacked_prefixes)
+        model = None
+        if placement is not None:
+            if cfg.method != "kquantile":
+                raise NotImplementedError(
+                    f"the {cfg.method} quantizer on placed leaves: its "
+                    f"statistics are the block's (only kquantile is "
+                    f"placed)")
+            model = fit_placed(leaf, cfg, stacked, p, placement)
         return transform_param(leaf, noise(p, leaf), mode_for(p), cfg,
-                               stacked=stacked, use_kernel=use_kernel)
+                               stacked=stacked, use_kernel=use_kernel,
+                               model=model)
 
     return tree_lib.map_with_path(one, params)
 

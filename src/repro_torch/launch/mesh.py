@@ -24,16 +24,19 @@ _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 def init_world(device="cuda", store_path: Optional[str] = None,
                rank: Optional[int] = None,
-               world_size: Optional[int] = None) -> Tuple[int, int]:
+               world_size: Optional[int] = None,
+               backend: Optional[str] = None) -> Tuple[int, int]:
     """Join the process group: NCCL for ``cuda`` (the default), gloo for
-    ``cpu``.  Where ``torchrun`` set ``RANK`` / ``WORLD_SIZE`` /
+    ``cpu``; ``backend`` names another explicitly (gloo over CUDA tensors:
+    two ranks on one card, which NCCL refuses; gloo then raises for a
+    collective it does not run on CUDA tensors).  Where ``torchrun`` set ``RANK`` / ``WORLD_SIZE`` /
     ``MASTER_ADDR`` / ``MASTER_PORT`` the world comes from them; otherwise
     from a ``FileStore`` at ``store_path`` shared by ``world_size`` ranks,
     this one ``rank``.  On the card each rank takes device ``LOCAL_RANK``
     (else its rank) modulo the visible devices.  Returns (rank, world
     size)."""
     dev = resolve_device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if all(k in os.environ for k in _TORCHRUN_ENV):
         rank = int(os.environ["RANK"])
         if dev.type == "cuda":

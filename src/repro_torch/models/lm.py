@@ -48,6 +48,7 @@ from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
                                        softcap)
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor_parallel as tpar
 
 BIG_WINDOW = 1 << 30
 # the empirical coding holds an int64 rank and an f32 value for each element
@@ -89,6 +90,53 @@ class ModelOpts:
                                       #   weights, the tokens split over the
                                       #   DP axes; reduce: d_ff split over
                                       #   fsdp_axes, the partial outputs summed
+    dp_includes_model: bool = False   # fsdp-only layout: batch over
+                                      #   (pod, data, model); "tp" dims of
+                                      #   shard_act stay whole
+    placement: Any = None             # sharding.Placement of the placed
+                                      #   parameters (tensor_parallel.
+                                      #   place_params): the dense / vlm
+                                      #   decoder runs on the mesh's blocks
+
+
+# --------------------------------------------------------------------------
+# Activation layouts
+# --------------------------------------------------------------------------
+
+def shard_act(shape, opts: ModelOpts, *axes) -> shd.PartitionSpec:
+    """The layout of an activation of (whole) ``shape``: one entry per dim
+    from the sentinels "dp" (the data-parallel axes that are not manual,
+    "model" too with ``dp_includes_model``, the innermost dropped until
+    the dim divides), "tp" ("model" where the dim divides it and
+    ``dp_includes_model`` is off) or None.  The reference constrains the
+    activation to it; the placed layers read it: the rows of the batch a
+    rank takes ("dp") and whether a rank's heads are its own ("tp").
+    Everything whole without a mesh."""
+    mesh = opts.mesh
+    if mesh is None:
+        return shd.P(*(None,) * len(axes))
+    sizes = shd.axis_sizes(mesh)
+    dp_names = ("pod", "data", "model") if opts.dp_includes_model \
+        else ("pod", "data")
+    out = []
+    for i, a in enumerate(axes):
+        if a == "dp":
+            dp = [x for x in dp_names if x in sizes
+                  and x not in opts.manual_axes]
+            while dp and shape[i] % math.prod(sizes[x] for x in dp):
+                dp.pop()
+            out.append(tuple(dp) or None)
+        elif a == "tp":
+            ok = ("model" in sizes and not opts.dp_includes_model
+                  and shape[i] % sizes["model"] == 0)
+            out.append("model" if ok else None)
+        else:
+            out.append(None)
+    return shd.P(*out)
+
+
+def _placed(opts: ModelOpts) -> bool:
+    return opts.placement is not None
 
 
 # --------------------------------------------------------------------------
@@ -178,7 +226,8 @@ def mm(x: torch.Tensor, w, use_kernels: bool = True,
     return torch.matmul(x, w).to(out_dtype)
 
 
-def mm_a(x: torch.Tensor, w, opts: ModelOpts) -> torch.Tensor:
+def mm_a(x: torch.Tensor, w, opts: ModelOpts, scale_groups=None,
+         out_dtype=None) -> torch.Tensor:
     """``mm`` with the serving activation codec (the A8 path).
 
     With ``opts.serve_a_bits < 32`` and a quantized weight, the activation
@@ -187,24 +236,31 @@ def mm_a(x: torch.Tensor, w, opts: ModelOpts) -> torch.Tensor:
     f32 levels, the result cast to x's dtype: the reference's ``mm_a``.
     Gaussian weights go through ``qmatmul_a8``, codebook weights through
     ``qmatmul_lut`` on the f32 activation.  Dense weights and
-    ``serve_a_bits >= 32`` fall through to ``mm``.
+    ``serve_a_bits >= 32`` fall through to ``mm``.  ``scale_groups``: x
+    is a rank's block of columns (a row-parallel product), its per-token
+    scale the whole row's (a max all-reduce over those groups).
+    ``out_dtype`` (default x's): the result's dtype.
     """
     bits = opts.serve_a_bits
+    out_dtype = out_dtype or x.dtype
     if bits >= 32 or not is_qweight(w):
-        return mm(x, w, opts.use_kernels)
-    codes, scale = act.quant_act(x, bits, act.act_scale(x, bits, axis=-1))
+        return mm(x, w, opts.use_kernels, out_dtype=out_dtype)
+    scale = act.act_scale(x, bits, axis=-1)
+    if scale_groups:
+        scale = coll.all_reduce_max(scale, scale_groups)
+    codes, scale = act.quant_act(x, bits, scale)
     wbits = _bits_of(w["q_codes"])
     if w["q_codes"].ndim == 2 and "q_lut" not in w:
         return kops.qmatmul_a8(codes, scale, w["q_codes"], w["q_mu"],
-                               w["q_sigma"], bits=wbits, out_dtype=x.dtype,
+                               w["q_sigma"], bits=wbits, out_dtype=out_dtype,
                                use_kernel=opts.use_kernels)
     a = codes.to(torch.float32) * scale
     if w["q_codes"].ndim == 2:
         return kops.qmatmul_lut(a, w["q_codes"], w["q_lut"], bits=wbits,
-                                out_dtype=x.dtype,
+                                out_dtype=out_dtype,
                                 use_kernel=opts.use_kernels)
     return torch.matmul(a, materialize(w, torch.float32,
-                                       opts.use_kernels)).to(x.dtype)
+                                       opts.use_kernels)).to(out_dtype)
 
 
 # --------------------------------------------------------------------------
@@ -492,13 +548,35 @@ def _window_schedule(cfg: ArchConfig) -> List[Optional[int]]:
     return [None if x >= BIG_WINDOW else int(x) for x in w]
 
 
+def _qkv_placed(hn, lp, cfg: ArchConfig, opts: ModelOpts):
+    """q, k, v of the rank's heads on a mesh: each projection
+    column-parallel, then the heads the rank attends
+    (``tensor_parallel.head_plan``)."""
+    B, S, _ = hn.shape
+    hd = cfg.head_dim
+    plan = tpar.head_plan(cfg, opts)
+    out = []
+    for key in ("wq", "wk", "wv"):
+        t, split = tpar.column_mm(hn, lp[key],
+                                  tpar.leaf_spec(opts, f"layers/{key}"),
+                                  opts)
+        t = tpar.q_heads(t, split, plan, opts) if key == "wq" \
+            else tpar.kv_heads(t, split, plan, hd, opts)
+        out.append(t.reshape(B, S, -1, hd))
+    return out
+
+
 def _qkv(hn, lp, cfg: ArchConfig, opts: ModelOpts, positions, cos_sin):
-    """Projections + RoPE; ``cos_sin`` are the call's rotation tables."""
+    """Projections + RoPE; ``cos_sin`` are the call's rotation tables.  On
+    a mesh (``opts.placement``) the rank's heads (``_qkv_placed``)."""
     B, S, _ = hn.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = mm_a(hn, lp["wq"], opts).reshape(B, S, H, hd)
-    k = mm_a(hn, lp["wk"], opts).reshape(B, S, KV, hd)
-    v = mm_a(hn, lp["wv"], opts).reshape(B, S, KV, hd)
+    if _placed(opts):
+        q, k, v = _qkv_placed(hn, lp, cfg, opts)
+    else:
+        q = mm_a(hn, lp["wq"], opts).reshape(B, S, H, hd)
+        k = mm_a(hn, lp["wk"], opts).reshape(B, S, KV, hd)
+        v = mm_a(hn, lp["wv"], opts).reshape(B, S, KV, hd)
     q = apply_rope(q, positions, cfg.rope_theta, cos_sin)
     k = apply_rope(k, positions, cfg.rope_theta, cos_sin)
     return q, k, v
@@ -521,8 +599,16 @@ def _qkv_mm(hn, lp, cfg: ArchConfig, opts: ModelOpts, positions, cos_sin):
 
 
 def _attn_out(o, lp, cfg: ArchConfig, opts: ModelOpts):
-    B, S = o.shape[:2]
-    o = mm_a(o.reshape(B, S, cfg.n_heads * cfg.head_dim), lp["wo"], opts)
+    """(B, S, heads, hd) -> (B, S, d) through wo; on a mesh the rank's
+    heads are its block of wo's rows where they are its own (row-parallel,
+    the partial sums all-reduced)."""
+    B, S, h = o.shape[:3]
+    o = o.reshape(B, S, h * cfg.head_dim)
+    if _placed(opts):
+        o = tpar.row_mm(o, tpar.head_plan(cfg, opts).q_local, lp["wo"],
+                        tpar.leaf_spec(opts, "layers/wo"), opts)
+    else:
+        o = mm_a(o, lp["wo"], opts)
     if cfg.post_norms:
         o = _norm(o, lp["post_attn_norm"], cfg)
     return o
@@ -661,6 +747,18 @@ def _ffn_block(x, lp, cfg: ArchConfig, opts: ModelOpts):
             o = moe_lib.moe_ffn(h, router_w, lp["eg"], lp["eu"], lp["ed"],
                                 mcfg, act_fn=F.silu,
                                 use_kernels=opts.use_kernels)
+    elif _placed(opts):
+        # column-parallel gate / up, row-parallel down (the rank's d_ff
+        # columns, where they split over "model")
+        (g, gs), (u, us) = (tpar.column_mm(
+            h, lp[k], tpar.leaf_spec(opts, f"layers/{k}"), opts)
+            for k in ("w_gate", "w_up"))
+        if gs != us:
+            raise ValueError("w_gate and w_up are split differently")
+        g = F.silu(g) if cfg.mlp_act == "silu" \
+            else F.gelu(g, approximate="tanh")
+        o = tpar.row_mm(g * u, gs, lp["w_down"],
+                        tpar.leaf_spec(opts, "layers/w_down"), opts)
     else:
         g = mm_a(h, lp["w_gate"], opts)
         u = mm_a(h, lp["w_up"], opts)
@@ -672,12 +770,17 @@ def _ffn_block(x, lp, cfg: ArchConfig, opts: ModelOpts):
     return o
 
 
-def _maybe_quant_act(x, opts: ModelOpts):
+def _maybe_quant_act(x, opts: ModelOpts, rows=()):
     """Layer-output activation fake-quant at ``opts.a_bits`` < 32: a
     per-tensor absmax int-b round trip with a straight-through gradient
-    (``core/activations.py:fake_quant_act``)."""
+    (``core/activations.py:fake_quant_act``).  ``rows``: x is a rank's
+    block of the batch over those axes; the absmax is the whole batch's."""
     if opts.a_bits < 32:
-        return act.fake_quant_act(x, opts.a_bits)
+        scale = None
+        if rows:
+            scale = coll.all_reduce_max(act.act_scale(x, opts.a_bits),
+                                        tpar.groups_of(opts, rows))
+        return act.fake_quant_act(x, opts.a_bits, scale)
     return x
 
 
@@ -688,7 +791,10 @@ def _maybe_quant_act(x, opts: ModelOpts):
 def _embed_tokens(params, cfg: ArchConfig, opts: ModelOpts, tokens):
     emb = params["embed"]
     tok = tokens.to(torch.long)
-    if is_qweight(emb):
+    if _placed(opts):
+        x = tpar.vocab_embed(emb, tpar.leaf_spec(opts, "embed"), tok,
+                             opts.compute_dtype, opts)
+    elif is_qweight(emb):
         # gather the token rows of the codes, dequantize only those: the
         # same values as dequantizing the whole table and then gathering
         rows = dict(emb, q_codes=emb["q_codes"][tok])
@@ -713,7 +819,13 @@ def _head_weight(params, cfg: ArchConfig, use_kernels: bool = True):
 
 
 def _logits(last, params, cfg: ArchConfig, opts: ModelOpts):
-    """(B, d) final hidden rows -> (B, V) f32 logits."""
+    """(B, d) final hidden rows -> (B, V) f32 logits (on a mesh the rank's
+    vocabulary columns, then gathered whole)."""
+    if _placed(opts):
+        w, split = tpar.head_weight(params, cfg, opts)
+        logits = softcap(tpar.vocab_logits(last, w, split, opts),
+                         cfg.final_logit_cap)
+        return tpar.gather_vocab(logits, split, opts)
     logits = mm(last, _head_weight(params, cfg, opts.use_kernels),
                 opts.use_kernels, out_dtype=torch.float32)
     return softcap(logits, cfg.final_logit_cap)
@@ -738,26 +850,58 @@ def _seq_chunk(S: int, target: int) -> int:
     return c
 
 
-def chunked_ce_loss(x, head_w, targets, cfg: ArchConfig, opts: ModelOpts):
+def chunked_ce_loss(x, head_w, targets, cfg: ArchConfig, opts: ModelOpts,
+                    split: bool = False, rows=()):
     """Cross-entropy without materializing (B, S, V) logits at once.
 
     x (B, S, d), targets (B, S) int with -1 = ignore.  Loops over sequence
     chunks of ``_seq_chunk(S, opts.ce_chunk)`` positions; logits are f32.
+    On a mesh (``opts.placement``) ``head_w`` holds the rank's vocabulary
+    columns where ``split`` and the logits stay split
+    (``tensor_parallel.vocab_ce``); x is the rank's rows of the batch over
+    ``rows``, and the loss is the whole batch's: the sum and the count of
+    valid targets all-reduced over them, then divided (the ranks' blocks
+    hold different counts).
     """
     B, S, d = x.shape
     chunk = _seq_chunk(S, opts.ce_chunk)
     total = x.new_zeros((), dtype=torch.float32)
     count = x.new_zeros((), dtype=torch.float32)
+    placed = _placed(opts)
     for i in range(0, S, chunk):
         xb, tb = x[:, i:i + chunk], targets[:, i:i + chunk].to(torch.long)
-        logits = mm(xb, head_w, opts.use_kernels, out_dtype=torch.float32)
-        logits = softcap(logits, cfg.final_logit_cap)
-        lse = torch.logsumexp(logits, dim=-1)                    # (B, c)
-        gold = torch.gather(logits, -1, tb.clamp_min(0)[..., None])[..., 0]
+        if placed:
+            logits = softcap(tpar.vocab_logits(xb, head_w, split, opts),
+                             cfg.final_logit_cap)
+            per = tpar.vocab_ce(logits, tb, split, opts)
+        else:
+            logits = mm(xb, head_w, opts.use_kernels,
+                        out_dtype=torch.float32)
+            logits = softcap(logits, cfg.final_logit_cap)
+            lse = torch.logsumexp(logits, dim=-1)                # (B, c)
+            gold = torch.gather(logits, -1,
+                                tb.clamp_min(0)[..., None])[..., 0]
+            per = lse - gold
         valid = (tb >= 0).to(torch.float32)
-        total = total + torch.sum((lse - gold) * valid)
+        total = total + torch.sum(per * valid)
         count = count + torch.sum(valid)
-    return total / torch.clamp(count, min=1.0)
+    if not placed:
+        return total / torch.clamp(count, min=1.0)
+    g = tpar.groups_of(opts, rows)
+    if g:
+        total = coll.sum_reduce(total, g)
+        count = coll.all_reduce(count.detach(), g)
+    loss = total / torch.clamp(count, min=1.0)
+    # a data-parallel axis the batch does not split computes the same loss
+    # on each of its ranks: each takes its share of the gradient, so that
+    # the sums over the axis (the FSDP reduce-scatters, sync_grads) are the
+    # loss's
+    sizes = shd.axis_sizes(opts.mesh)
+    n_rep = math.prod(sizes[a] for a in tpar.data_axes(opts)
+                      if a not in rows)
+    if n_rep > 1:
+        loss = loss.detach() + (loss - loss.detach()) / n_rep
+    return loss
 
 
 def rope_positions(B: int, S: int, cfg: ArchConfig, device):
@@ -805,12 +949,26 @@ def _uniq_layer(lp, uniq_scan, l: int, use_kernel: bool):
 
 
 def _train_layer(x, lp, cfg: ArchConfig, opts: ModelOpts, positions, window,
-                 cos_sin, uniq_scan=None, l: int = 0):
+                 cos_sin, uniq_scan=None, l: int = 0, rows=()):
     lp = _uniq_layer(lp, uniq_scan, l, opts.use_kernels)
     a, _ = _attn_block(x, lp, cfg, opts, positions, window, cos_sin)
     x = x + a
     x = x + _ffn_block(x, lp, cfg, opts)
-    return _maybe_quant_act(x, opts)
+    return _maybe_quant_act(x, opts, rows)
+
+
+def _rows_of(batch, opts: ModelOpts, keys):
+    """(the batch with this rank's rows of ``keys``, the axes they split
+    over): ``shard_act``'s "dp" of the rows on a mesh, the batch as it is
+    without one."""
+    if not _placed(opts):
+        return batch, ()
+    rows = tpar.batch_axes(opts, batch[keys[0]].shape[0])
+    out = dict(batch)
+    for k in keys:
+        if k in batch and batch[k] is not None:
+            out[k] = tpar.take_rows(torch.as_tensor(batch[k]), opts, rows)
+    return out, rows
 
 
 def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch,
@@ -827,17 +985,28 @@ def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch,
     transform per layer inside the layer loop (``_uniq_layer``);
     ``noise(key, layer, leaf)`` gives a layer's leaf its U[0, 1) draw
     (``core/uniq.py:layer_noise``).  The statistics of stacked layers are
-    fitted here, once, as the whole-tree transform fits them."""
+    fitted here, once, as the whole-tree transform fits them.
+
+    On a mesh (``opts.placement``) the parameters are the rank's blocks and
+    the batch is whole: the rank takes its rows, the statistics are the
+    whole leaves', each layer's noise the whole draw's block, and the loss
+    the whole batch's (``chunked_ce_loss``)."""
     if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r}: lm.forward_train trains the dense, "
             f"moe and vlm families (ssm / hybrid: models/hybrid.py; audio: "
             f"models/encdec.py)")
+    batch, rows = _rows_of(batch, opts, ("tokens", "targets",
+                                         "patch_embeds"))
     if uniq_scan is not None:
         ucfg, modes, noise = uniq_scan
+        pl = opts.placement
         stats = {} if isinstance(params["layers"], list) else {
-            k: fit_layers(v, ucfg) for k, v in params["layers"].items()
+            k: fit_layers(v, ucfg, pl, f"layers/{k}")
+            for k, v in params["layers"].items()
             if k in _QUANT_KEYS and not is_qweight(v)}
+        if pl is not None:
+            noise = tpar.whole_layer_noise(noise, pl)
         uniq_scan = (ucfg, modes, noise, stats)
     if not isinstance(params["layers"], list):
         params = unstack_layers(params, cfg.n_layers)
@@ -852,10 +1021,15 @@ def forward_train(params, cfg: ArchConfig, opts: ModelOpts, batch,
     windows = _window_schedule(cfg)
     for l in range(cfg.n_layers):
         x = apply_layer(_train_layer, opts.remat, x, _layer(params, l), cfg,
-                        opts, positions, windows[l], cos_sin, uniq_scan, l)
+                        opts, positions, windows[l], cos_sin, uniq_scan, l,
+                        rows)
     x = _norm_final(x, params, cfg)
     if n_patches:
         x = x[:, n_patches:]
+    if _placed(opts):
+        w, split = tpar.head_weight(params, cfg, opts)
+        return chunked_ce_loss(x, w, batch["targets"], cfg, opts, split,
+                               rows)
     return chunked_ce_loss(x, _head_weight(params, cfg, opts.use_kernels),
                            batch["targets"], cfg, opts)
 
@@ -877,7 +1051,15 @@ def forward_prefill(params, cfg: ArchConfig, opts: ModelOpts, batch,
     At the vlm family ``batch["patch_embeds"]`` (B, P, d), cast to the
     compute dtype, goes ahead of the token embeddings: positions, the cache
     and ``last_idx`` run over the P + S rows.
+
+    On a mesh (``opts.placement``) the batch is whole: the rank computes
+    its rows (``shard_act``'s "dp") and heads; the logits come back whole
+    on every rank, the cache is the rank's block (its rows, its KV heads).
     """
+    batch = dict(batch, last_idx=last_idx)
+    batch, rows = _rows_of(batch, opts, ("tokens", "patch_embeds",
+                                         "last_idx"))
+    last_idx = batch["last_idx"]
     tokens = batch["tokens"]
     x = _embed_tokens(params, cfg, opts, tokens)
     if cfg.family == "vlm":
@@ -893,7 +1075,7 @@ def forward_prefill(params, cfg: ArchConfig, opts: ModelOpts, batch,
                             cos_sin, kv_out=True)
         x = x + a
         x = x + _ffn_block(x, lp, cfg, opts)
-        x = _maybe_quant_act(x, opts)
+        x = _maybe_quant_act(x, opts, rows)
         kvs.append(kv)
     x = _norm_final(x, params, cfg)
     if last_idx is None:
@@ -901,7 +1083,7 @@ def forward_prefill(params, cfg: ArchConfig, opts: ModelOpts, batch,
     else:
         idx = torch.clamp(last_idx.to(torch.long), 0, S - 1)
         last = x[torch.arange(B, device=x.device), idx]
-    logits = _logits(last, params, cfg, opts)
+    logits = tpar.gather_rows(_logits(last, params, cfg, opts), opts, rows)
     cache = {name: torch.stack([kv[name] for kv in kvs]) for name in kvs[0]}
     if pad_to and pad_to > S:
         # every cache leaf is (L, B, S, ...): pad the position axis
@@ -917,14 +1099,31 @@ def _cache_shape(cfg: ArchConfig, batch: int, max_len: int):
     return (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
 
 
+def placed_cache_shape(cfg: ArchConfig, batch: int, max_len: int,
+                       opts: Optional[ModelOpts] = None):
+    """The slot cache's (L, B, S, KV, hd), on a mesh (``opts.placement``)
+    the rank's block: its rows of the batch (``shard_act``'s "dp") and the
+    KV heads it attends (``tensor_parallel.head_plan``: the heads over
+    "model", where the reference's ``cache_shardings`` puts the sequence;
+    the numbers are the same)."""
+    if opts is None or not _placed(opts):
+        return _cache_shape(cfg, batch, max_len)
+    rows = tpar.batch_axes(opts, batch)
+    sizes = shd.axis_sizes(opts.mesh)
+    return (cfg.n_layers, batch // math.prod(sizes[a] for a in rows),
+            max_len, tpar.head_plan(cfg, opts).kv_n, cfg.head_dim)
+
+
 @torch.no_grad()
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda",
+               opts: Optional[ModelOpts] = None):
     """Zeroed slot KV cache {"k","v"} (L, B, S, KV, hd) on ``device``: one
     fixed region of ``max_len`` rows per batch row, written positionally by
-    ``decode_step`` without block tables."""
+    ``decode_step`` without block tables.  On a mesh (``opts.placement``)
+    the rank's block (``placed_cache_shape``)."""
     dev = resolve_device(device)
-    shape = _cache_shape(cfg, batch, max_len)
+    shape = placed_cache_shape(cfg, batch, max_len, opts)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
@@ -941,7 +1140,7 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
 @torch.no_grad()
 def init_paged_cache(cfg: ArchConfig, total_pages: int, page_size: int,
                      dtype=torch.bfloat16, kv_bits: int = 16,
-                     device="cuda"):
+                     device="cuda", opts: Optional[ModelOpts] = None):
     """Zeroed paged KV pool on ``device``, bit-width-parametric.
 
     kv_bits=16: dense {"k","v"} (L, total_pages, page_size, KV, hd).
@@ -953,10 +1152,14 @@ def init_paged_cache(cfg: ArchConfig, total_pages: int, page_size: int,
     Page 0 is the reserved *sink*: never allocated to a sequence, it
     absorbs the writes of inactive decode rows and prefill right-padding
     (block-table entries default to 0), so scatters never need a mask.
+    On a mesh (``opts.placement``) every rank holds every page of the KV
+    heads it attends (``tensor_parallel.head_plan``).
     """
     kvq.check_kv_bits(kv_bits, cfg.head_dim)
     dev = resolve_device(device)
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    if opts is not None and _placed(opts):
+        KV = tpar.head_plan(cfg, opts).kv_n
     if kv_bits == 16:
         shape = (L, total_pages, page_size, KV, hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -1076,6 +1279,7 @@ def prefill_chunk(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
         x = x + _ffn_block(x, lp, cfg, opts)
         x = _maybe_quant_act(x, opts)
     x = _norm_final(x, params, cfg)
+    # (on a mesh every rank runs every sequence of the shared pool)
     last = x[torch.arange(B, device=dev),
              torch.clamp(last_idx, 0, C - 1).expand(B)]   # (B, d)
     return _logits(last, params, cfg, opts), cache
@@ -1097,6 +1301,11 @@ def decode_step(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
     kv8/kv4 attention runs off the coded pool through the paged-attention
     kernel.  Either cache is updated in place.
 
+    On a mesh (``opts.placement``) tokens and positions are whole: with the
+    slot cache the rank computes its rows (the cache holds its block,
+    ``placed_cache_shape``), with the paged pool every row; the logits come
+    back whole on every rank.
+
     Returns (logits (B, V), the cache).
     """
     paged = block_tables is not None
@@ -1104,6 +1313,16 @@ def decode_step(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
     if quant and not paged:
         raise ValueError("quantized KV cache requires the paged layout")
     dev = next(iter(cache.values())).device
+    rows = ()
+    if not paged:
+        b, rows = _rows_of({"tokens": torch.as_tensor(tokens),
+                            "positions": torch.as_tensor(positions)},
+                           opts, ("tokens", "positions"))
+        tokens, positions = b["tokens"], b["positions"]
+        if _placed(opts) and tokens.shape[0] != cache["k"].shape[1]:
+            raise ValueError(f"the cache holds {cache['k'].shape[1]} rows "
+                             f"of the batch, this rank computes "
+                             f"{tokens.shape[0]}")
     tokens = torch.as_tensor(tokens, device=dev)
     positions = torch.as_tensor(positions, device=dev).to(torch.long)
     x = _embed_tokens(params, cfg, opts, tokens)          # (B, 1, d)
@@ -1144,6 +1363,7 @@ def decode_step(params, cfg: ArchConfig, opts: ModelOpts, cache, tokens,
                                                 block_tables, positions, p)
         x = x + _attn_out(o, lp, cfg, opts)
         x = x + _ffn_block(x, lp, cfg, opts)
-        x = _maybe_quant_act(x, opts)
+        x = _maybe_quant_act(x, opts, rows)
     x = _norm_final(x, params, cfg)
-    return _logits(x[:, 0], params, cfg, opts), cache
+    return tpar.gather_rows(_logits(x[:, 0], params, cfg, opts), opts,
+                            rows), cache

@@ -15,8 +15,10 @@ one fixed region of ``max_len`` rows per decode slot) and the paged pool
 (``init_paged_cache`` / ``cache_insert_paged``); the last two hold the
 plain KV layout of dense and moe only.  A family outside
 ``PORTED_FAMILIES`` raises ``NotImplementedError`` naming it
-(``require_ported``), and so does a mesh whose ranks would split the work
-of dense layers (``require_mesh_ported``).
+(``require_ported``).  On a mesh the dense and vlm decoders run on placed
+parameters (``parallel/tensor_parallel.py``: ``opts.placement``), the MoE
+family expert-parallel (``opts.moe_axis``); the state-space and audio
+families raise naming the model (``require_mesh_ported``).
 """
 
 from __future__ import annotations
@@ -62,26 +64,43 @@ def require_ported(cfg: ArchConfig, what: str) -> None:
             f"{', '.join(PORTED_FAMILIES)})")
 
 
+# the families that run on a mesh's placed parameters (tensor and FSDP
+# parallelism, parallel/tensor_parallel.py)
+PLACED_FAMILIES = ("dense", "vlm")
+
+
 def require_mesh_ported(cfg: ArchConfig, opts: ModelOpts, what: str) -> None:
-    """Raise NotImplementedError, naming it, where ``opts.mesh`` has more
-    than one rank on the axes the caller does not split itself
-    (``opts.manual_axes``) and the model is not an expert-parallel MoE: the
-    tensor and FSDP parallelism that GSPMD derives in the reference from
-    ``param_shardings`` and ``shard_act`` is not ported, and each rank
-    would otherwise compute the whole model alone.  The expert-parallel MoE
-    (``opts.moe_axis``) splits its expert layers over the mesh and runs the
-    others whole on every rank."""
+    """Check a model against ``opts.mesh`` where it has more than one rank
+    on the axes the caller does not split itself (``opts.manual_axes``).
+    The state-space and audio families raise NotImplementedError naming
+    the model: their tensor and FSDP parallelism is not ported, and each
+    rank would otherwise compute the whole model alone.  The dense and vlm
+    decoders need placed parameters (``opts.placement``, from
+    ``tensor_parallel.place_params``), the MoE family ``opts.moe_axis``
+    (its expert layers split over the mesh, the others whole on every
+    rank): either missing raises ValueError."""
     if opts.mesh is None:
         return
     sizes = axis_sizes(opts.mesh)
     ranks = math.prod(n for a, n in sizes.items()
                       if a not in opts.manual_axes)
-    if ranks > 1 and not (cfg.is_moe and opts.moe_axis):
+    if cfg.family in PLACED_FAMILIES:
+        if ranks > 1 and opts.placement is None:
+            raise ValueError(
+                f"{what}: {cfg.name} on a {sizes} mesh needs its "
+                f"parameters placed (tensor_parallel.place_params)")
+        return
+    if cfg.is_moe:
+        if ranks > 1 and not opts.moe_axis:
+            raise ValueError(f"{what}: {cfg.name} on a {sizes} mesh runs "
+                             f"expert-parallel (moe_axis='model')")
+        return
+    if ranks > 1:
         raise NotImplementedError(
             f"{what}: {cfg.name} ({cfg.family}) on a {sizes} mesh: the "
             f"tensor / FSDP parallelism of its layers over {ranks} ranks "
-            f"is not ported (only the expert-parallel MoE splits over a "
-            f"mesh)")
+            f"is not ported (the dense and vlm decoders and the "
+            f"expert-parallel MoE split over a mesh)")
 
 
 def init(seed: int, cfg: ArchConfig, device="cuda", **kw) -> Any:
@@ -172,17 +191,21 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cuda"):
+               dtype=torch.bfloat16, device="cuda", opts=None):
     """Zeroed decode cache: KV (L, batch, max_len, KV, hd) (see
-    lm.init_cache), the state caches of hybrid.init_cache (mamba2's
-    ignores ``max_len``) or encdec.init_cache's self and cross K/V of
+    lm.init_cache; on a mesh, ``opts.placement``, the rank's rows and KV
+    heads), the state caches of hybrid.init_cache (mamba2's ignores
+    ``max_len``) or encdec.init_cache's self and cross K/V of
     ``max_len // 2`` rows each."""
     require_ported(cfg, "init_cache")
+    if opts is not None:
+        require_mesh_ported(cfg, opts, "init_cache")
     if cfg.family in SSM_FAMILIES:
         return hybrid.init_cache(cfg, batch, max_len, dtype, device=device)
     if cfg.family == "audio":
         return encdec.init_cache(cfg, batch, max_len, dtype, device=device)
-    return lm.init_cache(cfg, batch, max_len, dtype, device=device)
+    return lm.init_cache(cfg, batch, max_len, dtype, device=device,
+                         opts=opts)
 
 
 def supports_slot_cache(cfg: ArchConfig) -> bool:
@@ -193,11 +216,13 @@ def supports_slot_cache(cfg: ArchConfig) -> bool:
 
 
 def init_slot_cache(cfg: ArchConfig, max_slots: int, max_len: int,
-                    dtype=torch.bfloat16, device="cuda"):
-    """Zeroed slot cache: one fixed (max_len) KV region per decode slot."""
+                    dtype=torch.bfloat16, device="cuda", opts=None):
+    """Zeroed slot cache: one fixed (max_len) KV region per decode slot
+    (on a mesh, ``opts.placement``, the rank's slots and KV heads)."""
     if not supports_slot_cache(cfg):
         raise ValueError(f"slot cache unsupported for family {cfg.family}")
-    return lm.init_cache(cfg, max_slots, max_len, dtype, device=device)
+    return lm.init_cache(cfg, max_slots, max_len, dtype, device=device,
+                         opts=opts)
 
 
 @torch.no_grad()
@@ -226,14 +251,16 @@ def cache_insert(cache, prefill_cache, slots):
 
 
 def init_paged_cache(cfg: ArchConfig, total_pages: int, page_size: int,
-                     dtype=torch.bfloat16, kv_bits: int = 16, device="cuda"):
+                     dtype=torch.bfloat16, kv_bits: int = 16, device="cuda",
+                     opts=None):
     """Zeroed paged KV pool (page 0 is the reserved sink; see
-    lm.init_paged_cache and models/kv_cache.py)."""
+    lm.init_paged_cache and models/kv_cache.py; on a mesh,
+    ``opts.placement``, the KV heads the rank attends)."""
     require_ported(cfg, "paged cache")
     if not supports_paged_cache(cfg):
         raise ValueError(f"paged cache unsupported for family {cfg.family}")
     return lm.init_paged_cache(cfg, total_pages, page_size, dtype,
-                               kv_bits=kv_bits, device=device)
+                               kv_bits=kv_bits, device=device, opts=opts)
 
 
 def cache_insert_paged(cache, prefill_cache, page_tables):

@@ -24,6 +24,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.parallel import collectives as coll
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +44,9 @@ class OptimConfig:
 # Momentum codec: f32, bf16, or int8 with a per-leading-slice absmax scale
 # --------------------------------------------------------------------------
 
-def _encode_m(m: torch.Tensor, dtype: str):
+def _encode_m(m: torch.Tensor, dtype: str, groups=()):
+    """``groups``: m is a rank's block whose reduced dims are split over
+    them; the int8 absmax is the whole slice's (a max all-reduce)."""
     if dtype == "float32":
         return m.to(torch.float32), None
     if dtype == "bfloat16":
@@ -55,6 +58,8 @@ def _encode_m(m: torch.Tensor, dtype: str):
         amax = torch.amax(m.abs(), dim=tuple(range(1, m.ndim)), keepdim=True)
     else:
         amax = torch.amax(m.abs())
+    if groups:
+        amax = coll.all_reduce_max(amax, groups)
     scale = torch.clamp(amax, min=1e-12) / 127.0
     codes = torch.clamp(torch.round(m / scale), -127, 127).to(torch.int8)
     return codes, scale.to(torch.float32)
@@ -85,10 +90,27 @@ def init_state(params: Any, cfg: OptimConfig) -> Any:
     raise ValueError(f"optimizer kind must be sgd|adamw, got {cfg.kind!r}")
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    total = None
-    for g in tree_lib.leaves(tree):
+def global_norm(tree: Any, placement=None) -> torch.Tensor:
+    """The L2 norm over every leaf.  With ``placement``
+    (``sharding.Placement``) the leaves are a rank's blocks: the squares of
+    the leaves split over the same axes are summed, each such sum
+    all-reduced over those axes, so a replicated leaf counts once."""
+    if placement is None:
+        total = None
+        for g in tree_lib.leaves(tree):
+            s = torch.sum(torch.square(g.to(torch.float32)))
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+    by_axes: dict = {}
+    for path, g in tree_lib.leaves_with_paths(tree):
         s = torch.sum(torch.square(g.to(torch.float32)))
+        ax = placement.split_axes(path)
+        by_axes[ax] = s if ax not in by_axes else by_axes[ax] + s
+    total = None
+    for ax in sorted(by_axes):
+        s = by_axes[ax]
+        if ax:
+            s = coll.all_reduce(s, placement.groups(ax))
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -109,7 +131,7 @@ def _mask_of(mask, p: torch.Tensor):
 
 @torch.no_grad()
 def apply_updates(params: Any, grads: Any, state: Any, cfg: OptimConfig,
-                  lr, freeze_mask: Optional[Any] = None):
+                  lr, freeze_mask: Optional[Any] = None, placement=None):
     """One optimizer step, in place.  ``freeze_mask``: tree (or None) of
     0/1 tensors broadcastable against each parameter from the left — 0
     freezes (UNIQ FROZEN blocks): the parameter and its momentum keep their
@@ -118,9 +140,12 @@ def apply_updates(params: Any, grads: Any, state: Any, cfg: OptimConfig,
     Clipping is ``clip_by_global_norm``'s, applied leaf by leaf as each is
     updated, so no clipped copy of the whole gradient tree is made.
 
+    ``placement`` (``sharding.Placement``): every tree holds a rank's
+    blocks (the norm and the int8 moments' absmax are the whole leaves').
+
     Returns (params, state, metrics) — the same trees, updated.
     """
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, placement)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0) if cfg.grad_clip > 0 else None)
     count = state["count"] + 1
@@ -160,7 +185,11 @@ def apply_updates(params: Any, grads: Any, state: Any, cfg: OptimConfig,
         # frozen params also keep their previous momentum
         m_keep = m_prev * (1.0 - mask) + m_new * mask
         del m_new
-        codes, scale = _encode_m(m_keep, cfg.momentum_dtype)
+        codes, scale = _encode_m(m_keep, cfg.momentum_dtype, () if
+                                 placement is None else placement.groups(
+                                     placement.split_axes(
+                                         path, range(1, p.ndim)
+                                         if p.ndim >= 2 else None)))
         mu_d["m"].copy_(codes)
         if scale is not None:
             mu_d["ms"].copy_(scale)

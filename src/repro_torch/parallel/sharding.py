@@ -16,7 +16,11 @@ parameters.  What the reference hands GSPMD as a ``NamedSharding`` is here
 a ``Sharding`` (a mesh and a ``PartitionSpec``) that gives each rank its
 block: ``Sharding.place`` slices the rank's block out of a whole tensor,
 ``placements`` gives the ``torch.distributed.tensor`` placements of a spec
-where they can express it.
+where they can express it.  ``place_tree`` gives each rank its blocks of a
+whole tree (contiguous copies, never views), ``Sharding.whole`` gathers a
+block back, and a ``Placement`` (the ``Sharding`` of every path of a placed
+tree) is what the placed layers, the statistics, the optimizer and the
+checkpoint read to know where each leaf lives.
 
 A mesh is a live ``DeviceMesh`` (``launch/mesh.py``) or, for the rules
 alone, a ``MeshShape`` (axis names and sizes, no world: the counterpart of
@@ -249,6 +253,106 @@ class Sharding:
     def place(self, t: torch.Tensor, coords=None) -> torch.Tensor:
         """The rank's block of the whole tensor ``t`` (a view)."""
         return t[self.block(t.shape, coords)]
+
+    def axes(self, dims=None) -> Tuple[str, ...]:
+        """The mesh axes the dims ``dims`` (all, by default) are split
+        over, in spec order."""
+        dims = range(len(self.spec)) if dims is None else dims
+        return tuple(a for i in dims if i < len(self.spec)
+                     for a in _axes(self.spec[i]))
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every rank's block ``t`` (every rank
+        calls it): each split dim all-gathered over its axes."""
+        from repro_torch.parallel import collectives as coll
+        for i, entry in enumerate(self.spec):
+            if entry is not None:
+                t = coll.all_gather(t, [self.mesh.get_group(a)
+                                        for a in _axes(entry)], dim=i)
+        return t
+
+
+def place_tree(tree, shardings):
+    """Each rank's blocks of a whole tree (a matching tree of
+    ``Sharding``): every leaf's block as a contiguous tensor of its own
+    (``Sharding.place`` gives a view, and a column block of a row-major
+    tensor is strided: no kernel takes one), so the whole leaf can be
+    freed; a replicated leaf is the leaf itself."""
+    def one(t, shd):
+        b = shd.place(t)
+        return t if b.numel() == t.numel() \
+            else b.clone(memory_format=torch.contiguous_format)
+    return tree_lib.map_tree(one, tree, shardings)
+
+
+def state_shardings(state, pshard, mesh):
+    """The ``Sharding`` tree of a train state ``{"params", "opt", "step"}``
+    whose parameters take ``pshard`` (the reference's ``dryrun.py``
+    ``state_shardings`` rule): each moment follows its parameter, the
+    optimizer's ``count`` and ``step`` are replicated.  An int8 moment's
+    scale ``ms`` (one per leading slice) follows its parameter's leading
+    dim, where the reference replicates it: a rank codes its block with its
+    slices' scales."""
+    repl = Sharding(mesh, P())
+
+    def mu_tree(mu, ps):
+        out = {}
+        for k, v in mu.items():
+            if "m" in v and not isinstance(v["m"], dict):
+                out[k] = {"m": ps[k]}
+                if "ms" in v:
+                    lead = ps[k].spec[0] if v["ms"].ndim and ps[k].spec \
+                        else None
+                    out[k]["ms"] = Sharding(mesh, P(
+                        lead, *(None,) * max(v["ms"].ndim - 1, 0))) \
+                        if lead else repl
+            else:
+                out[k] = mu_tree(v, ps[k])
+        return out
+
+    opt = {"mu": mu_tree(state["opt"]["mu"], pshard), "count": repl}
+    if "nu" in state["opt"]:
+        opt["nu"] = pshard
+    return {"params": pshard, "opt": opt, "step": repl}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Placement:
+    """Where every leaf of a placed parameter tree lives: its ``Sharding``
+    by path (``ModelOpts.placement``).  ``manual_axes`` are axes the caller
+    splits itself (the compressed sync's ``pod``): no leaf statistic, norm
+    or gradient is reduced over them here."""
+    mesh: Any
+    specs: Dict[str, PartitionSpec]
+    manual_axes: Tuple[str, ...] = ()
+
+    @classmethod
+    def of(cls, shardings, manual_axes=()) -> "Placement":
+        flat = dict(tree_lib.leaves_with_paths(shardings))
+        mesh = next(iter(flat.values())).mesh
+        return cls(mesh, {p: s.spec for p, s in flat.items()},
+                   tuple(manual_axes))
+
+    def sharding(self, path: str) -> Sharding:
+        if path not in self.specs:
+            raise KeyError(f"{path!r} is not a leaf of the placed tree")
+        return Sharding(self.mesh, self.specs[path])
+
+    def split_axes(self, path: str, dims=None) -> Tuple[str, ...]:
+        """The axes (not manual) that dims ``dims`` of the leaf are split
+        over."""
+        return tuple(a for a in self.sharding(path).axes(dims)
+                     if a not in self.manual_axes)
+
+    def groups(self, axes) -> list:
+        return [self.mesh.get_group(a) for a in axes]
+
+    def whole_shape(self, path: str, block_shape) -> Tuple[int, ...]:
+        sizes = axis_sizes(self.mesh)
+        spec = self.specs[path]
+        return tuple(n * math.prod(sizes[a] for a in _axes(
+            spec[i] if i < len(spec) else None))
+            for i, n in enumerate(block_shape))
 
 
 def placements(spec: PartitionSpec, mesh) -> list:

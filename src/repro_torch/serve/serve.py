@@ -101,6 +101,10 @@ def generate(params, cfg: ArchConfig, opts: ModelOpts, sc: ServeConfig,
     never runs here (its cross K/V stay zeros) and the vlm's steps see no
     patch embeddings.  Sampling at ``sc.temperature`` > 0 keys
     row b's draw at position t by (``_row_seeds(seed, B)[b]``, t).
+    On a mesh (the dense and vlm decoders on placed parameters,
+    ``opts.placement``) the prompt is whole on every rank, each rank decodes
+    its rows of the batch (its block of the cache) and every rank emits the
+    same tokens, from the whole logits.
     ``telemetry`` (serve/telemetry.py) records a "generate" span and the
     ``prompt_tokens`` / ``tokens_decoded`` counters; with it on, the span
     ends after a device sync, so it covers the compute.  ``check_finite``
@@ -115,7 +119,7 @@ def generate(params, cfg: ArchConfig, opts: ModelOpts, sc: ServeConfig,
     max_len = S0 + n_new
     dtype = torch.float32 if opts.compute_dtype == torch.float32 \
         else torch.bfloat16
-    cache = model.init_cache(cfg, B, max_len, dtype, device=dev)
+    cache = model.init_cache(cfg, B, max_len, dtype, device=dev, opts=opts)
     # the stack the step walks, sliced into per-layer views once, not on
     # every step
     key, n = ("dec_layers", cfg.dec_layers) if cfg.family == "audio" \

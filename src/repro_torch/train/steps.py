@@ -23,6 +23,17 @@ rank trains on its ``pod`` block of the batch and the gradients sync by the
 int8 absmax codec (``make_loss_and_grads``); every rank applies the same
 averaged gradients, so the parameters stay identical across ranks.
 
+On a mesh the dense and vlm decoders train on placed state
+(``place_state``: every parameter and moment the rank's block by
+``param_shardings``, FSDP over "data" and tensor parallelism over "model";
+``ModelOpts.placement`` names them): the batch is whole and each rank
+takes its rows, the UNIQ statistics are the whole leaves' and each leaf's
+noise the block of its whole draw, the gradients of the leaves a
+data-parallel axis does not split are summed over it
+(``tensor_parallel.sync_grads``), and the optimizer's norm and int8
+moments read the whole leaves.  Inside a manual ``pod`` axis
+(``dp_compress_bits``) the same holds on each pod's rows.
+
 Noise: each leaf's U[0, 1) draw comes from a generator keyed by (seed,
 step, md5 of the leaf path) on the parameters' device
 (``core/uniq.py:leaf_noise``), in scan each layer slice's by (seed, step,
@@ -48,6 +59,8 @@ from repro_torch.devices import resolve_device
 from repro_torch.models import model
 from repro_torch.models.lm import ModelOpts
 from repro_torch.optim import optim as optim_lib
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor_parallel as tpar
 from repro_torch.parallel.collectives import make_pod_compressed_grads
 from repro_torch.parallel.sharding import axis_sizes
 
@@ -131,15 +144,18 @@ def loss_and_grads(params: Any, batch, modes: torch.Tensor, noise,
     base_loss = loss_fn or (lambda p, b: model.loss_fn(p, cfg, opts, b))
     scan = in_scan(cfg, tc)
     flat = list(tree_lib.leaves_with_paths(params))
+    pl = opts.placement
     with torch.enable_grad():
         req = {p: t.detach().requires_grad_(True) for p, t in flat}
         p_in = tree_lib.map_with_path(lambda p, _t: req[p], params)
         if tc.uniq_active:
             dev = flat[0][1].device
-            p_in = transform_tree(p_in, noise, lm_mode_fn(modes.to(dev)),
-                                  tc.uniq,
+            p_in = transform_tree(p_in, noise if pl is None
+                                  else tpar.whole_noise(noise, pl),
+                                  lm_mode_fn(modes.to(dev)), tc.uniq,
                                   quant_filter=_outside_layers if scan
-                                  else None, use_kernel=opts.use_kernels)
+                                  else None, use_kernel=opts.use_kernels,
+                                  placement=pl)
         if scan:
             loss = model.loss_fn(p_in, cfg, opts, batch,
                                  uniq_scan=(tc.uniq, modes, scan_noise))
@@ -150,8 +166,26 @@ def loss_and_grads(params: Any, batch, modes: torch.Tensor, noise,
                                     allow_unused=True)
     by_path = {p: (torch.zeros_like(t) if g is None else g)
                for (p, t), g in zip(flat, grads)}
-    return loss.detach(), tree_lib.map_with_path(lambda p, _t: by_path[p],
-                                                 params)
+    grads = tree_lib.map_with_path(lambda p, _t: by_path[p], params)
+    if pl is not None:
+        grads = tpar.sync_grads(grads, opts)
+    return loss.detach(), grads
+
+
+def _compressing(opts: ModelOpts, tc: TrainConfig):
+    """(the options the loss and gradients run under, whether the pod sync
+    compresses): with ``tc.dp_compress_bits`` on a mesh with a ``pod``
+    axis, ``pod`` is manual (the caller's rows, the placement's sums taken
+    without it)."""
+    compress = bool(tc.dp_compress_bits) and opts.mesh is not None \
+        and "pod" in axis_sizes(opts.mesh)
+    if not compress:
+        return opts, False
+    inner = dataclasses.replace(opts, manual_axes=("pod",))
+    if opts.placement is not None:
+        inner = dataclasses.replace(inner, placement=dataclasses.replace(
+            opts.placement, manual_axes=("pod",)))
+    return inner, True
 
 
 def make_loss_and_grads(cfg: ArchConfig, opts: ModelOpts, tc: TrainConfig,
@@ -163,11 +197,8 @@ def make_loss_and_grads(cfg: ArchConfig, opts: ModelOpts, tc: TrainConfig,
     and the loss by the exact mean (the inner options take
     ``manual_axes=("pod",)``).  A MoE config raises there, as the
     reference does."""
-    inner_opts = opts
-    compress = bool(tc.dp_compress_bits) and opts.mesh is not None \
-        and "pod" in axis_sizes(opts.mesh)
+    inner_opts, compress = _compressing(opts, tc)
     if compress:
-        inner_opts = dataclasses.replace(opts, manual_axes=("pod",))
         if cfg.is_moe:
             raise NotImplementedError(
                 "dp_compress + shard_map EP would nest manual regions; "
@@ -179,7 +210,8 @@ def make_loss_and_grads(cfg: ArchConfig, opts: ModelOpts, tc: TrainConfig,
 
     if compress:
         fn = make_pod_compressed_grads(fn, opts.mesh,
-                                       bits=tc.dp_compress_bits)
+                                       bits=tc.dp_compress_bits,
+                                       placement=inner_opts.placement)
     return fn
 
 
@@ -189,6 +221,8 @@ def make_train_step(cfg: ArchConfig, opts: ModelOpts, tc: TrainConfig,
     schedule = make_schedule(cfg, tc)
     lr_fn = make_lr_fn(tc, schedule)
     grads_fn = make_loss_and_grads(cfg, opts, tc, loss_fn)
+    # after a compressed sync the gradients are the same on every pod
+    placement = _compressing(opts, tc)[0].placement
 
     def train_step(state, batch, seed: int, noise=None, scan_noise=None):
         step = int(state["step"])
@@ -202,7 +236,8 @@ def make_train_step(cfg: ArchConfig, opts: ModelOpts, tc: TrainConfig,
         lr = lr_fn(step)
         _, _, om = optim_lib.apply_updates(state["params"], grads,
                                            state["opt"], tc.optim, lr,
-                                           freeze_mask=mask)
+                                           freeze_mask=mask,
+                                           placement=placement)
         del grads
         state["step"] = state["step"] + 1
         return state, {"loss": loss_val, "lr": lr, **om}
@@ -222,6 +257,19 @@ def init_state(seed: int, cfg: ArchConfig, tc: TrainConfig, device="cuda",
             "step": torch.zeros((), dtype=torch.int32)}
 
 
+def place_state(state, cfg: ArchConfig, opts: ModelOpts, fsdp=True):
+    """(this rank's blocks of a whole train state, ``opts`` naming them):
+    the parameters by ``param_shardings(..., fsdp, tp=not
+    opts.dp_includes_model)``, each moment as its parameter, ``count`` and
+    ``step`` whole (``sharding.state_shardings``)."""
+    pshard = shd.param_shardings(state["params"], cfg, opts.mesh, fsdp=fsdp,
+                                 tp=not opts.dp_includes_model)
+    placed = shd.place_tree(state, shd.state_shardings(state, pshard,
+                                                       opts.mesh))
+    return placed, dataclasses.replace(
+        opts, placement=shd.Placement.of(pshard, opts.manual_axes))
+
+
 def eval_step(cfg: ArchConfig, opts: ModelOpts):
     """Deterministic-quantized eval (the inference-time model): every
     quantized weight hard-quantized (FROZEN) with the k-quantile quantizer,
@@ -229,8 +277,12 @@ def eval_step(cfg: ArchConfig, opts: ModelOpts):
     @torch.no_grad()
     def step(params, batch, w_bits: int):
         if w_bits < 32:
-            params = transform_tree(params, leaf_noise(0, 0), FROZEN,
+            pl = opts.placement
+            noise = leaf_noise(0, 0) if pl is None \
+                else tpar.whole_noise(leaf_noise(0, 0), pl)
+            params = transform_tree(params, noise, FROZEN,
                                     UniqConfig(w_bits=w_bits),
-                                    use_kernel=opts.use_kernels)
+                                    use_kernel=opts.use_kernels,
+                                    placement=pl)
         return model.loss_fn(params, cfg, opts, batch)
     return step

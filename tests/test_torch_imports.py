@@ -60,7 +60,8 @@ def test_the_walk_sees_the_package():
                 "analysis/lint.py", "analysis/compile_audit.py",
                 "analysis/kernel_audit.py", "analysis/check.py",
                 "analysis/traceview.py", "parallel/sharding.py",
-                "parallel/collectives.py", "launch/mesh.py"):
+                "parallel/collectives.py", "parallel/tensor_parallel.py",
+                "launch/mesh.py"):
         assert os.path.join("src", "repro_torch", mod) in names
     for ex in ("quickstart_torch.py", "serve_quantized_lm_torch.py",
                "train_cnn_uniq_torch.py"):
@@ -118,7 +119,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "repro_torch.analysis.compile_audit, "
         "repro_torch.analysis.kernel_audit\n"
         "import repro_torch.parallel.sharding, "
-        "repro_torch.parallel.collectives, repro_torch.launch.mesh\n"
+        "repro_torch.parallel.collectives, "
+        "repro_torch.parallel.tensor_parallel, repro_torch.launch.mesh\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'repro', 'triton')]\n"
         "assert not bad, bad\n"

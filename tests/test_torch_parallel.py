@@ -297,7 +297,7 @@ def test_local_expert_rule_matches_reference(n, coded):
 
 
 def test_sharding_coverage_equals_the_reference():
-    findings, info = taudit.check_sharding_coverage()
+    findings, info = taudit.check_sharding_coverage(device="cpu")
     jf, jinfo = jaudit.check_sharding_coverage()
     assert findings == [] and jf == []
     assert info == {"sharded_leaves": jinfo["sharded_leaves"],
@@ -332,7 +332,13 @@ def test_mesh_factories_need_the_world(monkeypatch):
     # the single-rank case: dense models on a one-rank mesh are not refused
     tmodel.require_mesh_ported(tcb.get_smoke("granite_3_8b"), tlm.ModelOpts(
         mesh=tshd.MeshShape((("data", 1), ("model", 1)))), "loss_fn")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # past one rank a dense model needs its parameters placed, and a
+    # state-space model is not ported
+    with pytest.raises(ValueError, match="needs its parameters placed"):
         tmodel.require_mesh_ported(
             tcb.get_smoke("yi_6b"), tlm.ModelOpts(mesh=tshd.MeshShape(
+                (("data", 2), ("model", 1)))), "decode")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tmodel.require_mesh_ported(
+            tcb.get_smoke("mamba2_1_3b"), tlm.ModelOpts(mesh=tshd.MeshShape(
                 (("data", 2), ("model", 1)))), "decode")

@@ -1,4 +1,5 @@
-"""One rank of the gloo worlds of ``tests/test_torch_distributed.py``.
+"""One rank of the gloo worlds of ``tests/test_torch_distributed.py`` and
+``tests/test_torch_tensor_parallel.py``.
 
 ``run(rank, world, where)`` (or ``python tests/torch_dist_worker.py RANK
 WORLD DIR``) joins a world of ``world`` ranks over a ``FileStore`` in
@@ -36,6 +37,8 @@ from repro_torch.models.lm import ModelOpts                   # noqa: E402
 from repro_torch.optim.optim import OptimConfig               # noqa: E402
 from repro_torch.parallel import collectives as coll          # noqa: E402
 from repro_torch.parallel import sharding as shd              # noqa: E402
+from repro_torch.parallel import tensor_parallel as tpar      # noqa: E402
+from repro_torch.serve import serve as tserve                 # noqa: E402
 from repro_torch.train import steps as tsteps                 # noqa: E402
 
 
@@ -153,22 +156,250 @@ def case_blocks(c, arrays, rank, world, out):
 
 
 def case_dense_raises(c, arrays, rank, world, out):
+    """A dense model's loss on a mesh through its placed parameters; a
+    state-space or audio model's NotImplementedError text."""
     cfg = cb.get_smoke(c["arch"])
     mesh = mesh_lib.make_host_mesh(*c["mesh"], device="cpu")
     params = smoke_params(c["arch"])
     opts = ModelOpts(compute_dtype=torch.float32, remat=False,
                      attn_chunked_min_len=1 << 30, mesh=mesh)
+    if cfg.family == "dense":
+        params, opts = tpar.place_params(params, cfg, opts)
     toks = torch.zeros((2, 8), dtype=torch.int32)
     try:
-        model.loss_fn(params, cfg, opts, {"tokens": toks, "targets": toks})
+        loss = model.loss_fn(params, cfg, opts, {"tokens": toks,
+                                                 "targets": toks})
         msg = ""
+        out[f"raises/{c['arch']}/loss"] = loss.detach().numpy()
     except NotImplementedError as e:
         msg = str(e)
     out[f"raises/{c['arch']}"] = np.frombuffer(msg.encode(), np.uint8)
 
 
+# --------------------------------------------------------------------------
+# Tensor and FSDP parallelism of the dense and vlm decoders
+# --------------------------------------------------------------------------
+
+def _tp_mesh(c):
+    return mesh_lib.make_mesh(tuple(c["mesh"]), tuple(c["axes"]), "cpu")
+
+
+def _tp_opts(c, mesh, **kw):
+    return ModelOpts(compute_dtype=torch.float32,
+                     attn_chunked_min_len=1 << 30, ce_chunk=8, mesh=mesh,
+                     dp_includes_model=not c["tp"], **kw)
+
+
+def _whole(tree, shardings):
+    return tree_lib.map_tree(lambda t, s: s.whole(t), tree, shardings)
+
+
+def _batch(arrays, prefix):
+    return {k: torch.from_numpy(v) for k, v in subtree(arrays,
+                                                       prefix).items()}
+
+
+def case_tp_loss(c, arrays, rank, world, out):
+    """The f32 loss and gradients (gathered whole) of the placed model;
+    the collective wrapper's calls."""
+    cfg = cb.get_smoke(c["arch"])
+    mesh = _tp_mesh(c)
+    params = smoke_params(c["arch"])
+    placed, opts = tpar.place_params(params, cfg, _tp_opts(c, mesh,
+                                                           remat=False),
+                                     fsdp=c["fsdp"])
+    tc = tsteps.TrainConfig(uniq=UniqConfig(w_bits=4, enabled=False))
+    coll.reset_collective_counts()
+    loss, grads = tsteps.loss_and_grads(
+        placed, _batch(arrays, f"tp/{c['arch']}/batch"),
+        torch.zeros(cfg.n_layers, dtype=torch.int32), None, cfg, opts, tc)
+    counts = coll.collective_counts()
+    whole = _whole(grads, shd.param_shardings(params, cfg, mesh,
+                                              fsdp=c["fsdp"], tp=c["tp"]))
+    tag = c["tag"]
+    out[f"tp/{tag}/loss"] = loss.numpy()
+    out[f"tp/{tag}/contiguous"] = np.asarray(all(
+        t.is_contiguous() for t in tree_lib.leaves(placed)))
+    out[f"tp/{tag}/collectives"] = np.array(
+        [counts[k] for k in ("all_reduce", "all_gather", "reduce_scatter")])
+    if rank == 0:
+        out.update(flat(whole, f"tp/{tag}/grad"))
+
+
+def _noise_of(arrays, prefix):
+    def noise(path, leaf):
+        e = torch.from_numpy(arrays[f"{prefix}/{path}"])
+        if tuple(e.shape) != tuple(leaf.shape):
+            raise ValueError(f"{path}: a draw of {tuple(leaf.shape)}, the "
+                             f"whole leaf is {tuple(e.shape)}")
+        return e
+    return noise
+
+
+def case_tp_step(c, arrays, rank, world, out):
+    """One train step on the placed state (AdamW + UNIQ with the
+    reference's noise, or the compressed pod sync), the state gathered
+    whole on every rank."""
+    cfg = cb.get_smoke("granite_3_8b")
+    mesh = _tp_mesh(c)
+    tag = c["tag"]
+    whole = convert.train_state_from_numpy(
+        subtree(arrays, f"{c['prefix']}/state"), device="cpu")
+    if c["compress"]:
+        tc = tsteps.TrainConfig(uniq=UniqConfig(w_bits=4, enabled=False),
+                                optim=OptimConfig(kind="sgd", lr=1e-3),
+                                total_steps=8, dp_compress_bits=8)
+        noise = None
+    else:
+        tc = tsteps.TrainConfig(uniq=UniqConfig(w_bits=4),
+                                optim=OptimConfig(kind="adamw", lr=1e-3),
+                                total_steps=8, n_blocks=0)
+        noise = _noise_of(arrays, f"{c['prefix']}/noise")
+    pshard = shd.param_shardings(whole["params"], cfg, mesh, fsdp=c["fsdp"],
+                                 tp=c["tp"])
+    st_sh = shd.state_shardings(whole, pshard, mesh)
+    state, opts = tsteps.place_state(whole, cfg, _tp_opts(c, mesh),
+                                     fsdp=c["fsdp"])
+    step_fn, _ = tsteps.make_train_step(cfg, opts, tc)
+    state, m = step_fn(state, _batch(arrays, f"{c['prefix']}/batch"),
+                       seed=0, noise=noise)
+    out.update(flat(_whole(state, st_sh), f"tpstep/{tag}/state"))
+    out[f"tpstep/{tag}/loss"] = m["loss"].numpy()
+    out[f"tpstep/{tag}/grad_norm"] = np.asarray(float(m["grad_norm"]))
+    out[f"tpstep/{tag}/lr"] = np.asarray(float(m["lr"]))
+
+
+@dataclasses.dataclass
+class CodeShapes:
+    """The (K, N) of the weight codes each ``qmatmul`` / ``qmatmul_a8``
+    wrapper call is handed, in call order (on the CPU a wrapper runs its
+    plain version and counts no launch)."""
+    shapes: list = dataclasses.field(default_factory=list)
+
+    def wrap(self, fn, at):
+        def recorded(*args, **kw):
+            self.shapes.append(tuple(args[at].shape))
+            return fn(*args, **kw)
+        return recorded
+
+
+def case_tp_serve(c, arrays, rank, world, out):
+    """W4 prefill logits at each serving mode, the cache's block, the
+    codes each matmul was handed, and greedy tokens of ``generate``."""
+    cfg = cb.get_smoke(c["arch"])
+    mesh = _tp_mesh(c)
+    params = smoke_params(c["arch"], 4)
+    tag = c["tag"]
+    batch = _batch(arrays, f"serve/{c['arch']}/batch")
+    prompt = torch.from_numpy(arrays[f"serve/{c['arch']}/prompt"])
+    for mode in c["modes"]:
+        kv_bits, a_bits = {"kv16": (16, 32), "kv8": (8, 32),
+                           "a8": (16, 8)}[mode]
+        placed, opts = tpar.place_params(
+            params, cfg, _tp_opts(c, mesh, remat=False, kv_bits=kv_bits,
+                                  serve_a_bits=a_bits), fsdp=c["fsdp"])
+        rec = CodeShapes()
+        orig = (kops.qmatmul, kops.qmatmul_a8)
+        kops.qmatmul = rec.wrap(orig[0], 1)
+        kops.qmatmul_a8 = rec.wrap(orig[1], 2)
+        try:
+            logits, cache = model.prefill(placed, cfg, opts, batch)
+        finally:
+            kops.qmatmul, kops.qmatmul_a8 = orig
+        out[f"serve/{tag}/{mode}/logits"] = logits.numpy()
+        leaf = next(iter(cache.values()))
+        out[f"serve/{tag}/{mode}/cache"] = np.array(leaf.shape)
+        out[f"serve/{tag}/{mode}/codes"] = np.array(rec.shapes)
+        if mode != "kv8":
+            toks = tserve.generate(placed, cfg, opts, tserve.ServeConfig(),
+                                   prompt, c["n_new"])
+            out[f"serve/{tag}/{mode}/tokens"] = toks.numpy()
+
+
+def _paged_calls(params, cfg, opts, toks, page=4):
+    """``model.prefill_chunk`` of the whole prompt into a paged pool
+    (``init_paged_cache``: on a mesh the rank's KV heads), then one paged
+    ``model.decode`` step: (the chunk's logits, the step's)."""
+    B, S = toks.shape
+    n_pages = S // page + 1
+    pool = model.init_paged_cache(cfg, 1 + B * n_pages, page, torch.float32,
+                                  kv_bits=opts.kv_bits, device="cpu",
+                                  opts=opts if opts.placement else None)
+    tables = torch.arange(1, 1 + B * n_pages).reshape(B, n_pages)
+    pos = torch.arange(S)[None].expand(B, S)
+    logits, pool = model.prefill_chunk(
+        params, cfg, opts, pool, toks, pos, torch.gather(tables, 1,
+                                                         pos // page),
+        pos % page, tables, torch.full((B,), S - 1))
+    step, _ = model.decode(params, cfg, opts, pool,
+                           logits.argmax(-1)[:, None],
+                           torch.full((B,), S), block_tables=tables)
+    return logits, step
+
+
+def case_tp_paged(c, arrays, rank, world, out):
+    """The engine's model calls on a mesh: ``prefill_chunk`` and a paged
+    decode step of the placed W4 model against the same calls unplaced
+    (every rank runs every sequence of the shared pool, its KV heads)."""
+    cfg = cb.get_smoke(c["arch"])
+    mesh = _tp_mesh(c)
+    params = smoke_params(c["arch"], 4)
+    toks = torch.from_numpy(arrays[f"serve/{c['arch']}/batch/tokens"])
+    for kv_bits in (16, 8):
+        base = ModelOpts(compute_dtype=torch.float32, kv_bits=kv_bits,
+                         attn_chunked_min_len=1 << 30)
+        want = _paged_calls(params, cfg, base, toks)
+        placed, opts = tpar.place_params(
+            params, cfg, dataclasses.replace(base, mesh=mesh))
+        got = _paged_calls(placed, cfg, opts, toks)
+        out[f"paged/{c['tag']}/kv{kv_bits}/err"] = np.array(
+            [float((g - w).abs().max()) for g, w in zip(got, want)])
+
+
+def case_tp_stats(c, arrays, rank, world, out):
+    """Each quantized leaf's placed statistics (``fit_placed``) and, as a
+    control, its block's own."""
+    from repro_torch.core import uniq as tuniq
+    cfg = cb.get_smoke("granite_3_8b")
+    mesh = _tp_mesh(c)
+    params = smoke_params("granite_3_8b")
+    placed, opts = tpar.place_params(params, cfg, _tp_opts(c, mesh),
+                                     fsdp=c["fsdp"])
+    ucfg = UniqConfig(w_bits=4)
+    tag = c["tag"]
+    for path, leaf in tree_lib.leaves_with_paths(placed):
+        if not tuniq.default_quant_filter(path, leaf):
+            continue
+        stacked = path.startswith("layers/")
+        got = tuniq.fit_placed(leaf, ucfg, stacked, path, opts.placement)
+        own = tuniq._fit_dist(leaf, ucfg, stacked)
+        for name, m in (("placed", got), ("own", own)):
+            out[f"stats/{tag}/{name}/{path}/mu"] = m.mu.numpy()
+            out[f"stats/{tag}/{name}/{path}/sigma"] = m.sigma.numpy()
+
+
+def case_tp_ckpt(c, arrays, rank, world, out):
+    """A placed W4 tree saved (gathered whole, rank 0 writes) and restored
+    onto the same mesh: each block bit-equal to the one saved."""
+    cfg = cb.get_smoke(c["arch"])
+    mesh = _tp_mesh(c)
+    params = smoke_params(c["arch"], 4)
+    shardings = shd.param_shardings(params, cfg, mesh, fsdp=c["fsdp"],
+                                    tp=c["tp"])
+    placed = shd.place_tree(params, shardings)
+    ckpt.save(c["ckpt"], 3, placed, shardings=shardings)
+    restored, step, _ = ckpt.restore(c["ckpt"], params, shardings=shardings)
+    out[f"ckpt/{c['tag']}/equal"] = np.asarray(
+        step == 3 and all(torch.equal(a, b) for a, b in zip(
+            tree_lib.leaves(placed), tree_lib.leaves(restored))))
+
+
 CASES = {"pmean": case_pmean, "ep": case_ep, "step": case_step,
-         "blocks": case_blocks, "dense_raises": case_dense_raises}
+         "blocks": case_blocks, "dense_raises": case_dense_raises,
+         "tp_loss": case_tp_loss, "tp_step": case_tp_step,
+         "tp_serve": case_tp_serve, "tp_paged": case_tp_paged,
+         "tp_stats": case_tp_stats,
+         "tp_ckpt": case_tp_ckpt}
 
 
 def run(rank: int, world: int, where: str) -> None:
